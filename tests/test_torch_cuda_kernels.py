@@ -1,0 +1,109 @@
+"""tpu_ocean_torch's CUDA kernels against their plain torch versions, on
+the card. Every test here needs an NVIDIA GPU with nvcc: each decides
+inside the ``cuda`` fixture whether one exists and skips with a reason
+when not. This file imports no jax; run it with
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda -q
+
+(``--noconftest`` because tests/conftest.py configures jax, which a
+machine with a GPU need not have).
+
+Tolerances: the row DFT differs from torch.fft (cuFFT) in summation order,
+1e-5·max|plain| covers f32 rounding over log2(N) stages. The fields kernel
+rounds the normal's cross product as the plain version does, so its
+normal agrees to 1e-5; foam 1e-4."""
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_ocean_torch import OCEAN_DEMO, OceanSolver, fields_to_numpy
+from tpu_ocean_torch.fft import planes
+from tpu_ocean_torch.ops import fields_stencil as fs
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _planes(shape, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+                 for _ in range(2))
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("shape", [
+    (1, 1024, 1024), (1, 512, 1024), (1, 1024, 512), (1, 1, 1024),  # the slice
+    (3, 5, 16), (2, 13, 64), (1, 9, 2048), (1, 3, 8192)])
+def test_fft_rows_kernel_matches_plain(cuda, shape, inverse):
+    re, im = _planes(shape, cuda)
+    kr, ki = planes.fft1d_transposed(re, im, inverse)
+    pr, pi = planes.fft1d_transposed_plain(re, im, inverse)
+    torch.cuda.synchronize()
+    scale = max(pr.abs().max().item(), pi.abs().max().item())
+    assert kr.shape == (shape[0], shape[2], shape[1])
+    assert (kr - pr).abs().max().item() <= 1e-5 * scale
+    assert (ki - pi).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("shape", [(1024, 1024), (33, 64), (7, 100)])
+def test_fields_kernel_matches_plain(cuda, shape):
+    rng = np.random.default_rng(1)
+    dx, h, dz = (torch.from_numpy((2 * rng.normal(size=shape)).astype(np.float32)).to(cuda)
+                 for _ in range(3))
+    got = fs.fields_stencil(dx, h, dz, 0.4243)
+    want = fs.fields_stencil_plain(dx, h, dz, 0.4243)
+    torch.cuda.synchronize()
+    for g, w, tol in zip(got, want, (1e-5, 1e-4, 1e-5)):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() <= tol
+
+
+def test_launch_counters_count_kernel_launches(cuda):
+    re, im = _planes((1, 16, 64), cuda)
+    f0, s0 = planes.fft1d_transposed.launches, fs.fields_stencil.launches
+    planes.ifft2_planes_auto(re, im)
+    fs.fields_stencil(re[0], im[0], re[0], 1.0)
+    assert planes.fft1d_transposed.launches == f0 + 2
+    assert fs.fields_stencil.launches == s0 + 1
+
+
+def test_solver_step_matches_cpu_and_launches_six_kernels(cuda):
+    cfg = OCEAN_DEMO.replace(resolution=128)
+    gpu, cpu = OceanSolver(cfg, device=cuda), OceanSolver(cfg, device="cpu")
+    sg = gpu.init(torch.Generator().manual_seed(5))
+    sc = cpu.init(torch.Generator().manual_seed(5))
+    f0, s0 = planes.fft1d_transposed.launches, fs.fields_stencil.launches
+    for _ in range(3):
+        sg, fg = gpu.step(sg, 1 / 60)
+        sc, fc = cpu.step(sc, 1 / 60)
+    assert planes.fft1d_transposed.launches - f0 == 15
+    assert fs.fields_stencil.launches - s0 == 3
+    assert torch.equal(sg.phase.cpu(), sc.phase)
+    fg, fc = fields_to_numpy(fg), fields_to_numpy(fc)
+    for name in ("height", "disp_x", "disp_z", "pos_x", "pos_z", "jacobian"):
+        want = getattr(fc, name)
+        np.testing.assert_allclose(getattr(fg, name), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("bad", ["cpu_and_cuda", "contiguous", "length"])
+def test_kernel_wrappers_reject_bad_input(cuda, bad):
+    re, im = _planes((1, 8, 64), cuda)
+    if bad == "cpu_and_cuda":
+        im = im.cpu()
+    elif bad == "contiguous":
+        re = re.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "length":
+        re, im = _planes((1, 8, 48), cuda)
+    with pytest.raises(ValueError):
+        planes.fft1d_transposed(re, im)
+    if bad != "length":            # the stencil takes any [M, N]
+        with pytest.raises(ValueError):
+            fs.fields_stencil(re[0], im[0], re[0], 1.0)

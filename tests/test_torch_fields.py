@@ -1,0 +1,91 @@
+"""tpu_ocean_torch fields stencil against the JAX package: the port's
+fields_stencil (plain version on the CPU) vs the v2 Pallas kernel in
+interpret mode, and vs the literal four-cross-product shader twins
+(tpu_ocean.fields, and the port's own copy of them). Square and
+non-square grids, so that an x/z axis swap cannot hide."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tpu_ocean import fields as jfields
+from tpu_ocean.ops.fields_pallas import fields_pallas_v2
+from tpu_ocean_torch import fields as tfields
+from tpu_ocean_torch.ops import fields_stencil as fs
+
+TEXEL = 434.48 / 64
+
+
+def _inputs(shape, seed=0, scale=2.0):
+    rng = np.random.default_rng(seed)
+    return [(scale * rng.normal(size=shape)).astype(np.float32)
+            for _ in range(3)]
+
+
+def _check(got, want, normal_tol, jac_tol, foam_tol):
+    for g, w, tol in zip(got, want, (normal_tol, foam_tol, jac_tol)):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (32, 64)])
+def test_fields_stencil_matches_pallas_v2(shape):
+    dx, h, dz = _inputs(shape)
+    want = fields_pallas_v2(jnp.asarray(dx), jnp.asarray(h), jnp.asarray(dz),
+                            TEXEL)
+    got = fs.fields_stencil(*map(torch.from_numpy, (dx, h, dz)), TEXEL)
+    assert got[0].shape == shape + (3,)
+    _check([t.numpy() for t in got], want, 1e-5, 1e-5, 1e-4)
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (32, 64)])
+def test_fields_stencil_matches_shader_twins(shape):
+    """Normals 2e-4: the difference form reassociates the four cross
+    products, which the renormalization amplifies where |n| is small
+    (tests/test_packing.py's band)."""
+    dx, h, dz = _inputs(shape, seed=1)
+    jn = jfields.normals_stencil(jnp.asarray(dx), jnp.asarray(h),
+                                 jnp.asarray(dz), TEXEL)
+    jf, jj = jfields.whitecap_gpu(jnp.asarray(dx), jnp.asarray(dz), jn)
+    t = list(map(torch.from_numpy, (dx, h, dz)))
+    tn = tfields.normals_stencil(*t, TEXEL)
+    tf, tj = tfields.whitecap_gpu(t[0], t[2], tn)
+    # the port's twins are the JAX twins
+    _check([tn.numpy(), tf.numpy(), tj.numpy()], [jn, jf, jj], 1e-5, 1e-5, 1e-4)
+    # and the kernel's plain version agrees with both
+    got = fs.fields_stencil(*t, TEXEL)
+    _check([g.numpy() for g in got], [jn, jf, jj], 2e-4, 1e-5, 1e-4)
+
+
+def test_normals_are_unit_and_foam_in_range():
+    dx, h, dz = _inputs((32, 64), seed=2)
+    normal, foam, _ = fs.fields_stencil(*map(torch.from_numpy, (dx, h, dz)),
+                                        TEXEL)
+    np.testing.assert_allclose(torch.linalg.norm(normal, dim=-1).numpy(), 1.0,
+                               atol=1e-5)
+    assert float(foam.min()) >= 0.0 and float(foam.max()) <= 1.0
+
+
+def test_cpu_calls_do_not_count_launches():
+    before = fs.fields_stencil.launches
+    fs.fields_stencil(*map(torch.from_numpy, _inputs((8, 16))), 1.0)
+    assert fs.fields_stencil.launches == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "ndim", "shape", "contiguous",
+                                 "empty"])
+def test_fields_stencil_rejects_bad_input(bad):
+    planes = [torch.zeros((16, 32)) for _ in range(3)]
+    if bad == "dtype":
+        planes[1] = planes[1].double()
+    elif bad == "ndim":
+        planes = [p[None] for p in planes]
+    elif bad == "shape":
+        planes[2] = torch.zeros((16, 16))
+    elif bad == "contiguous":
+        planes[0] = torch.zeros((32, 16)).t()
+    elif bad == "empty":
+        planes = [torch.zeros((0, 32)) for _ in range(3)]
+    with pytest.raises((TypeError, ValueError)):
+        fs.fields_stencil(*planes, 1.0)

@@ -1,0 +1,149 @@
+"""tpu_ocean_torch.OceanSolver against the JAX main-path solver
+(``fft_backend="pallas", real_state=True, pack_channels=True,
+half_spectrum=True, pallas_fields=True``, Pallas in interpret mode): one
+numpy h0 pair is injected into the JAX solver, its state is carried across
+with state_from_numpy, and both step 10 times. All 8 fields are held to
+tests/test_packing.py's bands: 1e-5·max, normals 2e-4 abs, foam 25×."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_ocean import config as jcfg, grids as jgrids, spectra as jspec
+from tpu_ocean.solver import OceanSolver as JaxSolver
+from tpu_ocean_torch import (OCEAN_DEMO, OceanSolver, fields_to_numpy,
+                             state_from_numpy)
+from tests.test_packing import _assert_fields_close
+
+SLICE = dict(fft_backend="pallas", real_state=True, pack_channels=True,
+             half_spectrum=True, pallas_fields=True)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _h0_pair(cfg, seed):
+    """Phillips-shaped random (h0, h0_conj), drawn once in numpy."""
+    n = cfg.resolution
+    kx, kz, _ = jgrids.wavevector_grid(n, cfg.length, "fft")
+    p_pos, p_neg = jspec._spectrum_pair(kx, kz, cfg.phillips_amplitude,
+                                        cfg.wind, cfg.damping, cfg.length,
+                                        "phillips", None)
+    rng = np.random.default_rng(seed)
+
+    def draw(p):
+        return ((rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n)))
+                * np.sqrt(p / 2.0))
+    return draw(p_pos), np.conj(draw(p_neg))
+
+
+def _pair(n, length):
+    cfg = OCEAN_DEMO.replace(resolution=n, length=length or OCEAN_DEMO.length)
+    return cfg, JaxSolver(jcfg.OceanConfig(**dataclasses.asdict(cfg)), **SLICE)
+
+
+@pytest.mark.parametrize("length", [None, "n"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_step_matches_jax_solver(n, length):
+    cfg, ref = _pair(n, float(n) if length == "n" else None)
+    h0, h0c = _h0_pair(cfg, seed=n)
+    js = ref.init(h0=h0, h0_conj=h0c)
+    port = OceanSolver(cfg, device="cpu")
+    ts = state_from_numpy(js, "cpu")
+    dt = 1 / 60
+    for _ in range(10):
+        js, jf = ref.step(js, dt)
+        ts, tf = port.step(ts, dt)
+    _assert_fields_close(fields_to_numpy(tf), jf, 1e-5)
+    # the jitted JAX step contracts φ + ω·dt into one FMA (the eager
+    # function, held bit-equal in test_torch_tables, does not): ≤ 1 ulp
+    d = np.abs(ts.phase.numpy() - np.asarray(js.phase))
+    assert np.minimum(d, 2 * np.pi - d).max() < 1e-6
+    assert int(ts.step) == int(js.step) == 10
+    assert float(ts.t) == float(js.t)
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_init_planes_equal_jax_init(n):
+    """Injected h0 → the same symmetrized planes, bit for bit."""
+    cfg, ref = _pair(n, None)
+    h0, h0c = _h0_pair(cfg, seed=1)
+    js = ref.init(h0=h0, h0_conj=h0c)
+    ts = OceanSolver(cfg, device="cpu").init(h0=h0, h0_conj=h0c)
+    for name in ts._fields:
+        np.testing.assert_array_equal(getattr(ts, name).numpy(),
+                                      np.asarray(getattr(js, name)))
+
+
+def test_symmetrize_is_idempotent_and_init_is_seeded():
+    solver = OceanSolver(OCEAN_DEMO.replace(resolution=64), device="cpu")
+    a = solver.init()
+    b = solver.init(torch.Generator().manual_seed(OCEAN_DEMO.seed))
+    again = solver.symmetrize(a)
+    for name in ("h0_re", "h0_im", "h0c_re", "h0c_im"):
+        assert torch.equal(getattr(a, name), getattr(b, name))
+        assert torch.equal(getattr(a, name), getattr(again, name))
+
+
+def test_state_from_numpy_round_trip():
+    solver = OceanSolver(OCEAN_DEMO.replace(resolution=64), device="cpu")
+    s, _ = solver.step(solver.init(), 1 / 60)
+    back = state_from_numpy(s, "cpu")
+    for name in s._fields:
+        a, b = getattr(s, name), getattr(back, name)
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_foam_decay_keeps_the_larger_foam():
+    solver = OceanSolver(OCEAN_DEMO.replace(resolution=64, foam_decay=0.35),
+                         device="cpu")
+    s = solver.init()
+    s, f1 = solver.step(s, 1 / 60)
+    s, f2 = solver.step(s, 1 / 60)
+    assert torch.equal(s.foam_accum, f2.foam)
+    assert bool((f2.foam >= f1.foam * np.exp(-0.35 / 60) - 1e-7).all())
+
+
+@pytest.mark.parametrize("change", [
+    dict(cfg=dict(spectrum_layout="centered")),
+    dict(cfg=dict(evolution_mode="absolute")),
+    dict(cfg=dict(normals_mode="spectral")),
+    dict(cfg=dict(precision="bfloat16")),
+    dict(kw=dict(fft_backend="pallas_fused")),
+    dict(kw=dict(fft_backend="reference")),
+    dict(kw=dict(eval_mode="direct")),
+    dict(kw=dict(real_state=False)),
+    dict(kw=dict(pack_channels=False)),
+    dict(kw=dict(half_spectrum=False)),
+    dict(kw=dict(pallas_fields=False)),
+])
+def test_off_slice_configurations_raise(change):
+    cfg = OCEAN_DEMO.replace(resolution=64, **change.get("cfg", {}))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        OceanSolver(cfg, device="cpu", **change.get("kw", {}))
+
+
+@pytest.mark.parametrize("n", [40, 96])
+def test_sizes_the_kernels_do_not_take_raise(n):
+    """N % 16 != 0 is refused everywhere (as in JAX); N = 96 runs on the CPU
+    but is refused for a CUDA device before anything is allocated there."""
+    cfg = OCEAN_DEMO.replace(resolution=n)
+    with pytest.raises(ValueError):
+        OceanSolver(cfg, device="cuda")
+    if n % 16:
+        with pytest.raises(ValueError):
+            OceanSolver(cfg, device="cpu")
+    else:
+        OceanSolver(cfg, device="cpu")
+
+
+def test_import_does_not_load_jax():
+    code = ("import sys, tpu_ocean_torch; "
+            "bad = [m for m in ('jax', 'tpu_ocean') if m in sys.modules]; "
+            "sys.exit(f'imported {bad}' if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr + proc.stdout

@@ -1,0 +1,110 @@
+"""Build and load the port's CUDA kernels.
+
+All ``csrc/*.cu`` files compile with ONE ``nvcc`` call into a shared
+library with a plain C interface, loaded with ``ctypes``. The library lives
+under ``build/tpu_ocean_torch/<hash>/`` beside the package (a directory
+``.gitignore`` lists), keyed by a hash of the sources and the flags, so a
+changed source rebuilds and an unchanged one loads at once. Nothing builds
+when the module is imported: the first kernel launch calls ``load()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "tpu_ocean_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "libtpu_ocean_torch.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# (name, argtypes) of every C entry; each returns cudaGetLastError() as int
+_SIGNATURES = {
+    "tpu_fft_rows_transposed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tpu_fields_stencil": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P],
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernels:
+    """The loaded library with what its build reported."""
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float     # 0.0 when an earlier build was reused
+    build_log: str           # nvcc's output, ptxas register/smem report included
+
+    def check(self, err: int, what: str) -> None:
+        """Raise if a C entry reported a CUDA error."""
+        if err != 0:
+            msg = self.lib.tpu_cuda_error_string(err).decode()
+            raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (on PATH or under CUDA_HOME): the "
+                       "port's CUDA kernels are built from source on first use")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.cache
+def load() -> Kernels:
+    """Build (once per source hash) and load the kernel library."""
+    sources = _sources()
+    out_dir = BUILD_ROOT / _digest(sources)
+    lib_path = out_dir / LIB_NAME
+    log_path = out_dir / "nvcc.log"
+    seconds = 0.0
+    if not lib_path.is_file():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # build to a temporary name, then rename: a concurrent loader sees
+        # either no library or a whole one
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+        log_path.write_text(log)
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tpu_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tpu_cuda_error_string.restype = ctypes.c_char_p
+    log = log_path.read_text() if log_path.is_file() else ""
+    return Kernels(lib=lib, path=lib_path, build_seconds=seconds, build_log=log)

@@ -1,0 +1,35 @@
+"""Carry state and fields between the JAX package and the port as numpy.
+
+The solver's state is its "weights": h0 planes and the accumulated phase.
+``state_from_numpy`` takes anything with the field names of the JAX
+package's ``OceanStateReal`` (a JAX state, a NamedTuple of numpy arrays, a
+port state) and returns the port's state on ``device``; nothing here
+imports jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpu_ocean_torch.solver import OceanFields, OceanStateReal
+
+_DTYPES = {"step": np.int32}
+
+
+def state_from_numpy(obj, device) -> OceanStateReal:
+    """Port state from any object with OceanStateReal's field names."""
+    def tensor(name):
+        value = getattr(obj, name)
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        arr = np.asarray(value, dtype=_DTYPES.get(name, np.float32))
+        return torch.from_numpy(arr.copy()).to(device)
+
+    return OceanStateReal(**{name: tensor(name)
+                             for name in OceanStateReal._fields})
+
+
+def fields_to_numpy(fields: OceanFields) -> OceanFields:
+    """OceanFields with every tensor copied to a host numpy array."""
+    return OceanFields(*(f.detach().cpu().numpy() for f in fields))

@@ -1,0 +1,62 @@
+"""Stencil normals and GPU-convention whitecap foam, plain torch.
+
+JAX counterpart: ``tpu_ocean/fields.py`` (``normals_stencil``,
+``whitecap_gpu``). These are the literal shader forms: four cross products
+of edge vectors to the ±x/±z neighbours (OceanNormal.shader:39-56) and the
+÷8 central differences of WhiteCap.shader:33-45, periodic via torch.roll.
+The fields kernel (``ops/fields_stencil.py``) computes the same fields
+from six difference planes; these twins are its independent reference.
+Axis 0 = x, axis 1 = z.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _smoothstep01(t):
+    t = torch.clamp(t, 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
+def normals_stencil(disp_x, height, disp_z, texel_size: float):
+    """Finite-difference normals of the displaced positions p = (dx, h, dz)
+    with the rest-position offset ±texel_size on the stepped axis: [M, N, 3]."""
+    p = torch.stack([disp_x, height, disp_z], dim=-1)
+
+    def nb(axis, shift):
+        return torch.roll(p, -shift, axis)
+
+    zero = torch.zeros_like(height)
+    ts = torch.full_like(height, texel_size)
+    right = torch.stack([ts, zero, zero], -1) + nb(0, 1) - p
+    left = torch.stack([-ts, zero, zero], -1) + nb(0, -1) - p
+    # the shader's "top" samples uv − texel on the second axis and offsets
+    # −texelSize in world z (OceanNormal.shader:47-48)
+    top = torch.stack([zero, zero, -ts], -1) + nb(1, -1) - p
+    bottom = torch.stack([zero, zero, ts], -1) + nb(1, 1) - p
+
+    def cross(a, b):
+        return torch.linalg.cross(a, b, dim=-1)
+
+    n = (cross(right, top) + cross(top, left)
+         + cross(left, bottom) + cross(bottom, right))
+    return n / torch.linalg.norm(n, dim=-1, keepdim=True)
+
+
+def whitecap_gpu(disp_x, disp_z, normal):
+    """Jacobian foam, GPU convention: central differences with periodic
+    wrap and the reference's ÷8 display scaling. Returns (foam, jacobian)."""
+    def central(d, axis):
+        fwd = torch.roll(d, -1, axis)
+        bwd = torch.roll(d, 1, axis)
+        return -0.5 * (bwd - fwd) / 8.0
+
+    ddx_x = central(disp_x, 0)
+    ddx_z = central(disp_z, 0)
+    ddy_x = central(disp_x, 1)
+    ddy_z = central(disp_z, 1)
+    jacobian = (1.0 + ddx_x) * (1.0 + ddy_z) - ddx_z * ddy_x
+    noise = 0.3 * torch.sqrt(normal[..., 0] ** 2 + normal[..., 2] ** 2)
+    turb = torch.clamp(1.0 - jacobian + noise, min=0.0)
+    return _smoothstep01(turb), jacobian

@@ -1,0 +1,45 @@
+"""Wavevector and coordinate grids, float64 numpy.
+
+JAX counterpart: the numpy part of ``tpu_ocean/grids.py``. Two wavevector
+conventions: ``centered`` k_n = 2π(n − N/2)/L (FFTMesh.cs:201) and ``fft``
+k_n = 2π·wrap(n)/L with wrap(n) = n if n < N/2 else n − N
+(FFTCommon.cginc:58-67). Axis 0 indexes x, axis 1 indexes z.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from tpu_ocean_torch.config import PI
+
+
+def wavenumbers_1d(n: int, length: float, layout: str = "centered") -> np.ndarray:
+    """1-D wavenumber array k_i for grid side ``n`` and patch length ``length``."""
+    idx = np.arange(n, dtype=np.float64)
+    if layout == "centered":
+        k = 2.0 * PI * (idx - n / 2.0) / length      # FFTMesh.cs:201
+    elif layout == "fft":
+        wrapped = np.where(idx < n / 2.0, idx, idx - n)  # FFTCommon.cginc:63-64
+        k = 2.0 * PI * wrapped / length
+    else:
+        raise ValueError(f"bad layout {layout!r}")
+    return k
+
+
+def wavevector_grid(n: int, length: float, layout: str = "centered"):
+    """(kx, kz, k_mag) as [N, N] float64 numpy arrays, axis0 = x, axis1 = z."""
+    k = wavenumbers_1d(n, length, layout)
+    kx = k[:, None] * np.ones((1, n))
+    kz = np.ones((n, 1)) * k[None, :]
+    k_mag = np.sqrt(kx * kx + kz * kz)
+    return kx, kz, k_mag
+
+
+def coordinate_1d(n: int, unit_width: float) -> np.ndarray:
+    """Reference mesh coordinates: x_i = (i − N/2)·w (+ w/2 for even N),
+    FFTMesh.cs:107,111-112."""
+    idx = np.arange(n, dtype=np.float64)
+    x = (idx - n // 2) * unit_width
+    if n % 2 == 0:
+        x = x + unit_width / 2.0
+    return x
