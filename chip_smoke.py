@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
@@ -7,23 +7,40 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
 Phases, each printing its own lines:
   1. device  — nvidia-smi's name and power limit, torch's device name;
-  2. build   — nvcc builds tpu_ocean_torch/csrc/*.cu into one library;
+  2. build   — nvcc builds tpu_ocean_torch/csrc/*.cu (one process per
+               source, all at once) into one library;
   3. kernels — each kernel against its plain PyTorch version on the card,
-               at the shapes of the OCEAN_DEMO 1024² step;
-  4. slice   — OCEAN_DEMO at 1024² through OceanSolver on the card: 60 steps
-               from a seeded init; every kernel must have launched its
-               per-step count; steps 51-60 are replayed on the CPU plain
-               path from the card's step-50 state and compared;
-  5. timing  — ms/step (CUDA events), device busy time per step and per
-               layer, and each kernel's device time beside its plain
-               version's (torch.profiler); warm L2, nothing asserted.
-Then one JSON line of kernel results, and last {"ok": true, "device": ...}.
+               at the shapes the paths below give it;
+  4. slice   — four paths through OceanSolver on the card, each from a
+               seeded init, with every launch count set to 0 just before
+               and read just after it:
+                 (i)   OCEAN_DEMO 1024², fft_backend="pallas", 60 steps
+                 (ii)  OCEAN_DEMO 1024², fft_backend="pallas_fused", 60 steps
+                 (iii) OCEAN_DEMO at 4096², "pallas", 10 steps
+                 (iv)  OCEAN_DEMO at 4096², "pallas_fused", 10 steps
+               every kernel must have launched exactly its per-step count
+               (PATHS below); the fields must be finite, the normals unit
+               and the foam in [0, 1]; the last steps are replayed on the
+               CPU plain path from a snapshot of the card's state and the
+               two are compared (compare_fields);
+  5. timing  — per path: ms/step (CUDA events), the host's enqueue time
+               per step, device busy time per step and per layer
+               (torch.profiler) and the idle share, and at 1024² the
+               host's time by function (cProfile); 4096² also
+               with MAX_TRANSPOSED_N = 8192 (the transposed regime); each
+               kernel's device time beside its plain version's, its library
+               call's where one PyTorch call computes the same function, and
+               its bound; warm L2, nothing asserted.
+Then one JSON line of kernel results, the card's name and power limit, and
+last {"ok": true, "device": ...}.
 
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Without a CUDA device it stops at once. Imports no jax.
 """
 
+import cProfile
 import json
+import pstats
 import subprocess
 import sys
 import time
@@ -35,10 +52,41 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 HERE = Path(__file__).resolve().parent
-STEPS, SNAPSHOT_AT, DT = 60, 50, 1.0 / 60.0
-# per-step kernel launches of the packed + half step: row DFT = 2 passes of
-# the full channel + the half channel's Nyquist row, half rows and columns
-PER_STEP = {"fft_rows_transposed": 5, "fields_stencil": 1}
+DT = 1.0 / 60.0
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, data sheet
+F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+
+# (label, fft_backend, N, steps, replay steps, kernel launches per step).
+# Row DFT passes: transposed regime (N ≤ 2048) — 2 for the full channel,
+# and the half channel's Nyquist row, half rows and columns; natural regime
+# (N > 2048) — the full channel's natural row pass and its column pass (a
+# transposed pass on swapped axes), the half channel's natural Nyquist row
+# and half rows and its transposed column pass. The fused backend assembles
+# each channel inside its first row pass.
+PATHS = [
+    ("i", "pallas", 1024, 60, 10,
+     {"fft_rows_transposed": 5, "fields_stencil": 1}),
+    ("ii", "pallas_fused", 1024, 60, 10,
+     {"fused_rows_transposed": 2, "fft_rows_transposed": 3,
+      "fields_stencil": 1}),
+    ("iii", "pallas", 4096, 10, 2,
+     {"fft_rows_natural": 3, "fft_rows_transposed": 2, "fields_stencil": 1}),
+    ("iv", "pallas_fused", 4096, 10, 2,
+     {"fused_rows_natural": 2, "fft_rows_natural": 1,
+      "fft_rows_transposed": 2, "fields_stencil": 1}),
+]
+KERNEL_INFO = {   # name: (source, the TPU kernel it replaces)
+    "fft_rows_transposed": ("tpu_ocean_torch/csrc/fft_rows.cu",
+                            "tpu_ocean/fft/pallas_fft.py:235"),
+    "fields_stencil": ("tpu_ocean_torch/csrc/fields_stencil.cu",
+                       "tpu_ocean/ops/fields_pallas.py:255"),
+    "fft_rows_natural": ("tpu_ocean_torch/csrc/fft_rows.cu",
+                         "tpu_ocean/fft/pallas_fft.py:677"),
+    "fused_rows_transposed": ("tpu_ocean_torch/csrc/fused_rows.cu",
+                              "tpu_ocean/ops/fused_spectrum_fft.py:127"),
+    "fused_rows_natural": ("tpu_ocean_torch/csrc/fused_rows.cu",
+                           "tpu_ocean/ops/fused_spectrum_fft.py:196"),
+}
 
 
 def log(*parts):
@@ -50,37 +98,88 @@ def require(cond, what):
         raise AssertionError(what)
 
 
+def kernel_group(key):
+    """The port's kernel a profiler key names, or "torch ops"."""
+    natural = "<true>" in key or "ILb1E" in key
+    if "fft_rows_kernel" in key:
+        return "fft_rows_natural" if natural else "fft_rows_transposed"
+    if "fused_rows_kernel" in key:
+        return "fused_rows_natural" if natural else "fused_rows_transposed"
+    if "fields_stencil_kernel" in key:
+        return "fields_stencil"
+    return "torch ops"
+
+
 def cuda_ms(fn, iters=100, warmup=10):
-    """Mean device milliseconds per call of ``fn`` (CUDA events)."""
+    """(mean milliseconds per call of ``fn`` on the device's timeline, by
+    CUDA events; mean host milliseconds per call to enqueue it, by the host
+    clock). Where the two are close, the host sets the pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_ms
 
 
-def device_ms(fn, iters=100):
+def device_ms(fn, iters=50, attempts=3):
     """(device ms per call, {kernel name: device ms per call}) of ``fn``:
     the CUDA kernel time torch.profiler records over ``iters`` calls after
     one warm-up. Unlike CUDA events around the calls, it leaves out the
-    gaps in which the device waits for the host."""
+    gaps in which the device waits for the host. The profiler now and then
+    records no device time for a window (seen once on the H100, for one
+    cuFFT call); such a window is profiled again, and after ``attempts``
+    empty windows the CUDA-event time stands in, under the key
+    "(CUDA events)"."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per_kernel = {e.key: e.self_device_time_total / 1e3 / iters
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
-    require(per_kernel, "torch.profiler recorded no device time")
-    return sum(per_kernel.values()), per_kernel
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per_kernel = {e.key: e.self_device_time_total / 1e3 / iters
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0}
+        if per_kernel:
+            return sum(per_kernel.values()), per_kernel
+    ms = cuda_ms(fn, iters)[0]
+    log(f"[timing] torch.profiler recorded no device time in {attempts} "
+        f"windows; CUDA events instead: {ms:.4f} ms a call")
+    return ms, {"(CUDA events)": ms}
+
+
+def host_profile(fn, steps=50, top=10):
+    """The host's time per call of ``fn`` by function, from cProfile over
+    ``steps`` calls (cProfile's own cost inflates every Python call, so the
+    shares, not the sums, are what to read): [(function, µs per call)]."""
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(steps):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((tottime / steps * 1e6, f"{Path(file).name}:{line}({name})")
+                   for (file, line, name), (_, _, tottime, _, _) in stats.items()),
+                  reverse=True)
+    return [(name, us) for us, name in rows[:top]]
+
+
+def bound(nbytes, flops):
+    """(least ms the card could take, what bounds it): bytes over the HBM
+    rate against f32 operations over the f32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def normal_sensitivity(fields, cfg, delta):
@@ -107,7 +206,7 @@ def normal_sensitivity(fields, cfg, delta):
     return 4 * np.sqrt(3) * delta * (lu + lv) / np.linalg.norm(np.cross(u, v), axis=-1)
 
 
-def compare_fields(card, cpu, cfg):
+def compare_fields(card, cpu, cfg, tag):
     """Hold the card's fields to the CPU plain path's, with the bands of
     tests/test_packing.py: 1e-5·max|cpu| for height, displacements,
     positions and Jacobian; 2e-4 for normals and 25·1e-5·max|foam| for
@@ -121,27 +220,42 @@ def compare_fields(card, cpu, cfg):
            for name in cpu._fields}
     for name in ("height", "disp_x", "disp_z", "pos_x", "pos_z", "jacobian"):
         band = 1e-5 * np.abs(getattr(cpu, name)).max()
-        log(f"[slice] card vs cpu {name}: max abs err {err[name].max():.3e} "
-            f"<= {band:.3e} (1e-5 x max|cpu|)")
-        require(err[name].max() <= band, f"card and cpu disagree on {name}")
+        log(f"[slice {tag}] card vs cpu {name}: max abs err "
+            f"{err[name].max():.3e} <= {band:.3e} (1e-5 x max|cpu|)")
+        require(err[name].max() <= band, f"path {tag}: card and cpu disagree on {name}")
     delta = max(err["height"].max(), chop * err["disp_x"].max(),
                 chop * err["disp_z"].max())
     n_err = err["normal"].max(-1)
     n_band = 2e-4 + normal_sensitivity(cpu, cfg, delta)
-    log(f"[slice] card vs cpu normal: max abs err {n_err.max():.3e}; "
+    log(f"[slice {tag}] card vs cpu normal: max abs err {n_err.max():.3e}; "
         f"{int((n_err > 2e-4).sum())} texels beyond 2e-4, all within 2e-4 + "
         f"sensitivity to the input error {delta:.3e}: "
         f"{bool((n_err <= n_band).all())} (worst err/band "
         f"{(n_err / n_band).max():.3f})")
-    require((n_err <= n_band).all(), "card and cpu disagree on normal")
+    require((n_err <= n_band).all(), f"path {tag}: card and cpu disagree on normal")
     f_raw = 25e-5 * np.abs(cpu.foam).max()
     f_band = f_raw + 1.5 * (err["jacobian"] + 0.3 * n_err)
-    log(f"[slice] card vs cpu foam: max abs err {err['foam'].max():.3e}; "
+    log(f"[slice {tag}] card vs cpu foam: max abs err {err['foam'].max():.3e}; "
         f"{int((err['foam'] > f_raw).sum())} texels beyond {f_raw:.3e} "
         f"(25e-5 x max), all within that + 1.5(|dJ| + 0.3|dn|): "
         f"{bool((err['foam'] <= f_band).all())} (worst err/band "
         f"{(err['foam'] / f_band).max():.3f})")
-    require((err["foam"] <= f_band).all(), "card and cpu disagree on foam")
+    require((err["foam"] <= f_band).all(), f"path {tag}: card and cpu disagree on foam")
+
+
+def check_fields(card, n, tag):
+    for name in card._fields:
+        a = getattr(card, name)
+        want_shape = (n, n, 3) if name == "normal" else (n, n)
+        require(a.shape == want_shape, f"path {tag}: {name} has shape {a.shape}")
+        require(np.isfinite(a).all(), f"path {tag}: {name} is not finite")
+    norm_err = np.abs(np.linalg.norm(card.normal, axis=-1) - 1.0).max()
+    require(norm_err <= 1e-5, f"path {tag}: |normal| - 1 reaches {norm_err}")
+    require(card.foam.min() >= 0.0 and card.foam.max() <= 1.0,
+            f"path {tag}: foam outside [0, 1]")
+    log(f"[slice {tag}] fields finite, shapes ok, max ||normal| - 1| "
+        f"{norm_err:.2e}, foam in [{card.foam.min():.3f}, "
+        f"{card.foam.max():.3f}], height max |.| {np.abs(card.height).max():.4f}")
 
 
 def main():
@@ -156,6 +270,7 @@ def main():
                                  state_from_numpy, _build)
     from tpu_ocean_torch.fft import planes
     from tpu_ocean_torch.ops import fields_stencil as fs
+    from tpu_ocean_torch.ops import fused_spectrum as fused
     require(Path(tpu_ocean_torch.__file__).resolve().parent.parent == HERE,
             f"tpu_ocean_torch imported from {tpu_ocean_torch.__file__}, "
             f"not from this checkout")
@@ -164,6 +279,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    wrappers = {"fft_rows_transposed": planes.fft1d_transposed,
+                "fft_rows_natural": planes.fft1d_natural_large,
+                "fused_rows_transposed": fused.assemble_rowfft,
+                "fused_rows_natural": fused.assemble_rowfft_natural,
+                "fields_stencil": fs.fields_stencil}
 
     # ---- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -184,130 +304,205 @@ def main():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line):
             log(f"[build] {line.strip()}")
 
-    # ---- 3. kernels vs plain, at the slice's shapes
+    # ---- 3. kernels vs plain, at the paths' shapes. Each case: (kernel,
+    # shape label, kernel call, plain call, library call or None, bytes,
+    # flops); timed again in phase 5.
     rng = np.random.default_rng(0)
 
-    def planes_on_card(shape):
-        return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
-                     for _ in range(2))
+    def plane(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
-    fft_shapes = [(1, 1024, 1024), (1, 512, 1024), (1, 1024, 512), (1, 1, 1024)]
-    fft_inputs = {s: planes_on_card(s) for s in fft_shapes}
-    fft_err = 0.0
-    for shape, (re, im) in fft_inputs.items():
-        kr, ki = planes.fft1d_transposed(re, im, True)
-        pr, pi = planes.fft1d_transposed_plain(re, im, True)
+    cases = []
+    for name, fn, plain, shapes in (
+            ("fft_rows_transposed", planes.fft1d_transposed,
+             planes.fft1d_transposed_plain,
+             [(1, 1024, 1024), (1, 512, 1024), (1, 1024, 512), (1, 1, 1024),
+              (1, 4096, 4096), (1, 4096, 2048)]),
+            ("fft_rows_natural", planes.fft1d_natural_large,
+             planes.fft1d_natural_large_plain,
+             [(1, 4096, 4096), (1, 2048, 4096), (1, 1, 4096),
+              (1, 1024, 1024)])):
+        for shape in shapes:
+            re, im = plane(shape), plane(shape)
+            z = torch.complex(re, im)
+            points = shape[0] * shape[1] * shape[2]
+            cases.append((name, list(shape),
+                          lambda fn=fn, re=re, im=im: fn(re, im, True),
+                          lambda fn=plain, re=re, im=im: fn(re, im, True),
+                          lambda z=z: torch.fft.ifft(z, dim=-1, norm="forward"),
+                          16 * points,
+                          5 * points * int(np.log2(shape[2]))))
+    for name, fn, plain, shapes in (
+            ("fused_rows_transposed", fused.assemble_rowfft,
+             fused.assemble_rowfft_plain, [(1024, 1024, 0), (512, 1024, 1)]),
+            ("fused_rows_natural", fused.assemble_rowfft_natural,
+             fused.assemble_rowfft_natural_plain,
+             [(4096, 4096, 0), (2048, 4096, 1)])):
+        for m, n, ch in shapes:
+            h0 = tuple(plane((m, n)) for _ in range(4))
+            phase = torch.from_numpy(rng.uniform(0, 2 * np.pi, size=(m, n))
+                                     .astype(np.float32)).to(dev)
+            kw = dict(epsilon=1e-4, ch_start=ch, ch_count=1)
+            args = (h0, phase, OCEAN_DEMO.length, -1.0)
+            # 5 f32 planes in, one complex channel out, the kz row; the
+            # assembly's ~30 operations and the transform's 5·log2(N)
+            cases.append((name, [m, n, f"ch {ch}"],
+                          lambda fn=fn, a=args, kw=kw: fn(*a, **kw),
+                          lambda fn=plain, a=args, kw=kw: fn(*a, **kw),
+                          None, 28 * m * n + 4 * n,
+                          (30 + 5 * int(np.log2(n))) * m * n))
+
+    errs = {k: 0.0 for k in KERNEL_INFO}
+    for name, shape, run, plain, _, _, _ in cases:
+        kr, ki = run()
+        pr, pi = plain()
         torch.cuda.synchronize()
         scale = max(pr.abs().max().item(), pi.abs().max().item())
         err = max((kr - pr).abs().max().item(), (ki - pi).abs().max().item())
-        fft_err = max(fft_err, err)
-        log(f"[kernels] fft_rows_transposed {list(shape)} inverse: max abs err "
-            f"{err:.3e} = {err / scale:.3e} x max|plain| (limit 1e-5)")
-        require(err <= 1e-5 * scale, f"fft_rows_transposed {shape} disagrees")
+        errs[name] = max(errs[name], err)
+        log(f"[kernels] {name} {shape} inverse: max abs err {err:.3e} = "
+            f"{err / scale:.3e} x max|plain| (limit 1e-5)")
+        require(kr.shape == pr.shape, f"{name} {shape}: shape {kr.shape}")
+        require(err <= 1e-5 * scale, f"{name} {shape} disagrees")
 
     cfg = OCEAN_DEMO
     n = cfg.resolution
-    solver = OceanSolver(cfg, device=dev)
+    solver = OceanSolver(cfg)
     _, f = solver.step(solver.init(torch.Generator().manual_seed(1)), DT)
     chop = cfg.choppiness
     fields_in = (chop * f.disp_x, f.height, chop * f.disp_z, cfg.length / n)
     got = fs.fields_stencil(*fields_in)
     want = fs.fields_stencil_plain(*fields_in)
     torch.cuda.synchronize()
-    fields_err = 0.0
     for name, g, w, tol in zip(("normal", "foam", "jacobian"), got, want,
                                (1e-5, 1e-4, 1e-5)):
         err = (g - w).abs().max().item()
-        fields_err = max(fields_err, err)
+        errs["fields_stencil"] = max(errs["fields_stencil"], err)
         log(f"[kernels] fields_stencil [{n}, {n}] {name}: max abs err "
             f"{err:.3e} (limit {tol:g})")
         require(err <= tol, f"fields_stencil {name} disagrees")
+    cases.append(("fields_stencil", [n, n],
+                  lambda: fs.fields_stencil(*fields_in),
+                  lambda: fs.fields_stencil_plain(*fields_in), None,
+                  32 * n * n, 60 * n * n))
 
-    # ---- 4. the slice, through the solver
-    planes.fft1d_transposed.launches = 0
-    fs.fields_stencil.launches = 0
-    state = solver.init(torch.Generator().manual_seed(0))
-    for step in range(1, STEPS + 1):
-        state, fields = solver.step(state, DT)
-        if step == SNAPSHOT_AT:
-            snapshot = state_from_numpy(state, "cpu")
-    torch.cuda.synchronize()
-    launches = {"fft_rows_transposed": planes.fft1d_transposed.launches,
-                "fields_stencil": fs.fields_stencil.launches}
-    log(f"[slice] OCEAN_DEMO {n}x{n}, {STEPS} steps of dt 1/60: launches "
-        f"{launches} (expected {STEPS} x {PER_STEP})")
-    for name, per_step in PER_STEP.items():
-        require(launches[name] == STEPS * per_step,
-                f"{name} launched {launches[name]} times, not {STEPS * per_step}")
+    # ---- 4. the four paths, through the solver
+    launches = {k: {} for k in KERNEL_INFO}
+    solvers = {}
+    for tag, backend, size, steps, replay, per_step in PATHS:
+        pcfg = OCEAN_DEMO.replace(resolution=size)
+        psolver = OceanSolver(pcfg, fft_backend=backend)
+        state = psolver.init(torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        for step in range(1, steps + 1):
+            state, fields = psolver.step(state, DT)
+            if step == steps - replay:
+                snapshot = state_from_numpy(state, "cpu")
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        log(f"[slice {tag}] OCEAN_DEMO {size}x{size} fft_backend={backend!r}, "
+            f"{steps} steps of dt 1/60: launches {counts} (expected {steps} x "
+            f"{per_step})")
+        for name, count in counts.items():
+            require(count == steps * per_step.get(name, 0),
+                    f"path {tag}: {name} launched {count} times, not "
+                    f"{steps * per_step.get(name, 0)}")
+            if count:
+                launches[name][tag] = count
+        card = fields_to_numpy(fields)
+        require(int(state.step) == steps, f"path {tag}: step counter")
+        check_fields(card, size, tag)
+        # replay the last steps on the CPU plain path from the card's state
+        cpu_solver = OceanSolver(pcfg, device="cpu", fft_backend=backend)
+        cpu_state = snapshot
+        for _ in range(replay):
+            cpu_state, cpu_fields = cpu_solver.step(cpu_state, DT)
+        require(np.array_equal(cpu_state.phase.numpy(), state.phase.cpu().numpy()),
+                f"path {tag}: phase differs between the card and the CPU")
+        log(f"[slice {tag}] steps {steps - replay + 1}-{steps} replayed on the "
+            f"CPU plain path from the card's step-{steps - replay} state")
+        compare_fields(card, fields_to_numpy(cpu_fields), pcfg, tag)
+        solvers[tag] = (pcfg, psolver, state)
+        del cpu_solver, cpu_state, cpu_fields, snapshot, fields, card
 
-    card = fields_to_numpy(fields)
-    require(int(state.step) == STEPS, "step counter")
-    for name in card._fields:
-        a = getattr(card, name)
-        want_shape = (n, n, 3) if name == "normal" else (n, n)
-        require(a.shape == want_shape, f"{name} has shape {a.shape}")
-        require(np.isfinite(a).all(), f"{name} is not finite")
-    norm_err = np.abs(np.linalg.norm(card.normal, axis=-1) - 1.0).max()
-    require(norm_err <= 1e-5, f"|normal| - 1 reaches {norm_err}")
-    require(card.foam.min() >= 0.0 and card.foam.max() <= 1.0, "foam outside [0, 1]")
-    log(f"[slice] fields finite, shapes ok, max ||normal| - 1| {norm_err:.2e}, "
-        f"foam in [{card.foam.min():.3f}, {card.foam.max():.3f}], "
-        f"height max |.| {np.abs(card.height).max():.4f}")
-
-    # replay steps 51..60 on the CPU plain path from the card's state
-    cpu_solver = OceanSolver(cfg, device="cpu")
-    cpu_state = snapshot
-    for _ in range(STEPS - SNAPSHOT_AT):
-        cpu_state, cpu_fields = cpu_solver.step(cpu_state, DT)
-    cpu = fields_to_numpy(cpu_fields)
-    require(np.array_equal(cpu_state.phase.numpy(), state.phase.cpu().numpy()),
-            "phase differs between the card and the CPU")
-    compare_fields(card, cpu, cfg)
-
-    # ---- 5. timing: the step by CUDA events (its device timeline, gaps
+    # ---- 5. timing: each step by CUDA events (its device timeline, gaps
     # included); device time by torch.profiler; warm L2 throughout
-    step_state = [state]
+    def time_path(label, pcfg, psolver, state, iters):
+        step_state = [state]
 
-    def one_step():
-        step_state[0], _ = solver.step(step_state[0], DT)
+        def one_step():
+            step_state[0], _ = psolver.step(step_state[0], DT)
 
-    step_ms = cuda_ms(one_step, iters=200)
-    busy_ms, per_kernel = device_ms(one_step, iters=50)
-    groups = {"fft_rows_transposed": 0.0, "fields_stencil": 0.0, "torch ops": 0.0}
-    for key, ms in per_kernel.items():
-        name = next((g for g in PER_STEP if g in key), "torch ops")
-        groups[name] += ms
-    log(f"[timing] {kind} ({smi}): OCEAN_DEMO {n}x{n} {step_ms:.4f} ms/step, "
-        f"{n * n / step_ms * 1e3:.4e} grid points/s; device busy "
-        f"{busy_ms:.4f} ms/step, idle share {1 - busy_ms / step_ms:.3f}")
-    log("[timing] device ms/step by layer: " + ", ".join(
-        f"{g} {ms:.4f}" for g, ms in groups.items())
-        + " (torch ops: phase, assembly, C2R fold, interleave, positions)")
-    fft_ms = {}
-    for shape, (re, im) in fft_inputs.items():
-        k, _ = device_ms(lambda: planes.fft1d_transposed(re, im, True))
-        p, _ = device_ms(lambda: planes.fft1d_transposed_plain(re, im, True))
-        fft_ms[shape] = (k, p)
-        log(f"[timing] fft_rows_transposed {list(shape)}: kernel {k:.4f} ms, "
-            f"plain (cuFFT via torch.fft + transpose) {p:.4f} ms (device)")
-    fk, _ = device_ms(lambda: fs.fields_stencil(*fields_in))
-    fp, _ = device_ms(lambda: fs.fields_stencil_plain(*fields_in))
-    log(f"[timing] fields_stencil [{n}, {n}]: kernel {fk:.4f} ms, plain "
-        f"{fp:.4f} ms (device)")
+        step_ms, host_ms = cuda_ms(one_step, iters=iters)
+        busy_ms, per_kernel = device_ms(one_step, iters=max(iters // 4, 10))
+        groups = {}
+        for key, ms in per_kernel.items():
+            g = kernel_group(key)
+            groups[g] = groups.get(g, 0.0) + ms
+        size = pcfg.resolution
+        log(f"[timing] {kind} ({smi}): {label} {size}x{size} {step_ms:.4f} "
+            f"ms/step, {size * size / step_ms * 1e3:.4e} grid points/s; device "
+            f"busy {busy_ms:.4f} ms/step, idle share {1 - busy_ms / step_ms:.3f}; "
+            f"host enqueue {host_ms:.4f} ms/step")
+        log(f"[timing] {label} device ms/step by layer: " + ", ".join(
+            f"{g} {ms:.4f}" for g, ms in sorted(groups.items()))
+            + " (torch ops: phase, assembly where unfused, C2R fold, "
+            "interleave, transposing copies, positions)")
+        if size <= 2048:     # host-bound: where the host's time goes
+            log(f"[timing] {label} host µs/step by function (cProfile "
+                f"tottime, top 10): " + "; ".join(
+                    f"{name} {us:.1f}" for name, us in host_profile(one_step)))
+        return step_state[0]
+
+    for tag, backend, size, _, _, _ in PATHS:
+        pcfg, psolver, state = solvers[tag]
+        time_path(f"path ({tag}) {backend}", pcfg, psolver, state,
+                  200 if size <= 2048 else 40)
+    # 4096² in the transposed regime (the JAX crossover moved past it)
+    natural_cap = planes.MAX_TRANSPOSED_N
+    for tag in ("iii", "iv"):
+        pcfg, psolver, state = solvers[tag]
+        _, f_nat = psolver.step(state, DT)
+        planes.MAX_TRANSPOSED_N = 8192
+        try:
+            _, f_tr = psolver.step(state, DT)
+            torch.cuda.synchronize()
+            scale = f_nat.height.abs().max().item()
+            err = (f_tr.height - f_nat.height).abs().max().item()
+            log(f"[timing] path ({tag}) with MAX_TRANSPOSED_N = 8192: height "
+                f"vs the natural regime's, max abs err {err:.3e} = "
+                f"{err / scale:.3e} x max")
+            require(err <= 1e-5 * scale, f"path {tag}: the regimes disagree")
+            time_path(f"path ({tag}) {psolver.fft_backend} transposed regime",
+                      pcfg, psolver, state, 40)
+        finally:
+            planes.MAX_TRANSPOSED_N = natural_cap
+        del f_nat, f_tr
+
+    results = {}
+    for name, shape, run, plain, library, nbytes, flops in cases:
+        k, _ = device_ms(run)
+        p, _ = device_ms(plain)
+        lib = device_ms(library)[0] if library else None
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"[timing] {name} {shape}: kernel {k:.4f} ms, plain {p:.4f} ms, "
+            f"library " + (f"{lib:.4f} ms" if lib is not None else "none")
+            + f", bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e6:.1f} Mflop), {b_ms / k:.3f} of it (device)")
+        results.setdefault(name, (shape, k, p, lib, b_ms, b_by))
 
     log(json.dumps({"kernels": [
-        {"name": "fft_rows_transposed", "route": "cuda",
-         "source": "tpu_ocean_torch/csrc/fft_rows.cu",
-         "replaces": "tpu_ocean/fft/pallas_fft.py:235",
-         "launches": launches["fft_rows_transposed"],
-         "max_abs_err": fft_err,
-         "ms": fft_ms[(1, 1024, 1024)][0], "plain_ms": fft_ms[(1, 1024, 1024)][1]},
-        {"name": "fields_stencil", "route": "cuda",
-         "source": "tpu_ocean_torch/csrc/fields_stencil.cu",
-         "replaces": "tpu_ocean/ops/fields_pallas.py:255",
-         "launches": launches["fields_stencil"],
-         "max_abs_err": fields_err, "ms": fk, "plain_ms": fp},
-    ]}))
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": sum(launches[name].values()),
+         "launches_by_path": launches[name],
+         "max_abs_err": errs[name], "shape": results[name][0],
+         "ms": results[name][1], "plain_ms": results[name][2],
+         "bound_ms": results[name][4], "bound_by": results[name][5],
+         "library_ms": results[name][3]}
+        for name, (source, replaces) in KERNEL_INFO.items()]}))
+    log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
 

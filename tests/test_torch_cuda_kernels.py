@@ -8,10 +8,12 @@ when not. This file imports no jax; run it with
 (``--noconftest`` because tests/conftest.py configures jax, which a
 machine with a GPU need not have).
 
-Tolerances: the row DFT differs from torch.fft (cuFFT) in summation order,
-1e-5·max|plain| covers f32 rounding over log2(N) stages. The fields kernel
-rounds the normal's cross product as the plain version does, so its
-normal agrees to 1e-5; foam 1e-4."""
+Tolerances: the row DFTs (transposed, natural and fused stores) differ from
+torch.fft (cuFFT) in summation order, 1e-5·max|plain| covers f32 rounding
+over log2(N) stages (the fused kernels' assembly rounds each product as
+the plain version does; sin/cos differ by an ulp at most). The fields
+kernel rounds the normal's cross product as the plain version does, so
+its normal agrees to 1e-5; foam 1e-4."""
 
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ import torch
 from tpu_ocean_torch import OCEAN_DEMO, OceanSolver, fields_to_numpy
 from tpu_ocean_torch.fft import planes
 from tpu_ocean_torch.ops import fields_stencil as fs
+from tpu_ocean_torch.ops import fused_spectrum as fused
 
 pytestmark = pytest.mark.cuda
 
@@ -35,6 +38,23 @@ def _planes(shape, device, seed=0):
     rng = np.random.default_rng(seed)
     return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
                  for _ in range(2))
+
+
+def _assert_close(got, want):
+    """Each of the (re, im) pairs within 1e-5·max|plain| of the other."""
+    torch.cuda.synchronize()
+    scale = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() <= 1e-5 * scale
+
+
+def _fused_inputs(m, n, device, seed=0):
+    rng = np.random.default_rng(seed)
+    h0 = tuple(torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)).to(device)
+               for _ in range(4))
+    phase = rng.uniform(0, 2 * np.pi, size=(m, n)).astype(np.float32)
+    return h0, torch.from_numpy(phase).to(device)
 
 
 @pytest.mark.parametrize("inverse", [True, False])
@@ -65,6 +85,47 @@ def test_fields_kernel_matches_plain(cuda, shape):
         assert (g - w).abs().max().item() <= tol
 
 
+# N in {16, 64, 1024, 4096, 8192}: M = 1, a ragged M (not a multiple of
+# the rows per block) and the main path's batches
+NATURAL_SHAPES = [(1, 1, 16), (3, 5, 16), (2, 13, 64), (1, 1024, 1024),
+                  (1, 1, 4096), (1, 37, 4096), (1, 2048, 4096),
+                  (1, 4096, 4096), (1, 1, 8192), (1, 3, 8192)]
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("shape", NATURAL_SHAPES)
+def test_fft_rows_natural_kernel_matches_plain(cuda, shape, inverse):
+    re, im = _planes(shape, cuda)
+    got = planes.fft1d_natural_large(re, im, inverse)
+    assert got[0].shape == shape
+    _assert_close(got, planes.fft1d_natural_large_plain(re, im, inverse))
+
+
+# (M, N, ch_start, ch_count, row_offset)
+FUSED_CASES = [(16, 16, 0, 2, 0), (7, 16, 1, 1, 5), (1, 64, 0, 1, 32),
+               (13, 64, 1, 1, 20), (1024, 1024, 0, 1, 0),
+               (512, 1024, 1, 1, 0), (37, 1024, 0, 2, 500),
+               (2048, 4096, 1, 1, 0), (4096, 4096, 0, 1, 0),
+               (5, 4096, 1, 1, 2046), (1, 8192, 0, 1, 4096),
+               (3, 8192, 1, 1, 4095)]
+
+
+@pytest.mark.parametrize("natural", [False, True])
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_rows_kernels_match_plain(cuda, case, natural):
+    m, n, ch_start, ch_count, row_offset = case
+    h0, phase = _fused_inputs(m, n, cuda)
+    kw = dict(epsilon=1e-4, ch_start=ch_start, ch_count=ch_count,
+              row_offset=row_offset)
+    if natural:
+        got = fused.assemble_rowfft_natural(h0, phase, 434.48, -1.0, **kw)
+        want = fused.assemble_rowfft_natural_plain(h0, phase, 434.48, -1.0, **kw)
+    else:
+        got = fused.assemble_rowfft(h0, phase, 434.48, -1.0, **kw)
+        want = fused.assemble_rowfft_plain(h0, phase, 434.48, -1.0, **kw)
+    _assert_close(got, want)
+
+
 def test_launch_counters_count_kernel_launches(cuda):
     re, im = _planes((1, 16, 64), cuda)
     f0, s0 = planes.fft1d_transposed.launches, fs.fields_stencil.launches
@@ -93,6 +154,38 @@ def test_solver_step_matches_cpu_and_launches_six_kernels(cuda):
                                    atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("backend,n,per_step", [
+    ("pallas_fused", 128, {"fused_t": 2, "rows_t": 3, "rows_n": 0,
+                           "fused_n": 0}),
+    ("pallas", 4096, {"fused_t": 0, "rows_t": 2, "rows_n": 3, "fused_n": 0}),
+    ("pallas_fused", 4096, {"fused_t": 0, "rows_t": 2, "rows_n": 1,
+                            "fused_n": 2})])
+def test_solver_paths_match_cpu_and_launch_their_kernels(cuda, backend, n,
+                                                         per_step):
+    cfg = OCEAN_DEMO.replace(resolution=n)
+    gpu = OceanSolver(cfg, device=cuda, fft_backend=backend)
+    cpu = OceanSolver(cfg, device="cpu", fft_backend=backend)
+    sg = gpu.init(torch.Generator().manual_seed(5))
+    sc = cpu.init(torch.Generator().manual_seed(5))
+    counters = {"fused_t": fused.assemble_rowfft,
+                "fused_n": fused.assemble_rowfft_natural,
+                "rows_t": planes.fft1d_transposed,
+                "rows_n": planes.fft1d_natural_large,
+                "fields": fs.fields_stencil}
+    before = {k: f.launches for k, f in counters.items()}
+    for _ in range(2):
+        sg, fg = gpu.step(sg, 1 / 60)
+        sc, fc = cpu.step(sc, 1 / 60)
+    torch.cuda.synchronize()
+    for key, per in {**per_step, "fields": 1}.items():
+        assert counters[key].launches - before[key] == 2 * per, key
+    fg, fc = fields_to_numpy(fg), fields_to_numpy(fc)
+    for name in ("height", "disp_x", "disp_z", "pos_x", "pos_z", "jacobian"):
+        want = getattr(fc, name)
+        np.testing.assert_allclose(getattr(fg, name), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("bad", ["cpu_and_cuda", "contiguous", "length"])
 def test_kernel_wrappers_reject_bad_input(cuda, bad):
     re, im = _planes((1, 8, 64), cuda)
@@ -104,6 +197,11 @@ def test_kernel_wrappers_reject_bad_input(cuda, bad):
         re, im = _planes((1, 8, 48), cuda)
     with pytest.raises(ValueError):
         planes.fft1d_transposed(re, im)
+    with pytest.raises(ValueError):
+        planes.fft1d_natural_large(re, im)
+    with pytest.raises(ValueError):
+        fused.assemble_rowfft((re[0], im[0], re[0], im[0]), im[0], 1.0, 1.0,
+                              epsilon=1e-4, ch_count=1)
     if bad != "length":            # the stencil takes any [M, N]
         with pytest.raises(ValueError):
             fs.fields_stencil(re[0], im[0], re[0], 1.0)

@@ -131,3 +131,87 @@ def test_half_transform_validates_input():
     y = torch.zeros((1, 33, 64))
     with pytest.raises(NotImplementedError):
         planes.ifft2_planes_half(y, y, inverse=False)
+
+
+# ---- the natural regime (N > MAX_TRANSPOSED_N; forced at small N)
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("shape", [(2, 16, 64), (1, 8, 128)])
+def test_fft1d_natural_large_matches_jax(shape, inverse):
+    re, im = _planes(shape, 5)
+    wr, wi = pallas_fft.fft1d_natural_large(jnp.asarray(re), jnp.asarray(im),
+                                            inverse)
+    gr, gi = planes.fft1d_natural_large(torch.from_numpy(re),
+                                        torch.from_numpy(im), inverse)
+    assert gr.shape == shape
+    _close(gr, wr)
+    _close(gi, wi)
+
+
+def test_ifft1d_planes_axis2_matches_jax():
+    """The JAX column pass is an einsum at Precision.HIGH (bf16×3, about
+    f32 accuracy on the TPU; full f32 on the CPU), so 1e-5·max holds."""
+    from tpu_ocean.fft import matmul
+    re, im = _planes((1, 64, 32), 6)
+    wr, wi = matmul.ifft1d_planes_axis2(jnp.asarray(re), jnp.asarray(im), True)
+    gr, gi = planes.ifft1d_planes_axis2(torch.from_numpy(re),
+                                        torch.from_numpy(im), True)
+    assert gr.shape == (1, 64, 32)
+    _close(gr, wr)
+    _close(gi, wi)
+
+
+@pytest.mark.parametrize("route", ["half", "auto"])
+def test_natural_regime_matches_jax(route, monkeypatch):
+    """N = 128 with both packages' transposed-store cap at 32: the natural-
+    store row pass, the axis −2 column pass and (half) the fold on axis −2."""
+    n = 128
+    monkeypatch.setattr(planes, "MAX_TRANSPOSED_N", 32)
+    rows = n // 2 + 1 if route == "half" else n
+    re, im = _planes((1, rows, n), 7)
+    jfn = getattr(pallas_fft, f"ifft2_planes_{route}")
+    tfn = getattr(planes, f"ifft2_planes_{route}")
+    with pallas_fft.transposed_store_cap(32):
+        want = jfn(jnp.asarray(re), jnp.asarray(im))
+    got = tfn(torch.from_numpy(re), torch.from_numpy(im))
+    if route == "half":
+        want, got = (want,), (got,)
+    for g, w in zip(got, want):
+        assert g.shape == (1, n, n)
+        _close(g, w)
+
+
+@pytest.mark.parametrize("axis", [-1, -2])
+def test_c2r_combine_matches_jax_on_either_axis(axis):
+    y = _planes((2, 16, 24) if axis == -2 else (2, 24, 16), 8)
+    shape = (2, 1, 24) if axis == -2 else (2, 24, 1)
+    nyq = _planes(shape, 9)
+    want = pallas_fft._c2r_combine(*map(jnp.asarray, y + nyq), True, axis=axis)
+    got = planes._c2r_combine(*map(torch.from_numpy, y + nyq), True, axis=axis)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+def test_half_column_pass_checks_its_length():
+    v = torch.zeros((1, 32, 64))
+    with pytest.raises(ValueError, match="m=16"):
+        planes.half_column_pass(v, v, 16)
+
+
+@pytest.mark.parametrize("n,fits", [(1024, True), (4096, True),
+                                    (8192, True), (16384, False)])
+def test_one_row_block_fits_shared_memory(n, fits):
+    """One row at N = 8192 (the largest the kernels take) needs 192 KB of
+    the card's 227 KB, the row kernels and the fused kernels alike."""
+    assert (planes.shared_bytes(1, n) <= planes.SMEM_LIMIT) == fits
+
+
+@pytest.mark.parametrize("shape,rows", [
+    ((1, 1024, 1024), 4), ((1, 4096, 4096), 1), ((1, 2048, 4096), 1),
+    ((1, 4096, 2048), 2), ((1, 1, 4096), 1), ((1, 512, 1024), 4)])
+def test_natural_rows_per_block_keeps_about_4096_points(shape, rows):
+    """The natural store's blocks hold at most NATURAL_BLOCK_POINTS points
+    (the fastest in the H100 sweep of tpu_ocean_torch.tune_rows)."""
+    c, m, n = shape
+    cap = planes.max_rows(n, natural=True)
+    assert planes.rows_per_block(c, m, n, sms=132, cap=cap) == rows

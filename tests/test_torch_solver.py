@@ -1,9 +1,10 @@
 """tpu_ocean_torch.OceanSolver against the JAX main-path solver
-(``fft_backend="pallas", real_state=True, pack_channels=True,
-half_spectrum=True, pallas_fields=True``, Pallas in interpret mode): one
-numpy h0 pair is injected into the JAX solver, its state is carried across
-with state_from_numpy, and both step 10 times. All 8 fields are held to
-tests/test_packing.py's bands: 1e-5·max, normals 2e-4 abs, foam 25×."""
+(``fft_backend="pallas"`` or ``"pallas_fused"``, ``real_state=True,
+pack_channels=True, half_spectrum=True, pallas_fields=True``, Pallas in
+interpret mode): one numpy h0 pair is injected into the JAX solver, its
+state is carried across with state_from_numpy, and both step 10 times. All
+8 fields are held to tests/test_packing.py's bands: 1e-5·max, normals 2e-4
+abs, foam 25×."""
 
 import dataclasses
 import os
@@ -15,9 +16,11 @@ import pytest
 import torch
 
 from tpu_ocean import config as jcfg, grids as jgrids, spectra as jspec
+from tpu_ocean.fft import pallas_fft
 from tpu_ocean.solver import OceanSolver as JaxSolver
 from tpu_ocean_torch import (OCEAN_DEMO, OceanSolver, fields_to_numpy,
                              state_from_numpy)
+from tpu_ocean_torch.fft import planes
 from tests.test_packing import _assert_fields_close
 
 SLICE = dict(fft_backend="pallas", real_state=True, pack_channels=True,
@@ -40,23 +43,33 @@ def _h0_pair(cfg, seed):
     return draw(p_pos), np.conj(draw(p_neg))
 
 
-def _pair(n, length):
+def _pair(n, length, backend="pallas"):
     cfg = OCEAN_DEMO.replace(resolution=n, length=length or OCEAN_DEMO.length)
-    return cfg, JaxSolver(jcfg.OceanConfig(**dataclasses.asdict(cfg)), **SLICE)
+    return cfg, JaxSolver(jcfg.OceanConfig(**dataclasses.asdict(cfg)),
+                          **{**SLICE, "fft_backend": backend})
 
 
-@pytest.mark.parametrize("length", [None, "n"])
-@pytest.mark.parametrize("n", [64, 128])
-def test_step_matches_jax_solver(n, length):
-    cfg, ref = _pair(n, float(n) if length == "n" else None)
+def _ten_steps_against_jax(n, length=None, backend="pallas"):
+    """Both solvers from one injected h0, 10 steps; returns the last states
+    and fields. Inside a transposed_store_cap the JAX solver is built and
+    traced in the natural regime."""
+    cfg, ref = _pair(n, length, backend)
     h0, h0c = _h0_pair(cfg, seed=n)
     js = ref.init(h0=h0, h0_conj=h0c)
-    port = OceanSolver(cfg, device="cpu")
+    port = OceanSolver(cfg, device="cpu", fft_backend=backend)
     ts = state_from_numpy(js, "cpu")
     dt = 1 / 60
     for _ in range(10):
         js, jf = ref.step(js, dt)
         ts, tf = port.step(ts, dt)
+    return js, jf, ts, tf
+
+
+@pytest.mark.parametrize("length", [None, "n"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_step_matches_jax_solver(n, length):
+    js, jf, ts, tf = _ten_steps_against_jax(
+        n, float(n) if length == "n" else None)
     _assert_fields_close(fields_to_numpy(tf), jf, 1e-5)
     # the jitted JAX step contracts φ + ω·dt into one FMA (the eager
     # function, held bit-equal in test_torch_tables, does not): ≤ 1 ulp
@@ -112,7 +125,7 @@ def test_foam_decay_keeps_the_larger_foam():
     dict(cfg=dict(evolution_mode="absolute")),
     dict(cfg=dict(normals_mode="spectral")),
     dict(cfg=dict(precision="bfloat16")),
-    dict(kw=dict(fft_backend="pallas_fused")),
+    dict(kw=dict(fft_backend="pallas_fused", pack_channels=False)),
     dict(kw=dict(fft_backend="reference")),
     dict(kw=dict(eval_mode="direct")),
     dict(kw=dict(real_state=False)),
@@ -138,6 +151,52 @@ def test_sizes_the_kernels_do_not_take_raise(n):
             OceanSolver(cfg, device="cpu")
     else:
         OceanSolver(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_fused_step_matches_jax_fused_solver(n):
+    js, jf, ts, tf = _ten_steps_against_jax(n, backend="pallas_fused")
+    _assert_fields_close(fields_to_numpy(tf), jf, 1e-5)
+    assert int(ts.step) == int(js.step) == 10
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+def test_natural_regime_step_matches_jax_solver(backend, monkeypatch):
+    """N = 128 with both packages' transposed-store cap at 32: the 4096²
+    code path (natural-store row passes, axis −2 column passes)."""
+    monkeypatch.setattr(planes, "MAX_TRANSPOSED_N", 32)
+    with pallas_fft.transposed_store_cap(32):
+        _, jf, _, tf = _ten_steps_against_jax(128, backend=backend)
+    _assert_fields_close(fields_to_numpy(tf), jf, 1e-5)
+
+
+@pytest.mark.parametrize("natural", [False, True])
+def test_fused_step_matches_unfused_step(natural, monkeypatch):
+    """The fused route (f32 in-kernel coefficients) against the unfused one
+    (float64-built pack table) on one h0, within 5e-6·max
+    (tests/test_half_spectrum.py:82-98)."""
+    if natural:
+        monkeypatch.setattr(planes, "MAX_TRANSPOSED_N", 32)
+    cfg = OCEAN_DEMO.replace(resolution=64)
+    h0, h0c = _h0_pair(cfg, seed=3)
+    a = OceanSolver(cfg, device="cpu")
+    b = OceanSolver(cfg, device="cpu", fft_backend="pallas_fused")
+    sa, sb = a.init(h0=h0, h0_conj=h0c), b.init(h0=h0, h0_conj=h0c)
+    for _ in range(3):
+        sa, fa = a.step(sa, 1 / 60)
+        sb, fb = b.step(sb, 1 / 60)
+    _assert_fields_close(fields_to_numpy(fb), fields_to_numpy(fa), 5e-6)
+
+
+def test_default_device_is_the_card():
+    """No device argument means CUDA: with no card the constructor raises
+    (as torch does) instead of running on the CPU."""
+    cfg = OCEAN_DEMO.replace(resolution=64)
+    if torch.cuda.is_available():
+        assert OceanSolver(cfg).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            OceanSolver(cfg)
 
 
 def test_import_does_not_load_jax():

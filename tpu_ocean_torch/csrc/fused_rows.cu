@@ -1,0 +1,203 @@
+// Fused spectrum assembly + row DFT: the evolved, Hermitian-packed spectrum
+// channel is assembled in shared memory and transformed there, so it never
+// makes a round trip through device memory.
+//
+// Replaces: tpu_ocean/ops/fused_spectrum_fft.py,
+//   _fused_kernel (launched by assemble_rowfft) — the transposed store,
+//     entry tpu_fused_rows_transposed;
+//   _fused_rowfft_kernel_natural (launched by assemble_rowfft_natural) —
+//     the natural store, entry tpu_fused_rows_natural.
+// Contract (packed channels, 3 live fields, fft layout):
+//   in  h0r, h0i, h0cr, h0ci, φ: f32 [M, N], contiguous, the rows
+//       row_offset .. row_offset + M − 1 of the N × N grid;
+//       kz: f32 [N], 2π·wrapped(j)/L built in float64 on the host
+//   out channel ch = ch_start + c of the packed spectrum P = (A − iB)·h̃,
+//       row-transformed: (re, im) f32 [C, N, M] transposed or [C, M, N]
+//       natural, as fft_rows.cu stores them.
+// Per point, in f32 and in the order of _assemble_block
+// (fused_spectrum_fft.py:73-116, packed, nch_live = 3):
+//   c, s = cos φ, sin φ
+//   h̃ = ((h0r + h0cr)·c + (h0ci − h0i)·s,  (h0i + h0ci)·c + (h0r − h0cr)·s)
+//   kx = f32(2π/L)·wrapped(row), wrapped(row) = row − N for row ≥ N/2
+//   invk = kx² + kz² < ε² ? 0 : 1/sqrt(kx² + kz²)
+//   a = [ch = 0]·(1 + kx·invk·[row ≠ N/2]),
+//   b = [ch = 1]·dz_sign·kz·invk·[j ≠ N/2]
+//   P = (a·h̃r + b·h̃i,  a·h̃i − b·h̃r)
+// Each product and sum is rounded on its own (no FMA contraction), as the
+// plain version's torch ops round them; sin/cos and the square root are
+// the precise library functions. The Nyquist masks are integer index
+// tests: they select the texels of the JAX package's float compares.
+//
+// What bounds it on the H100: device memory. Five f32 planes in (20 B per
+// point) and one complex channel out (8 B per point): 29.4 MB for a 1024²
+// channel, against ~30 flops of assembly and 5·log2(N) of transform per
+// point.
+//
+// What the design does about that: the loads are the row kernel's, five
+// planes wide: one block reads R whole rows of each input plane with
+// row-contiguous (coalesced) loads, several in flight per thread, and
+// assembles each point straight into the first shared-memory buffer. The
+// Stockham stages and the store are fft_rows.cu's (stockham.cuh), so the
+// block needs the same shared memory as the row kernel: the inputs never
+// sit in shared memory, and N = 8192 fits at R = 1 (192 KB). The TPU
+// kernel visited the channels in an inner grid axis so Mosaic could keep
+// the input block; here each block assembles one channel, and the solver
+// asks for one channel per call.
+
+#include "stockham.cuh"
+
+namespace {
+
+using namespace tpu_fft;
+
+constexpr int kLoadsInFlight = 4;
+
+struct Assembly {
+  float two_pi_over_l;   // f32(2π/L), rounded once on the host
+  float dz_sign;         // −1 with the oracle's sign quirk, else +1
+  float eps2;            // ε·ε in f32
+  int row_offset;        // global row of the batch's first row
+};
+
+__device__ __forceinline__ float2 assemble(float h0r, float h0i, float h0cr,
+                                           float h0ci, float phase, float kz,
+                                           int row, int j, int N, int ch,
+                                           const Assembly& p) {
+  float s, c;
+  sincosf(phase, &s, &c);
+  const float htr = __fadd_rn(__fmul_rn(__fadd_rn(h0r, h0cr), c),
+                              __fmul_rn(__fsub_rn(h0ci, h0i), s));
+  const float hti = __fadd_rn(__fmul_rn(__fadd_rn(h0i, h0ci), c),
+                              __fmul_rn(__fsub_rn(h0r, h0cr), s));
+  const int half = N >> 1;
+  const int wrapped = row < half ? row : row - N;
+  const float kx = __fmul_rn(p.two_pi_over_l, static_cast<float>(wrapped));
+  const float kmag2 = __fadd_rn(__fmul_rn(kx, kx), __fmul_rn(kz, kz));
+  const float invk = kmag2 < p.eps2 ? 0.f : __fdiv_rn(1.f, __fsqrt_rn(kmag2));
+  const float rowmask = wrapped != -half ? 1.f : 0.f;
+  const float colmask = j != half ? 1.f : 0.f;
+  const float rx = __fmul_rn(__fmul_rn(kx, invk), rowmask);
+  const float rz =
+      __fmul_rn(__fmul_rn(__fmul_rn(p.dz_sign, kz), invk), colmask);
+  const float a = __fmul_rn(ch == 0 ? 1.f : 0.f, __fadd_rn(1.f, rx));
+  const float b = __fmul_rn(ch == 1 ? 1.f : 0.f, rz);
+  return make_float2(__fadd_rn(__fmul_rn(a, htr), __fmul_rn(b, hti)),
+                     __fsub_rn(__fmul_rn(a, hti), __fmul_rn(b, htr)));
+}
+
+template <bool kNatural>
+__global__ void __launch_bounds__(kMaxThreads)
+fused_rows_kernel(const float* __restrict__ h0r, const float* __restrict__ h0i,
+                  const float* __restrict__ h0cr,
+                  const float* __restrict__ h0ci,
+                  const float* __restrict__ phase,
+                  const float* __restrict__ kz, float* __restrict__ out_re,
+                  float* __restrict__ out_im,
+                  const float2* __restrict__ twiddles, int M, int N,
+                  int log2n, int R, int ch_start, Assembly p) {
+  extern __shared__ float2 smem[];
+  const int stride = N + 1;
+  float2* src = smem;
+  float2* dst = smem + R * stride;
+  float2* tw = smem + 2 * R * stride;
+
+  const int ch = ch_start + blockIdx.y;
+  const int m0 = blockIdx.x * R;
+
+  load_twiddles(tw, twiddles, N);
+
+  // R rows of each input plane are one contiguous run from row m0. Rows
+  // past M (the ragged last block) are zero and never stored.
+  const size_t first = static_cast<size_t>(m0) * N;
+  const int total = R * N;
+  const int valid = (M - m0 < R ? M - m0 : R) * N;
+  for (int base = threadIdx.x; base < total;
+       base += kLoadsInFlight * blockDim.x) {
+    float v[kLoadsInFlight][5];
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx < valid) {
+        v[u][0] = h0r[first + idx];
+        v[u][1] = h0i[first + idx];
+        v[u][2] = h0cr[first + idx];
+        v[u][3] = h0ci[first + idx];
+        v[u][4] = phase[first + idx];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx < total) {
+        const int r = idx >> log2n;
+        const int j = idx & (N - 1);
+        src[r * stride + j] =
+            idx < valid ? assemble(v[u][0], v[u][1], v[u][2], v[u][3],
+                                   v[u][4], kz[j], p.row_offset + m0 + r, j,
+                                   N, ch, p)
+                        : make_float2(0.f, 0.f);
+      }
+    }
+  }
+  __syncthreads();
+
+  const float2* res = stockham_stages(src, dst, tw, R, N, log2n);
+  const size_t plane = static_cast<size_t>(M) * N;
+  store_rows<kNatural>(res, out_re + blockIdx.y * plane,
+                       out_im + blockIdx.y * plane, M, N, log2n, R, m0);
+}
+
+template <bool kNatural>
+int launch(const void* h0r, const void* h0i, const void* h0cr,
+           const void* h0ci, const void* phase, const void* kz, void* out_re,
+           void* out_im, const void* twiddles, int channels, int ch_start,
+           int m, int n, int rows, int row_offset, float two_pi_over_l,
+           float dz_sign, float epsilon, void* stream) {
+  const int smem = smem_bytes(rows, n);
+  cudaError_t err = allow_smem(fused_rows_kernel<kNatural>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Assembly p{two_pi_over_l, dz_sign, epsilon * epsilon, row_offset};
+  const dim3 grid((m + rows - 1) / rows, channels);
+  fused_rows_kernel<kNatural><<<grid, block_threads(rows, n), smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(h0r), static_cast<const float*>(h0i),
+      static_cast<const float*>(h0cr), static_cast<const float*>(h0ci),
+      static_cast<const float*>(phase), static_cast<const float*>(kz),
+      static_cast<float*>(out_re), static_cast<float*>(out_im),
+      static_cast<const float2*>(twiddles), m, n, log2_of(n), rows, ch_start,
+      p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each entry launches its kernel on `stream` and returns cudaGetLastError()
+// as an int. The caller checks: n a power of two >= 16, rows a power of two
+// that keeps the shared memory within the card's limit, contiguous f32
+// [m, n] input planes, ch_start + channels <= 2.
+int tpu_fused_rows_transposed(const void* h0r, const void* h0i,
+                              const void* h0cr, const void* h0ci,
+                              const void* phase, const void* kz, void* out_re,
+                              void* out_im, const void* twiddles,
+                              int channels, int ch_start, int m, int n,
+                              int rows, int row_offset, float two_pi_over_l,
+                              float dz_sign, float epsilon, void* stream) {
+  return launch<false>(h0r, h0i, h0cr, h0ci, phase, kz, out_re, out_im,
+                       twiddles, channels, ch_start, m, n, rows, row_offset,
+                       two_pi_over_l, dz_sign, epsilon, stream);
+}
+
+int tpu_fused_rows_natural(const void* h0r, const void* h0i, const void* h0cr,
+                           const void* h0ci, const void* phase, const void* kz,
+                           void* out_re, void* out_im, const void* twiddles,
+                           int channels, int ch_start, int m, int n, int rows,
+                           int row_offset, float two_pi_over_l, float dz_sign,
+                           float epsilon, void* stream) {
+  return launch<true>(h0r, h0i, h0cr, h0ci, phase, kz, out_re, out_im,
+                      twiddles, channels, ch_start, m, n, rows, row_offset,
+                      two_pi_over_l, dz_sign, epsilon, stream);
+}
+
+}  // extern "C"

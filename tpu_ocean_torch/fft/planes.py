@@ -1,16 +1,24 @@
 """Inverse 2-D DFTs on (re, im) f32 planes: the full transform and the
-half-spectrum (C2R) route.
+half-spectrum (C2R) route, in two storage regimes.
 
 JAX counterpart: ``tpu_ocean/fft/pallas_fft.py`` (``_fft1d_transposed``,
-``ifft2_planes_auto``, ``ifft2_planes_half``, ``_c2r_combine``). Every pass
-is ``fft1d_transposed``: a row DFT whose output is stored transposed, so a
-second call transforms the columns and restores the orientation.
+``fft1d_natural_large``, ``ifft2_planes_auto``, ``ifft2_planes_half``,
+``_c2r_combine``, ``half_column_pass``) and ``tpu_ocean/fft/matmul.py``
+(``ifft1d_planes_axis2``). Two row-DFT kernels carry every pass:
 
-On a CUDA tensor ``fft1d_transposed`` launches the hand-written kernel
+- ``fft1d_transposed``: a row DFT whose output is stored transposed, so a
+  second call transforms the columns and restores the orientation;
+- ``fft1d_natural_large``: the same row DFT stored in natural order, the
+  row pass of the large-N regime (N > ``MAX_TRANSPOSED_N``), which is
+  followed by a column pass along axis −2 (``ifft1d_planes_axis2``).
+
+On a CUDA tensor each launches its hand-written kernel
 (``csrc/fft_rows.cu``) and nothing else; on a CPU tensor it runs its plain
 version (``torch.fft``). The TPU package's size gates (Mosaic lane rules,
-VMEM caps) have no counterpart here: the kernel covers every power-of-two
-N in [MIN_N, MAX_N], and the wrapper refuses any other N.
+VMEM caps) have no counterpart here: the kernels cover every power-of-two
+N in [MIN_N, MAX_N], and the wrappers refuse any other N. Only the regime
+switch is kept, as ``MAX_TRANSPOSED_N``, so that the port pairs like with
+like against the JAX package.
 """
 
 from __future__ import annotations
@@ -22,42 +30,72 @@ import torch
 
 from tpu_ocean_torch import _build
 
-#: transform lengths the row kernel takes: powers of two in this range. The
+#: transform lengths the row kernels take: powers of two in this range. The
 #: upper end is where two shared-memory buffers of one row plus the twiddle
 #: table still fit one block (the card's 227 KB).
 MIN_N = 16
 MAX_N = 8192
+#: shared memory one block may use on the H100 (bytes)
+SMEM_LIMIT = 232448
+#: above this N both 2-D routes take the natural regime (natural-store row
+#: pass, then a column pass along axis −2), the crossover of the JAX
+#: package (``MAX_PALLAS_N``/``MAX_FUSED_N``, pallas_fft.py:308-309). Kept
+#: as the JAX crossover until a measurement on the card moves it.
+MAX_TRANSPOSED_N = 2048
+#: the most rows a transposed-store block takes: R = 8 rows give 32-byte
+#: runs in the transposed store
+TRANSPOSED_MAX_ROWS = 8
+#: the most points (rows × N) a natural-store block takes. Its store is
+#: coalesced at any R; swept on the H100 (python -m
+#: tpu_ocean_torch.tune_rows), the fastest blocks held about 4096 points:
+#: R = 4 at N = 1024, R = 2 at N = 2048, R = 1 at N = 4096
+NATURAL_BLOCK_POINTS = 4096
 
 
 def check_size(n: int) -> None:
-    """Raise ValueError unless ``n`` is a transform length the kernel takes."""
+    """Raise ValueError unless ``n`` is a transform length the kernels take."""
     if not (MIN_N <= n <= MAX_N and n & (n - 1) == 0):
-        raise ValueError(f"fft1d_transposed needs a power-of-two length in "
+        raise ValueError(f"the row-DFT kernels need a power-of-two length in "
                          f"[{MIN_N}, {MAX_N}], got {n}")
 
 
-def rows_per_block(c: int, m: int, n: int, sms: int) -> int:
+def shared_bytes(rows: int, n: int) -> int:
+    """Dynamic shared memory of one row-DFT block (csrc/stockham.cuh):
+    two buffers of ``rows`` rows of n + 1 complex values, and n − 1
+    twiddles. The fused kernels use the same."""
+    return (2 * rows * (n + 1) + n - 1) * 8
+
+
+def max_rows(n: int, natural: bool) -> int:
+    """The most rows per block of the transposed or the natural store."""
+    if natural:
+        return max(1, NATURAL_BLOCK_POINTS // n)
+    return TRANSPOSED_MAX_ROWS
+
+
+def rows_per_block(c: int, m: int, n: int, sms: int,
+                   cap: int = TRANSPOSED_MAX_ROWS) -> int:
     """Rows one kernel block transforms: the power of two that gives about
-    one block per SM for a [c, m, n] batch, at most 8 (32-byte transposed-
-    store runs) and at most what fits two buffers in shared memory. A block
-    takes about as long whatever its row count, so a batch that fills fewer
-    SMs takes fewer rows per block (measured on the H100: the [1, 512, 1024]
-    half-row pass runs faster at 4, the one-row Nyquist pass at 1)."""
-    cap = 8 if n <= 1024 else 8192 // n
+    one block per SM for a [c, m, n] batch, at most ``cap`` (max_rows) and
+    at most what fits two buffers in shared memory. A block takes about as
+    long whatever its row count, so a batch that fills fewer SMs takes
+    fewer rows per block (measured on the H100: the [1, 512, 1024] half-row
+    pass runs faster at 4, the one-row Nyquist pass at 1)."""
     target = -(-c * m // sms)
     rows = 1
-    while rows < target and rows < cap:
+    while (rows < target and rows < cap
+           and shared_bytes(2 * rows, n) <= SMEM_LIMIT):
         rows *= 2
     return rows
 
 
 @functools.lru_cache(maxsize=8)
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=32)
-def _twiddles(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+def twiddles(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
     """[N − 1, 2] f32 (cos, sin): the Stockham stage with span ns uses
     e^{±2πi k/(2ns)}, k < ns, stored at rows ns − 1 + k; built in float64."""
     sign = 1.0 if inverse else -1.0
@@ -82,17 +120,53 @@ def _check_planes(re: torch.Tensor, im: torch.Tensor) -> None:
         raise ValueError("planes are empty")
 
 
+def _fft_plain(re, im, inverse: bool):
+    z = torch.complex(re, im)
+    if inverse:
+        return torch.fft.ifft(z, dim=-1, norm="forward")   # no 1/N on the inverse
+    return torch.fft.fft(z, dim=-1)
+
+
 def fft1d_transposed_plain(re: torch.Tensor, im: torch.Tensor,
                            inverse: bool = True):
     """Plain version of fft1d_transposed: torch.fft along the last axis,
     unnormalized, transposed and split into planes."""
-    z = torch.complex(re, im)
-    if inverse:
-        f = torch.fft.ifft(z, dim=-1, norm="forward")   # no 1/N on the inverse
-    else:
-        f = torch.fft.fft(z, dim=-1)
-    f = f.transpose(-1, -2)
+    f = _fft_plain(re, im, inverse).transpose(-1, -2)
     return f.real.contiguous(), f.imag.contiguous()
+
+
+def fft1d_natural_large_plain(re: torch.Tensor, im: torch.Tensor,
+                              inverse: bool = True):
+    """Plain version of fft1d_natural_large: torch.fft along the last axis,
+    unnormalized, split into planes."""
+    f = _fft_plain(re, im, inverse)
+    return f.real.contiguous(), f.imag.contiguous()
+
+
+def _launch_rows(entry: str, re, im, inverse: bool, out_shape, cap: int):
+    kernels = _build.load()
+    c, m, n = re.shape
+    out_re = torch.empty(out_shape, dtype=torch.float32, device=re.device)
+    out_im = torch.empty_like(out_re)
+    tw = twiddles(n, bool(inverse), re.device)
+    with torch.cuda.device(re.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(kernels.lib, entry)(
+            re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+            tw.data_ptr(), c, m, n,
+            rows_per_block(c, m, n, sm_count(re.device), cap), stream)
+    kernels.check(err, entry)
+    return out_re, out_im
+
+
+def on_cpu(fn_name: str, re: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain version runs); False for a CUDA
+    tensor (the kernel launches); raises for any other device."""
+    if re.device.type == "cpu":
+        return True
+    if re.device.type != "cuda":
+        raise ValueError(f"{fn_name} runs on cpu or cuda, not {re.device}")
+    return False
 
 
 def fft1d_transposed(re: torch.Tensor, im: torch.Tensor, inverse: bool = True):
@@ -102,35 +176,66 @@ def fft1d_transposed(re: torch.Tensor, im: torch.Tensor, inverse: bool = True):
     _check_planes(re, im)
     c, m, n = re.shape
     check_size(n)
-    if re.device.type == "cpu":
+    if on_cpu("fft1d_transposed", re):
         return fft1d_transposed_plain(re, im, inverse)
-    if re.device.type != "cuda":
-        raise ValueError(f"fft1d_transposed runs on cpu or cuda, not "
-                         f"{re.device}")
-    kernels = _build.load()
-    out_re = torch.empty((c, n, m), dtype=torch.float32, device=re.device)
-    out_im = torch.empty_like(out_re)
-    tw = _twiddles(n, bool(inverse), re.device)
-    with torch.cuda.device(re.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = kernels.lib.tpu_fft_rows_transposed(
-            re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-            tw.data_ptr(), c, m, n,
-            rows_per_block(c, m, n, _sm_count(re.device)), stream)
-    kernels.check(err, "fft_rows_transposed")
+    out = _launch_rows("tpu_fft_rows_transposed", re, im, inverse, (c, n, m),
+                       max_rows(n, natural=False))
     fft1d_transposed.launches += 1
-    return out_re, out_im
+    return out
+
+
+def fft1d_natural_large(re: torch.Tensor, im: torch.Tensor,
+                        inverse: bool = True):
+    """The same row DFT as fft1d_transposed, stored in natural order:
+    (re, im) f32 [C, M, N] → [C, M, N], out[c, m, k] = Σ_n x[c, m, n]·
+    e^{±2πi·nk/N}. The row pass of the natural regime."""
+    _check_planes(re, im)
+    check_size(re.shape[-1])
+    if on_cpu("fft1d_natural_large", re):
+        return fft1d_natural_large_plain(re, im, inverse)
+    out = _launch_rows("tpu_fft_rows_natural", re, im, inverse, re.shape,
+                       max_rows(re.shape[-1], natural=True))
+    fft1d_natural_large.launches += 1
+    return out
 
 
 #: kernel launches since the last reset (CPU calls do not count)
 fft1d_transposed.launches = 0
+fft1d_natural_large.launches = 0
+
+
+def ifft1d_planes_axis2(re: torch.Tensor, im: torch.Tensor,
+                        inverse: bool = True):
+    """Unnormalized DFT along axis −2 of (re, im) f32 [C, M, N] → [C, M, N]:
+    the natural regime's column pass. The JAX package runs it as an
+    einsum four-step outside Pallas; here it is the transposed row kernel
+    on the swapped axes, whose transposed store restores the orientation
+    (one transposing copy of each plane before it)."""
+    return fft1d_transposed(re.transpose(-1, -2).contiguous(),
+                            im.transpose(-1, -2).contiguous(), inverse)
+
+
+def half_column_pass(vr: torch.Tensor, vi: torch.Tensor, m: int,
+                     inverse: bool = True):
+    """The half channel's column transform, length ``m`` = N/2 along axis
+    −2 of [C, m, N]. The JAX package dispatches between engines here by
+    the TPU's VMEM envelope; the row kernel takes every length the solver
+    needs, so this is always the kernel column."""
+    if vr.shape[-2] != m:
+        raise ValueError(f"half_column_pass: axis −2 has {vr.shape[-2]} "
+                         f"rows, not m={m}")
+    return ifft1d_planes_axis2(vr, vi, inverse)
 
 
 def ifft2_planes_auto(re: torch.Tensor, im: torch.Tensor, inverse: bool = True):
     """Full 2-D unnormalized transform of (re, im) [C, N, N] → [C, N, N]:
-    two transposed row passes."""
-    re, im = fft1d_transposed(re, im, inverse)
-    return fft1d_transposed(re, im, inverse)
+    two transposed row passes up to MAX_TRANSPOSED_N; beyond, a natural-
+    store row pass and the column pass along axis −2."""
+    if re.shape[-1] <= MAX_TRANSPOSED_N:
+        re, im = fft1d_transposed(re, im, inverse)
+        return fft1d_transposed(re, im, inverse)
+    re, im = fft1d_natural_large(re, im, inverse)
+    return ifft1d_planes_axis2(re, im, inverse)
 
 
 @functools.lru_cache(maxsize=32)
@@ -142,16 +247,46 @@ def _c2r_twiddles(m: int, inverse: bool, device: torch.device):
             torch.from_numpy(w.imag.astype(np.float32)).to(device))
 
 
-def _c2r_combine(yr, yi, nyqr, nyqi, inverse: bool):
-    """V[k] = (Y + conj(G)) + i·w·(Y − conj(G)) along the LAST axis, with
-    G[0] = the Nyquist planes (a size-1 last axis) and G[k] = Y[M − k]."""
-    wc, ws = _c2r_twiddles(yr.shape[-1], bool(inverse), yr.device)
-    gr = torch.cat([nyqr, torch.flip(yr[..., 1:], (-1,))], dim=-1)
-    gi = torch.cat([nyqi, torch.flip(yi[..., 1:], (-1,))], dim=-1)
+def _c2r_combine(yr, yi, nyqr, nyqi, inverse: bool, axis: int = -1):
+    """V[k] = (Y + conj(G)) + i·w·(Y − conj(G)) along ``axis`` (the k1 axis
+    of the half row pass's output), with G[0] = the Nyquist planes (size 1
+    at ``axis``) and G[k] = Y[M − k]."""
+    ax = axis % yr.dim()
+    m = yr.shape[ax]
+    shape = [1] * yr.dim()
+    shape[ax] = m
+    wc, ws = (w.reshape(shape)
+              for w in _c2r_twiddles(m, bool(inverse), yr.device))
+    gr = torch.cat([nyqr, torch.flip(yr.narrow(ax, 1, m - 1), (ax,))], dim=ax)
+    gi = torch.cat([nyqi, torch.flip(yi.narrow(ax, 1, m - 1), (ax,))], dim=ax)
     pr, pi = yr + gr, yi - gi
     qr, qi = yr - gr, yi + gi
     return (pr - wc * qi - ws * qr,
             pi + wc * qr - ws * qi)
+
+
+def c2r_fold_columns(yr, yi, nyq_re, nyq_im, natural: bool,
+                     inverse: bool = True):
+    """The half route after its row pass over spectral rows 0..M−1: the
+    Nyquist spectral row's own row pass, the C2R fold, the length-M column
+    pass and the even/odd interleave → the real field [C, 2M, N].
+
+    ``yr, yi`` are the row-transformed half rows, [C, N, M] (transposed
+    regime: k1 is the last axis and the fold runs on it) or [C, M, N]
+    (natural regime: the fold runs on axis −2); ``nyq_re, nyq_im`` are the
+    untransformed Nyquist row [C, 1, N]. In the transposed regime that
+    row's pass yields [C, N, 1], its transposed form with no copy."""
+    if natural:
+        nyr, nyi = fft1d_natural_large(nyq_re, nyq_im, inverse)    # [C, 1, N]
+        vr, vi = _c2r_combine(yr, yi, nyr, nyi, inverse, axis=-2)
+        xr, xi = half_column_pass(vr, vi, yr.shape[-2], inverse)
+    else:
+        nyr, nyi = fft1d_transposed(nyq_re, nyq_im, inverse)       # [C, N, 1]
+        vr, vi = _c2r_combine(yr, yi, nyr, nyi, inverse, axis=-1)
+        xr, xi = fft1d_transposed(vr, vi, inverse)                 # [C, M, N]
+    c, m, n = xr.shape
+    # x[2m] = Re v[m], x[2m+1] = Im v[m]
+    return torch.stack([xr, xi], dim=2).reshape(c, 2 * m, n)
 
 
 def ifft2_planes_half(re: torch.Tensor, im: torch.Tensor, inverse: bool = True):
@@ -162,10 +297,8 @@ def ifft2_planes_half(re: torch.Tensor, im: torch.Tensor, inverse: bool = True):
         v[m] = x[2m] + i·x[2m+1] = Σ_{k<M} V[k]·e^{+2πi mk/M},
         V[k] = P[k] + i·w[k]·Q[k], w[k] = e^{+2πi k/N},
         P = Y + conj(G), Q = Y − conj(G), G[k] = Y[M−k], G[0] = Y[M].
-    After the first (transposed) pass k1 is the LAST axis, so the fold runs
-    on axis −1; the Nyquist row's [C, 1, N] pass yields [C, N, 1], which is
-    its transposed form with no copy. The column pass has length M, and the
-    even and odd output rows interleave."""
+    The column pass has length M, and the even and odd output rows
+    interleave (c2r_fold_columns). Both regimes, as ifft2_planes_auto."""
     if not inverse:
         raise NotImplementedError("the C2R fold is derived for the inverse "
                                   "transform (the solver's only direction)")
@@ -174,11 +307,8 @@ def ifft2_planes_half(re: torch.Tensor, im: torch.Tensor, inverse: bool = True):
     if 2 * m != n:
         raise ValueError(f"half-spectrum input must carry N/2+1 rows; "
                          f"got {mp1} for N={n}")
-    nyr, nyi = fft1d_transposed(re[:, m:].contiguous(), im[:, m:].contiguous(),
-                                inverse)                          # [C, N, 1]
-    yr, yi = fft1d_transposed(re[:, :m].contiguous(), im[:, :m].contiguous(),
-                              inverse)                            # [C, N, M]
-    vr, vi = _c2r_combine(yr, yi, nyr, nyi, inverse)
-    xr, xi = fft1d_transposed(vr, vi, inverse)                    # [C, M, N]
-    # x[2m] = Re v[m], x[2m+1] = Im v[m]
-    return torch.stack([xr, xi], dim=2).reshape(c, n, n)
+    natural = n > MAX_TRANSPOSED_N
+    rows = fft1d_natural_large if natural else fft1d_transposed
+    yr, yi = rows(re[:, :m].contiguous(), im[:, :m].contiguous(), inverse)
+    return c2r_fold_columns(yr, yi, re[:, m:].contiguous(),
+                            im[:, m:].contiguous(), natural, inverse)

@@ -1,0 +1,269 @@
+"""Fused spectrum assembly + row DFT, and the 2-D routes built on it.
+
+JAX counterpart: ``tpu_ocean/ops/fused_spectrum_fft.py``
+(``assemble_rowfft``, ``assemble_rowfft_natural``, ``ifft2_fused_planes``,
+``ifft2_fused_planes_half``). The evolved, Hermitian-packed spectrum
+channel is assembled from the h0 pair and the phase inside the row-DFT
+kernel, so it never makes a round trip through device memory:
+
+- ``assemble_rowfft``: assembly + row DFT, transposed store → [ch, N, M];
+- ``assemble_rowfft_natural``: the same, natural store → [ch, M, N], the
+  row pass of the natural regime (N > ``planes.MAX_TRANSPOSED_N``).
+
+On a CUDA tensor each launches its hand-written kernel
+(``csrc/fused_rows.cu``) and nothing else; on a CPU tensor it runs its
+plain version: ``_assemble_plain`` (the kernel's f32 arithmetic in torch,
+in the order of the JAX ``_assemble_block``; it does not use the float64
+``pack`` table, which differs in the last bits) followed by ``torch.fft``.
+
+Only the packed channel set with 3 live fields (stencil normals) is
+ported: ``nch_live=5`` (spectral normals) and ``packed=False`` raise
+NotImplementedError (ROADMAP.md Queue 1 item 7). The JAX package's
+TPU-only reroutes (the ``n % 256`` and ``HALF_MIN_PALLAS_N`` guards) are
+Mosaic rules and have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from tpu_ocean_torch import _build
+from tpu_ocean_torch.evolve import assemble_spectra_packed_real
+from tpu_ocean_torch.fft import planes
+
+#: live packed channels with stencil normals: (height + i·disp_x), disp_z
+PACKED_CHANNELS = 2
+
+
+@functools.lru_cache(maxsize=16)
+def _kz_table(n: int, length: float, device: torch.device) -> torch.Tensor:
+    """kz along a row, [N] f32: 2π·wrapped(j)/L built in float64 and cast
+    once (fused_spectrum_fft.py:327-331)."""
+    idx = np.arange(n, dtype=np.float64)
+    wrapped = np.where(idx < n / 2.0, idx, idx - n)
+    return torch.from_numpy((2.0 * np.pi * wrapped / length)
+                            .astype(np.float32)).to(device)
+
+
+def _check_inputs(h0_planes, phase, ch_start, ch_count, packed, nch_live):
+    if not packed or nch_live != 3:
+        raise NotImplementedError(
+            f"the fused kernels are ported for packed=True, nch_live=3 only "
+            f"(got packed={packed}, nch_live={nch_live}); the rest is not "
+            f"ported to tpu_ocean_torch yet (ROADMAP.md Queue 1 item 7)")
+    if not (0 <= ch_start and ch_count >= 1
+            and ch_start + ch_count <= PACKED_CHANNELS):
+        raise ValueError(f"channels {ch_start}..{ch_start + ch_count - 1} "
+                         f"outside the {PACKED_CHANNELS} packed channels")
+    inputs = (*h0_planes, phase)
+    if len(inputs) != 5:
+        raise ValueError("h0_planes must be the 4 planes (h0r, h0i, h0cr, h0ci)")
+    for p in inputs:
+        if p.dtype != torch.float32:
+            raise TypeError(f"inputs must be float32, got {p.dtype}")
+        if p.dim() != 2 or p.shape != phase.shape or p.numel() == 0:
+            raise ValueError(f"inputs must be five non-empty [M, N] planes of "
+                             f"one shape, got {[tuple(q.shape) for q in inputs]}")
+        if p.device != phase.device:
+            raise ValueError(f"inputs on two devices: {phase.device}, {p.device}")
+        if not p.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+    if phase.shape[1] % 2:
+        raise ValueError(f"N must be even, got {phase.shape[1]}")
+
+
+def _assemble_plain(h0_planes, phase, length: float, dz_sign: float, *,
+                    epsilon: float, row_offset: int, ch: int):
+    """Packed channel ``ch`` of P = (A − iB)·h̃ over the rows of ``phase``
+    ([M, N], global rows row_offset..), computed as the kernel computes it:
+    (re, im) f32 [M, N]."""
+    h0r, h0i, h0cr, h0ci = h0_planes
+    m, n = phase.shape
+    dev = phase.device
+    c, s = torch.cos(phase), torch.sin(phase)
+    htr = (h0r + h0cr) * c + (h0ci - h0i) * s
+    hti = (h0i + h0ci) * c + (h0r - h0cr) * s
+    row = np.arange(m) + int(row_offset)
+    wrapped = np.where(row < n // 2, row, row - n)
+    # f32(2π/L)·f32(wrapped), one f32 rounding, as in the kernel
+    kx = np.float32(2.0 * np.pi / length) * wrapped.astype(np.float32)
+    kx = torch.from_numpy(kx[:, None]).to(dev)
+    kz = _kz_table(n, float(length), dev)[None, :]
+    rowmask = torch.from_numpy(
+        (wrapped != -(n // 2)).astype(np.float32)[:, None]).to(dev)
+    colmask = (torch.arange(n, device=dev) != n // 2).to(torch.float32)[None, :]
+    kmag2 = kx * kx + kz * kz
+    eps = np.float32(epsilon)
+    invk = torch.where(kmag2 < float(eps * eps), 0.0, torch.rsqrt(kmag2))
+    rx = kx * invk * rowmask
+    rz = float(np.float32(dz_sign)) * kz * invk * colmask
+    a = float(ch == 0) * (1.0 + rx)
+    b = float(ch == 1) * rz
+    return a * htr + b * hti, a * hti - b * htr
+
+
+def _fused_plain(natural: bool, h0_planes, phase, length, dz_sign, *,
+                 inverse, epsilon, row_offset, ch_start, ch_count):
+    row_fft = (planes.fft1d_natural_large_plain if natural
+               else planes.fft1d_transposed_plain)
+    outs = [row_fft(*(p[None] for p in _assemble_plain(
+                h0_planes, phase, length, dz_sign, epsilon=epsilon,
+                row_offset=row_offset, ch=ch)), inverse)
+            for ch in range(ch_start, ch_start + ch_count)]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def assemble_rowfft_plain(h0_planes, phase, length: float, dz_sign: float, *,
+                          epsilon: float, ch_count: int, inverse: bool = True,
+                          row_offset: int = 0, ch_start: int = 0,
+                          packed: bool = True, nch_live: int = 3):
+    """Plain version of assemble_rowfft."""
+    _check_inputs(h0_planes, phase, ch_start, ch_count, packed, nch_live)
+    return _fused_plain(False, h0_planes, phase, length, dz_sign,
+                        inverse=inverse, epsilon=epsilon,
+                        row_offset=row_offset, ch_start=ch_start,
+                        ch_count=ch_count)
+
+
+def assemble_rowfft_natural_plain(h0_planes, phase, length: float,
+                                  dz_sign: float, *, epsilon: float,
+                                  ch_count: int, inverse: bool = True,
+                                  row_offset: int = 0, ch_start: int = 0,
+                                  packed: bool = True, nch_live: int = 3):
+    """Plain version of assemble_rowfft_natural."""
+    _check_inputs(h0_planes, phase, ch_start, ch_count, packed, nch_live)
+    return _fused_plain(True, h0_planes, phase, length, dz_sign,
+                        inverse=inverse, epsilon=epsilon,
+                        row_offset=row_offset, ch_start=ch_start,
+                        ch_count=ch_count)
+
+
+def _launch(entry: str, natural: bool, h0_planes, phase, length, dz_sign, *,
+            inverse, epsilon, row_offset, ch_start, ch_count):
+    m, n = phase.shape
+    planes.check_size(n)
+    dev = phase.device
+    kernels = _build.load()
+    out_shape = (ch_count, m, n) if natural else (ch_count, n, m)
+    out_re = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    out_im = torch.empty_like(out_re)
+    kz = _kz_table(n, float(length), dev)
+    tw = planes.twiddles(n, bool(inverse), dev)
+    rows = planes.rows_per_block(ch_count, m, n, planes.sm_count(dev),
+                                 planes.max_rows(n, natural))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(kernels.lib, entry)(
+            *(p.data_ptr() for p in (*h0_planes, phase)), kz.data_ptr(),
+            out_re.data_ptr(), out_im.data_ptr(), tw.data_ptr(),
+            ch_count, ch_start, m, n, rows, int(row_offset),
+            float(np.float32(2.0 * np.pi / length)),
+            float(np.float32(dz_sign)), float(np.float32(epsilon)), stream)
+    kernels.check(err, entry)
+    return out_re, out_im
+
+
+def assemble_rowfft(h0_planes, phase, length: float, dz_sign: float, *,
+                    epsilon: float, ch_count: int, inverse: bool = True,
+                    row_offset: int = 0, ch_start: int = 0,
+                    packed: bool = True, nch_live: int = 3):
+    """(h0r, h0i, h0cr, h0ci) f32 [M, N] + phase [M, N] → packed channels
+    ch_start .. ch_start + ch_count − 1, assembled and row-transformed,
+    stored TRANSPOSED: (re, im) f32 [ch_count, N, M]. ``row_offset`` is the
+    global row of the batch's first row; wavevectors come from ``length``
+    (fft layout); ``dz_sign`` = −1 with the oracle's sign quirk."""
+    _check_inputs(h0_planes, phase, ch_start, ch_count, packed, nch_live)
+    kw = dict(inverse=inverse, epsilon=epsilon, row_offset=row_offset,
+              ch_start=ch_start, ch_count=ch_count)
+    if planes.on_cpu("assemble_rowfft", phase):
+        return _fused_plain(False, h0_planes, phase, length, dz_sign, **kw)
+    out = _launch("tpu_fused_rows_transposed", False, h0_planes, phase,
+                  length, dz_sign, **kw)
+    assemble_rowfft.launches += 1
+    return out
+
+
+def assemble_rowfft_natural(h0_planes, phase, length: float, dz_sign: float,
+                            *, epsilon: float, ch_count: int,
+                            inverse: bool = True, row_offset: int = 0,
+                            ch_start: int = 0, packed: bool = True,
+                            nch_live: int = 3):
+    """assemble_rowfft with a NATURAL-order store: (re, im) f32
+    [ch_count, M, N], for the natural regime's column pass along axis −2."""
+    _check_inputs(h0_planes, phase, ch_start, ch_count, packed, nch_live)
+    kw = dict(inverse=inverse, epsilon=epsilon, row_offset=row_offset,
+              ch_start=ch_start, ch_count=ch_count)
+    if planes.on_cpu("assemble_rowfft_natural", phase):
+        return _fused_plain(True, h0_planes, phase, length, dz_sign, **kw)
+    out = _launch("tpu_fused_rows_natural", True, h0_planes, phase, length,
+                  dz_sign, **kw)
+    assemble_rowfft_natural.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (CPU calls do not count)
+assemble_rowfft.launches = 0
+assemble_rowfft_natural.launches = 0
+
+
+def ifft2_fused_planes(h0_planes, phase, length: float, dz_sign: float, *,
+                       epsilon: float, row_offset: int = 0,
+                       ch_count: int = PACKED_CHANNELS, packed: bool = True,
+                       nch_live: int = 3):
+    """Fused 2-D unnormalized inverse transform of the first ``ch_count``
+    packed channels: (re, im) f32 [ch_count, N, N]. Transposed regime: the
+    fused transposed-store row pass and a transposed column pass; natural
+    regime (N > MAX_TRANSPOSED_N): the fused natural-store row pass and the
+    column pass along axis −2."""
+    kw = dict(epsilon=epsilon, row_offset=row_offset, ch_count=ch_count,
+              packed=packed, nch_live=nch_live)
+    if phase.shape[-1] > planes.MAX_TRANSPOSED_N:
+        re, im = assemble_rowfft_natural(h0_planes, phase, length, dz_sign, **kw)
+        return planes.ifft1d_planes_axis2(re, im)
+    re, im = assemble_rowfft(h0_planes, phase, length, dz_sign, **kw)
+    return planes.fft1d_transposed(re, im)
+
+
+def ifft2_fused_planes_half(h0_planes, phase, length: float, dz_sign: float,
+                            pack_nyq, *, epsilon: float,
+                            ch_count: int = PACKED_CHANNELS,
+                            nch_live: int = 3):
+    """Fused-assembly twin of planes.ifft2_planes_half for the packed
+    channel set: returns (re_full, im_full) f32 [ch_count − 1, N, N] and
+    ``last`` f32 [N, N], the real field of the last packed channel.
+
+    The first ch_count − 1 channels take the full fused pipeline. The last
+    channel's spectrum is exactly Hermitian (A = 0 in the packed
+    coefficients, after symmetrize), so its fused row pass covers spectral
+    rows 0..N/2−1 only (the first N/2 rows of the inputs, row_offset 0);
+    the Nyquist spectral row N/2 is assembled in torch from ``pack_nyq``
+    (row N/2 of the float64-built packed table, [2P, 1, N]); then the C2R
+    fold, the length-N/2 column pass and the interleave
+    (planes.c2r_fold_columns). Both regimes, as ifft2_fused_planes."""
+    if nch_live != 3:
+        raise NotImplementedError(
+            f"nch_live={nch_live} (spectral normals) is not ported to "
+            f"tpu_ocean_torch yet (ROADMAP.md Queue 1 item 7)")
+    n = phase.shape[-1]
+    if phase.shape != (n, n):
+        raise ValueError(f"phase must be [N, N], got {tuple(phase.shape)}")
+    mh = n // 2
+    natural = n > planes.MAX_TRANSPOSED_N
+    row_pass = assemble_rowfft_natural if natural else assemble_rowfft
+    kw = dict(epsilon=epsilon, nch_live=nch_live)
+
+    re_f, im_f = ifft2_fused_planes(h0_planes, phase, length, dz_sign,
+                                    ch_count=ch_count - 1, **kw)
+    # half channel: fused row pass over the Hermitian half 0..N/2−1 (the
+    # leading rows of contiguous planes are contiguous views)
+    yr, yi = row_pass(tuple(p[:mh] for p in h0_planes), phase[:mh], length,
+                      dz_sign, ch_start=ch_count - 1, ch_count=1, **kw)
+    # Nyquist spectral row (global row N/2): one-row torch assembly
+    nr, ni = assemble_spectra_packed_real(
+        tuple(p[mh:mh + 1] for p in h0_planes), phase[mh:mh + 1], pack_nyq)
+    last = planes.c2r_fold_columns(yr, yi, nr[-1:].contiguous(),
+                                   ni[-1:].contiguous(), natural)
+    return re_f, im_f, last[0]

@@ -1,21 +1,35 @@
 """The ocean solver: init() and step() over an all-f32 plane state.
 
 JAX counterpart: ``tpu_ocean/solver.py`` (``OceanSolver`` with
-``fft_backend="pallas", real_state=True, pack_channels=True,
-half_spectrum=True, pallas_fields=True``: ``_step_impl_real`` →
-``_fields_from_phase_real`` → ``_extract_fields_planes``). One step:
+``fft_backend="pallas"`` or ``"pallas_fused"``, ``real_state=True,
+pack_channels=True, half_spectrum=True, pallas_fields=True``:
+``_step_impl_real`` → ``_fields_from_phase_real`` →
+``_extract_fields_planes``). One step:
 
   1. φ ← (φ + ω·dt·mult) mod 2π;
-  2. Hermitian-packed assembly of 2 channels (evolve.assemble_spectra_packed_real);
-  3. channel 0 (height + i·disp_x): full 2-D inverse DFT, two row-DFT passes;
-  4. channel 1 (disp_z): half-spectrum C2R route, three row-DFT passes
-     (Nyquist row, half rows, length-N/2 columns);
-  5. the fields stencil on chop·disp, then pos = x0 − chop·disp.
+  2. ``pallas``: Hermitian-packed assembly of 2 channels in torch
+     (evolve.assemble_spectra_packed_real), then channel 0 (height +
+     i·disp_x) through the full 2-D inverse DFT and channel 1 (disp_z)
+     through the half-spectrum C2R route (fft/planes.py);
+     ``pallas_fused``: the same transforms, with each channel assembled
+     inside its first row pass (ops/fused_spectrum.py) and only the
+     Nyquist row of channel 1 assembled in torch;
+  3. the fields stencil on chop·disp, then pos = x0 − chop·disp.
 
-That is 5 row-DFT kernel launches and 1 fields kernel launch per step on a
-CUDA device. Steps 1, 2, the C2R fold, the interleave and the positions are
-plain torch elementwise work. Any other solver configuration raises
-NotImplementedError naming the ROADMAP.md item that ports it.
+Kernel launches per step on a CUDA device, by regime (N ≤
+fft.planes.MAX_TRANSPOSED_N = 2048 transposed, above it natural):
+
+  ``pallas``, transposed:        row DFT transposed 5, fields 1
+  ``pallas``, natural:           row DFT natural 3, transposed 2, fields 1
+  ``pallas_fused``, transposed:  fused transposed 2, row DFT transposed 3,
+                                 fields 1
+  ``pallas_fused``, natural:     fused natural 2, row DFT natural 1,
+                                 transposed 2, fields 1
+
+The C2R fold, the interleave, the positions, the phase and (``pallas``)
+the assembly are plain torch elementwise work. Any other solver
+configuration raises NotImplementedError naming the ROADMAP.md item that
+ports it.
 """
 
 from __future__ import annotations
@@ -25,7 +39,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from tpu_ocean_torch.config import OceanConfig
+from tpu_ocean_torch.config import EPSILON, OceanConfig
 from tpu_ocean_torch.evolve import (
     omega_grid,
     packed_coefficients,
@@ -39,6 +53,7 @@ from tpu_ocean_torch.fft.planes import (
     ifft2_planes_half,
 )
 from tpu_ocean_torch.ops.fields_stencil import fields_stencil
+from tpu_ocean_torch.ops.fused_spectrum import ifft2_fused_planes_half
 from tpu_ocean_torch.spectra import h0_pair_fft_planes
 
 
@@ -75,17 +90,18 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 class OceanSolver:
     """Owns the f32 tables for one OceanConfig on one device and runs the
-    packed + half-spectrum step through the row-DFT and fields kernels."""
+    packed + half-spectrum step through the row-DFT (or fused assembly +
+    row-DFT) and fields kernels. ``device`` defaults to the CUDA card;
+    pass ``device="cpu"`` for the plain versions (there is no fallback:
+    without a card the default raises, as torch does)."""
 
-    def __init__(self, cfg: OceanConfig, *, device, fft_backend: str = "pallas",
+    def __init__(self, cfg: OceanConfig, *, device="cuda",
+                 fft_backend: str = "pallas",
                  eval_mode: str = "fft", real_state: bool = True,
                  pack_channels: bool = True, half_spectrum: bool = True,
                  pallas_fields: bool = True):
         rest = "Queue 1 item 7"
-        if fft_backend == "pallas_fused":
-            raise _not_ported("fft_backend='pallas_fused'",
-                              "Queue 2, fused assembly + row-DFT kernels")
-        if fft_backend != "pallas":
+        if fft_backend not in ("pallas", "pallas_fused"):
             raise _not_ported(f"fft_backend={fft_backend!r}", rest)
         if eval_mode != "fft":
             raise _not_ported(f"eval_mode={eval_mode!r}", rest)
@@ -110,16 +126,27 @@ class OceanSolver:
                              "and >= 64")
         self.device = torch.device(device)
         if self.device.type == "cuda":
-            check_size(n)          # rows and full columns
-            check_size(n // 2)     # the half channel's columns
+            # rows and full columns; the half channel's columns. The fused
+            # kernels take the row kernel's shared memory, so the same N
+            # fit both (N = 8192: 192 KB a block at one row).
+            check_size(n)
+            check_size(n // 2)
         self.cfg = cfg
+        self.fft_backend = fft_backend
+        self.dz_sign = -1.0 if cfg.oracle_sign_quirk else 1.0
 
         def table(a):
             return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(self.device)
 
-        # float64 tables cast once to f32, as tpu_ocean/solver.py:254-276
+        # float64 tables cast once to f32, as tpu_ocean/solver.py:254-276;
+        # the fused route assembles in its kernels and keeps only the
+        # packed table's Nyquist row (pack_nyq, tpu_ocean/solver.py:263)
         self.omega = table(omega_grid(cfg))
-        self.pack = table(packed_coefficients(cfg, 3))
+        pack = packed_coefficients(cfg, 3)
+        if fft_backend == "pallas_fused":
+            self.pack_nyq = table(pack[:, n // 2:n // 2 + 1, :])
+        else:
+            self.pack = table(pack)
         x1d = np.arange(n, dtype=np.float64) * (cfg.length / n)
         x0, z0 = np.meshgrid(x1d, x1d, indexing="ij")
         self.x0 = table(x0)
@@ -186,6 +213,11 @@ class OceanSolver:
 
     def _fields_from_phase(self, state: OceanStateReal, phase) -> OceanFields:
         pair = (state.h0_re, state.h0_im, state.h0c_re, state.h0c_im)
+        if self.fft_backend == "pallas_fused":
+            re_f, im_f, disp_z = ifft2_fused_planes_half(
+                pair, phase, self.cfg.length, self.dz_sign, self.pack_nyq,
+                epsilon=EPSILON)
+            return self._extract_fields(re_f[0], im_f[0], disp_z)
         re, im = assemble_spectra_packed_real(pair, phase, self.pack)
         mh = self.cfg.resolution // 2
         re_f, im_f = ifft2_planes_auto(re[:-1], im[:-1])
