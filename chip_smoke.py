@@ -3,12 +3,12 @@
 
 Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sweep-rows]
 
 Phases, each printing its own lines:
   1. device  — nvidia-smi's name and power limit, torch's device name;
-  2. build   — nvcc builds tpu_ocean_torch/csrc/*.cu (one process per
-               source, all at once) into one library;
+  2. build   — one nvcc call builds tpu_ocean_torch/csrc/*.cu into one
+               library;
   3. kernels — each kernel against its plain PyTorch version on the card,
                at the shapes the paths below give it;
   4. slice   — four paths through OceanSolver on the card, each from a
@@ -30,14 +30,23 @@ Phases, each printing its own lines:
                with MAX_TRANSPOSED_N = 8192 (the transposed regime); each
                kernel's device time beside its plain version's, its library
                call's where one PyTorch call computes the same function, and
-               its bound; warm L2, nothing asserted.
+               its bound; warm L2, nothing asserted. Device times come
+               from torch.profiler; where it records none, from CUDA
+               events, and the line says so ("timed_by" in the JSON).
 Then one JSON line of kernel results, the card's name and power limit, and
 last {"ok": true, "device": ...}.
+
+With --sweep-rows, phases 4 and 5 give way to a sweep of the rows per
+block: each row-DFT and fused case of phase 3 at every power of two up to
+16 that fits shared memory, checked against its plain version and timed
+(device time, torch.profiler); the wrappers' choice is marked "*". No
+result line follows.
 
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Without a CUDA device it stops at once. Imports no jax.
 """
 
+import argparse
 import cProfile
 import json
 import pstats
@@ -130,14 +139,16 @@ def cuda_ms(fn, iters=100, warmup=10):
 
 
 def device_ms(fn, iters=50, attempts=3):
-    """(device ms per call, {kernel name: device ms per call}) of ``fn``:
-    the CUDA kernel time torch.profiler records over ``iters`` calls after
-    one warm-up. Unlike CUDA events around the calls, it leaves out the
-    gaps in which the device waits for the host. The profiler now and then
-    records no device time for a window (seen once on the H100, for one
-    cuFFT call); such a window is profiled again, and after ``attempts``
-    empty windows the CUDA-event time stands in, under the key
-    "(CUDA events)"."""
+    """(device ms per call, {kernel name: device ms per call}, how it was
+    timed) of ``fn``: the CUDA kernel time torch.profiler records over
+    ``iters`` calls after one warm-up. Unlike CUDA events around the calls,
+    it leaves out the gaps in which the device waits for the host. The
+    profiler now and then records no device time for a window (seen once
+    on the H100, for one cuFFT call); such a window is profiled again, and
+    after ``attempts`` empty windows the CUDA-event time stands in, under
+    the key "(CUDA events)", and the third item says "cuda_events" instead
+    of "profiler": around calls of under ~50 µs of device work that time is
+    the host's launch rate, not the device's."""
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
@@ -150,11 +161,11 @@ def device_ms(fn, iters=50, attempts=3):
                       if e.device_type == DeviceType.CUDA
                       and e.self_device_time_total > 0}
         if per_kernel:
-            return sum(per_kernel.values()), per_kernel
+            return sum(per_kernel.values()), per_kernel, "profiler"
     ms = cuda_ms(fn, iters)[0]
     log(f"[timing] torch.profiler recorded no device time in {attempts} "
         f"windows; CUDA events instead: {ms:.4f} ms a call")
-    return ms, {"(CUDA events)": ms}
+    return ms, {"(CUDA events)": ms}, "cuda_events"
 
 
 def host_profile(fn, steps=50, top=10):
@@ -243,6 +254,45 @@ def compare_fields(card, cpu, cfg, tag):
     require((err["foam"] <= f_band).all(), f"path {tag}: card and cpu disagree on foam")
 
 
+def check_kernel(name, shape, got, want):
+    """Max abs error of a kernel's (re, im) against its plain version's;
+    raises beyond 1e-5·max|plain|."""
+    torch.cuda.synchronize()
+    scale = max(w.abs().max().item() for w in want)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    require(all(g.shape == w.shape for g, w in zip(got, want)),
+            f"{name} {shape}: shape {got[0].shape}")
+    require(err <= 1e-5 * scale, f"{name} {shape} disagrees ({err:.3e} = "
+            f"{err / scale:.3e} x max|plain|)")
+    return err, scale
+
+
+def sweep_rows(cases, planes):
+    """Time each row-DFT and fused case at every power-of-two rows per
+    block up to 16 that fits shared memory, each checked against its plain
+    version first; the wrappers' own choice marked "*"."""
+    chosen_fn = planes.rows_per_block
+    sms = planes.sm_count(torch.device("cuda"))
+    for name, shape, run, plain, *_ in cases:
+        if name == "fields_stencil":
+            continue
+        c, m, n = (1, *shape[:2]) if name.startswith("fused") else shape
+        chosen = chosen_fn(c, m, n, sms, planes.max_rows(n, "natural" in name))
+        want = plain()
+        rows = 1
+        while rows <= 16 and planes.shared_bytes(rows, n) <= planes.SMEM_LIMIT:
+            planes.rows_per_block = lambda *_, r=rows, **__: r
+            try:
+                err, scale = check_kernel(name, shape, run(), want)
+                ms, _, how = device_ms(run)
+            finally:
+                planes.rows_per_block = chosen_fn
+            log(f"[sweep] {name} {shape} rows {rows:2d}"
+                f"{'*' if rows == chosen else ' '} {ms * 1e3:8.2f} µs ({how}), "
+                f"err {err / scale:.1e} x max|plain|")
+            rows *= 2
+
+
 def check_fields(card, n, tag):
     for name in card._fields:
         a = getattr(card, name)
@@ -259,6 +309,10 @@ def check_fields(card, n, tag):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--sweep-rows", action="store_true",
+                        help="sweep rows per block instead of phases 4-5")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs on an NVIDIA GPU only")
@@ -354,37 +408,36 @@ def main():
 
     errs = {k: 0.0 for k in KERNEL_INFO}
     for name, shape, run, plain, _, _, _ in cases:
-        kr, ki = run()
-        pr, pi = plain()
-        torch.cuda.synchronize()
-        scale = max(pr.abs().max().item(), pi.abs().max().item())
-        err = max((kr - pr).abs().max().item(), (ki - pi).abs().max().item())
+        err, scale = check_kernel(name, shape, run(), plain())
         errs[name] = max(errs[name], err)
         log(f"[kernels] {name} {shape} inverse: max abs err {err:.3e} = "
             f"{err / scale:.3e} x max|plain| (limit 1e-5)")
-        require(kr.shape == pr.shape, f"{name} {shape}: shape {kr.shape}")
-        require(err <= 1e-5 * scale, f"{name} {shape} disagrees")
 
-    cfg = OCEAN_DEMO
-    n = cfg.resolution
-    solver = OceanSolver(cfg)
-    _, f = solver.step(solver.init(torch.Generator().manual_seed(1)), DT)
-    chop = cfg.choppiness
-    fields_in = (chop * f.disp_x, f.height, chop * f.disp_z, cfg.length / n)
-    got = fs.fields_stencil(*fields_in)
-    want = fs.fields_stencil_plain(*fields_in)
-    torch.cuda.synchronize()
-    for name, g, w, tol in zip(("normal", "foam", "jacobian"), got, want,
-                               (1e-5, 1e-4, 1e-5)):
-        err = (g - w).abs().max().item()
-        errs["fields_stencil"] = max(errs["fields_stencil"], err)
-        log(f"[kernels] fields_stencil [{n}, {n}] {name}: max abs err "
-            f"{err:.3e} (limit {tol:g})")
-        require(err <= tol, f"fields_stencil {name} disagrees")
-    cases.append(("fields_stencil", [n, n],
-                  lambda: fs.fields_stencil(*fields_in),
-                  lambda: fs.fields_stencil_plain(*fields_in), None,
-                  32 * n * n, 60 * n * n))
+    # the stencil on the fields of one step at each size the paths run
+    for n in sorted({size for _, _, size, _, _, _ in PATHS}):
+        cfg = OCEAN_DEMO.replace(resolution=n)
+        solver = OceanSolver(cfg)
+        _, f = solver.step(solver.init(torch.Generator().manual_seed(1)), DT)
+        chop = cfg.choppiness
+        fields_in = (chop * f.disp_x, f.height, chop * f.disp_z, cfg.length / n)
+        got = fs.fields_stencil(*fields_in)
+        want = fs.fields_stencil_plain(*fields_in)
+        torch.cuda.synchronize()
+        for name, g, w, tol in zip(("normal", "foam", "jacobian"), got, want,
+                                   (1e-5, 1e-4, 1e-5)):
+            err = (g - w).abs().max().item()
+            errs["fields_stencil"] = max(errs["fields_stencil"], err)
+            log(f"[kernels] fields_stencil [{n}, {n}] {name}: max abs err "
+                f"{err:.3e} (limit {tol:g})")
+            require(err <= tol, f"fields_stencil [{n}, {n}] {name} disagrees")
+        cases.append(("fields_stencil", [n, n],
+                      lambda a=fields_in: fs.fields_stencil(*a),
+                      lambda a=fields_in: fs.fields_stencil_plain(*a), None,
+                      32 * n * n, 60 * n * n))
+        del solver, f, got, want
+    if opts.sweep_rows:
+        sweep_rows(cases, planes)
+        return
 
     # ---- 4. the four paths, through the solver
     launches = {k: {} for k in KERNEL_INFO}
@@ -436,7 +489,7 @@ def main():
             step_state[0], _ = psolver.step(step_state[0], DT)
 
         step_ms, host_ms = cuda_ms(one_step, iters=iters)
-        busy_ms, per_kernel = device_ms(one_step, iters=max(iters // 4, 10))
+        busy_ms, per_kernel, how = device_ms(one_step, iters=max(iters // 4, 10))
         groups = {}
         for key, ms in per_kernel.items():
             g = kernel_group(key)
@@ -444,8 +497,8 @@ def main():
         size = pcfg.resolution
         log(f"[timing] {kind} ({smi}): {label} {size}x{size} {step_ms:.4f} "
             f"ms/step, {size * size / step_ms * 1e3:.4e} grid points/s; device "
-            f"busy {busy_ms:.4f} ms/step, idle share {1 - busy_ms / step_ms:.3f}; "
-            f"host enqueue {host_ms:.4f} ms/step")
+            f"busy {busy_ms:.4f} ms/step ({how}), idle share "
+            f"{1 - busy_ms / step_ms:.3f}; host enqueue {host_ms:.4f} ms/step")
         log(f"[timing] {label} device ms/step by layer: " + ", ".join(
             f"{g} {ms:.4f}" for g, ms in sorted(groups.items()))
             + " (torch ops: phase, assembly where unfused, C2R fold, "
@@ -483,15 +536,17 @@ def main():
 
     results = {}
     for name, shape, run, plain, library, nbytes, flops in cases:
-        k, _ = device_ms(run)
-        p, _ = device_ms(plain)
-        lib = device_ms(library)[0] if library else None
+        k, _, k_how = device_ms(run)
+        p, _, p_how = device_ms(plain)
+        lib, _, lib_how = device_ms(library) if library else (None, None, None)
         b_ms, b_by = bound(nbytes, flops)
+        timed_by = {"ms": k_how, "plain_ms": p_how, "library_ms": lib_how}
         log(f"[timing] {name} {shape}: kernel {k:.4f} ms, plain {p:.4f} ms, "
             f"library " + (f"{lib:.4f} ms" if lib is not None else "none")
             + f", bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e6:.1f} Mflop), {b_ms / k:.3f} of it (device)")
-        results.setdefault(name, (shape, k, p, lib, b_ms, b_by))
+            f"{flops / 1e6:.1f} Mflop), {b_ms / k:.3f} of it; timed by "
+            f"{timed_by}")
+        results.setdefault(name, (shape, k, p, lib, b_ms, b_by, timed_by))
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -500,7 +555,7 @@ def main():
          "max_abs_err": errs[name], "shape": results[name][0],
          "ms": results[name][1], "plain_ms": results[name][2],
          "bound_ms": results[name][4], "bound_by": results[name][5],
-         "library_ms": results[name][3]}
+         "library_ms": results[name][3], "timed_by": results[name][6]}
         for name, (source, replaces) in KERNEL_INFO.items()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -211,7 +211,7 @@ def test_one_row_block_fits_shared_memory(n, fits):
     ((1, 4096, 2048), 2), ((1, 1, 4096), 1), ((1, 512, 1024), 4)])
 def test_natural_rows_per_block_keeps_about_4096_points(shape, rows):
     """The natural store's blocks hold at most NATURAL_BLOCK_POINTS points
-    (the fastest in the H100 sweep of tpu_ocean_torch.tune_rows)."""
+    (the fastest in the H100 sweep of chip_smoke.py --sweep-rows)."""
     c, m, n = shape
     cap = planes.max_rows(n, natural=True)
     assert planes.rows_per_block(c, m, n, sms=132, cap=cap) == rows

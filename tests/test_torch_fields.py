@@ -36,6 +36,14 @@ def test_fields_stencil_matches_pallas_v2(shape):
                             TEXEL)
     got = fs.fields_stencil(*map(torch.from_numpy, (dx, h, dz)), TEXEL)
     assert got[0].shape == shape + (3,)
+    # each side against the same stencil in float64 first (both within
+    # ~2e-7 of it), so that a mismatch below names the side that moved
+    ref = fs.fields_stencil_plain(
+        *(torch.from_numpy(a).double() for a in (dx, h, dz)), TEXEL)
+    for side, normal in (("port", got[0].numpy()),
+                         ("jax v2", np.asarray(want[0]))):
+        np.testing.assert_allclose(normal, ref[0].numpy(), rtol=0, atol=1e-5,
+                                   err_msg=f"{side} normal vs float64")
     _check([t.numpy() for t in got], want, 1e-5, 1e-5, 1e-4)
 
 

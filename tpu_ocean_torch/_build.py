@@ -1,9 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` file compiles to an object with its own ``nvcc`` call,
-all started together, and one more call links them into a shared library
-with a plain C interface, loaded with ``ctypes``. The library lives under
-``build/tpu_ocean_torch/<hash>/`` beside the package (a directory
+All ``csrc/*.cu`` files compile with ONE ``nvcc`` call into a shared
+library with a plain C interface, loaded with ``ctypes``. The library lives
+under ``build/tpu_ocean_torch/<hash>/`` beside the package (a directory
 ``.gitignore`` lists), keyed by a hash of every file in ``csrc/`` that the
 build reads (the ``.cu`` sources and the ``.cuh`` headers they include)
 and of the flags, so a changed source or header rebuilds and an unchanged
@@ -26,9 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "tpu_ocean_torch"
-COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LINK_FLAGS = ("-shared",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libtpu_ocean_torch.so"
 
 _P = ctypes.c_void_p
@@ -80,45 +78,11 @@ def _sources(csrc: Path = CSRC):
 
 
 def _digest(files) -> str:
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
-
-
-def _run_all(cmds):
-    """Run the commands concurrently; raise with the log of any that fails.
-    Returns their combined output."""
-    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True))
-             for cmd in cmds]
-    logs, failed = [], []
-    for cmd, proc in procs:
-        out, _ = proc.communicate()
-        logs.append(out)
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return "".join(logs)
-
-
-def _build(compiled, lib_path: Path) -> str:
-    """Compile each source to an object in parallel, link the library to a
-    temporary name and rename it: a concurrent loader sees either no
-    library or a whole one. Returns nvcc's output."""
-    nvcc = _nvcc()
-    out_dir = lib_path.parent
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        objs = [Path(tmp) / f"{src.stem}.o" for src in compiled]
-        log = _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
-                        for src, obj in zip(compiled, objs)])
-        lib_tmp = Path(tmp) / LIB_NAME
-        log += _run_all([[nvcc, *LINK_FLAGS, "-o", str(lib_tmp),
-                          *map(str, objs)]])
-        os.replace(lib_tmp, lib_path)
-    return log
 
 
 @functools.cache
@@ -131,10 +95,21 @@ def load() -> Kernels:
     seconds = 0.0
     if not lib_path.is_file():
         out_dir.mkdir(parents=True, exist_ok=True)
+        # build to a temporary name, then rename: a concurrent loader sees
+        # either no library or a whole one
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, compiled)]
         t0 = time.perf_counter()
-        log = _build(compiled, lib_path)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
         log_path.write_text(log)
+        os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -46,8 +46,8 @@ MAX_TRANSPOSED_N = 2048
 #: runs in the transposed store
 TRANSPOSED_MAX_ROWS = 8
 #: the most points (rows × N) a natural-store block takes. Its store is
-#: coalesced at any R; swept on the H100 (python -m
-#: tpu_ocean_torch.tune_rows), the fastest blocks held about 4096 points:
+#: coalesced at any R; swept on the H100 (python3 chip_smoke.py
+#: --sweep-rows), the fastest blocks held about 4096 points:
 #: R = 4 at N = 1024, R = 2 at N = 2048, R = 1 at N = 4096
 NATURAL_BLOCK_POINTS = 4096
 
