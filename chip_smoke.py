@@ -7,26 +7,40 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
 Phases, each printing its own lines:
   1. device  — nvidia-smi's name and power limit, torch's device name;
-  2. build   — one nvcc call builds tpu_ocean_torch/csrc/*.cu into one
-               library;
+  2. build   — tpu_ocean_torch/csrc/*.cu, one nvcc per file, all started
+               together, linked into one library;
   3. kernels — each kernel against its plain PyTorch version on the card,
-               at the shapes the paths below give it;
-  4. slice   — four paths through OceanSolver on the card, each from a
-               seeded init, with every launch count set to 0 just before
-               and read just after it:
+               at the shapes the paths below give it (the wave bank also at
+               4096², a timing shape);
+  4. slice   — seven paths on the card, each from a seeded init, with every
+               launch count set to 0 just before and read just after it:
                  (i)   OCEAN_DEMO 1024², fft_backend="pallas", 60 steps
                  (ii)  OCEAN_DEMO 1024², fft_backend="pallas_fused", 60 steps
                  (iii) OCEAN_DEMO at 4096², "pallas", 10 steps
                  (iv)  OCEAN_DEMO at 4096², "pallas_fused", 10 steps
+                 (v)   OCEAN_DEMO 1024², "pallas", with
+                       fields_stencil.FIELDS_KERNEL_V2 = False (the v1
+                       fields kernel), 20 steps
+                 (p1)  PondSimulation(POND_DEMO, use_pallas=True): 512², the
+                       packed 4-wave bank, analytic normals, 600 steps
+                 (p2)  BASELINE config 3: PondConfig(resolution=512) with
+                       WaveBank.random(0, 16), use_pallas=True, 600 steps
                every kernel must have launched exactly its per-step count
-               (PATHS below); the fields must be finite, the normals unit
-               and the foam in [0, 1]; the last steps are replayed on the
-               CPU plain path from a snapshot of the card's state and the
-               two are compared (compare_fields);
+               (PATHS, POND_PATHS below). Ocean paths: the fields must be
+               finite, the normals unit and the foam in [0, 1]; the last
+               steps are replayed on the CPU plain path from a snapshot of
+               the card's state and the two are compared (compare_fields);
+               (v)'s last step is also compared with the v2 kernel's from
+               the same state. Pond paths: finite fields, unit normals, and
+               the CPU plain path at the last step's t within atol 2e-5,
+               rtol 1e-5; then the plain-torch "wave" mode and both
+               velocities at 512², card against CPU, with the same band;
   5. timing  — per path: ms/step (CUDA events), the host's enqueue time
                per step, device busy time per step and per layer
-               (torch.profiler) and the idle share, and at 1024² the
-               host's time by function (cProfile); 4096² also
+               (torch.profiler) and the idle share, and up to 2048² the
+               host's time by function (cProfile); for the pond
+               PondSolver.fields in a loop and PondSimulation.step (which
+               synchronizes) apart; 4096² also
                with MAX_TRANSPOSED_N = 8192 (the transposed regime); each
                kernel's device time beside its plain version's, its library
                call's where one PyTorch call computes the same function, and
@@ -47,7 +61,9 @@ printed. Without a CUDA device it stops at once. Imports no jax.
 """
 
 import argparse
+import contextlib
 import cProfile
+import dataclasses
 import json
 import pstats
 import subprocess
@@ -64,25 +80,41 @@ HERE = Path(__file__).resolve().parent
 DT = 1.0 / 60.0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+# f32 instructions of sincosf's fast path (|x| < 105615) in the SASS of
+# gerstner_bank_kernel for sm_90a (cuobjdump -sass of the built library):
+# 11 FFMA, 2 FMUL, 4 FSEL, FSETP, F2I, I2FP
+SINCOSF_OPS = 20
+# (ok, atol, rtol) of a card-vs-CPU comparison of the pond's fields: the
+# JAX package's Pallas-vs-jnp band (tests/test_pallas_kernels.py:58)
+POND_ATOL, POND_RTOL = 2e-5, 1e-5
 
-# (label, fft_backend, N, steps, replay steps, kernel launches per step).
-# Row DFT passes: transposed regime (N ≤ 2048) — 2 for the full channel,
+# (label, fft_backend, N, steps, replay steps, FIELDS_KERNEL_V2, kernel
+# launches per step). Row DFT passes: transposed regime (N ≤ 2048) — 2 for the full channel,
 # and the half channel's Nyquist row, half rows and columns; natural regime
 # (N > 2048) — the full channel's natural row pass and its column pass (a
 # transposed pass on swapped axes), the half channel's natural Nyquist row
 # and half rows and its transposed column pass. The fused backend assembles
 # each channel inside its first row pass.
 PATHS = [
-    ("i", "pallas", 1024, 60, 10,
+    ("i", "pallas", 1024, 60, 10, True,
      {"fft_rows_transposed": 5, "fields_stencil": 1}),
-    ("ii", "pallas_fused", 1024, 60, 10,
+    ("ii", "pallas_fused", 1024, 60, 10, True,
      {"fused_rows_transposed": 2, "fft_rows_transposed": 3,
       "fields_stencil": 1}),
-    ("iii", "pallas", 4096, 10, 2,
+    ("iii", "pallas", 4096, 10, 2, True,
      {"fft_rows_natural": 3, "fft_rows_transposed": 2, "fields_stencil": 1}),
-    ("iv", "pallas_fused", 4096, 10, 2,
+    ("iv", "pallas_fused", 4096, 10, 2, True,
      {"fused_rows_natural": 2, "fft_rows_natural": 1,
       "fft_rows_transposed": 2, "fields_stencil": 1}),
+    ("v", "pallas", 1024, 20, 2, False,
+     {"fft_rows_transposed": 5, "fields_stencil_v1": 1}),
+]
+# (label, what, WaveBank.random arguments or None for the config's packed
+# 4-wave bank, steps): POND_DEMO (512²) through PondSimulation with
+# use_pallas=True, analytic normals; gerstner_bank launches once a step
+POND_PATHS = [
+    ("p1", "POND_DEMO 512², packed 4-wave bank", None, 600),
+    ("p2", "BASELINE config 3, 512², WaveBank.random(0, 16)", (0, 16), 600),
 ]
 KERNEL_INFO = {   # name: (source, the TPU kernel it replaces)
     "fft_rows_transposed": ("tpu_ocean_torch/csrc/fft_rows.cu",
@@ -95,7 +127,14 @@ KERNEL_INFO = {   # name: (source, the TPU kernel it replaces)
                               "tpu_ocean/ops/fused_spectrum_fft.py:127"),
     "fused_rows_natural": ("tpu_ocean_torch/csrc/fused_rows.cu",
                            "tpu_ocean/ops/fused_spectrum_fft.py:196"),
+    "fields_stencil_v1": ("tpu_ocean_torch/csrc/fields_stencil_v1.cu",
+                          "tpu_ocean/ops/fields_pallas.py:45"),
+    "gerstner_bank": ("tpu_ocean_torch/csrc/gerstner_bank.cu",
+                      "tpu_ocean/ops/gerstner_pallas.py:30"),
 }
+OCEAN_NOTE = ("torch ops: phase, assembly where unfused, C2R fold, "
+              "interleave, transposing copies, positions")
+POND_NOTE = "torch ops: none expected, the pond step is one kernel"
 
 
 def log(*parts):
@@ -114,6 +153,10 @@ def kernel_group(key):
         return "fft_rows_natural" if natural else "fft_rows_transposed"
     if "fused_rows_kernel" in key:
         return "fused_rows_natural" if natural else "fused_rows_transposed"
+    if "fields_stencil_v1_kernel" in key:
+        return "fields_stencil_v1"
+    if "gerstner_bank_kernel" in key:
+        return "gerstner_bank"
     if "fields_stencil_kernel" in key:
         return "fields_stencil"
     return "torch ops"
@@ -217,8 +260,9 @@ def normal_sensitivity(fields, cfg, delta):
     return 4 * np.sqrt(3) * delta * (lu + lv) / np.linalg.norm(np.cross(u, v), axis=-1)
 
 
-def compare_fields(card, cpu, cfg, tag):
-    """Hold the card's fields to the CPU plain path's, with the bands of
+def compare_fields(card, cpu, cfg, tag, against="cpu"):
+    """Hold the card's fields to the CPU plain path's (or to ``against``,
+    another card run from the same state), with the bands of
     tests/test_packing.py: 1e-5·max|cpu| for height, displacements,
     positions and Jacobian; 2e-4 for normals and 25·1e-5·max|foam| for
     foam, each plus the first-order effect of the measured input
@@ -231,27 +275,30 @@ def compare_fields(card, cpu, cfg, tag):
            for name in cpu._fields}
     for name in ("height", "disp_x", "disp_z", "pos_x", "pos_z", "jacobian"):
         band = 1e-5 * np.abs(getattr(cpu, name)).max()
-        log(f"[slice {tag}] card vs cpu {name}: max abs err "
-            f"{err[name].max():.3e} <= {band:.3e} (1e-5 x max|cpu|)")
-        require(err[name].max() <= band, f"path {tag}: card and cpu disagree on {name}")
+        log(f"[slice {tag}] card vs {against} {name}: max abs err "
+            f"{err[name].max():.3e} <= {band:.3e} (1e-5 x max|{against}|)")
+        require(err[name].max() <= band,
+                f"path {tag}: card and {against} disagree on {name}")
     delta = max(err["height"].max(), chop * err["disp_x"].max(),
                 chop * err["disp_z"].max())
     n_err = err["normal"].max(-1)
     n_band = 2e-4 + normal_sensitivity(cpu, cfg, delta)
-    log(f"[slice {tag}] card vs cpu normal: max abs err {n_err.max():.3e}; "
+    log(f"[slice {tag}] card vs {against} normal: max abs err {n_err.max():.3e}; "
         f"{int((n_err > 2e-4).sum())} texels beyond 2e-4, all within 2e-4 + "
         f"sensitivity to the input error {delta:.3e}: "
         f"{bool((n_err <= n_band).all())} (worst err/band "
         f"{(n_err / n_band).max():.3f})")
-    require((n_err <= n_band).all(), f"path {tag}: card and cpu disagree on normal")
+    require((n_err <= n_band).all(),
+            f"path {tag}: card and {against} disagree on normal")
     f_raw = 25e-5 * np.abs(cpu.foam).max()
     f_band = f_raw + 1.5 * (err["jacobian"] + 0.3 * n_err)
-    log(f"[slice {tag}] card vs cpu foam: max abs err {err['foam'].max():.3e}; "
+    log(f"[slice {tag}] card vs {against} foam: max abs err {err['foam'].max():.3e}; "
         f"{int((err['foam'] > f_raw).sum())} texels beyond {f_raw:.3e} "
         f"(25e-5 x max), all within that + 1.5(|dJ| + 0.3|dn|): "
         f"{bool((err['foam'] <= f_band).all())} (worst err/band "
         f"{(err['foam'] / f_band).max():.3f})")
-    require((err["foam"] <= f_band).all(), f"path {tag}: card and cpu disagree on foam")
+    require((err["foam"] <= f_band).all(),
+            f"path {tag}: card and {against} disagree on foam")
 
 
 def check_kernel(name, shape, got, want):
@@ -274,7 +321,7 @@ def sweep_rows(cases, planes):
     chosen_fn = planes.rows_per_block
     sms = planes.sm_count(torch.device("cuda"))
     for name, shape, run, plain, *_ in cases:
-        if name == "fields_stencil":
+        if not name.startswith(("fft_rows", "fused_rows")):
             continue
         c, m, n = (1, *shape[:2]) if name.startswith("fused") else shape
         chosen = chosen_fn(c, m, n, sms, planes.max_rows(n, "natural" in name))
@@ -308,6 +355,42 @@ def check_fields(card, n, tag):
         f"{card.foam.max():.3f}], height max |.| {np.abs(card.height).max():.4f}")
 
 
+def compare_pond(card, cpu, tag, what):
+    """Hold the card's pond outputs (numpy) to the CPU's within atol
+    POND_ATOL + rtol POND_RTOL · |cpu| per element."""
+    for name, g, w in zip(what, card, cpu):
+        err = np.abs(g - w)
+        band = POND_ATOL + POND_RTOL * np.abs(w)
+        log(f"[slice {tag}] card vs cpu {name}: max abs err {err.max():.3e}, "
+            f"worst err/band {(err / band).max():.3f} (atol {POND_ATOL:g}, "
+            f"rtol {POND_RTOL:g})")
+        require((err <= band).all(), f"path {tag}: card and cpu disagree on {name}")
+
+
+def check_pond_fields(card, n, tag):
+    for name in card._fields:
+        a = getattr(card, name)
+        want_shape = (n, n, 3) if name == "normal" else (n, n)
+        require(a.shape == want_shape, f"path {tag}: {name} has shape {a.shape}")
+        require(np.isfinite(a).all(), f"path {tag}: {name} is not finite")
+    norm_err = np.abs(np.linalg.norm(card.normal, axis=-1) - 1.0).max()
+    require(norm_err <= 1e-5, f"path {tag}: |normal| - 1 reaches {norm_err}")
+    log(f"[slice {tag}] fields finite, shapes ok, max ||normal| - 1| "
+        f"{norm_err:.2e}, height max |.| {np.abs(card.height).max():.4f}, "
+        f"offset_x max |.| {np.abs(card.offset_x).max():.4f}")
+
+
+@contextlib.contextmanager
+def fields_switch(fs, v2):
+    """fields_stencil's kernel for the duration: v2, or v1 when False."""
+    saved = fs.FIELDS_KERNEL_V2
+    fs.FIELDS_KERNEL_V2 = v2
+    try:
+        yield
+    finally:
+        fs.FIELDS_KERNEL_V2 = saved
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--sweep-rows", action="store_true",
@@ -320,11 +403,14 @@ def main():
         raise SystemExit("chip_smoke: run it from a checkout of the repo "
                          "(tpu_ocean_torch/csrc is missing)")
     import tpu_ocean_torch
-    from tpu_ocean_torch import (OCEAN_DEMO, OceanSolver, fields_to_numpy,
-                                 state_from_numpy, _build)
+    from tpu_ocean_torch import (OCEAN_DEMO, POND_DEMO, OceanSolver,
+                                 PondSimulation, PondSolver, WaveBank,
+                                 fields_to_numpy, pond_fields_to_numpy,
+                                 state_from_numpy, _build, grids)
     from tpu_ocean_torch.fft import planes
     from tpu_ocean_torch.ops import fields_stencil as fs
     from tpu_ocean_torch.ops import fused_spectrum as fused
+    from tpu_ocean_torch.ops import gerstner_bank as gb
     require(Path(tpu_ocean_torch.__file__).resolve().parent.parent == HERE,
             f"tpu_ocean_torch imported from {tpu_ocean_torch.__file__}, "
             f"not from this checkout")
@@ -337,7 +423,14 @@ def main():
                 "fft_rows_natural": planes.fft1d_natural_large,
                 "fused_rows_transposed": fused.assemble_rowfft,
                 "fused_rows_natural": fused.assemble_rowfft_natural,
-                "fields_stencil": fs.fields_stencil}
+                "fields_stencil": fs.fields_stencil,
+                "fields_stencil_v1": fs.fields_stencil_v1,
+                "gerstner_bank": gb.gerstner_bank}
+
+    t_start = time.perf_counter()
+
+    def phase_done(name):
+        log(f"[phase] {name} done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -406,15 +499,49 @@ def main():
                           None, 28 * m * n + 4 * n,
                           (30 + 5 * int(np.log2(n))) * m * n))
 
+    # the wave bank at the pond paths' grid and last step's t, both banks
+    # and both normal modes, and at 4096² (W = 16); operations: the TPU
+    # kernel's cost estimate (20 a wave, 14 without the normal's sums) and
+    # one sincosf, per wave per point
+    pond_t = POND_PATHS[0][3] * DT
+    for n, waves, mode in ((512, 16, "analytic"), (512, 16, "flat"),
+                           (512, 4, "analytic"), (512, 4, "flat"),
+                           (4096, 16, "analytic")):
+        bank = (WaveBank.from_packed4(POND_DEMO) if waves == 4
+                else WaveBank.random(0, 16))
+        x, z = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                for a in grids.coordinate_grid(n, POND_DEMO.unit_width))
+        args = (gb.pack_bank(bank, dev), x, z, pond_t, mode)
+        cases.append(("gerstner_bank", [n, n, f"W {waves}", mode],
+                      lambda a=args: gb.gerstner_bank(*a),
+                      lambda a=args: gb.gerstner_bank_plain(*a), None,
+                      32 * n * n,
+                      ((20 if mode == "analytic" else 14) + SINCOSF_OPS)
+                      * waves * n * n))
+
     errs = {k: 0.0 for k in KERNEL_INFO}
     for name, shape, run, plain, _, _, _ in cases:
+        if name == "gerstner_bank":
+            # each output against its own scale: offsets ~0.1, normal ~1
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            for out, g, w in zip(("offset_x", "offset_y", "offset_z", "normal"),
+                                 got, want):
+                scale = w.abs().max().item()
+                err = (g - w).abs().max().item()
+                errs[name] = max(errs[name], err)
+                log(f"[kernels] {name} {shape} {out}: max abs err {err:.3e} = "
+                    f"{err / scale:.3e} x max|plain| (limit 1e-5)")
+                require(g.shape == w.shape and err <= 1e-5 * scale,
+                        f"{name} {shape} {out} disagrees")
+            continue
         err, scale = check_kernel(name, shape, run(), plain())
         errs[name] = max(errs[name], err)
         log(f"[kernels] {name} {shape} inverse: max abs err {err:.3e} = "
             f"{err / scale:.3e} x max|plain| (limit 1e-5)")
 
-    # the stencil on the fields of one step at each size the paths run
-    for n in sorted({size for _, _, size, _, _, _ in PATHS}):
+    # both stencils on the fields of one step at each size the paths run
+    for n in sorted({size for _, _, size, *_ in PATHS}):
         cfg = OCEAN_DEMO.replace(resolution=n)
         solver = OceanSolver(cfg)
         _, f = solver.step(solver.init(torch.Generator().manual_seed(1)), DT)
@@ -434,85 +561,183 @@ def main():
                       lambda a=fields_in: fs.fields_stencil(*a),
                       lambda a=fields_in: fs.fields_stencil_plain(*a), None,
                       32 * n * n, 60 * n * n))
+        # v1 rounds every operation as its plain version does
+        got = fs.fields_stencil_v1(*fields_in)
+        want = fs.fields_stencil_v1_plain(*fields_in)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("normal", "foam", "jacobian"), got, want):
+            err = (g - w).abs().max().item()
+            errs["fields_stencil_v1"] = max(errs["fields_stencil_v1"], err)
+            log(f"[kernels] fields_stencil_v1 [{n}, {n}] {name}: max abs err "
+                f"{err:.3e} (limit 1e-5)")
+            require(err <= 1e-5, f"fields_stencil_v1 [{n}, {n}] {name} disagrees")
+        # ~105 operations a point: 4 edges, 4 cross products and their
+        # sums, the normalization, the whitecap
+        cases.append(("fields_stencil_v1", [n, n],
+                      lambda a=fields_in: fs.fields_stencil_v1(*a),
+                      lambda a=fields_in: fs.fields_stencil_v1_plain(*a), None,
+                      32 * n * n, 105 * n * n))
         del solver, f, got, want
     if opts.sweep_rows:
         sweep_rows(cases, planes)
         return
 
-    # ---- 4. the four paths, through the solver
+    # the flat normal is checked above, timed only in analytic mode (the
+    # paths' mode)
+    cases = [c for c in cases if c[1][-1] != "flat"]
+    phase_done("3 kernels")
+
+    # ---- 4. the ocean paths through the solver, then the pond paths
     launches = {k: {} for k in KERNEL_INFO}
     solvers = {}
-    for tag, backend, size, steps, replay, per_step in PATHS:
-        pcfg = OCEAN_DEMO.replace(resolution=size)
-        psolver = OceanSolver(pcfg, fft_backend=backend)
-        state = psolver.init(torch.Generator().manual_seed(0))
+    for tag, backend, size, steps, replay, v2, per_step in PATHS:
+        with fields_switch(fs, v2):
+            pcfg = OCEAN_DEMO.replace(resolution=size)
+            psolver = OceanSolver(pcfg, fft_backend=backend)
+            state = psolver.init(torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+            for step in range(1, steps + 1):
+                prev = state
+                state, fields = psolver.step(state, DT)
+                if step == steps - replay:
+                    snapshot = state_from_numpy(state, "cpu")
+            torch.cuda.synchronize()
+            counts = {k: w.launches for k, w in wrappers.items()}
+            log(f"[slice {tag}] OCEAN_DEMO {size}x{size} fft_backend={backend!r}"
+                f"{'' if v2 else ', FIELDS_KERNEL_V2 = False'}, "
+                f"{steps} steps of dt 1/60: launches {counts} (expected {steps} x "
+                f"{per_step})")
+            for name, count in counts.items():
+                require(count == steps * per_step.get(name, 0),
+                        f"path {tag}: {name} launched {count} times, not "
+                        f"{steps * per_step.get(name, 0)}")
+                if count:
+                    launches[name][tag] = count
+            card = fields_to_numpy(fields)
+            require(int(state.step) == steps, f"path {tag}: step counter")
+            check_fields(card, size, tag)
+            # replay the last steps on the CPU plain path from the card's state
+            cpu_solver = OceanSolver(pcfg, device="cpu", fft_backend=backend)
+            cpu_state = snapshot
+            for _ in range(replay):
+                cpu_state, cpu_fields = cpu_solver.step(cpu_state, DT)
+            require(np.array_equal(cpu_state.phase.numpy(), state.phase.cpu().numpy()),
+                    f"path {tag}: phase differs between the card and the CPU")
+            log(f"[slice {tag}] steps {steps - replay + 1}-{steps} replayed on the "
+                f"CPU plain path from the card's step-{steps - replay} state")
+            compare_fields(card, fields_to_numpy(cpu_fields), pcfg, tag)
+            if not v2:
+                # the last step again from the same state, through v2
+                with fields_switch(fs, True):
+                    _, v2_fields = psolver.step(prev, DT)
+                compare_fields(card, fields_to_numpy(v2_fields), pcfg, tag,
+                               against="v2")
+                del v2_fields
+            solvers[tag] = (pcfg, psolver, state)
+            del cpu_solver, cpu_state, cpu_fields, snapshot, fields, card, prev
+        phase_done(f"4 path ({tag})")
+
+    pond_names = ("offset_x", "offset_y", "offset_z", "normal")
+    ponds = {}
+    for tag, what, bank_args, steps in POND_PATHS:
+        bank = WaveBank.random(*bank_args) if bank_args else None
+        sim = PondSimulation(POND_DEMO, bank=bank, use_pallas=True)
         torch.cuda.synchronize()
         for w in wrappers.values():
             w.launches = 0
-        for step in range(1, steps + 1):
-            state, fields = psolver.step(state, DT)
-            if step == steps - replay:
-                snapshot = state_from_numpy(state, "cpu")
+        sim.run(steps)
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items()}
-        log(f"[slice {tag}] OCEAN_DEMO {size}x{size} fft_backend={backend!r}, "
+        log(f"[slice {tag}] {what}, PondSimulation(use_pallas=True), "
             f"{steps} steps of dt 1/60: launches {counts} (expected {steps} x "
-            f"{per_step})")
+            f"{{'gerstner_bank': 1}})")
         for name, count in counts.items():
-            require(count == steps * per_step.get(name, 0),
-                    f"path {tag}: {name} launched {count} times, not "
-                    f"{steps * per_step.get(name, 0)}")
+            want = steps if name == "gerstner_bank" else 0
+            require(count == want,
+                    f"path {tag}: {name} launched {count} times, not {want}")
             if count:
                 launches[name][tag] = count
-        card = fields_to_numpy(fields)
-        require(int(state.step) == steps, f"path {tag}: step counter")
-        check_fields(card, size, tag)
-        # replay the last steps on the CPU plain path from the card's state
-        cpu_solver = OceanSolver(pcfg, device="cpu", fft_backend=backend)
-        cpu_state = snapshot
-        for _ in range(replay):
-            cpu_state, cpu_fields = cpu_solver.step(cpu_state, DT)
-        require(np.array_equal(cpu_state.phase.numpy(), state.phase.cpu().numpy()),
-                f"path {tag}: phase differs between the card and the CPU")
-        log(f"[slice {tag}] steps {steps - replay + 1}-{steps} replayed on the "
-            f"CPU plain path from the card's step-{steps - replay} state")
-        compare_fields(card, fields_to_numpy(cpu_fields), pcfg, tag)
-        solvers[tag] = (pcfg, psolver, state)
-        del cpu_solver, cpu_state, cpu_fields, snapshot, fields, card
+        require(sim.step_count == steps, f"path {tag}: step counter")
+        n = POND_DEMO.resolution
+        card = pond_fields_to_numpy(sim.fields)
+        check_pond_fields(card, n, tag)
+        cpu = PondSolver(POND_DEMO, bank=bank, use_pallas=True, device="cpu")
+        log(f"[slice {tag}] t = {sim.state:.6f} on the CPU plain path "
+            f"(device='cpu', use_pallas=True)")
+        compare_pond(card, pond_fields_to_numpy(cpu.fields(sim.state)), tag,
+                     pond_names)
+        ponds[tag] = (sim, cpu)
+        phase_done(f"4 path ({tag})")
+    # the plain-torch pond functions on the card against the CPU: one
+    # "wave" step and both velocities, no kernel launched
+    wave_cfg = dataclasses.replace(POND_DEMO, displacement_mode="wave")
+    gb.gerstner_bank.launches = 0
+    for what, card_fn, cpu_fn in (
+            ("wave mode", PondSolver(wave_cfg).fields,
+             PondSolver(wave_cfg, device="cpu").fields),
+            ("wave velocity", PondSolver(wave_cfg).velocity,
+             PondSolver(wave_cfg, device="cpu").velocity),
+            ("gerstner velocity (p2's bank)", ponds["p2"][0].solver.velocity,
+             ponds["p2"][1].velocity)):
+        got, want = card_fn(pond_t), cpu_fn(pond_t)
+        got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+        compare_pond([g.cpu().numpy() for g in got],
+                     [w.numpy() for w in want], what,
+                     pond_names if len(got) == 4 else ("velocity",))
+    torch.cuda.synchronize()
+    require(gb.gerstner_bank.launches == 0, "plain pond functions launched a kernel")
+
+    phase_done("4 slice")
 
     # ---- 5. timing: each step by CUDA events (its device timeline, gaps
     # included); device time by torch.profiler; warm L2 throughout
-    def time_path(label, pcfg, psolver, state, iters):
-        step_state = [state]
-
-        def one_step():
-            step_state[0], _ = psolver.step(step_state[0], DT)
-
+    def time_path(label, size, one_step, iters, note):
         step_ms, host_ms = cuda_ms(one_step, iters=iters)
         busy_ms, per_kernel, how = device_ms(one_step, iters=max(iters // 4, 10))
         groups = {}
         for key, ms in per_kernel.items():
             g = kernel_group(key)
             groups[g] = groups.get(g, 0.0) + ms
-        size = pcfg.resolution
         log(f"[timing] {kind} ({smi}): {label} {size}x{size} {step_ms:.4f} "
             f"ms/step, {size * size / step_ms * 1e3:.4e} grid points/s; device "
             f"busy {busy_ms:.4f} ms/step ({how}), idle share "
             f"{1 - busy_ms / step_ms:.3f}; host enqueue {host_ms:.4f} ms/step")
         log(f"[timing] {label} device ms/step by layer: " + ", ".join(
             f"{g} {ms:.4f}" for g, ms in sorted(groups.items()))
-            + " (torch ops: phase, assembly where unfused, C2R fold, "
-            "interleave, transposing copies, positions)")
+            + f" ({note})")
         if size <= 2048:     # host-bound: where the host's time goes
             log(f"[timing] {label} host µs/step by function (cProfile "
                 f"tottime, top 10): " + "; ".join(
                     f"{name} {us:.1f}" for name, us in host_profile(one_step)))
-        return step_state[0]
 
-    for tag, backend, size, _, _, _ in PATHS:
+    def ocean_step(psolver, state):
+        step_state = [state]
+
+        def one_step():
+            step_state[0], _ = psolver.step(step_state[0], DT)
+        return one_step
+
+    for tag, backend, size, _, _, v2, _ in PATHS:
         pcfg, psolver, state = solvers[tag]
-        time_path(f"path ({tag}) {backend}", pcfg, psolver, state,
-                  200 if size <= 2048 else 40)
+        with fields_switch(fs, v2):
+            time_path(f"path ({tag}) {backend}"
+                      + ("" if v2 else " fields v1"), size,
+                      ocean_step(psolver, state), 200 if size <= 2048 else 40,
+                      OCEAN_NOTE)
+    for tag, *_ in POND_PATHS:
+        sim = ponds[tag][0]
+        clock = [sim.state]
+
+        def fields_call(sim=sim, clock=clock):
+            clock[0] += sim.dt
+            sim.solver.fields(clock[0])
+
+        time_path(f"path ({tag}) PondSolver.fields", POND_DEMO.resolution,
+                  fields_call, 200, POND_NOTE)
+        time_path(f"path ({tag}) PondSimulation.step", POND_DEMO.resolution,
+                  sim.step, 200, POND_NOTE)
     # 4096² in the transposed regime (the JAX crossover moved past it)
     natural_cap = planes.MAX_TRANSPOSED_N
     for tag in ("iii", "iv"):
@@ -529,15 +754,20 @@ def main():
                 f"{err / scale:.3e} x max")
             require(err <= 1e-5 * scale, f"path {tag}: the regimes disagree")
             time_path(f"path ({tag}) {psolver.fft_backend} transposed regime",
-                      pcfg, psolver, state, 40)
+                      pcfg.resolution, ocean_step(psolver, state), 40,
+                      OCEAN_NOTE)
         finally:
             planes.MAX_TRANSPOSED_N = natural_cap
         del f_nat, f_tr
 
+    phase_done("5 timing, paths")
     results = {}
     for name, shape, run, plain, library, nbytes, flops in cases:
         k, _, k_how = device_ms(run)
-        p, _, p_how = device_ms(plain)
+        # a plain version runs up to ~300 torch ops a call (the wave bank's
+        # per-wave loop), and the profiler's cost grows with the ops it
+        # records: 10 calls, not 50
+        p, _, p_how = device_ms(plain, iters=10)
         lib, _, lib_how = device_ms(library) if library else (None, None, None)
         b_ms, b_by = bound(nbytes, flops)
         timed_by = {"ms": k_how, "plain_ms": p_how, "library_ms": lib_how}
@@ -548,6 +778,7 @@ def main():
             f"{timed_by}")
         results.setdefault(name, (shape, k, p, lib, b_ms, b_by, timed_by))
 
+    phase_done("5 timing, kernels")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(launches[name].values()),

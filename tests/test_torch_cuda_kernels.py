@@ -13,16 +13,24 @@ torch.fft (cuFFT) in summation order, 1e-5·max|plain| covers f32 rounding
 over log2(N) stages (the fused kernels' assembly rounds each product as
 the plain version does; sin/cos differ by an ulp at most). The fields
 kernel rounds the normal's cross product as the plain version does, so
-its normal agrees to 1e-5; foam 1e-4."""
+its normal agrees to 1e-5; foam 1e-4. The v1 fields kernel rounds every
+operation as its plain version does: 1e-5 on all three outputs. The
+wave-bank kernel rounds the phase and the sums as its plain version does;
+only sincosf against torch's sin and cos (an ulp or two) differs, summed
+over W waves: 1e-5·max|plain| per output."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from tpu_ocean_torch import OCEAN_DEMO, OceanSolver, fields_to_numpy
+from tpu_ocean_torch import (OCEAN_DEMO, POND_DEMO, OceanSolver, PondSimulation,
+                             WaveBank, fields_to_numpy, pond_fields_to_numpy)
 from tpu_ocean_torch.fft import planes
 from tpu_ocean_torch.ops import fields_stencil as fs
 from tpu_ocean_torch.ops import fused_spectrum as fused
+from tpu_ocean_torch.ops import gerstner_bank as gb
 
 pytestmark = pytest.mark.cuda
 
@@ -202,6 +210,66 @@ def test_kernel_wrappers_reject_bad_input(cuda, bad):
     with pytest.raises(ValueError):
         fused.assemble_rowfft((re[0], im[0], re[0], im[0]), im[0], 1.0, 1.0,
                               epsilon=1e-4, ch_count=1)
-    if bad != "length":            # the stencil takes any [M, N]
+    if bad != "length":            # the stencils take any [M, N]
         with pytest.raises(ValueError):
             fs.fields_stencil(re[0], im[0], re[0], 1.0)
+        with pytest.raises(ValueError):
+            fs.fields_stencil_v1(re[0], im[0], re[0], 1.0)
+        with pytest.raises(ValueError):
+            gb.gerstner_bank(gb.pack_bank(WaveBank.random(0, 4), cuda),
+                             re[0], im[0], 1.0)
+
+
+@pytest.mark.parametrize("shape", [(1024, 1024), (33, 64), (7, 100), (1, 16),
+                                   (17, 1)])
+def test_fields_v1_kernel_matches_plain(cuda, shape):
+    rng = np.random.default_rng(2)
+    dx, h, dz = (torch.from_numpy((2 * rng.normal(size=shape)).astype(np.float32)).to(cuda)
+                 for _ in range(3))
+    got = fs.fields_stencil_v1(dx, h, dz, 0.4243)
+    want = fs.fields_stencil_v1_plain(dx, h, dz, 0.4243)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() <= 1e-5
+
+
+def test_fields_switch_launches_v1_in_the_solver(cuda, monkeypatch):
+    monkeypatch.setattr(fs, "FIELDS_KERNEL_V2", False)
+    solver = OceanSolver(OCEAN_DEMO.replace(resolution=128), device=cuda)
+    state = solver.init(torch.Generator().manual_seed(5))
+    before = (fs.fields_stencil.launches, fs.fields_stencil_v1.launches)
+    for _ in range(2):
+        state, _ = solver.step(state, 1 / 60)
+    assert fs.fields_stencil.launches == before[0]
+    assert fs.fields_stencil_v1.launches == before[1] + 2
+
+
+@pytest.mark.parametrize("mode", ["analytic", "flat"])
+@pytest.mark.parametrize("waves", [1, 4, 16, 300])
+@pytest.mark.parametrize("shape", [(512, 512), (33, 64), (7, 100)])
+def test_gerstner_bank_kernel_matches_plain(cuda, shape, waves, mode):
+    """Coordinates up to ±300 (phases of several hundred radians, as at
+    512²); W = 300 needs more than one pass of the block's staging loop."""
+    rng = np.random.default_rng(waves)
+    x, z = (torch.from_numpy(rng.uniform(-300, 300, size=shape).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    bank = gb.pack_bank(WaveBank.random(waves, waves), cuda)
+    got = gb.gerstner_bank(bank, x, z, 12.5, mode)
+    want = gb.gerstner_bank_plain(bank, x, z, 12.5, mode)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item()
+
+
+def test_pond_simulation_launches_one_kernel_a_step_and_matches_cpu(cuda):
+    cfg = dataclasses.replace(POND_DEMO, resolution=128)
+    sim = PondSimulation(cfg, use_pallas=True, device=cuda)
+    cpu = PondSimulation(cfg, use_pallas=True, device="cpu")
+    before = gb.gerstner_bank.launches
+    sim.run(5)
+    cpu.run(5)
+    assert gb.gerstner_bank.launches == before + 5
+    for g, w in zip(pond_fields_to_numpy(sim.fields), pond_fields_to_numpy(cpu.fields)):
+        np.testing.assert_allclose(g, w, atol=2e-5, rtol=1e-5)

@@ -1,4 +1,4 @@
-"""tpu_ocean_torch: the PyTorch/CUDA port of tpu_ocean's main path.
+"""tpu_ocean_torch: the PyTorch/CUDA port of tpu_ocean.
 
 The port runs ``OCEAN_DEMO``'s packed + half-spectrum step (JAX:
 ``OceanSolver(cfg, fft_backend="pallas", real_state=True,
@@ -7,33 +7,51 @@ NVIDIA H100, with ``fft_backend="pallas"`` or ``"pallas_fused"``, through
 hand-written CUDA kernels built with nvcc on first use: the row DFT with a
 transposed or a natural store (``csrc/fft_rows.cu``), the fused spectrum
 assembly + row DFT with either store (``csrc/fused_rows.cu``) and the
-fields stencil (``csrc/fields_stencil.cu``). ``OceanSolver`` runs on the
-card unless it is given ``device="cpu"``; on CPU tensors each kernel
-wrapper runs its plain torch version. This package imports
-torch and numpy, never jax; the JAX package ``tpu_ocean`` is its reference.
+fields stencil (``csrc/fields_stencil.cu``, or the v1 halo form
+``csrc/fields_stencil_v1.cu`` when ``ops.fields_stencil.FIELDS_KERNEL_V2``
+is False). It also runs the Gerstner pond family: ``PondSolver`` and its
+serving runtime ``PondSimulation``, whose ``"gerstner"`` mode with
+``use_pallas=True`` goes through the wave-bank kernel
+(``csrc/gerstner_bank.cu``). The solvers run on the card unless given
+``device="cpu"``; on CPU tensors each kernel wrapper runs its plain torch
+version. This package imports torch and numpy, never jax; the JAX package
+``tpu_ocean`` is its reference.
 """
 
 from tpu_ocean_torch.config import (
     OceanConfig, PondConfig, OCEAN_DEMO, FFT_MESH_DEMO, POND_DEMO)
 from tpu_ocean_torch.solver import OceanSolver, OceanStateReal, OceanFields
-from tpu_ocean_torch.convert import state_from_numpy, fields_to_numpy
+from tpu_ocean_torch.gerstner import (
+    WaveBank, PondFields, PondSolver, gerstner_eval, sinusoid_eval,
+    gerstner_velocity, sinusoid_velocity)
+from tpu_ocean_torch.runtime import PondSimulation
+from tpu_ocean_torch.convert import (
+    state_from_numpy, fields_to_numpy, wavebank_from_numpy,
+    pond_fields_to_numpy)
 from tpu_ocean_torch.fft.planes import (
     fft1d_transposed, fft1d_transposed_plain, fft1d_natural_large,
     fft1d_natural_large_plain, ifft1d_planes_axis2, ifft2_planes_auto,
     ifft2_planes_half)
-from tpu_ocean_torch.ops.fields_stencil import fields_stencil, fields_stencil_plain
+from tpu_ocean_torch.ops.fields_stencil import (
+    fields_stencil, fields_stencil_plain, fields_stencil_v1,
+    fields_stencil_v1_plain)
 from tpu_ocean_torch.ops.fused_spectrum import (
     assemble_rowfft, assemble_rowfft_plain, assemble_rowfft_natural,
     assemble_rowfft_natural_plain, ifft2_fused_planes, ifft2_fused_planes_half)
+from tpu_ocean_torch.ops.gerstner_bank import gerstner_bank, gerstner_bank_plain
 
 __all__ = [
     "OceanConfig", "PondConfig", "OCEAN_DEMO", "FFT_MESH_DEMO", "POND_DEMO",
     "OceanSolver", "OceanStateReal", "OceanFields",
-    "state_from_numpy", "fields_to_numpy",
+    "WaveBank", "PondFields", "PondSolver", "PondSimulation",
+    "gerstner_eval", "sinusoid_eval", "gerstner_velocity", "sinusoid_velocity",
+    "state_from_numpy", "fields_to_numpy", "wavebank_from_numpy",
+    "pond_fields_to_numpy",
     "fft1d_transposed", "fft1d_transposed_plain", "fft1d_natural_large",
     "fft1d_natural_large_plain", "ifft1d_planes_axis2", "ifft2_planes_auto",
     "ifft2_planes_half", "fields_stencil", "fields_stencil_plain",
+    "fields_stencil_v1", "fields_stencil_v1_plain",
     "assemble_rowfft", "assemble_rowfft_plain", "assemble_rowfft_natural",
     "assemble_rowfft_natural_plain", "ifft2_fused_planes",
-    "ifft2_fused_planes_half",
+    "ifft2_fused_planes_half", "gerstner_bank", "gerstner_bank_plain",
 ]

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` files compile with ONE ``nvcc`` call into a shared
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` call links the objects into a shared
 library with a plain C interface, loaded with ``ctypes``. The library lives
 under ``build/tpu_ocean_torch/<hash>/`` beside the package (a directory
 ``.gitignore`` lists), keyed by a hash of every file in ``csrc/`` that the
@@ -25,8 +26,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "tpu_ocean_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH, "-shared")
 LIB_NAME = "libtpu_ocean_torch.so"
 
 _P = ctypes.c_void_p
@@ -41,6 +44,8 @@ _SIGNATURES = {
     "tpu_fused_rows_transposed": _FUSED,
     "tpu_fused_rows_natural": _FUSED,
     "tpu_fields_stencil": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "tpu_fields_stencil_v1": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "tpu_gerstner_bank": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
 }
 
 
@@ -78,11 +83,37 @@ def _sources(csrc: Path = CSRC):
 
 
 def _digest(files) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(procs) -> str:
+    """Wait for every (command, Popen) of _start and return their output;
+    raise for the first that failed, after all have ended."""
+    outs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+    for cmd, out, code in outs:
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{out}")
+    return "".join(out for _, out, _ in outs)
+
+
+def _compile_and_link(compiled, tmp: Path) -> str:
+    """One nvcc per source, all started together, then one link into
+    ``tmp / LIB_NAME``; returns nvcc's output."""
+    nvcc = _nvcc()
+    objects = [str(tmp / f"{src.stem}.o") for src in compiled]
+    log = _wait([_start([nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", obj])
+                 for src, obj in zip(compiled, objects)])
+    return log + _wait([_start([nvcc, *LINK_FLAGS, "-o", str(tmp / LIB_NAME),
+                                *objects])])
 
 
 @functools.cache
@@ -95,21 +126,14 @@ def load() -> Kernels:
     seconds = 0.0
     if not lib_path.is_file():
         out_dir.mkdir(parents=True, exist_ok=True)
-        # build to a temporary name, then rename: a concurrent loader sees
-        # either no library or a whole one
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, compiled)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
-        log_path.write_text(log)
-        os.replace(tmp, lib_path)
+        # build in a temporary directory, then rename: a concurrent loader
+        # sees either no library or a whole one
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            t0 = time.perf_counter()
+            log = _compile_and_link(compiled, Path(tmp))
+            seconds = time.perf_counter() - t0
+            log_path.write_text(log)
+            os.replace(Path(tmp) / LIB_NAME, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

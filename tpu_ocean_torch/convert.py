@@ -1,10 +1,12 @@
-"""Carry state and fields between the JAX package and the port as numpy.
+"""Carry state, wave banks and fields between the JAX package and the port
+as numpy.
 
-The solver's state is its "weights": h0 planes and the accumulated phase.
-``state_from_numpy`` takes anything with the field names of the JAX
+The ocean solver's state is its "weights": h0 planes and the accumulated
+phase. ``state_from_numpy`` takes anything with the field names of the JAX
 package's ``OceanStateReal`` (a JAX state, a NamedTuple of numpy arrays, a
-port state) and returns the port's state on ``device``; nothing here
-imports jax.
+port state) and returns the port's state on ``device``. The pond's weights
+are its wave bank: ``wavebank_from_numpy`` takes the dict of a JAX
+``WaveBank.as_arrays()``. Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_ocean_torch.gerstner import PondFields, WaveBank
 from tpu_ocean_torch.solver import OceanFields, OceanStateReal
 
 _DTYPES = {"step": np.int32}
@@ -30,6 +33,18 @@ def state_from_numpy(obj, device) -> OceanStateReal:
                              for name in OceanStateReal._fields})
 
 
+def wavebank_from_numpy(arrays) -> WaveBank:
+    """Port WaveBank from a dict of 1-D arrays keyed by WaveBank's field
+    names (a JAX ``WaveBank.as_arrays()``)."""
+    return WaveBank(**{name: tuple(np.asarray(arrays[name], np.float64).tolist())
+                       for name in WaveBank.__dataclass_fields__})
+
+
 def fields_to_numpy(fields: OceanFields) -> OceanFields:
     """OceanFields with every tensor copied to a host numpy array."""
     return OceanFields(*(f.detach().cpu().numpy() for f in fields))
+
+
+def pond_fields_to_numpy(fields: PondFields) -> PondFields:
+    """PondFields with every tensor copied to a host numpy array."""
+    return PondFields(*(f.detach().cpu().numpy() for f in fields))

@@ -43,3 +43,11 @@ def coordinate_1d(n: int, unit_width: float) -> np.ndarray:
     if n % 2 == 0:
         x = x + unit_width / 2.0
     return x
+
+
+def coordinate_grid(n: int, unit_width: float):
+    """(x, z) position grids, [N, N] float64, axis0 = x, axis1 = z."""
+    c = coordinate_1d(n, unit_width)
+    x = c[:, None] * np.ones((1, n))
+    z = np.ones((n, 1)) * c[None, :]
+    return x, z

@@ -1,15 +1,20 @@
 """Fused surface-fields stencil: normals, Jacobian and whitecap foam.
 
-JAX counterpart: ``tpu_ocean/ops/fields_pallas.py`` (``fields_pallas_v2``).
-By bilinearity the shader's four edge cross products equal one cross
-product of the central differences, u = right − left and v = top − bottom,
-so normals and the Jacobian both come from six difference planes.
+JAX counterpart: ``tpu_ocean/ops/fields_pallas.py``, two kernels behind
+one module switch, ``FIELDS_KERNEL_V2`` (fields_pallas.py:149, 193-195):
 
-On a CUDA tensor ``fields_stencil`` launches the hand-written kernel
-(``csrc/fields_stencil.cu``) and nothing else; on a CPU tensor it runs its
-plain version below. The TPU kernel's boundary-row gather and its
-``M % 8`` rule came from its VMEM blocking and are not carried over: any
-[M, N] grid works.
+* v2 (``fields_pallas_v2``, the default): by bilinearity the shader's four
+  edge cross products equal one cross product of the central differences,
+  u = right − left and v = top − bottom, so normals and the Jacobian both
+  come from six difference planes. Kernel ``csrc/fields_stencil.cu``.
+* v1 (``_fields_kernel``, kept for A/B and regression hunts): the same
+  fields from the four edge vectors and four cross products, summed per
+  component as c1 + c2 + c3 + c4. Kernel ``csrc/fields_stencil_v1.cu``.
+
+On a CUDA tensor each wrapper launches its hand-written kernel and nothing
+else; on a CPU tensor it runs its plain version below. The TPU kernels'
+boundary-row gather, halo bands and ``M % 8`` rule came from VMEM
+blocking and DMA alignment and are not carried over: any [M, N] grid works.
 """
 
 from __future__ import annotations
@@ -17,6 +22,11 @@ from __future__ import annotations
 import torch
 
 from tpu_ocean_torch import _build
+from tpu_ocean_torch.fft.planes import on_cpu
+
+#: False routes fields_stencil to the v1 kernel (fields_stencil_v1), as the
+#: JAX package's switch of the same name does
+FIELDS_KERNEL_V2 = True
 
 
 def fields_stencil_plain(disp_x, height, disp_z, texel: float):
@@ -44,6 +54,58 @@ def fields_stencil_plain(disp_x, height, disp_z, texel: float):
     return torch.stack([nx, ny, nz], dim=-1), t * t * (3.0 - 2.0 * t), jac
 
 
+def fields_stencil_v1_plain(disp_x, height, disp_z, texel: float):
+    """Plain version of fields_stencil_v1, the kernel's arithmetic in torch
+    (fields_pallas.py:100-140)."""
+    p = (disp_x, height, disp_z)
+
+    def xm(a):                     # row i−1
+        return torch.roll(a, 1, 0)
+
+    def xp(a):                     # row i+1
+        return torch.roll(a, -1, 0)
+
+    def zm(a):                     # column j−1
+        return torch.roll(a, 1, 1)
+
+    def zp(a):                     # column j+1
+        return torch.roll(a, -1, 1)
+
+    def edge(nb, ox, oz):
+        return (nb(p[0]) - p[0] + ox, nb(p[1]) - p[1], nb(p[2]) - p[2] + oz)
+
+    # "right" = +x neighbour, "top" = −z neighbour (OceanNormal.shader:39-56)
+    right = edge(xp, texel, 0.0)
+    left = edge(xm, -texel, 0.0)
+    top = edge(zm, 0.0, -texel)
+    bottom = edge(zp, 0.0, texel)
+
+    def cross(a, b):
+        return (a[1] * b[2] - a[2] * b[1],
+                a[2] * b[0] - a[0] * b[2],
+                a[0] * b[1] - a[1] * b[0])
+
+    c1 = cross(right, top)
+    c2 = cross(top, left)
+    c3 = cross(left, bottom)
+    c4 = cross(bottom, right)
+    nx = c1[0] + c2[0] + c3[0] + c4[0]
+    ny = c1[1] + c2[1] + c3[1] + c4[1]
+    nz = c1[2] + c2[2] + c3[2] + c4[2]
+    inv = torch.reciprocal(torch.sqrt(nx * nx + ny * ny + nz * nz))
+    nx, ny, nz = nx * inv, ny * inv, nz * inv
+
+    # whitecap (WhiteCap.shader:33-45): central differences ÷8
+    dx, dz = disp_x, disp_z
+    ddx_x = -0.5 * (xm(dx) - xp(dx)) / 8.0
+    ddx_z = -0.5 * (xm(dz) - xp(dz)) / 8.0
+    ddy_x = -0.5 * (zm(dx) - zp(dx)) / 8.0
+    ddy_z = -0.5 * (zm(dz) - zp(dz)) / 8.0
+    jac = (1.0 + ddx_x) * (1.0 + ddy_z) - ddx_z * ddy_x
+    t = torch.clamp(1.0 - jac + 0.3 * torch.sqrt(nx * nx + nz * nz), 0.0, 1.0)
+    return torch.stack([nx, ny, nz], dim=-1), t * t * (3.0 - 2.0 * t), jac
+
+
 def _check_planes(*planes: torch.Tensor) -> None:
     shape, device = planes[0].shape, planes[0].device
     for p in planes:
@@ -58,16 +120,7 @@ def _check_planes(*planes: torch.Tensor) -> None:
             raise ValueError("planes must be contiguous")
 
 
-def fields_stencil(disp_x: torch.Tensor, height: torch.Tensor,
-                   disp_z: torch.Tensor, texel: float):
-    """(normal [M, N, 3], foam [M, N], jacobian [M, N]) from the chop-scaled
-    displacements and the height, periodic on both axes; ``texel`` = L/N."""
-    _check_planes(disp_x, height, disp_z)
-    if disp_x.device.type == "cpu":
-        return fields_stencil_plain(disp_x, height, disp_z, texel)
-    if disp_x.device.type != "cuda":
-        raise ValueError(f"fields_stencil runs on cpu or cuda, not "
-                         f"{disp_x.device}")
+def _launch(entry: str, disp_x, height, disp_z, texel: float):
     kernels = _build.load()
     m, n = height.shape
     normal = torch.empty((m, n, 3), dtype=torch.float32, device=height.device)
@@ -75,14 +128,41 @@ def fields_stencil(disp_x: torch.Tensor, height: torch.Tensor,
     jac = torch.empty_like(foam)
     with torch.cuda.device(height.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = kernels.lib.tpu_fields_stencil(
+        err = getattr(kernels.lib, entry)(
             disp_x.data_ptr(), height.data_ptr(), disp_z.data_ptr(),
             normal.data_ptr(), foam.data_ptr(), jac.data_ptr(), m, n,
             float(texel), stream)
-    kernels.check(err, "fields_stencil")
-    fields_stencil.launches += 1
+    kernels.check(err, entry)
     return normal, foam, jac
+
+
+def fields_stencil(disp_x: torch.Tensor, height: torch.Tensor,
+                   disp_z: torch.Tensor, texel: float):
+    """(normal [M, N, 3], foam [M, N], jacobian [M, N]) from the chop-scaled
+    displacements and the height, periodic on both axes; ``texel`` = L/N.
+    The v2 kernel, or v1 when FIELDS_KERNEL_V2 is False."""
+    if not FIELDS_KERNEL_V2:
+        return fields_stencil_v1(disp_x, height, disp_z, texel)
+    _check_planes(disp_x, height, disp_z)
+    if on_cpu("fields_stencil", disp_x):
+        return fields_stencil_plain(disp_x, height, disp_z, texel)
+    out = _launch("tpu_fields_stencil", disp_x, height, disp_z, texel)
+    fields_stencil.launches += 1
+    return out
+
+
+def fields_stencil_v1(disp_x: torch.Tensor, height: torch.Tensor,
+                      disp_z: torch.Tensor, texel: float):
+    """fields_stencil by the v1 kernel: the same outputs from four edge
+    cross products (agreeing with v2 up to f32 reassociation)."""
+    _check_planes(disp_x, height, disp_z)
+    if on_cpu("fields_stencil_v1", disp_x):
+        return fields_stencil_v1_plain(disp_x, height, disp_z, texel)
+    out = _launch("tpu_fields_stencil_v1", disp_x, height, disp_z, texel)
+    fields_stencil_v1.launches += 1
+    return out
 
 
 #: kernel launches since the last reset (CPU calls do not count)
 fields_stencil.launches = 0
+fields_stencil_v1.launches = 0
