@@ -11,8 +11,10 @@ Phases, each printing its own lines:
                together, linked into one library;
   3. kernels — each kernel against its plain PyTorch version on the card,
                at the shapes the paths below give it (the wave bank also at
-               4096², a timing shape);
-  4. slice   — seven paths on the card, each from a seeded init, with every
+               4096², a timing shape); each row-DFT kernel also against
+               float64 (torch.fft in complex128), and the transposed row
+               pass at every tier and form at 1024² and 4096²;
+  4. slice   — eleven paths on the card, each from a seeded init, with every
                launch count set to 0 just before and read just after it:
                  (i)   OCEAN_DEMO 1024², fft_backend="pallas", 60 steps
                  (ii)  OCEAN_DEMO 1024², fft_backend="pallas_fused", 60 steps
@@ -21,17 +23,30 @@ Phases, each printing its own lines:
                  (v)   OCEAN_DEMO 1024², "pallas", with
                        fields_stencil.FIELDS_KERNEL_V2 = False (the v1
                        fields kernel), 20 steps
+                 (vi)  OCEAN_DEMO 1024², "pallas", precision="bfloat16",
+                       60 steps: every pass on the matrix engine at bf16
+                 (vii) OCEAN_DEMO at 4096², "pallas_fused", "bfloat16",
+                       10 steps
+                 (viii) OCEAN_DEMO 1024², "pallas", with
+                       fft.planes.THREE_FACTOR_THRESHOLD = 512, 20 steps:
+                       the three-factor form (#1b) at f32
+                 (ix)  OCEAN_DEMO 1024², "pallas_fused", with
+                       THREE_FACTOR_THRESHOLD = KERNEL_B3_THRESHOLD = 512,
+                       20 steps: #5b and #1b at bf16x3
                  (p1)  PondSimulation(POND_DEMO, use_pallas=True): 512², the
                        packed 4-wave bank, analytic normals, 600 steps
                  (p2)  BASELINE config 3: PondConfig(resolution=512) with
                        WaveBank.random(0, 16), use_pallas=True, 600 steps
                every kernel must have launched exactly its per-step count
-               (PATHS, POND_PATHS below). Ocean paths: the fields must be
-               finite, the normals unit and the foam in [0, 1]; the last
-               steps are replayed on the CPU plain path from a snapshot of
-               the card's state and the two are compared (compare_fields);
-               (v)'s last step is also compared with the v2 kernel's from
-               the same state. Pond paths: finite fields, unit normals, and
+               (PATHS, POND_PATHS below; the matrix engine's launches by
+               kernel × tier × form, fft.planes.matrix_launches). Ocean
+               paths: the fields must be finite, the normals unit and the
+               foam in [0, 1]; the last steps are replayed on the CPU plain
+               path from a snapshot of the card's state and the two are
+               compared (compare_fields), except (vii), whose last step is
+               compared with the card's f32 step from the same state; (v)'s
+               last step is also compared with the v2 kernel's from the
+               same state. Pond paths: finite fields, unit normals, and
                the CPU plain path at the last step's t within atol 2e-5,
                rtol 1e-5; then the plain-torch "wave" mode and both
                velocities at 512², card against CPU, with the same band;
@@ -61,11 +76,13 @@ printed. Without a CUDA device it stops at once. Imports no jax.
 """
 
 import argparse
+import collections
 import contextlib
 import cProfile
 import dataclasses
 import json
 import pstats
+import re
 import subprocess
 import sys
 import time
@@ -80,6 +97,7 @@ HERE = Path(__file__).resolve().parent
 DT = 1.0 / 60.0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 # f32 instructions of sincosf's fast path (|x| < 105615) in the SASS of
 # gerstner_bank_kernel for sm_90a (cuobjdump -sass of the built library):
 # 11 FFMA, 2 FMUL, 4 FSEL, FSETP, F2I, I2FP
@@ -88,26 +106,63 @@ SINCOSF_OPS = 20
 # JAX package's Pallas-vs-jnp band (tests/test_pallas_kernels.py:58)
 POND_ATOL, POND_RTOL = 2e-5, 1e-5
 
-# (label, fft_backend, N, steps, replay steps, FIELDS_KERNEL_V2, kernel
-# launches per step). Row DFT passes: transposed regime (N ≤ 2048) — 2 for the full channel,
-# and the half channel's Nyquist row, half rows and columns; natural regime
+# One ocean path: fft_backend, N, steps, replay steps (0: compare the last
+# step with the card's f32 step from the same state instead of a CPU
+# replay), FIELDS_KERNEL_V2, precision, the fft.planes switches set for the
+# path, kernel launches per step, and the band of compare_fields. Row DFT
+# passes: transposed regime (N ≤ 2048) — 2 for the full channel, and the
+# half channel's Nyquist row, half rows and columns; natural regime
 # (N > 2048) — the full channel's natural row pass and its column pass (a
 # transposed pass on swapped axes), the half channel's natural Nyquist row
-# and half rows and its transposed column pass. The fused backend assembles
-# each channel inside its first row pass.
+# and half rows and its transposed column pass. The fused backend
+# assembles each channel inside its first row pass. Each pass runs at the
+# tier and form of its length (fft.planes.engine): at 1024² the half
+# channel's column pass is 512 long, so thresholds of 512 leave it on the
+# f32 Stockham kernel.
+OceanPath = collections.namedtuple(
+    "OceanPath", "tag backend size steps replay v2 precision switches "
+    "per_step rel")
+SPLIT3 = {"THREE_FACTOR_THRESHOLD": 512}
+B3_SPLIT3 = {"THREE_FACTOR_THRESHOLD": 512, "KERNEL_B3_THRESHOLD": 512}
+# compare_fields' bands at bf16 (max abs err over max |reference|): card
+# against the CPU plain path 4e-3, two row passes in sequence of 2e-3 each
+# (the kernel-vs-plain band: one bf16 ulp of an intermediate flips where
+# the two accumulate in other orders); against the card's f32 path 3e-2,
+# the JAX package's envelope of its bf16 mode (tests/test_switch_matrix.py:93).
+# At bf16x3, card against CPU 5e-5, the tier's band against float64
+# (tests/test_pallas_kernels.py:232): a one-ulp f32 difference of a stage-1
+# output can flip the bf16 rounding of its lo part, which moves a pass by up
+# to the tier's own error (~5e-6·max), and a 2-D field takes two passes
+BF16_REL, BF16_VS_F32_REL, B3_REL = 4e-3, 3e-2, 5e-5
 PATHS = [
-    ("i", "pallas", 1024, 60, 10, True,
-     {"fft_rows_transposed": 5, "fields_stencil": 1}),
-    ("ii", "pallas_fused", 1024, 60, 10, True,
-     {"fused_rows_transposed": 2, "fft_rows_transposed": 3,
-      "fields_stencil": 1}),
-    ("iii", "pallas", 4096, 10, 2, True,
-     {"fft_rows_natural": 3, "fft_rows_transposed": 2, "fields_stencil": 1}),
-    ("iv", "pallas_fused", 4096, 10, 2, True,
-     {"fused_rows_natural": 2, "fft_rows_natural": 1,
-      "fft_rows_transposed": 2, "fields_stencil": 1}),
-    ("v", "pallas", 1024, 20, 2, False,
-     {"fft_rows_transposed": 5, "fields_stencil_v1": 1}),
+    OceanPath("i", "pallas", 1024, 60, 10, True, "float32", {},
+              {"fft_rows_transposed": 5, "fields_stencil": 1}, 1e-5),
+    OceanPath("ii", "pallas_fused", 1024, 60, 10, True, "float32", {},
+              {"fused_rows_transposed": 2, "fft_rows_transposed": 3,
+               "fields_stencil": 1}, 1e-5),
+    OceanPath("iii", "pallas", 4096, 10, 2, True, "float32", {},
+              {"fft_rows_natural": 3, "fft_rows_transposed": 2,
+               "fields_stencil": 1}, 1e-5),
+    OceanPath("iv", "pallas_fused", 4096, 10, 2, True, "float32", {},
+              {"fused_rows_natural": 2, "fft_rows_natural": 1,
+               "fft_rows_transposed": 2, "fields_stencil": 1}, 1e-5),
+    OceanPath("v", "pallas", 1024, 20, 2, False, "float32", {},
+              {"fft_rows_transposed": 5, "fields_stencil_v1": 1}, 1e-5),
+    OceanPath("vi", "pallas", 1024, 60, 2, True, "bfloat16", {},
+              {"matrix_rows_transposed[bf16]": 5, "fields_stencil": 1},
+              BF16_REL),
+    OceanPath("vii", "pallas_fused", 4096, 10, 0, True, "bfloat16", {},
+              {"matrix_fused_natural[bf16]": 2,
+               "matrix_rows_natural[bf16]": 1,
+               "matrix_rows_transposed[bf16]": 2, "fields_stencil": 1},
+              BF16_VS_F32_REL),
+    OceanPath("viii", "pallas", 1024, 20, 2, True, "float32", SPLIT3,
+              {"matrix_rows_transposed[f32,split3]": 4,
+               "fft_rows_transposed": 1, "fields_stencil": 1}, 1e-5),
+    OceanPath("ix", "pallas_fused", 1024, 20, 2, True, "float32", B3_SPLIT3,
+              {"matrix_fused_transposed[bf16x3,split3]": 2,
+               "matrix_rows_transposed[bf16x3,split3]": 2,
+               "fft_rows_transposed": 1, "fields_stencil": 1}, B3_REL),
 ]
 # (label, what, WaveBank.random arguments or None for the config's packed
 # 4-wave bank, steps): POND_DEMO (512²) through PondSimulation with
@@ -131,7 +186,25 @@ KERNEL_INFO = {   # name: (source, the TPU kernel it replaces)
                           "tpu_ocean/ops/fields_pallas.py:45"),
     "gerstner_bank": ("tpu_ocean_torch/csrc/gerstner_bank.cu",
                       "tpu_ocean/ops/gerstner_pallas.py:30"),
+    # the matrix-form engine (csrc/dft_matrix.cuh) in the row and fused
+    # entries, by tier and form
+    "matrix_rows_transposed[bf16]": ("tpu_ocean_torch/csrc/fft_rows.cu",
+                                     "tpu_ocean/fft/pallas_fft.py:235"),
+    "matrix_rows_natural[bf16]": ("tpu_ocean_torch/csrc/fft_rows.cu",
+                                  "tpu_ocean/fft/pallas_fft.py:677"),
+    "matrix_fused_natural[bf16]": ("tpu_ocean_torch/csrc/fused_rows.cu",
+                                   "tpu_ocean/ops/fused_spectrum_fft.py:196"),
+    "matrix_rows_transposed[f32,split3]": ("tpu_ocean_torch/csrc/fft_rows.cu",
+                                           "tpu_ocean/fft/pallas_fft.py:273"),
+    "matrix_rows_transposed[bf16x3,split3]": (
+        "tpu_ocean_torch/csrc/fft_rows.cu", "tpu_ocean/fft/pallas_fft.py:273"),
+    "matrix_fused_transposed[bf16x3,split3]": (
+        "tpu_ocean_torch/csrc/fused_rows.cu",
+        "tpu_ocean/ops/fused_spectrum_fft.py:161"),
 }
+# kernel-vs-plain band of each tier (tests/test_torch_cuda_kernels.py)
+TIER_BAND = {"f32": 1e-5, "bf16": 2e-3, "bf16x3": 1e-5}
+TIER_CODE = {"0": "f32", "1": "bf16", "2": "bf16x3"}
 OCEAN_NOTE = ("torch ops: phase, assembly where unfused, C2R fold, "
               "interleave, transposing copies, positions")
 POND_NOTE = "torch ops: none expected, the pond step is one kernel"
@@ -148,11 +221,20 @@ def require(cond, what):
 
 def kernel_group(key):
     """The port's kernel a profiler key names, or "torch ops"."""
-    natural = "<true>" in key or "ILb1E" in key
-    if "fft_rows_kernel" in key:
-        return "fft_rows_natural" if natural else "fft_rows_transposed"
-    if "fused_rows_kernel" in key:
-        return "fused_rows_natural" if natural else "fused_rows_transposed"
+    natural = "<true," in key or "ILb1E" in key
+    store = "natural" if natural else "transposed"
+    for stem, kind in (("fft_rows_kernel", "rows"),
+                       ("fused_rows_kernel", "fused")):
+        if stem not in key:
+            continue
+        # MatrixEngine<tier, split3>, demangled or mangled
+        m = (re.search(r"MatrixEngine<(\d), (true|false)>", key)
+             or re.search(r"MatrixEngineILi(\d)ELb([01])E", key))
+        if m is None:
+            return f"{'fft_rows' if kind == 'rows' else 'fused_rows'}_{store}"
+        split3 = m.group(2) in ("true", "1")
+        tier = TIER_CODE[m.group(1)]
+        return f"matrix_{kind}_{store}[{tier}{',split3' if split3 else ''}]"
     if "fields_stencil_v1_kernel" in key:
         return "fields_stencil_v1"
     if "gerstner_bank_kernel" in key:
@@ -160,6 +242,20 @@ def kernel_group(key):
     if "fields_stencil_kernel" in key:
         return "fields_stencil"
     return "torch ops"
+
+
+@contextlib.contextmanager
+def dft_switches(planes, switches):
+    """fft.planes' module switches (THREE_FACTOR_THRESHOLD,
+    KERNEL_B3_THRESHOLD) set to ``switches`` for the duration."""
+    saved = {k: getattr(planes, k) for k in switches}
+    for k, v in switches.items():
+        setattr(planes, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(planes, k, v)
 
 
 def cuda_ms(fn, iters=100, warmup=10):
@@ -228,11 +324,12 @@ def host_profile(fn, steps=50, top=10):
     return [(name, us) for us, name in rows[:top]]
 
 
-def bound(nbytes, flops):
+def bound(nbytes, f32_ops, tensor_ops=0):
     """(least ms the card could take, what bounds it): bytes over the HBM
-    rate against f32 operations over the f32 peak."""
+    rate against f32 operations over the f32 peak plus bf16 tensor-core
+    operations over the bf16 peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = (f32_ops / F32_FLOPS_PER_S + tensor_ops / BF16_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -260,23 +357,25 @@ def normal_sensitivity(fields, cfg, delta):
     return 4 * np.sqrt(3) * delta * (lu + lv) / np.linalg.norm(np.cross(u, v), axis=-1)
 
 
-def compare_fields(card, cpu, cfg, tag, against="cpu"):
+def compare_fields(card, cpu, cfg, tag, against="cpu", rel=1e-5):
     """Hold the card's fields to the CPU plain path's (or to ``against``,
     another card run from the same state), with the bands of
-    tests/test_packing.py: 1e-5·max|cpu| for height, displacements,
-    positions and Jacobian; 2e-4 for normals and 25·1e-5·max|foam| for
-    foam, each plus the first-order effect of the measured input
-    differences (normal_sensitivity): at 1024² a few texels sit on folds
-    where any two f32 transforms give normals up to ~1e-3 apart (the CPU
-    plain path alone is that far from float64 there). Foam follows J and
-    n: |δfoam| ≤ 1.5·(|δJ| + 0.3·|δn|), smoothstep's slope being ≤ 1.5."""
+    tests/test_packing.py at ``rel``: rel·max|cpu| for height,
+    displacements, positions and Jacobian; 2e-4 for normals and
+    25·rel·max|foam| for foam, each plus the first-order effect of the
+    measured input differences (normal_sensitivity): at 1024² a few texels
+    sit on folds where any two f32 transforms give normals up to ~1e-3
+    apart (the CPU plain path alone is that far from float64 there). Foam
+    follows J and n: |δfoam| ≤ 1.5·(|δJ| + 0.3·|δn|), smoothstep's slope
+    being ≤ 1.5. ``rel`` is 1e-5 for f32 (the bands of
+    tests/test_packing.py) and wider for bf16 and bf16x3 (PATHS)."""
     chop = cfg.choppiness
     err = {name: np.abs(getattr(card, name) - getattr(cpu, name))
            for name in cpu._fields}
     for name in ("height", "disp_x", "disp_z", "pos_x", "pos_z", "jacobian"):
-        band = 1e-5 * np.abs(getattr(cpu, name)).max()
+        band = rel * np.abs(getattr(cpu, name)).max()
         log(f"[slice {tag}] card vs {against} {name}: max abs err "
-            f"{err[name].max():.3e} <= {band:.3e} (1e-5 x max|{against}|)")
+            f"{err[name].max():.3e} <= {band:.3e} ({rel:g} x max|{against}|)")
         require(err[name].max() <= band,
                 f"path {tag}: card and {against} disagree on {name}")
     delta = max(err["height"].max(), chop * err["disp_x"].max(),
@@ -290,28 +389,47 @@ def compare_fields(card, cpu, cfg, tag, against="cpu"):
         f"{(n_err / n_band).max():.3f})")
     require((n_err <= n_band).all(),
             f"path {tag}: card and {against} disagree on normal")
-    f_raw = 25e-5 * np.abs(cpu.foam).max()
+    f_raw = 25 * rel * np.abs(cpu.foam).max()
     f_band = f_raw + 1.5 * (err["jacobian"] + 0.3 * n_err)
     log(f"[slice {tag}] card vs {against} foam: max abs err {err['foam'].max():.3e}; "
         f"{int((err['foam'] > f_raw).sum())} texels beyond {f_raw:.3e} "
-        f"(25e-5 x max), all within that + 1.5(|dJ| + 0.3|dn|): "
+        f"(25 x {rel:g} x max), all within that + 1.5(|dJ| + 0.3|dn|): "
         f"{bool((err['foam'] <= f_band).all())} (worst err/band "
         f"{(err['foam'] / f_band).max():.3f})")
     require((err["foam"] <= f_band).all(),
             f"path {tag}: card and {against} disagree on foam")
 
 
-def check_kernel(name, shape, got, want):
+def check_kernel(name, shape, got, want, band=1e-5):
     """Max abs error of a kernel's (re, im) against its plain version's;
-    raises beyond 1e-5·max|plain|."""
+    raises beyond band·max|plain|."""
     torch.cuda.synchronize()
     scale = max(w.abs().max().item() for w in want)
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     require(all(g.shape == w.shape for g, w in zip(got, want)),
             f"{name} {shape}: shape {got[0].shape}")
-    require(err <= 1e-5 * scale, f"{name} {shape} disagrees ({err:.3e} = "
-            f"{err / scale:.3e} x max|plain|)")
+    require(err <= band * scale, f"{name} {shape} disagrees ({err:.3e} = "
+            f"{err / scale:.3e} x max|plain|, band {band:g})")
     return err, scale
+
+
+@dataclasses.dataclass
+class Case:
+    """One kernel at one shape: its call, its plain version's, a library
+    call computing the same function (or None), the float64 reference
+    (or None), the bytes and operations of its bound, its band against
+    the plain version and the fft.planes switches it runs under."""
+    name: str
+    shape: list
+    run: object
+    plain: object
+    library: object
+    nbytes: int
+    f32_ops: int
+    tensor_ops: int = 0
+    band: float = 1e-5
+    f64: object = None
+    switches: dict = dataclasses.field(default_factory=dict)
 
 
 def sweep_rows(cases, planes):
@@ -320,7 +438,8 @@ def sweep_rows(cases, planes):
     version first; the wrappers' own choice marked "*"."""
     chosen_fn = planes.rows_per_block
     sms = planes.sm_count(torch.device("cuda"))
-    for name, shape, run, plain, *_ in cases:
+    for case in cases:
+        name, shape, run, plain = case.name, case.shape, case.run, case.plain
         if not name.startswith(("fft_rows", "fused_rows")):
             continue
         c, m, n = (1, *shape[:2]) if name.startswith("fused") else shape
@@ -414,8 +533,8 @@ def main():
     require(Path(tpu_ocean_torch.__file__).resolve().parent.parent == HERE,
             f"tpu_ocean_torch imported from {tpu_ocean_torch.__file__}, "
             f"not from this checkout")
-    # no kernel here uses tensor cores; TF32 is off so no plain version can
-    # use it either
+    # TF32 is off so no plain version can use it (the matrix engine's
+    # plain versions assert it)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -459,45 +578,115 @@ def main():
     def plane(shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
+    def f64_rows(re, im, transposed):
+        """float64 row DFT (torch.fft in complex128), in the kernel's
+        output layout."""
+        def ref():
+            z = torch.fft.ifft(torch.complex(re.double(), im.double()), dim=-1,
+                               norm="forward")
+            if transposed:
+                z = z.transpose(-1, -2)
+            return z.real, z.imag
+        return ref
+
+    def switched(switches, fn):
+        def call():
+            with dft_switches(planes, switches):
+                return fn()
+        return call
+
+    # (kernel, wrapper, plain, precision, switches, shapes); the row DFTs'
+    # operations: 5·log2(N) a point for the Stockham stages; for the matrix
+    # engine 8·(n1 + n2) a point of bf16 tensor-core products (×3 at
+    # bf16x3) and the twiddle's 6 f32; in the three-factor form at f32
+    # 8·(n2 + 8 + 16) + 12 on FFMA
     cases = []
-    for name, fn, plain, shapes in (
+    for name, fn, plain, precision, switches, shapes in (
             ("fft_rows_transposed", planes.fft1d_transposed,
-             planes.fft1d_transposed_plain,
+             planes.fft1d_transposed_plain, "float32", {},
              [(1, 1024, 1024), (1, 512, 1024), (1, 1024, 512), (1, 1, 1024),
               (1, 4096, 4096), (1, 4096, 2048)]),
             ("fft_rows_natural", planes.fft1d_natural_large,
-             planes.fft1d_natural_large_plain,
+             planes.fft1d_natural_large_plain, "float32", {},
              [(1, 4096, 4096), (1, 2048, 4096), (1, 1, 4096),
-              (1, 1024, 1024)])):
+              (1, 1024, 1024)]),
+            ("matrix_rows_transposed[bf16]", planes.fft1d_transposed,
+             planes.fft1d_transposed_plain, "bfloat16", {},
+             [(1, 1024, 1024), (1, 512, 1024), (1, 1024, 512), (1, 1, 1024),
+              (1, 4096, 4096), (1, 4096, 2048)]),
+            ("matrix_rows_natural[bf16]", planes.fft1d_natural_large,
+             planes.fft1d_natural_large_plain, "bfloat16", {},
+             [(1, 4096, 4096), (1, 2048, 4096), (1, 1, 4096)]),
+            ("matrix_rows_transposed[f32,split3]", planes.fft1d_transposed,
+             planes.fft1d_transposed_plain, "float32", SPLIT3,
+             [(1, 1024, 1024), (1, 512, 1024), (1, 1, 1024)]),
+            ("matrix_rows_transposed[bf16x3,split3]", planes.fft1d_transposed,
+             planes.fft1d_transposed_plain, "float32", B3_SPLIT3,
+             [(1, 1024, 1024), (1, 1, 1024)])):
         for shape in shapes:
             re, im = plane(shape), plane(shape)
             z = torch.complex(re, im)
             points = shape[0] * shape[1] * shape[2]
-            cases.append((name, list(shape),
-                          lambda fn=fn, re=re, im=im: fn(re, im, True),
-                          lambda fn=plain, re=re, im=im: fn(re, im, True),
-                          lambda z=z: torch.fft.ifft(z, dim=-1, norm="forward"),
-                          16 * points,
-                          5 * points * int(np.log2(shape[2]))))
-    for name, fn, plain, shapes in (
+            n1, n2 = planes._split_lanes(shape[2])
+            with dft_switches(planes, switches):
+                tier, split3 = planes.engine(
+                    shape[2], precision, fn is planes.fft1d_transposed)
+            if not name.startswith("matrix"):
+                f32_ops, tensor_ops = 5 * int(np.log2(shape[2])), 0
+            elif split3 and tier == "f32":
+                f32_ops, tensor_ops = 8 * (n2 + 24) + 12, 0
+            else:
+                f32_ops = 6 + (6 if split3 else 0)
+                tensor_ops = ((3 if tier == "bf16x3" else 1)
+                              * 8 * (n2 + (24 if split3 else n1)))
+            cases.append(Case(
+                name, list(shape),
+                switched(switches, lambda fn=fn, re=re, im=im, p=precision:
+                         fn(re, im, True, p)),
+                switched(switches, lambda fn=plain, re=re, im=im, p=precision:
+                         fn(re, im, True, p)),
+                lambda z=z: torch.fft.ifft(z, dim=-1, norm="forward"),
+                16 * points, f32_ops * points, tensor_ops * points,
+                TIER_BAND[tier],
+                f64_rows(re, im, fn is planes.fft1d_transposed), switches))
+    for name, fn, plain, precision, switches, shapes in (
             ("fused_rows_transposed", fused.assemble_rowfft,
-             fused.assemble_rowfft_plain, [(1024, 1024, 0), (512, 1024, 1)]),
+             fused.assemble_rowfft_plain, "float32", {},
+             [(1024, 1024, 0), (512, 1024, 1)]),
             ("fused_rows_natural", fused.assemble_rowfft_natural,
-             fused.assemble_rowfft_natural_plain,
-             [(4096, 4096, 0), (2048, 4096, 1)])):
+             fused.assemble_rowfft_natural_plain, "float32", {},
+             [(4096, 4096, 0), (2048, 4096, 1)]),
+            ("matrix_fused_natural[bf16]", fused.assemble_rowfft_natural,
+             fused.assemble_rowfft_natural_plain, "bfloat16", {},
+             [(4096, 4096, 0), (2048, 4096, 1)]),
+            ("matrix_fused_transposed[bf16x3,split3]", fused.assemble_rowfft,
+             fused.assemble_rowfft_plain, "float32", B3_SPLIT3,
+             [(1024, 1024, 0), (512, 1024, 1)])):
         for m, n, ch in shapes:
             h0 = tuple(plane((m, n)) for _ in range(4))
             phase = torch.from_numpy(rng.uniform(0, 2 * np.pi, size=(m, n))
                                      .astype(np.float32)).to(dev)
-            kw = dict(epsilon=1e-4, ch_start=ch, ch_count=1)
+            kw = dict(epsilon=1e-4, ch_start=ch, ch_count=1,
+                      precision=precision)
             args = (h0, phase, OCEAN_DEMO.length, -1.0)
+            n1, n2 = planes._split_lanes(n)
+            with dft_switches(planes, switches):
+                tier, split3 = planes.engine(
+                    n, precision, fn is fused.assemble_rowfft)
             # 5 f32 planes in, one complex channel out, the kz row; the
-            # assembly's ~30 operations and the transform's 5·log2(N)
-            cases.append((name, [m, n, f"ch {ch}"],
-                          lambda fn=fn, a=args, kw=kw: fn(*a, **kw),
-                          lambda fn=plain, a=args, kw=kw: fn(*a, **kw),
-                          None, 28 * m * n + 4 * n,
-                          (30 + 5 * int(np.log2(n))) * m * n))
+            # assembly's ~30 operations and the transform's
+            if not name.startswith("matrix"):
+                f32_ops, tensor_ops = 30 + 5 * int(np.log2(n)), 0
+            else:
+                f32_ops = 30 + 6 + (6 if split3 else 0)
+                tensor_ops = ((3 if tier == "bf16x3" else 1)
+                              * 8 * (n2 + (24 if split3 else n1)))
+            cases.append(Case(
+                name, [m, n, f"ch {ch}"],
+                switched(switches, lambda fn=fn, a=args, kw=kw: fn(*a, **kw)),
+                switched(switches, lambda fn=plain, a=args, kw=kw: fn(*a, **kw)),
+                None, 28 * m * n + 4 * n, f32_ops * m * n, tensor_ops * m * n,
+                TIER_BAND[tier], None, switches))
 
     # the wave bank at the pond paths' grid and last step's t, both banks
     # and both normal modes, and at 4096² (W = 16); operations: the TPU
@@ -512,15 +701,17 @@ def main():
         x, z = (torch.from_numpy(a.astype(np.float32)).to(dev)
                 for a in grids.coordinate_grid(n, POND_DEMO.unit_width))
         args = (gb.pack_bank(bank, dev), x, z, pond_t, mode)
-        cases.append(("gerstner_bank", [n, n, f"W {waves}", mode],
-                      lambda a=args: gb.gerstner_bank(*a),
-                      lambda a=args: gb.gerstner_bank_plain(*a), None,
-                      32 * n * n,
-                      ((20 if mode == "analytic" else 14) + SINCOSF_OPS)
-                      * waves * n * n))
+        cases.append(Case("gerstner_bank", [n, n, f"W {waves}", mode],
+                          lambda a=args: gb.gerstner_bank(*a),
+                          lambda a=args: gb.gerstner_bank_plain(*a), None,
+                          32 * n * n,
+                          ((20 if mode == "analytic" else 14) + SINCOSF_OPS)
+                          * waves * n * n))
 
     errs = {k: 0.0 for k in KERNEL_INFO}
-    for name, shape, run, plain, _, _, _ in cases:
+    f64_errs = {}
+    for case in cases:
+        name, shape, run, plain = case.name, case.shape, case.run, case.plain
         if name == "gerstner_bank":
             # each output against its own scale: offsets ~0.1, normal ~1
             got, want = run(), plain()
@@ -535,13 +726,27 @@ def main():
                 require(g.shape == w.shape and err <= 1e-5 * scale,
                         f"{name} {shape} {out} disagrees")
             continue
-        err, scale = check_kernel(name, shape, run(), plain())
+        planes.matrix_launches.clear()
+        got = run()
+        if name.startswith("matrix"):
+            require(dict(planes.matrix_launches) == {name: 1},
+                    f"{name} {shape} launched {dict(planes.matrix_launches)}")
+        err, scale = check_kernel(name, shape, got, plain(), case.band)
         errs[name] = max(errs[name], err)
-        log(f"[kernels] {name} {shape} inverse: max abs err {err:.3e} = "
-            f"{err / scale:.3e} x max|plain| (limit 1e-5)")
+        line = (f"[kernels] {name} {shape} inverse: max abs err {err:.3e} = "
+                f"{err / scale:.3e} x max|plain| (limit {case.band:g})")
+        if case.f64 is not None:
+            ref = case.f64()
+            rel64 = (max((g.double() - r).abs().max().item()
+                         for g, r in zip(got, ref))
+                     / max(r.abs().max().item() for r in ref))
+            f64_errs[name] = max(f64_errs.get(name, 0.0), rel64)
+            line += f"; vs float64 {rel64:.3e} x max"
+        log(line)
+        del got
 
     # both stencils on the fields of one step at each size the paths run
-    for n in sorted({size for _, _, size, *_ in PATHS}):
+    for n in sorted({path.size for path in PATHS}):
         cfg = OCEAN_DEMO.replace(resolution=n)
         solver = OceanSolver(cfg)
         _, f = solver.step(solver.init(torch.Generator().manual_seed(1)), DT)
@@ -557,10 +762,10 @@ def main():
             log(f"[kernels] fields_stencil [{n}, {n}] {name}: max abs err "
                 f"{err:.3e} (limit {tol:g})")
             require(err <= tol, f"fields_stencil [{n}, {n}] {name} disagrees")
-        cases.append(("fields_stencil", [n, n],
-                      lambda a=fields_in: fs.fields_stencil(*a),
-                      lambda a=fields_in: fs.fields_stencil_plain(*a), None,
-                      32 * n * n, 60 * n * n))
+        cases.append(Case("fields_stencil", [n, n],
+                          lambda a=fields_in: fs.fields_stencil(*a),
+                          lambda a=fields_in: fs.fields_stencil_plain(*a),
+                          None, 32 * n * n, 60 * n * n))
         # v1 rounds every operation as its plain version does
         got = fs.fields_stencil_v1(*fields_in)
         want = fs.fields_stencil_v1_plain(*fields_in)
@@ -573,10 +778,10 @@ def main():
             require(err <= 1e-5, f"fields_stencil_v1 [{n}, {n}] {name} disagrees")
         # ~105 operations a point: 4 edges, 4 cross products and their
         # sums, the normalization, the whitecap
-        cases.append(("fields_stencil_v1", [n, n],
-                      lambda a=fields_in: fs.fields_stencil_v1(*a),
-                      lambda a=fields_in: fs.fields_stencil_v1_plain(*a), None,
-                      32 * n * n, 105 * n * n))
+        cases.append(Case("fields_stencil_v1", [n, n],
+                          lambda a=fields_in: fs.fields_stencil_v1(*a),
+                          lambda a=fields_in: fs.fields_stencil_v1_plain(*a),
+                          None, 32 * n * n, 105 * n * n))
         del solver, f, got, want
     if opts.sweep_rows:
         sweep_rows(cases, planes)
@@ -584,51 +789,96 @@ def main():
 
     # the flat normal is checked above, timed only in analytic mode (the
     # paths' mode)
-    cases = [c for c in cases if c[1][-1] != "flat"]
+    cases = [c for c in cases if c.shape[-1] != "flat"]
+    # each tier and form of the transposed row pass against float64 at the
+    # paths' sizes (the launches of this sweep are not counted)
+    for n in (1024, 4096):
+        re, im = plane((1, n, n)), plane((1, n, n))
+        ref = f64_rows(re, im, True)()
+        scale = max(r.abs().max().item() for r in ref)
+        for label, precision, switches in (
+                ("f32", "float32", {}),
+                ("bf16", "bfloat16", {}),
+                ("bf16x3", "float32", {"KERNEL_B3_THRESHOLD": 0}),
+                ("f32,split3", "float32", {"THREE_FACTOR_THRESHOLD": 0}),
+                ("bf16,split3", "bfloat16", {"THREE_FACTOR_THRESHOLD": 0}),
+                ("bf16x3,split3", "float32", {"THREE_FACTOR_THRESHOLD": 0,
+                                              "KERNEL_B3_THRESHOLD": 0})):
+            with dft_switches(planes, switches):
+                got = planes.fft1d_transposed(re, im, True, precision)
+            err = max((g.double() - r).abs().max().item()
+                      for g, r in zip(got, ref))
+            log(f"[accuracy] row pass [1,{n},{n}] at {label}: max abs err vs "
+                f"float64 {err / scale:.3e} x max")
+        del re, im, ref, got
     phase_done("3 kernels")
 
     # ---- 4. the ocean paths through the solver, then the pond paths
     launches = {k: {} for k in KERNEL_INFO}
     solvers = {}
-    for tag, backend, size, steps, replay, v2, per_step in PATHS:
-        with fields_switch(fs, v2):
-            pcfg = OCEAN_DEMO.replace(resolution=size)
-            psolver = OceanSolver(pcfg, fft_backend=backend)
+    for path in PATHS:
+        tag, size, steps, replay = path.tag, path.size, path.steps, path.replay
+        with fields_switch(fs, path.v2), dft_switches(planes, path.switches):
+            pcfg = OCEAN_DEMO.replace(resolution=size, precision=path.precision)
+            psolver = OceanSolver(pcfg, fft_backend=path.backend)
             state = psolver.init(torch.Generator().manual_seed(0))
             torch.cuda.synchronize()
             for w in wrappers.values():
                 w.launches = 0
+            planes.matrix_launches.clear()
             for step in range(1, steps + 1):
                 prev = state
                 state, fields = psolver.step(state, DT)
-                if step == steps - replay:
+                if replay and step == steps - replay:
                     snapshot = state_from_numpy(state, "cpu")
             torch.cuda.synchronize()
             counts = {k: w.launches for k, w in wrappers.items()}
-            log(f"[slice {tag}] OCEAN_DEMO {size}x{size} fft_backend={backend!r}"
-                f"{'' if v2 else ', FIELDS_KERNEL_V2 = False'}, "
-                f"{steps} steps of dt 1/60: launches {counts} (expected {steps} x "
-                f"{per_step})")
-            for name, count in counts.items():
-                require(count == steps * per_step.get(name, 0),
+            counts.update(planes.matrix_launches)
+            log(f"[slice {tag}] OCEAN_DEMO {size}x{size} "
+                f"fft_backend={path.backend!r}, precision={path.precision!r}"
+                f"{'' if path.v2 else ', FIELDS_KERNEL_V2 = False'}"
+                + "".join(f", {k} = {v}" for k, v in path.switches.items())
+                + f", {steps} steps of dt 1/60: launches {counts} (expected "
+                f"{steps} x {path.per_step})")
+            require(set(counts) <= set(KERNEL_INFO),
+                    f"path {tag}: launched kernels outside KERNEL_INFO")
+            for name in KERNEL_INFO:
+                count = counts.get(name, 0)
+                require(count == steps * path.per_step.get(name, 0),
                         f"path {tag}: {name} launched {count} times, not "
-                        f"{steps * per_step.get(name, 0)}")
+                        f"{steps * path.per_step.get(name, 0)}")
                 if count:
                     launches[name][tag] = count
             card = fields_to_numpy(fields)
             require(int(state.step) == steps, f"path {tag}: step counter")
             check_fields(card, size, tag)
-            # replay the last steps on the CPU plain path from the card's state
-            cpu_solver = OceanSolver(pcfg, device="cpu", fft_backend=backend)
-            cpu_state = snapshot
-            for _ in range(replay):
-                cpu_state, cpu_fields = cpu_solver.step(cpu_state, DT)
-            require(np.array_equal(cpu_state.phase.numpy(), state.phase.cpu().numpy()),
-                    f"path {tag}: phase differs between the card and the CPU")
-            log(f"[slice {tag}] steps {steps - replay + 1}-{steps} replayed on the "
-                f"CPU plain path from the card's step-{steps - replay} state")
-            compare_fields(card, fields_to_numpy(cpu_fields), pcfg, tag)
-            if not v2:
+            if replay:
+                # the last steps again on the CPU plain path from the
+                # card's state
+                cpu_solver = OceanSolver(pcfg, device="cpu",
+                                         fft_backend=path.backend)
+                cpu_state = snapshot
+                for _ in range(replay):
+                    cpu_state, cpu_fields = cpu_solver.step(cpu_state, DT)
+                require(np.array_equal(cpu_state.phase.numpy(),
+                                       state.phase.cpu().numpy()),
+                        f"path {tag}: phase differs between the card and "
+                        f"the CPU")
+                log(f"[slice {tag}] steps {steps - replay + 1}-{steps} "
+                    f"replayed on the CPU plain path from the card's "
+                    f"step-{steps - replay} state")
+                compare_fields(card, fields_to_numpy(cpu_fields), pcfg, tag,
+                               rel=path.rel)
+                del cpu_solver, cpu_state, cpu_fields, snapshot
+            else:
+                # the last step again from the same state at f32 on the card
+                f32_solver = OceanSolver(pcfg.replace(precision="float32"),
+                                         fft_backend=path.backend)
+                _, f32_fields = f32_solver.step(prev, DT)
+                compare_fields(card, fields_to_numpy(f32_fields), pcfg, tag,
+                               against="f32", rel=path.rel)
+                del f32_solver, f32_fields
+            if not path.v2:
                 # the last step again from the same state, through v2
                 with fields_switch(fs, True):
                     _, v2_fields = psolver.step(prev, DT)
@@ -636,7 +886,7 @@ def main():
                                against="v2")
                 del v2_fields
             solvers[tag] = (pcfg, psolver, state)
-            del cpu_solver, cpu_state, cpu_fields, snapshot, fields, card, prev
+            del fields, card, prev
         phase_done(f"4 path ({tag})")
 
     pond_names = ("offset_x", "offset_y", "offset_z", "normal")
@@ -719,13 +969,16 @@ def main():
             step_state[0], _ = psolver.step(step_state[0], DT)
         return one_step
 
-    for tag, backend, size, _, _, v2, _ in PATHS:
-        pcfg, psolver, state = solvers[tag]
-        with fields_switch(fs, v2):
-            time_path(f"path ({tag}) {backend}"
-                      + ("" if v2 else " fields v1"), size,
-                      ocean_step(psolver, state), 200 if size <= 2048 else 40,
-                      OCEAN_NOTE)
+    for path in PATHS:
+        pcfg, psolver, state = solvers[path.tag]
+        with fields_switch(fs, path.v2), dft_switches(planes, path.switches):
+            time_path(f"path ({path.tag}) {path.backend}"
+                      + ("" if path.precision == "float32"
+                         else f" {path.precision}")
+                      + ("" if path.v2 else " fields v1")
+                      + "".join(f" {k}={v}" for k, v in path.switches.items()),
+                      path.size, ocean_step(psolver, state),
+                      200 if path.size <= 2048 else 40, OCEAN_NOTE)
     for tag, *_ in POND_PATHS:
         sim = ponds[tag][0]
         clock = [sim.state]
@@ -762,20 +1015,22 @@ def main():
 
     phase_done("5 timing, paths")
     results = {}
-    for name, shape, run, plain, library, nbytes, flops in cases:
-        k, _, k_how = device_ms(run)
+    for case in cases:
+        name, shape, library = case.name, case.shape, case.library
+        k, _, k_how = device_ms(case.run)
         # a plain version runs up to ~300 torch ops a call (the wave bank's
         # per-wave loop), and the profiler's cost grows with the ops it
         # records: 10 calls, not 50
-        p, _, p_how = device_ms(plain, iters=10)
+        p, _, p_how = device_ms(case.plain, iters=10)
         lib, _, lib_how = device_ms(library) if library else (None, None, None)
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(case.nbytes, case.f32_ops, case.tensor_ops)
         timed_by = {"ms": k_how, "plain_ms": p_how, "library_ms": lib_how}
         log(f"[timing] {name} {shape}: kernel {k:.4f} ms, plain {p:.4f} ms, "
             f"library " + (f"{lib:.4f} ms" if lib is not None else "none")
-            + f", bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e6:.1f} Mflop), {b_ms / k:.3f} of it; timed by "
-            f"{timed_by}")
+            + f", bound {b_ms:.4f} ms ({b_by}: {case.nbytes / 1e6:.1f} MB, "
+            f"{case.f32_ops / 1e6:.1f} Mflop f32, "
+            f"{case.tensor_ops / 1e6:.1f} Mflop bf16), {b_ms / k:.3f} of it; "
+            f"timed by {timed_by}")
         results.setdefault(name, (shape, k, p, lib, b_ms, b_by, timed_by))
 
     phase_done("5 timing, kernels")
@@ -786,7 +1041,8 @@ def main():
          "max_abs_err": errs[name], "shape": results[name][0],
          "ms": results[name][1], "plain_ms": results[name][2],
          "bound_ms": results[name][4], "bound_by": results[name][5],
-         "library_ms": results[name][3], "timed_by": results[name][6]}
+         "library_ms": results[name][3], "timed_by": results[name][6],
+         **({"f64_rel_err": f64_errs[name]} if name in f64_errs else {})}
         for name, (source, replaces) in KERNEL_INFO.items()]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -17,7 +17,11 @@ its normal agrees to 1e-5; foam 1e-4. The v1 fields kernel rounds every
 operation as its plain version does: 1e-5 on all three outputs. The
 wave-bank kernel rounds the phase and the sums as its plain version does;
 only sincosf against torch's sin and cos (an ulp or two) differs, summed
-over W waves: 1e-5·max|plain| per output."""
+over W waves: 1e-5·max|plain| per output. The matrix-form DFT engine
+(csrc/dft_matrix.cuh) rounds the same operands to bf16 as its plain
+version (fft/matrix.py) but accumulates in another order, so an
+intermediate's bf16 rounding can flip by one ulp: 2e-3·max|plain| at
+bf16; 1e-5 at bf16x3 and for the three-factor form at f32."""
 
 import dataclasses
 
@@ -273,3 +277,139 @@ def test_pond_simulation_launches_one_kernel_a_step_and_matches_cpu(cuda):
     assert gb.gerstner_bank.launches == before + 5
     for g, w in zip(pond_fields_to_numpy(sim.fields), pond_fields_to_numpy(cpu.fields)):
         np.testing.assert_allclose(g, w, atol=2e-5, rtol=1e-5)
+
+
+# ---- the matrix-form engine: each entry × tier × form against its plain
+# version. (tier, split3): the three-factor form needs n1 = 128 (N ≥ 128)
+# and exists for the transposed store only.
+ENGINES = [("bf16", False), ("bf16", True), ("bf16x3", False),
+           ("bf16x3", True), ("f32", True)]
+BANDS = {"bf16": 2e-3, "bf16x3": 1e-5, "f32": 1e-5}
+
+
+@pytest.fixture
+def select_engine(monkeypatch):
+    """Set the module switches for (tier, split3); returns the precision
+    argument that selects the tier."""
+    def select(tier, split3):
+        monkeypatch.setattr(planes, "KERNEL_B3_THRESHOLD",
+                            0 if tier == "bf16x3" else 1 << 30)
+        monkeypatch.setattr(planes, "THREE_FACTOR_THRESHOLD",
+                            0 if split3 else 1 << 30)
+        planes.matrix_launches.clear()
+        return "bfloat16" if tier == "bf16" else "float32"
+    return select
+
+
+def _assert_band(got, want, band):
+    torch.cuda.synchronize()
+    scale = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        err = (g - w).abs().max().item()
+        assert err <= band * scale, f"{err / scale:.3e} x max|plain|"
+
+
+MATRIX_ROW_SHAPES = [(1, 1024, 1024), (1, 512, 1024), (1, 1024, 512),
+                     (1, 1, 1024), (1, 4096, 2048), (3, 5, 16), (2, 13, 64),
+                     (1, 9, 128), (1, 7, 256), (1, 3, 8192)]
+
+
+@pytest.mark.parametrize("shape,engine", [
+    (shape, engine) for shape in MATRIX_ROW_SHAPES for engine in ENGINES
+    if shape[2] >= 128 or not engine[1]])
+def test_matrix_rows_transposed_match_plain(cuda, select_engine, shape,
+                                            engine):
+    tier, split3 = engine
+    precision = select_engine(tier, split3)
+    re, im = _planes(shape, cuda)
+    before = planes.fft1d_transposed.launches
+    got = planes.fft1d_transposed(re, im, True, precision)
+    assert planes.fft1d_transposed.launches == before
+    name = planes.kernel_name("rows_transposed", tier, split3)
+    assert planes.matrix_launches == {name: 1}
+    _assert_band(got, planes.fft1d_transposed_plain(re, im, True, precision),
+                 BANDS[tier])
+
+
+@pytest.mark.parametrize("tier", ["bf16", "bf16x3"])
+@pytest.mark.parametrize("shape", [(1, 1, 16), (2, 13, 64), (1, 1024, 1024),
+                                   (1, 1, 4096), (1, 37, 4096),
+                                   (1, 2048, 4096), (1, 3, 8192)])
+def test_matrix_rows_natural_match_plain(cuda, select_engine, shape, tier):
+    precision = select_engine(tier, True)     # no three-factor natural store
+    re, im = _planes(shape, cuda)
+    got = planes.fft1d_natural_large(re, im, False, precision)
+    assert planes.matrix_launches == {
+        planes.kernel_name("rows_natural", tier, False): 1}
+    _assert_band(got, planes.fft1d_natural_large_plain(re, im, False,
+                                                       precision),
+                 BANDS[tier])
+
+
+FUSED_MATRIX_CASES = [(16, 16, 0, 2, 0), (13, 64, 1, 1, 20),
+                      (1024, 1024, 0, 1, 0), (512, 1024, 1, 1, 0),
+                      (2048, 4096, 1, 1, 0), (3, 8192, 1, 1, 4095)]
+
+
+@pytest.mark.parametrize("case,natural,engine", [
+    (case, natural, engine) for case in FUSED_MATRIX_CASES
+    for natural in (False, True) for engine in ENGINES
+    if not (engine[1] and (natural or case[1] < 128))])
+def test_matrix_fused_match_plain(cuda, select_engine, case, natural, engine):
+    """The three-factor form: transposed store, N >= 128 only."""
+    m, n, ch_start, ch_count, row_offset = case
+    tier, split3 = engine
+    precision = select_engine(tier, split3)
+    h0, phase = _fused_inputs(m, n, cuda)
+    kw = dict(epsilon=1e-4, ch_start=ch_start, ch_count=ch_count,
+              row_offset=row_offset, precision=precision)
+    fn, plain, kind = ((fused.assemble_rowfft_natural,
+                        fused.assemble_rowfft_natural_plain, "fused_natural")
+                       if natural else
+                       (fused.assemble_rowfft, fused.assemble_rowfft_plain,
+                        "fused_transposed"))
+    got = fn(h0, phase, 434.48, -1.0, **kw)
+    assert planes.matrix_launches == {planes.kernel_name(kind, tier, split3): 1}
+    _assert_band(got, plain(h0, phase, 434.48, -1.0, **kw), BANDS[tier])
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+def test_bf16_solver_runs_the_matrix_engine_and_matches_cpu(cuda, backend):
+    """precision="bfloat16" at 128²: every pass on the bf16 engine, none on
+    the Stockham kernels; card vs CPU within 2e-3·max (one bf16 ulp flips
+    where the two accumulate in other orders)."""
+    cfg = OCEAN_DEMO.replace(resolution=128, precision="bfloat16")
+    gpu = OceanSolver(cfg, device=cuda, fft_backend=backend)
+    cpu = OceanSolver(cfg, device="cpu", fft_backend=backend)
+    sg = gpu.init(torch.Generator().manual_seed(5))
+    sc = cpu.init(torch.Generator().manual_seed(5))
+    before = (planes.fft1d_transposed.launches, fused.assemble_rowfft.launches)
+    planes.matrix_launches.clear()
+    for _ in range(2):
+        sg, fg = gpu.step(sg, 1 / 60)
+        sc, fc = cpu.step(sc, 1 / 60)
+    torch.cuda.synchronize()
+    assert before == (planes.fft1d_transposed.launches,
+                      fused.assemble_rowfft.launches)
+    want = ({"matrix_rows_transposed[bf16]": 10} if backend == "pallas" else
+            {"matrix_rows_transposed[bf16]": 6,
+             "matrix_fused_transposed[bf16]": 4})
+    assert planes.matrix_launches == want
+    fg, fc = fields_to_numpy(fg), fields_to_numpy(fc)
+    for name in ("height", "disp_x", "disp_z"):
+        want = getattr(fc, name)
+        np.testing.assert_allclose(getattr(fg, name), want, rtol=0,
+                                   atol=2e-3 * np.abs(want).max())
+
+
+def test_matrix_engine_refuses_a_natural_three_factor_launch(cuda):
+    from tpu_ocean_torch import _build
+    re, im = _planes((1, 4, 256), cuda)
+    out = torch.empty_like(re)
+    tables = planes.matrix_tables(256, True, True, re.device)
+    err = _build.load().lib.tpu_fft_rows_natural(
+        re.data_ptr(), im.data_ptr(), out.data_ptr(), out.data_ptr(),
+        tables.data_ptr(), 1, 4, 256, 1, planes.TIERS["bf16"], 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0

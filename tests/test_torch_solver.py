@@ -124,7 +124,6 @@ def test_foam_decay_keeps_the_larger_foam():
     dict(cfg=dict(spectrum_layout="centered")),
     dict(cfg=dict(evolution_mode="absolute")),
     dict(cfg=dict(normals_mode="spectral")),
-    dict(cfg=dict(precision="bfloat16")),
     dict(kw=dict(fft_backend="pallas_fused", pack_channels=False)),
     dict(kw=dict(fft_backend="reference")),
     dict(kw=dict(eval_mode="direct")),

@@ -14,7 +14,9 @@ serving runtime ``PondSimulation``, whose ``"gerstner"`` mode with
 ``use_pallas=True`` goes through the wave-bank kernel
 (``csrc/gerstner_bank.cu``). The solvers run on the card unless given
 ``device="cpu"``; on CPU tensors each kernel wrapper runs its plain torch
-version. This package imports torch and numpy, never jax; the JAX package
+version. ``OceanConfig.precision="bfloat16"`` and the bf16x3 and
+three-factor switches of ``fft.planes`` run the row and fused kernels on
+a matrix-form DFT engine (``csrc/dft_matrix.cuh``, bf16 tensor cores). This package imports torch and numpy, never jax; the JAX package
 ``tpu_ocean`` is its reference.
 """
 

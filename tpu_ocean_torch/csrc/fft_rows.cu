@@ -39,8 +39,16 @@
 // e^{±2πi k/(2ns)} for k < ns at offset ns − 1 (N − 1 entries), so a warp
 // reads consecutive entries: from one N/2-entry table indexed k·N/(2ns),
 // the early stages' reads all fell in one shared-memory bank.
+//
+// Precision tiers and the three-factor form: each entry takes a tier (0
+// f32, 1 bf16, 2 bf16x3) and a form (split3 0 or 1). f32 with the direct
+// form runs the Stockham stages above; every other pair runs the
+// matrix-form engine of dft_matrix.cuh on the same loads and stores, with
+// `tables` then the engine's complex tables (fft/planes.py matrix_tables)
+// instead of the Stockham twiddles. The three-factor form is for the
+// transposed store only (_fft_block_kernel_split3).
 
-#include "stockham.cuh"
+#include "dft_matrix.cuh"
 
 namespace {
 
@@ -48,11 +56,11 @@ using namespace tpu_fft;
 
 constexpr int kLoadsInFlight = 8;
 
-template <bool kNatural>
+template <bool kNatural, class Engine>
 __global__ void __launch_bounds__(kMaxThreads)
 fft_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
                 float* __restrict__ out_re, float* __restrict__ out_im,
-                const float2* __restrict__ twiddles, int M, int N, int log2n,
+                const float2* __restrict__ tables, int M, int N, int log2n,
                 int R) {
   extern __shared__ float2 smem[];
   const int stride = N + 1;
@@ -66,7 +74,7 @@ fft_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
   const float* in_re = re + c * plane;
   const float* in_im = im + c * plane;
 
-  load_twiddles(tw, twiddles, N);
+  Engine::prologue(tw, tables, N);
 
   // Load R rows (contiguous in memory from row m0) with kLoadsInFlight
   // loads started per thread before any is waited on: one block per SM has
@@ -93,25 +101,28 @@ fft_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
   __syncthreads();
 
-  const float2* res = stockham_stages(src, dst, tw, R, N, log2n);
+  const float2* res = Engine::run(src, dst, tw, tables, R, N, log2n);
   store_rows<kNatural>(res, out_re + c * plane, out_im + c * plane, M, N,
                        log2n, R, m0);
 }
 
 template <bool kNatural>
 int launch(const void* re, const void* im, void* out_re, void* out_im,
-           const void* twiddles, int channels, int m, int n, int rows,
-           void* stream) {
-  const int smem = smem_bytes(rows, n);
-  cudaError_t err = allow_smem(fft_rows_kernel<kNatural>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((m + rows - 1) / rows, channels);
-  fft_rows_kernel<kNatural><<<grid, block_threads(rows, n), smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(re), static_cast<const float*>(im),
-      static_cast<float*>(out_re), static_cast<float*>(out_im),
-      static_cast<const float2*>(twiddles), m, n, log2_of(n), rows);
-  return static_cast<int>(cudaGetLastError());
+           const void* tables, int channels, int m, int n, int rows,
+           int tier, int split3, void* stream) {
+  return with_engine(tier, split3, kNatural, [&](auto engine) {
+    using Engine = decltype(engine);
+    const int smem = smem_bytes(rows, n);
+    cudaError_t err = allow_smem(fft_rows_kernel<kNatural, Engine>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((m + rows - 1) / rows, channels);
+    fft_rows_kernel<kNatural, Engine><<<grid, Engine::threads(rows, n), smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(re), static_cast<const float*>(im),
+        static_cast<float*>(out_re), static_cast<float*>(out_im),
+        static_cast<const float2*>(tables), m, n, log2_of(n), rows);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -121,19 +132,22 @@ extern "C" {
 // Each entry launches its kernel on `stream` and returns cudaGetLastError()
 // as an int. The caller checks: n a power of two >= 16, rows a power of two
 // that keeps the shared memory within the card's limit, contiguous f32
-// planes.
+// planes, `tables` the Stockham twiddles (tier 0, split3 0) or the matrix
+// engine's tables for (n, tier, split3).
 int tpu_fft_rows_transposed(const void* re, const void* im, void* out_re,
-                            void* out_im, const void* twiddles, int channels,
-                            int m, int n, int rows, void* stream) {
-  return launch<false>(re, im, out_re, out_im, twiddles, channels, m, n, rows,
-                       stream);
+                            void* out_im, const void* tables, int channels,
+                            int m, int n, int rows, int tier, int split3,
+                            void* stream) {
+  return launch<false>(re, im, out_re, out_im, tables, channels, m, n, rows,
+                       tier, split3, stream);
 }
 
 int tpu_fft_rows_natural(const void* re, const void* im, void* out_re,
-                         void* out_im, const void* twiddles, int channels,
-                         int m, int n, int rows, void* stream) {
-  return launch<true>(re, im, out_re, out_im, twiddles, channels, m, n, rows,
-                      stream);
+                         void* out_im, const void* tables, int channels,
+                         int m, int n, int rows, int tier, int split3,
+                         void* stream) {
+  return launch<true>(re, im, out_re, out_im, tables, channels, m, n, rows,
+                      tier, split3, stream);
 }
 
 const char* tpu_cuda_error_string(int err) {

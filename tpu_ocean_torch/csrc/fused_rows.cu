@@ -43,8 +43,12 @@
 // kernel visited the channels in an inner grid axis so Mosaic could keep
 // the input block; here each block assembles one channel, and the solver
 // asks for one channel per call.
+//
+// Precision tiers and the three-factor form (_fused_kernel_split3): the
+// entries take a tier and a form as fft_rows.cu's do; the assembly is the
+// same at every tier, only the stages after it change (dft_matrix.cuh).
 
-#include "stockham.cuh"
+#include "dft_matrix.cuh"
 
 namespace {
 
@@ -85,7 +89,7 @@ __device__ __forceinline__ float2 assemble(float h0r, float h0i, float h0cr,
                      __fsub_rn(__fmul_rn(a, hti), __fmul_rn(b, htr)));
 }
 
-template <bool kNatural>
+template <bool kNatural, class Engine>
 __global__ void __launch_bounds__(kMaxThreads)
 fused_rows_kernel(const float* __restrict__ h0r, const float* __restrict__ h0i,
                   const float* __restrict__ h0cr,
@@ -93,7 +97,7 @@ fused_rows_kernel(const float* __restrict__ h0r, const float* __restrict__ h0i,
                   const float* __restrict__ phase,
                   const float* __restrict__ kz, float* __restrict__ out_re,
                   float* __restrict__ out_im,
-                  const float2* __restrict__ twiddles, int M, int N,
+                  const float2* __restrict__ tables, int M, int N,
                   int log2n, int R, int ch_start, Assembly p) {
   extern __shared__ float2 smem[];
   const int stride = N + 1;
@@ -104,7 +108,7 @@ fused_rows_kernel(const float* __restrict__ h0r, const float* __restrict__ h0i,
   const int ch = ch_start + blockIdx.y;
   const int m0 = blockIdx.x * R;
 
-  load_twiddles(tw, twiddles, N);
+  Engine::prologue(tw, tables, N);
 
   // R rows of each input plane are one contiguous run from row m0. Rows
   // past M (the ragged last block) are zero and never stored.
@@ -141,7 +145,7 @@ fused_rows_kernel(const float* __restrict__ h0r, const float* __restrict__ h0i,
   }
   __syncthreads();
 
-  const float2* res = stockham_stages(src, dst, tw, R, N, log2n);
+  const float2* res = Engine::run(src, dst, tw, tables, R, N, log2n);
   const size_t plane = static_cast<size_t>(M) * N;
   store_rows<kNatural>(res, out_re + blockIdx.y * plane,
                        out_im + blockIdx.y * plane, M, N, log2n, R, m0);
@@ -150,23 +154,27 @@ fused_rows_kernel(const float* __restrict__ h0r, const float* __restrict__ h0i,
 template <bool kNatural>
 int launch(const void* h0r, const void* h0i, const void* h0cr,
            const void* h0ci, const void* phase, const void* kz, void* out_re,
-           void* out_im, const void* twiddles, int channels, int ch_start,
-           int m, int n, int rows, int row_offset, float two_pi_over_l,
-           float dz_sign, float epsilon, void* stream) {
-  const int smem = smem_bytes(rows, n);
-  cudaError_t err = allow_smem(fused_rows_kernel<kNatural>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Assembly p{two_pi_over_l, dz_sign, epsilon * epsilon, row_offset};
-  const dim3 grid((m + rows - 1) / rows, channels);
-  fused_rows_kernel<kNatural><<<grid, block_threads(rows, n), smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(h0r), static_cast<const float*>(h0i),
-      static_cast<const float*>(h0cr), static_cast<const float*>(h0ci),
-      static_cast<const float*>(phase), static_cast<const float*>(kz),
-      static_cast<float*>(out_re), static_cast<float*>(out_im),
-      static_cast<const float2*>(twiddles), m, n, log2_of(n), rows, ch_start,
-      p);
-  return static_cast<int>(cudaGetLastError());
+           void* out_im, const void* tables, int channels, int ch_start,
+           int m, int n, int rows, int row_offset, int tier, int split3,
+           float two_pi_over_l, float dz_sign, float epsilon, void* stream) {
+  return with_engine(tier, split3, kNatural, [&](auto engine) {
+    using Engine = decltype(engine);
+    const int smem = smem_bytes(rows, n);
+    cudaError_t err = allow_smem(fused_rows_kernel<kNatural, Engine>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const Assembly p{two_pi_over_l, dz_sign, epsilon * epsilon, row_offset};
+    const dim3 grid((m + rows - 1) / rows, channels);
+    fused_rows_kernel<kNatural, Engine><<<grid, Engine::threads(rows, n),
+                                          smem,
+                                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(h0r), static_cast<const float*>(h0i),
+        static_cast<const float*>(h0cr), static_cast<const float*>(h0ci),
+        static_cast<const float*>(phase), static_cast<const float*>(kz),
+        static_cast<float*>(out_re), static_cast<float*>(out_im),
+        static_cast<const float2*>(tables), m, n, log2_of(n), rows, ch_start,
+        p);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -176,28 +184,31 @@ extern "C" {
 // Each entry launches its kernel on `stream` and returns cudaGetLastError()
 // as an int. The caller checks: n a power of two >= 16, rows a power of two
 // that keeps the shared memory within the card's limit, contiguous f32
-// [m, n] input planes, ch_start + channels <= 2.
+// [m, n] input planes, ch_start + channels <= 2, `tables` the Stockham
+// twiddles (tier 0, split3 0) or the matrix engine's tables.
 int tpu_fused_rows_transposed(const void* h0r, const void* h0i,
                               const void* h0cr, const void* h0ci,
                               const void* phase, const void* kz, void* out_re,
-                              void* out_im, const void* twiddles,
+                              void* out_im, const void* tables,
                               int channels, int ch_start, int m, int n,
-                              int rows, int row_offset, float two_pi_over_l,
-                              float dz_sign, float epsilon, void* stream) {
+                              int rows, int row_offset, int tier, int split3,
+                              float two_pi_over_l, float dz_sign,
+                              float epsilon, void* stream) {
   return launch<false>(h0r, h0i, h0cr, h0ci, phase, kz, out_re, out_im,
-                       twiddles, channels, ch_start, m, n, rows, row_offset,
-                       two_pi_over_l, dz_sign, epsilon, stream);
+                       tables, channels, ch_start, m, n, rows, row_offset,
+                       tier, split3, two_pi_over_l, dz_sign, epsilon, stream);
 }
 
 int tpu_fused_rows_natural(const void* h0r, const void* h0i, const void* h0cr,
                            const void* h0ci, const void* phase, const void* kz,
-                           void* out_re, void* out_im, const void* twiddles,
+                           void* out_re, void* out_im, const void* tables,
                            int channels, int ch_start, int m, int n, int rows,
-                           int row_offset, float two_pi_over_l, float dz_sign,
-                           float epsilon, void* stream) {
+                           int row_offset, int tier, int split3,
+                           float two_pi_over_l, float dz_sign, float epsilon,
+                           void* stream) {
   return launch<true>(h0r, h0i, h0cr, h0ci, phase, kz, out_re, out_im,
-                      twiddles, channels, ch_start, m, n, rows, row_offset,
-                      two_pi_over_l, dz_sign, epsilon, stream);
+                      tables, channels, ch_start, m, n, rows, row_offset,
+                      tier, split3, two_pi_over_l, dz_sign, epsilon, stream);
 }
 
 }  // extern "C"

@@ -14,21 +14,35 @@ JAX counterpart: ``tpu_ocean/fft/pallas_fft.py`` (``_fft1d_transposed``,
 
 On a CUDA tensor each launches its hand-written kernel
 (``csrc/fft_rows.cu``) and nothing else; on a CPU tensor it runs its plain
-version (``torch.fft``). The TPU package's size gates (Mosaic lane rules,
-VMEM caps) have no counterpart here: the kernels cover every power-of-two
-N in [MIN_N, MAX_N], and the wrappers refuse any other N. Only the regime
-switch is kept, as ``MAX_TRANSPOSED_N``, so that the port pairs like with
-like against the JAX package.
+version. The TPU package's size gates (Mosaic lane rules, VMEM caps) have
+no counterpart here: the kernels cover every power-of-two N in [MIN_N,
+MAX_N], and the wrappers refuse any other N. Only the regime switch is
+kept, as ``MAX_TRANSPOSED_N``, so that the port pairs like with like
+against the JAX package.
+
+Every transform takes a ``precision``, ``"float32"`` or ``"bfloat16"``
+(``OceanConfig.precision``), which ``kernel_tier`` maps to the kernel's
+tier as ``pallas_fft.kernel_precision`` does: ``bf16`` (one bf16 pass),
+``f32``, or ``bf16x3`` for N above ``KERNEL_B3_THRESHOLD``. A transposed-
+store pass takes the three-factor form (#1b, ``_fft_block_kernel_split3``)
+where ``use_split3`` says so (N above ``THREE_FACTOR_THRESHOLD``). f32 in
+the direct form runs the radix-2 Stockham stages and its plain version is
+``torch.fft``; every other tier and form runs the matrix-form engine
+(``csrc/dft_matrix.cuh``), whose plain version is ``fft/matrix.py``.
+Launches of the Stockham kernels count on each wrapper's ``launches``,
+those of the matrix engine in ``matrix_launches``, by kernel × tier × form.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
 import torch
 
 from tpu_ocean_torch import _build
+from tpu_ocean_torch.fft import matrix
 
 #: transform lengths the row kernels take: powers of two in this range. The
 #: upper end is where two shared-memory buffers of one row plus the twiddle
@@ -50,6 +64,132 @@ TRANSPOSED_MAX_ROWS = 8
 #: --sweep-rows), the fastest blocks held about 4096 points:
 #: R = 4 at N = 1024, R = 2 at N = 2048, R = 1 at N = 4096
 NATURAL_BLOCK_POINTS = 4096
+
+
+#: grid sides STRICTLY ABOVE this run the f32 tier as bf16x3 (hi + lo
+#: bf16 parts, three products): pallas_fft.KERNEL_B3_THRESHOLD, off by
+#: default as in the JAX package
+KERNEL_B3_THRESHOLD = 1 << 30
+#: grid sides STRICTLY ABOVE this (with n1 = 128) run stage 2 of a
+#: transposed-store pass as 128 = 8·16: pallas_fft.THREE_FACTOR_THRESHOLD,
+#: off by default as in the JAX package
+THREE_FACTOR_THRESHOLD = 1 << 30
+_SPLIT_W, _SPLIT_U = matrix._SPLIT_W, matrix._SPLIT_U
+#: the kernels' tier codes (csrc/dft_matrix.cuh Tier)
+TIERS = {"f32": 0, "bf16": 1, "bf16x3": 2}
+PRECISIONS = ("float32", "bfloat16")
+
+
+def kernel_tier(n: int, precision: str = "float32") -> str:
+    """The kernel tier of a length-``n`` pass at ``precision`` (the
+    counterpart of pallas_fft.kernel_precision): "bf16" for "bfloat16";
+    for "float32", "bf16x3" above KERNEL_B3_THRESHOLD, else "f32"."""
+    if precision == "bfloat16":
+        return "bf16"
+    if precision != "float32":
+        raise ValueError(f"precision must be one of {PRECISIONS}, "
+                         f"got {precision!r}")
+    return "bf16x3" if n > KERNEL_B3_THRESHOLD else "f32"
+
+
+def use_split3(n: int, n1: int) -> bool:
+    """The three-factor form of a transposed-store pass (pallas_fft.
+    _use_split3)."""
+    return n > THREE_FACTOR_THRESHOLD and n1 == _SPLIT_W * _SPLIT_U
+
+
+def _split_lanes(n: int):
+    """(n1, n2) with n = n2·n1; n1 = 128 when 128 divides n, else the
+    largest divisor ≤ n/2 (pallas_fft._split_lanes)."""
+    if n % 128 == 0:
+        return 128, n // 128
+    n1 = n // 2
+    while n1 > 1 and n % n1 != 0:
+        n1 -= 1
+    return n1, n // n1
+
+
+@functools.lru_cache(maxsize=32)
+def _tables_np(n: int, inverse: bool):
+    """(n1, n2, F2 re/im [n2, n2], T re/im [n2, n1], F1 re/im [n1, n1]),
+    f32 from float64 (pallas_fft._tables_np)."""
+    n1, n2 = _split_lanes(n)
+    sign = +1.0 if inverse else -1.0
+    w1 = np.exp(sign * 2j * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1)
+    w2 = np.exp(sign * 2j * np.pi * np.outer(np.arange(n2), np.arange(n2)) / n2)
+    tw = np.exp(sign * 2j * np.pi * np.outer(np.arange(n2), np.arange(n1)) / n)
+    f32 = np.float32
+    return (n1, n2,
+            w2.real.astype(f32), w2.imag.astype(f32),
+            tw.real.astype(f32), tw.imag.astype(f32),
+            w1.real.astype(f32), w1.imag.astype(f32))
+
+
+@functools.lru_cache(maxsize=8)
+def _split3_tables_np(n1: int, inverse: bool):
+    """(F_W, TW, F_U) re/im, f32 from float64, for stage 2 of the
+    three-factor form: F1[a·W + b, w·U + u] = F_U[a, u]·TW[b, u]·F_W[b, w]
+    with TW[b, u] = e^{±2πi·u·b/n1} (pallas_fft._split3_tables_np)."""
+    assert n1 == _SPLIT_W * _SPLIT_U
+    sign = +1.0 if inverse else -1.0
+    w, u = _SPLIT_W, _SPLIT_U
+    fw = np.exp(sign * 2j * np.pi * np.outer(np.arange(w), np.arange(w)) / w)
+    fu = np.exp(sign * 2j * np.pi * np.outer(np.arange(u), np.arange(u)) / u)
+    tw = np.exp(sign * 2j * np.pi * np.outer(np.arange(w), np.arange(u)) / n1)
+    f32 = np.float32
+    return (fw.real.astype(f32), fw.imag.astype(f32),
+            tw.real.astype(f32), tw.imag.astype(f32),
+            fu.real.astype(f32), fu.imag.astype(f32))
+
+
+def engine(n: int, precision: str, transposed: bool):
+    """(tier, split3) of a length-``n`` row pass with the transposed store
+    or, with ``transposed=False``, the natural store (no three-factor
+    form there, as in the JAX package)."""
+    return (kernel_tier(n, precision),
+            transposed and use_split3(n, _split_lanes(n)[0]))
+
+
+def kernel_name(kind: str, tier: str, split3: bool) -> str:
+    """The matrix engine's name for one entry × tier × form, e.g.
+    "matrix_rows_transposed[bf16]", "matrix_fused_transposed[f32,split3]"."""
+    return f"matrix_{kind}[{tier}{',split3' if split3 else ''}]"
+
+
+#: matrix-engine launches since the last clear(), by kernel_name (CPU calls
+#: do not count)
+matrix_launches = collections.Counter()
+
+
+def _stockham(tier: str, split3: bool) -> bool:
+    return tier == "f32" and not split3
+
+
+@functools.lru_cache(maxsize=32)
+def matrix_tables(n: int, inverse: bool, split3: bool,
+                  device: torch.device) -> torch.Tensor:
+    """The matrix engine's tables as one [L, 2] f32 (re, im) tensor, in the
+    order csrc/dft_matrix.cuh reads them: F2, T, then F1 or F_W, TW, F_U."""
+    n1, _, *mats = _tables_np(n, inverse)
+    if split3:
+        mats = mats[:4] + list(_split3_tables_np(n1, inverse))
+    pairs = [np.stack([r.ravel(), i.ravel()], axis=-1)
+             for r, i in zip(mats[::2], mats[1::2])]
+    return torch.from_numpy(np.concatenate(pairs)).to(device)
+
+
+def rows_plain(re, im, inverse: bool, tier: str, split3: bool):
+    """Row DFT along the last axis of (re, im) [C, M, N], natural order, as
+    the kernel at (tier, split3) computes it: torch.fft for the Stockham
+    kernel (f32 direct), else the matrix engine's plain version."""
+    if _stockham(tier, split3):
+        f = _fft_plain(re, im, inverse)
+        return f.real, f.imag
+    n = re.shape[-1]
+    split3_tables = (_split3_tables_np(_split_lanes(n)[0], bool(inverse))
+                     if split3 else None)
+    return matrix.rows_dft(re, im, _tables_np(n, bool(inverse)),
+                           split3_tables, tier)
 
 
 def check_size(n: int) -> None:
@@ -128,33 +268,57 @@ def _fft_plain(re, im, inverse: bool):
 
 
 def fft1d_transposed_plain(re: torch.Tensor, im: torch.Tensor,
-                           inverse: bool = True):
-    """Plain version of fft1d_transposed: torch.fft along the last axis,
-    unnormalized, transposed and split into planes."""
-    f = _fft_plain(re, im, inverse).transpose(-1, -2)
-    return f.real.contiguous(), f.imag.contiguous()
+                           inverse: bool = True, precision: str = "float32"):
+    """Plain version of fft1d_transposed at the same tier and form: the row
+    DFT (rows_plain), transposed and split into planes."""
+    tier, split3 = engine(re.shape[-1], precision, transposed=True)
+    fr, fi = rows_plain(re, im, inverse, tier, split3)
+    return (fr.transpose(-1, -2).contiguous(),
+            fi.transpose(-1, -2).contiguous())
 
 
 def fft1d_natural_large_plain(re: torch.Tensor, im: torch.Tensor,
-                              inverse: bool = True):
-    """Plain version of fft1d_natural_large: torch.fft along the last axis,
-    unnormalized, split into planes."""
-    f = _fft_plain(re, im, inverse)
-    return f.real.contiguous(), f.imag.contiguous()
+                              inverse: bool = True,
+                              precision: str = "float32"):
+    """Plain version of fft1d_natural_large at the same tier: the row DFT
+    (rows_plain), split into planes."""
+    tier, _ = engine(re.shape[-1], precision, transposed=False)
+    fr, fi = rows_plain(re, im, inverse, tier, False)
+    return fr.contiguous(), fi.contiguous()
 
 
-def _launch_rows(entry: str, re, im, inverse: bool, out_shape, cap: int):
+def tables_for(n: int, inverse: bool, tier: str, split3: bool,
+               device: torch.device) -> torch.Tensor:
+    """The `tables` argument of a row or fused entry: the Stockham twiddles
+    for f32 direct, else the matrix engine's tables."""
+    if _stockham(tier, split3):
+        return twiddles(n, bool(inverse), device)
+    return matrix_tables(n, bool(inverse), bool(split3), device)
+
+
+def count_launch(wrapper, kind: str, tier: str, split3: bool) -> None:
+    """One kernel launch: on the wrapper's own count for the Stockham
+    kernel, in matrix_launches for the matrix engine."""
+    if _stockham(tier, split3):
+        wrapper.launches += 1
+    else:
+        matrix_launches[kernel_name(kind, tier, split3)] += 1
+
+
+def _launch_rows(entry: str, re, im, inverse: bool, out_shape, cap: int,
+                 tier: str, split3: bool):
     kernels = _build.load()
     c, m, n = re.shape
     out_re = torch.empty(out_shape, dtype=torch.float32, device=re.device)
     out_im = torch.empty_like(out_re)
-    tw = twiddles(n, bool(inverse), re.device)
+    tables = tables_for(n, inverse, tier, split3, re.device)
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(kernels.lib, entry)(
             re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-            tw.data_ptr(), c, m, n,
-            rows_per_block(c, m, n, sm_count(re.device), cap), stream)
+            tables.data_ptr(), c, m, n,
+            rows_per_block(c, m, n, sm_count(re.device), cap), TIERS[tier],
+            int(split3), stream)
     kernels.check(err, entry)
     return out_re, out_im
 
@@ -169,54 +333,62 @@ def on_cpu(fn_name: str, re: torch.Tensor) -> bool:
     return False
 
 
-def fft1d_transposed(re: torch.Tensor, im: torch.Tensor, inverse: bool = True):
+def fft1d_transposed(re: torch.Tensor, im: torch.Tensor, inverse: bool = True,
+                     precision: str = "float32"):
     """Batched 1-D unnormalized DFT along the last axis of (re, im) f32
     [C, M, N], sign + for the inverse; returns (re, im) [C, N, M]:
-    out[c, k, m] = Σ_n x[c, m, n]·e^{±2πi·nk/N}."""
+    out[c, k, m] = Σ_n x[c, m, n]·e^{±2πi·nk/N}, at the tier and form of
+    engine(N, precision, transposed=True)."""
     _check_planes(re, im)
     c, m, n = re.shape
     check_size(n)
+    tier, split3 = engine(n, precision, transposed=True)
     if on_cpu("fft1d_transposed", re):
-        return fft1d_transposed_plain(re, im, inverse)
+        return fft1d_transposed_plain(re, im, inverse, precision)
     out = _launch_rows("tpu_fft_rows_transposed", re, im, inverse, (c, n, m),
-                       max_rows(n, natural=False))
-    fft1d_transposed.launches += 1
+                       max_rows(n, natural=False), tier, split3)
+    count_launch(fft1d_transposed, "rows_transposed", tier, split3)
     return out
 
 
 def fft1d_natural_large(re: torch.Tensor, im: torch.Tensor,
-                        inverse: bool = True):
+                        inverse: bool = True, precision: str = "float32"):
     """The same row DFT as fft1d_transposed, stored in natural order:
     (re, im) f32 [C, M, N] → [C, M, N], out[c, m, k] = Σ_n x[c, m, n]·
-    e^{±2πi·nk/N}. The row pass of the natural regime."""
+    e^{±2πi·nk/N}. The row pass of the natural regime (no three-factor
+    form)."""
     _check_planes(re, im)
-    check_size(re.shape[-1])
+    n = re.shape[-1]
+    check_size(n)
+    tier, split3 = engine(n, precision, transposed=False)
     if on_cpu("fft1d_natural_large", re):
-        return fft1d_natural_large_plain(re, im, inverse)
+        return fft1d_natural_large_plain(re, im, inverse, precision)
     out = _launch_rows("tpu_fft_rows_natural", re, im, inverse, re.shape,
-                       max_rows(re.shape[-1], natural=True))
-    fft1d_natural_large.launches += 1
+                       max_rows(n, natural=True), tier, split3)
+    count_launch(fft1d_natural_large, "rows_natural", tier, split3)
     return out
 
 
-#: kernel launches since the last reset (CPU calls do not count)
+#: Stockham-kernel launches since the last reset (CPU calls do not count)
 fft1d_transposed.launches = 0
 fft1d_natural_large.launches = 0
 
 
 def ifft1d_planes_axis2(re: torch.Tensor, im: torch.Tensor,
-                        inverse: bool = True):
+                        inverse: bool = True, precision: str = "float32"):
     """Unnormalized DFT along axis −2 of (re, im) f32 [C, M, N] → [C, M, N]:
     the natural regime's column pass. The JAX package runs it as an
-    einsum four-step outside Pallas; here it is the transposed row kernel
-    on the swapped axes, whose transposed store restores the orientation
-    (one transposing copy of each plane before it)."""
+    einsum four-step outside Pallas, at the solver's precision; here it is
+    the transposed row kernel on the swapped axes, at the same tier, whose
+    transposed store restores the orientation (one transposing copy of
+    each plane before it)."""
     return fft1d_transposed(re.transpose(-1, -2).contiguous(),
-                            im.transpose(-1, -2).contiguous(), inverse)
+                            im.transpose(-1, -2).contiguous(), inverse,
+                            precision)
 
 
 def half_column_pass(vr: torch.Tensor, vi: torch.Tensor, m: int,
-                     inverse: bool = True):
+                     inverse: bool = True, precision: str = "float32"):
     """The half channel's column transform, length ``m`` = N/2 along axis
     −2 of [C, m, N]. The JAX package dispatches between engines here by
     the TPU's VMEM envelope; the row kernel takes every length the solver
@@ -224,18 +396,19 @@ def half_column_pass(vr: torch.Tensor, vi: torch.Tensor, m: int,
     if vr.shape[-2] != m:
         raise ValueError(f"half_column_pass: axis −2 has {vr.shape[-2]} "
                          f"rows, not m={m}")
-    return ifft1d_planes_axis2(vr, vi, inverse)
+    return ifft1d_planes_axis2(vr, vi, inverse, precision)
 
 
-def ifft2_planes_auto(re: torch.Tensor, im: torch.Tensor, inverse: bool = True):
+def ifft2_planes_auto(re: torch.Tensor, im: torch.Tensor, inverse: bool = True,
+                      precision: str = "float32"):
     """Full 2-D unnormalized transform of (re, im) [C, N, N] → [C, N, N]:
     two transposed row passes up to MAX_TRANSPOSED_N; beyond, a natural-
     store row pass and the column pass along axis −2."""
     if re.shape[-1] <= MAX_TRANSPOSED_N:
-        re, im = fft1d_transposed(re, im, inverse)
-        return fft1d_transposed(re, im, inverse)
-    re, im = fft1d_natural_large(re, im, inverse)
-    return ifft1d_planes_axis2(re, im, inverse)
+        re, im = fft1d_transposed(re, im, inverse, precision)
+        return fft1d_transposed(re, im, inverse, precision)
+    re, im = fft1d_natural_large(re, im, inverse, precision)
+    return ifft1d_planes_axis2(re, im, inverse, precision)
 
 
 @functools.lru_cache(maxsize=32)
@@ -266,7 +439,7 @@ def _c2r_combine(yr, yi, nyqr, nyqi, inverse: bool, axis: int = -1):
 
 
 def c2r_fold_columns(yr, yi, nyq_re, nyq_im, natural: bool,
-                     inverse: bool = True):
+                     inverse: bool = True, precision: str = "float32"):
     """The half route after its row pass over spectral rows 0..M−1: the
     Nyquist spectral row's own row pass, the C2R fold, the length-M column
     pass and the even/odd interleave → the real field [C, 2M, N].
@@ -277,19 +450,22 @@ def c2r_fold_columns(yr, yi, nyq_re, nyq_im, natural: bool,
     untransformed Nyquist row [C, 1, N]. In the transposed regime that
     row's pass yields [C, N, 1], its transposed form with no copy."""
     if natural:
-        nyr, nyi = fft1d_natural_large(nyq_re, nyq_im, inverse)    # [C, 1, N]
+        nyr, nyi = fft1d_natural_large(nyq_re, nyq_im, inverse,
+                                       precision)                  # [C, 1, N]
         vr, vi = _c2r_combine(yr, yi, nyr, nyi, inverse, axis=-2)
-        xr, xi = half_column_pass(vr, vi, yr.shape[-2], inverse)
+        xr, xi = half_column_pass(vr, vi, yr.shape[-2], inverse, precision)
     else:
-        nyr, nyi = fft1d_transposed(nyq_re, nyq_im, inverse)       # [C, N, 1]
+        nyr, nyi = fft1d_transposed(nyq_re, nyq_im, inverse,
+                                    precision)                     # [C, N, 1]
         vr, vi = _c2r_combine(yr, yi, nyr, nyi, inverse, axis=-1)
-        xr, xi = fft1d_transposed(vr, vi, inverse)                 # [C, M, N]
+        xr, xi = fft1d_transposed(vr, vi, inverse, precision)      # [C, M, N]
     c, m, n = xr.shape
     # x[2m] = Re v[m], x[2m+1] = Im v[m]
     return torch.stack([xr, xi], dim=2).reshape(c, 2 * m, n)
 
 
-def ifft2_planes_half(re: torch.Tensor, im: torch.Tensor, inverse: bool = True):
+def ifft2_planes_half(re: torch.Tensor, im: torch.Tensor, inverse: bool = True,
+                      precision: str = "float32"):
     """Half-spectrum 2-D inverse transform: (re, im) [C, N/2+1, N], rows
     k1 = 0..N/2 of a Hermitian spectrum → the real field [C, N, N].
 
@@ -309,6 +485,8 @@ def ifft2_planes_half(re: torch.Tensor, im: torch.Tensor, inverse: bool = True):
                          f"got {mp1} for N={n}")
     natural = n > MAX_TRANSPOSED_N
     rows = fft1d_natural_large if natural else fft1d_transposed
-    yr, yi = rows(re[:, :m].contiguous(), im[:, :m].contiguous(), inverse)
+    yr, yi = rows(re[:, :m].contiguous(), im[:, :m].contiguous(), inverse,
+                  precision)
     return c2r_fold_columns(yr, yi, re[:, m:].contiguous(),
-                            im[:, m:].contiguous(), natural, inverse)
+                            im[:, m:].contiguous(), natural, inverse,
+                            precision)

@@ -14,7 +14,11 @@ On a CUDA tensor each launches its hand-written kernel
 (``csrc/fused_rows.cu``) and nothing else; on a CPU tensor it runs its
 plain version: ``_assemble_plain`` (the kernel's f32 arithmetic in torch,
 in the order of the JAX ``_assemble_block``; it does not use the float64
-``pack`` table, which differs in the last bits) followed by ``torch.fft``.
+``pack`` table, which differs in the last bits) followed by the row DFT's
+plain version (``planes.rows_plain``). ``precision`` picks the row DFT's
+tier and form as in fft/planes.py (``planes.engine``): the transposed
+store takes the three-factor form of ``_fused_kernel_split3`` (#5b) where
+``planes.use_split3`` says so; the assembly is the same at every tier.
 
 Only the packed channel set with 3 live fields (stencil normals) is
 ported: ``nch_live=5`` (spectral normals) and ``packed=False`` raise
@@ -106,12 +110,12 @@ def _assemble_plain(h0_planes, phase, length: float, dz_sign: float, *,
 
 
 def _fused_plain(natural: bool, h0_planes, phase, length, dz_sign, *,
-                 inverse, epsilon, row_offset, ch_start, ch_count):
+                 inverse, epsilon, row_offset, ch_start, ch_count, precision):
     row_fft = (planes.fft1d_natural_large_plain if natural
                else planes.fft1d_transposed_plain)
     outs = [row_fft(*(p[None] for p in _assemble_plain(
                 h0_planes, phase, length, dz_sign, epsilon=epsilon,
-                row_offset=row_offset, ch=ch)), inverse)
+                row_offset=row_offset, ch=ch)), inverse, precision)
             for ch in range(ch_start, ch_start + ch_count)]
     return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
 
@@ -119,57 +123,68 @@ def _fused_plain(natural: bool, h0_planes, phase, length, dz_sign, *,
 def assemble_rowfft_plain(h0_planes, phase, length: float, dz_sign: float, *,
                           epsilon: float, ch_count: int, inverse: bool = True,
                           row_offset: int = 0, ch_start: int = 0,
-                          packed: bool = True, nch_live: int = 3):
+                          packed: bool = True, nch_live: int = 3,
+                          precision: str = "float32"):
     """Plain version of assemble_rowfft."""
     _check_inputs(h0_planes, phase, ch_start, ch_count, packed, nch_live)
     return _fused_plain(False, h0_planes, phase, length, dz_sign,
                         inverse=inverse, epsilon=epsilon,
                         row_offset=row_offset, ch_start=ch_start,
-                        ch_count=ch_count)
+                        ch_count=ch_count, precision=precision)
 
 
 def assemble_rowfft_natural_plain(h0_planes, phase, length: float,
                                   dz_sign: float, *, epsilon: float,
                                   ch_count: int, inverse: bool = True,
                                   row_offset: int = 0, ch_start: int = 0,
-                                  packed: bool = True, nch_live: int = 3):
+                                  packed: bool = True, nch_live: int = 3,
+                                  precision: str = "float32"):
     """Plain version of assemble_rowfft_natural."""
     _check_inputs(h0_planes, phase, ch_start, ch_count, packed, nch_live)
     return _fused_plain(True, h0_planes, phase, length, dz_sign,
                         inverse=inverse, epsilon=epsilon,
                         row_offset=row_offset, ch_start=ch_start,
-                        ch_count=ch_count)
+                        ch_count=ch_count, precision=precision)
 
 
-def _launch(entry: str, natural: bool, h0_planes, phase, length, dz_sign, *,
-            inverse, epsilon, row_offset, ch_start, ch_count):
+def _launch(natural: bool, h0_planes, phase, length, dz_sign, *,
+            inverse, epsilon, row_offset, ch_start, ch_count, precision):
+    """Launches the natural or the transposed fused entry at the tier and
+    form of its pass, and counts the launch."""
+    store = "natural" if natural else "transposed"
+    entry = f"tpu_fused_rows_{store}"
     m, n = phase.shape
     planes.check_size(n)
     dev = phase.device
+    tier, split3 = planes.engine(n, precision, transposed=not natural)
     kernels = _build.load()
     out_shape = (ch_count, m, n) if natural else (ch_count, n, m)
     out_re = torch.empty(out_shape, dtype=torch.float32, device=dev)
     out_im = torch.empty_like(out_re)
     kz = _kz_table(n, float(length), dev)
-    tw = planes.twiddles(n, bool(inverse), dev)
+    tables = planes.tables_for(n, inverse, tier, split3, dev)
     rows = planes.rows_per_block(ch_count, m, n, planes.sm_count(dev),
                                  planes.max_rows(n, natural))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(kernels.lib, entry)(
             *(p.data_ptr() for p in (*h0_planes, phase)), kz.data_ptr(),
-            out_re.data_ptr(), out_im.data_ptr(), tw.data_ptr(),
+            out_re.data_ptr(), out_im.data_ptr(), tables.data_ptr(),
             ch_count, ch_start, m, n, rows, int(row_offset),
+            planes.TIERS[tier], int(split3),
             float(np.float32(2.0 * np.pi / length)),
             float(np.float32(dz_sign)), float(np.float32(epsilon)), stream)
     kernels.check(err, entry)
+    planes.count_launch(assemble_rowfft_natural if natural else assemble_rowfft,
+                        f"fused_{store}", tier, split3)
     return out_re, out_im
 
 
 def assemble_rowfft(h0_planes, phase, length: float, dz_sign: float, *,
                     epsilon: float, ch_count: int, inverse: bool = True,
                     row_offset: int = 0, ch_start: int = 0,
-                    packed: bool = True, nch_live: int = 3):
+                    packed: bool = True, nch_live: int = 3,
+                    precision: str = "float32"):
     """(h0r, h0i, h0cr, h0ci) f32 [M, N] + phase [M, N] → packed channels
     ch_start .. ch_start + ch_count − 1, assembled and row-transformed,
     stored TRANSPOSED: (re, im) f32 [ch_count, N, M]. ``row_offset`` is the
@@ -177,34 +192,28 @@ def assemble_rowfft(h0_planes, phase, length: float, dz_sign: float, *,
     (fft layout); ``dz_sign`` = −1 with the oracle's sign quirk."""
     _check_inputs(h0_planes, phase, ch_start, ch_count, packed, nch_live)
     kw = dict(inverse=inverse, epsilon=epsilon, row_offset=row_offset,
-              ch_start=ch_start, ch_count=ch_count)
+              ch_start=ch_start, ch_count=ch_count, precision=precision)
     if planes.on_cpu("assemble_rowfft", phase):
         return _fused_plain(False, h0_planes, phase, length, dz_sign, **kw)
-    out = _launch("tpu_fused_rows_transposed", False, h0_planes, phase,
-                  length, dz_sign, **kw)
-    assemble_rowfft.launches += 1
-    return out
+    return _launch(False, h0_planes, phase, length, dz_sign, **kw)
 
 
 def assemble_rowfft_natural(h0_planes, phase, length: float, dz_sign: float,
                             *, epsilon: float, ch_count: int,
                             inverse: bool = True, row_offset: int = 0,
                             ch_start: int = 0, packed: bool = True,
-                            nch_live: int = 3):
+                            nch_live: int = 3, precision: str = "float32"):
     """assemble_rowfft with a NATURAL-order store: (re, im) f32
     [ch_count, M, N], for the natural regime's column pass along axis −2."""
     _check_inputs(h0_planes, phase, ch_start, ch_count, packed, nch_live)
     kw = dict(inverse=inverse, epsilon=epsilon, row_offset=row_offset,
-              ch_start=ch_start, ch_count=ch_count)
+              ch_start=ch_start, ch_count=ch_count, precision=precision)
     if planes.on_cpu("assemble_rowfft_natural", phase):
         return _fused_plain(True, h0_planes, phase, length, dz_sign, **kw)
-    out = _launch("tpu_fused_rows_natural", True, h0_planes, phase, length,
-                  dz_sign, **kw)
-    assemble_rowfft_natural.launches += 1
-    return out
+    return _launch(True, h0_planes, phase, length, dz_sign, **kw)
 
 
-#: kernel launches since the last reset (CPU calls do not count)
+#: Stockham-kernel launches since the last reset (CPU calls do not count)
 assemble_rowfft.launches = 0
 assemble_rowfft_natural.launches = 0
 
@@ -212,25 +221,25 @@ assemble_rowfft_natural.launches = 0
 def ifft2_fused_planes(h0_planes, phase, length: float, dz_sign: float, *,
                        epsilon: float, row_offset: int = 0,
                        ch_count: int = PACKED_CHANNELS, packed: bool = True,
-                       nch_live: int = 3):
+                       nch_live: int = 3, precision: str = "float32"):
     """Fused 2-D unnormalized inverse transform of the first ``ch_count``
     packed channels: (re, im) f32 [ch_count, N, N]. Transposed regime: the
     fused transposed-store row pass and a transposed column pass; natural
     regime (N > MAX_TRANSPOSED_N): the fused natural-store row pass and the
     column pass along axis −2."""
     kw = dict(epsilon=epsilon, row_offset=row_offset, ch_count=ch_count,
-              packed=packed, nch_live=nch_live)
+              packed=packed, nch_live=nch_live, precision=precision)
     if phase.shape[-1] > planes.MAX_TRANSPOSED_N:
         re, im = assemble_rowfft_natural(h0_planes, phase, length, dz_sign, **kw)
-        return planes.ifft1d_planes_axis2(re, im)
+        return planes.ifft1d_planes_axis2(re, im, True, precision)
     re, im = assemble_rowfft(h0_planes, phase, length, dz_sign, **kw)
-    return planes.fft1d_transposed(re, im)
+    return planes.fft1d_transposed(re, im, True, precision)
 
 
 def ifft2_fused_planes_half(h0_planes, phase, length: float, dz_sign: float,
                             pack_nyq, *, epsilon: float,
                             ch_count: int = PACKED_CHANNELS,
-                            nch_live: int = 3):
+                            nch_live: int = 3, precision: str = "float32"):
     """Fused-assembly twin of planes.ifft2_planes_half for the packed
     channel set: returns (re_full, im_full) f32 [ch_count − 1, N, N] and
     ``last`` f32 [N, N], the real field of the last packed channel.
@@ -253,7 +262,7 @@ def ifft2_fused_planes_half(h0_planes, phase, length: float, dz_sign: float,
     mh = n // 2
     natural = n > planes.MAX_TRANSPOSED_N
     row_pass = assemble_rowfft_natural if natural else assemble_rowfft
-    kw = dict(epsilon=epsilon, nch_live=nch_live)
+    kw = dict(epsilon=epsilon, nch_live=nch_live, precision=precision)
 
     re_f, im_f = ifft2_fused_planes(h0_planes, phase, length, dz_sign,
                                     ch_count=ch_count - 1, **kw)
@@ -265,5 +274,6 @@ def ifft2_fused_planes_half(h0_planes, phase, length: float, dz_sign: float,
     nr, ni = assemble_spectra_packed_real(
         tuple(p[mh:mh + 1] for p in h0_planes), phase[mh:mh + 1], pack_nyq)
     last = planes.c2r_fold_columns(yr, yi, nr[-1:].contiguous(),
-                                   ni[-1:].contiguous(), natural)
+                                   ni[-1:].contiguous(), natural,
+                                   precision=precision)
     return re_f, im_f, last[0]

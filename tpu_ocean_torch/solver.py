@@ -26,6 +26,18 @@ fft.planes.MAX_TRANSPOSED_N = 2048 transposed, above it natural):
   ``pallas_fused``, natural:     fused natural 2, row DFT natural 1,
                                  transposed 2, fields 1
 
+Each row-DFT and fused launch runs at the tier and form of its pass
+(fft.planes.engine): with ``cfg.precision = "float32"`` and the module
+switches at their defaults, every pass is the f32 Stockham kernel; with
+``"bfloat16"`` every pass is the matrix engine at bf16 (the same counts,
+in fft.planes.matrix_launches). Lowering fft.planes.KERNEL_B3_THRESHOLD
+moves float32 passes longer than it to bf16x3, and lowering
+THREE_FACTOR_THRESHOLD moves transposed-store passes longer than it (n1
+= 128) to the three-factor form, pass by pass: at 1024² with both at
+512, the 1024-long passes (``pallas``: row DFT 4; ``pallas_fused``:
+fused 2, row DFT 2) run bf16x3 three-factor and the half channel's
+512-long column pass stays on the f32 Stockham kernel.
+
 The C2R fold, the interleave, the positions, the phase and (``pallas``)
 the assembly are plain torch elementwise work. Any other solver
 configuration raises NotImplementedError naming the ROADMAP.md item that
@@ -105,9 +117,6 @@ class OceanSolver:
             raise _not_ported(f"fft_backend={fft_backend!r}", rest)
         if eval_mode != "fft":
             raise _not_ported(f"eval_mode={eval_mode!r}", rest)
-        if cfg.precision != "float32":
-            raise _not_ported(f"precision={cfg.precision!r}",
-                              "Queue 2, precision rule")
         for name, value, want in (
                 ("spectrum_layout", cfg.spectrum_layout, "fft"),
                 ("evolution_mode", cfg.evolution_mode, "phase"),
@@ -133,6 +142,8 @@ class OceanSolver:
             check_size(n // 2)
         self.cfg = cfg
         self.fft_backend = fft_backend
+        # every transform's precision (tpu_ocean/solver.py _mxu_precision)
+        self.precision = cfg.precision
         self.dz_sign = -1.0 if cfg.oracle_sign_quirk else 1.0
 
         def table(a):
@@ -216,12 +227,13 @@ class OceanSolver:
         if self.fft_backend == "pallas_fused":
             re_f, im_f, disp_z = ifft2_fused_planes_half(
                 pair, phase, self.cfg.length, self.dz_sign, self.pack_nyq,
-                epsilon=EPSILON)
+                epsilon=EPSILON, precision=self.precision)
             return self._extract_fields(re_f[0], im_f[0], disp_z)
         re, im = assemble_spectra_packed_real(pair, phase, self.pack)
         mh = self.cfg.resolution // 2
-        re_f, im_f = ifft2_planes_auto(re[:-1], im[:-1])
-        disp_z = ifft2_planes_half(re[-1:, :mh + 1], im[-1:, :mh + 1])[0]
+        re_f, im_f = ifft2_planes_auto(re[:-1], im[:-1], True, self.precision)
+        disp_z = ifft2_planes_half(re[-1:, :mh + 1], im[-1:, :mh + 1], True,
+                                   self.precision)[0]
         return self._extract_fields(re_f[0], im_f[0], disp_z)
 
     def _extract_fields(self, height, disp_x, disp_z) -> OceanFields:
