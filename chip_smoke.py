@@ -10,12 +10,15 @@ Phases, each printing its own lines:
   2. build   — tpu_ocean_torch/csrc/*.cu, one nvcc per file, all started
                together, linked into one library;
   3. kernels — each kernel against its plain PyTorch version on the card,
-               at the shapes the paths below give it (the wave bank also at
+               at the shapes the paths below give it, each launch counted
+               under its own name and each channel of a multi-channel
+               launch on its own scale (the wave bank also at
                4096², a timing shape); each row-DFT kernel also against
                float64 (torch.fft in complex128), and the transposed row
                pass at every tier and form at 1024² and 4096²;
-  4. slice   — eleven paths on the card, each from a seeded init, with every
-               launch count set to 0 just before and read just after it:
+  4. slice   — sixteen paths on the card, each from a seeded init, with
+               every launch count set to 0 just before and read just after
+               it:
                  (i)   OCEAN_DEMO 1024², fft_backend="pallas", 60 steps
                  (ii)  OCEAN_DEMO 1024², fft_backend="pallas_fused", 60 steps
                  (iii) OCEAN_DEMO at 4096², "pallas", 10 steps
@@ -33,20 +36,41 @@ Phases, each printing its own lines:
                  (ix)  OCEAN_DEMO 1024², "pallas_fused", with
                        THREE_FACTOR_THRESHOLD = KERNEL_B3_THRESHOLD = 512,
                        20 steps: #5b and #1b at bf16x3
+                 (x)   OCEAN_DEMO 1024², "pallas_fused", per-channel
+                       (pack_channels=False, half_spectrum=False) with the
+                       fields kernel, 20 steps: #5 per-channel, channels 0..2
+                 (xi)  OCEAN_DEMO with normals_mode="spectral" at 1024²,
+                       "pallas_fused", packed + half, pallas_fields=False,
+                       20 steps: #5 packed with 5 live fields
+                 (xii) the spectral config at 4096², "pallas_fused",
+                       per-channel, pallas_fields=False, 5 steps: #6
+                       per-channel, channels 0..4
+                 (xiii) the spectral config with evolution_mode="absolute"
+                       at 4096², "pallas_fused", packed without half, 5
+                       steps: #6 packed with 5 live fields, channels 0..2;
+                       then fields_at(state, t) and velocity(state) once
+                 (xiv) OCEAN_DEMO 1024², "pallas", per-channel,
+                       pallas_fields=False, 20 steps: the torch assembly,
+                       #1 on 3 channels and the stencil in torch; then
+                       velocity on (i)'s solver (the half route)
                  (p1)  PondSimulation(POND_DEMO, use_pallas=True): 512², the
                        packed 4-wave bank, analytic normals, 600 steps
                  (p2)  BASELINE config 3: PondConfig(resolution=512) with
                        WaveBank.random(0, 16), use_pallas=True, 600 steps
                every kernel must have launched exactly its per-step count
                (PATHS, POND_PATHS below; the matrix engine's launches by
-               kernel × tier × form, fft.planes.matrix_launches). Ocean
+               kernel × tier × form, fft.planes.named_launches). Ocean
                paths: the fields must be finite, the normals unit and the
                foam in [0, 1]; the last steps are replayed on the CPU plain
                path from a snapshot of the card's state and the two are
                compared (compare_fields), except (vii), whose last step is
                compared with the card's f32 step from the same state; (v)'s
                last step is also compared with the v2 kernel's from the
-               same state. Pond paths: finite fields, unit normals, and
+               same state; the spectral-normal paths' last step, run again
+               at bf16, must fall outside their normals' band (a control
+               of the band); fields_at and velocity are called on the card
+               and on the CPU from the same state, with their own launch
+               counts (EXTRA_CALLS). Pond paths: finite fields, unit normals, and
                the CPU plain path at the last step's t within atol 2e-5,
                rtol 1e-5; then the plain-torch "wave" mode and both
                velocities at 512², card against CPU, with the same band;
@@ -109,7 +133,13 @@ POND_ATOL, POND_RTOL = 2e-5, 1e-5
 # One ocean path: fft_backend, N, steps, replay steps (0: compare the last
 # step with the card's f32 step from the same state instead of a CPU
 # replay), FIELDS_KERNEL_V2, precision, the fft.planes switches set for the
-# path, kernel launches per step, and the band of compare_fields. Row DFT
+# path, kernel launches per step, the band of compare_fields, the
+# OCEAN_DEMO fields the path replaces and the solver's switches (both
+# default to none: OCEAN_DEMO packed + half with the fields kernel). A
+# fused launch outside the packed set with 3 live fields counts under its
+# set (fft.planes.named_launches: "fused_transposed[per_channel]",
+# "fused_natural[packed5]"). Unpacked or without half, each 2-D transform
+# is one launch a pass for all its C channels. Row DFT
 # passes: transposed regime (N ≤ 2048) — 2 for the full channel, and the
 # half channel's Nyquist row, half rows and columns; natural regime
 # (N > 2048) — the full channel's natural row pass and its column pass (a
@@ -121,7 +151,9 @@ POND_ATOL, POND_RTOL = 2e-5, 1e-5
 # f32 Stockham kernel.
 OceanPath = collections.namedtuple(
     "OceanPath", "tag backend size steps replay v2 precision switches "
-    "per_step rel")
+    "per_step rel config solver", defaults=({}, {}))
+SPECTRAL = {"normals_mode": "spectral"}
+PER_CHANNEL = {"pack_channels": False, "half_spectrum": False}
 SPLIT3 = {"THREE_FACTOR_THRESHOLD": 512}
 B3_SPLIT3 = {"THREE_FACTOR_THRESHOLD": 512, "KERNEL_B3_THRESHOLD": 512}
 # compare_fields' bands at bf16 (max abs err over max |reference|): card
@@ -163,6 +195,38 @@ PATHS = [
               {"matrix_fused_transposed[bf16x3,split3]": 2,
                "matrix_rows_transposed[bf16x3,split3]": 2,
                "fft_rows_transposed": 1, "fields_stencil": 1}, B3_REL),
+    OceanPath("x", "pallas_fused", 1024, 20, 2, True, "float32", {},
+              {"fused_transposed[per_channel]": 1,
+               "fft_rows_transposed": 1, "fields_stencil": 1}, 1e-5,
+              solver=PER_CHANNEL),
+    OceanPath("xi", "pallas_fused", 1024, 20, 2, True, "float32", {},
+              {"fused_transposed[packed5]": 2,
+               "fft_rows_transposed": 3}, 1e-5,
+              config=SPECTRAL, solver={"pallas_fields": False}),
+    OceanPath("xii", "pallas_fused", 4096, 5, 1, True, "float32", {},
+              {"fused_natural[per_channel]": 1,
+               "fft_rows_transposed": 1}, 1e-5,
+              config=SPECTRAL, solver={**PER_CHANNEL, "pallas_fields": False}),
+    OceanPath("xiii", "pallas_fused", 4096, 5, 1, True, "float32", {},
+              {"fused_natural[packed5]": 1,
+               "fft_rows_transposed": 1}, 1e-5,
+              config={**SPECTRAL, "evolution_mode": "absolute"},
+              solver={"half_spectrum": False, "pallas_fields": False}),
+    OceanPath("xiv", "pallas", 1024, 20, 2, True, "float32", {},
+              {"fft_rows_transposed": 2}, 1e-5,
+              solver={**PER_CHANNEL, "pallas_fields": False}),
+]
+# (path, solver method, launches of one call): fields_at(state, t) at the
+# path's clock + 1/60 and velocity(state), on the card and on the CPU from
+# the card's last state. (xiii) is unpacked without half: fields_at is its
+# step's transform; velocity is one full 2-D transform in the natural
+# regime. (i) is packed + half: velocity takes the half route (its rows,
+# the Nyquist row and the length-512 columns).
+EXTRA_CALLS = [
+    ("xiii", "fields_at", {"fused_natural[packed5]": 1,
+                           "fft_rows_transposed": 1}),
+    ("xiii", "velocity", {"fft_rows_natural": 1, "fft_rows_transposed": 1}),
+    ("i", "velocity", {"fft_rows_transposed": 3}),
 ]
 # (label, what, WaveBank.random arguments or None for the config's packed
 # 4-wave bank, steps): POND_DEMO (512²) through PondSimulation with
@@ -171,7 +235,10 @@ POND_PATHS = [
     ("p1", "POND_DEMO 512², packed 4-wave bank", None, 600),
     ("p2", "BASELINE config 3, 512², WaveBank.random(0, 16)", (0, 16), 600),
 ]
-KERNEL_INFO = {   # name: (source, the TPU kernel it replaces)
+# name: (source, the TPU kernel it replaces); a fused kernel in the
+# per-channel set or the packed set with 5 live fields is its own entry,
+# named as it counts (fft.planes.kernel_name)
+KERNEL_INFO = {
     "fft_rows_transposed": ("tpu_ocean_torch/csrc/fft_rows.cu",
                             "tpu_ocean/fft/pallas_fft.py:235"),
     "fields_stencil": ("tpu_ocean_torch/csrc/fields_stencil.cu",
@@ -182,6 +249,14 @@ KERNEL_INFO = {   # name: (source, the TPU kernel it replaces)
                               "tpu_ocean/ops/fused_spectrum_fft.py:127"),
     "fused_rows_natural": ("tpu_ocean_torch/csrc/fused_rows.cu",
                            "tpu_ocean/ops/fused_spectrum_fft.py:196"),
+    "fused_transposed[per_channel]": ("tpu_ocean_torch/csrc/fused_rows.cu",
+                                      "tpu_ocean/ops/fused_spectrum_fft.py:127"),
+    "fused_transposed[packed5]": ("tpu_ocean_torch/csrc/fused_rows.cu",
+                                  "tpu_ocean/ops/fused_spectrum_fft.py:127"),
+    "fused_natural[per_channel]": ("tpu_ocean_torch/csrc/fused_rows.cu",
+                                   "tpu_ocean/ops/fused_spectrum_fft.py:196"),
+    "fused_natural[packed5]": ("tpu_ocean_torch/csrc/fused_rows.cu",
+                               "tpu_ocean/ops/fused_spectrum_fft.py:196"),
     "fields_stencil_v1": ("tpu_ocean_torch/csrc/fields_stencil_v1.cu",
                           "tpu_ocean/ops/fields_pallas.py:45"),
     "gerstner_bank": ("tpu_ocean_torch/csrc/gerstner_bank.cu",
@@ -206,7 +281,8 @@ KERNEL_INFO = {   # name: (source, the TPU kernel it replaces)
 TIER_BAND = {"f32": 1e-5, "bf16": 2e-3, "bf16x3": 1e-5}
 TIER_CODE = {"0": "f32", "1": "bf16", "2": "bf16x3"}
 OCEAN_NOTE = ("torch ops: phase, assembly where unfused, C2R fold, "
-              "interleave, transposing copies, positions")
+              "interleave, transposing copies, positions, fields where "
+              "pallas_fields=False")
 POND_NOTE = "torch ops: none expected, the pond step is one kernel"
 
 
@@ -217,6 +293,31 @@ def log(*parts):
 def require(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def fused_mode(name):
+    """The channel set of a fused kernel's entry, for the kernels line, or
+    None for a kernel that is not fused."""
+    if "fused" not in name:
+        return None
+    if "per_channel" in name:
+        return "per-channel (packed=False)"
+    return "packed, nch_live=5" if "packed5" in name else "packed, nch_live=3"
+
+
+def spectral_normal_band(ref, packed, rel):
+    """(band, scale) of spectral normals n = normalize((−sx, 1, −sz)),
+    card against ``ref``: |v| ≥ 1 and the normalization's Jacobian is (I − nnᵀ)/|v|, so
+    |δn| ≤ |δ(sx, sz)| ≤ √2·δs. A slope's transform error δs is held to
+    rel × the largest value of the channel that carries it, as
+    compare_fields holds each transformed field: packed, slope_x shares a
+    channel with disp_z, so the scale is max(|disp_z|, |slopes|);
+    per-channel each slope has a channel of its own. Plus 4 f32 ulps of 1
+    for the normalization's rounding."""
+    n = ref.normal.astype(np.float64)
+    slopes = np.abs(n[..., [0, 2]] / n[..., 1:2]).max()
+    scale = max(slopes, np.abs(ref.disp_z).max()) if packed else slopes
+    return np.sqrt(2) * rel * scale + 4 * 2.0 ** -24, scale
 
 
 def kernel_group(key):
@@ -357,13 +458,15 @@ def normal_sensitivity(fields, cfg, delta):
     return 4 * np.sqrt(3) * delta * (lu + lv) / np.linalg.norm(np.cross(u, v), axis=-1)
 
 
-def compare_fields(card, cpu, cfg, tag, against="cpu", rel=1e-5):
+def compare_fields(card, cpu, cfg, tag, against="cpu", rel=1e-5, packed=True):
     """Hold the card's fields to the CPU plain path's (or to ``against``,
     another card run from the same state), with the bands of
     tests/test_packing.py at ``rel``: rel·max|cpu| for height,
     displacements, positions and Jacobian; 2e-4 for normals and
     25·rel·max|foam| for foam, each plus the first-order effect of the
-    measured input differences (normal_sensitivity): at 1024² a few texels
+    measured input differences (normal_sensitivity; spectral normals
+    spectral_normal_band, of the slopes' channels, ``packed`` or not, as
+    they are well conditioned): at 1024² a few texels
     sit on folds where any two f32 transforms give normals up to ~1e-3
     apart (the CPU plain path alone is that far from float64 there). Foam
     follows J and n: |δfoam| ≤ 1.5·(|δJ| + 0.3·|δn|), smoothstep's slope
@@ -381,12 +484,20 @@ def compare_fields(card, cpu, cfg, tag, against="cpu", rel=1e-5):
     delta = max(err["height"].max(), chop * err["disp_x"].max(),
                 chop * err["disp_z"].max())
     n_err = err["normal"].max(-1)
-    n_band = 2e-4 + normal_sensitivity(cpu, cfg, delta)
-    log(f"[slice {tag}] card vs {against} normal: max abs err {n_err.max():.3e}; "
-        f"{int((n_err > 2e-4).sum())} texels beyond 2e-4, all within 2e-4 + "
-        f"sensitivity to the input error {delta:.3e}: "
-        f"{bool((n_err <= n_band).all())} (worst err/band "
-        f"{(n_err / n_band).max():.3f})")
+    if cfg.normals_mode == "spectral":
+        band, scale = spectral_normal_band(cpu, packed, rel)
+        n_band = np.full_like(n_err, band)
+        log(f"[slice {tag}] card vs {against} spectral normal: max abs err "
+            f"{n_err.max():.3e} <= {band:.3e} (sqrt(2) x {rel:g} x {scale:.4g}, "
+            f"the max of the slopes' channels{', packed' if packed else ''}): "
+            f"{bool((n_err <= n_band).all())} (err/band {n_err.max() / band:.3f})")
+    else:
+        n_band = 2e-4 + normal_sensitivity(cpu, cfg, delta)
+        log(f"[slice {tag}] card vs {against} normal: max abs err "
+            f"{n_err.max():.3e}; {int((n_err > 2e-4).sum())} texels beyond "
+            f"2e-4, all within 2e-4 + sensitivity to the input error "
+            f"{delta:.3e}: {bool((n_err <= n_band).all())} (worst err/band "
+            f"{(n_err / n_band).max():.3f})")
     require((n_err <= n_band).all(),
             f"path {tag}: card and {against} disagree on normal")
     f_raw = 25 * rel * np.abs(cpu.foam).max()
@@ -400,17 +511,25 @@ def compare_fields(card, cpu, cfg, tag, against="cpu", rel=1e-5):
             f"path {tag}: card and {against} disagree on foam")
 
 
-def check_kernel(name, shape, got, want, band=1e-5):
+def check_kernel(name, shape, got, want, band=1e-5, channels=1):
     """Max abs error of a kernel's (re, im) against its plain version's;
-    raises beyond band·max|plain|."""
+    raises beyond band·max|plain|. With ``channels`` > 1 each channel of
+    the [C, ...] outputs is held to its own max (the slope channels are
+    smaller than the height's); returns the worst channel's (err, scale)."""
     torch.cuda.synchronize()
-    scale = max(w.abs().max().item() for w in want)
-    err = max((g - w).abs().max().item() for g, w in zip(got, want))
     require(all(g.shape == w.shape for g, w in zip(got, want)),
             f"{name} {shape}: shape {got[0].shape}")
-    require(err <= band * scale, f"{name} {shape} disagrees ({err:.3e} = "
-            f"{err / scale:.3e} x max|plain|, band {band:g})")
-    return err, scale
+    worst = None
+    for c in range(channels):
+        gc, wc = ((got, want) if channels == 1 else
+                  (tuple(g[c] for g in got), tuple(w[c] for w in want)))
+        scale = max(w.abs().max().item() for w in wc)
+        err = max((g - w).abs().max().item() for g, w in zip(gc, wc))
+        require(err <= band * scale, f"{name} {shape} channel {c} disagrees "
+                f"({err:.3e} = {err / scale:.3e} x max|plain|, band {band:g})")
+        if worst is None or err / scale > worst[0] / worst[1]:
+            worst = (err, scale)
+    return worst
 
 
 @dataclasses.dataclass
@@ -418,7 +537,9 @@ class Case:
     """One kernel at one shape: its call, its plain version's, a library
     call computing the same function (or None), the float64 reference
     (or None), the bytes and operations of its bound, its band against
-    the plain version and the fft.planes switches it runs under."""
+    the plain version, the fft.planes switches it runs under, its channels
+    (each checked on its own scale) and the name its launch counts under
+    where that is not ``name`` (a slope channel of the matrix engine)."""
     name: str
     shape: list
     run: object
@@ -430,6 +551,8 @@ class Case:
     band: float = 1e-5
     f64: object = None
     switches: dict = dataclasses.field(default_factory=dict)
+    channels: int = 1
+    counted: str = ""
 
 
 def sweep_rows(cases, planes):
@@ -442,14 +565,16 @@ def sweep_rows(cases, planes):
         name, shape, run, plain = case.name, case.shape, case.run, case.plain
         if not name.startswith(("fft_rows", "fused_rows")):
             continue
-        c, m, n = (1, *shape[:2]) if name.startswith("fused") else shape
+        c, m, n = ((case.channels, *shape[:2]) if name.startswith("fused")
+                   else shape)
         chosen = chosen_fn(c, m, n, sms, planes.max_rows(n, "natural" in name))
         want = plain()
         rows = 1
         while rows <= 16 and planes.shared_bytes(rows, n) <= planes.SMEM_LIMIT:
             planes.rows_per_block = lambda *_, r=rows, **__: r
             try:
-                err, scale = check_kernel(name, shape, run(), want)
+                err, scale = check_kernel(name, shape, run(), want,
+                                          case.band, case.channels)
                 ms, _, how = device_ms(run)
             finally:
                 planes.rows_per_block = chosen_fn
@@ -546,6 +671,25 @@ def main():
                 "fields_stencil_v1": fs.fields_stencil_v1,
                 "gerstner_bank": gb.gerstner_bank}
 
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+        planes.named_launches.clear()
+
+    def read_counts():
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        counts.update(planes.named_launches)
+        return counts
+
+    def require_counts(counts, want, what):
+        require(set(counts) <= set(KERNEL_INFO),
+                f"{what}: launched kernels outside KERNEL_INFO")
+        for name in KERNEL_INFO:
+            require(counts.get(name, 0) == want.get(name, 0),
+                    f"{what}: {name} launched {counts.get(name, 0)} times, "
+                    f"not {want.get(name, 0)}")
+
     t_start = time.perf_counter()
 
     def phase_done(name):
@@ -605,7 +749,8 @@ def main():
             ("fft_rows_transposed", planes.fft1d_transposed,
              planes.fft1d_transposed_plain, "float32", {},
              [(1, 1024, 1024), (1, 512, 1024), (1, 1024, 512), (1, 1, 1024),
-              (1, 4096, 4096), (1, 4096, 2048)]),
+              (1, 4096, 4096), (1, 4096, 2048), (3, 1024, 1024),
+              (2, 1024, 1024), (3, 4096, 4096), (5, 4096, 4096)]),
             ("fft_rows_natural", planes.fft1d_natural_large,
              planes.fft1d_natural_large_plain, "float32", {},
              [(1, 4096, 4096), (1, 2048, 4096), (1, 1, 4096),
@@ -648,45 +793,75 @@ def main():
                 lambda z=z: torch.fft.ifft(z, dim=-1, norm="forward"),
                 16 * points, f32_ops * points, tensor_ops * points,
                 TIER_BAND[tier],
-                f64_rows(re, im, fn is planes.fft1d_transposed), switches))
+                f64_rows(re, im, fn is planes.fft1d_transposed), switches,
+                shape[0]))
+    # (M, N, first channel, channels, set): the shapes the paths give each
+    # entry; a set is (packed, nch_live)
+    sets = {"packed3": (True, 3), "packed5": (True, 5),
+            "per_channel": (False, 3)}
     for name, fn, plain, precision, switches, shapes in (
             ("fused_rows_transposed", fused.assemble_rowfft,
              fused.assemble_rowfft_plain, "float32", {},
-             [(1024, 1024, 0), (512, 1024, 1)]),
+             [(1024, 1024, 0, 1, "packed3"), (512, 1024, 1, 1, "packed3")]),
             ("fused_rows_natural", fused.assemble_rowfft_natural,
              fused.assemble_rowfft_natural_plain, "float32", {},
-             [(4096, 4096, 0), (2048, 4096, 1)]),
+             [(4096, 4096, 0, 1, "packed3"), (2048, 4096, 1, 1, "packed3")]),
+            ("fused_transposed[per_channel]", fused.assemble_rowfft,
+             fused.assemble_rowfft_plain, "float32", {},
+             [(1024, 1024, 0, 3, "per_channel")]),
+            ("fused_transposed[packed5]", fused.assemble_rowfft,
+             fused.assemble_rowfft_plain, "float32", {},
+             [(1024, 1024, 0, 2, "packed5"), (512, 1024, 2, 1, "packed5")]),
+            ("fused_natural[per_channel]", fused.assemble_rowfft_natural,
+             fused.assemble_rowfft_natural_plain, "float32", {},
+             [(4096, 4096, 0, 5, "per_channel")]),
+            ("fused_natural[packed5]", fused.assemble_rowfft_natural,
+             fused.assemble_rowfft_natural_plain, "float32", {},
+             [(4096, 4096, 0, 3, "packed5"), (2048, 4096, 2, 1, "packed5")]),
             ("matrix_fused_natural[bf16]", fused.assemble_rowfft_natural,
              fused.assemble_rowfft_natural_plain, "bfloat16", {},
-             [(4096, 4096, 0), (2048, 4096, 1)]),
+             [(4096, 4096, 0, 1, "packed3"), (2048, 4096, 1, 1, "packed3"),
+              (2048, 4096, 2, 1, "packed5")]),
             ("matrix_fused_transposed[bf16x3,split3]", fused.assemble_rowfft,
              fused.assemble_rowfft_plain, "float32", B3_SPLIT3,
-             [(1024, 1024, 0), (512, 1024, 1)])):
-        for m, n, ch in shapes:
+             [(1024, 1024, 0, 1, "packed3"), (512, 1024, 1, 1, "packed3"),
+              (512, 1024, 2, 1, "packed5")])):
+        for m, n, ch, count, channel_set in shapes:
             h0 = tuple(plane((m, n)) for _ in range(4))
             phase = torch.from_numpy(rng.uniform(0, 2 * np.pi, size=(m, n))
                                      .astype(np.float32)).to(dev)
-            kw = dict(epsilon=1e-4, ch_start=ch, ch_count=1,
-                      precision=precision)
+            packed, nch_live = sets[channel_set]
+            kw = dict(epsilon=1e-4, ch_start=ch, ch_count=count,
+                      packed=packed, nch_live=nch_live, precision=precision)
             args = (h0, phase, OCEAN_DEMO.length, -1.0)
             n1, n2 = planes._split_lanes(n)
             with dft_switches(planes, switches):
                 tier, split3 = planes.engine(
                     n, precision, fn is fused.assemble_rowfft)
-            # 5 f32 planes in, one complex channel out, the kz row; the
-            # assembly's ~30 operations and the transform's
+            # 5 f32 planes in (read once), one complex channel out per
+            # channel, the kz row; per channel the assembly's ~30
+            # operations and the transform's
             if not name.startswith("matrix"):
                 f32_ops, tensor_ops = 30 + 5 * int(np.log2(n)), 0
             else:
                 f32_ops = 30 + 6 + (6 if split3 else 0)
                 tensor_ops = ((3 if tier == "bf16x3" else 1)
                               * 8 * (n2 + (24 if split3 else n1)))
+            label = f"ch {ch}" if count == 1 else f"ch {ch}-{ch + count - 1}"
+            store = "natural" if fn is fused.assemble_rowfft_natural else "transposed"
+            tag = fused.channel_set(packed, nch_live)
+            counted = (f"fused_rows_{store}" if tier == "f32" and not split3
+                       and not tag else
+                       planes.kernel_name(f"fused_{store}", tier, split3, tag))
             cases.append(Case(
-                name, [m, n, f"ch {ch}"],
+                name, [m, n, label]
+                + ([] if channel_set == "packed3" else [channel_set]),
                 switched(switches, lambda fn=fn, a=args, kw=kw: fn(*a, **kw)),
                 switched(switches, lambda fn=plain, a=args, kw=kw: fn(*a, **kw)),
-                None, 28 * m * n + 4 * n, f32_ops * m * n, tensor_ops * m * n,
-                TIER_BAND[tier], None, switches))
+                None, (20 + 8 * count) * m * n + 4 * n,
+                count * f32_ops * m * n, count * tensor_ops * m * n,
+                TIER_BAND[tier], None, switches, count,
+                "" if counted == name else counted))
 
     # the wave bank at the pond paths' grid and last step's t, both banks
     # and both normal modes, and at 4096² (W = 16); operations: the TPU
@@ -726,12 +901,13 @@ def main():
                 require(g.shape == w.shape and err <= 1e-5 * scale,
                         f"{name} {shape} {out} disagrees")
             continue
-        planes.matrix_launches.clear()
+        reset_counts()
         got = run()
-        if name.startswith("matrix"):
-            require(dict(planes.matrix_launches) == {name: 1},
-                    f"{name} {shape} launched {dict(planes.matrix_launches)}")
-        err, scale = check_kernel(name, shape, got, plain(), case.band)
+        counted = {k: v for k, v in read_counts().items() if v}
+        require(counted == {case.counted or name: 1},
+                f"{name} {shape} launched {counted}")
+        err, scale = check_kernel(name, shape, got, plain(), case.band,
+                                  case.channels)
         errs[name] = max(errs[name], err)
         line = (f"[kernels] {name} {shape} inverse: max abs err {err:.3e} = "
                 f"{err / scale:.3e} x max|plain| (limit {case.band:g})")
@@ -815,38 +991,35 @@ def main():
 
     # ---- 4. the ocean paths through the solver, then the pond paths
     launches = {k: {} for k in KERNEL_INFO}
+
     solvers = {}
     for path in PATHS:
         tag, size, steps, replay = path.tag, path.size, path.steps, path.replay
+        packed = path.solver.get("pack_channels", True)
         with fields_switch(fs, path.v2), dft_switches(planes, path.switches):
-            pcfg = OCEAN_DEMO.replace(resolution=size, precision=path.precision)
-            psolver = OceanSolver(pcfg, fft_backend=path.backend)
+            pcfg = OCEAN_DEMO.replace(resolution=size, precision=path.precision,
+                                      **path.config)
+            psolver = OceanSolver(pcfg, fft_backend=path.backend, **path.solver)
             state = psolver.init(torch.Generator().manual_seed(0))
             torch.cuda.synchronize()
-            for w in wrappers.values():
-                w.launches = 0
-            planes.matrix_launches.clear()
+            reset_counts()
             for step in range(1, steps + 1):
                 prev = state
                 state, fields = psolver.step(state, DT)
                 if replay and step == steps - replay:
                     snapshot = state_from_numpy(state, "cpu")
-            torch.cuda.synchronize()
-            counts = {k: w.launches for k, w in wrappers.items()}
-            counts.update(planes.matrix_launches)
+            counts = read_counts()
             log(f"[slice {tag}] OCEAN_DEMO {size}x{size} "
                 f"fft_backend={path.backend!r}, precision={path.precision!r}"
                 f"{'' if path.v2 else ', FIELDS_KERNEL_V2 = False'}"
                 + "".join(f", {k} = {v}" for k, v in path.switches.items())
+                + "".join(f", {k}={v!r}" for k, v in
+                          {**path.config, **path.solver}.items())
                 + f", {steps} steps of dt 1/60: launches {counts} (expected "
                 f"{steps} x {path.per_step})")
-            require(set(counts) <= set(KERNEL_INFO),
-                    f"path {tag}: launched kernels outside KERNEL_INFO")
-            for name in KERNEL_INFO:
-                count = counts.get(name, 0)
-                require(count == steps * path.per_step.get(name, 0),
-                        f"path {tag}: {name} launched {count} times, not "
-                        f"{steps * path.per_step.get(name, 0)}")
+            require_counts(counts, {k: steps * v for k, v in path.per_step.items()},
+                           f"path {tag}")
+            for name, count in counts.items():
                 if count:
                     launches[name][tag] = count
             card = fields_to_numpy(fields)
@@ -856,28 +1029,48 @@ def main():
                 # the last steps again on the CPU plain path from the
                 # card's state
                 cpu_solver = OceanSolver(pcfg, device="cpu",
-                                         fft_backend=path.backend)
+                                         fft_backend=path.backend,
+                                         **path.solver)
                 cpu_state = snapshot
                 for _ in range(replay):
                     cpu_state, cpu_fields = cpu_solver.step(cpu_state, DT)
                 require(np.array_equal(cpu_state.phase.numpy(),
-                                       state.phase.cpu().numpy()),
-                        f"path {tag}: phase differs between the card and "
-                        f"the CPU")
+                                       state.phase.cpu().numpy())
+                        and float(cpu_state.t) == float(state.t),
+                        f"path {tag}: phase or clock differs between the "
+                        f"card and the CPU")
                 log(f"[slice {tag}] steps {steps - replay + 1}-{steps} "
                     f"replayed on the CPU plain path from the card's "
                     f"step-{steps - replay} state")
                 compare_fields(card, fields_to_numpy(cpu_fields), pcfg, tag,
-                               rel=path.rel)
+                               rel=path.rel, packed=packed)
                 del cpu_solver, cpu_state, cpu_fields, snapshot
             else:
                 # the last step again from the same state at f32 on the card
                 f32_solver = OceanSolver(pcfg.replace(precision="float32"),
-                                         fft_backend=path.backend)
+                                         fft_backend=path.backend,
+                                         **path.solver)
                 _, f32_fields = f32_solver.step(prev, DT)
                 compare_fields(card, fields_to_numpy(f32_fields), pcfg, tag,
-                               against="f32", rel=path.rel)
+                               against="f32", rel=path.rel, packed=packed)
                 del f32_solver, f32_fields
+            if pcfg.normals_mode == "spectral":
+                # a lower-precision control: the last step at bf16 from the
+                # same state must fall outside the spectral normals' band
+                # around the card's f32 step
+                bf16_solver = OceanSolver(pcfg.replace(precision="bfloat16"),
+                                          fft_backend=path.backend,
+                                          **path.solver)
+                _, bf16_fields = bf16_solver.step(prev, DT)
+                band, _ = spectral_normal_band(card, packed, path.rel)
+                worst = np.abs(bf16_fields.normal.cpu().numpy()
+                               - card.normal).max()
+                log(f"[slice {tag}] control: bf16 step vs the card's f32 step, "
+                    f"spectral normal max abs err {worst:.3e} = "
+                    f"{worst / band:.1f} x the band {band:.3e}")
+                require(worst > band, f"path {tag}: the spectral normals' "
+                        f"band does not tell bf16 from f32")
+                del bf16_solver, bf16_fields
             if not path.v2:
                 # the last step again from the same state, through v2
                 with fields_switch(fs, True):
@@ -889,26 +1082,57 @@ def main():
             del fields, card, prev
         phase_done(f"4 path ({tag})")
 
+    # fields_at and velocity on the card, each call counted alone, against
+    # the CPU plain path from the same state
+    for tag, method, per_call in EXTRA_CALLS:
+        path = next(p for p in PATHS if p.tag == tag)
+        pcfg, psolver, state = solvers[tag]
+        cpu_solver = OceanSolver(pcfg, device="cpu", fft_backend=path.backend,
+                                 **path.solver)
+        cpu_state = state_from_numpy(state, "cpu")
+        args = (float(state.t) + DT,) if method == "fields_at" else ()
+        torch.cuda.synchronize()
+        reset_counts()
+        got = getattr(psolver, method)(state, *args)
+        counts = read_counts()
+        log(f"[slice {tag}] {method}(state{', t' if args else ''}) on the "
+            f"card: launches {counts} (expected {per_call})")
+        require_counts(counts, per_call, f"path {tag} {method}")
+        for name, count in counts.items():
+            if count:
+                launches[name][f"{tag} {method}"] = count
+        want = getattr(cpu_solver, method)(cpu_state, *args)
+        if method == "fields_at":
+            card = fields_to_numpy(got)
+            check_fields(card, pcfg.resolution, f"{tag} {method}")
+            compare_fields(card, fields_to_numpy(want), pcfg, f"{tag} {method}",
+                           rel=path.rel,
+                           packed=path.solver.get("pack_channels", True))
+        else:
+            got, want = got.cpu().numpy(), want.numpy()
+            err, scale = np.abs(got - want).max(), np.abs(want).max()
+            log(f"[slice {tag}] {method} card vs cpu: max abs err {err:.3e} "
+                f"= {err / scale:.3e} x max|cpu| (limit {path.rel:g})")
+            require(got.shape == (pcfg.resolution,) * 2
+                    and np.isfinite(got).all() and err <= path.rel * scale,
+                    f"path {tag}: {method} disagrees")
+        del cpu_solver, cpu_state, got, want
+    phase_done("4 fields_at and velocity")
+
     pond_names = ("offset_x", "offset_y", "offset_z", "normal")
     ponds = {}
     for tag, what, bank_args, steps in POND_PATHS:
         bank = WaveBank.random(*bank_args) if bank_args else None
         sim = PondSimulation(POND_DEMO, bank=bank, use_pallas=True)
         torch.cuda.synchronize()
-        for w in wrappers.values():
-            w.launches = 0
+        reset_counts()
         sim.run(steps)
-        torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = read_counts()
         log(f"[slice {tag}] {what}, PondSimulation(use_pallas=True), "
             f"{steps} steps of dt 1/60: launches {counts} (expected {steps} x "
             f"{{'gerstner_bank': 1}})")
-        for name, count in counts.items():
-            want = steps if name == "gerstner_bank" else 0
-            require(count == want,
-                    f"path {tag}: {name} launched {count} times, not {want}")
-            if count:
-                launches[name][tag] = count
+        require_counts(counts, {"gerstner_bank": steps}, f"path {tag}")
+        launches["gerstner_bank"][tag] = steps
         require(sim.step_count == steps, f"path {tag}: step counter")
         n = POND_DEMO.resolution
         card = pond_fields_to_numpy(sim.fields)
@@ -976,7 +1200,9 @@ def main():
                       + ("" if path.precision == "float32"
                          else f" {path.precision}")
                       + ("" if path.v2 else " fields v1")
-                      + "".join(f" {k}={v}" for k, v in path.switches.items()),
+                      + "".join(f" {k}={v}" for k, v in
+                                {**path.switches, **path.config,
+                                 **path.solver}.items()),
                       path.size, ocean_step(psolver, state),
                       200 if path.size <= 2048 else 40, OCEAN_NOTE)
     for tag, *_ in POND_PATHS:
@@ -1042,6 +1268,7 @@ def main():
          "ms": results[name][1], "plain_ms": results[name][2],
          "bound_ms": results[name][4], "bound_by": results[name][5],
          "library_ms": results[name][3], "timed_by": results[name][6],
+         **({"mode": fused_mode(name)} if fused_mode(name) else {}),
          **({"f64_rel_err": f64_errs[name]} if name in f64_errs else {})}
         for name, (source, replaces) in KERNEL_INFO.items()]}))
     log(smi)

@@ -138,6 +138,44 @@ def test_fused_rows_kernels_match_plain(cuda, case, natural):
     _assert_close(got, want)
 
 
+# (M, N, packed, nch_live, ch_start, ch_count, row_offset): the per-channel
+# set (channels 0..4) and the packed set with 5 live fields (0..2), at the
+# paths' shapes and at ragged M
+FUSED_SET_CASES = [(16, 16, False, 3, 0, 5, 0), (7, 16, True, 5, 1, 2, 5),
+                   (13, 64, False, 3, 2, 3, 20), (13, 64, True, 5, 0, 3, 20),
+                   (1024, 1024, False, 3, 0, 3, 0),
+                   (512, 1024, True, 5, 2, 1, 0),
+                   (1024, 1024, True, 5, 0, 2, 0),
+                   (37, 1024, False, 3, 3, 2, 500),
+                   (4096, 4096, False, 3, 0, 5, 0),
+                   (2048, 4096, True, 5, 2, 1, 0),
+                   (5, 4096, True, 5, 0, 3, 2046),
+                   (3, 8192, False, 3, 0, 5, 4095)]
+
+
+@pytest.mark.parametrize("natural", [False, True])
+@pytest.mark.parametrize("case", FUSED_SET_CASES)
+def test_fused_channel_sets_match_plain(cuda, case, natural):
+    m, n, packed, nch_live, ch_start, ch_count, row_offset = case
+    h0, phase = _fused_inputs(m, n, cuda)
+    kw = dict(epsilon=1e-4, ch_start=ch_start, ch_count=ch_count,
+              row_offset=row_offset, packed=packed, nch_live=nch_live)
+    fn, plain, store = ((fused.assemble_rowfft_natural,
+                         fused.assemble_rowfft_natural_plain, "natural")
+                        if natural else
+                        (fused.assemble_rowfft, fused.assemble_rowfft_plain,
+                         "transposed"))
+    before = fn.launches
+    planes.named_launches.clear()
+    got = fn(h0, phase, 434.48, -1.0, **kw)
+    assert fn.launches == before          # counted once, under its set
+    assert planes.named_launches == {
+        f"fused_{store}[{fused.channel_set(packed, nch_live)}]": 1}
+    want = plain(h0, phase, 434.48, -1.0, **kw)
+    for c in range(ch_count):      # each channel on its own scale
+        _assert_close((got[0][c], got[1][c]), (want[0][c], want[1][c]))
+
+
 def test_launch_counters_count_kernel_launches(cuda):
     re, im = _planes((1, 16, 64), cuda)
     f0, s0 = planes.fft1d_transposed.launches, fs.fields_stencil.launches
@@ -296,7 +334,7 @@ def select_engine(monkeypatch):
                             0 if tier == "bf16x3" else 1 << 30)
         monkeypatch.setattr(planes, "THREE_FACTOR_THRESHOLD",
                             0 if split3 else 1 << 30)
-        planes.matrix_launches.clear()
+        planes.named_launches.clear()
         return "bfloat16" if tier == "bf16" else "float32"
     return select
 
@@ -327,7 +365,7 @@ def test_matrix_rows_transposed_match_plain(cuda, select_engine, shape,
     got = planes.fft1d_transposed(re, im, True, precision)
     assert planes.fft1d_transposed.launches == before
     name = planes.kernel_name("rows_transposed", tier, split3)
-    assert planes.matrix_launches == {name: 1}
+    assert planes.named_launches == {name: 1}
     _assert_band(got, planes.fft1d_transposed_plain(re, im, True, precision),
                  BANDS[tier])
 
@@ -340,7 +378,7 @@ def test_matrix_rows_natural_match_plain(cuda, select_engine, shape, tier):
     precision = select_engine(tier, True)     # no three-factor natural store
     re, im = _planes(shape, cuda)
     got = planes.fft1d_natural_large(re, im, False, precision)
-    assert planes.matrix_launches == {
+    assert planes.named_launches == {
         planes.kernel_name("rows_natural", tier, False): 1}
     _assert_band(got, planes.fft1d_natural_large_plain(re, im, False,
                                                        precision),
@@ -370,8 +408,92 @@ def test_matrix_fused_match_plain(cuda, select_engine, case, natural, engine):
                        (fused.assemble_rowfft, fused.assemble_rowfft_plain,
                         "fused_transposed"))
     got = fn(h0, phase, 434.48, -1.0, **kw)
-    assert planes.matrix_launches == {planes.kernel_name(kind, tier, split3): 1}
+    assert planes.named_launches == {planes.kernel_name(kind, tier, split3): 1}
     _assert_band(got, plain(h0, phase, 434.48, -1.0, **kw), BANDS[tier])
+
+
+@pytest.mark.parametrize("case,natural,engine", [
+    (case, natural, engine)
+    for case in [(13, 64, False, 3, 0, 5, 20), (512, 1024, True, 5, 2, 1, 0),
+                 (37, 1024, False, 3, 3, 2, 500),
+                 (2048, 4096, True, 5, 2, 1, 0)]
+    for natural in (False, True) for engine in ENGINES
+    if not (engine[1] and (natural or case[1] < 128))])
+def test_matrix_fused_channel_sets_match_plain(cuda, select_engine, case,
+                                               natural, engine):
+    """The slope and per-channel assembly ahead of every tier and form."""
+    m, n, packed, nch_live, ch_start, ch_count, row_offset = case
+    tier, split3 = engine
+    precision = select_engine(tier, split3)
+    h0, phase = _fused_inputs(m, n, cuda)
+    kw = dict(epsilon=1e-4, ch_start=ch_start, ch_count=ch_count,
+              row_offset=row_offset, packed=packed, nch_live=nch_live,
+              precision=precision)
+    fn, plain, kind = ((fused.assemble_rowfft_natural,
+                        fused.assemble_rowfft_natural_plain, "fused_natural")
+                       if natural else
+                       (fused.assemble_rowfft, fused.assemble_rowfft_plain,
+                        "fused_transposed"))
+    got = fn(h0, phase, 434.48, -1.0, **kw)
+    assert planes.named_launches == {planes.kernel_name(
+        kind, tier, split3, fused.channel_set(packed, nch_live)): 1}
+    want = plain(h0, phase, 434.48, -1.0, **kw)
+    for c in range(ch_count):
+        _assert_band((got[0][c], got[1][c]), (want[0][c], want[1][c]),
+                     BANDS[tier])
+
+
+# (fft_backend, N, normals, pack_channels, half_spectrum, pallas_fields,
+# evolution_mode, launches a step by counter or by planes.named_launches
+# name)
+SOLVER_CONFIGS = [
+    ("pallas_fused", 128, "stencil", False, False, True, "phase",
+     {"fused_transposed[per_channel]": 1, "rows_t": 1, "fields": 1}),
+    ("pallas_fused", 128, "spectral", True, True, False, "phase",
+     {"fused_transposed[packed5]": 2, "rows_t": 3}),
+    ("pallas", 128, "stencil", False, False, False, "phase", {"rows_t": 2}),
+    ("pallas_fused", 4096, "spectral", False, False, False, "phase",
+     {"fused_natural[per_channel]": 1, "rows_t": 1}),
+    ("pallas_fused", 4096, "spectral", True, False, False, "absolute",
+     {"fused_natural[packed5]": 1, "rows_t": 1}),
+    ("pallas", 4096, "spectral", True, True, False, "phase",
+     {"rows_n": 3, "rows_t": 2})]
+
+
+@pytest.mark.parametrize("config", SOLVER_CONFIGS)
+def test_solver_configurations_match_cpu_and_launch_their_kernels(cuda,
+                                                                  config):
+    backend, n, normals, pack, half, fields_kernel, mode, per_step = config
+    cfg = OCEAN_DEMO.replace(resolution=n, normals_mode=normals,
+                             evolution_mode=mode)
+    kw = dict(fft_backend=backend, pack_channels=pack, half_spectrum=half,
+              pallas_fields=fields_kernel)
+    gpu = OceanSolver(cfg, device=cuda, **kw)
+    cpu = OceanSolver(cfg, device="cpu", **kw)
+    sg = gpu.init(torch.Generator().manual_seed(5))
+    sc = cpu.init(torch.Generator().manual_seed(5))
+    counters = {"fused_t": fused.assemble_rowfft,
+                "fused_n": fused.assemble_rowfft_natural,
+                "rows_t": planes.fft1d_transposed,
+                "rows_n": planes.fft1d_natural_large,
+                "fields": fs.fields_stencil}
+    before = {k: f.launches for k, f in counters.items()}
+    planes.named_launches.clear()
+    sg, fg = gpu.step(sg, 1 / 60)
+    sc, fc = cpu.step(sc, 1 / 60)
+    torch.cuda.synchronize()
+    for key, counter in counters.items():
+        assert counter.launches - before[key] == per_step.get(key, 0), key
+    assert planes.named_launches == {k: v for k, v in per_step.items()
+                                     if k not in counters}
+    fg, fc = fields_to_numpy(fg), fields_to_numpy(fc)
+    names = ["height", "disp_x", "disp_z", "pos_x", "pos_z", "jacobian"]
+    for name in names:
+        want = getattr(fc, name)
+        np.testing.assert_allclose(getattr(fg, name), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+    if normals == "spectral":
+        np.testing.assert_allclose(fg.normal, fc.normal, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
@@ -385,7 +507,7 @@ def test_bf16_solver_runs_the_matrix_engine_and_matches_cpu(cuda, backend):
     sg = gpu.init(torch.Generator().manual_seed(5))
     sc = cpu.init(torch.Generator().manual_seed(5))
     before = (planes.fft1d_transposed.launches, fused.assemble_rowfft.launches)
-    planes.matrix_launches.clear()
+    planes.named_launches.clear()
     for _ in range(2):
         sg, fg = gpu.step(sg, 1 / 60)
         sc, fc = cpu.step(sc, 1 / 60)
@@ -395,7 +517,7 @@ def test_bf16_solver_runs_the_matrix_engine_and_matches_cpu(cuda, backend):
     want = ({"matrix_rows_transposed[bf16]": 10} if backend == "pallas" else
             {"matrix_rows_transposed[bf16]": 6,
              "matrix_fused_transposed[bf16]": 4})
-    assert planes.matrix_launches == want
+    assert planes.named_launches == want
     fg, fc = fields_to_numpy(fg), fields_to_numpy(fc)
     for name in ("height", "disp_x", "disp_z"):
         want = getattr(fc, name)

@@ -181,6 +181,30 @@ def test_natural_regime_matches_jax(route, monkeypatch):
         _close(g, w)
 
 
+@pytest.mark.parametrize("natural", [False, True])
+@pytest.mark.parametrize("c", [3, 5])
+def test_ifft2_planes_auto_takes_every_channel_count(c, natural,
+                                                     monkeypatch):
+    """C = 3 (per-channel, stencil normals) and C = 5 (spectral) channels in
+    one call, both regimes (the natural one's transposing copies take all
+    C planes), each channel held on its own scale (channel k's real part
+    scaled by (k + 1)²)."""
+    n = 64
+    cap = 32 if natural else pallas_fft.MAX_PALLAS_N
+    if natural:
+        monkeypatch.setattr(planes, "MAX_TRANSPOSED_N", cap)
+    re, im = _planes((c, n, n), 8)
+    re *= np.arange(1, c + 1, dtype=np.float32)[:, None, None] ** 2
+    with pallas_fft.transposed_store_cap(cap):
+        wr, wi = pallas_fft.ifft2_planes_auto(jnp.asarray(re), jnp.asarray(im))
+    gr, gi = planes.ifft2_planes_auto(torch.from_numpy(re),
+                                      torch.from_numpy(im))
+    assert gr.shape == (c, n, n)
+    for k in range(c):
+        _close(gr[k], wr[k])
+        _close(gi[k], wi[k])
+
+
 @pytest.mark.parametrize("axis", [-1, -2])
 def test_c2r_combine_matches_jax_on_either_axis(axis):
     y = _planes((2, 16, 24) if axis == -2 else (2, 24, 16), 8)

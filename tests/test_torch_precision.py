@@ -208,9 +208,9 @@ def test_bf16_rounds_operands_and_bf16x3_splits_them():
 
 def test_cpu_calls_do_not_count_matrix_launches():
     re, im = map(torch.from_numpy, _planes_np((1, 8, 64), 3))
-    planes.matrix_launches.clear()
+    planes.named_launches.clear()
     planes.fft1d_transposed(re, im, True, "bfloat16")
-    assert not planes.matrix_launches
+    assert not planes.named_launches
 
 
 # ---- the solver

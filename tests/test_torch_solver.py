@@ -1,10 +1,13 @@
-"""tpu_ocean_torch.OceanSolver against the JAX main-path solver
-(``fft_backend="pallas"`` or ``"pallas_fused"``, ``real_state=True,
-pack_channels=True, half_spectrum=True, pallas_fields=True``, Pallas in
-interpret mode): one numpy h0 pair is injected into the JAX solver, its
-state is carried across with state_from_numpy, and both step 10 times. All
-8 fields are held to tests/test_packing.py's bands: 1e-5·max, normals 2e-4
-abs, foam 25×."""
+"""tpu_ocean_torch.OceanSolver against the JAX real-state solver
+(``fft_backend="pallas"`` or ``"pallas_fused"``, ``real_state=True``, Pallas
+in interpret mode): one numpy h0 pair is injected into the JAX solver, its
+state is carried across with state_from_numpy, and both step. The main
+path (packed + half with the fields kernel) steps 10 times; every other
+combination of the channel set (per-channel, packed, packed + half), the
+normals (stencil with the fields kernel, stencil in torch, spectral) and
+the time mode (phase, absolute) steps 3 times at N = 64. All 8 fields are
+held to tests/test_packing.py's bands: 1e-5·max, normals 2e-4 abs, foam
+25×; fields_at and velocity to 1e-5·max."""
 
 import dataclasses
 import os
@@ -47,6 +50,38 @@ def _pair(n, length, backend="pallas"):
     cfg = OCEAN_DEMO.replace(resolution=n, length=length or OCEAN_DEMO.length)
     return cfg, JaxSolver(jcfg.OceanConfig(**dataclasses.asdict(cfg)),
                           **{**SLICE, "fft_backend": backend})
+
+
+def _jax_config(cfg):
+    return jcfg.OceanConfig(**dataclasses.asdict(cfg))
+
+
+def _steps_against_jax(cfg, switches, steps, seed):
+    """The JAX and the port solver with ``switches`` (OceanSolver keywords)
+    from one injected h0, ``steps`` steps of 1/60; returns both solvers and
+    their last states and fields."""
+    ref = JaxSolver(_jax_config(cfg), real_state=True, **switches)
+    port = OceanSolver(cfg, device="cpu", **switches)
+    h0, h0c = _h0_pair(cfg, seed=seed)
+    js = ref.init(h0=h0, h0_conj=h0c)
+    ts = port.init(h0=h0, h0_conj=h0c)
+    for name in ts._fields:       # symmetrized only where packed, as JAX
+        np.testing.assert_array_equal(getattr(ts, name).numpy(),
+                                      np.asarray(getattr(js, name)))
+    for _ in range(steps):
+        js, jf = ref.step(js, 1 / 60)
+        ts, tf = port.step(ts, 1 / 60)
+    return ref, port, js, jf, ts, tf
+
+
+#: the channel sets: per-channel, packed, packed + half
+CHANNEL_SETS = {"per_channel": dict(pack_channels=False, half_spectrum=False),
+                "packed": dict(pack_channels=True, half_spectrum=False),
+                "packed_half": dict(pack_channels=True, half_spectrum=True)}
+#: the normals: stencil with the fields kernel, stencil in torch, spectral
+NORMALS = {"stencil_kernel": ("stencil", True),
+           "stencil_torch": ("stencil", False),
+           "spectral": ("spectral", False)}
 
 
 def _ten_steps_against_jax(n, length=None, backend="pallas"):
@@ -120,22 +155,137 @@ def test_foam_decay_keeps_the_larger_foam():
     assert bool((f2.foam >= f1.foam * np.exp(-0.35 / 60) - 1e-7).all())
 
 
+@pytest.mark.parametrize("normals", list(NORMALS))
+@pytest.mark.parametrize("channels", list(CHANNEL_SETS))
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+def test_every_real_state_configuration_matches_jax(backend, channels,
+                                                    normals):
+    """Every real-state switch the JAX solver takes in the fft layout, 3
+    steps at N = 64: the unpacked extraction takes re[0], im[1..4], the
+    packed one re[0], im[0], re[1], im[1], re[2]."""
+    mode, fields_kernel = NORMALS[normals]
+    cfg = OCEAN_DEMO.replace(resolution=64, normals_mode=mode)
+    *_, js, jf, ts, tf = _steps_against_jax(
+        cfg, dict(fft_backend=backend, pallas_fields=fields_kernel,
+                  **CHANNEL_SETS[channels]), 3, seed=5)
+    _assert_fields_close(fields_to_numpy(tf), jf, 1e-5)
+    assert int(ts.step) == int(js.step) == 3
+    assert float(ts.t) == float(js.t)
+
+
+def _close(got, want, rel=1e-5):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=rel * np.abs(want).max())
+
+
+@pytest.mark.parametrize("channels,normals", [("packed_half", "stencil_kernel"),
+                                              ("per_channel", "spectral")])
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+def test_absolute_mode_fields_at_and_velocity_match_jax(backend, channels,
+                                                        normals):
+    """evolution_mode="absolute" (t += dt/t_division, φ = ω·t, the phase
+    kept), then fields_at(state, t) and velocity(state) and velocity at a
+    given t: the half route with half_spectrum, else the full transform."""
+    mode, fields_kernel = NORMALS[normals]
+    cfg = OCEAN_DEMO.replace(resolution=64, normals_mode=mode,
+                             evolution_mode="absolute", t_division=1.5)
+    ref, port, js, jf, ts, tf = _steps_against_jax(
+        cfg, dict(fft_backend=backend, pallas_fields=fields_kernel,
+                  **CHANNEL_SETS[channels]), 3, seed=6)
+    _assert_fields_close(fields_to_numpy(tf), jf, 1e-5)
+    assert float(ts.t) == float(js.t)
+    assert torch.equal(ts.phase, torch.zeros_like(ts.phase))
+    _assert_fields_close(fields_to_numpy(port.fields_at(ts, 2.5)),
+                         ref.fields_at(js, 2.5), 1e-5)
+    _close(port.velocity(ts), ref.velocity(js))
+    _close(port.velocity(ts, t=0.75), ref.velocity(js, t=0.75))
+
+
+@pytest.mark.parametrize("channels", ["per_channel", "packed_half"])
+def test_phase_mode_velocity_matches_jax(channels):
+    """velocity at the state's phase, with ρ = dt_multiplier: the half
+    route (packed + half) and the full one (per-channel)."""
+    cfg = OCEAN_DEMO.replace(resolution=64)
+    ref, port, js, _, ts, _ = _steps_against_jax(
+        cfg, dict(fft_backend="pallas", **CHANNEL_SETS[channels]), 2, seed=7)
+    _close(port.velocity(ts), ref.velocity(js))
+    with pytest.raises(ValueError):
+        port.velocity(ts, t=1.0)
+    with pytest.raises(ValueError):
+        port.fields_at(ts, 1.0)
+
+
+@pytest.mark.parametrize("channels,normals", [("per_channel", "stencil_torch"),
+                                              ("packed", "spectral"),
+                                              ("packed_half", "spectral")])
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+def test_natural_regime_configurations_match_jax(backend, channels, normals,
+                                                 monkeypatch):
+    """N = 128 with both packages' transposed-store cap at 32: the 4096²
+    code path for the per-channel set (C = 3) and the spectral sets (C = 3
+    packed, 2 + the half channel), 3 steps."""
+    mode, fields_kernel = NORMALS[normals]
+    monkeypatch.setattr(planes, "MAX_TRANSPOSED_N", 32)
+    cfg = OCEAN_DEMO.replace(resolution=128, normals_mode=mode)
+    with pallas_fft.transposed_store_cap(32):
+        *_, jf, _, tf = _steps_against_jax(
+            cfg, dict(fft_backend=backend, pallas_fields=fields_kernel,
+                      **CHANNEL_SETS[channels]), 3, seed=8)
+    _assert_fields_close(fields_to_numpy(tf), jf, 1e-5)
+
+
+def test_normals_spectral_matches_jax():
+    from tpu_ocean.fields import normals_spectral as jax_normals_spectral
+    from tpu_ocean_torch.fields import normals_spectral
+    rng = np.random.default_rng(9)
+    sx, sz = (rng.normal(scale=0.5, size=(32, 48)).astype(np.float32)
+              for _ in range(2))
+    got = normals_spectral(torch.from_numpy(sx), torch.from_numpy(sz))
+    want = np.asarray(jax_normals_spectral(sx, sz))
+    assert got.shape == (32, 48, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("change", [
     dict(cfg=dict(spectrum_layout="centered")),
-    dict(cfg=dict(evolution_mode="absolute")),
-    dict(cfg=dict(normals_mode="spectral")),
-    dict(kw=dict(fft_backend="pallas_fused", pack_channels=False)),
     dict(kw=dict(fft_backend="reference")),
+    dict(kw=dict(fft_backend="stockham")),
+    dict(kw=dict(fft_backend="matmul")),
     dict(kw=dict(eval_mode="direct")),
     dict(kw=dict(real_state=False)),
-    dict(kw=dict(pack_channels=False)),
-    dict(kw=dict(half_spectrum=False)),
-    dict(kw=dict(pallas_fields=False)),
 ])
 def test_off_slice_configurations_raise(change):
     cfg = OCEAN_DEMO.replace(resolution=64, **change.get("cfg", {}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         OceanSolver(cfg, device="cpu", **change.get("kw", {}))
+
+
+@pytest.mark.parametrize("call", ["gpu_hash_seeds", "reconfigure"])
+def test_unported_methods_raise(call):
+    solver = OceanSolver(OCEAN_DEMO.replace(resolution=64), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if call == "gpu_hash_seeds":
+            solver.init(gpu_hash_seeds=(1, 2))
+        else:
+            solver.reconfigure(solver.init(), OCEAN_DEMO.replace(resolution=64))
+
+
+@pytest.mark.parametrize("change", [
+    dict(cfg=dict(normals_mode="spectral"), kw=dict(pallas_fields=True)),
+    dict(kw=dict(pack_channels=False, half_spectrum=True)),
+    dict(kw=dict(eval_mode="spectral")),
+])
+def test_what_jax_refuses_raises_value_error(change):
+    """The JAX solver's ValueError rules, in both packages: the fields
+    kernel needs stencil normals, the half route needs packing."""
+    cfg = OCEAN_DEMO.replace(resolution=64, **change.get("cfg", {}))
+    kw = dict(SLICE, **change.get("kw", {}))
+    with pytest.raises(ValueError):
+        JaxSolver(_jax_config(cfg), **kw)
+    kw.pop("real_state")
+    with pytest.raises(ValueError):
+        OceanSolver(cfg, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("n", [40, 96])

@@ -1,13 +1,15 @@
 """tpu_ocean_torch: the PyTorch/CUDA port of tpu_ocean.
 
-The port runs ``OCEAN_DEMO``'s packed + half-spectrum step (JAX:
-``OceanSolver(cfg, fft_backend="pallas", real_state=True,
-pack_channels=True, half_spectrum=True, pallas_fields=True)``) on an
-NVIDIA H100, with ``fft_backend="pallas"`` or ``"pallas_fused"``, through
-hand-written CUDA kernels built with nvcc on first use: the row DFT with a
-transposed or a natural store (``csrc/fft_rows.cu``), the fused spectrum
-assembly + row DFT with either store (``csrc/fused_rows.cu``) and the
-fields stencil (``csrc/fields_stencil.cu``, or the v1 halo form
+The port runs the real-state ocean step of the JAX package (JAX:
+``OceanSolver(cfg, real_state=True)`` in the fft layout) on an NVIDIA
+H100, with ``fft_backend="pallas"`` or ``"pallas_fused"``, per-channel,
+packed or packed + half-spectrum channels, stencil or spectral normals,
+the fields kernel on or off, and phase or absolute time (``fields_at``,
+``velocity``), through hand-written CUDA kernels built with nvcc on first
+use: the row DFT with a transposed or a natural store
+(``csrc/fft_rows.cu``), the fused spectrum assembly + row DFT with either
+store in every channel set (``csrc/fused_rows.cu``) and the fields stencil
+(``csrc/fields_stencil.cu``, or the v1 halo form
 ``csrc/fields_stencil_v1.cu`` when ``ops.fields_stencil.FIELDS_KERNEL_V2``
 is False). It also runs the Gerstner pond family: ``PondSolver`` and its
 serving runtime ``PondSimulation``, whose ``"gerstner"`` mode with
@@ -16,7 +18,8 @@ serving runtime ``PondSimulation``, whose ``"gerstner"`` mode with
 ``device="cpu"``; on CPU tensors each kernel wrapper runs its plain torch
 version. ``OceanConfig.precision="bfloat16"`` and the bf16x3 and
 three-factor switches of ``fft.planes`` run the row and fused kernels on
-a matrix-form DFT engine (``csrc/dft_matrix.cuh``, bf16 tensor cores). This package imports torch and numpy, never jax; the JAX package
+a matrix-form DFT engine (``csrc/dft_matrix.cuh``, bf16 tensor cores).
+This package imports torch and numpy, never jax; the JAX package
 ``tpu_ocean`` is its reference.
 """
 

@@ -1,37 +1,46 @@
-// Fused spectrum assembly + row DFT: the evolved, Hermitian-packed spectrum
-// channel is assembled in shared memory and transformed there, so it never
-// makes a round trip through device memory.
+// Fused spectrum assembly + row DFT: the evolved spectrum channel
+// (Hermitian-packed or per-channel) is assembled in shared memory and
+// transformed there, so it never makes a round trip through device memory.
 //
 // Replaces: tpu_ocean/ops/fused_spectrum_fft.py,
 //   _fused_kernel (launched by assemble_rowfft) — the transposed store,
 //     entry tpu_fused_rows_transposed;
 //   _fused_rowfft_kernel_natural (launched by assemble_rowfft_natural) —
 //     the natural store, entry tpu_fused_rows_natural.
-// Contract (packed channels, 3 live fields, fft layout):
+// Contract (fft layout; three channel sets, `Assembly::packed` and
+// `Assembly::nch_live` as the JAX kernel's `packed` and `nch_live`):
 //   in  h0r, h0i, h0cr, h0ci, φ: f32 [M, N], contiguous, the rows
 //       row_offset .. row_offset + M − 1 of the N × N grid;
 //       kz: f32 [N], 2π·wrapped(j)/L built in float64 on the host
-//   out channel ch = ch_start + c of the packed spectrum P = (A − iB)·h̃,
-//       row-transformed: (re, im) f32 [C, N, M] transposed or [C, M, N]
-//       natural, as fft_rows.cu stores them.
+//   out channel ch = ch_start + c, row-transformed: (re, im) f32 [C, N, M]
+//       transposed or [C, M, N] natural, as fft_rows.cu stores them; ch
+//       indexes the packed channels P = (A − iB)·h̃ (2 of them with 3 live
+//       fields, 3 with 5) or the 5 per-channel spectra K_ch·h̃.
 // Per point, in f32 and in the order of _assemble_block
-// (fused_spectrum_fft.py:73-116, packed, nch_live = 3):
+// (fused_spectrum_fft.py:58-124), with w_i = [ch = i]:
 //   c, s = cos φ, sin φ
 //   h̃ = ((h0r + h0cr)·c + (h0ci − h0i)·s,  (h0i + h0ci)·c + (h0r − h0cr)·s)
 //   kx = f32(2π/L)·wrapped(row), wrapped(row) = row − N for row ≥ N/2
 //   invk = kx² + kz² < ε² ? 0 : 1/sqrt(kx² + kz²)
-//   a = [ch = 0]·(1 + kx·invk·[row ≠ N/2]),
-//   b = [ch = 1]·dz_sign·kz·invk·[j ≠ N/2]
-//   P = (a·h̃r + b·h̃i,  a·h̃i − b·h̃r)
+//   packed: rowmask = [row ≠ N/2], colmask = [j ≠ N/2],
+//     rx = kx·invk·rowmask, rz = dz_sign·kz·invk·colmask
+//     nch_live = 3: a = w0·(1 + rx),                  b = w1·rz
+//     nch_live = 5: a = w0·(1 + rx) + w1·(−kx)·rowmask,
+//                   b = w1·rz + w2·(−kz)·colmask
+//     P = (a·h̃r + b·h̃i,  a·h̃i − b·h̃r)
+//   per-channel: k = w0 + w1·kx·invk + w2·dz_sign·kz·invk + w3·(−kx)
+//                    + w4·(−kz),  S = (k·h̃r, k·h̃i)
 // Each product and sum is rounded on its own (no FMA contraction), as the
 // plain version's torch ops round them; sin/cos and the square root are
-// the precise library functions. The Nyquist masks are integer index
-// tests: they select the texels of the JAX package's float compares.
+// the precise library functions. The Nyquist masks and the weights w_i are
+// integer tests (the masks select the texels of the JAX package's float
+// compares); a weight multiplies a 0/1 value, so the selected term comes
+// out exact and the others add signed zeros.
 //
 // What bounds it on the H100: device memory. Five f32 planes in (20 B per
 // point) and one complex channel out (8 B per point): 29.4 MB for a 1024²
 // channel, against ~30 flops of assembly and 5·log2(N) of transform per
-// point.
+// point, in every channel set.
 //
 // What the design does about that: the loads are the row kernel's, five
 // planes wide: one block reads R whole rows of each input plane with
@@ -41,8 +50,8 @@
 // block needs the same shared memory as the row kernel: the inputs never
 // sit in shared memory, and N = 8192 fits at R = 1 (192 KB). The TPU
 // kernel visited the channels in an inner grid axis so Mosaic could keep
-// the input block; here each block assembles one channel, and the solver
-// asks for one channel per call.
+// the input block; here each block assembles one channel (blockIdx.y), and
+// a C-channel call reads the inputs C times, mostly from L2 at C ≤ 5.
 //
 // Precision tiers and the three-factor form (_fused_kernel_split3): the
 // entries take a tier and a form as fft_rows.cu's do; the assembly is the
@@ -61,6 +70,8 @@ struct Assembly {
   float dz_sign;         // −1 with the oracle's sign quirk, else +1
   float eps2;            // ε·ε in f32
   int row_offset;        // global row of the batch's first row
+  int packed;            // 1: the Hermitian-packed channels; 0: per-channel
+  int nch_live;          // live fields of the packed set, 3 or 5
 };
 
 __device__ __forceinline__ float2 assemble(float h0r, float h0i, float h0cr,
@@ -78,13 +89,30 @@ __device__ __forceinline__ float2 assemble(float h0r, float h0i, float h0cr,
   const float kx = __fmul_rn(p.two_pi_over_l, static_cast<float>(wrapped));
   const float kmag2 = __fadd_rn(__fmul_rn(kx, kx), __fmul_rn(kz, kz));
   const float invk = kmag2 < p.eps2 ? 0.f : __fdiv_rn(1.f, __fsqrt_rn(kmag2));
+  const float w0 = ch == 0 ? 1.f : 0.f;
+  const float w1 = ch == 1 ? 1.f : 0.f;
+  const float w2 = ch == 2 ? 1.f : 0.f;
+  if (!p.packed) {
+    const float w3 = ch == 3 ? 1.f : 0.f;
+    const float w4 = ch == 4 ? 1.f : 0.f;
+    float k = __fadd_rn(__fmul_rn(w0, 1.f),
+                        __fmul_rn(__fmul_rn(w1, kx), invk));
+    k = __fadd_rn(k, __fmul_rn(__fmul_rn(__fmul_rn(w2, p.dz_sign), kz), invk));
+    k = __fadd_rn(k, __fmul_rn(w3, -kx));
+    k = __fadd_rn(k, __fmul_rn(w4, -kz));
+    return make_float2(__fmul_rn(k, htr), __fmul_rn(k, hti));
+  }
   const float rowmask = wrapped != -half ? 1.f : 0.f;
   const float colmask = j != half ? 1.f : 0.f;
   const float rx = __fmul_rn(__fmul_rn(kx, invk), rowmask);
   const float rz =
       __fmul_rn(__fmul_rn(__fmul_rn(p.dz_sign, kz), invk), colmask);
-  const float a = __fmul_rn(ch == 0 ? 1.f : 0.f, __fadd_rn(1.f, rx));
-  const float b = __fmul_rn(ch == 1 ? 1.f : 0.f, rz);
+  float a = __fmul_rn(w0, __fadd_rn(1.f, rx));
+  float b = __fmul_rn(w1, rz);
+  if (p.nch_live == 5) {
+    a = __fadd_rn(a, __fmul_rn(__fmul_rn(w1, -kx), rowmask));
+    b = __fadd_rn(b, __fmul_rn(__fmul_rn(w2, -kz), colmask));
+  }
   return make_float2(__fadd_rn(__fmul_rn(a, htr), __fmul_rn(b, hti)),
                      __fsub_rn(__fmul_rn(a, hti), __fmul_rn(b, htr)));
 }
@@ -155,14 +183,16 @@ template <bool kNatural>
 int launch(const void* h0r, const void* h0i, const void* h0cr,
            const void* h0ci, const void* phase, const void* kz, void* out_re,
            void* out_im, const void* tables, int channels, int ch_start,
-           int m, int n, int rows, int row_offset, int tier, int split3,
-           float two_pi_over_l, float dz_sign, float epsilon, void* stream) {
+           int m, int n, int rows, int row_offset, int packed, int nch_live,
+           int tier, int split3, float two_pi_over_l, float dz_sign,
+           float epsilon, void* stream) {
   return with_engine(tier, split3, kNatural, [&](auto engine) {
     using Engine = decltype(engine);
     const int smem = smem_bytes(rows, n);
     cudaError_t err = allow_smem(fused_rows_kernel<kNatural, Engine>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const Assembly p{two_pi_over_l, dz_sign, epsilon * epsilon, row_offset};
+    const Assembly p{two_pi_over_l, dz_sign, epsilon * epsilon, row_offset,
+                     packed, nch_live};
     const dim3 grid((m + rows - 1) / rows, channels);
     fused_rows_kernel<kNatural, Engine><<<grid, Engine::threads(rows, n),
                                           smem,
@@ -184,31 +214,35 @@ extern "C" {
 // Each entry launches its kernel on `stream` and returns cudaGetLastError()
 // as an int. The caller checks: n a power of two >= 16, rows a power of two
 // that keeps the shared memory within the card's limit, contiguous f32
-// [m, n] input planes, ch_start + channels <= 2, `tables` the Stockham
-// twiddles (tier 0, split3 0) or the matrix engine's tables.
+// [m, n] input planes, ch_start + channels within the channel set (packed
+// with nch_live 3: 2; with 5: 3; per-channel, packed 0: 5), `tables` the
+// Stockham twiddles (tier 0, split3 0) or the matrix engine's tables.
 int tpu_fused_rows_transposed(const void* h0r, const void* h0i,
                               const void* h0cr, const void* h0ci,
                               const void* phase, const void* kz, void* out_re,
                               void* out_im, const void* tables,
                               int channels, int ch_start, int m, int n,
-                              int rows, int row_offset, int tier, int split3,
+                              int rows, int row_offset, int packed,
+                              int nch_live, int tier, int split3,
                               float two_pi_over_l, float dz_sign,
                               float epsilon, void* stream) {
   return launch<false>(h0r, h0i, h0cr, h0ci, phase, kz, out_re, out_im,
                        tables, channels, ch_start, m, n, rows, row_offset,
-                       tier, split3, two_pi_over_l, dz_sign, epsilon, stream);
+                       packed, nch_live, tier, split3, two_pi_over_l, dz_sign,
+                       epsilon, stream);
 }
 
 int tpu_fused_rows_natural(const void* h0r, const void* h0i, const void* h0cr,
                            const void* h0ci, const void* phase, const void* kz,
                            void* out_re, void* out_im, const void* tables,
                            int channels, int ch_start, int m, int n, int rows,
-                           int row_offset, int tier, int split3,
-                           float two_pi_over_l, float dz_sign, float epsilon,
-                           void* stream) {
+                           int row_offset, int packed, int nch_live, int tier,
+                           int split3, float two_pi_over_l, float dz_sign,
+                           float epsilon, void* stream) {
   return launch<true>(h0r, h0i, h0cr, h0ci, phase, kz, out_re, out_im,
                       tables, channels, ch_start, m, n, rows, row_offset,
-                      tier, split3, two_pi_over_l, dz_sign, epsilon, stream);
+                      packed, nch_live, tier, split3, two_pi_over_l, dz_sign,
+                      epsilon, stream);
 }
 
 }  // extern "C"

@@ -86,17 +86,37 @@ def evolve_phase_accumulate(phase: torch.Tensor, omega: torch.Tensor,
     return torch.fmod(phase + omega * dt, 2.0 * math.pi)
 
 
-def assemble_spectra_packed_real(h0_planes, phase: torch.Tensor,
-                                 pack: torch.Tensor):
-    """h̃ = h0·e^{iφ} + h0*·e^{−iφ} in real planes, then P = (A − iB)·h̃:
-    returns (re, im) f32 [P, N, N]; ``pack`` is the f32 [2P, N, N] table."""
+def evolve_phase_absolute(omega: torch.Tensor, t) -> torch.Tensor:
+    """φ(k) = ω·t, the absolute-time mode (FFTMesh.cs:183); ``t`` an f32
+    value or 0-d f32 tensor."""
+    return omega * t
+
+
+def _evolved(h0_planes, phase: torch.Tensor):
+    """h̃ = h0·e^{iφ} + h0*·e^{−iφ} in real planes: (re, im) f32 [N, N]."""
     h0r, h0i, h0cr, h0ci = h0_planes
-    p = pack.shape[0] // 2
-    a, b = pack[:p], pack[p:]
     c = torch.cos(phase)
     s = torch.sin(phase)
-    htr = (h0r + h0cr) * c + (h0ci - h0i) * s
-    hti = (h0i + h0ci) * c + (h0r - h0cr) * s
+    return ((h0r + h0cr) * c + (h0ci - h0i) * s,
+            (h0i + h0ci) * c + (h0r - h0cr) * s)
+
+
+def assemble_spectra_real(h0_planes, phase: torch.Tensor,
+                          coeffs: torch.Tensor):
+    """h̃, then each channel times its real coefficient: returns (re, im)
+    f32 [C, N, N]; ``coeffs`` is the f32 [C, N, N] table
+    (spectrum_coefficients, first C channels)."""
+    htr, hti = _evolved(h0_planes, phase)
+    return coeffs * htr[None], coeffs * hti[None]
+
+
+def assemble_spectra_packed_real(h0_planes, phase: torch.Tensor,
+                                 pack: torch.Tensor):
+    """h̃, then P = (A − iB)·h̃: returns (re, im) f32 [P, N, N]; ``pack``
+    is the f32 [2P, N, N] table."""
+    p = pack.shape[0] // 2
+    a, b = pack[:p], pack[p:]
+    htr, hti = _evolved(h0_planes, phase)
     return (a * htr[None] + b * hti[None],
             a * hti[None] - b * htr[None])
 

@@ -29,8 +29,9 @@ where ``use_split3`` says so (N above ``THREE_FACTOR_THRESHOLD``). f32 in
 the direct form runs the radix-2 Stockham stages and its plain version is
 ``torch.fft``; every other tier and form runs the matrix-form engine
 (``csrc/dft_matrix.cuh``), whose plain version is ``fft/matrix.py``.
-Launches of the Stockham kernels count on each wrapper's ``launches``,
-those of the matrix engine in ``matrix_launches``, by kernel × tier × form.
+Each launch counts once: a Stockham kernel's on its wrapper's
+``launches``; a matrix-engine launch, and a fused launch outside the packed
+set with 3 live fields, in ``named_launches`` under ``kernel_name``.
 """
 
 from __future__ import annotations
@@ -150,15 +151,21 @@ def engine(n: int, precision: str, transposed: bool):
             transposed and use_split3(n, _split_lanes(n)[0]))
 
 
-def kernel_name(kind: str, tier: str, split3: bool) -> str:
-    """The matrix engine's name for one entry × tier × form, e.g.
-    "matrix_rows_transposed[bf16]", "matrix_fused_transposed[f32,split3]"."""
-    return f"matrix_{kind}[{tier}{',split3' if split3 else ''}]"
+def kernel_name(kind: str, tier: str, split3: bool,
+                channel_set: str = "") -> str:
+    """A launch's name in named_launches: entry × tier × form (× the fused
+    kernels' channel set), e.g. "matrix_rows_transposed[bf16]",
+    "matrix_fused_transposed[f32,split3,packed5]", or for the f32 Stockham
+    kernel "fused_transposed[per_channel]"."""
+    stockham = _stockham(tier, split3)
+    tags = ([] if stockham else [tier] + ["split3"] * split3) + (
+        [channel_set] if channel_set else [])
+    return f"{'' if stockham else 'matrix_'}{kind}[{','.join(tags)}]"
 
 
-#: matrix-engine launches since the last clear(), by kernel_name (CPU calls
-#: do not count)
-matrix_launches = collections.Counter()
+#: launches since the last clear() that do not count on a wrapper's own
+#: ``launches``, by kernel_name (CPU calls do not count)
+named_launches = collections.Counter()
 
 
 def _stockham(tier: str, split3: bool) -> bool:
@@ -296,13 +303,14 @@ def tables_for(n: int, inverse: bool, tier: str, split3: bool,
     return matrix_tables(n, bool(inverse), bool(split3), device)
 
 
-def count_launch(wrapper, kind: str, tier: str, split3: bool) -> None:
-    """One kernel launch: on the wrapper's own count for the Stockham
-    kernel, in matrix_launches for the matrix engine."""
-    if _stockham(tier, split3):
+def count_launch(wrapper, kind: str, tier: str, split3: bool,
+                 channel_set: str = "") -> None:
+    """One kernel launch, counted once: on the wrapper's own count for the
+    Stockham kernel in its default channel set, else in named_launches."""
+    if _stockham(tier, split3) and not channel_set:
         wrapper.launches += 1
     else:
-        matrix_launches[kernel_name(kind, tier, split3)] += 1
+        named_launches[kernel_name(kind, tier, split3, channel_set)] += 1
 
 
 def _launch_rows(entry: str, re, im, inverse: bool, out_shape, cap: int,

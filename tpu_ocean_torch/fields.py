@@ -1,7 +1,10 @@
-"""Stencil normals and GPU-convention whitecap foam, plain torch.
+"""Spectral and stencil normals and GPU-convention whitecap foam, plain
+torch.
 
-JAX counterpart: ``tpu_ocean/fields.py`` (``normals_stencil``,
-``whitecap_gpu``). These are the literal shader forms: four cross products
+JAX counterpart: ``tpu_ocean/fields.py`` (``normals_spectral``,
+``normals_stencil``, ``whitecap_gpu``). Spectral normals normalize the
+exact slopes the slope channels carry (FFTMesh.cs:218). The stencil and
+the foam are the literal shader forms: four cross products
 of edge vectors to the ±x/±z neighbours (OceanNormal.shader:39-56) and the
 ÷8 central differences of WhiteCap.shader:33-45, periodic via torch.roll.
 The fields kernel (``ops/fields_stencil.py``) computes the same fields
@@ -17,6 +20,12 @@ import torch
 def _smoothstep01(t):
     t = torch.clamp(t, 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)
+
+
+def normals_spectral(slope_x, slope_z):
+    """normalize((−sx, 1, −sz)) from the exact spectral slopes: [M, N, 3]."""
+    n = torch.stack([-slope_x, torch.ones_like(slope_x), -slope_z], dim=-1)
+    return n / torch.linalg.norm(n, dim=-1, keepdim=True)
 
 
 def normals_stencil(disp_x, height, disp_z, texel_size: float):
