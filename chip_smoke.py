@@ -15,7 +15,9 @@ Phases, each printing its own lines:
                launch on its own scale (the wave bank also at
                4096², a timing shape); each row-DFT kernel also against
                float64 (torch.fft in complex128), and the transposed row
-               pass at every tier and form at 1024² and 4096²;
+               pass at every tier and form at 1024² and 4096² (at bf16,
+               [1,1024,1024] within 10% of the matrix engine's error on
+               the same rows and at most 1.1 × its PERF.md §6 figure);
   4. slice   — sixteen paths on the card, each from a seeded init, with
                every launch count set to 0 just before and read just after
                it:
@@ -83,14 +85,18 @@ Phases, each printing its own lines:
                with MAX_TRANSPOSED_N = 8192 (the transposed regime); each
                kernel's device time beside its plain version's, its library
                call's where one PyTorch call computes the same function, and
-               its bound; warm L2, nothing asserted. Device times come
+               its bound; the bf16 transposed row kernel beside its time
+               before its redesign (BF16_ROWS_BEFORE_MS), the Stockham
+               kernel's and cuFFT's at each shape; warm L2, nothing
+               asserted. Device times come
                from torch.profiler; where it records none, from CUDA
                events, and the line says so ("timed_by" in the JSON).
 Then one JSON line of kernel results, the card's name and power limit, and
 last {"ok": true, "device": ...}.
 
 With --sweep-rows, phases 4 and 5 give way to a sweep of the rows per
-block: each row-DFT and fused case of phase 3 at every power of two up to
+block: each f32 row-DFT and fused case of phase 3, and the bf16
+transposed row kernel's, at every power of two up to
 16 that fits shared memory, checked against its plain version and timed
 (device time, torch.profiler); the wrappers' choice is marked "*". No
 result line follows.
@@ -263,7 +269,8 @@ KERNEL_INFO = {
                       "tpu_ocean/ops/gerstner_pallas.py:30"),
     # the matrix-form engine (csrc/dft_matrix.cuh) in the row and fused
     # entries, by tier and form
-    "matrix_rows_transposed[bf16]": ("tpu_ocean_torch/csrc/fft_rows.cu",
+    # the bf16 direct transposed pass has a kernel of its own
+    "matrix_rows_transposed[bf16]": ("tpu_ocean_torch/csrc/dft_bf16_rows.cuh",
                                      "tpu_ocean/fft/pallas_fft.py:235"),
     "matrix_rows_natural[bf16]": ("tpu_ocean_torch/csrc/fft_rows.cu",
                                   "tpu_ocean/fft/pallas_fft.py:677"),
@@ -279,6 +286,20 @@ KERNEL_INFO = {
 }
 # kernel-vs-plain band of each tier (tests/test_torch_cuda_kernels.py)
 TIER_BAND = {"f32": 1e-5, "bf16": 2e-3, "bf16x3": 1e-5}
+# matrix_rows_transposed[bf16] before its redesign (the matrix engine),
+# device ms a launch at each shape it is timed at: PERF.md §6, NVIDIA H100
+# 80GB HBM3, 700 W, torch.profiler, the run before the redesign); printed
+# beside this run's times, not measured here
+BF16_ROWS_BEFORE_MS = {(1, 1024, 1024): 0.0769, (1, 512, 1024): 0.0452,
+                       (1, 1024, 512): 0.0481, (1, 1, 1024): 0.0139,
+                       (1, 4096, 4096): 1.5660, (1, 4096, 2048): 0.7424}
+# one bf16 row pass against float64 at [1,1024,1024] (max abs error over
+# max |float64|) on the matrix engine (PERF.md §6). The
+# redesigned kernel rounds the same operands, so on the same rows its
+# error is the engine's within 10%; the error itself depends on the rows
+# more than that from one input to another, alike on both designs, so
+# the PERF.md figure bounds it from above only
+BF16_ROWS_F64_ERR, BF16_ROWS_F64_SPREAD = 2.86e-3, 0.1
 TIER_CODE = {"0": "f32", "1": "bf16", "2": "bf16x3"}
 OCEAN_NOTE = ("torch ops: phase, assembly where unfused, C2R fold, "
               "interleave, transposing copies, positions, fields where "
@@ -322,6 +343,8 @@ def spectral_normal_band(ref, packed, rel):
 
 def kernel_group(key):
     """The port's kernel a profiler key names, or "torch ops"."""
+    if "bf16_rows_transposed_kernel" in key:
+        return "matrix_rows_transposed[bf16]"
     natural = "<true," in key or "ILb1E" in key
     store = "natural" if natural else "transposed"
     for stem, kind in (("fft_rows_kernel", "rows"),
@@ -563,14 +586,19 @@ def sweep_rows(cases, planes):
     sms = planes.sm_count(torch.device("cuda"))
     for case in cases:
         name, shape, run, plain = case.name, case.shape, case.run, case.plain
-        if not name.startswith(("fft_rows", "fused_rows")):
+        if not name.startswith(("fft_rows", "fused_rows",
+                                "matrix_rows_transposed[bf16]")):
             continue
         c, m, n = ((case.channels, *shape[:2]) if name.startswith("fused")
                    else shape)
-        chosen = chosen_fn(c, m, n, sms, planes.max_rows(n, "natural" in name))
+        natural = "natural" in name
+        shared = (planes.block_shared_bytes("bf16", False, natural)
+                  if name.startswith("matrix") else planes.shared_bytes)
+        chosen = chosen_fn(c, m, n, sms, planes.max_rows(n, natural),
+                           shared)
         want = plain()
         rows = 1
-        while rows <= 16 and planes.shared_bytes(rows, n) <= planes.SMEM_LIMIT:
+        while rows <= 16 and shared(rows, n) <= planes.SMEM_LIMIT:
             planes.rows_per_block = lambda *_, r=rows, **__: r
             try:
                 err, scale = check_kernel(name, shape, run(), want,
@@ -711,7 +739,8 @@ def main():
     log(f"[build] {kernels.path.relative_to(HERE)}: nvcc "
         f"{kernels.build_seconds:.2f} s, load {time.perf_counter() - t0:.2f} s")
     for line in kernels.build_log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+        if ("ptxas info" in line and ("Used" in line or "Compiling" in line)
+                or "spill" in line and " 0 bytes spill stores" not in line):
             log(f"[build] {line.strip()}")
 
     # ---- 3. kernels vs plain, at the paths' shapes. Each case: (kernel,
@@ -986,6 +1015,26 @@ def main():
                       for g, r in zip(got, ref))
             log(f"[accuracy] row pass [1,{n},{n}] at {label}: max abs err vs "
                 f"float64 {err / scale:.3e} x max")
+            if n == 1024 and label == "bf16":
+                # the matrix engine's bf16 row pass (natural store) on the
+                # same rows: the redesigned kernel's error must be its
+                # error, and at most the PERF.md figure, within 10%
+                nat = planes.fft1d_natural_large(re, im, True, "bfloat16")
+                ref_nat = f64_rows(re, im, False)()
+                engine = max((g.double() - r).abs().max().item()
+                             for g, r in zip(nat, ref_nat)) / scale
+                log(f"[accuracy] row pass [1,1024,1024] at bf16 on the "
+                    f"matrix engine (natural store), same rows: "
+                    f"{engine:.3e} x max; PERF.md §6 (other rows): "
+                    f"{BF16_ROWS_F64_ERR:.2e}")
+                require(abs(err / scale - engine)
+                        <= BF16_ROWS_F64_SPREAD * engine
+                        and err / scale <= (1 + BF16_ROWS_F64_SPREAD)
+                        * BF16_ROWS_F64_ERR,
+                        f"the bf16 row pass at [1,1024,1024] moved: "
+                        f"{err / scale:.3e} against float64, the matrix "
+                        f"engine {engine:.3e}, PERF.md {BF16_ROWS_F64_ERR:.2e}")
+                del nat, ref_nat
         del re, im, ref, got
     phase_done("3 kernels")
 
@@ -1241,6 +1290,7 @@ def main():
 
     phase_done("5 timing, paths")
     results = {}
+    by_shape = {}
     for case in cases:
         name, shape, library = case.name, case.shape, case.library
         k, _, k_how = device_ms(case.run)
@@ -1258,6 +1308,18 @@ def main():
             f"{case.tensor_ops / 1e6:.1f} Mflop bf16), {b_ms / k:.3f} of it; "
             f"timed by {timed_by}")
         results.setdefault(name, (shape, k, p, lib, b_ms, b_by, timed_by))
+        by_shape[name, tuple(shape)] = (k, lib, b_ms)
+
+    # the redesigned bf16 transposed row kernel beside its time before the
+    # redesign, the f32 Stockham kernel and cuFFT at each shape
+    for shape, before in BF16_ROWS_BEFORE_MS.items():
+        k, lib, b_ms = by_shape["matrix_rows_transposed[bf16]", shape]
+        stockham = by_shape["fft_rows_transposed", shape][0]
+        log(f"[timing] {kind} ({smi}): matrix_rows_transposed[bf16] "
+            f"{list(shape)}: {k:.4f} ms (before the redesign {before:.4f}, "
+            f"PERF.md, not this run), Stockham f32 {stockham:.4f}, cuFFT "
+            f"{lib:.4f}, bound {b_ms:.4f}; {before / k:.2f}x faster than "
+            f"before, {k / stockham:.3f} of Stockham, {k / lib:.2f}x cuFFT")
 
     phase_done("5 timing, kernels")
     log(json.dumps({"kernels": [

@@ -21,7 +21,9 @@ over W waves: 1e-5·max|plain| per output. The matrix-form DFT engine
 (csrc/dft_matrix.cuh) rounds the same operands to bf16 as its plain
 version (fft/matrix.py) but accumulates in another order, so an
 intermediate's bf16 rounding can flip by one ulp: 2e-3·max|plain| at
-bf16; 1e-5 at bf16x3 and for the three-factor form at f32."""
+bf16; 1e-5 at bf16x3 and for the three-factor form at f32. The bf16
+transposed row kernel (csrc/dft_bf16_rows.cuh) rounds the same operands and
+is held to the same 2e-3."""
 
 import dataclasses
 
@@ -350,7 +352,8 @@ def _assert_band(got, want, band):
 
 MATRIX_ROW_SHAPES = [(1, 1024, 1024), (1, 512, 1024), (1, 1024, 512),
                      (1, 1, 1024), (1, 4096, 2048), (3, 5, 16), (2, 13, 64),
-                     (1, 9, 128), (1, 7, 256), (1, 3, 8192)]
+                     (1, 9, 128), (1, 7, 256), (1, 3, 8192), (1, 4096, 4096),
+                     (2, 1024, 1024), (3, 1024, 1024)]
 
 
 @pytest.mark.parametrize("shape,engine", [
@@ -368,6 +371,42 @@ def test_matrix_rows_transposed_match_plain(cuda, select_engine, shape,
     assert planes.named_launches == {name: 1}
     _assert_band(got, planes.fft1d_transposed_plain(re, im, True, precision),
                  BANDS[tier])
+
+
+@pytest.mark.parametrize("tier,split3,natural", [
+    ("bf16", False, False), ("bf16", True, False), ("bf16", False, True),
+    ("bf16x3", False, False), ("bf16x3", True, False)])
+def test_only_the_bf16_direct_transposed_pass_runs_its_own_kernel(
+        cuda, select_engine, tier, split3, natural):
+    """The transposed store at bf16 in the direct form launches
+    csrc/dft_bf16_rows.cuh's kernel; (bf16, split3), bf16x3 in both forms
+    and the natural store at bf16 still launch the matrix engine
+    (fft_rows_kernel with MatrixEngine), each under its old name."""
+    precision = select_engine(tier, split3)
+    re, im = _planes((1, 64, 256), cuda)
+    fn = planes.fft1d_natural_large if natural else planes.fft1d_transposed
+    fn(re, im, True, precision)        # built and warm outside the trace
+    # the profiler now and then records no kernel in a window (seen on the
+    # H100 for the first window of a process): up to three windows
+    for _ in range(3):
+        planes.named_launches.clear()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn(re, im, True, precision)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    own = [k for k in names if "bf16_rows_transposed_kernel" in k]
+    engine = [k for k in names if "fft_rows_kernel" in k and "MatrixEngine" in k]
+    if tier == "bf16" and not split3 and not natural:
+        assert len(own) == 1 and not engine, names
+    else:
+        assert len(engine) == 1 and not own, names
+    store = "natural" if natural else "transposed"
+    assert planes.named_launches == {
+        planes.kernel_name(f"rows_{store}", tier, split3): 1}
 
 
 @pytest.mark.parametrize("tier", ["bf16", "bf16x3"])

@@ -120,6 +120,111 @@ def test_matrix_tables_are_laid_out_as_the_engine_reads_them(split3):
         np.testing.assert_array_equal(t[starts[j]:starts[j + 1], 1], im.ravel())
 
 
+def _unpermute_fragments(frags):
+    """The real-form matrix [2·8mt, 2·8kt] (rows: re of every output, then
+    im; columns: re of every depth k, then im) as bf16 bits, read back from
+    A fragments uint32 [mt, kt, 32, 4] by mma.sync.m16n8k16's layout:
+    register j of lane (g, q) holds rows g (j even) or g + 8 (j odd) of the
+    16 × 16 tile and its columns 2q, 2q + 1 (j < 2) or 2q + 8, 2q + 9, the
+    first in the low half; a column pair is (re, im) of one depth, pair c
+    being k = 8·kb + 2·(c mod 4) + c div 4."""
+    mt, kt = frags.shape[:2]
+    out = np.zeros((2 * 8 * mt, 2 * 8 * kt), np.uint16)
+    for tm in range(mt):
+        for kb in range(kt):
+            for lane in range(32):
+                g, q = divmod(lane, 4)
+                for j in range(4):
+                    word = int(frags[tm, kb, lane, j])
+                    c = q + 4 * (j // 2)
+                    i = 8 * tm + g
+                    k = 8 * kb + 2 * (c % 4) + c // 4
+                    row = i + (8 * mt if j % 2 else 0)
+                    out[row, k] = word & 0xFFFF
+                    out[row, 8 * kt + k] = word >> 16
+    return out
+
+
+def _real_form_bits(fr, fi, to_bf16):
+    """[[Fr, −Fi], [Fi, Fr]] of f32 (m, k) tables, zero-padded to whole
+    8 × 8 tiles, as the bits of ``to_bf16`` (a rounding to bfloat16)."""
+    m, k = fr.shape
+    pad = ((0, -m % 8), (0, -k % 8))
+    fr, fi = np.pad(fr, pad), np.pad(fi, pad)
+    real = np.block([[fr, -fi], [fi, fr]])
+    return np.asarray(to_bf16(real)).view(np.uint16)
+
+
+def _jnp_bf16(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.bfloat16))
+
+
+def _torch_bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(torch.bfloat16).view(
+        torch.int16).numpy()
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("n", [16, 64, 128, 1024, 4096, 8192])
+def test_bf16_rows_tables_are_the_f32_tables_rounded(n, inverse):
+    """The bf16 transposed row kernel's tables (csrc/dft_bf16_rows.cuh):
+    F2 and F1 are the f32 tables of _tables_np rounded to bf16 bit for bit,
+    as torch rounds them (the plain version) and as the JAX package's
+    tables cast with jnp.bfloat16; T is the f32 table itself."""
+    n1, n2, f2r, f2i, tr, ti, f1r, f1i = planes._tables_np(n, inverse)
+    jn1, jn2, *jax_mats = pf._tables_np(n, inverse)
+    assert (jn1, jn2) == (n1, n2)
+    words = planes.bf16_rows_tables_np(n, inverse).view(np.uint32)
+    k1, k2 = -(-n1 // 8), -(-n2 // 8)
+    f2_words, t_words = k2 * k2 * 128, 2 * n
+    assert words.size == f2_words + t_words + k1 * k1 * 128
+    f2 = _unpermute_fragments(words[:f2_words].reshape(k2, k2, 32, 4))
+    f1 = _unpermute_fragments(words[f2_words + t_words:].reshape(k1, k1, 32, 4))
+    jf2r, jf2i, jtr, jti, jf1r, jf1i = jax_mats
+    for got, (fr, fi), (jr, ji) in ((f2, (f2r, f2i), (jf2r, jf2i)),
+                                   (f1, (f1r, f1i), (jf1r, jf1i))):
+        np.testing.assert_array_equal(got, _real_form_bits(fr, fi, _torch_bf16))
+        np.testing.assert_array_equal(got, _real_form_bits(jr, ji, _jnp_bf16))
+    t = words[f2_words:f2_words + t_words].view(np.float32).reshape(n2, n1, 2)
+    np.testing.assert_array_equal(t[..., 0], jtr)
+    np.testing.assert_array_equal(t[..., 1], jti)
+
+
+@pytest.mark.parametrize("m,k", [(1, 1), (2, 2), (4, 4), (8, 8), (8, 16),
+                                 (24, 8), (64, 64)])
+def test_mma_a_fragments_unpermute_to_the_real_form(m, k):
+    """Reading mma_a_fragments back by the PTX fragment layout gives the
+    real form [[Fr, −Fi], [Fi, Fr]] of any table, zero-padded to whole
+    tiles: a register or lane out of place, or a wrong sign, would not."""
+    rng = np.random.default_rng(m * 100 + k)
+    fr, fi = (rng.normal(size=(m, k)).astype(np.float32) for _ in range(2))
+    frags = planes.mma_a_fragments(fr, fi)
+    assert frags.shape == (-(-m // 8), -(-k // 8), 32, 4)
+    assert frags.dtype == np.uint32
+    np.testing.assert_array_equal(_unpermute_fragments(frags),
+                                  _real_form_bits(fr, fi, _torch_bf16))
+
+
+@pytest.mark.parametrize("shape,rows", [
+    ((1, 1024, 1024), 8), ((1, 512, 1024), 4), ((1, 1024, 512), 8),
+    ((1, 1, 1024), 1), ((1, 4096, 4096), 4), ((1, 4096, 2048), 8),
+    ((1, 64, 8192), 1), ((1, 3000, 8192), 2)])
+def test_bf16_rows_blocks_fit_shared_memory(shape, rows):
+    """The bf16 transposed row kernel's rows per block: its bf16 buffers
+    take twice the rows of the engine's two f32 buffers at N = 4096 and
+    8192, within the card's shared memory; other passes keep theirs."""
+    c, m, n = shape
+    shared = planes.block_shared_bytes("bf16", False, natural=False)
+    assert shared is planes.bf16_rows_shared_bytes
+    got = planes.rows_per_block(c, m, n, sms=132, shared=shared)
+    assert got == rows
+    assert shared(got, n) <= planes.SMEM_LIMIT
+    for tier, split3, natural in (("bf16", True, False), ("bf16", False, True),
+                                  ("bf16x3", False, False), ("f32", False, False)):
+        assert (planes.block_shared_bytes(tier, split3, natural)
+                is planes.shared_bytes)
+
+
 # ---- the row DFT and fused plain versions against the JAX kernels
 
 # (tier, split3, n): the direct tiers at N = 64 (n1 = 32, n2 = 2) and 256;

@@ -2,7 +2,8 @@
 // the precision tiers and the three-factor form of the TPU kernels.
 //
 // Replaces, in tpu_ocean/fft/pallas_fft.py: the products of
-// _fft_block_kernel and _rowfft_core at precision DEFAULT (one bf16 pass)
+// _fft_block_kernel and _rowfft_core at precision DEFAULT (one bf16 pass;
+// the transposed row pass at DEFAULT has its own kernel, dft_bf16_rows.cuh)
 // and at the hand-rolled bf16x3 tier B3 (_split_bf16, _dot_mid), and
 // _fft_block_kernel_split3 / _stage2_split3 (stage 2 as 128 = 8 · 16); in
 // tpu_ocean/ops/fused_spectrum_fft.py the same stages of _fused_kernel,

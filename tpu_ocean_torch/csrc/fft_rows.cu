@@ -46,8 +46,14 @@
 // matrix-form engine of dft_matrix.cuh on the same loads and stores, with
 // `tables` then the engine's complex tables (fft/planes.py matrix_tables)
 // instead of the Stockham twiddles. The three-factor form is for the
-// transposed store only (_fft_block_kernel_split3).
+// transposed store only (_fft_block_kernel_split3). One pair has a kernel
+// of its own: the transposed store at bf16 in the direct form runs
+// dft_bf16_rows.cuh (bf16 tables pre-laid out as mma fragments, the
+// intermediate in bf16), with `tables` planes.bf16_rows_tables.
 
+#include <type_traits>
+
+#include "dft_bf16_rows.cuh"
 #include "dft_matrix.cuh"
 
 namespace {
@@ -112,16 +118,23 @@ int launch(const void* re, const void* im, void* out_re, void* out_im,
            int tier, int split3, void* stream) {
   return with_engine(tier, split3, kNatural, [&](auto engine) {
     using Engine = decltype(engine);
-    const int smem = smem_bytes(rows, n);
-    cudaError_t err = allow_smem(fft_rows_kernel<kNatural, Engine>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((m + rows - 1) / rows, channels);
-    fft_rows_kernel<kNatural, Engine><<<grid, Engine::threads(rows, n), smem,
-                                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(re), static_cast<const float*>(im),
-        static_cast<float*>(out_re), static_cast<float*>(out_im),
-        static_cast<const float2*>(tables), m, n, log2_of(n), rows);
-    return static_cast<int>(cudaGetLastError());
+    if constexpr (!kNatural &&
+                  std::is_same_v<Engine, MatrixEngine<kTierBf16, false>>) {
+      return launch_bf16_rows_transposed(re, im, out_re, out_im, tables,
+                                         channels, m, n, rows, stream);
+    } else {
+      const int smem = smem_bytes(rows, n);
+      cudaError_t err = allow_smem(fft_rows_kernel<kNatural, Engine>, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const dim3 grid((m + rows - 1) / rows, channels);
+      fft_rows_kernel<kNatural, Engine><<<grid, Engine::threads(rows, n),
+                                          smem,
+                                          static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(re), static_cast<const float*>(im),
+          static_cast<float*>(out_re), static_cast<float*>(out_im),
+          static_cast<const float2*>(tables), m, n, log2_of(n), rows);
+      return static_cast<int>(cudaGetLastError());
+    }
   });
 }
 
@@ -132,8 +145,9 @@ extern "C" {
 // Each entry launches its kernel on `stream` and returns cudaGetLastError()
 // as an int. The caller checks: n a power of two >= 16, rows a power of two
 // that keeps the shared memory within the card's limit, contiguous f32
-// planes, `tables` the Stockham twiddles (tier 0, split3 0) or the matrix
-// engine's tables for (n, tier, split3).
+// planes, `tables` the Stockham twiddles (tier 0, split3 0), the bf16
+// transposed kernel's tables (tier 1, split3 0, transposed store) or the
+// matrix engine's tables for (n, tier, split3).
 int tpu_fft_rows_transposed(const void* re, const void* im, void* out_re,
                             void* out_im, const void* tables, int channels,
                             int m, int n, int rows, int tier, int split3,

@@ -27,8 +27,11 @@ tier as ``pallas_fft.kernel_precision`` does: ``bf16`` (one bf16 pass),
 store pass takes the three-factor form (#1b, ``_fft_block_kernel_split3``)
 where ``use_split3`` says so (N above ``THREE_FACTOR_THRESHOLD``). f32 in
 the direct form runs the radix-2 Stockham stages and its plain version is
-``torch.fft``; every other tier and form runs the matrix-form engine
-(``csrc/dft_matrix.cuh``), whose plain version is ``fft/matrix.py``.
+``torch.fft``; the transposed store at bf16 in the direct form runs a
+kernel of its own (``csrc/dft_bf16_rows.cuh``, tables from
+``bf16_rows_tables``); every other tier and form runs the matrix-form
+engine (``csrc/dft_matrix.cuh``). Both take their plain version from
+``fft/matrix.py``.
 Each launch counts once: a Stockham kernel's on its wrapper's
 ``launches``; a matrix-engine launch, and a fused launch outside the packed
 set with 3 live fields, in ``named_launches`` under ``kernel_name``.
@@ -172,6 +175,12 @@ def _stockham(tier: str, split3: bool) -> bool:
     return tier == "f32" and not split3
 
 
+def _bf16_rows(tier: str, split3: bool, natural: bool) -> bool:
+    """The pass that runs the bf16 transposed row kernel
+    (csrc/dft_bf16_rows.cuh) instead of the matrix engine."""
+    return tier == "bf16" and not split3 and not natural
+
+
 @functools.lru_cache(maxsize=32)
 def matrix_tables(n: int, inverse: bool, split3: bool,
                   device: torch.device) -> torch.Tensor:
@@ -183,6 +192,57 @@ def matrix_tables(n: int, inverse: bool, split3: bool,
     pairs = [np.stack([r.ravel(), i.ravel()], axis=-1)
              for r, i in zip(mats[::2], mats[1::2])]
     return torch.from_numpy(np.concatenate(pairs)).to(device)
+
+
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 → the bits of the nearest bfloat16 (ties to even), uint16: the
+    rounding of matrix.round_bf16 and of the kernels' __float2bfloat16_rn."""
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def mma_a_fragments(fr: np.ndarray, fi: np.ndarray) -> np.ndarray:
+    """The complex table F = fr + i·fi [m, k] in its real form [[Fr, −Fi],
+    [Fi, Fr]], rounded to bf16 and laid out as mma.sync.m16n8k16's A
+    fragments, zero-padded to whole tiles: uint32 [mt, kt, 32, 4], tile
+    (tm, kb), lane (g, q) = (lane // 4, lane % 4), each register two bf16,
+    the first in the low half. A tile's 16 rows are re and im of outputs
+    i = 8·tm + g; its 16 depth columns are re and im of k_h = 8·kb + 2q + h
+    (h = 0 in registers 0-1, h = 1 in 2-3), so a lane's two depths are
+    adjacent and its B fragment is one 64-bit load:
+      reg 0 (row g,     cols 2q, 2q+1)   = (Fr[i, k_0], −Fi[i, k_0])
+      reg 1 (row g + 8, cols 2q, 2q+1)   = (Fi[i, k_0],  Fr[i, k_0])
+      reg 2 (row g,     cols 2q+8, 2q+9) = (Fr[i, k_1], −Fi[i, k_1])
+      reg 3 (row g + 8, cols 2q+8, 2q+9) = (Fi[i, k_1],  Fr[i, k_1])"""
+    m, k = fr.shape
+    mt, kt = -(-m // 8), -(-k // 8)
+    shape = ((0, 8 * mt - m), (0, 8 * kt - k))
+    fr, fi = np.pad(fr, shape), np.pad(fi, shape)
+    br, bi, nbi = (_bf16_bits(a).astype(np.uint32) for a in (fr, fi, -fi))
+    lane = np.arange(32)
+    i = 8 * np.arange(mt)[:, None, None] + lane // 4          # [mt, 1, 32]
+    k0 = 8 * np.arange(kt)[None, :, None] + 2 * (lane % 4)    # [1, kt, 32]
+    regs = [low[i, kk] | (high[i, kk] << 16)
+            for kk in (k0, k0 + 1) for low, high in ((br, nbi), (bi, br))]
+    return np.stack(regs, axis=-1)
+
+
+@functools.lru_cache(maxsize=32)
+def bf16_rows_tables_np(n: int, inverse: bool) -> np.ndarray:
+    """The bf16 transposed row kernel's tables as one int32 array, in the
+    order csrc/dft_bf16_rows.cuh reads them: F2's A fragments, T as f32
+    (re, im) pairs [n2, n1], F1's A fragments (mma_a_fragments), all from
+    the f32 tables of _tables_np."""
+    _, _, f2r, f2i, tr, ti, f1r, f1i = _tables_np(n, inverse)
+    t = np.stack([tr.ravel(), ti.ravel()], axis=-1).view(np.uint32)
+    return np.concatenate([mma_a_fragments(f2r, f2i).ravel(), t.ravel(),
+                           mma_a_fragments(f1r, f1i).ravel()]).view(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def bf16_rows_tables(n: int, inverse: bool,
+                     device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(bf16_rows_tables_np(n, inverse)).to(device)
 
 
 def rows_plain(re, im, inverse: bool, tier: str, split3: bool):
@@ -213,6 +273,26 @@ def shared_bytes(rows: int, n: int) -> int:
     return (2 * rows * (n + 1) + n - 1) * 8
 
 
+def bf16_rows_shared_bytes(rows: int, n: int) -> int:
+    """Dynamic shared memory of one block of the bf16 transposed row kernel
+    (csrc/dft_bf16_rows.cuh): the rows as bf16 pairs at n1 + 4 words an
+    s-row, aliased by the f32 result (n + 1 complex a row), then the bf16
+    intermediate at n1 + 8 words a (row, k2)."""
+    n1, n2 = _split_lanes(n)
+    rows_in = rows * n2 * (n1 + 4) * 4
+    rows_out = -(-rows * (n + 1) * 8 // 16) * 16
+    return max(rows_in, rows_out) + rows * n2 * (n1 + 8) * 4
+
+
+def block_shared_bytes(tier: str, split3: bool, natural: bool):
+    """The shared-memory function (rows, n) → bytes of the row kernel at
+    (tier, split3, store): the bf16 transposed kernel's own, else the
+    Stockham and matrix engines' two buffers (shared_bytes)."""
+    if _bf16_rows(tier, split3, natural):
+        return bf16_rows_shared_bytes
+    return shared_bytes
+
+
 def max_rows(n: int, natural: bool) -> int:
     """The most rows per block of the transposed or the natural store."""
     if natural:
@@ -221,17 +301,18 @@ def max_rows(n: int, natural: bool) -> int:
 
 
 def rows_per_block(c: int, m: int, n: int, sms: int,
-                   cap: int = TRANSPOSED_MAX_ROWS) -> int:
+                   cap: int = TRANSPOSED_MAX_ROWS, shared=shared_bytes) -> int:
     """Rows one kernel block transforms: the power of two that gives about
     one block per SM for a [c, m, n] batch, at most ``cap`` (max_rows) and
-    at most what fits two buffers in shared memory. A block takes about as
+    at most what fits shared memory by ``shared`` (rows, n) → bytes
+    (block_shared_bytes). A block takes about as
     long whatever its row count, so a batch that fills fewer SMs takes
     fewer rows per block (measured on the H100: the [1, 512, 1024] half-row
     pass runs faster at 4, the one-row Nyquist pass at 1)."""
     target = -(-c * m // sms)
     rows = 1
     while (rows < target and rows < cap
-           and shared_bytes(2 * rows, n) <= SMEM_LIMIT):
+           and shared(2 * rows, n) <= SMEM_LIMIT):
         rows *= 2
     return rows
 
@@ -317,16 +398,19 @@ def _launch_rows(entry: str, re, im, inverse: bool, out_shape, cap: int,
                  tier: str, split3: bool):
     kernels = _build.load()
     c, m, n = re.shape
+    natural = entry == "tpu_fft_rows_natural"
     out_re = torch.empty(out_shape, dtype=torch.float32, device=re.device)
     out_im = torch.empty_like(out_re)
-    tables = tables_for(n, inverse, tier, split3, re.device)
+    tables = (bf16_rows_tables(n, bool(inverse), re.device)
+              if _bf16_rows(tier, split3, natural) else
+              tables_for(n, inverse, tier, split3, re.device))
+    rows = rows_per_block(c, m, n, sm_count(re.device), cap,
+                          block_shared_bytes(tier, split3, natural))
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(kernels.lib, entry)(
             re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-            tables.data_ptr(), c, m, n,
-            rows_per_block(c, m, n, sm_count(re.device), cap), TIERS[tier],
-            int(split3), stream)
+            tables.data_ptr(), c, m, n, rows, TIERS[tier], int(split3), stream)
     kernels.check(err, entry)
     return out_re, out_im
 
