@@ -21,9 +21,11 @@ over W waves: 1e-5·max|plain| per output. The matrix-form DFT engine
 (csrc/dft_matrix.cuh) rounds the same operands to bf16 as its plain
 version (fft/matrix.py) but accumulates in another order, so an
 intermediate's bf16 rounding can flip by one ulp: 2e-3·max|plain| at
-bf16; 1e-5 at bf16x3 and for the three-factor form at f32. The bf16
-transposed row kernel (csrc/dft_bf16_rows.cuh) rounds the same operands and
-is held to the same 2e-3."""
+bf16; 1e-5 at bf16x3 and for the three-factor form at f32. The bf16 row
+kernel (csrc/dft_bf16_rows.cuh, both stores) rounds the same operands and
+is held to the same 2e-3; the f32 three-factor row kernel
+(csrc/dft_split3_f32.cuh) rounds each twiddle as its plain version does and
+accumulates in another order: 1e-5."""
 
 import dataclasses
 
@@ -373,15 +375,28 @@ def test_matrix_rows_transposed_match_plain(cuda, select_engine, shape,
                  BANDS[tier])
 
 
-@pytest.mark.parametrize("tier,split3,natural", [
-    ("bf16", False, False), ("bf16", True, False), ("bf16", False, True),
-    ("bf16x3", False, False), ("bf16x3", True, False)])
+# (tier, split3, natural) → the kernel the routing names (csrc/fft_rows.cu):
+# bf16 direct, either store → dft_bf16_rows.cuh; f32 three-factor →
+# dft_split3_f32.cuh; bf16 three-factor and bf16x3 → the matrix engine
+ROUTED_KERNELS = [("bf16", False, False, "bf16_rows_kernel"),
+                  ("bf16", True, False, "MatrixEngine"),
+                  ("bf16", False, True, "bf16_rows_kernel"),
+                  ("bf16x3", False, False, "MatrixEngine"),
+                  ("bf16x3", True, False, "MatrixEngine"),
+                  ("f32", True, False, "split3_f32_rows_kernel"),
+                  ("bf16x3", False, True, "MatrixEngine")]
+
+
+@pytest.mark.parametrize("tier,split3,natural,kernel", ROUTED_KERNELS)
 def test_only_the_bf16_direct_transposed_pass_runs_its_own_kernel(
-        cuda, select_engine, tier, split3, natural):
-    """The transposed store at bf16 in the direct form launches
-    csrc/dft_bf16_rows.cuh's kernel; (bf16, split3), bf16x3 in both forms
-    and the natural store at bf16 still launch the matrix engine
-    (fft_rows_kernel with MatrixEngine), each under its old name."""
+        cuda, select_engine, tier, split3, natural, kernel):
+    """Each (tier, form, store) launches the one kernel its routing names,
+    read from the profiler's kernel names: the bf16 direct passes (both
+    stores) csrc/dft_bf16_rows.cuh's kernel, the f32 three-factor pass
+    csrc/dft_split3_f32.cuh's, the rest the matrix engine (fft_rows_kernel
+    with MatrixEngine); each counts under its old name, and the profiler
+    key groups under that name as chip_smoke.py reads it."""
+    import chip_smoke
     precision = select_engine(tier, split3)
     re, im = _planes((1, 64, 256), cuda)
     fn = planes.fft1d_natural_large if natural else planes.fft1d_transposed
@@ -398,15 +413,55 @@ def test_only_the_bf16_direct_transposed_pass_runs_its_own_kernel(
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if names:
             break
-    own = [k for k in names if "bf16_rows_transposed_kernel" in k]
-    engine = [k for k in names if "fft_rows_kernel" in k and "MatrixEngine" in k]
-    if tier == "bf16" and not split3 and not natural:
-        assert len(own) == 1 and not engine, names
-    else:
-        assert len(engine) == 1 and not own, names
+    row_kernels = [k for k in names if chip_smoke.kernel_group(k) != "torch ops"]
+    assert len(row_kernels) == 1 and kernel in row_kernels[0], names
+    if kernel == "MatrixEngine":
+        assert "fft_rows_kernel" in row_kernels[0], names
     store = "natural" if natural else "transposed"
-    assert planes.named_launches == {
-        planes.kernel_name(f"rows_{store}", tier, split3): 1}
+    name = planes.kernel_name(f"rows_{store}", tier, split3)
+    assert planes.named_launches == {name: 1}
+    assert chip_smoke.kernel_group(row_kernels[0]) == name
+
+
+# the f32 three-factor row kernel: every N it takes from 256, M = 1, ragged
+# and the path's batch, up to 3 channels
+SPLIT3_F32_SHAPES = [(c, m, n) for n in (256, 512, 1024, 2048, 4096, 8192)
+                     for c, m in ((1, 1), (2, 7), (3, 13), (1, 1024))]
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("shape", SPLIT3_F32_SHAPES)
+def test_split3_f32_rows_kernel_matches_plain(cuda, select_engine, shape,
+                                              inverse):
+    precision = select_engine("f32", True)
+    re, im = _planes(shape, cuda, seed=shape[2] + shape[1])
+    got = planes.fft1d_transposed(re, im, inverse, precision)
+    assert planes.named_launches == {"matrix_rows_transposed[f32,split3]": 1}
+    want = planes.fft1d_transposed_plain(re, im, inverse, precision)
+    for c in range(shape[0]):
+        _assert_band((got[0][c], got[1][c]), (want[0][c], want[1][c]),
+                     BANDS["f32"])
+
+
+# the bf16 natural pass at R > 1 rows a block with a ragged last block
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("shape", [(1, 1023, 1024), (3, 301, 2048),
+                                   (2, 131, 2048), (1, 2047, 4096)])
+def test_bf16_natural_kernel_ragged_blocks_match_plain(cuda, select_engine,
+                                                       shape, inverse):
+    c, m, n = shape
+    rows = planes.rows_per_block(
+        c, m, n, planes.sm_count(cuda), planes.max_rows(n, True, "bf16", False),
+        planes.block_shared_bytes("bf16", False, True))
+    assert rows > 1 and m % rows
+    precision = select_engine("bf16", False)
+    re, im = _planes(shape, cuda, seed=m)
+    got = planes.fft1d_natural_large(re, im, inverse, precision)
+    assert planes.named_launches == {"matrix_rows_natural[bf16]": 1}
+    want = planes.fft1d_natural_large_plain(re, im, inverse, precision)
+    for ch in range(c):
+        _assert_band((got[0][ch], got[1][ch]), (want[0][ch], want[1][ch]),
+                     BANDS["bf16"])
 
 
 @pytest.mark.parametrize("tier", ["bf16", "bf16x3"])

@@ -210,17 +210,21 @@ def test_mma_a_fragments_unpermute_to_the_real_form(m, k):
     ((1, 1, 1024), 1), ((1, 4096, 4096), 4), ((1, 4096, 2048), 8),
     ((1, 64, 8192), 1), ((1, 3000, 8192), 2)])
 def test_bf16_rows_blocks_fit_shared_memory(shape, rows):
-    """The bf16 transposed row kernel's rows per block: its bf16 buffers
-    take twice the rows of the engine's two f32 buffers at N = 4096 and
-    8192, within the card's shared memory; other passes keep theirs."""
+    """The bf16 row kernel's rows per block: its bf16 buffers take twice
+    the rows of the engine's two f32 buffers at N = 4096 and 8192, within
+    the card's shared memory, with either store; other passes keep
+    theirs."""
     c, m, n = shape
     shared = planes.block_shared_bytes("bf16", False, natural=False)
     assert shared is planes.bf16_rows_shared_bytes
+    assert planes.block_shared_bytes("bf16", False, natural=True) is shared
     got = planes.rows_per_block(c, m, n, sms=132, shared=shared)
     assert got == rows
     assert shared(got, n) <= planes.SMEM_LIMIT
-    for tier, split3, natural in (("bf16", True, False), ("bf16", False, True),
-                                  ("bf16x3", False, False), ("f32", False, False)):
+    for tier, split3, natural in (("bf16", True, False),
+                                  ("bf16x3", False, False),
+                                  ("bf16x3", False, True),
+                                  ("f32", False, False), ("f32", False, True)):
         assert (planes.block_shared_bytes(tier, split3, natural)
                 is planes.shared_bytes)
 

@@ -1,0 +1,372 @@
+"""The row-DFT kernels' routing, blocks and layouts, on the CPU: which
+kernel each (tier, form, store) runs, that every block rows_per_block can
+pick fits shared memory, the f32 three-factor kernel's tables
+(csrc/dft_split3_f32.cuh reads planes.matrix_tables) and a numpy model of
+that kernel: its stage order, its items (which thread owns which columns
+and outputs), its padded layouts and their bank arithmetic, run in float64
+against a float64 DFT (1e-12·max) and in float32, each product and sum of a
+twiddle rounded alone, against rows_plain (1e-5·max, the kernel-vs-plain
+band of the f32 tier)."""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from tpu_ocean.fft import pallas_fft as pf
+from tpu_ocean_torch.fft import planes
+
+SMS = 132          # the H100's SMs, as sm_count reads them on the card
+THREADS = 512      # a block of dft_split3_f32.cuh
+SM_SHARED = 233472  # shared memory of one H100 SM (228 KB)
+
+
+# ---- routing
+
+# (tier, split3, natural) → the code that runs the pass (csrc/fft_rows.cu)
+ROUTES = [("f32", False, False, "stockham"), ("f32", False, True, "stockham"),
+          ("bf16", False, False, "bf16_rows"), ("bf16", False, True, "bf16_rows"),
+          ("f32", True, False, "split3_f32"), ("bf16", True, False, "engine"),
+          ("bf16x3", False, False, "engine"), ("bf16x3", False, True, "engine"),
+          ("bf16x3", True, False, "engine")]
+
+
+@pytest.mark.parametrize("tier,split3,natural,route", ROUTES)
+def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
+                                                   route):
+    got = {"stockham": planes._stockham(tier, split3),
+           "bf16_rows": planes._bf16_rows(tier, split3),
+           "split3_f32": planes._split3_rows(tier, split3) and not natural}
+    assert [k for k, v in got.items() if v] == ([] if route == "engine"
+                                               else [route])
+    shared = planes.block_shared_bytes(tier, split3, natural)
+    assert shared is {"bf16_rows": planes.bf16_rows_shared_bytes,
+                      "split3_f32": planes.split3_rows_shared_bytes}.get(
+                          route, planes.shared_bytes)
+    # the launch name stays the one chip_smoke and the tests count
+    kind = "rows_natural" if natural else "rows_transposed"
+    name = planes.kernel_name(kind, tier, split3)
+    assert name == (f"{kind}[]" if route == "stockham" else
+                    f"matrix_{kind}[{tier}{',split3' * split3}]")
+
+
+@pytest.mark.parametrize("key,group", [
+    ("void tpu_fft::bf16_rows::bf16_rows_kernel<12, true>(float const*, "
+     "float const*, float*, float*, unsigned int const*, int, int)",
+     "matrix_rows_natural[bf16]"),
+    ("void tpu_fft::bf16_rows::bf16_rows_kernel<10, false>(float const*, "
+     "float const*, float*, float*, unsigned int const*, int, int)",
+     "matrix_rows_transposed[bf16]"),
+    ("_ZN7tpu_fft9bf16_rows16bf16_rows_kernelILi12ELb1EEEvPKfS3_PfS4_PKjii",
+     "matrix_rows_natural[bf16]"),
+    ("_ZN7tpu_fft9bf16_rows16bf16_rows_kernelILi10ELb0EEEvPKfS3_PfS4_PKjii",
+     "matrix_rows_transposed[bf16]"),
+    ("void tpu_fft::split3_f32::split3_f32_rows_kernel<10>(float const*, "
+     "float const*, float*, float*, float2 const*, int, int)",
+     "matrix_rows_transposed[f32,split3]"),
+    ("void (anonymous namespace)::fft_rows_kernel<false, "
+     "tpu_fft::MatrixEngine<2, true> >(float const*, float const*, float*, "
+     "float*, float2 const*, int, int, int, int)",
+     "matrix_rows_transposed[bf16x3,split3]"),
+    ("void (anonymous namespace)::fft_rows_kernel<true, "
+     "tpu_fft::StockhamEngine>(float const*, float const*, float*, float*, "
+     "float2 const*, int, int, int, int)", "fft_rows_natural")])
+def test_profiler_keys_group_under_the_launch_names(key, group):
+    assert chip_smoke.kernel_group(key) == group
+
+
+# ---- rows per block
+
+@pytest.mark.parametrize("shape,rows", [
+    ((1, 4096, 4096), 2), ((1, 2048, 4096), 2), ((1, 1, 4096), 1),
+    ((1, 1024, 1024), 8), ((1, 2048, 2048), 4), ((1, 1, 8192), 1),
+    ((1, 3000, 8192), 1)])
+def test_bf16_natural_pass_takes_the_bf16_kernels_rows(shape, rows):
+    """The natural bf16 pass takes the bf16 kernel's cap,
+    BF16_NATURAL_BLOCK_POINTS // N (the fastest in the H100 sweep), not
+    NATURAL_BLOCK_POINTS // N: 2048 blocks at [1,4096,4096], two to an
+    SM."""
+    c, m, n = shape
+    cap = planes.max_rows(n, True, "bf16", False)
+    assert cap == max(1, planes.BF16_NATURAL_BLOCK_POINTS // n)
+    assert 2 * planes.bf16_rows_shared_bytes(cap, n) <= SM_SHARED
+    shared = planes.block_shared_bytes("bf16", False, True)
+    assert planes.rows_per_block(c, m, n, SMS, cap, shared) == rows
+    # the f32 and bf16x3 natural passes keep theirs
+    for tier in ("f32", "bf16x3"):
+        assert planes.max_rows(n, True, tier, False) == max(
+            1, planes.NATURAL_BLOCK_POINTS // n)
+
+
+@pytest.mark.parametrize("shape,rows", [
+    ((1, 1024, 1024), 8), ((1, 512, 1024), 4), ((1, 1, 1024), 1),
+    ((3, 1024, 1024), 8), ((1, 4096, 4096), 2), ((1, 64, 8192), 1),
+    ((1, 8192, 8192), 1), ((1, 2048, 2048), 4), ((1, 512, 256), 4)])
+def test_split3_f32_rows_per_block(shape, rows):
+    c, m, n = shape
+    shared = planes.block_shared_bytes("f32", True, False)
+    got = planes.rows_per_block(c, m, n, SMS,
+                                planes.max_rows(n, False, "f32", True), shared)
+    assert got == rows
+    assert shared(got, n) <= planes.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("tier,split3,natural,min_n", [
+    ("bf16", False, False, 16), ("bf16", False, True, 16),
+    ("f32", True, False, 128)])
+def test_every_block_rows_per_block_picks_fits_shared_memory(tier, split3,
+                                                             natural, min_n):
+    shared = planes.block_shared_bytes(tier, split3, natural)
+    for log2n in range(int(np.log2(min_n)), 14):
+        n = 1 << log2n
+        cap = planes.max_rows(n, natural, tier, split3)
+        for batch in sorted({1, 2, 3, 7, 64, 131, 132, 133, 264, 512, 1000,
+                             1024, 2048, 4096, 5 * 4096, 8192}):
+            rows = planes.rows_per_block(1, batch, n, SMS, cap, shared)
+            assert rows & (rows - 1) == 0 and 1 <= rows <= cap
+            assert shared(rows, n) <= planes.SMEM_LIMIT, (n, batch, rows)
+
+
+def test_split3_shared_bytes_of_the_header():
+    """The sizes dft_split3_f32.cuh states: 147 KB at N = 1024, R = 8;
+    145 KB at N = 4096, R = 2; 168 KB at N = 8192, R = 1."""
+    kb = {(1024, 8): 147520, (4096, 2): 144912, (8192, 1): 168456}
+    for (n, rows), want in kb.items():
+        assert planes.split3_rows_shared_bytes(rows, n) == want
+
+
+# ---- the f32 three-factor kernel's tables
+
+def _split3_tables(n, inverse):
+    """planes.matrix_tables(n, inverse, True) as the header cuts it:
+    F2 [n2, n2], T [n2, 128], F_W [8, 8], TW [8, 16], F_U [16, 16],
+    each complex."""
+    t = planes.matrix_tables(n, inverse, True, torch.device("cpu")).numpy()
+    flat = t[:, 0].astype(np.complex128) + 1j * t[:, 1]
+    n2 = n // 128
+    cuts = np.cumsum([0, n2 * n2, n, 64, 128, 256])
+    assert cuts[-1] == flat.size
+    shapes = [(n2, n2), (n2, 128), (8, 8), (8, 16), (16, 16)]
+    return t, [flat[a:b].reshape(s) for a, b, s in
+               zip(cuts[:-1], cuts[1:], shapes)]
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("n", [128, 256, 1024, 4096, 8192])
+def test_split3_tables_are_laid_out_as_the_kernel_reads_them(n, inverse):
+    """Bit-equal to _tables_np and _split3_tables_np, and to the JAX
+    package's, at the offsets the kernel reads: F2 at 0, T at n2², F_W,
+    TW, F_U at n2² + N."""
+    t, _ = _split3_tables(n, inverse)
+    n1, n2, *mats = planes._tables_np(n, inverse)
+    assert n1 == 128
+    mats = mats[:4] + list(planes._split3_tables_np(n1, inverse))
+    jmats = list(pf._tables_np(n, inverse)[2:6]) + list(
+        pf._split3_tables_np(n1, inverse))
+    at = 0
+    for re, im, jre, jim in zip(mats[::2], mats[1::2], jmats[::2], jmats[1::2]):
+        size = re.size
+        for col, want, jwant in ((0, re, jre), (1, im, jim)):
+            got = t[at:at + size, col]
+            np.testing.assert_array_equal(got, want.ravel())
+            np.testing.assert_array_equal(got, np.asarray(jwant).ravel())
+        at += size
+    assert at == t.shape[0] == n2 * n2 + n + 448
+
+
+def _exact_split3_tables(n, inverse):
+    """The same five tables in float64, unrounded."""
+    sign = 1 if inverse else -1
+    n2 = n // 128
+
+    def e(a, b, d):
+        return np.exp(sign * 2j * np.pi * np.outer(np.arange(a), np.arange(b)) / d)
+    return [e(n2, n2, n2), e(n2, 128, n), e(8, 8, 8), e(8, 16, 128),
+            e(16, 16, 16)]
+
+
+# ---- a numpy model of csrc/dft_split3_f32.cuh
+
+class _Buffer:
+    """A shared buffer of complex values as two real arrays of ``dtype``.
+    A stage writing it first poisons it with NaN (what it held is spent),
+    so a read of a position the stage before did not write shows in the
+    output; writes of one stage must not meet."""
+
+    def __init__(self, size, dtype):
+        self.re = np.full(size, np.nan, dtype)
+        self.im = np.full(size, np.nan, dtype)
+        self.written = []
+
+    def begin(self):
+        self.re[:] = np.nan
+        self.im[:] = np.nan
+        self.written = []
+
+    def read(self, pos):
+        return self.re[pos], self.im[pos]
+
+    def write(self, pos, vr, vi):
+        self.re[pos], self.im[pos] = vr, vi
+        self.written.append(np.ravel(pos))
+
+    def check_writes(self, count):
+        pos = np.concatenate(self.written)
+        assert pos.size == count and np.unique(pos).size == count
+
+
+def _half_warp_degree(addr):
+    """The worst bank-pair conflict of 64-bit shared accesses: ``addr``
+    [items] in complex units, one per item; the items of one loop round
+    (thread = item) taken 16 at a time, a half warp; the degree is the most
+    distinct addresses that share an address mod 16 (1: conflict-free)."""
+    addr = np.asarray(addr)[:THREADS]
+    worst = 1
+    for h in range(0, addr.size - addr.size % 16, 16):
+        distinct = np.unique(addr[h:h + 16])
+        worst = max(worst, np.bincount(distinct % 16).max())
+    return worst
+
+
+def _cmac(ar, ai, fr, fi, xr, xi):
+    return ar + fr * xr - fi * xi, ai + fr * xi + fi * xr
+
+
+def _twiddle(cr, ci, wr, wi):
+    """Each product and sum rounded alone in the arrays' dtype."""
+    return cr * wr - ci * wi, cr * wi + ci * wr
+
+
+def _split3_model(x, n, rows, tabs, dtype, degrees):
+    """The kernel on one channel x [M, N] (complex) with R = ``rows``: its
+    loads, three stages and transposed store, block by block, at
+    ``dtype``; returns out [N, M] complex. Records the half-warp conflict
+    degree of every stage access in ``degrees``."""
+    f2, tw1, fw, tw2, fu = ((t.real.astype(dtype), t.imag.astype(dtype))
+                            for t in tabs)
+    g = planes.split3_rows_geometry(n)
+    n2, p, sb, sa, sy, k1 = (g[k] for k in ("n2", "P", "Sb", "SA", "SY", "K1"))
+    m = x.shape[0]
+    r_ = rows
+    log2r = r_.bit_length() - 1
+    log2n2 = n2.bit_length() - 1
+    out = np.zeros((n, m), np.complex128)
+    xa, ys = _Buffer(r_ * sa, dtype), _Buffer(r_ * sy, dtype)
+    for m0 in range(0, m, r_):
+        # load: rows past M are zero
+        xa.begin()
+        block = np.zeros((r_, n), np.complex128)
+        block[:min(r_, m - m0)] = x[m0:m0 + r_]
+        pos = np.arange(r_)[:, None] * sa + np.arange(n)
+        xa.write(pos, block.real.astype(dtype), block.imag.astype(dtype))
+        # stage 1: item → columns t, t + 64 of row r, outputs k0 .. k0 + K1
+        ys.begin()
+        log2g = log2r + 6
+        item = np.arange((r_ << 6) * (n2 // k1))
+        k0 = (item >> log2g) * k1
+        i = item & ((1 << log2g) - 1)
+        r, t = i >> 6, i & 63
+        k = k0[:, None] + np.arange(k1)                       # [items, K1]
+        for col in (t, t + 64):
+            base = r * sa + col
+            ar = np.zeros(k.shape, dtype)
+            ai = np.zeros(k.shape, dtype)
+            for s in range(n2):
+                vr, vi = xa.read(base + s * 128)
+                degrees.append(("stage 1 read", _half_warp_degree(base + s * 128)))
+                ar, ai = _cmac(ar, ai, f2[0][k, s], f2[1][k, s],
+                               vr[:, None], vi[:, None])
+            w = k * 128 + col[:, None]
+            dst = (r * sy)[:, None] + w
+            degrees.append(("stage 1 write", _half_warp_degree(dst[:, 0])))
+            ys.write(dst, *_twiddle(ar, ai, tw1[0].ravel()[w],
+                                    tw1[1].ravel()[w]))
+        ys.check_writes(r_ * n)
+        # stage 2a: columns c = (r·n2 + k2)·16 + u, c and c + half an item
+        xa.begin()
+        half = r_ * n2 * 8
+        i = np.arange(half)
+        for c in (i, i + half):
+            u = c & 15
+            rk = c >> 4
+            r, k2 = rk >> log2n2, rk & (n2 - 1)
+            src = r * sy + k2 * 128 + u
+            dst = r * sa + u * p + k2
+            ar = np.zeros((c.size, 8), dtype)
+            ai = np.zeros((c.size, 8), dtype)
+            for w in range(8):
+                vr, vi = ys.read(src + w * 16)
+                degrees.append(("stage 2a read", _half_warp_degree(src + w * 16)))
+                ar, ai = _cmac(ar, ai, fw[0][:, w], fw[1][:, w],
+                               vr[:, None], vi[:, None])
+            degrees.append(("stage 2a write", _half_warp_degree(dst)))
+            xa.write(dst[:, None] + np.arange(8) * sb,
+                     *_twiddle(ar, ai, tw2[0][:, u].T, tw2[1][:, u].T))
+        xa.check_writes(r_ * n)
+        # stage 2b: columns c = (r·8 + b)·n2 + k2, c and c + half, outputs
+        # a = 8·share .. + 7 an item
+        ys.begin()
+        half = r_ * 4 * n2
+        item = np.arange(2 * half)
+        share = (item >= half).astype(int)
+        i = item - share * half
+        a = share[:, None] * 8 + np.arange(8)                 # [items, 8]
+        for c in (i, i + half):
+            k2 = c & (n2 - 1)
+            rb = c >> log2n2
+            b, r = rb & 7, rb >> 3
+            src = r * sa + b * sb + k2
+            dst = r * sy + b * n2 + k2
+            ar = np.zeros(a.shape, dtype)
+            ai = np.zeros(a.shape, dtype)
+            for u in range(16):
+                vr, vi = xa.read(src + u * p)
+                degrees.append(("stage 2b read", _half_warp_degree(src + u * p)))
+                ar, ai = _cmac(ar, ai, fu[0][a, u], fu[1][a, u],
+                               vr[:, None], vi[:, None])
+            degrees.append(("stage 2b write", _half_warp_degree(dst)))
+            ys.write(dst[:, None] + a * 8 * n2, ar, ai)
+        ys.check_writes(r_ * n)
+        # the transposed store (stockham.cuh store_rows<false>)
+        valid = min(r_, m - m0)
+        res = ys.re.astype(np.float64) + 1j * ys.im.astype(np.float64)
+        out[:, m0:m0 + valid] = res.reshape(r_, sy)[:valid, :n].T
+    return out
+
+
+# (M, N, R): R ≤ the largest that fits, M ragged against R where it can be
+MODEL_CASES = [(1, 128, 1), (3, 128, 2), (5, 256, 4), (13, 1024, 8),
+               (1, 1024, 1), (7, 2048, 4), (7, 4096, 2), (2, 8192, 1)]
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("m,n,rows", MODEL_CASES)
+def test_split3_model_matches_float64_and_rows_plain(m, n, rows, inverse):
+    assert planes.split3_rows_shared_bytes(rows, n) <= planes.SMEM_LIMIT
+    rng = np.random.default_rng(n + m)
+    xr, xi = (rng.normal(size=(m, n)).astype(np.float32) for _ in range(2))
+    x = xr.astype(np.float64) + 1j * xi
+    _, tabs = _split3_tables(n, inverse)
+    # float64 with unrounded tables: the index maps and stage order give
+    # the DFT, a float64 DFT within 1e-12
+    degrees = []
+    got64 = _split3_model(x, n, rows, _exact_split3_tables(n, inverse),
+                          np.float64, degrees)
+    want64 = (np.fft.ifft(x, axis=-1) * n if inverse
+              else np.fft.fft(x, axis=-1)).T
+    assert np.abs(got64 - want64).max() <= 1e-12 * np.abs(want64).max()
+    # float32 with the kernel's roundings, against the plain version
+    got32 = _split3_model(x, n, rows, tabs, np.float32, [])
+    pr, pi = planes.rows_plain(torch.from_numpy(xr)[None],
+                               torch.from_numpy(xi)[None], inverse, "f32",
+                               True)
+    want32 = (pr[0].numpy() + 1j * pi[0].numpy()).T
+    scale = max(np.abs(want32.real).max(), np.abs(want32.imag).max())
+    assert np.abs(got32 - want32).max() <= 1e-5 * scale
+    # the header's bank arithmetic: every stage access conflict-free but
+    # at N = 128 (n2 = 1), where two rows meet in a half warp
+    worst = {}
+    for what, degree in degrees:
+        worst[what] = max(worst.get(what, 1), degree)
+    if n > 128:
+        assert worst == {k: 1 for k in worst}, worst

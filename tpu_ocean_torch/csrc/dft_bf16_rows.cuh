@@ -1,13 +1,16 @@
-// The bf16 transposed row DFT: fft_rows.cu's entry tpu_fft_rows_transposed
-// at tier bf16 in the direct form.
+// The bf16 row DFT: fft_rows.cu's entries tpu_fft_rows_transposed and
+// tpu_fft_rows_natural at tier bf16 in the direct form.
 //
-// Replaces tpu_ocean/fft/pallas_fft.py _fft_block_kernel at
-// lax.Precision.DEFAULT (launched by _fft1d_transposed_impl), and in this
+// Replaces tpu_ocean/fft/pallas_fft.py _fft_block_kernel (launched by
+// _fft1d_transposed_impl) and _rowfft_block_kernel_natural (launched by
+// _fft1d_natural_large_impl), both at lax.Precision.DEFAULT, and in this
 // port the matrix engine (dft_matrix.cuh, matrix_dft_stages<kTierBf16,
-// false>) for that one pass; the engine keeps every other tier, form and
-// store, and the fused kernels. Contract: (re, im) f32 [C, M, N] → the
-// transposed (re, im) f32 [C, N, M], unnormalized, + sign for the inverse,
-// N a power of two in [16, 8192], any M and C.
+// false>) for those two passes; the engine keeps the other tiers and forms
+// and the fused kernels. Contract: (re, im) f32 [C, M, N] → the transposed
+// (re, im) f32 [C, N, M] (kNatural = false) or the natural-order [C, M, N]
+// (kNatural = true), unnormalized, + sign for the inverse, N a power of two
+// in [16, 8192], any M and C. The two stores share everything up to the
+// f32 result in shared memory.
 //
 // Numerics are those of the plain version (fft/matrix.py rows_dft at tier
 // bf16) operand for operand: x and the f32 tables rounded to bf16 (round
@@ -52,8 +55,9 @@
 //    load with no conversion and no twiddle. The rows are rounded to bf16
 //    pairs as they are loaded, halving their shared memory. Stage 2's f32
 //    result goes to shared memory, over the consumed rows, for the
-//    coalesced transposed store (stockham.cuh store_rows<false>: R
-//    consecutive m of one k per run, 32-byte runs at R = 8).
+//    coalesced store (stockham.cuh store_rows: transposed, R consecutive
+//    m of one k per run, 32-byte runs at R = 8; natural, the R rows as
+//    one contiguous run, coalesced at any R).
 // 3. Conflict-free layouts (32 banks of 4 bytes; lane = 4g + q):
 //    - rows: x[r, s·n1 + t] at word (r·n2 + s)·(n1 + 4) + t. Stage 1's B
 //      load of lane (g, q) reads s = 8·kb + 2q + h, t = t0 + g: bank
@@ -136,14 +140,11 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint4& a, uint32_t b0,
 extern __shared__ uint4 bf16_rows_smem[];
 
 // One block: R rows m0 .. m0 + R − 1 of channel blockIdx.y.
-template <int kLog2N>
+template <int kLog2N, bool kNatural>
 __global__ void __launch_bounds__(kThreads)
-bf16_rows_transposed_kernel(const float* __restrict__ re,
-                            const float* __restrict__ im,
-                            float* __restrict__ out_re,
-                            float* __restrict__ out_im,
-                            const uint32_t* __restrict__ tables, int M,
-                            int R) {
+bf16_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                 float* __restrict__ out_re, float* __restrict__ out_im,
+                 const uint32_t* __restrict__ tables, int M, int R) {
   using G = Geometry<kLog2N>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -288,15 +289,15 @@ bf16_rows_transposed_kernel(const float* __restrict__ re,
   }
   __syncthreads();
 
-  store_rows<false>(res, out_re + c * plane, out_im + c * plane, M, G::N,
-                    kLog2N, R, m0);
+  store_rows<kNatural>(res, out_re + c * plane, out_im + c * plane, M, G::N,
+                       kLog2N, R, m0);
 }
 
-template <int kLog2N>
+template <int kLog2N, bool kNatural>
 int launch_n(const void* re, const void* im, void* out_re, void* out_im,
              const void* tables, int channels, int m, int rows,
              cudaStream_t stream) {
-  const auto kernel = bf16_rows_transposed_kernel<kLog2N>;
+  const auto kernel = bf16_rows_kernel<kLog2N, kNatural>;
   const int smem = shared_bytes(rows, 1 << kLog2N);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -310,18 +311,18 @@ int launch_n(const void* re, const void* im, void* out_re, void* out_im,
 
 }  // namespace bf16_rows
 
-// Launches the bf16 transposed row kernel at length n (a power of two in
-// [16, 8192]; anything else is refused with cudaErrorInvalidValue).
-// `tables` are planes.bf16_rows_tables(n, inverse).
-inline int launch_bf16_rows_transposed(const void* re, const void* im,
-                                       void* out_re, void* out_im,
-                                       const void* tables, int channels,
-                                       int m, int n, int rows, void* stream) {
+// Launches the bf16 row kernel with the natural or the transposed store at
+// length n (a power of two in [16, 8192]; anything else is refused with
+// cudaErrorInvalidValue). `tables` are planes.bf16_rows_tables(n, inverse).
+template <bool kNatural>
+int launch_bf16_rows(const void* re, const void* im, void* out_re,
+                     void* out_im, const void* tables, int channels, int m,
+                     int n, int rows, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
 #define TPU_BF16_ROWS_CASE(L)                                                 \
   case 1 << L:                                                                \
-    return bf16_rows::launch_n<L>(re, im, out_re, out_im, tables, channels,   \
-                                  m, rows, s);
+    return bf16_rows::launch_n<L, kNatural>(re, im, out_re, out_im, tables,   \
+                                            channels, m, rows, s);
   switch (n) {
     TPU_BF16_ROWS_CASE(4)
     TPU_BF16_ROWS_CASE(5)

@@ -2,12 +2,14 @@
 // the precision tiers and the three-factor form of the TPU kernels.
 //
 // Replaces, in tpu_ocean/fft/pallas_fft.py: the products of
-// _fft_block_kernel and _rowfft_core at precision DEFAULT (one bf16 pass;
-// the transposed row pass at DEFAULT has its own kernel, dft_bf16_rows.cuh)
+// _fft_block_kernel and _rowfft_core at precision DEFAULT (one bf16 pass)
 // and at the hand-rolled bf16x3 tier B3 (_split_bf16, _dot_mid), and
 // _fft_block_kernel_split3 / _stage2_split3 (stage 2 as 128 = 8 · 16); in
 // tpu_ocean/ops/fused_spectrum_fft.py the same stages of _fused_kernel,
-// _fused_kernel_split3 and _fused_rowfft_kernel_natural.
+// _fused_kernel_split3 and _fused_rowfft_kernel_natural. Two row passes
+// have kernels of their own: bf16 in the direct form, both stores
+// (dft_bf16_rows.cuh), and f32 in the three-factor form
+// (dft_split3_f32.cuh); the engine runs the rest and every fused tier.
 //
 // matrix_dft_stages<Tier, kSplit3> is a drop-in for stockham_stages: the R
 // rows of length N sit in the first shared buffer (stride N + 1 float2),

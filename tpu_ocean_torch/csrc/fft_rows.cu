@@ -41,26 +41,35 @@
 // the early stages' reads all fell in one shared-memory bank.
 //
 // Precision tiers and the three-factor form: each entry takes a tier (0
-// f32, 1 bf16, 2 bf16x3) and a form (split3 0 or 1). f32 with the direct
-// form runs the Stockham stages above; every other pair runs the
-// matrix-form engine of dft_matrix.cuh on the same loads and stores, with
-// `tables` then the engine's complex tables (fft/planes.py matrix_tables)
-// instead of the Stockham twiddles. The three-factor form is for the
-// transposed store only (_fft_block_kernel_split3). One pair has a kernel
-// of its own: the transposed store at bf16 in the direct form runs
-// dft_bf16_rows.cuh (bf16 tables pre-laid out as mma fragments, the
-// intermediate in bf16), with `tables` planes.bf16_rows_tables.
+// f32, 1 bf16, 2 bf16x3) and a form (split3 0 or 1). The three-factor form
+// is for the transposed store only (_fft_block_kernel_split3). Which code
+// runs a pass:
+//   f32, direct: the Stockham stages above (`tables` the twiddles);
+//   bf16, direct, either store: dft_bf16_rows.cuh (bf16 tables pre-laid
+//     out as mma fragments, the intermediate in bf16; `tables`
+//     planes.bf16_rows_tables);
+//   f32, three-factor: dft_split3_f32.cuh (FFMA, each thread whole
+//     columns of a stage; `tables` planes.matrix_tables);
+//   bf16 three-factor and bf16x3 in both forms: the matrix-form engine of
+//     dft_matrix.cuh on this file's loads and stores (`tables`
+//     planes.matrix_tables).
 
 #include <type_traits>
 
 #include "dft_bf16_rows.cuh"
 #include "dft_matrix.cuh"
+#include "dft_split3_f32.cuh"
 
 namespace {
 
 using namespace tpu_fft;
 
 constexpr int kLoadsInFlight = 8;
+
+template <class Engine>
+constexpr bool kThreeFactor = false;
+template <int kTier>
+constexpr bool kThreeFactor<MatrixEngine<kTier, true>> = true;
 
 template <bool kNatural, class Engine>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -118,10 +127,15 @@ int launch(const void* re, const void* im, void* out_re, void* out_im,
            int tier, int split3, void* stream) {
   return with_engine(tier, split3, kNatural, [&](auto engine) {
     using Engine = decltype(engine);
-    if constexpr (!kNatural &&
-                  std::is_same_v<Engine, MatrixEngine<kTierBf16, false>>) {
-      return launch_bf16_rows_transposed(re, im, out_re, out_im, tables,
-                                         channels, m, n, rows, stream);
+    if constexpr (std::is_same_v<Engine, MatrixEngine<kTierBf16, false>>) {
+      return launch_bf16_rows<kNatural>(re, im, out_re, out_im, tables,
+                                        channels, m, n, rows, stream);
+    } else if constexpr (kNatural && kThreeFactor<Engine>) {
+      // no natural three-factor store: with_engine refuses it first
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else if constexpr (std::is_same_v<Engine, MatrixEngine<kTierF32, true>>) {
+      return launch_split3_f32_rows(re, im, out_re, out_im, tables, channels,
+                                    m, n, rows, stream);
     } else {
       const int smem = smem_bytes(rows, n);
       cudaError_t err = allow_smem(fft_rows_kernel<kNatural, Engine>, smem);
@@ -145,9 +159,9 @@ extern "C" {
 // Each entry launches its kernel on `stream` and returns cudaGetLastError()
 // as an int. The caller checks: n a power of two >= 16, rows a power of two
 // that keeps the shared memory within the card's limit, contiguous f32
-// planes, `tables` the Stockham twiddles (tier 0, split3 0), the bf16
-// transposed kernel's tables (tier 1, split3 0, transposed store) or the
-// matrix engine's tables for (n, tier, split3).
+// planes, `tables` the Stockham twiddles (tier 0, split3 0), the bf16 row
+// kernel's tables (tier 1, split3 0) or the matrix engine's tables for
+// (n, tier, split3), which the three-factor f32 kernel also reads.
 int tpu_fft_rows_transposed(const void* re, const void* im, void* out_re,
                             void* out_im, const void* tables, int channels,
                             int m, int n, int rows, int tier, int split3,

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the matrix-form DFT engine
-(``csrc/dft_matrix.cuh``) and of the bf16 transposed row kernel
-(``csrc/dft_bf16_rows.cuh``): the row DFT as Bailey's four-step N = n2·n1,
+(``csrc/dft_matrix.cuh``), of the bf16 row kernel
+(``csrc/dft_bf16_rows.cuh``) and of the f32 three-factor row kernel
+(``csrc/dft_split3_f32.cuh``): the row DFT as Bailey's four-step N = n2·n1,
 two complex matrix products with the f32 twiddle between them, at a
 precision tier, in the direct or the three-factor form.
 

@@ -27,13 +27,15 @@ tier as ``pallas_fft.kernel_precision`` does: ``bf16`` (one bf16 pass),
 store pass takes the three-factor form (#1b, ``_fft_block_kernel_split3``)
 where ``use_split3`` says so (N above ``THREE_FACTOR_THRESHOLD``). f32 in
 the direct form runs the radix-2 Stockham stages and its plain version is
-``torch.fft``; the transposed store at bf16 in the direct form runs a
-kernel of its own (``csrc/dft_bf16_rows.cuh``, tables from
-``bf16_rows_tables``); every other tier and form runs the matrix-form
-engine (``csrc/dft_matrix.cuh``). Both take their plain version from
-``fft/matrix.py``.
+``torch.fft``; bf16 in the direct form runs a kernel of its own with
+either store (``csrc/dft_bf16_rows.cuh``, tables from
+``bf16_rows_tables``), and so does f32 in the three-factor form
+(``csrc/dft_split3_f32.cuh``, tables from ``matrix_tables``); the other
+tiers and forms (bf16 three-factor, bf16x3) run the matrix-form engine
+(``csrc/dft_matrix.cuh``). All but Stockham take their plain version
+from ``fft/matrix.py``.
 Each launch counts once: a Stockham kernel's on its wrapper's
-``launches``; a matrix-engine launch, and a fused launch outside the packed
+``launches``; any other row launch, and a fused launch outside the packed
 set with 3 live fields, in ``named_launches`` under ``kernel_name``.
 """
 
@@ -68,6 +70,11 @@ TRANSPOSED_MAX_ROWS = 8
 #: --sweep-rows), the fastest blocks held about 4096 points:
 #: R = 4 at N = 1024, R = 2 at N = 2048, R = 1 at N = 4096
 NATURAL_BLOCK_POINTS = 4096
+#: the same for the bf16 row kernel's natural store: swept on the H100,
+#: [1, 4096, 4096] took 200.6, 173.1 and 209.1 µs at R = 1, 2 and 4, since
+#: two blocks of 8192 points share an SM (100 KB of shared memory each)
+#: and one of 16384 (196 KB) does not
+BF16_NATURAL_BLOCK_POINTS = 8192
 
 
 #: grid sides STRICTLY ABOVE this run the f32 tier as bf16x3 (hi + lo
@@ -175,10 +182,17 @@ def _stockham(tier: str, split3: bool) -> bool:
     return tier == "f32" and not split3
 
 
-def _bf16_rows(tier: str, split3: bool, natural: bool) -> bool:
-    """The pass that runs the bf16 transposed row kernel
+def _bf16_rows(tier: str, split3: bool) -> bool:
+    """The passes, either store, that run the bf16 row kernel
     (csrc/dft_bf16_rows.cuh) instead of the matrix engine."""
-    return tier == "bf16" and not split3 and not natural
+    return tier == "bf16" and not split3
+
+
+def _split3_rows(tier: str, split3: bool) -> bool:
+    """The pass that runs the f32 three-factor row kernel
+    (csrc/dft_split3_f32.cuh) instead of the matrix engine (the
+    three-factor form has the transposed store only)."""
+    return tier == "f32" and split3
 
 
 @functools.lru_cache(maxsize=32)
@@ -229,7 +243,7 @@ def mma_a_fragments(fr: np.ndarray, fi: np.ndarray) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def bf16_rows_tables_np(n: int, inverse: bool) -> np.ndarray:
-    """The bf16 transposed row kernel's tables as one int32 array, in the
+    """The bf16 row kernel's tables as one int32 array, in the
     order csrc/dft_bf16_rows.cuh reads them: F2's A fragments, T as f32
     (re, im) pairs [n2, n1], F1's A fragments (mma_a_fragments), all from
     the f32 tables of _tables_np."""
@@ -274,8 +288,8 @@ def shared_bytes(rows: int, n: int) -> int:
 
 
 def bf16_rows_shared_bytes(rows: int, n: int) -> int:
-    """Dynamic shared memory of one block of the bf16 transposed row kernel
-    (csrc/dft_bf16_rows.cuh): the rows as bf16 pairs at n1 + 4 words an
+    """Dynamic shared memory of one block of the bf16 row kernel
+    (csrc/dft_bf16_rows.cuh, either store): the rows as bf16 pairs at n1 + 4 words an
     s-row, aliased by the f32 result (n + 1 complex a row), then the bf16
     intermediate at n1 + 8 words a (row, k2)."""
     n1, n2 = _split_lanes(n)
@@ -284,20 +298,50 @@ def bf16_rows_shared_bytes(rows: int, n: int) -> int:
     return max(rows_in, rows_out) + rows * n2 * (n1 + 8) * 4
 
 
+def split3_rows_geometry(n: int) -> dict:
+    """The padded layout of the f32 three-factor row kernel
+    (csrc/dft_split3_f32.cuh Geometry), in complex (8-byte) units: n2, the
+    odd step P of u and the step Sb of b in the stage-2 buffer, the row
+    strides SA (rows, then B ⊙ TW) and SY (C ⊙ T, then the result), and
+    K1, the stage-1 outputs one thread computes at a time."""
+    n2 = n // 128
+    p = n2 | 1
+    sb = 16 * p + (n2 if n2 < 16 else 0)
+    return dict(n2=n2, P=p, Sb=sb, SA=max(n, 8 * sb), SY=n + 1,
+                K1=min(n2, 16))
+
+
+def split3_rows_shared_bytes(rows: int, n: int) -> int:
+    """Dynamic shared memory of one block of the f32 three-factor row
+    kernel: the two row buffers and F2, F_W, TW, F_U (n2² + 448 complex)."""
+    g = split3_rows_geometry(n)
+    return 8 * (rows * (g["SA"] + g["SY"]) + g["n2"] ** 2
+                + _SPLIT_W * _SPLIT_W + _SPLIT_W * _SPLIT_U
+                + _SPLIT_U * _SPLIT_U)
+
+
 def block_shared_bytes(tier: str, split3: bool, natural: bool):
     """The shared-memory function (rows, n) → bytes of the row kernel at
-    (tier, split3, store): the bf16 transposed kernel's own, else the
-    Stockham and matrix engines' two buffers (shared_bytes)."""
-    if _bf16_rows(tier, split3, natural):
+    (tier, split3, store): the bf16 and the f32 three-factor kernels' own,
+    else the Stockham and matrix engines' two buffers (shared_bytes)."""
+    if _bf16_rows(tier, split3):
         return bf16_rows_shared_bytes
+    if _split3_rows(tier, split3) and not natural:
+        return split3_rows_shared_bytes
     return shared_bytes
 
 
-def max_rows(n: int, natural: bool) -> int:
-    """The most rows per block of the transposed or the natural store."""
-    if natural:
-        return max(1, NATURAL_BLOCK_POINTS // n)
-    return TRANSPOSED_MAX_ROWS
+def max_rows(n: int, natural: bool, tier: str = "f32",
+             split3: bool = False) -> int:
+    """The most rows per block of the transposed store
+    (TRANSPOSED_MAX_ROWS) or of the natural store at (tier, split3):
+    BF16_NATURAL_BLOCK_POINTS // n on the bf16 row kernel, else
+    NATURAL_BLOCK_POINTS // n."""
+    if not natural:
+        return TRANSPOSED_MAX_ROWS
+    points = (BF16_NATURAL_BLOCK_POINTS if _bf16_rows(tier, split3)
+              else NATURAL_BLOCK_POINTS)
+    return max(1, points // n)
 
 
 def rows_per_block(c: int, m: int, n: int, sms: int,
@@ -394,17 +438,18 @@ def count_launch(wrapper, kind: str, tier: str, split3: bool,
         named_launches[kernel_name(kind, tier, split3, channel_set)] += 1
 
 
-def _launch_rows(entry: str, re, im, inverse: bool, out_shape, cap: int,
-                 tier: str, split3: bool):
+def _launch_rows(entry: str, re, im, inverse: bool, out_shape, tier: str,
+                 split3: bool):
     kernels = _build.load()
     c, m, n = re.shape
     natural = entry == "tpu_fft_rows_natural"
     out_re = torch.empty(out_shape, dtype=torch.float32, device=re.device)
     out_im = torch.empty_like(out_re)
     tables = (bf16_rows_tables(n, bool(inverse), re.device)
-              if _bf16_rows(tier, split3, natural) else
+              if _bf16_rows(tier, split3) else
               tables_for(n, inverse, tier, split3, re.device))
-    rows = rows_per_block(c, m, n, sm_count(re.device), cap,
+    rows = rows_per_block(c, m, n, sm_count(re.device),
+                          max_rows(n, natural, tier, split3),
                           block_shared_bytes(tier, split3, natural))
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -438,7 +483,7 @@ def fft1d_transposed(re: torch.Tensor, im: torch.Tensor, inverse: bool = True,
     if on_cpu("fft1d_transposed", re):
         return fft1d_transposed_plain(re, im, inverse, precision)
     out = _launch_rows("tpu_fft_rows_transposed", re, im, inverse, (c, n, m),
-                       max_rows(n, natural=False), tier, split3)
+                       tier, split3)
     count_launch(fft1d_transposed, "rows_transposed", tier, split3)
     return out
 
@@ -456,7 +501,7 @@ def fft1d_natural_large(re: torch.Tensor, im: torch.Tensor,
     if on_cpu("fft1d_natural_large", re):
         return fft1d_natural_large_plain(re, im, inverse, precision)
     out = _launch_rows("tpu_fft_rows_natural", re, im, inverse, re.shape,
-                       max_rows(n, natural=True), tier, split3)
+                       tier, split3)
     count_launch(fft1d_natural_large, "rows_natural", tier, split3)
     return out
 
