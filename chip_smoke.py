@@ -19,7 +19,13 @@ Phases, each printing its own lines:
                bf16, at 1024² and 4096² (at bf16, both stores at
                [1,1024,1024] within 10% of the bf16 plain version's error
                on the same rows and at most 1.1 × its PERF.md §6 figure;
-               the f32 three-factor pass there at most 5e-7);
+               the f32 three-factor pass there at most 5e-7, the f32
+               direct transposed pass at most 1.1 × its PERF.md figure);
+               the f32 transposed row kernel (the cluster store) also
+               against the natural store, transposed, on the same inputs
+               at every shape the paths give it: the two run the same
+               stages, so they must agree bit for bit (or within 1e-6·max,
+               which the line says);
   4. slice   — seventeen paths on the card, each from a seeded init, with
                every launch count set to 0 just before and read just after
                it:
@@ -92,8 +98,11 @@ Phases, each printing its own lines:
                kernel's device time beside its plain version's, its library
                call's where one PyTorch call computes the same function, and
                its bound; each redesigned row kernel beside its time
-               before its redesign (BEFORE_REDESIGN_MS), the Stockham
-               kernel's with the same store and cuFFT's at each shape;
+               before its redesign (BEFORE_REDESIGN_MS) and cuFFT's at
+               each shape: the f32 transposed kernel beside the natural
+               store at the same shape (the same stages, a coalesced
+               store), the others beside the f32 kernel with their store
+               (for the transposed store, the cluster-store kernel);
                warm L2, nothing
                asserted. Device times come
                from torch.profiler; where it records none, from CUDA
@@ -105,8 +114,9 @@ With --sweep-rows, phases 4 and 5 give way to a sweep of the rows per
 block: each f32 row-DFT and fused case of phase 3, and the cases of the
 bf16 row kernel (both stores) and the f32 three-factor row kernel, at
 every power of two up to 16 that fits shared memory, checked against its
-plain version and timed (device time, torch.profiler); the wrappers'
-choice is marked "*". No result line follows.
+plain version and timed (device time, torch.profiler); the f32
+transposed kernel at every such rows and every cluster size (1, 2, 4, 8);
+the wrappers' choice is marked "*". No result line follows.
 
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. Without a CUDA device it stops at once. Imports no jax.
@@ -256,7 +266,7 @@ POND_PATHS = [
 # per-channel set or the packed set with 5 live fields is its own entry,
 # named as it counts (fft.planes.kernel_name)
 KERNEL_INFO = {
-    "fft_rows_transposed": ("tpu_ocean_torch/csrc/fft_rows.cu",
+    "fft_rows_transposed": ("tpu_ocean_torch/csrc/stockham_rows_cluster.cuh",
                             "tpu_ocean/fft/pallas_fft.py:235"),
     "fields_stencil": ("tpu_ocean_torch/csrc/fields_stencil.cu",
                        "tpu_ocean/ops/fields_pallas.py:255"),
@@ -299,11 +309,18 @@ KERNEL_INFO = {
 }
 # kernel-vs-plain band of each tier (tests/test_torch_cuda_kernels.py)
 TIER_BAND = {"f32": 1e-5, "bf16": 2e-3, "bf16x3": 1e-5}
-# each redesigned row kernel before its redesign (the matrix engine), device
-# ms a launch at each shape it is timed at: PERF.md §6, NVIDIA H100 80GB
-# HBM3, 700 W, torch.profiler, the chip run before each redesign; printed
-# beside this run's times, not measured here
+# each redesigned row kernel before its redesign (the matrix engine; for
+# the f32 transposed kernel the block-per-R-rows store), device ms a launch
+# at each shape it is timed at: PERF.md §6, NVIDIA H100 80GB HBM3, 700 W,
+# torch.profiler, the chip run before each redesign; printed beside this
+# run's times, not measured here
 BEFORE_REDESIGN_MS = {
+    "fft_rows_transposed": {
+        (1, 1024, 1024): 0.0148, (1, 512, 1024): 0.0111,
+        (1, 1024, 512): 0.0080, (1, 1, 1024): 0.0040,
+        (1, 4096, 4096): 0.4708, (1, 4096, 2048): 0.1744,
+        (3, 1024, 1024): 0.0496, (2, 1024, 1024): 0.0282,
+        (3, 4096, 4096): 1.3922, (5, 4096, 4096): 2.3091},
     "matrix_rows_transposed[bf16]": {
         (1, 1024, 1024): 0.0769, (1, 512, 1024): 0.0452,
         (1, 1024, 512): 0.0481, (1, 1, 1024): 0.0139,
@@ -324,6 +341,9 @@ BF16_ROWS_F64_ERR, BF16_ROWS_F64_SPREAD = 2.86e-3, 0.1
 # one f32 three-factor row pass against float64 at [1,1024,1024]: at most
 # 5e-7 x max (the matrix engine read 2.48e-7, PERF.md §6)
 SPLIT3_F64_MAX = 5e-7
+# one f32 direct transposed row pass against float64 at [1,1024,1024]
+# (PERF.md §6): the cluster store moves data only, so at most 1.1 x
+F32_ROWS_F64_ERR = 1.67e-7
 TIER_CODE = {"0": "f32", "1": "bf16", "2": "bf16x3"}
 OCEAN_NOTE = ("torch ops: phase, assembly where unfused, C2R fold, "
               "interleave, transposing copies, positions, fields where "
@@ -367,6 +387,8 @@ def spectral_normal_band(ref, packed, rel):
 
 def kernel_group(key):
     """The port's kernel a profiler key names, or "torch ops"."""
+    if "stockham_rows_cluster_kernel" in key:
+        return "fft_rows_transposed"
     m = (re.search(r"bf16_rows_kernel<\d+, (true|false)>", key)
          or re.search(r"bf16_rows_kernelILi\d+ELb([01])E", key))
     if m is not None:
@@ -619,8 +641,10 @@ SWEPT = ("fft_rows", "fused_rows", "matrix_rows_transposed[bf16]",
 def sweep_rows(cases, planes):
     """Time each row-DFT and fused case at every power-of-two rows per
     block up to 16 that fits shared memory, each checked against its plain
-    version first; the wrappers' own choice marked "*"."""
-    chosen_fn = planes.rows_per_block
+    version first; the f32 transposed kernel (the cluster store) at every
+    such rows and every cluster size; the wrappers' own choice marked
+    "*"."""
+    chosen_fn, cluster_fn = planes.rows_per_block, planes.transposed_cluster
     sms = planes.sm_count(torch.device("cuda"))
     for case in cases:
         name, shape, run, plain = case.name, case.shape, case.run, case.plain
@@ -631,22 +655,30 @@ def sweep_rows(cases, planes):
         natural = "natural" in name
         tier, split3 = case.engine
         shared = planes.block_shared_bytes(tier, split3, natural)
+        clustered = name == "fft_rows_transposed"
         chosen = chosen_fn(c, m, n, sms,
+                           planes.cluster_max_rows(n) if clustered else
                            planes.max_rows(n, natural, tier, split3), shared)
+        k_chosen = cluster_fn(m, n, chosen) if clustered else 1
+        points = [(1 << i, k) for i in range(5)
+                  if shared(1 << i, n) <= planes.SMEM_LIMIT
+                  for k in (planes.CLUSTER_SIZES if clustered else (1,))]
         want = plain()
-        rows = 1
-        while rows <= 16 and shared(rows, n) <= planes.SMEM_LIMIT:
+        for rows, k in points:
             planes.rows_per_block = lambda *_, r=rows, **__: r
+            planes.transposed_cluster = lambda *_, k=k, **__: k
             try:
                 err, scale = check_kernel(name, shape, run(), want,
                                           case.band, case.channels)
                 ms, _, how = device_ms(run)
             finally:
                 planes.rows_per_block = chosen_fn
+                planes.transposed_cluster = cluster_fn
+            mark = "*" if (rows, k) == (chosen, k_chosen) else " "
             log(f"[sweep] {name} {shape} rows {rows:2d}"
-                f"{'*' if rows == chosen else ' '} {ms * 1e3:8.2f} µs ({how}), "
+                + (f" cluster {k}" if clustered else "")
+                + f"{mark} {ms * 1e3:8.2f} µs ({how}), "
                 f"err {err / scale:.1e} x max|plain|")
-            rows *= 2
 
 
 def check_fields(card, n, tag):
@@ -811,6 +843,9 @@ def main():
     # bf16x3) and the twiddle's 6 f32; in the three-factor form at f32
     # 8·(n2 + 8 + 16) + 12 on FFMA
     cases = []
+    # shape: (the f32 transposed pass, the natural store on the same
+    # inputs), which runs the same stages
+    same_stages = {}
     for name, fn, plain, precision, switches, shapes in (
             ("fft_rows_transposed", planes.fft1d_transposed,
              planes.fft1d_transposed_plain, "float32", {},
@@ -862,6 +897,11 @@ def main():
                 TIER_BAND[tier],
                 f64_rows(re, im, fn is planes.fft1d_transposed), switches,
                 shape[0], engine=(tier, split3)))
+            if name == "fft_rows_transposed":
+                same_stages[shape] = (
+                    lambda re=re, im=im: planes.fft1d_transposed(re, im, True),
+                    lambda re=re, im=im: planes.fft1d_natural_large(re, im,
+                                                                    True))
     # (M, N, first channel, channels, set): the shapes the paths give each
     # entry; a set is (packed, nch_live)
     sets = {"packed3": (True, 3), "packed5": (True, 5),
@@ -988,6 +1028,23 @@ def main():
         log(line)
         del got
 
+    # the f32 transposed kernel against the natural store on the same
+    # inputs: the same stockham.cuh stages and twiddles, only the data
+    # movement differs, so the results must be the same bits
+    for shape, (transposed, natural) in same_stages.items():
+        got, nat = transposed(), natural()
+        torch.cuda.synchronize()
+        want = tuple(w.transpose(-1, -2) for w in nat)
+        scale = max(w.abs().max().item() for w in want)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        log(f"[kernels] fft_rows_transposed {list(shape)} against the natural "
+            f"store transposed (the same stages): bit-equal {same}, max abs "
+            f"err {err:.3e} = {err / scale:.3e} x max (limit 1e-6)")
+        require(err <= 1e-6 * scale, f"fft_rows_transposed {list(shape)} and "
+                f"the natural store disagree ({err / scale:.3e} x max)")
+        del got, nat, want
+
     # both stencils on the fields of one step at each size the paths run
     for n in sorted({path.size for path in PATHS}):
         cfg = OCEAN_DEMO.replace(resolution=n)
@@ -1081,6 +1138,11 @@ def main():
                         f"the bf16 {store} row pass at [1,1024,1024] moved: "
                         f"{err:.3e} against float64, the plain version "
                         f"{ref_err:.3e}, PERF.md {BF16_ROWS_F64_ERR:.2e}")
+            if n == 1024 and label == "f32" and store == "transposed":
+                require(err <= 1.1 * F32_ROWS_F64_ERR,
+                        f"the f32 transposed row pass at [1,1024,1024]: "
+                        f"{err:.3e} against float64 > 1.1 x "
+                        f"{F32_ROWS_F64_ERR:g}")
             if n == 1024 and label == "f32,split3":
                 require(err <= SPLIT3_F64_MAX,
                         f"the f32 three-factor row pass at [1,1024,1024]: "
@@ -1360,18 +1422,26 @@ def main():
         results.setdefault(name, (shape, k, p, lib, b_ms, b_by, timed_by))
         by_shape[name, tuple(shape)] = (k, lib, b_ms)
 
-    # each redesigned row kernel beside its time before the redesign, the
-    # f32 Stockham kernel with the same store and cuFFT at each shape
+    # each redesigned row kernel beside its time before the redesign and
+    # cuFFT at each shape: the f32 transposed kernel beside the natural
+    # store (the same stages, a coalesced store), the others beside the f32
+    # kernel with their store (the transposed one: the cluster store)
     for name, before_ms in BEFORE_REDESIGN_MS.items():
         store = "natural" if "natural" in name else "transposed"
         for shape, before in before_ms.items():
             k, lib, b_ms = by_shape[name, shape]
-            stockham = by_shape[f"fft_rows_{store}", shape][0]
+            if name == "fft_rows_transposed":
+                what = "the natural store, same stages"
+                ref = device_ms(same_stages[shape][1])[0]
+            else:
+                what = (f"Stockham f32 {store}"
+                        + (" (cluster store)" if store == "transposed" else ""))
+                ref = by_shape[f"fft_rows_{store}", shape][0]
             log(f"[timing] {kind} ({smi}): {name} {list(shape)}: {k:.4f} ms "
                 f"(before the redesign {before:.4f}, PERF.md, not this run), "
-                f"Stockham f32 {store} {stockham:.4f}, cuFFT {lib:.4f}, "
-                f"bound {b_ms:.4f}; {before / k:.2f}x faster than before, "
-                f"{k / stockham:.3f} of Stockham, {k / lib:.2f}x cuFFT")
+                f"{what} {ref:.4f}, cuFFT {lib:.4f}, bound {b_ms:.4f}; "
+                f"{before / k:.2f}x faster than before, {k / ref:.3f} of "
+                f"{what}, {k / lib:.2f}x cuFFT")
 
     phase_done("5 timing, kernels")
     log(json.dumps({"kernels": [

@@ -11,7 +11,9 @@ machine with a GPU need not have).
 Tolerances: the row DFTs (transposed, natural and fused stores) differ from
 torch.fft (cuFFT) in summation order, 1e-5·max|plain| covers f32 rounding
 over log2(N) stages (the fused kernels' assembly rounds each product as
-the plain version does; sin/cos differ by an ulp at most). The fields
+the plain version does; sin/cos differ by an ulp at most). The f32
+transposed kernel (the cluster store) runs the natural store's stages, so
+the two agree bit for bit. The fields
 kernel rounds the normal's cross product as the plain version does, so
 its normal agrees to 1e-5; foam 1e-4. The v1 fields kernel rounds every
 operation as its plain version does: 1e-5 on all three outputs. The
@@ -73,11 +75,25 @@ def _fused_inputs(m, n, device, seed=0):
     return h0, torch.from_numpy(phase).to(device)
 
 
+# the f32 transposed pass at the paths' shapes (C = 1, 2, 3, 5) and at
+# ragged M
+TRANSPOSED_SHAPES = [(1, 1024, 1024), (1, 512, 1024), (1, 1024, 512),
+                     (1, 1, 1024), (2, 1024, 1024), (3, 1024, 1024),
+                     (1, 4096, 4096), (1, 4096, 2048), (3, 4096, 4096),
+                     (5, 4096, 4096), (3, 5, 16), (2, 13, 64), (1, 9, 2048),
+                     (1, 3, 8192)]
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8])
 @pytest.mark.parametrize("inverse", [True, False])
-@pytest.mark.parametrize("shape", [
-    (1, 1024, 1024), (1, 512, 1024), (1, 1024, 512), (1, 1, 1024),  # the slice
-    (3, 5, 16), (2, 13, 64), (1, 9, 2048), (1, 3, 8192)])
-def test_fft_rows_kernel_matches_plain(cuda, shape, inverse):
+@pytest.mark.parametrize("shape", TRANSPOSED_SHAPES)
+def test_fft_rows_kernel_matches_plain(cuda, monkeypatch, shape, inverse,
+                                       cluster):
+    """The cluster-store kernel at the wrapper's cluster size (None) and
+    at every size it takes."""
+    if cluster is not None:
+        monkeypatch.setattr(planes, "transposed_cluster",
+                            lambda *_: cluster)
     re, im = _planes(shape, cuda)
     kr, ki = planes.fft1d_transposed(re, im, inverse)
     pr, pi = planes.fft1d_transposed_plain(re, im, inverse)
@@ -86,6 +102,32 @@ def test_fft_rows_kernel_matches_plain(cuda, shape, inverse):
     assert kr.shape == (shape[0], shape[2], shape[1])
     assert (kr - pr).abs().max().item() <= 1e-5 * scale
     assert (ki - pi).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("shape", TRANSPOSED_SHAPES)
+def test_fft_rows_transposed_is_the_natural_store_transposed(cuda, shape):
+    """The cluster-store kernel and the natural store run the same
+    stockham.cuh stages with the same twiddles; only the data movement
+    differs, so the results are the same bits."""
+    re, im = _planes(shape, cuda)
+    got = planes.fft1d_transposed(re, im)
+    nat = planes.fft1d_natural_large(re, im)
+    torch.cuda.synchronize()
+    for g, w in zip(got, nat):
+        assert torch.equal(g, w.transpose(-1, -2))
+
+
+@pytest.mark.parametrize("cluster", [3, 16])
+def test_cluster_size_the_kernel_does_not_take_raises(cuda, monkeypatch,
+                                                      cluster):
+    """No fallback: a cluster size outside 1, 2, 4, 8 is refused and the
+    wrapper raises."""
+    monkeypatch.setattr(planes, "transposed_cluster", lambda *_: cluster)
+    re, im = _planes((1, 64, 1024), cuda)
+    before = planes.fft1d_transposed.launches
+    with pytest.raises(RuntimeError, match="tpu_fft_rows_transposed"):
+        planes.fft1d_transposed(re, im)
+    assert planes.fft1d_transposed.launches == before
 
 
 @pytest.mark.parametrize("shape", [(1024, 1024), (33, 64), (7, 100)])

@@ -1,6 +1,9 @@
 """The row-DFT kernels' routing, blocks and layouts, on the CPU: which
 kernel each (tier, form, store) runs, that every block rows_per_block can
-pick fits shared memory, the f32 three-factor kernel's tables
+pick fits shared memory, a numpy model of the f32 transposed kernel's
+cluster store (csrc/stockham_rows_cluster.cuh: its cluster sizes, shared
+memory, gather and store, their coverage, store runs and bank
+arithmetic), the f32 three-factor kernel's tables
 (csrc/dft_split3_f32.cuh reads planes.matrix_tables) and a numpy model of
 that kernel: its stage order, its items (which thread owns which columns
 and outputs), its padded layouts and their bank arithmetic, run in float64
@@ -41,7 +44,9 @@ def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
                                                else [route])
     shared = planes.block_shared_bytes(tier, split3, natural)
     assert shared is {"bf16_rows": planes.bf16_rows_shared_bytes,
-                      "split3_f32": planes.split3_rows_shared_bytes}.get(
+                      "split3_f32": planes.split3_rows_shared_bytes,
+                      "stockham": (planes.shared_bytes if natural else
+                                   planes.cluster_rows_block_bytes)}.get(
                           route, planes.shared_bytes)
     # the launch name stays the one chip_smoke and the tests count
     kind = "rows_natural" if natural else "rows_transposed"
@@ -70,7 +75,12 @@ def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
      "matrix_rows_transposed[bf16x3,split3]"),
     ("void (anonymous namespace)::fft_rows_kernel<true, "
      "tpu_fft::StockhamEngine>(float const*, float const*, float*, float*, "
-     "float2 const*, int, int, int, int)", "fft_rows_natural")])
+     "float2 const*, int, int, int, int)", "fft_rows_natural"),
+    ("tpu_fft::stockham_rows_cluster_kernel(float const*, float const*, "
+     "float*, float*, float2 const*, int, int, int, int, int)",
+     "fft_rows_transposed"),
+    ("_ZN7tpu_fft28stockham_rows_cluster_kernelEPKfS1_PfS2_PK6float2iiiii",
+     "fft_rows_transposed")])
 def test_profiler_keys_group_under_the_launch_names(key, group):
     assert chip_smoke.kernel_group(key) == group
 
@@ -113,7 +123,7 @@ def test_split3_f32_rows_per_block(shape, rows):
 
 @pytest.mark.parametrize("tier,split3,natural,min_n", [
     ("bf16", False, False, 16), ("bf16", False, True, 16),
-    ("f32", True, False, 128)])
+    ("f32", True, False, 128), ("f32", False, False, 16)])
 def test_every_block_rows_per_block_picks_fits_shared_memory(tier, split3,
                                                              natural, min_n):
     shared = planes.block_shared_bytes(tier, split3, natural)
@@ -133,6 +143,200 @@ def test_split3_shared_bytes_of_the_header():
     kb = {(1024, 8): 147520, (4096, 2): 144912, (8192, 1): 168456}
     for (n, rows), want in kb.items():
         assert planes.split3_rows_shared_bytes(rows, n) == want
+
+
+# ---- the f32 transposed kernel's cluster store
+# (csrc/stockham_rows_cluster.cuh)
+
+# ([C, M, N], rows, cluster, shared bytes): every shape a path gives the f32
+# transposed pass, and ragged M
+CLUSTER_SHAPES = [
+    ((1, 1024, 1024), 8, 1, 139384), ((1, 512, 1024), 4, 2, 73784),
+    ((1, 1024, 512), 8, 1, 69752), ((1, 1, 1024), 1, 1, 24584),
+    ((1, 4096, 4096), 1, 8, 98312), ((1, 4096, 2048), 2, 4, 81944),
+    ((3, 1024, 1024), 8, 1, 139384), ((2, 1024, 1024), 8, 1, 139384),
+    ((3, 4096, 4096), 1, 8, 98312), ((5, 4096, 4096), 1, 8, 98312),
+    ((3, 5, 16), 1, 1, 392), ((2, 13, 64), 1, 4, 1544),
+    ((1, 9, 2048), 1, 8, 49160), ((1, 3, 8192), 1, 2, 196616)]
+
+
+@pytest.mark.parametrize("shape,rows,cluster,nbytes", CLUSTER_SHAPES)
+def test_transposed_cluster_at_the_paths_shapes(shape, rows, cluster, nbytes):
+    """K·R ≥ 8 rows a cluster (32-byte store runs) where M and N allow it:
+    K = 8 at N = 4096 (R = 1), 4 at N = 2048 (R = 2), 2 at R = 4, 1 at
+    R = 8 and for one row. Up to N = 1024 the rows per block are those of
+    the block-per-R-rows store (8 rows fit a block); beyond, blocks of
+    CLUSTER_BLOCK_POINTS, two of them to an SM (at most 113 KB each)."""
+    c, m, n = shape
+    shared = planes.block_shared_bytes("f32", False, False)
+    cap = planes.cluster_max_rows(n)
+    assert cap == (8 if n <= 1024 else max(1, 4096 // n))
+    got = planes.rows_per_block(c, m, n, SMS, cap, shared)
+    assert got == rows
+    if n <= 1024:
+        assert rows == planes.rows_per_block(
+            c, m, n, SMS, planes.max_rows(n, False), planes.shared_bytes)
+    elif rows * n == planes.CLUSTER_BLOCK_POINTS:
+        assert 2 * (nbytes + 1024) <= SM_SHARED
+    assert planes.transposed_cluster(m, n, rows) == cluster
+    assert planes.cluster_rows_shared_bytes(rows, n, cluster) == nbytes
+    assert nbytes <= planes.SMEM_LIMIT
+
+
+def test_cluster_shared_bytes_of_the_header():
+    """cluster_smem_bytes's sizes, in complex units: the stages' 2R(N + 1)
+    + N − 1, or R(N + 1) + K·R·S with S = gather_stride(K·R, N/K). At
+    N = 16, R = K = 8: S = 2 + 15 = 17 (odd, ≥ 2), 8·17 + 64·17 = 1224,
+    above the stages' 287."""
+    assert planes.cluster_gather_stride(64, 2) == 17
+    assert planes.cluster_gather_stride(8, 1024) == 1026
+    assert planes.cluster_gather_stride(4, 1024) == 1028
+    assert planes.cluster_gather_stride(2, 2048) == 2056
+    assert planes.cluster_gather_stride(1, 1024) == 1024
+    assert planes.cluster_gather_stride(16, 256) == 257
+    sizes = {(16, 8, 8): 1224, (4096, 2, 4): 20483, (8192, 1, 8): 24577,
+             (64, 1, 8): 209, (1024, 4, 2): 9223, (1024, 8, 1): 17423}
+    for (n, rows, k), want in sizes.items():
+        assert planes.cluster_rows_shared_bytes(rows, n, k) == 8 * want
+
+
+@pytest.mark.parametrize("n", [1 << i for i in range(4, 14)])
+def test_every_cluster_block_the_wrapper_picks_fits_shared_memory(n):
+    """At every batch the wrapper's (R, K), and every K the sweep takes at
+    that R, fit the card's 227 KB; K is a cluster size the kernel takes."""
+    shared = planes.block_shared_bytes("f32", False, False)
+    for c in (1, 2, 3, 5):
+        for m in (1, 2, 3, 7, 9, 13, 64, 131, 132, 133, 512, 1000, 1024,
+                  2048, 4096, 8192):
+            rows = planes.rows_per_block(c, m, n, SMS,
+                                         planes.cluster_max_rows(n), shared)
+            k = planes.transposed_cluster(m, n, rows)
+            assert k in planes.CLUSTER_SIZES and k <= max(1, n // 16)
+            for kk in planes.CLUSTER_SIZES:
+                assert planes.cluster_rows_shared_bytes(rows, n, kk) <= \
+                    planes.SMEM_LIMIT, (c, m, n, rows, kk)
+
+
+def _round_degree(addr, threads, lanes=None):
+    """The worst bank-pair conflict of 64-bit shared accesses of a loop
+    over items (thread = item mod ``threads``, one item a thread a round):
+    ``addr`` [items] in complex units, ``lanes`` the items that access (all
+    by default); a half warp is 16 consecutive items of one round; the
+    degree is the most distinct addresses of a half warp that agree mod 16
+    (1: conflict-free)."""
+    addr = np.asarray(addr)
+    lanes = np.ones(addr.size, bool) if lanes is None else lanes
+    half = min(16, threads)
+    worst = 1
+    for start in range(0, addr.size, half):
+        a = addr[start:start + half][lanes[start:start + half]]
+        if a.size:
+            worst = max(worst, np.bincount(np.unique(a) % 16).max())
+    return worst
+
+
+def _cluster_indices(n, rows, k, j):
+    """Block j's item maps in the kernel: the gather's (source block q,
+    its result-buffer address, the tile address), None at k = 1, and the
+    store's (address it reads: in the tile, or at k = 1 in the result
+    buffer; row rr of the cluster; column k of the output), item by
+    item."""
+    log2w = (n // k).bit_length() - 1
+    w, kr, stride = n // k, k * rows, n + 1
+    s = planes.cluster_gather_stride(kr, w)
+    idx = np.arange(rows * n)
+    row, col = idx >> log2w, idx & (w - 1)
+    rr, kk = idx & (kr - 1), idx // kr
+    if k == 1:
+        return None, (rr * stride + kk, rr, kk)
+    gather = (row // rows, (row % rows) * stride + j * w + col,
+              rows * stride + row * s + col)
+    return gather, (rows * stride + rr * s + kk, rr, j * w + kk)
+
+
+@pytest.mark.parametrize("n,k", [(1 << i, k) for i in range(6, 14)
+                                 for k in (2, 4, 8) if (1 << i) // k >= 16])
+def test_cluster_tile_passes_are_conflict_free(n, k):
+    """Every R that fits at every cluster size above 1 (where there is a
+    tile) with 16 columns or more a block (transposed_cluster keeps that):
+    the gather's remote reads (one source block a half warp) and tile
+    writes, and the store's tile reads, all conflict-free."""
+    rows = 1
+    while planes.shared_bytes(rows, n) <= planes.SMEM_LIMIT and rows <= 16:
+        threads = min(rows * n // 2, THREADS)
+        for j in range(k):
+            (q, src, dst), (tile, _, _) = _cluster_indices(n, rows, k, j)
+            assert (q.reshape(-1, 16) == q.reshape(-1, 16)[:, :1]).all()
+            for addr in (src, dst, tile):
+                assert _round_degree(addr, threads) == 1, (n, rows, k, j)
+        rows *= 2
+
+
+# (C, M, N, R, K): the paths' cluster geometries at a few rows, ragged
+# clusters (rows past M, whole blocks past M), and the sweep's extremes
+STORE_MODEL_CASES = [(1, 8, 4096, 2, 4), (2, 13, 4096, 2, 4),
+                     (1, 16, 2048, 4, 2), (1, 12, 1024, 4, 2),
+                     (1, 8, 1024, 8, 1), (3, 5, 16, 1, 1), (2, 13, 64, 1, 4),
+                     (1, 9, 2048, 1, 8), (1, 3, 8192, 1, 2),
+                     (1, 24, 1024, 8, 8), (1, 16, 512, 4, 4)]
+
+
+@pytest.mark.parametrize("c,m,n,rows,k", STORE_MODEL_CASES)
+def test_cluster_store_model_writes_every_output_once(c, m, n, rows, k):
+    """The kernel's data movement after the stages, cluster by cluster:
+    each block's result buffer (at 0, rows of n + 1) holds the float64 DFT
+    of its rows (zeros past M); block j gathers its column range into its
+    tile, which lies past every result buffer and inside the block's
+    shared memory, and stores it (at K = 1 a block stores from its result
+    buffer). Every (c, k, m < M) is written exactly
+    once with its DFT value, and every warp of a full cluster writes runs
+    of whole multiples of min(K·R, 32) consecutive floats a plane (runs
+    join where M = K·R), each starting on a multiple of that where K·R
+    divides M (whole 32-byte sectors from K·R = 8 on)."""
+    rng = np.random.default_rng(m * n + k)
+    x = rng.normal(size=(c, m, n)) + 1j * rng.normal(size=(c, m, n))
+    want = np.fft.ifft(x, axis=-1).transpose(0, 2, 1) * n
+    stride, kr = n + 1, k * rows
+    size = planes.cluster_rows_shared_bytes(rows, n, k) // 8
+    threads = min(rows * n // 2, THREADS)
+    grid = -(-(-(-m // rows)) // k) * k
+    out = np.zeros((c, n, m), complex)
+    writes = np.zeros((c, n, m), int)
+    run = min(kr, 32, rows * n)
+    for ch in range(c):
+        for first in range(0, grid, k):
+            smem = np.full((k, size), np.nan, complex)
+            for q in range(k):
+                m0 = (first + q) * rows
+                block = np.zeros((rows, n), complex)
+                live = max(0, min(rows, m - m0))
+                block[:live] = np.fft.ifft(x[ch, m0:m0 + live], axis=-1) * n
+                pos = np.arange(rows)[:, None] * stride + np.arange(n)
+                smem[q, pos] = block
+            mc = first * rows
+            for j in range(k):
+                gather, (tile, rr, col) = _cluster_indices(n, rows, k, j)
+                local = smem[j].copy()
+                if gather is not None:
+                    q, src, dst = gather
+                    assert dst.min() >= rows * stride and dst.max() < size
+                    local[dst] = smem[q, src]
+                keep = mc + rr < m
+                vals = local[tile[keep]]
+                assert not np.isnan(vals).any()
+                out[ch, col[keep], mc + rr[keep]] = vals
+                np.add.at(writes[ch], (col[keep], mc + rr[keep]), 1)
+                if mc + kr <= m:
+                    g = col * m + mc + rr
+                    for warp in g.reshape(-1, 32) if g.size >= 32 else [g]:
+                        warp = np.sort(warp)
+                        cuts = np.flatnonzero(np.diff(warp) != 1) + 1
+                        for piece in np.split(warp, cuts):
+                            assert piece.size % run == 0
+                            if m % kr == 0:
+                                assert piece[0] % run == 0
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(out, want)
 
 
 # ---- the f32 three-factor kernel's tables

@@ -36,12 +36,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # the row-DFT and fused entries take (tier, split3) after their other ints;
-# the fused ones take (packed, nch_live) before those
+# the fused ones take (packed, nch_live) before those, the transposed row
+# entry its cluster size after them
 _ROWS = [_P] * 5 + [_I] * 6 + [_P]
 _FUSED = [_P] * 9 + [_I] * 10 + [_F] * 3 + [_P]
 # (name, argtypes) of every C entry; each returns cudaGetLastError() as int
 _SIGNATURES = {
-    "tpu_fft_rows_transposed": _ROWS,
+    "tpu_fft_rows_transposed": [_P] * 5 + [_I] * 7 + [_P],
     "tpu_fft_rows_natural": _ROWS,
     "tpu_fused_rows_transposed": _FUSED,
     "tpu_fused_rows_natural": _FUSED,

@@ -24,9 +24,11 @@
 // all log2(N) radix-2 Stockham autosort stages there (the network of the
 // reference's Stockham.shader, ping-ponging between two shared buffers so
 // no stage touches device memory; stockham.cuh), and writes the result.
-// The transposed store has consecutive threads write consecutive m: R = 8
-// rows give 32-byte runs, one full sector each. The natural store writes
-// the R rows as one contiguous run, so it is coalesced at any R. A block
+// The natural store writes the R rows as one contiguous run, so it is
+// coalesced at any R. The f32 transposed store runs in
+// stockham_rows_cluster.cuh: K blocks of a thread-block cluster pool their
+// K·R rows, so consecutive threads write K·R consecutive m (32-byte runs,
+// one full sector, at K·R = 8) even where only R = 2 rows fit a block. A block
 // takes about as long whatever R is, so the wrapper picks R to give about
 // one block per SM (R = 4 for the 512-row half pass, 1 for the one-row
 // Nyquist pass). The TPU kernel's Bailey four-step existed to feed the
@@ -44,7 +46,8 @@
 // f32, 1 bf16, 2 bf16x3) and a form (split3 0 or 1). The three-factor form
 // is for the transposed store only (_fft_block_kernel_split3). Which code
 // runs a pass:
-//   f32, direct: the Stockham stages above (`tables` the twiddles);
+//   f32, direct: the Stockham stages above (`tables` the twiddles), the
+//     transposed store through a cluster (stockham_rows_cluster.cuh);
 //   bf16, direct, either store: dft_bf16_rows.cuh (bf16 tables pre-laid
 //     out as mma fragments, the intermediate in bf16; `tables`
 //     planes.bf16_rows_tables);
@@ -59,12 +62,11 @@
 #include "dft_bf16_rows.cuh"
 #include "dft_matrix.cuh"
 #include "dft_split3_f32.cuh"
+#include "stockham_rows_cluster.cuh"
 
 namespace {
 
 using namespace tpu_fft;
-
-constexpr int kLoadsInFlight = 8;
 
 template <class Engine>
 constexpr bool kThreeFactor = false;
@@ -91,29 +93,8 @@ fft_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
 
   Engine::prologue(tw, tables, N);
 
-  // Load R rows (contiguous in memory from row m0) with kLoadsInFlight
-  // loads started per thread before any is waited on: one block per SM has
-  // too few warps to hide device-memory latency one load at a time. Rows
-  // past M (the ragged last block) are zero and never stored.
-  const int total = R * N;
-  const float* block_re = in_re + static_cast<size_t>(m0) * N;
-  const float* block_im = in_im + static_cast<size_t>(m0) * N;
-  const int valid = (M - m0 < R ? M - m0 : R) * N;
-  for (int base = threadIdx.x; base < total;
-       base += kLoadsInFlight * blockDim.x) {
-    float2 v[kLoadsInFlight];
-#pragma unroll
-    for (int u = 0; u < kLoadsInFlight; ++u) {
-      const int idx = base + u * blockDim.x;
-      v[u] = idx < valid ? make_float2(block_re[idx], block_im[idx])
-                         : make_float2(0.f, 0.f);
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadsInFlight; ++u) {
-      const int idx = base + u * blockDim.x;
-      if (idx < total) src[(idx >> log2n) * stride + (idx & (N - 1))] = v[u];
-    }
-  }
+  // Rows past M (the ragged last block) are zero and never stored.
+  load_rows(src, in_re, in_im, M, N, log2n, R, m0);
   __syncthreads();
 
   const float2* res = Engine::run(src, dst, tw, tables, R, N, log2n);
@@ -124,10 +105,18 @@ fft_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
 template <bool kNatural>
 int launch(const void* re, const void* im, void* out_re, void* out_im,
            const void* tables, int channels, int m, int n, int rows,
-           int tier, int split3, void* stream) {
+           int tier, int split3, int cluster, void* stream) {
   return with_engine(tier, split3, kNatural, [&](auto engine) {
     using Engine = decltype(engine);
-    if constexpr (std::is_same_v<Engine, MatrixEngine<kTierBf16, false>>) {
+    constexpr bool kClustered =
+        !kNatural && std::is_same_v<Engine, StockhamEngine>;
+    if (!kClustered && cluster != 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if constexpr (kClustered) {
+      return launch_cluster_rows(re, im, out_re, out_im, tables, channels, m,
+                                 n, rows, cluster, stream);
+    } else if constexpr (std::is_same_v<Engine,
+                                        MatrixEngine<kTierBf16, false>>) {
       return launch_bf16_rows<kNatural>(re, im, out_re, out_im, tables,
                                         channels, m, n, rows, stream);
     } else if constexpr (kNatural && kThreeFactor<Engine>) {
@@ -162,12 +151,15 @@ extern "C" {
 // planes, `tables` the Stockham twiddles (tier 0, split3 0), the bf16 row
 // kernel's tables (tier 1, split3 0) or the matrix engine's tables for
 // (n, tier, split3), which the three-factor f32 kernel also reads.
+// The transposed entry also takes `cluster`, the blocks of one thread-block
+// cluster of the f32 direct pass (planes.transposed_cluster: 1, 2, 4 or 8);
+// every other pass takes 1.
 int tpu_fft_rows_transposed(const void* re, const void* im, void* out_re,
                             void* out_im, const void* tables, int channels,
                             int m, int n, int rows, int tier, int split3,
-                            void* stream) {
+                            int cluster, void* stream) {
   return launch<false>(re, im, out_re, out_im, tables, channels, m, n, rows,
-                       tier, split3, stream);
+                       tier, split3, cluster, stream);
 }
 
 int tpu_fft_rows_natural(const void* re, const void* im, void* out_re,
@@ -175,7 +167,7 @@ int tpu_fft_rows_natural(const void* re, const void* im, void* out_re,
                          int m, int n, int rows, int tier, int split3,
                          void* stream) {
   return launch<true>(re, im, out_re, out_im, tables, channels, m, n, rows,
-                      tier, split3, stream);
+                      tier, split3, 1, stream);
 }
 
 const char* tpu_cuda_error_string(int err) {

@@ -26,7 +26,9 @@ tier as ``pallas_fft.kernel_precision`` does: ``bf16`` (one bf16 pass),
 ``f32``, or ``bf16x3`` for N above ``KERNEL_B3_THRESHOLD``. A transposed-
 store pass takes the three-factor form (#1b, ``_fft_block_kernel_split3``)
 where ``use_split3`` says so (N above ``THREE_FACTOR_THRESHOLD``). f32 in
-the direct form runs the radix-2 Stockham stages and its plain version is
+the direct form runs the radix-2 Stockham stages (the transposed store
+through a thread-block cluster of ``transposed_cluster`` blocks,
+``csrc/stockham_rows_cluster.cuh``) and its plain version is
 ``torch.fft``; bf16 in the direct form runs a kernel of its own with
 either store (``csrc/dft_bf16_rows.cuh``, tables from
 ``bf16_rows_tables``), and so does f32 in the three-factor form
@@ -65,6 +67,21 @@ MAX_TRANSPOSED_N = 2048
 #: the most rows a transposed-store block takes: R = 8 rows give 32-byte
 #: runs in the transposed store
 TRANSPOSED_MAX_ROWS = 8
+#: the rows one thread-block cluster of the f32 transposed kernel
+#: (csrc/stockham_rows_cluster.cuh) stores together, at least: K·R = 8 rows
+#: give 32-byte runs where a block holds fewer. Swept on an H100 80GB HBM3
+#: at 700 W (python3 chip_smoke.py --sweep-rows), [1, 4096, 4096]: at R = 1
+#: K = 8 took 278.9 µs, K = 4 336.1; at R = 2 K = 4 366.2, K = 8 367.4;
+#: [1, 4096, 2048] at R = 4: K = 2 154.8, K = 4 171.6
+TRANSPOSED_CLUSTER_ROWS = 8
+#: the most points (rows × N) a block of that kernel takes where 8 rows do
+#: not fit one block (N ≥ 2048): in the same sweep, blocks of 4096 points,
+#: two to an SM, in clusters of 8 / R were fastest at every such shape:
+#: [1, 4096, 4096] 278.9 µs at R = 1 against 366.2 at R = 2 (one block an
+#: SM), [1, 4096, 2048] 127.0 at R = 2 against 154.8 at R = 4
+CLUSTER_BLOCK_POINTS = 4096
+#: the cluster sizes that kernel takes (8: the card's portable limit)
+CLUSTER_SIZES = (1, 2, 4, 8)
 #: the most points (rows × N) a natural-store block takes. Its store is
 #: coalesced at any R; swept on the H100 (python3 chip_smoke.py
 #: --sweep-rows), the fastest blocks held about 4096 points:
@@ -320,14 +337,74 @@ def split3_rows_shared_bytes(rows: int, n: int) -> int:
                 + _SPLIT_U * _SPLIT_U)
 
 
+def cluster_gather_stride(kr: int, w: int) -> int:
+    """Row stride, in complex units, of the tile of ``kr`` rows of ``w``
+    columns that a block of the f32 transposed kernel gathers
+    (csrc/stockham_rows_cluster.cuh gather_stride): the least S ≥ w with
+    S ≡ 16/kr (mod 16), odd from kr = 16 on, so that its half-warp reads of
+    kr rows at 16/kr consecutive columns meet no bank conflict."""
+    want = 1 if kr >= 16 else (16 // kr) & 15
+    return w + ((want - w) & 15)
+
+
+def cluster_rows_shared_bytes(rows: int, n: int, k: int) -> int:
+    """Dynamic shared memory of one block of the f32 transposed kernel
+    with ``k`` blocks a cluster (cluster_smem_bytes): the stages' two
+    buffers and twiddles (shared_bytes), or the result buffer and the
+    gathered tile of k·rows rows of n/k columns (none at k = 1, which
+    stores from its result), whichever is more."""
+    if k == 1:
+        return shared_bytes(rows, n)
+    gathered = rows * (n + 1) + k * rows * cluster_gather_stride(k * rows,
+                                                                  n // k)
+    return max(shared_bytes(rows, n), 8 * gathered)
+
+
+def cluster_rows_block_bytes(rows: int, n: int) -> int:
+    """The most shared memory a block of ``rows`` rows of the f32
+    transposed kernel takes at any cluster size."""
+    return max(cluster_rows_shared_bytes(rows, n, k) for k in CLUSTER_SIZES)
+
+
+def cluster_max_rows(n: int) -> int:
+    """The most rows per block of the f32 transposed kernel:
+    TRANSPOSED_MAX_ROWS where that many rows fit one block (N ≤ 1024: the
+    block stores whole sectors alone, K = 1), else CLUSTER_BLOCK_POINTS // n
+    (R = 2 at N = 2048, 1 from N = 4096), which a cluster makes up to
+    TRANSPOSED_CLUSTER_ROWS rows. (The fused kernels keep max_rows.)"""
+    if shared_bytes(TRANSPOSED_MAX_ROWS, n) <= SMEM_LIMIT:
+        return TRANSPOSED_MAX_ROWS
+    return max(1, CLUSTER_BLOCK_POINTS // n)
+
+
+def transposed_cluster(m: int, n: int, rows: int) -> int:
+    """Blocks a cluster of the f32 transposed kernel for M rows of length
+    ``n`` at ``rows`` rows a block: the smallest power of two K with K·rows
+    ≥ TRANSPOSED_CLUSTER_ROWS, at most 8, at most n/16 (each block's
+    column range n/K keeps 16 columns, which the tile's bank arithmetic
+    assumes) and at most ⌈M/rows⌉, rounded down to a power of two. K = 8
+    at [*, 4096, 4096] (rows 1), 4 at [1, 4096, 2048] (rows 2), 2 at
+    [1, 512, 1024] (rows 4), 1 at rows 8 and for the one-row Nyquist
+    pass."""
+    cap = min(CLUSTER_SIZES[-1], n // 16, -(-m // rows))
+    k = 1
+    while k * rows < TRANSPOSED_CLUSTER_ROWS and 2 * k <= cap:
+        k *= 2
+    return k
+
+
 def block_shared_bytes(tier: str, split3: bool, natural: bool):
     """The shared-memory function (rows, n) → bytes of the row kernel at
     (tier, split3, store): the bf16 and the f32 three-factor kernels' own,
-    else the Stockham and matrix engines' two buffers (shared_bytes)."""
+    the f32 transposed kernel's at its largest cluster
+    (cluster_rows_block_bytes), else the Stockham and matrix engines' two
+    buffers (shared_bytes)."""
     if _bf16_rows(tier, split3):
         return bf16_rows_shared_bytes
     if _split3_rows(tier, split3) and not natural:
         return split3_rows_shared_bytes
+    if _stockham(tier, split3) and not natural:
+        return cluster_rows_block_bytes
     return shared_bytes
 
 
@@ -448,14 +525,20 @@ def _launch_rows(entry: str, re, im, inverse: bool, out_shape, tier: str,
     tables = (bf16_rows_tables(n, bool(inverse), re.device)
               if _bf16_rows(tier, split3) else
               tables_for(n, inverse, tier, split3, re.device))
+    clustered = not natural and _stockham(tier, split3)
     rows = rows_per_block(c, m, n, sm_count(re.device),
+                          cluster_max_rows(n) if clustered else
                           max_rows(n, natural, tier, split3),
                           block_shared_bytes(tier, split3, natural))
+    # the transposed entry also takes the f32 direct pass's cluster size
+    cluster = (() if natural else
+               (transposed_cluster(m, n, rows) if clustered else 1,))
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(kernels.lib, entry)(
             re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-            tables.data_ptr(), c, m, n, rows, TIERS[tier], int(split3), stream)
+            tables.data_ptr(), c, m, n, rows, TIERS[tier], int(split3),
+            *cluster, stream)
     kernels.check(err, entry)
     return out_re, out_im
 
