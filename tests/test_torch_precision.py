@@ -213,7 +213,7 @@ def test_bf16_rows_blocks_fit_shared_memory(shape, rows):
     """The bf16 row kernel's rows per block: its bf16 buffers take twice
     the rows of the engine's two f32 buffers at N = 4096 and 8192, within
     the card's shared memory, with either store; other passes keep
-    theirs (the f32 direct transposed pass its cluster kernel's)."""
+    theirs (the f32 direct passes their own kernels')."""
     c, m, n = shape
     shared = planes.block_shared_bytes("bf16", False, natural=False)
     assert shared is planes.bf16_rows_shared_bytes
@@ -223,10 +223,11 @@ def test_bf16_rows_blocks_fit_shared_memory(shape, rows):
     assert shared(got, n) <= planes.SMEM_LIMIT
     for tier, split3, natural in (("bf16", True, False),
                                   ("bf16x3", False, False),
-                                  ("bf16x3", False, True),
-                                  ("f32", False, True)):
+                                  ("bf16x3", False, True)):
         assert (planes.block_shared_bytes(tier, split3, natural)
                 is planes.shared_bytes)
+    assert (planes.block_shared_bytes("f32", False, True)
+            is planes.radix16_shared_bytes)
     assert (planes.block_shared_bytes("f32", False, False)
             is planes.cluster_rows_block_bytes)
 

@@ -1,6 +1,11 @@
 """The row-DFT kernels' routing, blocks and layouts, on the CPU: which
 kernel each (tier, form, store) runs, that every block rows_per_block can
-pick fits shared memory, a numpy model of the f32 transposed kernel's
+pick fits shared memory, a numpy model of the f32 natural-store kernel
+(csrc/rows_natural_f32.cuh: its radix plan, twiddle table and padded
+exchange layout, run in float64 against a float64 DFT (1e-12·max) and in
+float32 against JAX's fft1d_natural_large and the plain version (1e-5·max),
+each output written once, every exchange access free of bank conflicts,
+device-memory accesses coalesced), a numpy model of the f32 transposed kernel's
 cluster store (csrc/stockham_rows_cluster.cuh: its cluster sizes, shared
 memory, gather and store, their coverage, store runs and bank
 arithmetic), the f32 three-factor kernel's tables
@@ -45,8 +50,8 @@ def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
     shared = planes.block_shared_bytes(tier, split3, natural)
     assert shared is {"bf16_rows": planes.bf16_rows_shared_bytes,
                       "split3_f32": planes.split3_rows_shared_bytes,
-                      "stockham": (planes.shared_bytes if natural else
-                                   planes.cluster_rows_block_bytes)}.get(
+                      "stockham": (planes.radix16_shared_bytes if natural
+                                   else planes.cluster_rows_block_bytes)}.get(
                           route, planes.shared_bytes)
     # the launch name stays the one chip_smoke and the tests count
     kind = "rows_natural" if natural else "rows_transposed"
@@ -80,7 +85,12 @@ def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
      "float*, float*, float2 const*, int, int, int, int, int)",
      "fft_rows_transposed"),
     ("_ZN7tpu_fft28stockham_rows_cluster_kernelEPKfS1_PfS2_PK6float2iiiii",
-     "fft_rows_transposed")])
+     "fft_rows_transposed"),
+    ("void tpu_fft::radix16::radix16_rows_natural_kernel<12>(float const*, "
+     "float const*, float*, float*, float2 const*, int, int)",
+     "fft_rows_natural"),
+    ("_ZN7tpu_fft7radix1627radix16_rows_natural_kernelILi12EEEvPKfS3_PfS4_"
+     "PK6float2ii", "fft_rows_natural")])
 def test_profiler_keys_group_under_the_launch_names(key, group):
     assert chip_smoke.kernel_group(key) == group
 
@@ -574,3 +584,339 @@ def test_split3_model_matches_float64_and_rows_plain(m, n, rows, inverse):
         worst[what] = max(worst.get(what, 1), degree)
     if n > 128:
         assert worst == {k: 1 for k in worst}, worst
+
+
+# ---- a numpy model of csrc/rows_natural_f32.cuh (the f32 natural store)
+
+def _radix16_constants(dtype):
+    """cos and sin of π/8 and √½, as the header's f32 literals (or in
+    float64)."""
+    return tuple(dtype(v) for v in (np.cos(np.pi / 8), np.sin(np.pi / 8),
+                                    np.sqrt(0.5)))
+
+
+class _Radix16Ops:
+    """The header's in-register arithmetic on (re, im) pairs of ``dtype``
+    arrays, operation for operation (the card may contract a product and
+    a sum into one FMA, which the f32 band covers)."""
+
+    def __init__(self, dtype, sg):
+        self.dtype, self.sg = dtype, dtype(sg)
+        self.c, self.s, self.h = _radix16_constants(dtype)
+
+    @staticmethod
+    def add(a, b):
+        return a[0] + b[0], a[1] + b[1]
+
+    @staticmethod
+    def sub(a, b):
+        return a[0] - b[0], a[1] - b[1]
+
+    def rot_i(self, a):
+        return -self.sg * a[1], self.sg * a[0]
+
+    def rot16(self, a, e):
+        sg, c, s, h = self.sg, self.c, self.s, self.h
+        if e == 0:
+            return a
+        if e == 4:
+            return self.rot_i(a)
+        if e == 2:
+            return (a[0] - sg * a[1]) * h, (a[1] + sg * a[0]) * h
+        if e == 6:
+            return (-a[0] - sg * a[1]) * h, (sg * a[0] - a[1]) * h
+        cc, ss = {1: (c, s), 3: (s, c), 9: (-c, -s)}[e]
+        ss = sg * ss
+        return a[0] * cc - a[1] * ss, a[0] * ss + a[1] * cc
+
+    @staticmethod
+    def cmul(a, w):
+        return a[0] * w[0] - a[1] * w[1], a[0] * w[1] + a[1] * w[0]
+
+    def dft4(self, a):
+        s02, d02 = self.add(a[0], a[2]), self.sub(a[0], a[2])
+        s13, j13 = self.add(a[1], a[3]), self.rot_i(self.sub(a[1], a[3]))
+        return [self.add(s02, s13), self.add(d02, j13), self.sub(s02, s13),
+                self.sub(d02, j13)]
+
+    def dft8(self, u):
+        u = list(u)
+        u[0::2] = self.dft4(u[0::2])
+        u[1::2] = self.dft4(u[1::2])
+        for i, e in ((3, 2), (5, 4), (7, 6)):
+            u[i] = self.rot16(u[i], e)
+        return ([self.add(u[2 * k], u[2 * k + 1]) for k in range(4)]
+                + [self.sub(u[2 * k], u[2 * k + 1]) for k in range(4)])
+
+    def dft16(self, v):
+        v = list(v)
+        for s1 in range(4):
+            v[s1::4] = self.dft4(v[s1::4])
+        for s1 in range(1, 4):
+            for k1 in range(1, 4):
+                v[s1 + 4 * k1] = self.rot16(v[s1 + 4 * k1], s1 * k1)
+        for k1 in range(4):
+            v[4 * k1:4 * k1 + 4] = self.dft4(v[4 * k1:4 * k1 + 4])
+        return [v[4 * (k & 3) + (k >> 2)] for k in range(16)]
+
+    def first_pass(self, v, r):
+        if r == 16:
+            return self.dft16(v)
+        b = 16 // r
+        dft = {2: lambda u: [self.add(*u), self.sub(*u)], 4: self.dft4,
+               8: self.dft8}[r]
+        out = list(v)
+        for q in range(b):
+            out[q::b] = dft(v[q::b])
+        return out
+
+
+def _radix16_exact_twiddles(n, inverse):
+    """radix16_twiddles_np's entries in float64, unrounded."""
+    sign = 1.0 if inverse else -1.0
+    parts = [np.array([sign * 1j])]
+    for _, span in planes.radix16_plan(n)[1:]:
+        sk = np.outer(np.arange(1, 16), np.arange(span))
+        parts.append(np.exp(sign * 2j * np.pi * sk / (16 * span)).ravel())
+    w = np.concatenate(parts)
+    return np.stack([w.real, w.imag], axis=-1)
+
+
+def _radix16_model(x, rows, table, dtype, log):
+    """The kernel on one channel x [M, N] (complex) with R = ``rows``: its
+    loads, passes, exchanges through the padded shared buffer and its
+    store, block by block, at ``dtype``, with the twiddles of ``table``
+    ([L, 2], read at the header's offsets); returns out [M, N] complex.
+    Appends (what, shared addresses of one access a thread, in complex
+    units) to ``log`` for every exchange write and read, and (what, global
+    float offsets) for every device-memory load and store."""
+    m, n = x.shape
+    t_row = n // 16
+    plan = planes.radix16_plan(n)
+    first = plan[0][0]
+    stride = planes.radix16_stride(n)
+    threads = rows * t_row
+    assert threads <= planes.RADIX16_MAX_THREADS
+    tid = np.arange(threads)
+    row, t = tid // t_row, tid % t_row
+    ops = _Radix16Ops(dtype, table[0, 1])
+    assert table[0, 0] == 0 and abs(table[0, 1]) == 1
+    tw = table.astype(dtype)
+    buf = _Buffer(rows * stride, dtype)
+    out = np.zeros((m, n), np.complex128)
+    writes = np.zeros((m, n), int)
+
+    period = planes.radix16_pad(n)
+
+    def pos(a):
+        return row * stride + a + a // period
+
+    for m0 in range(0, m, rows):
+        live = m0 + row < m
+        rr = np.minimum(m0 + row, m - 1)
+        v = []
+        for j in range(16):
+            a = t + t_row * j
+            vals = np.where(live, x[rr, a], 0)
+            v.append((vals.real.astype(dtype), vals.imag.astype(dtype)))
+            log.append(("load", rr * n + a, live))
+        v = ops.first_pass(v, first)
+        for p, (radix, span) in enumerate(plan):
+            if p > 0:
+                v = []
+                for j in range(16):
+                    a = pos(t + t_row * j)
+                    log.append(("read", a, None))
+                    v.append(buf.read(a))
+                k = t & (span - 1)
+                at = 1 + span - first + k
+                v = [v[0]] + [ops.cmul(v[s], (tw[at + (s - 1) * span, 0],
+                                              tw[at + (s - 1) * span, 1]))
+                              for s in range(1, 16)]
+                v = ops.dft16(v)
+            if p == len(plan) - 1:
+                break
+            # every read of the pass is done (the barrier): the buffer's
+            # points are spent
+            buf.begin()
+            if p == 0:
+                b = 16 // radix
+                for q in range(b):
+                    for s in range(radix):
+                        a = pos((t + t_row * q) * radix + s)
+                        log.append(("write", a, None))
+                        buf.write(a, *v[q + s * b])
+            else:
+                base = (t - k) * 16 + k
+                for s in range(16):
+                    a = pos(base + s * span)
+                    log.append(("write", a, None))
+                    buf.write(a, *v[s])
+            buf.check_writes(rows * n)
+            assert max(np.concatenate(buf.written)) < rows * stride
+        # the last pass (span n/16) stores output s at t + T·s
+        assert plan[-1][1] == n // 16
+        for s in range(16):
+            a = t + t_row * s
+            log.append(("store", rr * n + a, live))
+            vr, vi = v[s]
+            assert not (np.isnan(vr[live]).any() or np.isnan(vi[live]).any())
+            out[rr[live], a[live]] = (vr[live].astype(np.float64)
+                                      + 1j * vi[live].astype(np.float64))
+            np.add.at(writes, (rr[live], a[live]), 1)
+    assert (writes == 1).all()
+    return out
+
+
+RADIX16_NS = [1 << i for i in range(4, 14)]
+
+
+def test_radix16_plan_and_twiddle_table():
+    """The passes multiply to N, each span the product of the radices
+    before it, the last span N/16; the table holds the direction and the
+    N − r0 twiddles at the header's offsets, the f32 rounding of its
+    float64 entries."""
+    for n in RADIX16_NS:
+        plan = planes.radix16_plan(n)
+        radices = [r for r, _ in plan]
+        assert radices[1:] == [16] * (len(plan) - 1)
+        assert radices[0] in (2, 4, 8, 16) and np.prod(radices) == n
+        spans = np.cumprod([1] + radices[:-1])
+        assert [s for _, s in plan] == list(spans)
+        assert plan[-1][1] == max(1, n // 16)
+        for inverse in (True, False):
+            table = planes.radix16_twiddles_np(n, inverse)
+            exact = _radix16_exact_twiddles(n, inverse)
+            assert table.dtype == np.float32
+            assert table.shape == (n - radices[0] + 1, 2)
+            np.testing.assert_array_equal(table, exact.astype(np.float32))
+            assert tuple(table[0]) == (0.0, 1.0 if inverse else -1.0)
+            sign = 1 if inverse else -1
+            for _, span in plan[1:]:
+                at = 1 + span - radices[0]
+                for s in (1, 7, 15):
+                    k = np.arange(span)
+                    want = np.exp(sign * 2j * np.pi * s * k / (16 * span))
+                    got = exact[at + (s - 1) * span + k]
+                    np.testing.assert_allclose(got[:, 0] + 1j * got[:, 1],
+                                               want, atol=1e-15)
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("n", RADIX16_NS)
+def test_radix16_model_matches_float64_and_is_conflict_free(n, inverse):
+    """The model at the wrapper's largest R and a ragged M (a full block
+    and part of one): every output written once, float64 within
+    1e-12·max of a float64 DFT; every exchange write and read free of
+    half-warp bank conflicts (rows share a half warp below N = 256); every
+    warp's device-memory loads and stores runs of consecutive floats, a
+    whole warp's 32 from N = 512 on."""
+    rows = planes.radix16_max_rows(n)
+    m = rows + max(1, rows // 2) + 1
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(m, n)) + 1j * rng.normal(size=(m, n))
+    log = []
+    got = _radix16_model(x, rows, _radix16_exact_twiddles(n, inverse),
+                         np.float64, log)
+    want = np.fft.ifft(x, axis=-1) * n if inverse else np.fft.fft(x, axis=-1)
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+    threads = rows * n // 16
+    for what, addr, live in log:
+        if what in ("read", "write"):
+            assert _round_degree(addr, threads) == 1, (what, n)
+        else:
+            run = min(32, n // 16)
+            for w in range(0, threads, 32):
+                a, ok = addr[w:w + 32], live[w:w + 32]
+                if ok.all():
+                    pieces = np.split(a, np.flatnonzero(np.diff(a) != 1) + 1)
+                    assert all(p.size % run == 0 for p in pieces), (what, n)
+    assert sum(what == "write" for what, _, _ in log) == (
+        (len(planes.radix16_plan(n)) - 1) * 16 * -(-m // rows))
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("shape", [(1, 8, 256), (2, 16, 512), (1, 8, 1024),
+                                   (1, 3, 4096)])
+def test_radix16_model_f32_matches_jax_and_plain(shape, inverse):
+    """The model in float32 with the f32 table against JAX's
+    fft1d_natural_large (the Pallas kernel in interpret mode; at
+    [1, 3, 4096], no row block of 8 divides M, its einsum route) and
+    against the plain version, each within 1e-5·max (the kernel-vs-plain
+    band of the f32 tier)."""
+    c, m, n = shape
+    rng = np.random.default_rng(m * n)
+    xr, xi = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    jr, ji = pf.fft1d_natural_large(xr, xi, inverse)
+    pr, pi = planes.fft1d_natural_large_plain(torch.from_numpy(xr),
+                                              torch.from_numpy(xi), inverse)
+    table = planes.radix16_twiddles_np(n, inverse)
+    rows = planes.radix16_max_rows(n)
+    for ch in range(c):
+        x = xr[ch].astype(np.float64) + 1j * xi[ch]
+        got = _radix16_model(x, rows, table, np.float32, [])
+        for wr, wi in ((np.asarray(jr)[ch], np.asarray(ji)[ch]),
+                       (pr[ch].numpy(), pi[ch].numpy())):
+            want = wr.astype(np.float64) + 1j * wi
+            scale = max(np.abs(wr).max(), np.abs(wi).max())
+            assert np.abs(got - want).max() <= 1e-5 * scale
+
+
+def test_radix16_shared_bytes_of_the_header():
+    """radix16::shared_bytes: R·S complex, S = N + N/16 from N = 256 on
+    (34,816 bytes at N = 4096, R = 1: the four blocks that the registers
+    allow fit an SM's 228 KB; 69,632 at N = 8192, R = 1), N + 16 + N/16
+    below (one pad every N/16 points, S = 50 at N = 32), none at
+    N = 16."""
+    assert [planes.radix16_pad(1 << i) for i in range(4, 14)] == [
+        1, 2, 4, 8, 16, 16, 16, 16, 16, 16]
+    assert [planes.radix16_stride(n) for n in (32, 64, 128, 256, 4096)] == [
+        50, 84, 152, 272, 4352]
+    sizes = {(4096, 1): 34816, (4096, 2): 69632, (8192, 1): 69632,
+             (1024, 4): 34816, (2048, 2): 34816, (32, 128): 51200,
+             (128, 32): 38912, (16, 256): 0}
+    for (n, rows), want in sizes.items():
+        assert planes.radix16_shared_bytes(rows, n) == want
+
+
+# the f32 natural pass at the paths' shapes ((iii), (iv), (xiii)'s
+# velocity: [1, 4096, 4096], [1, 2048, 4096], [1, 1, 4096], [3, 4096,
+# 4096]) and the checked [1, 1024, 1024]: (rows, blocks an SM by shared
+# memory)
+@pytest.mark.parametrize("shape,rows", [
+    ((1, 4096, 4096), 1), ((1, 2048, 4096), 1), ((1, 1, 4096), 1),
+    ((3, 4096, 4096), 1), ((1, 1024, 1024), 4), ((1, 3, 8192), 1),
+    ((1, 5, 16), 1), ((1, 1000, 64), 8)])
+def test_radix16_rows_per_block_at_the_paths_shapes(shape, rows):
+    c, m, n = shape
+    shared = planes.block_shared_bytes("f32", False, True)
+    assert shared is planes.radix16_shared_bytes
+    cap = planes.row_pass_max_rows(n, True, "f32", False)
+    assert cap == planes.radix16_max_rows(n)
+    got = planes.rows_per_block(c, m, n, SMS, cap, shared)
+    assert got == rows
+    if n == 4096:
+        # four blocks an SM, as many as 64 registers a thread allow (1 KB
+        # of each SM's shared memory is the system's a block)
+        assert 4 * (shared(got, n) + 1024) <= SM_SHARED
+    # the fused kernels keep their rows (NATURAL_BLOCK_POINTS)
+    assert planes.max_rows(n, True) == max(1, planes.NATURAL_BLOCK_POINTS // n)
+
+
+@pytest.mark.parametrize("n", RADIX16_NS)
+def test_every_radix16_block_the_wrapper_picks_fits(n):
+    """At every batch and every rows the sweep may take, a block of the
+    f32 natural kernel fits the card's shared memory and 512 threads; the
+    wrapper's cap keeps RADIX16_BLOCK_POINTS."""
+    shared = planes.block_shared_bytes("f32", False, True)
+    cap = planes.radix16_max_rows(n)
+    assert cap * n <= max(n, planes.RADIX16_BLOCK_POINTS)
+    for c in (1, 3, 5):
+        for m in (1, 2, 3, 7, 64, 131, 133, 512, 1000, 2048, 4096, 8192):
+            rows = planes.rows_per_block(c, m, n, SMS, cap, shared)
+            assert rows & (rows - 1) == 0 and 1 <= rows <= cap
+            assert shared(rows, n) <= planes.SMEM_LIMIT
+            assert rows * n // 16 <= planes.RADIX16_MAX_THREADS
+    for rows in (1, 2, 4, 8, 16):
+        if rows * n <= 16 * planes.RADIX16_MAX_THREADS:
+            assert shared(rows, n) <= planes.SMEM_LIMIT

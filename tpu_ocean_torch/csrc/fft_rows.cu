@@ -19,49 +19,34 @@
 // every point once as two f32 planes, 16 B per point (16.8 MB for one
 // 1024² pass), against a few flops per point per stage.
 //
-// What the design does about that: one block loads R whole rows of one
-// channel into shared memory with row-contiguous (coalesced) reads, runs
-// all log2(N) radix-2 Stockham autosort stages there (the network of the
-// reference's Stockham.shader, ping-ponging between two shared buffers so
-// no stage touches device memory; stockham.cuh), and writes the result.
-// The natural store writes the R rows as one contiguous run, so it is
-// coalesced at any R. The f32 transposed store runs in
-// stockham_rows_cluster.cuh: K blocks of a thread-block cluster pool their
-// K·R rows, so consecutive threads write K·R consecutive m (32-byte runs,
-// one full sector, at K·R = 8) even where only R = 2 rows fit a block. A block
-// takes about as long whatever R is, so the wrapper picks R to give about
-// one block per SM (R = 4 for the 512-row half pass, 1 for the one-row
-// Nyquist pass). The TPU kernel's Bailey four-step existed to feed the
-// MXU; there is no matrix unit in this f32 path, so the butterfly network
-// does O(N log N) work instead of O(N·(N1+N2)).
-//
-// Twiddles come from a host table built in float64 and rounded to f32 (the
-// same rounding as pallas_fft._tables_np); nothing is computed with fast
-// sin/cos. The table holds each stage's twiddles contiguously,
-// e^{±2πi k/(2ns)} for k < ns at offset ns − 1 (N − 1 entries), so a warp
-// reads consecutive entries: from one N/2-entry table indexed k·N/(2ns),
-// the early stages' reads all fell in one shared-memory bank.
-//
-// Precision tiers and the three-factor form: each entry takes a tier (0
-// f32, 1 bf16, 2 bf16x3) and a form (split3 0 or 1). The three-factor form
-// is for the transposed store only (_fft_block_kernel_split3). Which code
-// runs a pass:
-//   f32, direct: the Stockham stages above (`tables` the twiddles), the
-//     transposed store through a cluster (stockham_rows_cluster.cuh);
+// Which code runs a pass, by tier (0 f32, 1 bf16, 2 bf16x3) and form
+// (split3 0 or 1; the three-factor form, _fft_block_kernel_split3, is for
+// the transposed store only):
+//   f32, direct, transposed store: stockham_rows_cluster.cuh, the radix-2
+//     Stockham stages of stockham.cuh on R rows a block, then a
+//     thread-block-cluster store (`tables` planes.twiddles);
+//   f32, direct, natural store: rows_natural_f32.cuh, register-resident
+//     radix-16 passes with one shared-memory exchange between two passes,
+//     reading and writing device memory coalesced (`tables`
+//     planes.radix16_twiddles);
 //   bf16, direct, either store: dft_bf16_rows.cuh (bf16 tables pre-laid
 //     out as mma fragments, the intermediate in bf16; `tables`
 //     planes.bf16_rows_tables);
 //   f32, three-factor: dft_split3_f32.cuh (FFMA, each thread whole
 //     columns of a stage; `tables` planes.matrix_tables);
-//   bf16 three-factor and bf16x3 in both forms: the matrix-form engine of
-//     dft_matrix.cuh on this file's loads and stores (`tables`
+//   bf16 three-factor and bf16x3 in both forms: fft_rows_kernel below, the
+//     matrix-form engine of dft_matrix.cuh between a coalesced load of R
+//     rows into shared memory and stockham.cuh's stores (`tables`
 //     planes.matrix_tables).
+// Twiddles and tables are built on the host in float64 and rounded to f32;
+// nothing is computed with fast sin/cos.
 
 #include <type_traits>
 
 #include "dft_bf16_rows.cuh"
 #include "dft_matrix.cuh"
 #include "dft_split3_f32.cuh"
+#include "rows_natural_f32.cuh"
 #include "stockham_rows_cluster.cuh"
 
 namespace {
@@ -79,6 +64,8 @@ fft_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
                 float* __restrict__ out_re, float* __restrict__ out_im,
                 const float2* __restrict__ tables, int M, int N, int log2n,
                 int R) {
+  // the f32 direct passes run kernels of their own (launch below)
+  static_assert(!std::is_same_v<Engine, StockhamEngine>);
   extern __shared__ float2 smem[];
   const int stride = N + 1;
   float2* src = smem;
@@ -115,6 +102,9 @@ int launch(const void* re, const void* im, void* out_re, void* out_im,
     if constexpr (kClustered) {
       return launch_cluster_rows(re, im, out_re, out_im, tables, channels, m,
                                  n, rows, cluster, stream);
+    } else if constexpr (std::is_same_v<Engine, StockhamEngine>) {
+      return launch_rows_natural_f32(re, im, out_re, out_im, tables, channels,
+                                     m, n, rows, stream);
     } else if constexpr (std::is_same_v<Engine,
                                         MatrixEngine<kTierBf16, false>>) {
       return launch_bf16_rows<kNatural>(re, im, out_re, out_im, tables,
@@ -148,9 +138,10 @@ extern "C" {
 // Each entry launches its kernel on `stream` and returns cudaGetLastError()
 // as an int. The caller checks: n a power of two >= 16, rows a power of two
 // that keeps the shared memory within the card's limit, contiguous f32
-// planes, `tables` the Stockham twiddles (tier 0, split3 0), the bf16 row
-// kernel's tables (tier 1, split3 0) or the matrix engine's tables for
-// (n, tier, split3), which the three-factor f32 kernel also reads.
+// planes, `tables` the Stockham twiddles (tier 0, split3 0, transposed),
+// the radix-16 twiddles (tier 0, split3 0, natural), the bf16 row kernel's
+// tables (tier 1, split3 0) or the matrix engine's tables for (n, tier,
+// split3), which the three-factor f32 kernel also reads.
 // The transposed entry also takes `cluster`, the blocks of one thread-block
 // cluster of the f32 direct pass (planes.transposed_cluster: 1, 2, 4 or 8);
 // every other pass takes 1.

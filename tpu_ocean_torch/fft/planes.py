@@ -26,10 +26,13 @@ tier as ``pallas_fft.kernel_precision`` does: ``bf16`` (one bf16 pass),
 ``f32``, or ``bf16x3`` for N above ``KERNEL_B3_THRESHOLD``. A transposed-
 store pass takes the three-factor form (#1b, ``_fft_block_kernel_split3``)
 where ``use_split3`` says so (N above ``THREE_FACTOR_THRESHOLD``). f32 in
-the direct form runs the radix-2 Stockham stages (the transposed store
-through a thread-block cluster of ``transposed_cluster`` blocks,
-``csrc/stockham_rows_cluster.cuh``) and its plain version is
-``torch.fft``; bf16 in the direct form runs a kernel of its own with
+the direct form (the "Stockham" tier and form below) runs the radix-2
+Stockham stages with the transposed store, through a thread-block cluster
+of ``transposed_cluster`` blocks (``csrc/stockham_rows_cluster.cuh``), and
+register-resident radix-16 passes with the natural store
+(``csrc/rows_natural_f32.cuh``, plan ``radix16_plan``, twiddles from
+``radix16_twiddles``); the plain version of both is ``torch.fft``.
+bf16 in the direct form runs a kernel of its own with
 either store (``csrc/dft_bf16_rows.cuh``, tables from
 ``bf16_rows_tables``), and so does f32 in the three-factor form
 (``csrc/dft_split3_f32.cuh``, tables from ``matrix_tables``); the other
@@ -82,11 +85,22 @@ TRANSPOSED_CLUSTER_ROWS = 8
 CLUSTER_BLOCK_POINTS = 4096
 #: the cluster sizes that kernel takes (8: the card's portable limit)
 CLUSTER_SIZES = (1, 2, 4, 8)
-#: the most points (rows × N) a natural-store block takes. Its store is
-#: coalesced at any R; swept on the H100 (python3 chip_smoke.py
-#: --sweep-rows), the fastest blocks held about 4096 points:
+#: the most points (rows × N) a natural-store block of the fused kernels
+#: and the matrix engine takes (max_rows). Its store is coalesced at any
+#: R; swept on the H100 (python3 chip_smoke.py --sweep-rows) on the radix-2
+#: row kernel that ran the f32 natural pass before the radix-16 one, the
+#: fastest blocks held about 4096 points:
 #: R = 4 at N = 1024, R = 2 at N = 2048, R = 1 at N = 4096
 NATURAL_BLOCK_POINTS = 4096
+#: the most points (rows × N) a block of the f32 natural-store row kernel
+#: (csrc/rows_natural_f32.cuh, 16 points a thread) takes; the fused kernels
+#: keep NATURAL_BLOCK_POINTS (max_rows). Swept on an H100 80GB HBM3 at
+#: 700 W (python3 chip_smoke.py --sweep-rows): [1, 4096, 4096] 94.91 µs at
+#: R = 1, 97.94 at R = 2; [1, 2048, 4096] 49.83 and 50.77; [1, 1024, 1024]
+#: 5.79, 5.75, 5.83 and 6.30 µs at R = 1, 2, 4 and 8
+RADIX16_BLOCK_POINTS = 4096
+#: the most threads a block of that kernel has (radix16::kThreads)
+RADIX16_MAX_THREADS = 512
 #: the same for the bf16 row kernel's natural store: swept on the H100,
 #: [1, 4096, 4096] took 200.6, 173.1 and 209.1 µs at R = 1, 2 and 4, since
 #: two blocks of 8192 points share an SM (100 KB of shared memory each)
@@ -393,18 +407,84 @@ def transposed_cluster(m: int, n: int, rows: int) -> int:
     return k
 
 
+def radix16_plan(n: int):
+    """The passes of the f32 natural-store row kernel
+    (csrc/rows_natural_f32.cuh Plan) for a length ``n`` = 16^a · r, r in
+    1, 2, 4, 8: [(radix, span)], one radix-r pass (radix 16 where r = 1)
+    at span 1, then radix-16 passes at spans r, 16·r, …, n/16."""
+    check_size(n)
+    log2n = n.bit_length() - 1
+    first = 1 << (log2n % 4 or 4)
+    passes, span = [(first, 1)], first
+    while span < n:
+        passes.append((16, span))
+        span *= 16
+    return passes
+
+
+def radix16_pad(n: int) -> int:
+    """That kernel's exchange buffer holds point a of a row at
+    a + a // P, one pad every P = min(n/16, 16) points (Plan::pad)."""
+    return min(n // 16, 16)
+
+
+def radix16_stride(n: int) -> int:
+    """Row stride, in complex units, of that kernel's exchange buffer
+    (Plan::S): n + n/P, plus the n/16 threads of a row where they are
+    fewer than 16 (rows then share a half warp)."""
+    t = n // 16
+    return n + n // radix16_pad(n) + (t if t < 16 else 0)
+
+
+def radix16_shared_bytes(rows: int, n: int) -> int:
+    """Dynamic shared memory of one block of the f32 natural-store row
+    kernel (radix16::shared_bytes): one exchange buffer of ``rows`` rows
+    of radix16_stride(n) complex values; none at n = 16 (one pass)."""
+    return 0 if n == 16 else rows * radix16_stride(n) * 8
+
+
+def radix16_max_rows(n: int) -> int:
+    """The most rows per block of the f32 natural-store row kernel:
+    RADIX16_BLOCK_POINTS // n, at most RADIX16_MAX_THREADS threads of 16
+    points (the fused kernels keep max_rows)."""
+    points = min(RADIX16_BLOCK_POINTS, 16 * RADIX16_MAX_THREADS)
+    return max(1, points // n)
+
+
+@functools.lru_cache(maxsize=32)
+def radix16_twiddles_np(n: int, inverse: bool) -> np.ndarray:
+    """That kernel's table, [n − r + 1, 2] f32 (re, im), r the first
+    pass's radix: entry 0 is (0, ±1), the direction; then each pass after
+    the first (radix 16, span ns) has e^{±2πi s·k/(16·ns)} for s = 1..15,
+    k < ns at 1 + (ns − r) + (s − 1)·ns + k; built in float64."""
+    sign = 1.0 if inverse else -1.0
+    parts = [np.array([sign * 1j])]
+    for _, span in radix16_plan(n)[1:]:
+        sk = np.outer(np.arange(1, 16), np.arange(span))
+        parts.append(np.exp(sign * 2j * np.pi * sk / (16 * span)).ravel())
+    w = np.concatenate(parts)
+    return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def radix16_twiddles(n: int, inverse: bool,
+                     device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(radix16_twiddles_np(n, inverse)).to(device)
+
+
 def block_shared_bytes(tier: str, split3: bool, natural: bool):
     """The shared-memory function (rows, n) → bytes of the row kernel at
     (tier, split3, store): the bf16 and the f32 three-factor kernels' own,
     the f32 transposed kernel's at its largest cluster
-    (cluster_rows_block_bytes), else the Stockham and matrix engines' two
-    buffers (shared_bytes)."""
+    (cluster_rows_block_bytes), the f32 natural kernel's
+    (radix16_shared_bytes), else the matrix engine's two buffers
+    (shared_bytes)."""
     if _bf16_rows(tier, split3):
         return bf16_rows_shared_bytes
     if _split3_rows(tier, split3) and not natural:
         return split3_rows_shared_bytes
-    if _stockham(tier, split3) and not natural:
-        return cluster_rows_block_bytes
+    if _stockham(tier, split3):
+        return radix16_shared_bytes if natural else cluster_rows_block_bytes
     return shared_bytes
 
 
@@ -413,12 +493,23 @@ def max_rows(n: int, natural: bool, tier: str = "f32",
     """The most rows per block of the transposed store
     (TRANSPOSED_MAX_ROWS) or of the natural store at (tier, split3):
     BF16_NATURAL_BLOCK_POINTS // n on the bf16 row kernel, else
-    NATURAL_BLOCK_POINTS // n."""
+    NATURAL_BLOCK_POINTS // n. The fused kernels take it; the f32 direct
+    row passes take their own (row_pass_max_rows)."""
     if not natural:
         return TRANSPOSED_MAX_ROWS
     points = (BF16_NATURAL_BLOCK_POINTS if _bf16_rows(tier, split3)
               else NATURAL_BLOCK_POINTS)
     return max(1, points // n)
+
+
+def row_pass_max_rows(n: int, natural: bool, tier: str,
+                      split3: bool) -> int:
+    """The most rows per block of a row pass (not fused) at (tier, split3,
+    store): the f32 direct kernels' own caps (cluster_max_rows,
+    radix16_max_rows), else max_rows."""
+    if _stockham(tier, split3):
+        return radix16_max_rows(n) if natural else cluster_max_rows(n)
+    return max_rows(n, natural, tier, split3)
 
 
 def rows_per_block(c: int, m: int, n: int, sms: int,
@@ -522,13 +613,15 @@ def _launch_rows(entry: str, re, im, inverse: bool, out_shape, tier: str,
     natural = entry == "tpu_fft_rows_natural"
     out_re = torch.empty(out_shape, dtype=torch.float32, device=re.device)
     out_im = torch.empty_like(out_re)
-    tables = (bf16_rows_tables(n, bool(inverse), re.device)
-              if _bf16_rows(tier, split3) else
-              tables_for(n, inverse, tier, split3, re.device))
     clustered = not natural and _stockham(tier, split3)
+    if _bf16_rows(tier, split3):
+        tables = bf16_rows_tables(n, bool(inverse), re.device)
+    elif natural and _stockham(tier, split3):
+        tables = radix16_twiddles(n, bool(inverse), re.device)
+    else:
+        tables = tables_for(n, inverse, tier, split3, re.device)
     rows = rows_per_block(c, m, n, sm_count(re.device),
-                          cluster_max_rows(n) if clustered else
-                          max_rows(n, natural, tier, split3),
+                          row_pass_max_rows(n, natural, tier, split3),
                           block_shared_bytes(tier, split3, natural))
     # the transposed entry also takes the f32 direct pass's cluster size
     cluster = (() if natural else
