@@ -19,7 +19,9 @@ Phases, each printing its own lines:
                bf16, at 1024² and 4096² (at bf16, both stores at
                [1,1024,1024] within 10% of the bf16 plain version's error
                on the same rows and at most 1.1 × its PERF.md §6 figure;
-               the f32 three-factor pass there at most 5e-7, the f32
+               the f32 three-factor pass there at most 5e-7, the bf16x3
+               one at most 5e-5 and 1.1 × the bf16x3 plain version's
+               error on the same rows, the f32
                direct passes, both stores, at most 1.1 × its PERF.md
                figure; at [1,4096,4096] the f32 natural pass's RMS error
                at most 1.1 × the f32 transposed pass's on the same rows);
@@ -104,8 +106,9 @@ Phases, each printing its own lines:
                before its redesign (BEFORE_REDESIGN_MS) and cuFFT's at
                each shape: the two f32 direct kernels beside each other on
                the same inputs (the cluster store's radix-2 stages against
-               the natural store's radix-16 passes), the others beside the
-               f32 kernel with their store;
+               the natural store's radix-16 passes), the bf16x3
+               three-factor kernel beside the f32 three-factor one, the
+               others beside the f32 kernel with their store;
                warm L2, nothing
                asserted. Device times come
                from torch.profiler; where it records none, from CUDA
@@ -115,7 +118,8 @@ last {"ok": true, "device": ...}.
 
 With --sweep-rows, phases 4 and 5 give way to a sweep of the rows per
 block: each f32 row-DFT and fused case of phase 3, and the cases of the
-bf16 row kernel (both stores) and the f32 three-factor row kernel, at
+bf16 row kernel (both stores) and the f32 and bf16x3 three-factor row
+kernels, at
 every power of two up to 16 that fits shared memory (and, for the f32
 natural kernel, 512 threads), checked against its
 plain version and timed (device time, torch.profiler); the f32
@@ -183,6 +187,7 @@ SPECTRAL = {"normals_mode": "spectral"}
 PER_CHANNEL = {"pack_channels": False, "half_spectrum": False}
 SPLIT3 = {"THREE_FACTOR_THRESHOLD": 512}
 B3_SPLIT3 = {"THREE_FACTOR_THRESHOLD": 512, "KERNEL_B3_THRESHOLD": 512}
+B3 = {"KERNEL_B3_THRESHOLD": 512}
 # compare_fields' bands at bf16 (max abs err over max |reference|): card
 # against the CPU plain path 4e-3, two row passes in sequence of 2e-3 each
 # (the kernel-vs-plain band: one bf16 ulp of an intermediate flips where
@@ -306,12 +311,23 @@ KERNEL_INFO = {
         "tpu_ocean_torch/csrc/dft_split3_f32.cuh",
         "tpu_ocean/fft/pallas_fft.py:273"),
     "matrix_rows_transposed[bf16x3,split3]": (
-        "tpu_ocean_torch/csrc/fft_rows.cu", "tpu_ocean/fft/pallas_fft.py:273"),
-    # on no path: timed for PERF.md §6 (#1b and #5 at DEFAULT)
+        "tpu_ocean_torch/csrc/dft_split3_bf16x3.cuh",
+        "tpu_ocean/fft/pallas_fft.py:273"),
+    # on no path: timed for PERF.md §6 (#1b and #5 at DEFAULT; #1, #2, #5
+    # and #6 at B3 in the direct form, on the matrix engine)
     "matrix_rows_transposed[bf16,split3]": (
         "tpu_ocean_torch/csrc/fft_rows.cu", "tpu_ocean/fft/pallas_fft.py:273"),
     "matrix_fused_transposed[bf16]": ("tpu_ocean_torch/csrc/fused_rows.cu",
                                       "tpu_ocean/ops/fused_spectrum_fft.py:127"),
+    "matrix_rows_transposed[bf16x3]": ("tpu_ocean_torch/csrc/fft_rows.cu",
+                                       "tpu_ocean/fft/pallas_fft.py:235"),
+    "matrix_rows_natural[bf16x3]": ("tpu_ocean_torch/csrc/fft_rows.cu",
+                                    "tpu_ocean/fft/pallas_fft.py:677"),
+    "matrix_fused_transposed[bf16x3]": (
+        "tpu_ocean_torch/csrc/fused_rows.cu",
+        "tpu_ocean/ops/fused_spectrum_fft.py:127"),
+    "matrix_fused_natural[bf16x3]": ("tpu_ocean_torch/csrc/fused_rows.cu",
+                                     "tpu_ocean/ops/fused_spectrum_fft.py:196"),
     "matrix_fused_transposed[bf16x3,split3]": (
         "tpu_ocean_torch/csrc/fused_rows.cu",
         "tpu_ocean/ops/fused_spectrum_fft.py:161"),
@@ -342,7 +358,9 @@ BEFORE_REDESIGN_MS = {
         (1, 1, 4096): 0.0508},
     "matrix_rows_transposed[f32,split3]": {
         (1, 1024, 1024): 0.0684, (1, 512, 1024): 0.0384,
-        (1, 1, 1024): 0.0116}}
+        (1, 1, 1024): 0.0116},
+    "matrix_rows_transposed[bf16x3,split3]": {
+        (1, 1024, 1024): 0.0382, (1, 1, 1024): 0.0075}}
 # one bf16 row pass against float64 at [1,1024,1024] (max abs error over
 # max |float64|) on the matrix engine (PERF.md §6). The kernels round the
 # same operands as the bf16 plain version, so on the same rows their error
@@ -353,6 +371,10 @@ BF16_ROWS_F64_ERR, BF16_ROWS_F64_SPREAD = 2.86e-3, 0.1
 # one f32 three-factor row pass against float64 at [1,1024,1024]: at most
 # 5e-7 x max (the matrix engine read 2.48e-7, PERF.md §6)
 SPLIT3_F64_MAX = 5e-7
+# one bf16x3 three-factor row pass against float64 at [1,1024,1024]: at
+# most the tier's band 5e-5 x max, and at most 1.1 x the bf16x3 plain
+# version's error on the same rows (the kernel splits the same operands)
+B3_SPLIT3_F64_MAX, B3_SPLIT3_F64_SPREAD = 5e-5, 1.1
 # one f32 direct row pass against float64 at [1,1024,1024] (PERF.md §6,
 # the radix-2 stages): each store's max error at most 1.1 x. The f32
 # natural pass's RMS error at [1,4096,4096] at most F32_F64_SPREAD x the
@@ -417,6 +439,8 @@ def kernel_group(key):
         return f"matrix_rows_{'natural' if natural else 'transposed'}[bf16]"
     if "split3_f32_rows_kernel" in key:
         return "matrix_rows_transposed[f32,split3]"
+    if "split3_bf16x3_rows_kernel" in key:
+        return "matrix_rows_transposed[bf16x3,split3]"
     natural = "<true," in key or "ILb1E" in key
     store = "natural" if natural else "transposed"
     for stem, kind in (("fft_rows_kernel", "rows"),
@@ -518,6 +542,20 @@ def host_profile(fn, steps=50, top=10):
                    for (file, line, name), (_, _, tottime, _, _) in stats.items()),
                   reverse=True)
     return [(name, us) for us, name in rows[:top]]
+
+
+def matrix_ops(tier, split3, n1, n2):
+    """(f32, bf16 tensor-core) operations a point of a matrix-form row DFT
+    at (tier, split3), n = n2·n1: stage 1 (8·n2) and stage 2 (8·n1, or
+    8·(8 + 16) in the three-factor form) on the tensor cores, three times
+    at bf16x3, where stage 1 runs in f32 instead (the TPU kernel's p1 =
+    HIGHEST); 6 f32 for each twiddle (T, and TW in the three-factor
+    form)."""
+    stage2 = 8 * (24 if split3 else n1)
+    f32_ops = 6 + (6 if split3 else 0)
+    if tier == "bf16x3":
+        return f32_ops + 8 * n2, 3 * stage2
+    return f32_ops, 8 * n2 + stage2
 
 
 def bound(nbytes, f32_ops, tensor_ops=0):
@@ -659,11 +697,13 @@ class Case:
     engine: tuple = ("f32", False)
 
 
-# the kernels --sweep-rows sweeps (by name prefix): the f32 direct row
-# kernels (both stores) and fused kernels, the bf16 row kernel (both
-# stores) and the f32 three-factor row kernel
-SWEPT = ("fft_rows", "fused_rows", "matrix_rows_transposed[bf16]",
-         "matrix_rows_natural[bf16]", "matrix_rows_transposed[f32,split3]")
+# the kernels --sweep-rows sweeps (by name): the f32 direct row kernels
+# (both stores) and fused kernels, the bf16 row kernel (both stores) and
+# the f32 and bf16x3 three-factor row kernels
+SWEPT = ("fft_rows_transposed", "fft_rows_natural", "fused_rows_transposed",
+         "fused_rows_natural", "matrix_rows_transposed[bf16]",
+         "matrix_rows_natural[bf16]", "matrix_rows_transposed[f32,split3]",
+         "matrix_rows_transposed[bf16x3,split3]")
 
 
 def sweep_rows(cases, planes):
@@ -676,7 +716,7 @@ def sweep_rows(cases, planes):
     sms = planes.sm_count(torch.device("cuda"))
     for case in cases:
         name, shape, run, plain = case.name, case.shape, case.run, case.plain
-        if not name.startswith(SWEPT):
+        if name not in SWEPT:
             continue
         c, m, n = ((case.channels, *shape[:2]) if name.startswith("fused")
                    else shape)
@@ -872,9 +912,10 @@ def main():
 
     # (kernel, wrapper, plain, precision, switches, shapes); the row DFTs'
     # operations: 5·log2(N) a point for the Stockham stages; for the matrix
-    # engine 8·(n1 + n2) a point of bf16 tensor-core products (×3 at
-    # bf16x3) and the twiddle's 6 f32; in the three-factor form at f32
-    # 8·(n2 + 8 + 16) + 12 on FFMA
+    # engine 8·(n1 + n2) a point of bf16 tensor-core products and the
+    # twiddle's 6 f32; at bf16x3 stage 1 (8·n2) in f32 and stage 2 (8·n1)
+    # three times on the tensor cores; in the three-factor form 8 + 16 in
+    # place of n1 and 12 f32 for the twiddles, all on FFMA at f32
     cases = []
     # shape: (the f32 transposed pass, the f32 natural pass, float64 in the
     # natural layout), all on the same inputs, at each shape either pass
@@ -906,7 +947,13 @@ def main():
              [(1, 1024, 1024), (1, 1, 1024)]),
             ("matrix_rows_transposed[bf16,split3]", planes.fft1d_transposed,
              planes.fft1d_transposed_plain, "bfloat16", SPLIT3,
-             [(1, 1024, 1024)])):
+             [(1, 1024, 1024)]),
+            ("matrix_rows_transposed[bf16x3]", planes.fft1d_transposed,
+             planes.fft1d_transposed_plain, "float32", B3,
+             [(1, 1024, 1024), (1, 4096, 4096)]),
+            ("matrix_rows_natural[bf16x3]", planes.fft1d_natural_large,
+             planes.fft1d_natural_large_plain, "float32", B3,
+             [(1, 1024, 1024), (1, 4096, 4096)])):
         for shape in shapes:
             re, im = plane(shape), plane(shape)
             z = torch.complex(re, im)
@@ -920,9 +967,7 @@ def main():
             elif split3 and tier == "f32":
                 f32_ops, tensor_ops = 8 * (n2 + 24) + 12, 0
             else:
-                f32_ops = 6 + (6 if split3 else 0)
-                tensor_ops = ((3 if tier == "bf16x3" else 1)
-                              * 8 * (n2 + (24 if split3 else n1)))
+                f32_ops, tensor_ops = matrix_ops(tier, split3, n1, n2)
             cases.append(Case(
                 name, list(shape),
                 switched(switches, lambda fn=fn, re=re, im=im, p=precision:
@@ -973,7 +1018,13 @@ def main():
               (512, 1024, 2, 1, "packed5")]),
             ("matrix_fused_transposed[bf16]", fused.assemble_rowfft,
              fused.assemble_rowfft_plain, "bfloat16", {},
-             [(1024, 1024, 0, 1, "packed3")])):
+             [(1024, 1024, 0, 1, "packed3")]),
+            ("matrix_fused_transposed[bf16x3]", fused.assemble_rowfft,
+             fused.assemble_rowfft_plain, "float32", B3,
+             [(1024, 1024, 0, 1, "packed3")]),
+            ("matrix_fused_natural[bf16x3]", fused.assemble_rowfft_natural,
+             fused.assemble_rowfft_natural_plain, "float32", B3,
+             [(4096, 4096, 0, 1, "packed3")])):
         for m, n, ch, count, channel_set in shapes:
             h0 = tuple(plane((m, n)) for _ in range(4))
             phase = torch.from_numpy(rng.uniform(0, 2 * np.pi, size=(m, n))
@@ -992,9 +1043,8 @@ def main():
             if not name.startswith("matrix"):
                 f32_ops, tensor_ops = 30 + 5 * int(np.log2(n)), 0
             else:
-                f32_ops = 30 + 6 + (6 if split3 else 0)
-                tensor_ops = ((3 if tier == "bf16x3" else 1)
-                              * 8 * (n2 + (24 if split3 else n1)))
+                f32_ops, tensor_ops = matrix_ops(tier, split3, n1, n2)
+                f32_ops += 30
             label = f"ch {ch}" if count == 1 else f"ch {ch}-{ch + count - 1}"
             store = "natural" if fn is fused.assemble_rowfft_natural else "transposed"
             tag = fused.channel_set(packed, nch_live)
@@ -1220,6 +1270,19 @@ def main():
                 require(err <= SPLIT3_F64_MAX,
                         f"the f32 three-factor row pass at [1,1024,1024]: "
                         f"{err:.3e} against float64 > {SPLIT3_F64_MAX:g}")
+            if n == 1024 and label == "bf16x3,split3":
+                # the bf16x3 plain version on the same rows
+                with dft_switches(planes, switches):
+                    ref_err = f64_err(plain(re, im, True, precision), store)
+                log(f"[accuracy] row pass [1,1024,1024] {store} at "
+                    f"bf16x3,split3, the plain version on the same rows: "
+                    f"{ref_err:.3e} x max (limits {B3_SPLIT3_F64_MAX:g} and "
+                    f"{B3_SPLIT3_F64_SPREAD:g} x the plain version's)")
+                require(err <= B3_SPLIT3_F64_MAX
+                        and err <= B3_SPLIT3_F64_SPREAD * ref_err,
+                        f"the bf16x3 three-factor row pass at [1,1024,1024]: "
+                        f"{err:.3e} against float64, the plain version "
+                        f"{ref_err:.3e}")
         del re, im, refs
     phase_done("3 kernels")
 
@@ -1509,6 +1572,11 @@ def main():
                 what = ("the radix-16 natural store" if store == "transposed"
                         else "the radix-2 cluster store")
                 ref = device_ms(f32_pairs[shape][store == "transposed"])[0]
+            elif name == "matrix_rows_transposed[bf16x3,split3]":
+                # the f32 three-factor kernel on the same pass: bf16x3 is
+                # worth having only where it is the cheaper of the two
+                what = "the f32 three-factor kernel"
+                ref = by_shape["matrix_rows_transposed[f32,split3]", shape][0]
             else:
                 what = (f"Stockham f32 {store}"
                         + (" (cluster store)" if store == "transposed" else ""))

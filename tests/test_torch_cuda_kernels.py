@@ -32,7 +32,9 @@ bf16; 1e-5 at bf16x3 and for the three-factor form at f32. The bf16 row
 kernel (csrc/dft_bf16_rows.cuh, both stores) rounds the same operands and
 is held to the same 2e-3; the f32 three-factor row kernel
 (csrc/dft_split3_f32.cuh) rounds each twiddle as its plain version does and
-accumulates in another order: 1e-5."""
+accumulates in another order: 1e-5. So does the bf16x3 three-factor row
+kernel (csrc/dft_split3_bf16x3.cuh), whose stage-2 operands are split as
+its plain version splits them: 1e-5, the bf16x3 band."""
 
 import dataclasses
 
@@ -455,12 +457,13 @@ def test_matrix_rows_transposed_match_plain(cuda, select_engine, shape,
 
 # (tier, split3, natural) → the kernel the routing names (csrc/fft_rows.cu):
 # bf16 direct, either store → dft_bf16_rows.cuh; f32 three-factor →
-# dft_split3_f32.cuh; bf16 three-factor and bf16x3 → the matrix engine
+# dft_split3_f32.cuh; bf16x3 three-factor → dft_split3_bf16x3.cuh; bf16
+# three-factor and bf16x3 direct → the matrix engine
 ROUTED_KERNELS = [("bf16", False, False, "bf16_rows_kernel"),
                   ("bf16", True, False, "MatrixEngine"),
                   ("bf16", False, True, "bf16_rows_kernel"),
                   ("bf16x3", False, False, "MatrixEngine"),
-                  ("bf16x3", True, False, "MatrixEngine"),
+                  ("bf16x3", True, False, "split3_bf16x3_rows_kernel"),
                   ("f32", True, False, "split3_f32_rows_kernel"),
                   ("bf16x3", False, True, "MatrixEngine")]
 
@@ -470,10 +473,12 @@ def test_only_the_bf16_direct_transposed_pass_runs_its_own_kernel(
         cuda, select_engine, tier, split3, natural, kernel):
     """Each (tier, form, store) launches the one kernel its routing names,
     read from the profiler's kernel names: the bf16 direct passes (both
-    stores) csrc/dft_bf16_rows.cuh's kernel, the f32 three-factor pass
-    csrc/dft_split3_f32.cuh's, the rest the matrix engine (fft_rows_kernel
-    with MatrixEngine); each counts under its old name, and the profiler
-    key groups under that name as chip_smoke.py reads it."""
+    stores) csrc/dft_bf16_rows.cuh's kernel, the f32 and bf16x3
+    three-factor passes csrc/dft_split3_f32.cuh's and
+    csrc/dft_split3_bf16x3.cuh's, the rest the matrix engine
+    (fft_rows_kernel with MatrixEngine); each counts under its old name,
+    and the profiler key groups under that name as chip_smoke.py reads
+    it."""
     import chip_smoke
     precision = select_engine(tier, split3)
     re, im = _planes((1, 64, 256), cuda)
@@ -519,6 +524,47 @@ def test_split3_f32_rows_kernel_matches_plain(cuda, select_engine, shape,
     for c in range(shape[0]):
         _assert_band((got[0][c], got[1][c]), (want[0][c], want[1][c]),
                      BANDS["f32"])
+
+
+# the bf16x3 three-factor row kernel: every N it takes, one row, ragged M
+# (odd and even, against R), the path's batch, up to 5 channels
+SPLIT3_BF16X3_SHAPES = [(c, m, n) for n in (128, 256, 512, 1024, 2048, 4096,
+                                            8192)
+                        for c, m in ((1, 1), (2, 7), (5, 13), (3, 6),
+                                     (1, 1024))]
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("shape", SPLIT3_BF16X3_SHAPES)
+def test_split3_bf16x3_rows_kernel_matches_plain(cuda, select_engine, shape,
+                                                 inverse):
+    precision = select_engine("bf16x3", True)
+    re, im = _planes(shape, cuda, seed=shape[2] + shape[1])
+    got = planes.fft1d_transposed(re, im, inverse, precision)
+    assert planes.named_launches == {
+        "matrix_rows_transposed[bf16x3,split3]": 1}
+    want = planes.fft1d_transposed_plain(re, im, inverse, precision)
+    for c in range(shape[0]):
+        _assert_band((got[0][c], got[1][c]), (want[0][c], want[1][c]),
+                     BANDS["bf16x3"])
+
+
+@pytest.mark.parametrize("n", [64, 16384, 96])
+def test_split3_bf16x3_rows_kernel_refuses_other_lengths(cuda, n):
+    """The C entry at tier bf16x3, three-factor form: N outside the powers
+    of two in [128, 8192] is refused (cudaErrorInvalidValue), never run on
+    another kernel."""
+    from tpu_ocean_torch import _build
+    re, im = _planes((1, 2, n), cuda)
+    out = torch.empty_like(re)
+    tables = planes.split3_bf16x3_tables(1024, True, re.device)
+    err = _build.load().lib.tpu_fft_rows_transposed(
+        re.data_ptr(), im.data_ptr(), out.data_ptr(), out.data_ptr(),
+        tables.data_ptr(), 1, 2, n, 1, planes.TIERS["bf16x3"], 1, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.load().check(err, "tpu_fft_rows_transposed")
 
 
 # the bf16 natural pass at R > 1 rows a block with a ragged last block

@@ -12,6 +12,13 @@ Bands (max abs error over max |reference|):
   envelope 3e-2 (tests/test_switch_matrix.py:93), since XLA's DEFAULT dot on
   the CPU is plain f32 while the port rounds to bf16.
 
+At bf16x3 both packages run stage 1 (F2) at f32 and split the stage-2
+operands only (``p1 = HIGHEST`` in the JAX kernels): the real plane, t1 −
+t2 in both, within 1.5e-6·max of the JAX kernel for the row DFT and 2e-6
+for the fused kernel (with stage 1 split too the port read 3.6–4.5e-6 and
+3.5–4.1e-6 there); the imaginary plane, which JAX forms with Gauss's
+t3 − t1 − t2, within the bf16x3 band.
+
 The JAX package cannot run bf16x3 in the three-factor form:
 ``_stage2_split3`` passes its tier "bf16x3" on to ``lax.dot_general``,
 which refuses it (ValueError). Against that pair the JAX side runs the
@@ -308,6 +315,66 @@ def test_fused_plain_matches_jax_kernel_and_float64(switches, tier, split3, n,
         assert g.shape == w.shape
         assert _rel(g.numpy(), w) <= TO_JAX[tier]
         assert _rel(g.numpy(), r) <= TO_F64[tier]
+
+
+# the real plane at B3 against the JAX kernel: rows and fused (above)
+B3_REAL_TO_JAX = {"rows": 1.5e-6, "fused": 2e-6}
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+def test_b3_rows_plain_runs_stage_1_at_f32_as_jax(switches, n):
+    """The plain row DFT at bf16x3 in the direct form against the JAX
+    kernel at B3 (pf._fft1d_transposed, interpret mode) on 16 seeded rows:
+    their real planes are t1 − t2 of the same split operands and differ
+    by f32 rounding alone where both keep stage 1 at f32."""
+    precision = _select(switches, "bf16x3", False, n)
+    re, im = _planes_np((1, 16, n), seed=n)
+    want = pf._fft1d_transposed(jnp.asarray(re), jnp.asarray(im), True,
+                                JAX_PRECISION[precision])
+    got = planes.fft1d_transposed(torch.from_numpy(re), torch.from_numpy(im),
+                                  True, precision)
+    assert _rel(got[0].numpy(), want[0]) <= B3_REAL_TO_JAX["rows"]
+    assert _rel(got[1].numpy(), want[1]) <= TO_JAX["bf16x3"]
+
+
+@pytest.mark.parametrize("n", [256, 1024])
+def test_b3_fused_plain_runs_stage_1_at_f32_as_jax(switches, n):
+    """assemble_rowfft_plain at bf16x3 in the direct form against the JAX
+    fused kernel at B3 on 16 seeded rows of channel 1 (the real plane
+    read 0.83–1.17e-6·max at N = 256 and 1024 on two seeds, 3.5–4.1e-6
+    with stage 1 split)."""
+    precision = _select(switches, "bf16x3", False, n)
+    m = 16
+    rng = np.random.default_rng(n + 1)
+    h0 = [rng.normal(size=(m, n)).astype(np.float32) for _ in range(4)]
+    phase = rng.uniform(0, 2 * np.pi, size=(m, n)).astype(np.float32)
+    kw = dict(epsilon=1e-4, ch_start=1, ch_count=1, row_offset=0)
+    want = jfused.assemble_rowfft(
+        tuple(map(jnp.asarray, h0)), jnp.asarray(phase), 434.48, -1.0,
+        precision=JAX_PRECISION[precision], packed=True, nch_live=3, **kw)
+    got = fused.assemble_rowfft_plain(
+        tuple(map(torch.from_numpy, h0)), torch.from_numpy(phase), 434.48,
+        -1.0, precision=precision, **kw)
+    assert _rel(got[0].numpy(), want[0]) <= B3_REAL_TO_JAX["fused"]
+    assert _rel(got[1].numpy(), want[1]) <= TO_JAX["bf16x3"]
+
+
+def test_bf16x3_keeps_stage_1_at_f32():
+    """rows_dft at bf16x3 equals, bit for bit, stage 1 at f32 followed by
+    the bf16x3 stage 2: with one row whose stage 1 is exact at f32 but not
+    at bf16x3 (the depth sums of a split operand round otherwise)."""
+    n = 256
+    n1, n2, f2r, f2i, tr, ti, f1r, f1i = planes._tables_np(n, True)
+    re, im = (torch.from_numpy(a) for a in _planes_np((1, 2, n), seed=5))
+    got = matrix.rows_dft(re, im, planes._tables_np(n, True), None, "bf16x3")
+    t = [torch.from_numpy(a) for a in (f2r, f2i, tr, ti, f1r, f1i)]
+    cr, ci = matrix._cmatmul(t[0], t[1], re.reshape(1, 2, n2, n1),
+                             im.reshape(1, 2, n2, n1), "f32")
+    cr, ci = matrix._twiddle(cr, ci, t[2], t[3])
+    dr, di = matrix._cmatmul(t[4], t[5], cr.transpose(-1, -2),
+                             ci.transpose(-1, -2), "bf16x3")
+    assert torch.equal(got[0], dr.reshape(1, 2, n))
+    assert torch.equal(got[1], di.reshape(1, 2, n))
 
 
 def test_bf16_rounds_operands_and_bf16x3_splits_them():

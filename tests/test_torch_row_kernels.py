@@ -14,7 +14,14 @@ that kernel: its stage order, its items (which thread owns which columns
 and outputs), its padded layouts and their bank arithmetic, run in float64
 against a float64 DFT (1e-12·max) and in float32, each product and sum of a
 twiddle rounded alone, against rows_plain (1e-5·max, the kernel-vs-plain
-band of the f32 tier)."""
+band of the f32 tier); and the same for the bf16x3 three-factor kernel
+(csrc/dft_split3_bf16x3.cuh): its tables (the f32 tables and the hi/lo
+split of F_W and F_U in mma.sync fragment order), its rows per block, and
+a model of its stages (stage 1 the f32 kernel's, stages 2a and 2b warp
+tile by warp tile from the lanes' fragment addresses, the store straight
+from stage 2b), its swizzled layouts and their bank arithmetic, in float64
+with no split against a float64 DFT (1e-12·max) and in float32 with the
+kernel's splits against rows_plain at bf16x3 (1e-5·max)."""
 
 import numpy as np
 import pytest
@@ -36,7 +43,7 @@ ROUTES = [("f32", False, False, "stockham"), ("f32", False, True, "stockham"),
           ("bf16", False, False, "bf16_rows"), ("bf16", False, True, "bf16_rows"),
           ("f32", True, False, "split3_f32"), ("bf16", True, False, "engine"),
           ("bf16x3", False, False, "engine"), ("bf16x3", False, True, "engine"),
-          ("bf16x3", True, False, "engine")]
+          ("bf16x3", True, False, "split3_bf16x3")]
 
 
 @pytest.mark.parametrize("tier,split3,natural,route", ROUTES)
@@ -44,12 +51,15 @@ def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
                                                    route):
     got = {"stockham": planes._stockham(tier, split3),
            "bf16_rows": planes._bf16_rows(tier, split3),
-           "split3_f32": planes._split3_rows(tier, split3) and not natural}
+           "split3_f32": planes._split3_rows(tier, split3) and not natural,
+           "split3_bf16x3": (planes._split3_bf16x3_rows(tier, split3)
+                             and not natural)}
     assert [k for k, v in got.items() if v] == ([] if route == "engine"
                                                else [route])
     shared = planes.block_shared_bytes(tier, split3, natural)
     assert shared is {"bf16_rows": planes.bf16_rows_shared_bytes,
                       "split3_f32": planes.split3_rows_shared_bytes,
+                      "split3_bf16x3": planes.split3_bf16x3_shared_bytes,
                       "stockham": (planes.radix16_shared_bytes if natural
                                    else planes.cluster_rows_block_bytes)}.get(
                           route, planes.shared_bytes)
@@ -78,6 +88,11 @@ def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
      "tpu_fft::MatrixEngine<2, true> >(float const*, float const*, float*, "
      "float*, float2 const*, int, int, int, int)",
      "matrix_rows_transposed[bf16x3,split3]"),
+    ("void tpu_fft::split3_bf16x3::split3_bf16x3_rows_kernel<10>(float "
+     "const*, float const*, float*, float*, unsigned int const*, int, int)",
+     "matrix_rows_transposed[bf16x3,split3]"),
+    ("_ZN7tpu_fft13split3_bf16x325split3_bf16x3_rows_kernelILi10EEEvPKfS3_"
+     "PfS4_PKjii", "matrix_rows_transposed[bf16x3,split3]"),
     ("void (anonymous namespace)::fft_rows_kernel<true, "
      "tpu_fft::StockhamEngine>(float const*, float const*, float*, float*, "
      "float2 const*, int, int, int, int)", "fft_rows_natural"),
@@ -133,7 +148,8 @@ def test_split3_f32_rows_per_block(shape, rows):
 
 @pytest.mark.parametrize("tier,split3,natural,min_n", [
     ("bf16", False, False, 16), ("bf16", False, True, 16),
-    ("f32", True, False, 128), ("f32", False, False, 16)])
+    ("f32", True, False, 128), ("f32", False, False, 16),
+    ("bf16x3", True, False, 128)])
 def test_every_block_rows_per_block_picks_fits_shared_memory(tier, split3,
                                                              natural, min_n):
     shared = planes.block_shared_bytes(tier, split3, natural)
@@ -451,6 +467,45 @@ def _twiddle(cr, ci, wr, wi):
     return cr * wr - ci * wi, cr * wi + ci * wr
 
 
+def _stage1_model(xa, sa, n, rows, f2, tw1, dtype, degrees, write):
+    """Stage 1 of csrc/dft_split3_f32.cuh (stage1, shared by both
+    three-factor kernels) on the rows in ``xa`` (row r at r·sa): item →
+    columns t and t + 64 of row r, outputs k0 .. k0 + K1; calls
+    write(r, k, col, vr, vi) with the twiddled values [items, K1] of the
+    items' column col (k [items, K1]) after recording its reads."""
+    g = planes.split3_rows_geometry(n)
+    n2, k1 = g["n2"], g["K1"]
+    log2g = rows.bit_length() - 1 + 6
+    item = np.arange((rows << 6) * (n2 // k1))
+    k0 = (item >> log2g) * k1
+    i = item & ((1 << log2g) - 1)
+    r, t = i >> 6, i & 63
+    k = k0[:, None] + np.arange(k1)                       # [items, K1]
+    for col in (t, t + 64):
+        base = r * sa + col
+        ar = np.zeros(k.shape, dtype)
+        ai = np.zeros(k.shape, dtype)
+        for s in range(n2):
+            vr, vi = xa.read(base + s * 128)
+            degrees.append(("stage 1 read", _half_warp_degree(base + s * 128)))
+            ar, ai = _cmac(ar, ai, f2[0][k, s], f2[1][k, s],
+                           vr[:, None], vi[:, None])
+        w = k * 128 + col[:, None]
+        write(r, k, col, *_twiddle(ar, ai, tw1[0].ravel()[w],
+                                   tw1[1].ravel()[w]))
+
+
+def _load_model(xa, x, m0, rows, sa):
+    """The block's rows m0 .. m0 + rows − 1 of x [M, N] into xa at r·sa
+    (rows past M are zero)."""
+    m, n = x.shape
+    xa.begin()
+    block = np.zeros((rows, n), np.complex128)
+    block[:min(rows, m - m0)] = x[m0:m0 + rows]
+    pos = np.arange(rows)[:, None] * sa + np.arange(n)
+    xa.write(pos, block.real.astype(xa.re.dtype), block.imag.astype(xa.re.dtype))
+
+
 def _split3_model(x, n, rows, tabs, dtype, degrees):
     """The kernel on one channel x [M, N] (complex) with R = ``rows``: its
     loads, three stages and transposed store, block by block, at
@@ -459,42 +514,22 @@ def _split3_model(x, n, rows, tabs, dtype, degrees):
     f2, tw1, fw, tw2, fu = ((t.real.astype(dtype), t.imag.astype(dtype))
                             for t in tabs)
     g = planes.split3_rows_geometry(n)
-    n2, p, sb, sa, sy, k1 = (g[k] for k in ("n2", "P", "Sb", "SA", "SY", "K1"))
+    n2, p, sb, sa, sy = (g[k] for k in ("n2", "P", "Sb", "SA", "SY"))
     m = x.shape[0]
     r_ = rows
-    log2r = r_.bit_length() - 1
     log2n2 = n2.bit_length() - 1
     out = np.zeros((n, m), np.complex128)
     xa, ys = _Buffer(r_ * sa, dtype), _Buffer(r_ * sy, dtype)
+
+    def write_y(r, k, col, vr, vi):
+        dst = (r * sy)[:, None] + k * 128 + col[:, None]
+        degrees.append(("stage 1 write", _half_warp_degree(dst[:, 0])))
+        ys.write(dst, vr, vi)
+
     for m0 in range(0, m, r_):
-        # load: rows past M are zero
-        xa.begin()
-        block = np.zeros((r_, n), np.complex128)
-        block[:min(r_, m - m0)] = x[m0:m0 + r_]
-        pos = np.arange(r_)[:, None] * sa + np.arange(n)
-        xa.write(pos, block.real.astype(dtype), block.imag.astype(dtype))
-        # stage 1: item → columns t, t + 64 of row r, outputs k0 .. k0 + K1
+        _load_model(xa, x, m0, r_, sa)
         ys.begin()
-        log2g = log2r + 6
-        item = np.arange((r_ << 6) * (n2 // k1))
-        k0 = (item >> log2g) * k1
-        i = item & ((1 << log2g) - 1)
-        r, t = i >> 6, i & 63
-        k = k0[:, None] + np.arange(k1)                       # [items, K1]
-        for col in (t, t + 64):
-            base = r * sa + col
-            ar = np.zeros(k.shape, dtype)
-            ai = np.zeros(k.shape, dtype)
-            for s in range(n2):
-                vr, vi = xa.read(base + s * 128)
-                degrees.append(("stage 1 read", _half_warp_degree(base + s * 128)))
-                ar, ai = _cmac(ar, ai, f2[0][k, s], f2[1][k, s],
-                               vr[:, None], vi[:, None])
-            w = k * 128 + col[:, None]
-            dst = (r * sy)[:, None] + w
-            degrees.append(("stage 1 write", _half_warp_degree(dst[:, 0])))
-            ys.write(dst, *_twiddle(ar, ai, tw1[0].ravel()[w],
-                                    tw1[1].ravel()[w]))
+        _stage1_model(xa, sa, n, r_, f2, tw1, dtype, degrees, write_y)
         ys.check_writes(r_ * n)
         # stage 2a: columns c = (r·n2 + k2)·16 + u, c and c + half an item
         xa.begin()
@@ -584,6 +619,263 @@ def test_split3_model_matches_float64_and_rows_plain(m, n, rows, inverse):
         worst[what] = max(worst.get(what, 1), degree)
     if n > 128:
         assert worst == {k: 1 for k in worst}, worst
+
+
+# ---- the bf16x3 three-factor kernel (csrc/dft_split3_bf16x3.cuh): its
+# tables, and a numpy model of its stages, layouts and store
+
+def _bf16_split(z):
+    """complex z → (hi, lo), each part rounded to bfloat16 (nearest even)
+    as f32 values: hi = bf16(z), lo = bf16(z − hi), per real component."""
+    def parts(a):
+        a = np.ascontiguousarray(a, np.float32)
+        hi = planes._bf16_value(a)
+        return hi, planes._bf16_value(a - hi)
+    (hr, lr), (hi_, li) = parts(z.real), parts(z.imag)
+    return hr + 1j * hi_, lr + 1j * li
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("n", [128, 1024, 8192])
+def test_split3_bf16x3_tables_are_the_f32_tables_and_their_split(n, inverse):
+    """The kernel's tables: matrix_tables(n, inverse, True) word for word
+    (F2, T, F_W, TW, F_U), zero-padded to 16 bytes where the header puts
+    the fragments (Geometry::frag_words); then the A fragments of F_W and
+    F_U, hi and lo, which read back by the PTX fragment layout are the
+    real forms of bf16(F) and bf16(F − bf16(F)) (the plain version's
+    split_bf16), hi + lo within 2⁻¹⁶ of F."""
+    from tests.test_torch_precision import _real_form_bits, _torch_bf16, \
+        _unpermute_fragments
+    words = planes.split3_bf16x3_tables_np(n, inverse).view(np.uint32)
+    f32 = planes.matrix_tables(n, inverse, True, torch.device("cpu")).numpy()
+    geo = planes.split3_bf16x3_geometry(n, 1)
+    at = geo["f32_words"]
+    assert at % 4 == 0 and at - f32.size in (0, 2)
+    np.testing.assert_array_equal(words[:f32.size], f32.view(np.uint32).ravel())
+    assert not words[f32.size:at].any()
+    fwr, fwi, _, _, fur, fui = planes._split3_tables_np(128, inverse)
+    for fr, fi, tiles in ((fwr, fwi, 1), (fur, fui, 2)):
+        size = tiles * tiles * 128
+        hi = words[at:at + size].reshape(tiles, tiles, 32, 4)
+        lo = words[at + size:at + 2 * size].reshape(tiles, tiles, 32, 4)
+        at += 2 * size
+        z = fr.astype(np.float64) + 1j * fi
+        zh, zl = _bf16_split(z)
+        for frags, part in ((hi, zh), (lo, zl)):
+            np.testing.assert_array_equal(
+                _unpermute_fragments(frags),
+                _real_form_bits(part.real.astype(np.float32),
+                                part.imag.astype(np.float32), _torch_bf16))
+        assert np.abs(zh + zl - z).max() <= 2.0 ** -16
+    assert at == words.size
+
+
+def _warp_degree32(addr):
+    """The worst bank conflict of 32-bit shared accesses: ``addr`` [items]
+    in 4-byte words, the items of one loop round (thread = item) taken 32
+    at a time, a warp; the degree is the most distinct addresses on one
+    bank (1: conflict-free)."""
+    addr = np.asarray(addr)[:THREADS]
+    worst = 1
+    for h in range(0, addr.size - addr.size % 32, 32):
+        distinct = np.unique(addr[h:h + 32])
+        worst = max(worst, np.bincount(distinct % 32).max())
+    return worst
+
+
+class _Words:
+    """A shared plane of 32-bit words, each one complex value as a bf16
+    pair (held here as a complex number), poisoned with NaN when a stage
+    starts writing it."""
+
+    def __init__(self, size):
+        self.v = np.full(size, np.nan, np.complex128)
+        self.written = []
+
+    def begin(self):
+        self.v[:] = np.nan
+        self.written = []
+
+    def write(self, pos, v):
+        self.v[pos] = v
+        self.written.append(np.ravel(pos))
+
+    def check_writes(self, count):
+        pos = np.concatenate(self.written)
+        assert pos.size == count and np.unique(pos).size == count
+
+
+def _mma3(f, b, exact):
+    """A tile's three products: hi·hi + hi·lo + lo·hi of F [m, k] and the
+    B operand (hi, lo) [k, cols] (the products of bf16 parts are exact;
+    the f32 sum is taken here in float64, then rounded once)."""
+    bh, bl = b
+    if exact:
+        return f @ bh
+    fh, fl = _bf16_split(f)
+    return (fh @ bh + fh @ bl + fl @ bh).astype(np.complex64)
+
+
+def _split3_bf16x3_model(x, n, rows, tabs, exact, degrees):
+    """csrc/dft_split3_bf16x3.cuh on one channel x [M, N] (complex) with
+    R = ``rows``, block by block: the load and stage 1 as the f32 kernel's
+    (at float64 with no split where ``exact``, else at float32), stage 1's
+    epilogue into H1's hi and lo planes, stage 2a a warp tile at a time
+    from its lanes' B-fragment addresses, its epilogue into H2, stage 2b
+    likewise, and its store straight to out [N, M]. Records the conflict
+    degree of every shared access in ``degrees``; checks that each stage
+    writes each word once and each output is stored once."""
+    dtype = np.float64 if exact else np.float32
+    cdt = np.complex128 if exact else np.complex64
+    f2, tw1 = ((t.real.astype(dtype), t.imag.astype(dtype)) for t in tabs[:2])
+    fw, tw2, fu = (t.astype(cdt) for t in tabs[2:])
+    geo = planes.split3_bf16x3_geometry(n, rows)
+    n2, e, h2w = geo["n2"], geo["pad"], geo["h2_words"]
+    log2n2, log2r = n2.bit_length() - 1, rows.bit_length() - 1
+    m = x.shape[0]
+    out = np.full((n, m), np.nan, np.complex128)
+    xa = _Buffer(rows * n, dtype)
+    h1 = (_Words(rows * n), _Words(rows * n))
+    h2 = (_Words(h2w), _Words(h2w))
+    lane = np.arange(32)
+    g, q = lane >> 2, lane & 3
+
+    def split(v):
+        return (v, np.zeros_like(v)) if exact else _bf16_split(v)
+
+    def write_h1(r, k, col, vr, vi):
+        u, w = col & 15, col >> 4
+        pos = (((r * n2)[:, None] + k) * 16 + u[:, None]) * 8 + (
+            w ^ ((u >> 1) & 6))[:, None]
+        for kk in range(k.shape[1]):
+            degrees.append(("stage 1 write", _warp_degree32(pos[:, kk])))
+        for plane, part in zip(h1, split(vr.astype(np.float64) + 1j * vi)):
+            plane.write(pos, part)
+
+    for m0 in range(0, m, rows):
+        _load_model(xa, x, m0, rows, n)
+        for plane in h1:
+            plane.begin()
+        _stage1_model(xa, n, n, rows, f2, tw1, dtype, degrees, write_h1)
+        for plane in h1:
+            plane.check_writes(rows * n)
+        # stage 2a: tile tn holds columns (r·n2 + k2)·16 + u, u = u0 + g
+        for plane in h2:
+            plane.begin()
+        for tn in range(rows * n // 64):
+            u0, rk = 8 * (tn & 1), tn >> 1
+            u = u0 + g
+            pos = (rk * 16 + u) * 8 + ((2 * q) ^ ((u >> 1) & 6))
+            degrees.append(("stage 2a B load", _half_warp_degree(pos >> 1)))
+            b = [np.zeros((8, 8), np.complex128) for _ in h1]
+            for part, plane in zip(b, h1):
+                part[2 * q, g] = plane.v[pos]
+                part[2 * q + 1, g] = plane.v[pos + 1]
+            d = _mma3(fw, b, exact)                       # [b, 8 columns]
+            r, k2 = rk >> log2n2, rk & (n2 - 1)
+            p = ((g * n2 + k2) << log2r) + r + e * g
+            at = p * 16 + ((u0 + 2 * q) ^ (((p >> 1) & 1) << 3))
+            degrees.append(("stage 2a write", _half_warp_degree(at >> 1)))
+            for j in (0, 1):
+                v = d[g, 2 * q + j]
+                w = tw2[g, u0 + 2 * q + j]
+                vr, vi = _twiddle(v.real, v.imag, w.real, w.imag)
+                for plane, part in zip(h2, split(vr.astype(np.float64) + 1j * vi)):
+                    plane.write(at + j, part)
+        for plane in h2:
+            plane.check_writes(rows * n)
+        # stage 2b: tile tn holds columns c2 = j·R + r, j = b·n2 + k2
+        log2b = log2n2 + log2r
+        for tn in range(rows * n // 128):
+            c2 = tn * 8 + g
+            p = c2 + e * (c2 >> log2b)
+            b = [np.zeros((16, 8), np.complex128) for _ in h2]
+            for kb in (0, 1):
+                at = p * 16 + ((kb * 8 + 2 * q) ^ (((p >> 1) & 1) << 3))
+                degrees.append(("stage 2b B load", _half_warp_degree(at >> 1)))
+                for part, plane in zip(b, h2):
+                    part[kb * 8 + 2 * q, g] = plane.v[at]
+                    part[kb * 8 + 2 * q + 1, g] = plane.v[at + 1]
+            d = _mma3(fu, b, exact)                       # [a, 8 columns]
+            col = tn * 8 + np.arange(8)
+            j, r = col >> log2r, col & (rows - 1)
+            k = np.arange(16)[:, None] * 8 * n2 + j       # [a, columns]
+            keep = m0 + r < m
+            assert np.isnan(out[k[:, keep], m0 + r[keep]]).all()
+            out[k[:, keep], m0 + r[keep]] = d[:, keep]
+    assert not np.isnan(out).any()
+    return out
+
+
+# (M, N, R): R ≤ the largest that fits, M ragged against R where it can be
+# (N = 256 at R = 1 and N = 128 at R = 2 are the header's n2·R = 2 cases)
+BF16X3_MODEL_CASES = [(1, 128, 1), (3, 128, 2), (1, 256, 1), (5, 256, 4),
+                      (13, 1024, 8), (6, 1024, 4), (1, 1024, 1),
+                      (7, 2048, 4), (7, 4096, 2), (2, 8192, 1)]
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("m,n,rows", BF16X3_MODEL_CASES)
+def test_split3_bf16x3_model_matches_float64_and_rows_plain(m, n, rows,
+                                                            inverse):
+    """The model in float64 with unrounded tables and no split gives the
+    DFT (1e-12·max): the index maps, layouts and store are right. At
+    float32 with the kernel's roundings and splits it is the plain
+    version (rows_plain at bf16x3, three-factor) within the tier's
+    kernel-vs-plain band, 1e-5·max. Every shared access the header names
+    is conflict-free, but the stage-2a epilogue's writes where n2·R = 2
+    (2-way, as the header says)."""
+    assert planes.split3_bf16x3_shared_bytes(rows, n) <= planes.SMEM_LIMIT
+    rng = np.random.default_rng(n + m)
+    xr, xi = (rng.normal(size=(m, n)).astype(np.float32) for _ in range(2))
+    x = xr.astype(np.float64) + 1j * xi
+    degrees = []
+    got64 = _split3_bf16x3_model(x, n, rows, _exact_split3_tables(n, inverse),
+                                 True, degrees)
+    want64 = (np.fft.ifft(x, axis=-1) * n if inverse
+              else np.fft.fft(x, axis=-1)).T
+    assert np.abs(got64 - want64).max() <= 1e-12 * np.abs(want64).max()
+    _, tabs = _split3_tables(n, inverse)
+    got32 = _split3_bf16x3_model(x, n, rows, tabs, False, [])
+    pr, pi = planes.rows_plain(torch.from_numpy(xr)[None],
+                               torch.from_numpy(xi)[None], inverse, "bf16x3",
+                               True)
+    want32 = (pr[0].numpy() + 1j * pi[0].numpy()).T
+    scale = max(np.abs(want32.real).max(), np.abs(want32.imag).max())
+    assert np.abs(got32 - want32).max() <= 1e-5 * scale
+    worst = {}
+    for what, degree in degrees:
+        worst[what] = max(worst.get(what, 1), degree)
+    want = {k: 1 for k in worst}
+    if n // 128 * rows == 2:
+        want["stage 2a write"] = 2
+    assert worst == want, worst
+
+
+# the bf16x3 three-factor pass at the shapes path (ix) gives it and two
+# more: R = 8 rows a block (32-byte runs of the transposed store; fastest
+# at [1,1024,1024] in the H100 sweep, chip_smoke.py --sweep-rows), one
+# block an SM by shared memory there
+@pytest.mark.parametrize("shape,rows", [
+    ((1, 1024, 1024), 8), ((1, 1, 1024), 1), ((1, 512, 1024), 4),
+    ((3, 1024, 1024), 8), ((1, 4096, 4096), 2), ((1, 64, 8192), 1)])
+def test_split3_bf16x3_rows_per_block(shape, rows):
+    c, m, n = shape
+    shared = planes.block_shared_bytes("bf16x3", True, False)
+    cap = planes.row_pass_max_rows(n, False, "bf16x3", True)
+    got = planes.rows_per_block(c, m, n, SMS, cap, shared)
+    assert got == rows
+    assert shared(got, n) <= planes.SMEM_LIMIT
+
+
+def test_split3_bf16x3_shared_bytes_of_the_header():
+    """The sizes dft_split3_bf16x3.cuh states: 8·(2·R·N + 128·e + n2²)
+    bytes, 130 KB at N = 1024, R = 8; 66 KB at R = 4; 137 KB at N = 4096,
+    R = 2; 161 KB at N = 8192, R = 1."""
+    kb = {(1024, 8): 132608, (1024, 4): 67072, (4096, 2): 140288,
+          (8192, 1): 164864}
+    for (n, rows), want in kb.items():
+        assert planes.split3_bf16x3_shared_bytes(rows, n) == want
 
 
 # ---- a numpy model of csrc/rows_natural_f32.cuh (the f32 natural store)

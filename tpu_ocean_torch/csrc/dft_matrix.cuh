@@ -8,8 +8,9 @@
 // tpu_ocean/ops/fused_spectrum_fft.py the same stages of _fused_kernel,
 // _fused_kernel_split3 and _fused_rowfft_kernel_natural. Two row passes
 // have kernels of their own: bf16 in the direct form, both stores
-// (dft_bf16_rows.cuh), and f32 in the three-factor form
-// (dft_split3_f32.cuh); the engine runs the rest and every fused tier.
+// (dft_bf16_rows.cuh), and the three-factor form at f32
+// (dft_split3_f32.cuh) and at bf16x3 (dft_split3_bf16x3.cuh); the engine
+// runs the rest and every fused tier.
 //
 // matrix_dft_stages<Tier, kSplit3> is a drop-in for stockham_stages: the R
 // rows of length N sit in the first shared buffer (stride N + 1 float2),
@@ -31,15 +32,18 @@
 //     rows apart:  [re; im] = [[Fr, −Fi], [Fi, Fr]] · [xr; xi].
 //     Operands are rounded to bf16 (round to nearest even) as they are
 //     loaded into fragments. bf16x3 splits each f32 operand into hi + lo
-//     bf16 parts and keeps hi·hi + hi·lo + lo·hi, on both stages (the TPU
-//     kernel does stage 2 only; stage 1 there is f32).
-//   f32 (the three-factor form only): FFMA, each lane 2 complex outputs.
+//     bf16 parts and keeps hi·hi + hi·lo + lo·hi, on the stage-2
+//     contractions only: stage 1 runs at f32, as the TPU kernels run it
+//     at B3 (p1 = HIGHEST).
+//   f32 (the three-factor form, and stage 1 at bf16x3): FFMA, each lane
+//     2 complex outputs.
 // Depths below 8 complex (n2 = 2, 4, and 1 at N = 128) are zero-padded;
 // rows past the table's size are dropped.
 //
 // What bounds it on the H100: device memory, as the Stockham kernels (16 B
 // a point for a row pass). At N = 1024 the direct form does 8·(n1 + n2) =
-// 1088 real flops a point (×3 at bf16x3), ~1.1 µs of the tensor cores'
+// 1088 real flops a point (at bf16x3 8·n2 on FFMA and 3·8·n1 on the
+// tensor cores), ~1.1 µs of the tensor cores'
 // 989 TFLOP/s for a [1024, 1024] pass against a 5 µs byte bound; the
 // three-factor form does 8·(n2 + 8 + 16) on FFMA at f32. This first engine
 // converts operands at every fragment load and reads the tables through
@@ -127,14 +131,16 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
   return u;
 }
 
-// (hi, lo) registers of the pair (a, b): hi = bf16(x), lo = bf16(x − hi)
+// (hi, lo) registers of the pair (a, b): hi = bf16(x), lo = bf16(x − hi),
+// each a packed conversion of the pair
 __device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
                                            uint32_t& lo) {
-  const __nv_bfloat16 ah = __float2bfloat16_rn(a);
-  const __nv_bfloat16 bh = __float2bfloat16_rn(b);
-  hi = pack_bf16(ah, bh);
-  lo = pack_bf16(__float2bfloat16_rn(__fsub_rn(a, __bfloat162float(ah))),
-                 __float2bfloat16_rn(__fsub_rn(b, __bfloat162float(bh))));
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(a, hf.x), __fsub_rn(b, hf.y));
+  memcpy(&hi, &h, sizeof(hi));
+  memcpy(&lo, &l, sizeof(lo));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -269,9 +275,11 @@ __device__ __forceinline__ const float2* matrix_dft_stages(
   const float2* f2 = tables;
   const float2* t = f2 + n2 * n2;
   const float2* rest = t + n2 * n1;
-  // stage 1: C[k2, t] = Σ_s F2[k2, s] x[s·n1 + t], in place of x's layout
-  contract<kTier>(src, dst, Stage{f2, nullptr, 0, n2, n2, n1, n1, n1, 1, 0,
-                                  n1, 1, 0}, R, stride);
+  // stage 1: C[k2, t] = Σ_s F2[k2, s] x[s·n1 + t], in place of x's layout;
+  // at f32 in the bf16x3 tier
+  constexpr int kTier1 = kTier == kTierBf16x3 ? kTierF32 : kTier;
+  contract<kTier1>(src, dst, Stage{f2, nullptr, 0, n2, n2, n1, n1, n1, 1, 0,
+                                   n1, 1, 0}, R, stride);
   if (!kSplit3) {
     // stage 2: X[k1·n2 + k2] = Σ_t F1[k1, t] (C ⊙ T)[k2, t]
     contract<kTier>(dst, src, Stage{rest, t, -1, n1, n1, n2, n2, 1, n1, 0,

@@ -46,7 +46,10 @@
 //    serialise TW's reads, whose address follows the lane. T, read once a
 //    row and coalesced along t, comes from L1/L2 with __ldg.
 // 3. Shifts and masks: every size is a power of two, the lengths are
-//    template constants and R's log2 is taken once.
+//    template constants and R's log2 is taken once. The load and stage 1
+//    (load_rows_f32, stage1, whose epilogue is the caller's) are also the
+//    first steps of the bf16x3 three-factor kernel (dft_split3_bf16x3.cuh),
+//    which keeps stage 1 at f32 as the TPU kernel does.
 // 4. Padded layouts (complex f32 = 8 bytes; a 64-bit shared access is
 //    served a half warp at a time, conflict-free when its 16 lanes fall on
 //    16 distinct 8-byte bank pairs, i.e. distinct addresses mod 16 in
@@ -114,6 +117,91 @@ __device__ __forceinline__ void cfma(float2& acc, float2 f, float2 x) {
   acc.y = fmaf(f.x, x.y, fmaf(f.y, x.x, acc.y));
 }
 
+// Loads rows m0 .. m0 + R − 1 of one channel's [M, N] planes (re, im at
+// the channel's first row) into x as complex f32, row r at r·sa + n: 4
+// points a lane as two float4 loads, kLoadsInFlight of them started before
+// any is waited on. Rows past M (the ragged last block) are zero. Also the
+// first step of the bf16x3 three-factor kernel (dft_split3_bf16x3.cuh).
+template <int kLog2N, int kBlock>
+__device__ __forceinline__ void load_rows_f32(float2* xa, int sa,
+                                              const float* __restrict__ re,
+                                              const float* __restrict__ im,
+                                              int M, int R, int m0) {
+  constexpr int N = 1 << kLog2N;
+  const int total = R * N / 4;
+  const int valid = (M - m0 < R ? M - m0 : R) * N / 4;
+  const size_t first = static_cast<size_t>(m0) * N;
+  const float4* bre = reinterpret_cast<const float4*>(re + first);
+  const float4* bim = reinterpret_cast<const float4*>(im + first);
+  for (int base = threadIdx.x; base < total;
+       base += kLoadsInFlight * kBlock) {
+    float4 vr[kLoadsInFlight], vi[kLoadsInFlight];
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const int idx = base + u * kBlock;
+      const bool ok = idx < valid;
+      vr[u] = ok ? bre[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
+      vi[u] = ok ? bim[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const int idx = base + u * kBlock;
+      if (idx >= total) continue;
+      const int p = idx * 4;
+      float4* dst =
+          reinterpret_cast<float4*>(&xa[(p >> kLog2N) * sa + (p & (N - 1))]);
+      dst[0] = make_float4(vr[u].x, vi[u].x, vr[u].y, vi[u].y);
+      dst[1] = make_float4(vr[u].z, vi[u].z, vr[u].w, vi[u].w);
+    }
+  }
+}
+
+// Stage 1 on the rows x (at r·sa + n): C[k2, t] = Σ_s F2[k2, s] ·
+// x[s·128 + t] (depth n2, FFMA, F2 broadcast from shared memory), then
+// C ⊙ T[k2, t] with each product and sum rounded alone; out(r, k2, t, v)
+// takes each value. An item is the columns t and t + 64 of row r and the
+// outputs k2 = K1·share .. + K1 − 1; the share is the slowest index, so a
+// warp shares it, and a warp's lanes run along t. Also stage 1 of the
+// bf16x3 three-factor kernel, whose out splits and stores the value.
+template <int kLog2N, int kBlock, class Out>
+__device__ __forceinline__ void stage1(const float2* xa, int sa,
+                                       const float2* f2s,
+                                       const float2* __restrict__ tw1,
+                                       int R, Out&& out) {
+  using G = Geometry<kLog2N>;
+  constexpr int n2 = G::n2;
+  constexpr int K = G::K1;
+  const int log2g = (31 - __clz(R)) + 6;           // R·64 column pairs
+  const int items = (R << 6) * (n2 / K);
+  for (int item = threadIdx.x; item < items; item += kBlock) {
+    const int k0 = (item >> log2g) * K;
+    const int i = item & ((1 << log2g) - 1);
+    const int r = i >> 6;
+    const int t = i & 63;
+    const float2* x = xa + r * sa + t;
+    float2 acc0[K], acc1[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc0[k] = acc1[k] = make_float2(0.f, 0.f);
+#pragma unroll 4
+    for (int s = 0; s < n2; ++s) {
+      const float2 x0 = x[s * 128];
+      const float2 x1 = x[s * 128 + 64];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float2 f = f2s[(k0 + k) * n2 + s];
+        cfma(acc0[k], f, x0);
+        cfma(acc1[k], f, x1);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int o = (k0 + k) * 128;
+      out(r, k0 + k, t, twiddle(acc0[k], __ldg(&tw1[o + t])));
+      out(r, k0 + k, t + 64, twiddle(acc1[k], __ldg(&tw1[o + t + 64])));
+    }
+  }
+}
+
 extern __shared__ float4 split3_f32_smem[];
 
 // One block: R rows m0 .. m0 + R − 1 of channel blockIdx.y.
@@ -128,7 +216,6 @@ split3_f32_rows_kernel(const float* __restrict__ re,
   const int tid = threadIdx.x;
   const int c = blockIdx.y;
   const int m0 = blockIdx.x * R;
-  const int log2r = 31 - __clz(R);
   const size_t plane = static_cast<size_t>(M) * G::N;
 
   float2* xa = reinterpret_cast<float2*>(split3_f32_smem);
@@ -143,74 +230,15 @@ split3_f32_rows_kernel(const float* __restrict__ re,
   for (int i = tid; i < kStage2Words; i += kThreads)
     fws[i] = tables[n2 * n2 + G::N + i];
 
-  // Load: 4 points a lane as two float4 loads, kLoadsInFlight of them
-  // started before any is waited on. Rows past M (the ragged last block)
-  // are zero and never stored.
-  {
-    const int total = R * G::N / 4;
-    const int valid = (M - m0 < R ? M - m0 : R) * G::N / 4;
-    const size_t first = c * plane + static_cast<size_t>(m0) * G::N;
-    const float4* bre = reinterpret_cast<const float4*>(re + first);
-    const float4* bim = reinterpret_cast<const float4*>(im + first);
-    for (int base = tid; base < total; base += kLoadsInFlight * kThreads) {
-      float4 vr[kLoadsInFlight], vi[kLoadsInFlight];
-#pragma unroll
-      for (int u = 0; u < kLoadsInFlight; ++u) {
-        const int idx = base + u * kThreads;
-        const bool ok = idx < valid;
-        vr[u] = ok ? bre[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
-        vi[u] = ok ? bim[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int u = 0; u < kLoadsInFlight; ++u) {
-        const int idx = base + u * kThreads;
-        if (idx >= total) continue;
-        const int p = idx * 4;
-        float4* dst = reinterpret_cast<float4*>(
-            &xa[(p >> kLog2N) * G::SA + (p & (G::N - 1))]);
-        dst[0] = make_float4(vr[u].x, vi[u].x, vr[u].y, vi[u].y);
-        dst[1] = make_float4(vr[u].z, vi[u].z, vr[u].w, vi[u].w);
-      }
-    }
-  }
+  load_rows_f32<kLog2N, kThreads>(xa, G::SA, re + c * plane, im + c * plane,
+                                  M, R, m0);
   __syncthreads();
 
-  // Stage 1: an item is the columns t and t + 64 of row r and the outputs
-  // k2 = K1·share .. + K1 − 1; the share is the slowest index, so a warp
-  // shares it. Writes C ⊙ T to Y.
-  {
-    constexpr int K = G::K1;
-    const int log2g = log2r + 6;                     // R·64 column pairs
-    const int items = (R << 6) * (n2 / K);
-    for (int item = tid; item < items; item += kThreads) {
-      const int k0 = (item >> log2g) * K;
-      const int i = item & ((1 << log2g) - 1);
-      const int r = i >> 6;
-      const int t = i & 63;
-      const float2* x = xa + r * G::SA + t;
-      float2 acc0[K], acc1[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) acc0[k] = acc1[k] = make_float2(0.f, 0.f);
-#pragma unroll 4
-      for (int s = 0; s < n2; ++s) {
-        const float2 x0 = x[s * 128];
-        const float2 x1 = x[s * 128 + 64];
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const float2 f = f2s[(k0 + k) * n2 + s];
-          cfma(acc0[k], f, x0);
-          cfma(acc1[k], f, x1);
-        }
-      }
-      float2* y = ys + r * G::SY + t;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int o = (k0 + k) * 128;
-        y[o] = twiddle(acc0[k], __ldg(&tw1[o + t]));
-        y[o + 64] = twiddle(acc1[k], __ldg(&tw1[o + t + 64]));
-      }
-    }
-  }
+  // Stage 1, writing C ⊙ T to Y
+  stage1<kLog2N, kThreads>(xa, G::SA, f2s, tw1, R,
+                           [&](int r, int k2, int t, float2 v) {
+                             ys[r * G::SY + k2 * 128 + t] = v;
+                           });
   __syncthreads();
 
   // Stage 2a: columns c = (r·n2 + k2)·16 + u; an item is the columns i and

@@ -34,7 +34,10 @@
 //     planes.bf16_rows_tables);
 //   f32, three-factor: dft_split3_f32.cuh (FFMA, each thread whole
 //     columns of a stage; `tables` planes.matrix_tables);
-//   bf16 three-factor and bf16x3 in both forms: fft_rows_kernel below, the
+//   bf16x3, three-factor: dft_split3_bf16x3.cuh (stage 1 as the f32
+//     kernel's, stage 2 on mma.sync with the split tables in registers;
+//     `tables` planes.split3_bf16x3_tables);
+//   bf16 three-factor and bf16x3 direct: fft_rows_kernel below, the
 //     matrix-form engine of dft_matrix.cuh between a coalesced load of R
 //     rows into shared memory and stockham.cuh's stores (`tables`
 //     planes.matrix_tables).
@@ -45,6 +48,7 @@
 
 #include "dft_bf16_rows.cuh"
 #include "dft_matrix.cuh"
+#include "dft_split3_bf16x3.cuh"
 #include "dft_split3_f32.cuh"
 #include "rows_natural_f32.cuh"
 #include "stockham_rows_cluster.cuh"
@@ -115,6 +119,10 @@ int launch(const void* re, const void* im, void* out_re, void* out_im,
     } else if constexpr (std::is_same_v<Engine, MatrixEngine<kTierF32, true>>) {
       return launch_split3_f32_rows(re, im, out_re, out_im, tables, channels,
                                     m, n, rows, stream);
+    } else if constexpr (std::is_same_v<Engine,
+                                        MatrixEngine<kTierBf16x3, true>>) {
+      return launch_split3_bf16x3_rows(re, im, out_re, out_im, tables,
+                                       channels, m, n, rows, stream);
     } else {
       const int smem = smem_bytes(rows, n);
       cudaError_t err = allow_smem(fft_rows_kernel<kNatural, Engine>, smem);
@@ -140,8 +148,9 @@ extern "C" {
 // that keeps the shared memory within the card's limit, contiguous f32
 // planes, `tables` the Stockham twiddles (tier 0, split3 0, transposed),
 // the radix-16 twiddles (tier 0, split3 0, natural), the bf16 row kernel's
-// tables (tier 1, split3 0) or the matrix engine's tables for (n, tier,
-// split3), which the three-factor f32 kernel also reads.
+// tables (tier 1, split3 0), the bf16x3 three-factor kernel's (tier 2,
+// split3 1) or the matrix engine's tables for (n, tier, split3), which the
+// three-factor f32 kernel also reads.
 // The transposed entry also takes `cluster`, the blocks of one thread-block
 // cluster of the f32 direct pass (planes.transposed_cluster: 1, 2, 4 or 8);
 // every other pass takes 1.

@@ -13,8 +13,9 @@ JAX counterparts: ``tpu_ocean/fft/pallas_fft.py`` ``_gauss_cmul`` /
 - ``bf16``: each operand rounded to bfloat16 (round to nearest even, as
   XLA rounds), products accumulated in float32: a DEFAULT dot on the MXU;
 - ``bf16x3``: each operand split into hi + lo bfloat16 parts, keeping
-  hi·hi + hi·lo + lo·hi (``_split_bf16``, ``_dot_mid``), on both stages
-  (the TPU kernel keeps stage 1 at f32).
+  hi·hi + hi·lo + lo·hi (``_split_bf16``, ``_dot_mid``), on the stage-2
+  contractions only; stage 1 (F2, depth n2) runs at f32, as the TPU
+  kernels run it at B3 (``p1 = HIGHEST``).
 
 The complex products take four real products (re = Fr·xr − Fi·xi, im =
 Fi·xr + Fr·xi), as the kernel's real-form ``mma`` does, not Gauss's three,
@@ -85,9 +86,11 @@ def rows_dft(re: torch.Tensor, im: torch.Tensor, tables, split3_tables,
     dev = re.device
     f2r, f2i, twr, twi, f1r, f1i = (torch.from_numpy(a).to(dev) for a in mats)
     c, m, n = re.shape
-    # stage 1: C[k2, t] = Σ_s F2[k2, s] x[s·n1 + t], then C ⊙ T
+    # stage 1: C[k2, t] = Σ_s F2[k2, s] x[s·n1 + t], then C ⊙ T; at f32
+    # in the bf16x3 tier, as the TPU kernels keep it
     cr, ci = _cmatmul(f2r, f2i, re.reshape(c, m, n2, n1),
-                      im.reshape(c, m, n2, n1), tier)
+                      im.reshape(c, m, n2, n1),
+                      "f32" if tier == "bf16x3" else tier)
     cr, ci = _twiddle(cr, ci, twr, twi)                 # [c, m, k2, t]
     if split3_tables is None:
         # stage 2: X[k1, k2] = Σ_t F1[k1, t] C[k2, t]

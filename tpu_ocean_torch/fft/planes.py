@@ -34,11 +34,13 @@ register-resident radix-16 passes with the natural store
 ``radix16_twiddles``); the plain version of both is ``torch.fft``.
 bf16 in the direct form runs a kernel of its own with
 either store (``csrc/dft_bf16_rows.cuh``, tables from
-``bf16_rows_tables``), and so does f32 in the three-factor form
-(``csrc/dft_split3_f32.cuh``, tables from ``matrix_tables``); the other
-tiers and forms (bf16 three-factor, bf16x3) run the matrix-form engine
-(``csrc/dft_matrix.cuh``). All but Stockham take their plain version
-from ``fft/matrix.py``.
+``bf16_rows_tables``), and so does the three-factor form at f32
+(``csrc/dft_split3_f32.cuh``, tables from ``matrix_tables``) and at
+bf16x3 (``csrc/dft_split3_bf16x3.cuh``, tables from
+``split3_bf16x3_tables``); the other tiers and forms (bf16 three-factor,
+bf16x3 direct) run the matrix-form engine (``csrc/dft_matrix.cuh``). The
+bf16x3 tier keeps stage 1 at f32, as the TPU kernels do. All but
+Stockham take their plain version from ``fft/matrix.py``.
 Each launch counts once: a Stockham kernel's on its wrapper's
 ``launches``; any other row launch, and a fused launch outside the packed
 set with 3 live fields, in ``named_launches`` under ``kernel_name``.
@@ -226,6 +228,13 @@ def _split3_rows(tier: str, split3: bool) -> bool:
     return tier == "f32" and split3
 
 
+def _split3_bf16x3_rows(tier: str, split3: bool) -> bool:
+    """The pass that runs the bf16x3 three-factor row kernel
+    (csrc/dft_split3_bf16x3.cuh) instead of the matrix engine (the
+    transposed store only, as _split3_rows)."""
+    return tier == "bf16x3" and split3
+
+
 @functools.lru_cache(maxsize=32)
 def matrix_tables(n: int, inverse: bool, split3: bool,
                   device: torch.device) -> torch.Tensor:
@@ -270,6 +279,43 @@ def mma_a_fragments(fr: np.ndarray, fi: np.ndarray) -> np.ndarray:
     regs = [low[i, kk] | (high[i, kk] << 16)
             for kk in (k0, k0 + 1) for low, high in ((br, nbi), (bi, br))]
     return np.stack(regs, axis=-1)
+
+
+def mma_a_fragments_split(fr: np.ndarray, fi: np.ndarray):
+    """The hi/lo twin of mma_a_fragments: (hi, lo) uint32 [mt, kt, 32, 4],
+    hi the fragments of bf16(F) and lo those of bf16(F − hi), each part
+    rounded to nearest even (matrix.split_bf16): the bf16x3 split of the
+    real form, since the split of −Fi is −(the split of Fi)."""
+    hr, hi_ = (_bf16_value(a) for a in (fr, fi))
+    return (mma_a_fragments(hr, hi_),
+            mma_a_fragments(fr - hr, fi - hi_))
+
+
+def _bf16_value(x: np.ndarray) -> np.ndarray:
+    """f32 → the nearest bfloat16 (ties to even), as f32 values."""
+    return (_bf16_bits(x).astype(np.uint32) << 16).view(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def split3_bf16x3_tables_np(n: int, inverse: bool) -> np.ndarray:
+    """The bf16x3 three-factor row kernel's tables as one int32 array, in
+    the order csrc/dft_split3_bf16x3.cuh reads them: matrix_tables(n,
+    inverse, True) (F2, T, F_W, TW, F_U as f32 (re, im) pairs), zero-padded
+    to a 16-byte boundary, then the A fragments (mma_a_fragments_split) of
+    F_W hi, F_W lo, F_U hi, F_U lo."""
+    f32 = matrix_tables(n, inverse, True, torch.device("cpu")).numpy()
+    f32 = np.pad(f32.view(np.uint32).ravel(), (0, -f32.size % 4))
+    fwr, fwi, _, _, fur, fui = _split3_tables_np(_split_lanes(n)[0], inverse)
+    frags = [f.ravel() for tab in (mma_a_fragments_split(fwr, fwi),
+                                   mma_a_fragments_split(fur, fui))
+             for f in tab]
+    return np.concatenate([f32, *frags]).view(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def split3_bf16x3_tables(n: int, inverse: bool,
+                         device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(split3_bf16x3_tables_np(n, inverse)).to(device)
 
 
 @functools.lru_cache(maxsize=32)
@@ -349,6 +395,29 @@ def split3_rows_shared_bytes(rows: int, n: int) -> int:
     return 8 * (rows * (g["SA"] + g["SY"]) + g["n2"] ** 2
                 + _SPLIT_W * _SPLIT_W + _SPLIT_W * _SPLIT_U
                 + _SPLIT_U * _SPLIT_U)
+
+
+def split3_bf16x3_geometry(n: int, rows: int) -> dict:
+    """The layout of the bf16x3 three-factor row kernel
+    (csrc/dft_split3_bf16x3.cuh Geometry) for ``rows`` rows a block: n2;
+    pad, the pad columns a b in H2 (1 where n2·rows ≥ 4); the 32-bit
+    words of one plane (hi or lo) of H1 (C ⊙ T, rows·n) and of H2
+    (B ⊙ TW, (8·n2·rows + 8·pad)·16); and f32_words, the table's complex
+    f32 part in words before its fragments (matrix_tables, padded to 16
+    bytes)."""
+    n2 = n // 128
+    pad = 1 if n2 * rows >= 4 else 0
+    return dict(n2=n2, pad=pad, h1_words=rows * n,
+                h2_words=(8 * n2 * rows + 8 * pad) * 16,
+                f32_words=-(-2 * (n2 * n2 + n + 448) // 4) * 4)
+
+
+def split3_bf16x3_shared_bytes(rows: int, n: int) -> int:
+    """Dynamic shared memory of one block of the bf16x3 three-factor row
+    kernel: the rows (f32, later H2's two planes), H1's two planes and F2
+    (n2² complex): 8·(2·rows·n + 128·pad + n2²)."""
+    g = split3_bf16x3_geometry(n, rows)
+    return 8 * (g["h2_words"] + g["h1_words"] + g["n2"] ** 2)
 
 
 def cluster_gather_stride(kr: int, w: int) -> int:
@@ -474,7 +543,8 @@ def radix16_twiddles(n: int, inverse: bool,
 
 def block_shared_bytes(tier: str, split3: bool, natural: bool):
     """The shared-memory function (rows, n) → bytes of the row kernel at
-    (tier, split3, store): the bf16 and the f32 three-factor kernels' own,
+    (tier, split3, store): the bf16 and the f32 and bf16x3 three-factor
+    kernels' own,
     the f32 transposed kernel's at its largest cluster
     (cluster_rows_block_bytes), the f32 natural kernel's
     (radix16_shared_bytes), else the matrix engine's two buffers
@@ -483,6 +553,8 @@ def block_shared_bytes(tier: str, split3: bool, natural: bool):
         return bf16_rows_shared_bytes
     if _split3_rows(tier, split3) and not natural:
         return split3_rows_shared_bytes
+    if _split3_bf16x3_rows(tier, split3) and not natural:
+        return split3_bf16x3_shared_bytes
     if _stockham(tier, split3):
         return radix16_shared_bytes if natural else cluster_rows_block_bytes
     return shared_bytes
@@ -506,7 +578,9 @@ def row_pass_max_rows(n: int, natural: bool, tier: str,
                       split3: bool) -> int:
     """The most rows per block of a row pass (not fused) at (tier, split3,
     store): the f32 direct kernels' own caps (cluster_max_rows,
-    radix16_max_rows), else max_rows."""
+    radix16_max_rows), else max_rows (the three-factor kernels' R = 8 at
+    N = 1024 was the fastest in their H100 sweeps, chip_smoke.py
+    --sweep-rows)."""
     if _stockham(tier, split3):
         return radix16_max_rows(n) if natural else cluster_max_rows(n)
     return max_rows(n, natural, tier, split3)
@@ -616,6 +690,8 @@ def _launch_rows(entry: str, re, im, inverse: bool, out_shape, tier: str,
     clustered = not natural and _stockham(tier, split3)
     if _bf16_rows(tier, split3):
         tables = bf16_rows_tables(n, bool(inverse), re.device)
+    elif _split3_bf16x3_rows(tier, split3):
+        tables = split3_bf16x3_tables(n, bool(inverse), re.device)
     elif natural and _stockham(tier, split3):
         tables = radix16_twiddles(n, bool(inverse), re.device)
     else:
