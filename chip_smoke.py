@@ -30,7 +30,13 @@ Phases, each printing its own lines:
                (radix-16 passes), on the same inputs at every shape the
                paths give the transposed one: within 1e-6·max of each
                other, and each one's RMS error against float64 within
-               1.1 × the other's;
+               1.1 × the other's; the f32 fused natural kernel (radix-16
+               passes, every channel of a block from one read of the
+               inputs) at every shape and channel set the paths give it,
+               channel by channel: within 1e-6·max of the radix-16 row
+               kernel applied to the plain assembly on the card, and its
+               RMS error against the float64 DFT of the float64 assembly
+               at most 1.1 × that row kernel's;
   4. slice   — seventeen paths on the card, each from a seeded init, with
                every launch count set to 0 just before and read just after
                it:
@@ -108,6 +114,10 @@ Phases, each printing its own lines:
                the same inputs (the cluster store's radix-2 stages against
                the natural store's radix-16 passes), the bf16x3
                three-factor kernel beside the f32 three-factor one, the
+               f32 fused natural kernel's launches of C > 1 channels
+               beside C launches of one channel on the same inputs (one
+               read of the inputs against C) and its one-channel launches
+               beside the radix-16 row kernel at [1, M, N], the
                others beside the f32 kernel with their store;
                warm L2, nothing
                asserted. Device times come
@@ -117,11 +127,12 @@ Then one JSON line of kernel results, the card's name and power limit, and
 last {"ok": true, "device": ...}.
 
 With --sweep-rows, phases 4 and 5 give way to a sweep of the rows per
-block: each f32 row-DFT and fused case of phase 3, and the cases of the
+block: each f32 row-DFT and fused case of phase 3 (the f32 fused natural
+kernel in every channel set), and the cases of the
 bf16 row kernel (both stores) and the f32 and bf16x3 three-factor row
 kernels, at
 every power of two up to 16 that fits shared memory (and, for the f32
-natural kernel, 512 threads), checked against its
+natural kernels, row and fused, 512 threads), checked against its
 plain version and timed (device time, torch.profiler); the f32
 transposed kernel at every such rows and every cluster size (1, 2, 4, 8);
 the wrappers' choice is marked "*". No result line follows.
@@ -283,16 +294,19 @@ KERNEL_INFO = {
                          "tpu_ocean/fft/pallas_fft.py:677"),
     "fused_rows_transposed": ("tpu_ocean_torch/csrc/fused_rows.cu",
                               "tpu_ocean/ops/fused_spectrum_fft.py:127"),
-    "fused_rows_natural": ("tpu_ocean_torch/csrc/fused_rows.cu",
-                           "tpu_ocean/ops/fused_spectrum_fft.py:196"),
+    "fused_rows_natural": (
+        "tpu_ocean_torch/csrc/fused_rows_natural_f32.cuh",
+        "tpu_ocean/ops/fused_spectrum_fft.py:196"),
     "fused_transposed[per_channel]": ("tpu_ocean_torch/csrc/fused_rows.cu",
                                       "tpu_ocean/ops/fused_spectrum_fft.py:127"),
     "fused_transposed[packed5]": ("tpu_ocean_torch/csrc/fused_rows.cu",
                                   "tpu_ocean/ops/fused_spectrum_fft.py:127"),
-    "fused_natural[per_channel]": ("tpu_ocean_torch/csrc/fused_rows.cu",
-                                   "tpu_ocean/ops/fused_spectrum_fft.py:196"),
-    "fused_natural[packed5]": ("tpu_ocean_torch/csrc/fused_rows.cu",
-                               "tpu_ocean/ops/fused_spectrum_fft.py:196"),
+    "fused_natural[per_channel]": (
+        "tpu_ocean_torch/csrc/fused_rows_natural_f32.cuh",
+        "tpu_ocean/ops/fused_spectrum_fft.py:196"),
+    "fused_natural[packed5]": (
+        "tpu_ocean_torch/csrc/fused_rows_natural_f32.cuh",
+        "tpu_ocean/ops/fused_spectrum_fft.py:196"),
     "fields_stencil_v1": ("tpu_ocean_torch/csrc/fields_stencil_v1.cu",
                           "tpu_ocean/ops/fields_pallas.py:45"),
     "gerstner_bank": ("tpu_ocean_torch/csrc/gerstner_bank.cu",
@@ -334,11 +348,12 @@ KERNEL_INFO = {
 }
 # kernel-vs-plain band of each tier (tests/test_torch_cuda_kernels.py)
 TIER_BAND = {"f32": 1e-5, "bf16": 2e-3, "bf16x3": 1e-5}
-# each redesigned row kernel before its redesign (the matrix engine; for
-# the f32 kernels the block-per-R-rows store and radix-2 stages), device ms a launch
-# at each shape it is timed at: PERF.md §6, NVIDIA H100 80GB HBM3, 700 W,
-# torch.profiler, the chip run before each redesign; printed beside this
-# run's times, not measured here
+# each redesigned row or fused kernel before its redesign (the matrix
+# engine; for the f32 kernels the block-per-R-rows store and radix-2
+# stages, and for the f32 fused natural kernel a block per channel),
+# device ms a launch at each shape it is timed at: PERF.md §6, NVIDIA
+# H100 80GB HBM3, 700 W, torch.profiler, the chip run before each
+# redesign; printed beside this run's times, not measured here
 BEFORE_REDESIGN_MS = {
     "fft_rows_transposed": {
         (1, 1024, 1024): 0.0148, (1, 512, 1024): 0.0111,
@@ -360,7 +375,18 @@ BEFORE_REDESIGN_MS = {
         (1, 1024, 1024): 0.0684, (1, 512, 1024): 0.0384,
         (1, 1, 1024): 0.0116},
     "matrix_rows_transposed[bf16x3,split3]": {
-        (1, 1024, 1024): 0.0382, (1, 1, 1024): 0.0075}}
+        (1, 1024, 1024): 0.0382, (1, 1, 1024): 0.0075},
+    "fused_rows_natural": {
+        (4096, 4096, "ch 0"): 0.2965, (2048, 4096, "ch 1"): 0.1576},
+    "fused_natural[per_channel]": {
+        (4096, 4096, "ch 0-4", "per_channel"): 1.3820},
+    "fused_natural[packed5]": {
+        (4096, 4096, "ch 0-2", "packed5"): 0.8519,
+        (2048, 4096, "ch 2", "packed5"): 0.1575}}
+# the f32 fused natural kernel (csrc/fused_rows_natural_f32.cuh) under
+# each name it counts under, one per channel set
+FUSED_NATURAL_F32 = ("fused_rows_natural", "fused_natural[per_channel]",
+                     "fused_natural[packed5]")
 # one bf16 row pass against float64 at [1,1024,1024] (max abs error over
 # max |float64|) on the matrix engine (PERF.md §6). The kernels round the
 # same operands as the bf16 plain version, so on the same rows their error
@@ -432,6 +458,8 @@ def kernel_group(key):
         return "fft_rows_transposed"
     if "radix16_rows_natural_kernel" in key:
         return "fft_rows_natural"
+    if "radix16_fused_rows_natural_kernel" in key:
+        return "fused_rows_natural"
     m = (re.search(r"bf16_rows_kernel<\d+, (true|false)>", key)
          or re.search(r"bf16_rows_kernelILi\d+ELb([01])E", key))
     if m is not None:
@@ -651,6 +679,38 @@ def rms_rel_err(got, ref):
     return torch.sqrt(err / sum((r ** 2).mean() for r in ref)).item()
 
 
+def assembly_f64(h0_planes, phase, length, dz_sign, *, epsilon, ch,
+                 packed, nch_live, row_offset=0):
+    """Channel ``ch`` of the set (fused_spectrum's assembly) in float64
+    from the f32 inputs, kx and kz from 2π/L in float64: the values the
+    fused kernels' f32 arithmetic rounds. (re, im) float64 [M, N] on the
+    inputs' device."""
+    h0r, h0i, h0cr, h0ci = (q.double() for q in h0_planes)
+    c, s = torch.cos(phase.double()), torch.sin(phase.double())
+    htr = (h0r + h0cr) * c + (h0ci - h0i) * s
+    hti = (h0i + h0ci) * c + (h0r - h0cr) * s
+    m, n = phase.shape
+    kw = dict(device=phase.device, dtype=torch.float64)
+    row = torch.arange(m, **kw)[:, None] + row_offset
+    col = torch.arange(n, **kw)[None, :]
+    kx = 2 * np.pi / length * torch.where(row < n // 2, row, row - n)
+    kz = 2 * np.pi / length * torch.where(col < n // 2, col, col - n)
+    kmag2 = kx * kx + kz * kz
+    invk = torch.where(kmag2 < float(epsilon) ** 2, 0.0, 1.0 / kmag2.sqrt())
+    w = [float(ch == i) for i in range(5)]
+    if not packed:
+        k = (w[0] + w[1] * kx * invk + w[2] * dz_sign * kz * invk
+             - w[3] * kx - w[4] * kz)
+        return k * htr, k * hti
+    rowmask, colmask = (row != n // 2).double(), (col != n // 2).double()
+    a = w[0] * (1 + kx * invk * rowmask)
+    b = w[1] * dz_sign * kz * invk * colmask
+    if nch_live == 5:
+        a = a - w[1] * kx * rowmask
+        b = b - w[2] * kz * colmask
+    return a * htr + b * hti, a * hti - b * htr
+
+
 def check_kernel(name, shape, got, want, band=1e-5, channels=1):
     """Max abs error of a kernel's (re, im) against its plain version's;
     raises beyond band·max|plain|. With ``channels`` > 1 each channel of
@@ -698,10 +758,11 @@ class Case:
 
 
 # the kernels --sweep-rows sweeps (by name): the f32 direct row kernels
-# (both stores) and fused kernels, the bf16 row kernel (both stores) and
-# the f32 and bf16x3 three-factor row kernels
+# (both stores) and fused kernels (the natural one in every channel set),
+# the bf16 row kernel (both stores) and the f32 and bf16x3 three-factor
+# row kernels
 SWEPT = ("fft_rows_transposed", "fft_rows_natural", "fused_rows_transposed",
-         "fused_rows_natural", "matrix_rows_transposed[bf16]",
+         *FUSED_NATURAL_F32, "matrix_rows_transposed[bf16]",
          "matrix_rows_natural[bf16]", "matrix_rows_transposed[f32,split3]",
          "matrix_rows_transposed[bf16x3,split3]")
 
@@ -709,9 +770,10 @@ SWEPT = ("fft_rows_transposed", "fft_rows_natural", "fused_rows_transposed",
 def sweep_rows(cases, planes):
     """Time each row-DFT and fused case at every power-of-two rows per
     block up to 16 that fits shared memory, each checked against its plain
-    version first (the f32 natural kernel up to 512 threads a block); the
-    f32 transposed kernel (the cluster store) at every such rows and every
-    cluster size; the wrappers' own choice marked "*"."""
+    version first (the f32 natural kernels, row and fused, up to 512
+    threads a block); the f32 transposed kernel (the cluster store) at
+    every such rows and every cluster size; the wrappers' own choice
+    marked "*"."""
     chosen_fn, cluster_fn = planes.rows_per_block, planes.transposed_cluster
     sms = planes.sm_count(torch.device("cuda"))
     for case in cases:
@@ -723,15 +785,17 @@ def sweep_rows(cases, planes):
         natural = "natural" in name
         tier, split3 = case.engine
         if name.startswith("fused"):
-            shared, cap = planes.shared_bytes, planes.max_rows(n, natural)
+            shared = planes.fused_block_shared_bytes(tier, split3, natural)
+            chosen = planes.fused_rows(c, m, n, sms, natural, tier, split3)
         else:
             shared = planes.block_shared_bytes(tier, split3, natural)
-            cap = planes.row_pass_max_rows(n, natural, tier, split3)
+            chosen = chosen_fn(c, m, n, sms, planes.row_pass_max_rows(
+                n, natural, tier, split3), shared)
         clustered = name == "fft_rows_transposed"
-        chosen = chosen_fn(c, m, n, sms, cap, shared)
         k_chosen = cluster_fn(m, n, chosen) if clustered else 1
+        # the f32 natural kernels hold 16 points a thread
         threads = (16 * planes.RADIX16_MAX_THREADS
-                   if name == "fft_rows_natural" else 1 << 30)
+                   if natural and tier == "f32" and not split3 else 1 << 30)
         points = [(1 << i, k) for i in range(5)
                   if shared(1 << i, n) <= planes.SMEM_LIMIT
                   and (1 << i) * n <= threads
@@ -989,6 +1053,8 @@ def main():
     # entry; a set is (packed, nch_live)
     sets = {"packed3": (True, 3), "packed5": (True, 5),
             "per_channel": (False, 3)}
+    # (name, shape) of the f32 fused natural cases: (inputs, keywords)
+    fused_natural_calls = {}
     for name, fn, plain, precision, switches, shapes in (
             ("fused_rows_transposed", fused.assemble_rowfft,
              fused.assemble_rowfft_plain, "float32", {},
@@ -1051,9 +1117,12 @@ def main():
             counted = (f"fused_rows_{store}" if tier == "f32" and not split3
                        and not tag else
                        planes.kernel_name(f"fused_{store}", tier, split3, tag))
+            shape = [m, n, label] + ([] if channel_set == "packed3"
+                                     else [channel_set])
+            if name in FUSED_NATURAL_F32:
+                fused_natural_calls[name, tuple(shape)] = (args, kw)
             cases.append(Case(
-                name, [m, n, label]
-                + ([] if channel_set == "packed3" else [channel_set]),
+                name, shape,
                 switched(switches, lambda fn=fn, a=args, kw=kw: fn(*a, **kw)),
                 switched(switches, lambda fn=plain, a=args, kw=kw: fn(*a, **kw)),
                 None, (20 + 8 * count) * m * n + 4 * n,
@@ -1150,6 +1219,44 @@ def main():
                 f"the f32 row kernels' RMS errors against float64 at {shape} "
                 f"differ: {e_tr:.4e} and {e_nat:.4e}")
         del got, nat, ref
+
+    # the f32 fused natural kernel at every shape and channel set the paths
+    # give it, channel by channel: within 1e-6·max of the radix-16 row
+    # kernel applied to the plain assembly on the card, and its RMS error
+    # against the float64 DFT of the float64 assembly at most
+    # F32_F64_SPREAD x the row kernel's on the plain assembly
+    for (name, shape), (args, kw) in fused_natural_calls.items():
+        got = fused.assemble_rowfft_natural(*args, **kw)
+        for c in range(kw["ch_count"]):
+            ch = kw["ch_start"] + c
+            asm_kw = dict(epsilon=kw["epsilon"], ch=ch, packed=kw["packed"],
+                          nch_live=kw["nch_live"])
+            plain_re, plain_im = fused._assemble_plain(*args, row_offset=0,
+                                                       **asm_kw)
+            row = planes.fft1d_natural_large(plain_re[None], plain_im[None])
+            ref = torch.fft.ifft(torch.complex(*assembly_f64(*args, **asm_kw)),
+                                 dim=-1, norm="forward")
+            ref = (ref.real[None], ref.imag[None])
+            gc = (got[0][c:c + 1], got[1][c:c + 1])
+            torch.cuda.synchronize()
+            scale = max(r.abs().max().item() for r in row)
+            err = max((g - r).abs().max().item() for g, r in zip(gc, row))
+            e_fused, e_row = rms_rel_err(gc, ref), rms_rel_err(row, ref)
+            log(f"[kernels] {name} {list(shape)} channel {ch} against "
+                f"fft_rows_natural over the plain assembly: max abs err "
+                f"{err:.3e} = {err / scale:.3e} x max (limit 1e-6); RMS "
+                f"error vs float64 of the float64 assembly {e_fused:.4e} "
+                f"(fused) and {e_row:.4e} (row kernel), ratio "
+                f"{e_fused / e_row:.3f} (limit {F32_F64_SPREAD:g})")
+            require(err <= 1e-6 * scale, f"{name} {list(shape)} channel {ch} "
+                    f"and the row kernel over the plain assembly disagree "
+                    f"({err / scale:.3e} x max)")
+            require(e_fused <= F32_F64_SPREAD * e_row,
+                    f"{name} {list(shape)} channel {ch}: RMS error against "
+                    f"float64 {e_fused:.4e} > {F32_F64_SPREAD:g} x the row "
+                    f"kernel's {e_row:.4e}")
+            del plain_re, plain_im, row, ref, gc
+        del got
 
     # both stencils on the fields of one step at each size the paths run
     for n in sorted({path.size for path in PATHS}):
@@ -1577,6 +1684,30 @@ def main():
                 # worth having only where it is the cheaper of the two
                 what = "the f32 three-factor kernel"
                 ref = by_shape["matrix_rows_transposed[f32,split3]", shape][0]
+            elif name in FUSED_NATURAL_F32:
+                args, kw = fused_natural_calls[name, shape]
+                count = kw["ch_count"]
+                if count > 1:
+                    # one launch of C channels reads the inputs once: C
+                    # launches of one channel on the same inputs, each
+                    # reading them
+                    what = f"{count} one-channel launches"
+                    ref = sum(device_ms(
+                        lambda ch=ch: fused.assemble_rowfft_natural(
+                            *args, **{**kw, "ch_start": ch, "ch_count": 1}))[0]
+                        for ch in range(kw["ch_start"],
+                                        kw["ch_start"] + count))
+                else:
+                    what = f"the radix-16 row kernel at [1, {shape[0]}, " \
+                           f"{shape[1]}]"
+                    ref = by_shape["fft_rows_natural",
+                                   (1, shape[0], shape[1])][0]
+                log(f"[timing] {kind} ({smi}): {name} {list(shape)}: "
+                    f"{k:.4f} ms (before the redesign {before:.4f}, PERF.md, "
+                    f"not this run), {what} {ref:.4f}, bound {b_ms:.4f}; "
+                    f"{before / k:.2f}x faster than before, {k / ref:.3f} "
+                    f"of {what}, {b_ms / k:.3f} of the bound")
+                continue
             else:
                 what = (f"Stockham f32 {store}"
                         + (" (cluster store)" if store == "transposed" else ""))

@@ -260,6 +260,65 @@ def test_fused_channel_sets_match_plain(cuda, case, natural):
         _assert_close((got[0][c], got[1][c]), (want[0][c], want[1][c]))
 
 
+# the f32 fused natural kernel (csrc/fused_rows_natural_f32.cuh): every
+# (set, ch_start, ch_count) a launch may take
+FUSED_SPANS = [(packed, live, start, count)
+               for packed, live in ((True, 3), (True, 5), (False, 3))
+               for start in range(fused.channel_count(packed, live))
+               for count in range(1, fused.channel_count(packed, live) - start
+                                  + 1)]
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("span", FUSED_SPANS, ids=str)
+@pytest.mark.parametrize("n", [1 << i for i in range(4, 14)])
+def test_fused_natural_f32_kernel_matches_plain(cuda, monkeypatch, n, span,
+                                                inverse):
+    """At every N, R the wrapper's cap (at most 8, forced) and a ragged M
+    (a block and a half) across the Nyquist row: every channel within
+    1e-5·max of its own plain channel, counted once under its set."""
+    packed, nch_live, ch_start, ch_count = span
+    rows = min(planes.fused_natural_max_rows(n), 8)
+    m = rows + rows // 2 + 1
+    monkeypatch.setattr(planes, "rows_per_block", lambda *_, **__: rows)
+    h0, phase = _fused_inputs(m, n, cuda, seed=n + ch_start)
+    kw = dict(epsilon=1e-4, ch_start=ch_start, ch_count=ch_count,
+              row_offset=n // 2 - m // 2, packed=packed, nch_live=nch_live,
+              inverse=inverse)
+    before = fused.assemble_rowfft_natural.launches
+    planes.named_launches.clear()
+    got = fused.assemble_rowfft_natural(h0, phase, 434.48, -1.0, **kw)
+    tag = fused.channel_set(packed, nch_live)
+    if tag:
+        assert planes.named_launches == {f"fused_natural[{tag}]": 1}
+    else:
+        assert fused.assemble_rowfft_natural.launches == before + 1
+    want = fused.assemble_rowfft_natural_plain(h0, phase, 434.48, -1.0, **kw)
+    for c in range(ch_count):
+        _assert_close((got[0][c], got[1][c]), (want[0][c], want[1][c]))
+
+
+@pytest.mark.parametrize("n,rows", [(16384, 1), (8, 1), (96, 1), (1024, 64),
+                                    (1024, 0)])
+def test_fused_natural_f32_kernel_refuses_other_lengths_and_blocks(cuda, n,
+                                                                   rows):
+    """The C entry at tier f32, direct form, natural store: N outside the
+    powers of two in [16, 8192], no rows or more than 512 threads a block
+    are refused (cudaErrorInvalidValue), never run on another kernel."""
+    from tpu_ocean_torch import _build
+    h0, phase = _fused_inputs(2, n, cuda)
+    out = torch.empty((1, 2, n), device=cuda)
+    kz = torch.zeros(n, device=cuda)
+    tables = planes.radix16_twiddles(1024, True, cuda)
+    err = _build.load().lib.tpu_fused_rows_natural(
+        *(p.data_ptr() for p in (*h0, phase, kz, out, out, tables)),
+        1, 0, 2, n, rows, 0, 1, 3, planes.TIERS["f32"], 0, 0.0145, -1.0,
+        1e-4, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.load().check(err, "tpu_fused_rows_natural")
+
+
 def test_launch_counters_count_kernel_launches(cuda):
     re, im = _planes((1, 16, 64), cuda)
     f0, s0 = planes.fft1d_transposed.launches, fs.fields_stencil.launches
@@ -504,6 +563,62 @@ def test_only_the_bf16_direct_transposed_pass_runs_its_own_kernel(
     name = planes.kernel_name(f"rows_{store}", tier, split3)
     assert planes.named_launches == {name: 1}
     assert chip_smoke.kernel_group(row_kernels[0]) == name
+
+
+# (tier, split3, natural) of a fused pass → the kernel it runs: the f32
+# natural store its own (radix16_fused_rows_natural_kernel), the f32
+# transposed store fused_rows_kernel on the Stockham stages, the rest
+# fused_rows_kernel on the matrix engine
+FUSED_ROUTED = [("f32", False, True, "radix16_fused_rows_natural_kernel"),
+                ("f32", False, False, "StockhamEngine"),
+                ("bf16", False, True, "MatrixEngine"),
+                ("bf16", False, False, "MatrixEngine"),
+                ("bf16x3", False, True, "MatrixEngine"),
+                ("bf16x3", True, False, "MatrixEngine"),
+                ("f32", True, False, "MatrixEngine")]
+
+
+@pytest.mark.parametrize("channel_set", [(True, 3), (True, 5), (False, 3)],
+                         ids=str)
+@pytest.mark.parametrize("tier,split3,natural,kernel", FUSED_ROUTED)
+def test_only_the_f32_natural_fused_pass_runs_its_own_kernel(
+        cuda, select_engine, tier, split3, natural, kernel, channel_set):
+    """Each fused pass, in every channel set, launches the one kernel its
+    routing names, read from the profiler's kernel names; the new kernel's
+    symbol appears in the f32 natural pass alone, and every key groups
+    under its launch name as chip_smoke.py reads it."""
+    import chip_smoke
+    packed, nch_live = channel_set
+    precision = select_engine(tier, split3)
+    h0, phase = _fused_inputs(64, 256, cuda)
+    fn = fused.assemble_rowfft_natural if natural else fused.assemble_rowfft
+    kw = dict(epsilon=1e-4, ch_start=0, ch_count=2, packed=packed,
+              nch_live=nch_live, precision=precision)
+    fn(h0, phase, 434.48, -1.0, **kw)        # built and warm outside the trace
+    # the profiler now and then records no kernel in a window: up to three
+    # windows of five launches each
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn(h0, phase, 434.48, -1.0, **kw)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    fused_kernels = [k for k in names
+                     if chip_smoke.kernel_group(k) != "torch ops"]
+    assert len(fused_kernels) == 1 and kernel in fused_kernels[0], names
+    assert (("radix16_fused_rows_natural_kernel" in fused_kernels[0])
+            == (tier == "f32" and not split3 and natural)), names
+    if kernel != "radix16_fused_rows_natural_kernel":
+        assert "fused_rows_kernel" in fused_kernels[0], names
+    store = "natural" if natural else "transposed"
+    group = (f"fused_rows_{store}" if tier == "f32" and not split3 else
+             planes.kernel_name(f"fused_{store}", tier, split3))
+    assert chip_smoke.kernel_group(fused_kernels[0]) == group
 
 
 # the f32 three-factor row kernel: every N it takes from 256, M = 1, ragged

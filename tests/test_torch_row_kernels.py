@@ -105,7 +105,23 @@ def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
      "float const*, float*, float*, float2 const*, int, int)",
      "fft_rows_natural"),
     ("_ZN7tpu_fft7radix1627radix16_rows_natural_kernelILi12EEEvPKfS3_PfS4_"
-     "PK6float2ii", "fft_rows_natural")])
+     "PK6float2ii", "fft_rows_natural"),
+    ("void tpu_fft::fused_radix16::radix16_fused_rows_natural_kernel<12>("
+     "float const*, float const*, float const*, float const*, float const*, "
+     "float const*, float*, float*, float2 const*, int, int, int, int, "
+     "tpu_fft::Assembly)", "fused_rows_natural"),
+    ("_ZN7tpu_fft13fused_radix1633radix16_fused_rows_natural_kernelILi12EEEvP"
+     "KfS3_S3_S3_S3_S3_PfS4_PK6float2iiiiNS_8AssemblyE", "fused_rows_natural"),
+    ("void (anonymous namespace)::fused_rows_kernel<false, "
+     "tpu_fft::StockhamEngine>(float const*, float const*, float const*, "
+     "float const*, float const*, float const*, float*, float*, float2 "
+     "const*, int, int, int, int, int, tpu_fft::Assembly)",
+     "fused_rows_transposed"),
+    ("void (anonymous namespace)::fused_rows_kernel<true, "
+     "tpu_fft::MatrixEngine<1, false> >(float const*, float const*, float "
+     "const*, float const*, float const*, float const*, float*, float*, "
+     "float2 const*, int, int, int, int, int, tpu_fft::Assembly)",
+     "matrix_fused_natural[bf16]")])
 def test_profiler_keys_group_under_the_launch_names(key, group):
     assert chip_smoke.kernel_group(key) == group
 
@@ -974,6 +990,64 @@ def _radix16_exact_twiddles(n, inverse):
     return np.stack([w.real, w.imag], axis=-1)
 
 
+def _radix16_passes(v, n, row, t, ops, tw, buf, log):
+    """radix16::passes on the 16 points ``v`` of every thread (row, t)
+    of a block, v[m] a (re, im) pair of arrays over the threads holding
+    point t + T·m: the first pass in registers, then each later pass's
+    exchange through ``buf`` (a _Buffer of R rows of the padded stride) and
+    its radix-16 pass, with the twiddles ``tw`` ([L, 2], read at the
+    header's offsets). Returns the last pass's outputs, output s at
+    t + T·s. Appends (what, shared addresses of one access a thread, in
+    complex units, None) to ``log`` for every exchange write and read."""
+    t_row = n // 16
+    plan = planes.radix16_plan(n)
+    first = plan[0][0]
+    stride = planes.radix16_stride(n)
+    period = planes.radix16_pad(n)
+    rows = int(row.max()) + 1
+
+    def pos(a):
+        return row * stride + a + a // period
+
+    v = ops.first_pass(v, first)
+    for p, (radix, span) in enumerate(plan):
+        if p > 0:
+            v = []
+            for j in range(16):
+                a = pos(t + t_row * j)
+                log.append(("read", a, None))
+                v.append(buf.read(a))
+            k = t & (span - 1)
+            at = 1 + span - first + k
+            v = [v[0]] + [ops.cmul(v[s], (tw[at + (s - 1) * span, 0],
+                                          tw[at + (s - 1) * span, 1]))
+                          for s in range(1, 16)]
+            v = ops.dft16(v)
+        if p == len(plan) - 1:
+            break
+        # every read of the pass is done (the barrier): the buffer's
+        # points are spent
+        buf.begin()
+        if p == 0:
+            b = 16 // radix
+            for q in range(b):
+                for s in range(radix):
+                    a = pos((t + t_row * q) * radix + s)
+                    log.append(("write", a, None))
+                    buf.write(a, *v[q + s * b])
+        else:
+            base = (t - k) * 16 + k
+            for s in range(16):
+                a = pos(base + s * span)
+                log.append(("write", a, None))
+                buf.write(a, *v[s])
+        buf.check_writes(rows * n)
+        assert max(np.concatenate(buf.written)) < rows * stride
+    # the last pass has span n/16
+    assert plan[-1][1] == n // 16
+    return v
+
+
 def _radix16_model(x, rows, table, dtype, log):
     """The kernel on one channel x [M, N] (complex) with R = ``rows``: its
     loads, passes, exchanges through the padded shared buffer and its
@@ -984,8 +1058,6 @@ def _radix16_model(x, rows, table, dtype, log):
     float offsets) for every device-memory load and store."""
     m, n = x.shape
     t_row = n // 16
-    plan = planes.radix16_plan(n)
-    first = plan[0][0]
     stride = planes.radix16_stride(n)
     threads = rows * t_row
     assert threads <= planes.RADIX16_MAX_THREADS
@@ -998,11 +1070,6 @@ def _radix16_model(x, rows, table, dtype, log):
     out = np.zeros((m, n), np.complex128)
     writes = np.zeros((m, n), int)
 
-    period = planes.radix16_pad(n)
-
-    def pos(a):
-        return row * stride + a + a // period
-
     for m0 in range(0, m, rows):
         live = m0 + row < m
         rr = np.minimum(m0 + row, m - 1)
@@ -1012,42 +1079,8 @@ def _radix16_model(x, rows, table, dtype, log):
             vals = np.where(live, x[rr, a], 0)
             v.append((vals.real.astype(dtype), vals.imag.astype(dtype)))
             log.append(("load", rr * n + a, live))
-        v = ops.first_pass(v, first)
-        for p, (radix, span) in enumerate(plan):
-            if p > 0:
-                v = []
-                for j in range(16):
-                    a = pos(t + t_row * j)
-                    log.append(("read", a, None))
-                    v.append(buf.read(a))
-                k = t & (span - 1)
-                at = 1 + span - first + k
-                v = [v[0]] + [ops.cmul(v[s], (tw[at + (s - 1) * span, 0],
-                                              tw[at + (s - 1) * span, 1]))
-                              for s in range(1, 16)]
-                v = ops.dft16(v)
-            if p == len(plan) - 1:
-                break
-            # every read of the pass is done (the barrier): the buffer's
-            # points are spent
-            buf.begin()
-            if p == 0:
-                b = 16 // radix
-                for q in range(b):
-                    for s in range(radix):
-                        a = pos((t + t_row * q) * radix + s)
-                        log.append(("write", a, None))
-                        buf.write(a, *v[q + s * b])
-            else:
-                base = (t - k) * 16 + k
-                for s in range(16):
-                    a = pos(base + s * span)
-                    log.append(("write", a, None))
-                    buf.write(a, *v[s])
-            buf.check_writes(rows * n)
-            assert max(np.concatenate(buf.written)) < rows * stride
+        v = _radix16_passes(v, n, row, t, ops, tw, buf, log)
         # the last pass (span n/16) stores output s at t + T·s
-        assert plan[-1][1] == n // 16
         for s in range(16):
             a = t + t_row * s
             log.append(("store", rr * n + a, live))

@@ -1,6 +1,7 @@
 // Fused spectrum assembly + row DFT: the evolved spectrum channel
-// (Hermitian-packed or per-channel) is assembled in shared memory and
-// transformed there, so it never makes a round trip through device memory.
+// (Hermitian-packed or per-channel) is assembled on the chip (in shared
+// memory, or in registers on the f32 natural store) and transformed there,
+// so it never makes a round trip through device memory.
 //
 // Replaces: tpu_ocean/ops/fused_spectrum_fft.py,
 //   _fused_kernel (launched by assemble_rowfft) — the transposed store,
@@ -16,106 +17,47 @@
 //       transposed or [C, M, N] natural, as fft_rows.cu stores them; ch
 //       indexes the packed channels P = (A − iB)·h̃ (2 of them with 3 live
 //       fields, 3 with 5) or the 5 per-channel spectra K_ch·h̃.
-// Per point, in f32 and in the order of _assemble_block
-// (fused_spectrum_fft.py:58-124), with w_i = [ch = i]:
-//   c, s = cos φ, sin φ
-//   h̃ = ((h0r + h0cr)·c + (h0ci − h0i)·s,  (h0i + h0ci)·c + (h0r − h0cr)·s)
-//   kx = f32(2π/L)·wrapped(row), wrapped(row) = row − N for row ≥ N/2
-//   invk = kx² + kz² < ε² ? 0 : 1/sqrt(kx² + kz²)
-//   packed: rowmask = [row ≠ N/2], colmask = [j ≠ N/2],
-//     rx = kx·invk·rowmask, rz = dz_sign·kz·invk·colmask
-//     nch_live = 3: a = w0·(1 + rx),                  b = w1·rz
-//     nch_live = 5: a = w0·(1 + rx) + w1·(−kx)·rowmask,
-//                   b = w1·rz + w2·(−kz)·colmask
-//     P = (a·h̃r + b·h̃i,  a·h̃i − b·h̃r)
-//   per-channel: k = w0 + w1·kx·invk + w2·dz_sign·kz·invk + w3·(−kx)
-//                    + w4·(−kz),  S = (k·h̃r, k·h̃i)
-// Each product and sum is rounded on its own (no FMA contraction), as the
-// plain version's torch ops round them; sin/cos and the square root are
-// the precise library functions. The Nyquist masks and the weights w_i are
-// integer tests (the masks select the texels of the JAX package's float
-// compares); a weight multiplies a 0/1 value, so the selected term comes
-// out exact and the others add signed zeros.
+// The assembly of a point (fused_assembly.cuh) is the same in every
+// kernel, store, tier and form.
 //
 // What bounds it on the H100: device memory. Five f32 planes in (20 B per
 // point) and one complex channel out (8 B per point): 29.4 MB for a 1024²
 // channel, against ~30 flops of assembly and 5·log2(N) of transform per
 // point, in every channel set.
 //
-// What the design does about that: the loads are the row kernel's, five
-// planes wide: one block reads R whole rows of each input plane with
-// row-contiguous (coalesced) loads, several in flight per thread, and
-// assembles each point straight into the first shared-memory buffer. The
-// Stockham stages and the store are fft_rows.cu's (stockham.cuh), so the
-// block needs the same shared memory as the row kernel: the inputs never
-// sit in shared memory, and N = 8192 fits at R = 1 (192 KB). The TPU
-// kernel visited the channels in an inner grid axis so Mosaic could keep
-// the input block; here each block assembles one channel (blockIdx.y), and
-// a C-channel call reads the inputs C times, mostly from L2 at C ≤ 5.
+// What the design does about that, by store:
+//   natural, f32 direct: fused_rows_natural_f32.cuh — a block reads its
+//     rows of the five planes once, holds the terms no channel changes in
+//     registers and makes every channel of the launch from them, each on
+//     the radix-16 passes of rows_natural_f32.cuh, stored from registers;
+//   transposed, f32 direct: fused_rows_kernel below on stockham.cuh's
+//     stages. The loads are the row kernel's, five planes wide: one block
+//     reads R whole rows of each input plane with row-contiguous
+//     (coalesced) loads, several in flight per thread, and assembles each
+//     point straight into the first shared-memory buffer. The Stockham
+//     stages and the store are fft_rows.cu's, so the block needs the same
+//     shared memory as the row kernel: the inputs never sit in shared
+//     memory. The TPU kernel visited the channels in an inner grid axis so
+//     Mosaic could keep the input block; here each block assembles one
+//     channel (blockIdx.y), and a C-channel call reads the inputs C times,
+//     mostly from L2 at C ≤ 5.
 //
 // Precision tiers and the three-factor form (_fused_kernel_split3): the
 // entries take a tier and a form as fft_rows.cu's do; the assembly is the
-// same at every tier, only the stages after it change (dft_matrix.cuh).
+// same at every tier, only the stages after it change (dft_matrix.cuh, in
+// fused_rows_kernel below, either store).
+
+#include <type_traits>
 
 #include "dft_matrix.cuh"
+#include "fused_assembly.cuh"
+#include "fused_rows_natural_f32.cuh"
 
 namespace {
 
 using namespace tpu_fft;
 
 constexpr int kLoadsInFlight = 4;
-
-struct Assembly {
-  float two_pi_over_l;   // f32(2π/L), rounded once on the host
-  float dz_sign;         // −1 with the oracle's sign quirk, else +1
-  float eps2;            // ε·ε in f32
-  int row_offset;        // global row of the batch's first row
-  int packed;            // 1: the Hermitian-packed channels; 0: per-channel
-  int nch_live;          // live fields of the packed set, 3 or 5
-};
-
-__device__ __forceinline__ float2 assemble(float h0r, float h0i, float h0cr,
-                                           float h0ci, float phase, float kz,
-                                           int row, int j, int N, int ch,
-                                           const Assembly& p) {
-  float s, c;
-  sincosf(phase, &s, &c);
-  const float htr = __fadd_rn(__fmul_rn(__fadd_rn(h0r, h0cr), c),
-                              __fmul_rn(__fsub_rn(h0ci, h0i), s));
-  const float hti = __fadd_rn(__fmul_rn(__fadd_rn(h0i, h0ci), c),
-                              __fmul_rn(__fsub_rn(h0r, h0cr), s));
-  const int half = N >> 1;
-  const int wrapped = row < half ? row : row - N;
-  const float kx = __fmul_rn(p.two_pi_over_l, static_cast<float>(wrapped));
-  const float kmag2 = __fadd_rn(__fmul_rn(kx, kx), __fmul_rn(kz, kz));
-  const float invk = kmag2 < p.eps2 ? 0.f : __fdiv_rn(1.f, __fsqrt_rn(kmag2));
-  const float w0 = ch == 0 ? 1.f : 0.f;
-  const float w1 = ch == 1 ? 1.f : 0.f;
-  const float w2 = ch == 2 ? 1.f : 0.f;
-  if (!p.packed) {
-    const float w3 = ch == 3 ? 1.f : 0.f;
-    const float w4 = ch == 4 ? 1.f : 0.f;
-    float k = __fadd_rn(__fmul_rn(w0, 1.f),
-                        __fmul_rn(__fmul_rn(w1, kx), invk));
-    k = __fadd_rn(k, __fmul_rn(__fmul_rn(__fmul_rn(w2, p.dz_sign), kz), invk));
-    k = __fadd_rn(k, __fmul_rn(w3, -kx));
-    k = __fadd_rn(k, __fmul_rn(w4, -kz));
-    return make_float2(__fmul_rn(k, htr), __fmul_rn(k, hti));
-  }
-  const float rowmask = wrapped != -half ? 1.f : 0.f;
-  const float colmask = j != half ? 1.f : 0.f;
-  const float rx = __fmul_rn(__fmul_rn(kx, invk), rowmask);
-  const float rz =
-      __fmul_rn(__fmul_rn(__fmul_rn(p.dz_sign, kz), invk), colmask);
-  float a = __fmul_rn(w0, __fadd_rn(1.f, rx));
-  float b = __fmul_rn(w1, rz);
-  if (p.nch_live == 5) {
-    a = __fadd_rn(a, __fmul_rn(__fmul_rn(w1, -kx), rowmask));
-    b = __fadd_rn(b, __fmul_rn(__fmul_rn(w2, -kz), colmask));
-  }
-  return make_float2(__fadd_rn(__fmul_rn(a, htr), __fmul_rn(b, hti)),
-                     __fsub_rn(__fmul_rn(a, hti), __fmul_rn(b, htr)));
-}
 
 template <bool kNatural, class Engine>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -127,6 +69,8 @@ fused_rows_kernel(const float* __restrict__ h0r, const float* __restrict__ h0i,
                   float* __restrict__ out_im,
                   const float2* __restrict__ tables, int M, int N,
                   int log2n, int R, int ch_start, Assembly p) {
+  // the f32 direct natural store runs a kernel of its own (launch below)
+  static_assert(!(kNatural && std::is_same_v<Engine, StockhamEngine>));
   extern __shared__ float2 smem[];
   const int stride = N + 1;
   float2* src = smem;
@@ -188,22 +132,29 @@ int launch(const void* h0r, const void* h0i, const void* h0cr,
            float epsilon, void* stream) {
   return with_engine(tier, split3, kNatural, [&](auto engine) {
     using Engine = decltype(engine);
-    const int smem = smem_bytes(rows, n);
-    cudaError_t err = allow_smem(fused_rows_kernel<kNatural, Engine>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
     const Assembly p{two_pi_over_l, dz_sign, epsilon * epsilon, row_offset,
                      packed, nch_live};
-    const dim3 grid((m + rows - 1) / rows, channels);
-    fused_rows_kernel<kNatural, Engine><<<grid, Engine::threads(rows, n),
-                                          smem,
-                                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(h0r), static_cast<const float*>(h0i),
-        static_cast<const float*>(h0cr), static_cast<const float*>(h0ci),
-        static_cast<const float*>(phase), static_cast<const float*>(kz),
-        static_cast<float*>(out_re), static_cast<float*>(out_im),
-        static_cast<const float2*>(tables), m, n, log2_of(n), rows, ch_start,
-        p);
-    return static_cast<int>(cudaGetLastError());
+    if constexpr (kNatural && std::is_same_v<Engine, StockhamEngine>) {
+      return launch_fused_rows_natural_f32(h0r, h0i, h0cr, h0ci, phase, kz,
+                                           out_re, out_im, tables, channels,
+                                           ch_start, m, n, rows, p, stream);
+    } else {
+      const int smem = smem_bytes(rows, n);
+      cudaError_t err = allow_smem(fused_rows_kernel<kNatural, Engine>, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const dim3 grid((m + rows - 1) / rows, channels);
+      fused_rows_kernel<kNatural, Engine><<<grid, Engine::threads(rows, n),
+                                            smem,
+                                            static_cast<cudaStream_t>(
+                                                stream)>>>(
+          static_cast<const float*>(h0r), static_cast<const float*>(h0i),
+          static_cast<const float*>(h0cr), static_cast<const float*>(h0ci),
+          static_cast<const float*>(phase), static_cast<const float*>(kz),
+          static_cast<float*>(out_re), static_cast<float*>(out_im),
+          static_cast<const float2*>(tables), m, n, log2_of(n), rows,
+          ch_start, p);
+      return static_cast<int>(cudaGetLastError());
+    }
   });
 }
 
@@ -216,7 +167,9 @@ extern "C" {
 // that keeps the shared memory within the card's limit, contiguous f32
 // [m, n] input planes, ch_start + channels within the channel set (packed
 // with nch_live 3: 2; with 5: 3; per-channel, packed 0: 5), `tables` the
-// Stockham twiddles (tier 0, split3 0) or the matrix engine's tables.
+// Stockham twiddles (tier 0, split3 0, transposed), the radix-16 twiddles
+// (tier 0, split3 0, natural: planes.radix16_twiddles) or the matrix
+// engine's tables.
 int tpu_fused_rows_transposed(const void* h0r, const void* h0i,
                               const void* h0cr, const void* h0ci,
                               const void* phase, const void* kz, void* out_re,

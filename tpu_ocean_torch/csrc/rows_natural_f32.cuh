@@ -71,7 +71,9 @@
 //
 // Rows per block: R from planes.radix16_max_rows (RADIX16_BLOCK_POINTS / N,
 // at most kThreads threads a block). The channel is blockIdx.y. Rows past
-// M (the ragged last block) load zeros and are never stored.
+// M (the ragged last block) load zeros and are never stored. The passes
+// (radix16::passes) are also the f32 fused natural kernel's
+// (fused_rows_natural_f32.cuh).
 //
 // A length outside [16, 8192] or a block of more than kThreads threads
 // returns cudaErrorInvalidValue; nothing falls back to the radix-2 stages.
@@ -232,37 +234,22 @@ __device__ __forceinline__ void first_pass(float2 (&v)[16], float sg) {
 
 extern __shared__ float2 radix16_smem[];
 
-// One block: R rows m0 .. m0 + R − 1 of channel blockIdx.y, T threads a row.
+// The passes of one row, whose 16 points t + T·m a thread holds in v: the
+// first pass in registers, then for each later pass an exchange through
+// `buf` (the row's R·S slot of radix16_smem) and a radix-16 pass. v ends
+// as the last pass's outputs, output s at t + T·s. Every thread of the
+// block calls it together (it holds barriers): on entry no thread may
+// still read `buf`; on return this thread's last reads of `buf` are done
+// but the block's need not be, so a caller that runs it again first waits
+// at a barrier.
 template <int kLog2N>
-__global__ void __launch_bounds__(kThreads)
-radix16_rows_natural_kernel(const float* __restrict__ re,
-                            const float* __restrict__ im,
-                            float* __restrict__ out_re,
-                            float* __restrict__ out_im,
-                            const float2* __restrict__ tw, int M, int R) {
+__device__ __forceinline__ void passes(float2 (&v)[16], float2* buf,
+                                       const float2* __restrict__ tw, int t,
+                                       float sg) {
   using P = Plan<kLog2N>;
   constexpr int T = P::T;
-  const int row = threadIdx.x >> (kLog2N - 4);
-  const int t = threadIdx.x & (T - 1);
-  const int m = blockIdx.x * R + row;
-  const bool live = m < M;
-  const size_t at =
-      (static_cast<size_t>(blockIdx.y) * M + (live ? m : 0)) * P::N + t;
-  const float sg = __ldg(&tw[0].y);
-
-  float2 v[16];
-  if (live) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      v[j] = make_float2(__ldg(re + at + T * j), __ldg(im + at + T * j));
-  } else {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) v[j] = make_float2(0.f, 0.f);
-  }
   first_pass<P::kFirst>(v, sg);
-
   if constexpr (P::kPasses > 1) {
-    float2* const buf = radix16_smem + row * P::S;
     constexpr int kB = 16 / P::kFirst;
 #pragma unroll
     for (int q = 0; q < kB; ++q)
@@ -290,6 +277,36 @@ radix16_rows_natural_kernel(const float* __restrict__ re,
       }
     }
   }
+}
+
+// One block: R rows m0 .. m0 + R − 1 of channel blockIdx.y, T threads a row.
+template <int kLog2N>
+__global__ void __launch_bounds__(kThreads)
+radix16_rows_natural_kernel(const float* __restrict__ re,
+                            const float* __restrict__ im,
+                            float* __restrict__ out_re,
+                            float* __restrict__ out_im,
+                            const float2* __restrict__ tw, int M, int R) {
+  using P = Plan<kLog2N>;
+  constexpr int T = P::T;
+  const int row = threadIdx.x >> (kLog2N - 4);
+  const int t = threadIdx.x & (T - 1);
+  const int m = blockIdx.x * R + row;
+  const bool live = m < M;
+  const size_t at =
+      (static_cast<size_t>(blockIdx.y) * M + (live ? m : 0)) * P::N + t;
+  const float sg = __ldg(&tw[0].y);
+
+  float2 v[16];
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      v[j] = make_float2(__ldg(re + at + T * j), __ldg(im + at + T * j));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = make_float2(0.f, 0.f);
+  }
+  passes<kLog2N>(v, radix16_smem + row * P::S, tw, t, sg);
 
   // the last pass has span N/16: output s at t + T·s
   if (live) {

@@ -103,6 +103,14 @@ NATURAL_BLOCK_POINTS = 4096
 RADIX16_BLOCK_POINTS = 4096
 #: the most threads a block of that kernel has (radix16::kThreads)
 RADIX16_MAX_THREADS = 512
+#: the most points (rows × N) a block of the f32 fused natural-store
+#: kernel (csrc/fused_rows_natural_f32.cuh, 16 points a thread, at most
+#: RADIX16_MAX_THREADS threads) takes; the other fused kernels keep
+#: NATURAL_BLOCK_POINTS. Swept on an H100 80GB HBM3 at 700 W (python3
+#: chip_smoke.py --sweep-rows), µs at R = 1 and 2: [4096, 4096] ch 0
+#: 213.77, 231.51; C = 5 478.21, 566.84; C = 3 350.74, 406.00;
+#: [2048, 4096] ch 1 113.25, 125.28
+FUSED_NATURAL_BLOCK_POINTS = 4096
 #: the same for the bf16 row kernel's natural store: swept on the H100,
 #: [1, 4096, 4096] took 200.6, 173.1 and 209.1 µs at R = 1, 2 and 4, since
 #: two blocks of 8192 points share an SM (100 KB of shared memory each)
@@ -226,6 +234,15 @@ def _split3_rows(tier: str, split3: bool) -> bool:
     (csrc/dft_split3_f32.cuh) instead of the matrix engine (the
     three-factor form has the transposed store only)."""
     return tier == "f32" and split3
+
+
+def _fused_radix16(tier: str, split3: bool, natural: bool) -> bool:
+    """The fused pass that runs the f32 fused natural-store kernel
+    (csrc/fused_rows_natural_f32.cuh): f32 direct, natural store. Every
+    other fused pass runs fused_rows_kernel (csrc/fused_rows.cu): the
+    Stockham stages for the f32 direct transposed store, else the matrix
+    engine."""
+    return natural and _stockham(tier, split3)
 
 
 def _split3_bf16x3_rows(tier: str, split3: bool) -> bool:
@@ -541,6 +558,54 @@ def radix16_twiddles(n: int, inverse: bool,
     return torch.from_numpy(radix16_twiddles_np(n, inverse)).to(device)
 
 
+def fused_natural_shared_bytes(rows: int, n: int) -> int:
+    """Dynamic shared memory of one block of the f32 fused natural-store
+    kernel (fused_radix16::shared_bytes): the radix-16 row kernel's
+    exchange buffer, ``rows`` rows of radix16_stride(n) complex (also at
+    n = 16), then h̃ of the block's points, ``rows`` rows of n complex."""
+    return rows * (radix16_stride(n) + n) * 8
+
+
+def fused_natural_max_rows(n: int) -> int:
+    """The most rows per block of the f32 fused natural-store kernel:
+    FUSED_NATURAL_BLOCK_POINTS // n, at most RADIX16_MAX_THREADS threads
+    of 16 points."""
+    points = min(FUSED_NATURAL_BLOCK_POINTS, 16 * RADIX16_MAX_THREADS)
+    return max(1, points // n)
+
+
+def fused_block_shared_bytes(tier: str, split3: bool, natural: bool):
+    """The shared-memory function (rows, n) → bytes of the fused kernel
+    at (tier, split3, store): fused_natural_shared_bytes for the f32
+    natural store, else fused_rows_kernel's two buffers (shared_bytes)."""
+    if _fused_radix16(tier, split3, natural):
+        return fused_natural_shared_bytes
+    return shared_bytes
+
+
+def fused_rows(c: int, m: int, n: int, sms: int, natural: bool, tier: str,
+               split3: bool) -> int:
+    """Rows per block of a fused pass of ``c`` channels of [m, n]
+    (rows_per_block): the f32 natural kernel's own cap and shared memory
+    (fused_natural_max_rows, fused_natural_shared_bytes), else max_rows
+    and fused_rows_kernel's two buffers. The f32 natural kernel makes
+    every channel in one block, so its grid is ⌈m / rows⌉ blocks whatever
+    ``c``; fused_rows_kernel's is ``c`` times that."""
+    if _fused_radix16(tier, split3, natural):
+        return rows_per_block(1, m, n, sms, fused_natural_max_rows(n),
+                              fused_natural_shared_bytes)
+    return rows_per_block(c, m, n, sms, max_rows(n, natural))
+
+
+def fused_tables(n: int, inverse: bool, tier: str, split3: bool,
+                 natural: bool, device: torch.device) -> torch.Tensor:
+    """The `tables` argument of a fused entry: the radix-16 twiddles for
+    the f32 natural store, else tables_for's."""
+    if _fused_radix16(tier, split3, natural):
+        return radix16_twiddles(n, bool(inverse), device)
+    return tables_for(n, inverse, tier, split3, device)
+
+
 def block_shared_bytes(tier: str, split3: bool, natural: bool):
     """The shared-memory function (rows, n) → bytes of the row kernel at
     (tier, split3, store): the bf16 and the f32 and bf16x3 three-factor
@@ -565,8 +630,9 @@ def max_rows(n: int, natural: bool, tier: str = "f32",
     """The most rows per block of the transposed store
     (TRANSPOSED_MAX_ROWS) or of the natural store at (tier, split3):
     BF16_NATURAL_BLOCK_POINTS // n on the bf16 row kernel, else
-    NATURAL_BLOCK_POINTS // n. The fused kernels take it; the f32 direct
-    row passes take their own (row_pass_max_rows)."""
+    NATURAL_BLOCK_POINTS // n. The fused kernels but the f32 natural one
+    take it (fused_rows); the f32 direct row passes take their own
+    (row_pass_max_rows)."""
     if not natural:
         return TRANSPOSED_MAX_ROWS
     points = (BF16_NATURAL_BLOCK_POINTS if _bf16_rows(tier, split3)

@@ -16,7 +16,9 @@ or 5 (spectral normals, 3 channels), and the 5 per-channel spectra
 (``packed=False``: height, disp_x, disp_z, slope_x, slope_z).
 
 On a CUDA tensor each launches its hand-written kernel
-(``csrc/fused_rows.cu``) and nothing else; on a CPU tensor it runs its
+(``csrc/fused_rows.cu``; the f32 natural store
+``csrc/fused_rows_natural_f32.cuh``, every channel of a launch from one
+read of the inputs) and nothing else; on a CPU tensor it runs its
 plain version: ``_assemble_plain`` (the kernel's f32 arithmetic in torch,
 in the order of the JAX ``_assemble_block``; it does not use the float64
 ``pack`` or ``coeffs`` tables, which differ in the last bits) followed by
@@ -195,9 +197,9 @@ def _launch(natural: bool, h0_planes, phase, length, dz_sign, *,
     out_re = torch.empty(out_shape, dtype=torch.float32, device=dev)
     out_im = torch.empty_like(out_re)
     kz = _kz_table(n, float(length), dev)
-    tables = planes.tables_for(n, inverse, tier, split3, dev)
-    rows = planes.rows_per_block(ch_count, m, n, planes.sm_count(dev),
-                                 planes.max_rows(n, natural))
+    tables = planes.fused_tables(n, inverse, tier, split3, natural, dev)
+    rows = planes.fused_rows(ch_count, m, n, planes.sm_count(dev), natural,
+                             tier, split3)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(kernels.lib, entry)(
