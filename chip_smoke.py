@@ -36,7 +36,11 @@ Phases, each printing its own lines:
                channel by channel: within 1e-6·max of the radix-16 row
                kernel applied to the plain assembly on the card, and its
                RMS error against the float64 DFT of the float64 assembly
-               at most 1.1 × that row kernel's;
+               at most 1.1 × that row kernel's; the bf16 fused natural
+               kernel (the bf16 row kernel's stages behind the assembly)
+               likewise against the bf16 natural row kernel: bit-equal on
+               a channel with no 1/|k| term, else within 2e-3·max, RMS
+               error at most 1.1 × the row kernel's;
   4. slice   — seventeen paths on the card, each from a seeded init, with
                every launch count set to 0 just before and read just after
                it:
@@ -117,7 +121,10 @@ Phases, each printing its own lines:
                f32 fused natural kernel's launches of C > 1 channels
                beside C launches of one channel on the same inputs (one
                read of the inputs against C) and its one-channel launches
-               beside the radix-16 row kernel at [1, M, N], the
+               beside the radix-16 row kernel at [1, M, N], the bf16
+               fused natural kernel beside the f32 one at the same shape
+               and the bf16 row kernel at [1, M, N] (and at C = 5, on no
+               path, beside five of its one-channel launches), the
                others beside the f32 kernel with their store;
                warm L2, nothing
                asserted. Device times come
@@ -128,8 +135,8 @@ last {"ok": true, "device": ...}.
 
 With --sweep-rows, phases 4 and 5 give way to a sweep of the rows per
 block: each f32 row-DFT and fused case of phase 3 (the f32 fused natural
-kernel in every channel set), and the cases of the
-bf16 row kernel (both stores) and the f32 and bf16x3 three-factor row
+kernel in every channel set), and the cases of the bf16 fused natural
+kernel, the bf16 row kernel (both stores) and the f32 and bf16x3 three-factor row
 kernels, at
 every power of two up to 16 that fits shared memory (and, for the f32
 natural kernels, row and fused, 512 threads), checked against its
@@ -312,15 +319,16 @@ KERNEL_INFO = {
     "gerstner_bank": ("tpu_ocean_torch/csrc/gerstner_bank.cu",
                       "tpu_ocean/ops/gerstner_pallas.py:30"),
     # the row and fused entries at the other tiers and forms, by tier and
-    # form: the bf16 direct row passes (both stores) and the f32
-    # three-factor row pass have kernels of their own; the rest run the
-    # matrix-form engine (csrc/dft_matrix.cuh)
+    # form: the bf16 direct row passes (both stores), the bf16 direct
+    # natural fused pass and the three-factor row passes have kernels of
+    # their own; the rest run the matrix-form engine (csrc/dft_matrix.cuh)
     "matrix_rows_transposed[bf16]": ("tpu_ocean_torch/csrc/dft_bf16_rows.cuh",
                                      "tpu_ocean/fft/pallas_fft.py:235"),
     "matrix_rows_natural[bf16]": ("tpu_ocean_torch/csrc/dft_bf16_rows.cuh",
                                   "tpu_ocean/fft/pallas_fft.py:677"),
-    "matrix_fused_natural[bf16]": ("tpu_ocean_torch/csrc/fused_rows.cu",
-                                   "tpu_ocean/ops/fused_spectrum_fft.py:196"),
+    "matrix_fused_natural[bf16]": (
+        "tpu_ocean_torch/csrc/fused_rows_natural_bf16.cuh",
+        "tpu_ocean/ops/fused_spectrum_fft.py:196"),
     "matrix_rows_transposed[f32,split3]": (
         "tpu_ocean_torch/csrc/dft_split3_f32.cuh",
         "tpu_ocean/fft/pallas_fft.py:273"),
@@ -348,6 +356,8 @@ KERNEL_INFO = {
 }
 # kernel-vs-plain band of each tier (tests/test_torch_cuda_kernels.py)
 TIER_BAND = {"f32": 1e-5, "bf16": 2e-3, "bf16x3": 1e-5}
+# the bf16 fused natural kernel (csrc/fused_rows_natural_bf16.cuh)
+FUSED_NATURAL_BF16 = "matrix_fused_natural[bf16]"
 # each redesigned row or fused kernel before its redesign (the matrix
 # engine; for the f32 kernels the block-per-R-rows store and radix-2
 # stages, and for the f32 fused natural kernel a block per channel),
@@ -382,7 +392,10 @@ BEFORE_REDESIGN_MS = {
         (4096, 4096, "ch 0-4", "per_channel"): 1.3820},
     "fused_natural[packed5]": {
         (4096, 4096, "ch 0-2", "packed5"): 0.8519,
-        (2048, 4096, "ch 2", "packed5"): 0.1575}}
+        (2048, 4096, "ch 2", "packed5"): 0.1575},
+    FUSED_NATURAL_BF16: {
+        (4096, 4096, "ch 0"): 1.2213, (2048, 4096, "ch 1"): 0.6303,
+        (2048, 4096, "ch 2", "packed5"): 0.6202}}
 # the f32 fused natural kernel (csrc/fused_rows_natural_f32.cuh) under
 # each name it counts under, one per channel set
 FUSED_NATURAL_F32 = ("fused_rows_natural", "fused_natural[per_channel]",
@@ -454,6 +467,10 @@ def spectral_normal_band(ref, packed, rel):
 
 def kernel_group(key):
     """The port's kernel a profiler key names, or "torch ops"."""
+    # the bf16 fused natural kernel first: its name must not fall to the
+    # rules for the row kernels or the matrix engine below
+    if "bf16_fused_natural_kernel" in key:
+        return "matrix_fused_natural[bf16]"
     if "stockham_rows_cluster_kernel" in key:
         return "fft_rows_transposed"
     if "radix16_rows_natural_kernel" in key:
@@ -679,6 +696,14 @@ def rms_rel_err(got, ref):
     return torch.sqrt(err / sum((r ** 2).mean() for r in ref)).item()
 
 
+def invk_free(packed, nch_live, ch):
+    """True for a channel whose assembly takes no 1/|k| term: per-channel
+    channels 0 (h̃), 3 (−kx·h̃) and 4 (−kz·h̃), and the packed set's third
+    channel with 5 live fields (−kz·h̃ alone); the other packed channels
+    take one."""
+    return ch in (0, 3, 4) if not packed else (nch_live, ch) == (5, 2)
+
+
 def assembly_f64(h0_planes, phase, length, dz_sign, *, epsilon, ch,
                  packed, nch_live, row_offset=0):
     """Channel ``ch`` of the set (fused_spectrum's assembly) in float64
@@ -759,10 +784,11 @@ class Case:
 
 # the kernels --sweep-rows sweeps (by name): the f32 direct row kernels
 # (both stores) and fused kernels (the natural one in every channel set),
-# the bf16 row kernel (both stores) and the f32 and bf16x3 three-factor
-# row kernels
+# the bf16 fused natural kernel, the bf16 row kernel (both stores) and the
+# f32 and bf16x3 three-factor row kernels
 SWEPT = ("fft_rows_transposed", "fft_rows_natural", "fused_rows_transposed",
-         *FUSED_NATURAL_F32, "matrix_rows_transposed[bf16]",
+         *FUSED_NATURAL_F32, FUSED_NATURAL_BF16,
+         "matrix_rows_transposed[bf16]",
          "matrix_rows_natural[bf16]", "matrix_rows_transposed[f32,split3]",
          "matrix_rows_transposed[bf16x3,split3]")
 
@@ -780,11 +806,11 @@ def sweep_rows(cases, planes):
         name, shape, run, plain = case.name, case.shape, case.run, case.plain
         if name not in SWEPT:
             continue
-        c, m, n = ((case.channels, *shape[:2]) if name.startswith("fused")
-                   else shape)
+        fused_case = "fused" in name
+        c, m, n = (case.channels, *shape[:2]) if fused_case else shape
         natural = "natural" in name
         tier, split3 = case.engine
-        if name.startswith("fused"):
+        if fused_case:
             shared = planes.fused_block_shared_bytes(tier, split3, natural)
             chosen = planes.fused_rows(c, m, n, sms, natural, tier, split3)
         else:
@@ -1053,7 +1079,8 @@ def main():
     # entry; a set is (packed, nch_live)
     sets = {"packed3": (True, 3), "packed5": (True, 5),
             "per_channel": (False, 3)}
-    # (name, shape) of the f32 fused natural cases: (inputs, keywords)
+    # (name, shape) of the f32 and bf16 fused natural cases: (inputs,
+    # keywords)
     fused_natural_calls = {}
     for name, fn, plain, precision, switches, shapes in (
             ("fused_rows_transposed", fused.assemble_rowfft,
@@ -1074,10 +1101,11 @@ def main():
             ("fused_natural[packed5]", fused.assemble_rowfft_natural,
              fused.assemble_rowfft_natural_plain, "float32", {},
              [(4096, 4096, 0, 3, "packed5"), (2048, 4096, 2, 1, "packed5")]),
-            ("matrix_fused_natural[bf16]", fused.assemble_rowfft_natural,
+            (FUSED_NATURAL_BF16, fused.assemble_rowfft_natural,
              fused.assemble_rowfft_natural_plain, "bfloat16", {},
              [(4096, 4096, 0, 1, "packed3"), (2048, 4096, 1, 1, "packed3"),
-              (2048, 4096, 2, 1, "packed5")]),
+              (2048, 4096, 2, 1, "packed5"),
+              (4096, 4096, 0, 5, "per_channel")]),
             ("matrix_fused_transposed[bf16x3,split3]", fused.assemble_rowfft,
              fused.assemble_rowfft_plain, "float32", B3_SPLIT3,
              [(1024, 1024, 0, 1, "packed3"), (512, 1024, 1, 1, "packed3"),
@@ -1119,7 +1147,7 @@ def main():
                        planes.kernel_name(f"fused_{store}", tier, split3, tag))
             shape = [m, n, label] + ([] if channel_set == "packed3"
                                      else [channel_set])
-            if name in FUSED_NATURAL_F32:
+            if name in (*FUSED_NATURAL_F32, FUSED_NATURAL_BF16):
                 fused_natural_calls[name, tuple(shape)] = (args, kw)
             cases.append(Case(
                 name, shape,
@@ -1128,7 +1156,7 @@ def main():
                 None, (20 + 8 * count) * m * n + 4 * n,
                 count * f32_ops * m * n, count * tensor_ops * m * n,
                 TIER_BAND[tier], None, switches, count,
-                "" if counted == name else counted))
+                "" if counted == name else counted, (tier, split3)))
 
     # the wave bank at the pond paths' grid and last step's t, both banks
     # and both normal modes, and at 4096² (W = 16); operations: the TPU
@@ -1220,12 +1248,17 @@ def main():
                 f"differ: {e_tr:.4e} and {e_nat:.4e}")
         del got, nat, ref
 
-    # the f32 fused natural kernel at every shape and channel set the paths
-    # give it, channel by channel: within 1e-6·max of the radix-16 row
-    # kernel applied to the plain assembly on the card, and its RMS error
-    # against the float64 DFT of the float64 assembly at most
-    # F32_F64_SPREAD x the row kernel's on the plain assembly
+    # the fused natural kernels at every shape and channel set the paths
+    # give them, channel by channel, against the natural row kernel of
+    # their tier applied to the plain assembly on the card: the f32 one
+    # within 1e-6·max; the bf16 one bit-equal where no 1/|k| term enters
+    # the channel (invk_free: the card's 1/sqrt and torch's rsqrt differ by
+    # an ulp now and then, which can flip a bf16 rounding of the staged
+    # value), else within the bf16 band. Each one's RMS error against the
+    # float64 DFT of the float64 assembly at most F32_F64_SPREAD x the row
+    # kernel's on the plain assembly
     for (name, shape), (args, kw) in fused_natural_calls.items():
+        precision = kw["precision"]
         got = fused.assemble_rowfft_natural(*args, **kw)
         for c in range(kw["ch_count"]):
             ch = kw["ch_start"] + c
@@ -1233,7 +1266,8 @@ def main():
                           nch_live=kw["nch_live"])
             plain_re, plain_im = fused._assemble_plain(*args, row_offset=0,
                                                        **asm_kw)
-            row = planes.fft1d_natural_large(plain_re[None], plain_im[None])
+            row = planes.fft1d_natural_large(plain_re[None], plain_im[None],
+                                             True, precision)
             ref = torch.fft.ifft(torch.complex(*assembly_f64(*args, **asm_kw)),
                                  dim=-1, norm="forward")
             ref = (ref.real[None], ref.imag[None])
@@ -1242,15 +1276,23 @@ def main():
             scale = max(r.abs().max().item() for r in row)
             err = max((g - r).abs().max().item() for g, r in zip(gc, row))
             e_fused, e_row = rms_rel_err(gc, ref), rms_rel_err(row, ref)
-            log(f"[kernels] {name} {list(shape)} channel {ch} against "
-                f"fft_rows_natural over the plain assembly: max abs err "
-                f"{err:.3e} = {err / scale:.3e} x max (limit 1e-6); RMS "
-                f"error vs float64 of the float64 assembly {e_fused:.4e} "
+            if precision == "float32":
+                band, limit = 1e-6, "1e-6"
+            elif invk_free(kw["packed"], kw["nch_live"], ch):
+                band, limit = 0.0, "bit-equal, no 1/|k| term"
+            else:
+                band = TIER_BAND["bf16"]
+                limit = f"{band:g}"
+            log(f"[kernels] {name} {list(shape)} channel {ch} against the "
+                f"{precision} natural row kernel over the plain assembly: max "
+                f"abs err {err:.3e} = {err / scale:.3e} x max (limit {limit}); "
+                f"RMS error vs float64 of the float64 assembly {e_fused:.4e} "
                 f"(fused) and {e_row:.4e} (row kernel), ratio "
                 f"{e_fused / e_row:.3f} (limit {F32_F64_SPREAD:g})")
-            require(err <= 1e-6 * scale, f"{name} {list(shape)} channel {ch} "
-                    f"and the row kernel over the plain assembly disagree "
-                    f"({err / scale:.3e} x max)")
+            require(err <= band * scale,
+                    f"{name} {list(shape)} channel {ch} and the row kernel "
+                    f"over the plain assembly disagree ({err / scale:.3e} x "
+                    f"max, limit {limit})")
             require(e_fused <= F32_F64_SPREAD * e_row,
                     f"{name} {list(shape)} channel {ch}: RMS error against "
                     f"float64 {e_fused:.4e} > {F32_F64_SPREAD:g} x the row "
@@ -1684,6 +1726,22 @@ def main():
                 # worth having only where it is the cheaper of the two
                 what = "the f32 three-factor kernel"
                 ref = by_shape["matrix_rows_transposed[f32,split3]", shape][0]
+            elif name == FUSED_NATURAL_BF16:
+                # the ceiling of a bf16 kernel, the f32 fused natural kernel
+                # at the same shape, and the bf16 natural row kernel at
+                # [1, M, N], whose stages it runs
+                f32 = next(by_shape[f, shape][0] for f in FUSED_NATURAL_F32
+                           if (f, shape) in by_shape)
+                rows = by_shape["matrix_rows_natural[bf16]",
+                                (1, shape[0], shape[1])][0]
+                log(f"[timing] {kind} ({smi}): {name} {list(shape)}: "
+                    f"{k:.4f} ms (before the redesign {before:.4f}, PERF.md, "
+                    f"not this run), the f32 fused natural kernel {f32:.4f}, "
+                    f"the bf16 row kernel at [1, {shape[0]}, {shape[1]}] "
+                    f"{rows:.4f}, bound {b_ms:.4f}; {before / k:.2f}x faster "
+                    f"than before, {k / f32:.3f} of the f32 kernel, "
+                    f"{b_ms / k:.3f} of the bound")
+                continue
             elif name in FUSED_NATURAL_F32:
                 args, kw = fused_natural_calls[name, shape]
                 count = kw["ch_count"]
@@ -1717,6 +1775,18 @@ def main():
                 f"{what} {ref:.4f}, cuFFT {lib:.4f}, bound {b_ms:.4f}; "
                 f"{before / k:.2f}x faster than before, {k / ref:.3f} of "
                 f"{what}, {k / lib:.2f}x cuFFT")
+
+    # the bf16 fused natural kernel at C = 5 (on no path): a block per
+    # channel, so the inputs are read five times; beside the f32 kernel's
+    # one read and five of its own one-channel launches
+    shape = (4096, 4096, "ch 0-4", "per_channel")
+    k, _, b_ms = by_shape[FUSED_NATURAL_BF16, shape]
+    f32 = by_shape["fused_natural[per_channel]", shape][0]
+    one = by_shape[FUSED_NATURAL_BF16, (4096, 4096, "ch 0")][0]
+    log(f"[timing] {kind} ({smi}): {FUSED_NATURAL_BF16} {list(shape)}: "
+        f"{k:.4f} ms, the f32 fused natural kernel (one read of the inputs) "
+        f"{f32:.4f}, 5 x the bf16 ch 0 launch {5 * one:.4f}, bound "
+        f"{b_ms:.4f}; {k / f32:.3f} of the f32 kernel")
 
     phase_done("5 timing, kernels")
     log(json.dumps({"kernels": [

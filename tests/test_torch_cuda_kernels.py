@@ -34,7 +34,10 @@ is held to the same 2e-3; the f32 three-factor row kernel
 (csrc/dft_split3_f32.cuh) rounds each twiddle as its plain version does and
 accumulates in another order: 1e-5. So does the bf16x3 three-factor row
 kernel (csrc/dft_split3_bf16x3.cuh), whose stage-2 operands are split as
-its plain version splits them: 1e-5, the bf16x3 band."""
+its plain version splits them: 1e-5, the bf16x3 band. The bf16 fused
+natural kernel (csrc/fused_rows_natural_bf16.cuh) rounds its f32 assembly
+to bf16 where the plain version does and then runs the bf16 row kernel's
+stages: 2e-3, the bf16 band."""
 
 import dataclasses
 
@@ -296,6 +299,59 @@ def test_fused_natural_f32_kernel_matches_plain(cuda, monkeypatch, n, span,
     want = fused.assemble_rowfft_natural_plain(h0, phase, 434.48, -1.0, **kw)
     for c in range(ch_count):
         _assert_close((got[0][c], got[1][c]), (want[0][c], want[1][c]))
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("span", FUSED_SPANS, ids=str)
+@pytest.mark.parametrize("n", [1 << i for i in range(4, 14)])
+def test_fused_natural_bf16_kernel_matches_plain(cuda, monkeypatch, n, span,
+                                                 inverse):
+    """The bf16 fused natural kernel (csrc/fused_rows_natural_bf16.cuh) at
+    every N, R the wrapper's cap (at most 8, forced) and a ragged M (a
+    block and a half) across the Nyquist row: every channel within
+    2e-3·max of its own plain channel at bfloat16, counted once under its
+    name."""
+    packed, nch_live, ch_start, ch_count = span
+    rows = min(planes.max_rows(n, True, "bf16"), 8)
+    m = rows + rows // 2 + 1
+    monkeypatch.setattr(planes, "rows_per_block", lambda *_, **__: rows)
+    h0, phase = _fused_inputs(m, n, cuda, seed=n + ch_start)
+    kw = dict(epsilon=1e-4, ch_start=ch_start, ch_count=ch_count,
+              row_offset=n // 2 - m // 2, packed=packed, nch_live=nch_live,
+              inverse=inverse, precision="bfloat16")
+    planes.named_launches.clear()
+    got = fused.assemble_rowfft_natural(h0, phase, 434.48, -1.0, **kw)
+    tag = fused.channel_set(packed, nch_live)
+    assert planes.named_launches == {
+        planes.kernel_name("fused_natural", "bf16", False, tag): 1}
+    want = fused.assemble_rowfft_natural_plain(h0, phase, 434.48, -1.0, **kw)
+    for c in range(ch_count):
+        _assert_band((got[0][c], got[1][c]), (want[0][c], want[1][c]),
+                     BANDS["bf16"])
+
+
+@pytest.mark.parametrize("n,rows,offset", [(16384, 1, 0), (8, 1, 0),
+                                           (96, 1, 0), (1024, 0, 0),
+                                           (1024, 64, 0), (1024, 1, 4)])
+def test_fused_natural_bf16_kernel_refuses_other_lengths_and_blocks(
+        cuda, n, rows, offset):
+    """The C entry at tier bf16, direct form, natural store: N outside the
+    powers of two in [16, 8192], no rows, a block beyond the card's shared
+    memory or an input that is not 16-byte aligned (``offset`` bytes
+    past the plane) is refused, never run on another kernel."""
+    from tpu_ocean_torch import _build
+    h0, phase = _fused_inputs(2, n + 4, cuda)
+    out = torch.empty((1, 2, n), device=cuda)
+    kz = torch.zeros(n, device=cuda)
+    tables = planes.bf16_rows_tables(1024, True, cuda)
+    err = _build.load().lib.tpu_fused_rows_natural(
+        h0[0].data_ptr() + offset,
+        *(p.data_ptr() for p in (*h0[1:], phase, kz, out, out, tables)),
+        1, 0, 2, n, rows, 0, 1, 3, planes.TIERS["bf16"], 0, 0.0145, -1.0,
+        1e-4, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.load().check(err, "tpu_fused_rows_natural")
 
 
 @pytest.mark.parametrize("n,rows", [(16384, 1), (8, 1), (96, 1), (1024, 64),
@@ -566,12 +622,15 @@ def test_only_the_bf16_direct_transposed_pass_runs_its_own_kernel(
 
 
 # (tier, split3, natural) of a fused pass → the kernel it runs: the f32
-# natural store its own (radix16_fused_rows_natural_kernel), the f32
-# transposed store fused_rows_kernel on the Stockham stages, the rest
-# fused_rows_kernel on the matrix engine
+# and bf16 direct natural stores their own (radix16_fused_rows_natural_
+# kernel, bf16_fused_natural_kernel), the f32 transposed store
+# fused_rows_kernel on the Stockham stages, the rest fused_rows_kernel on
+# the matrix engine
+OWN_FUSED_KERNELS = {"radix16_fused_rows_natural_kernel": ("f32", False, True),
+                     "bf16_fused_natural_kernel": ("bf16", False, True)}
 FUSED_ROUTED = [("f32", False, True, "radix16_fused_rows_natural_kernel"),
                 ("f32", False, False, "StockhamEngine"),
-                ("bf16", False, True, "MatrixEngine"),
+                ("bf16", False, True, "bf16_fused_natural_kernel"),
                 ("bf16", False, False, "MatrixEngine"),
                 ("bf16x3", False, True, "MatrixEngine"),
                 ("bf16x3", True, False, "MatrixEngine"),
@@ -584,9 +643,10 @@ FUSED_ROUTED = [("f32", False, True, "radix16_fused_rows_natural_kernel"),
 def test_only_the_f32_natural_fused_pass_runs_its_own_kernel(
         cuda, select_engine, tier, split3, natural, kernel, channel_set):
     """Each fused pass, in every channel set, launches the one kernel its
-    routing names, read from the profiler's kernel names; the new kernel's
-    symbol appears in the f32 natural pass alone, and every key groups
-    under its launch name as chip_smoke.py reads it."""
+    routing names, read from the profiler's kernel names; the f32 and bf16
+    natural fused kernels' symbols each appear in their own pass alone,
+    and every key groups under its launch name as chip_smoke.py reads
+    it."""
     import chip_smoke
     packed, nch_live = channel_set
     precision = select_engine(tier, split3)
@@ -611,9 +671,10 @@ def test_only_the_f32_natural_fused_pass_runs_its_own_kernel(
     fused_kernels = [k for k in names
                      if chip_smoke.kernel_group(k) != "torch ops"]
     assert len(fused_kernels) == 1 and kernel in fused_kernels[0], names
-    assert (("radix16_fused_rows_natural_kernel" in fused_kernels[0])
-            == (tier == "f32" and not split3 and natural)), names
-    if kernel != "radix16_fused_rows_natural_kernel":
+    for symbol, route in OWN_FUSED_KERNELS.items():
+        assert (symbol in fused_kernels[0]) == (
+            (tier, split3, natural) == route), names
+    if kernel not in OWN_FUSED_KERNELS:
         assert "fused_rows_kernel" in fused_kernels[0], names
     store = "natural" if natural else "transposed"
     group = (f"fused_rows_{store}" if tier == "f32" and not split3 else

@@ -356,7 +356,8 @@ def test_every_fused_natural_block_the_wrapper_picks_fits(n):
 # (tier, split3, natural) of a fused pass → the kernel it runs
 FUSED_ROUTES = [("f32", False, True, "radix16"),
                 ("f32", False, False, "stockham"),
-                ("bf16", False, True, "engine"), ("bf16", False, False, "engine"),
+                ("bf16", False, True, "bf16_rows"),
+                ("bf16", False, False, "engine"),
                 ("bf16x3", False, True, "engine"),
                 ("bf16x3", False, False, "engine"),
                 ("bf16x3", True, False, "engine"), ("f32", True, False, "engine")]
@@ -364,21 +365,27 @@ FUSED_ROUTES = [("f32", False, True, "radix16"),
 
 @pytest.mark.parametrize("tier,split3,natural,route", FUSED_ROUTES)
 def test_fused_routing_names_one_kernel_a_pass(tier, split3, natural, route):
-    """The f32 natural fused pass, alone, runs the new kernel: its shared
-    bytes, rows cap and radix-16 twiddles; every other fused pass keeps
-    fused_rows_kernel's (the Stockham stages transposed at f32 direct, the
-    matrix engine at bf16, bf16x3 and B3)."""
-    radix16 = route == "radix16"
+    """The f32 natural fused pass runs its own kernel (its shared bytes,
+    rows cap and radix-16 twiddles) and the bf16 natural fused pass runs
+    its own (csrc/fused_rows_natural_bf16.cuh: the bf16 row kernel's
+    shared bytes, rows cap and fragment tables); every other fused pass
+    keeps fused_rows_kernel's (the Stockham stages transposed at f32
+    direct, the matrix engine at bf16, bf16x3 and B3)."""
+    radix16, bf16 = route == "radix16", route == "bf16_rows"
     assert planes._fused_radix16(tier, split3, natural) == radix16
+    assert planes._fused_bf16(tier, split3, natural) == bf16
     assert planes.fused_block_shared_bytes(tier, split3, natural) is (
-        planes.fused_natural_shared_bytes if radix16 else planes.shared_bytes)
+        planes.fused_natural_shared_bytes if radix16 else
+        planes.bf16_rows_shared_bytes if bf16 else planes.shared_bytes)
     n = 1024
     assert planes.fused_rows(3, 4096, n, SMS, natural, tier, split3) == (
-        planes.fused_natural_max_rows(n) if radix16
+        planes.fused_natural_max_rows(n) if radix16 else
+        planes.max_rows(n, True, "bf16") if bf16
         else planes.max_rows(n, natural))
     cpu = torch.device("cpu")
     tables = planes.fused_tables(n, True, tier, split3, natural, cpu)
     want = (planes.radix16_twiddles(n, True, cpu) if radix16 else
+            planes.bf16_rows_tables(n, True, cpu) if bf16 else
             planes.tables_for(n, True, tier, split3, cpu))
     assert torch.equal(tables, want)
     assert (route == "stockham") == (planes._stockham(tier, split3)
@@ -386,4 +393,4 @@ def test_fused_routing_names_one_kernel_a_pass(tier, split3, natural, route):
     # each launch keeps its count name
     name = planes.kernel_name("fused_natural" if natural else
                               "fused_transposed", tier, split3, "packed5")
-    assert name.startswith("matrix_") == (route == "engine")
+    assert name.startswith("matrix_") == (route in ("engine", "bf16_rows"))

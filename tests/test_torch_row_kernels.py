@@ -121,7 +121,13 @@ def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
      "tpu_fft::MatrixEngine<1, false> >(float const*, float const*, float "
      "const*, float const*, float const*, float const*, float*, float*, "
      "float2 const*, int, int, int, int, int, tpu_fft::Assembly)",
-     "matrix_fused_natural[bf16]")])
+     "matrix_fused_natural[bf16]"),
+    ("void tpu_fft::bf16_fused::bf16_fused_natural_kernel<12>(float const*, "
+     "float const*, float const*, float const*, float const*, float const*, "
+     "float*, float*, unsigned int const*, int, int, int, tpu_fft::Assembly)",
+     "matrix_fused_natural[bf16]"),
+    ("_ZN7tpu_fft10bf16_fused25bf16_fused_natural_kernelILi12EEEvPKfS3_S3_S3_"
+     "S3_S3_PfS4_PKjiiiNS_8AssemblyE", "matrix_fused_natural[bf16]")])
 def test_profiler_keys_group_under_the_launch_names(key, group):
     assert chip_smoke.kernel_group(key) == group
 

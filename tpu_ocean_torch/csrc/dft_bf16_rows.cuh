@@ -6,11 +6,12 @@
 // _fft1d_natural_large_impl), both at lax.Precision.DEFAULT, and in this
 // port the matrix engine (dft_matrix.cuh, matrix_dft_stages<kTierBf16,
 // false>) for those two passes; the engine keeps the other tiers and forms
-// and the fused kernels. Contract: (re, im) f32 [C, M, N] → the transposed
-// (re, im) f32 [C, N, M] (kNatural = false) or the natural-order [C, M, N]
-// (kNatural = true), unnormalized, + sign for the inverse, N a power of two
-// in [16, 8192], any M and C. The two stores share everything up to the
-// f32 result in shared memory.
+// and every fused pass but the bf16 natural store, whose kernel
+// (fused_rows_natural_bf16.cuh) runs the stages below. Contract: (re, im)
+// f32 [C, M, N] → the transposed (re, im) f32 [C, N, M] (kNatural = false)
+// or the natural-order [C, M, N] (kNatural = true), unnormalized, + sign
+// for the inverse, N a power of two in [16, 8192], any M and C. The two
+// stores share everything up to the f32 result in shared memory.
 //
 // Numerics are those of the plain version (fft/matrix.py rows_dft at tier
 // bf16) operand for operand: x and the f32 tables rounded to bf16 (round
@@ -139,6 +140,149 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint4& a, uint32_t b0,
 
 extern __shared__ uint4 bf16_rows_smem[];
 
+// The stages below are shared with the bf16 fused natural-store kernel
+// (fused_rows_natural_bf16.cuh), which stages its rows from the assembly
+// instead of from planes: a kernel fills Buffers::xs, then runs
+// stage1, stage2 and store_rows behind barriers.
+
+// A block's dynamic shared memory: the rows (bf16 pairs), aliased by the
+// f32 result after stage 1; then C ⊙ T
+template <int kLog2N>
+struct Buffers {
+  uint32_t* xs;
+  float2* res;
+  uint32_t* ys;
+  __device__ __forceinline__ explicit Buffers(int R)
+      : xs(reinterpret_cast<uint32_t*>(bf16_rows_smem)),
+        res(reinterpret_cast<float2*>(bf16_rows_smem)) {
+    using G = Geometry<kLog2N>;
+    const int rows_in = R * G::n2 * G::x_stride;
+    const int rows_out = (R * (G::N + 1) * 2 + 3) / 4 * 4;
+    ys = xs + (rows_in > rows_out ? rows_in : rows_out);
+  }
+};
+
+// The word of Buffers::xs that holds point p = r·N + n of the block, n a
+// multiple of 4: x[r, s·n1 + t] at (r·n2 + s)·(n1 + 4) + t, the next
+// three points of the row at the three words after it
+template <int kLog2N>
+__device__ __forceinline__ int x_word(int p) {
+  using G = Geometry<kLog2N>;
+  const int r = p >> kLog2N;
+  const int n = p & (G::N - 1);
+  return (r * G::n2 + (n >> G::log2n1)) * G::x_stride + (n & (G::n1 - 1));
+}
+
+// Stage 2's tile of this warp (k1 = 8·(w mod kt2) + g): its F1 fragments,
+// from L2 (64 registers at n1 = 128)
+template <int kLog2N>
+__device__ __forceinline__ void load_f1(uint4 (&a2)[Geometry<kLog2N>::kt2],
+                                        const uint32_t* __restrict__ tables) {
+  using G = Geometry<kLog2N>;
+  const int lane = threadIdx.x & 31;
+  const int tm2 = (threadIdx.x >> 5) % G::kt2;
+  const uint4* f1 =
+      reinterpret_cast<const uint4*>(tables + G::f2_words + G::t_words);
+#pragma unroll
+  for (int kb = 0; kb < G::kt2; ++kb) a2[kb] = __ldg(&f1[(tm2 * G::kt2 + kb) * 32 + lane]);
+}
+
+// Stage 1: warp w computes output tile tm = w mod kt1 (k2 = 8·tm + g)
+// over the columns (r, t), 8 consecutive t of one row a tile, and
+// writes bf16(C ⊙ T) to ys.
+template <int kLog2N>
+__device__ __forceinline__ void stage1(const uint32_t* xs, uint32_t* ys,
+                                       const uint32_t* __restrict__ tables,
+                                       int R) {
+  using G = Geometry<kLog2N>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const uint4* f2 = reinterpret_cast<const uint4*>(tables);
+  const float2* tw = reinterpret_cast<const float2*>(tables + G::f2_words);
+  const int tm = warp % G::kt1;
+  const uint4* f2_tile = f2 + tm * G::kt1 * 32 + lane;
+  // F2's fragments in registers, but at n2 = 64 (N = 8192), where their
+  // 32 registers beside F1's 64 spill: there from L1 at each k-step
+  constexpr bool kHold = G::kt1 <= 4;
+  uint4 a[kHold ? G::kt1 : 1];
+  if constexpr (kHold) {
+#pragma unroll
+    for (int kb = 0; kb < G::kt1; ++kb) a[kb] = __ldg(&f2_tile[kb * 32]);
+  }
+  const int k2 = tm * 8 + g;
+  const int tiles = (R * G::n1) >> 3;
+  for (int tn = warp / G::kt1; tn < tiles; tn += kWarps / G::kt1) {
+    const int col0 = tn << 3;
+    const int r = col0 >> G::log2n1;
+    const int t0 = col0 & (G::n1 - 1);
+    const uint32_t* xb = xs + r * G::n2 * G::x_stride + t0 + g;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kb = 0; kb < G::kt1; ++kb) {
+      const int s = kb * 8 + 2 * q;
+      const uint32_t b0 = s < G::n2 ? xb[s * G::x_stride] : 0u;
+      const uint32_t b1 = s + 1 < G::n2 ? xb[(s + 1) * G::x_stride] : 0u;
+      if constexpr (kHold) {
+        mma(d, a[kb], b0, b1);
+      } else {
+        mma(d, __ldg(&f2_tile[kb * 32]), b0, b1);
+      }
+    }
+    if (k2 < G::n2) {
+      uint32_t* yb = ys + (r * G::n2 + k2) * G::y_stride;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int t = t0 + 2 * q + j;
+        const float2 w = __ldg(&tw[k2 * G::n1 + t]);
+        const float cr = d[j];
+        const float ci = d[j + 2];
+        yb[t] = pack_rn(__fsub_rn(__fmul_rn(cr, w.x), __fmul_rn(ci, w.y)),
+                        __fadd_rn(__fmul_rn(cr, w.y), __fmul_rn(ci, w.x)));
+      }
+    }
+  }
+}
+
+// Stage 2: warp w computes its tile k1 over the columns
+// col = r·n2 + k2, and writes X[k1·n2 + k2] of row r to res in f32,
+// over the consumed rows.
+template <int kLog2N>
+__device__ __forceinline__ void stage2(
+    const uint32_t* ys, float2* res,
+    const uint4 (&a2)[Geometry<kLog2N>::kt2], int R) {
+  using G = Geometry<kLog2N>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int k1 = (warp % G::kt2) * 8 + g;
+  const int cols = R * G::n2;
+  const int tiles = (cols + 7) >> 3;
+  for (int tn = warp / G::kt2; tn < tiles; tn += kWarps / G::kt2) {
+    const int col = (tn << 3) + g;
+    const bool ok = col < cols;
+    const uint32_t* yb = ys + col * G::y_stride + 2 * q;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kb = 0; kb < G::kt2; ++kb) {
+      const uint2 b = ok ? *reinterpret_cast<const uint2*>(yb + kb * 8)
+                         : make_uint2(0u, 0u);
+      mma(d, a2[kb], b.x, b.y);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int oc = (tn << 3) + 2 * q + j;
+      if (oc < cols) {
+        const int r = oc / G::n2;
+        const int k2 = oc - r * G::n2;
+        res[r * (G::N + 1) + k1 * G::n2 + k2] = make_float2(d[j], d[j + 2]);
+      }
+    }
+  }
+}
+
 // One block: R rows m0 .. m0 + R − 1 of channel blockIdx.y.
 template <int kLog2N, bool kNatural>
 __global__ void __launch_bounds__(kThreads)
@@ -146,32 +290,15 @@ bf16_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
                  float* __restrict__ out_re, float* __restrict__ out_im,
                  const uint32_t* __restrict__ tables, int M, int R) {
   using G = Geometry<kLog2N>;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int q = lane & 3;
   const int c = blockIdx.y;
   const int m0 = blockIdx.x * R;
   const size_t plane = static_cast<size_t>(M) * G::N;
+  const Buffers<kLog2N> b(R);
 
-  const uint4* f2 = reinterpret_cast<const uint4*>(tables);
-  const float2* tw = reinterpret_cast<const float2*>(tables + G::f2_words);
-  const uint4* f1 =
-      reinterpret_cast<const uint4*>(tables + G::f2_words + G::t_words);
-
-  // rows (bf16 pairs), aliased by the f32 result after stage 1; then C ⊙ T
-  uint32_t* xs = reinterpret_cast<uint32_t*>(bf16_rows_smem);
-  float2* res = reinterpret_cast<float2*>(bf16_rows_smem);
-  const int rows_in = R * G::n2 * G::x_stride;
-  const int rows_out = (R * (G::N + 1) * 2 + 3) / 4 * 4;
-  uint32_t* ys = xs + (rows_in > rows_out ? rows_in : rows_out);
-
-  // Stage 2's tile (k1 = 8·(w mod kt2) + g): its F1 fragments come from
-  // L2 while the rows load and stage 1 runs
-  const int tm2 = warp % G::kt2;
+  // F1's fragments are issued first, so that they arrive while the rows
+  // load and stage 1 runs
   uint4 a2[G::kt2];
-#pragma unroll
-  for (int kb = 0; kb < G::kt2; ++kb) a2[kb] = __ldg(&f1[(tm2 * G::kt2 + kb) * 32 + lane]);
+  load_f1<kLog2N>(a2, tables);
 
   // Load: 4 points a lane as two float4 loads, kLoadsInFlight of them
   // started before any is waited on; rounded to bf16 pairs. Rows past M
@@ -196,101 +323,19 @@ bf16_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
       for (int u = 0; u < kLoadsInFlight; ++u) {
         const int idx = base + u * kThreads;
         if (idx >= total) continue;
-        const int p = idx * 4;
-        const int r = p >> kLog2N;
-        const int n = p & (G::N - 1);
-        const int s = n >> G::log2n1;
-        const int t = n & (G::n1 - 1);
-        *reinterpret_cast<uint4*>(&xs[(r * G::n2 + s) * G::x_stride + t]) =
+        *reinterpret_cast<uint4*>(&b.xs[x_word<kLog2N>(idx * 4)]) =
             make_uint4(pack_rn(vr[u].x, vi[u].x), pack_rn(vr[u].y, vi[u].y),
                        pack_rn(vr[u].z, vi[u].z), pack_rn(vr[u].w, vi[u].w));
       }
     }
   }
   __syncthreads();
-
-  // Stage 1: warp w computes output tile tm = w mod kt1 (k2 = 8·tm + g)
-  // over the columns (r, t), 8 consecutive t of one row a tile, and
-  // writes bf16(C ⊙ T).
-  {
-    const int tm = warp % G::kt1;
-    const uint4* f2_tile = f2 + tm * G::kt1 * 32 + lane;
-    // F2's fragments in registers, but at n2 = 64 (N = 8192), where their
-    // 32 registers beside F1's 64 spill: there from L1 at each k-step
-    constexpr bool kHold = G::kt1 <= 4;
-    uint4 a[kHold ? G::kt1 : 1];
-    if constexpr (kHold) {
-#pragma unroll
-      for (int kb = 0; kb < G::kt1; ++kb) a[kb] = __ldg(&f2_tile[kb * 32]);
-    }
-    const int k2 = tm * 8 + g;
-    const int tiles = (R * G::n1) >> 3;
-    for (int tn = warp / G::kt1; tn < tiles; tn += kWarps / G::kt1) {
-      const int col0 = tn << 3;
-      const int r = col0 >> G::log2n1;
-      const int t0 = col0 & (G::n1 - 1);
-      const uint32_t* xb = xs + r * G::n2 * G::x_stride + t0 + g;
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kb = 0; kb < G::kt1; ++kb) {
-        const int s = kb * 8 + 2 * q;
-        const uint32_t b0 = s < G::n2 ? xb[s * G::x_stride] : 0u;
-        const uint32_t b1 = s + 1 < G::n2 ? xb[(s + 1) * G::x_stride] : 0u;
-        if constexpr (kHold) {
-          mma(d, a[kb], b0, b1);
-        } else {
-          mma(d, __ldg(&f2_tile[kb * 32]), b0, b1);
-        }
-      }
-      if (k2 < G::n2) {
-        uint32_t* yb = ys + (r * G::n2 + k2) * G::y_stride;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int t = t0 + 2 * q + j;
-          const float2 w = __ldg(&tw[k2 * G::n1 + t]);
-          const float cr = d[j];
-          const float ci = d[j + 2];
-          yb[t] = pack_rn(__fsub_rn(__fmul_rn(cr, w.x), __fmul_rn(ci, w.y)),
-                          __fadd_rn(__fmul_rn(cr, w.y), __fmul_rn(ci, w.x)));
-        }
-      }
-    }
-  }
+  stage1<kLog2N>(b.xs, b.ys, tables, R);
   __syncthreads();
-
-  // Stage 2: warp w computes its tile k1 over the columns
-  // col = r·n2 + k2, and writes X[k1·n2 + k2] of row r
-  // in f32 over the consumed rows.
-  {
-    const int k1 = tm2 * 8 + g;
-    const int cols = R * G::n2;
-    const int tiles = (cols + 7) >> 3;
-    for (int tn = warp / G::kt2; tn < tiles; tn += kWarps / G::kt2) {
-      const int col = (tn << 3) + g;
-      const bool ok = col < cols;
-      const uint32_t* yb = ys + col * G::y_stride + 2 * q;
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kb = 0; kb < G::kt2; ++kb) {
-        const uint2 b = ok ? *reinterpret_cast<const uint2*>(yb + kb * 8)
-                           : make_uint2(0u, 0u);
-        mma(d, a2[kb], b.x, b.y);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int oc = (tn << 3) + 2 * q + j;
-        if (oc < cols) {
-          const int r = oc / G::n2;
-          const int k2 = oc - r * G::n2;
-          res[r * (G::N + 1) + k1 * G::n2 + k2] = make_float2(d[j], d[j + 2]);
-        }
-      }
-    }
-  }
+  stage2<kLog2N>(b.ys, b.res, a2, R);
   __syncthreads();
-
-  store_rows<kNatural>(res, out_re + c * plane, out_im + c * plane, M, G::N,
-                       kLog2N, R, m0);
+  store_rows<kNatural>(b.res, out_re + c * plane, out_im + c * plane, M,
+                       G::N, kLog2N, R, m0);
 }
 
 template <int kLog2N, bool kNatural>

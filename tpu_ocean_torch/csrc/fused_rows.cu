@@ -30,6 +30,9 @@
 //     rows of the five planes once, holds the terms no channel changes in
 //     registers and makes every channel of the launch from them, each on
 //     the radix-16 passes of rows_natural_f32.cuh, stored from registers;
+//   natural, bf16 direct: fused_rows_natural_bf16.cuh — the bf16 row
+//     kernel's stages (dft_bf16_rows.cuh) behind a fused load that
+//     assembles 4 points a lane and stages them as bf16 pairs;
 //   transposed, f32 direct: fused_rows_kernel below on stockham.cuh's
 //     stages. The loads are the row kernel's, five planes wide: one block
 //     reads R whole rows of each input plane with row-contiguous
@@ -45,12 +48,14 @@
 // Precision tiers and the three-factor form (_fused_kernel_split3): the
 // entries take a tier and a form as fft_rows.cu's do; the assembly is the
 // same at every tier, only the stages after it change (dft_matrix.cuh, in
-// fused_rows_kernel below, either store).
+// fused_rows_kernel below, either store, but the bf16 direct natural
+// store's own kernel).
 
 #include <type_traits>
 
 #include "dft_matrix.cuh"
 #include "fused_assembly.cuh"
+#include "fused_rows_natural_bf16.cuh"
 #include "fused_rows_natural_f32.cuh"
 
 namespace {
@@ -69,8 +74,11 @@ fused_rows_kernel(const float* __restrict__ h0r, const float* __restrict__ h0i,
                   float* __restrict__ out_im,
                   const float2* __restrict__ tables, int M, int N,
                   int log2n, int R, int ch_start, Assembly p) {
-  // the f32 direct natural store runs a kernel of its own (launch below)
-  static_assert(!(kNatural && std::is_same_v<Engine, StockhamEngine>));
+  // the f32 and bf16 direct natural stores run kernels of their own
+  // (launch below)
+  static_assert(!(kNatural &&
+                  (std::is_same_v<Engine, StockhamEngine> ||
+                   std::is_same_v<Engine, MatrixEngine<kTierBf16, false>>)));
   extern __shared__ float2 smem[];
   const int stride = N + 1;
   float2* src = smem;
@@ -138,6 +146,12 @@ int launch(const void* h0r, const void* h0i, const void* h0cr,
       return launch_fused_rows_natural_f32(h0r, h0i, h0cr, h0ci, phase, kz,
                                            out_re, out_im, tables, channels,
                                            ch_start, m, n, rows, p, stream);
+    } else if constexpr (kNatural &&
+                         std::is_same_v<Engine,
+                                        MatrixEngine<kTierBf16, false>>) {
+      return launch_fused_rows_natural_bf16(h0r, h0i, h0cr, h0ci, phase, kz,
+                                            out_re, out_im, tables, channels,
+                                            ch_start, m, n, rows, p, stream);
     } else {
       const int smem = smem_bytes(rows, n);
       cudaError_t err = allow_smem(fused_rows_kernel<kNatural, Engine>, smem);
@@ -168,8 +182,9 @@ extern "C" {
 // [m, n] input planes, ch_start + channels within the channel set (packed
 // with nch_live 3: 2; with 5: 3; per-channel, packed 0: 5), `tables` the
 // Stockham twiddles (tier 0, split3 0, transposed), the radix-16 twiddles
-// (tier 0, split3 0, natural: planes.radix16_twiddles) or the matrix
-// engine's tables.
+// (tier 0, split3 0, natural: planes.radix16_twiddles), the bf16 row
+// kernel's tables (tier 1, split3 0, natural: planes.bf16_rows_tables) or
+// the matrix engine's tables.
 int tpu_fused_rows_transposed(const void* h0r, const void* h0i,
                               const void* h0cr, const void* h0ci,
                               const void* phase, const void* kz, void* out_re,

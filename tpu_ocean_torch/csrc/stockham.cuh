@@ -36,13 +36,16 @@ inline int block_threads(int rows, int n) {
   return threads > kMaxThreads ? kMaxThreads : threads;
 }
 
-// Above 48 KB dynamic shared memory needs an opt-in, per kernel.
+// Above 48 KB dynamic shared memory needs an opt-in, per kernel. A size
+// the card refuses is returned here and cleared from the runtime's last
+// error, so that the next launch's cudaGetLastError does not report it.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 __device__ __forceinline__ void load_twiddles(float2* tw,

@@ -112,9 +112,14 @@ RADIX16_MAX_THREADS = 512
 #: [2048, 4096] ch 1 113.25, 125.28
 FUSED_NATURAL_BLOCK_POINTS = 4096
 #: the same for the bf16 row kernel's natural store: swept on the H100,
-#: [1, 4096, 4096] took 200.6, 173.1 and 209.1 µs at R = 1, 2 and 4, since
-#: two blocks of 8192 points share an SM (100 KB of shared memory each)
-#: and one of 16384 (196 KB) does not
+#: [1, 4096, 4096] took 200.6, 173.1 and 209.1 µs at R = 1, 2 and 4 (two
+#: blocks of 8192 points fit an SM's shared memory, 100 KB each, though at
+#: 114 registers a thread of 512 one block runs on an SM at a time). The
+#: bf16 fused natural kernel, which runs the same stages, takes it too: on
+#: an H100 80GB HBM3 at 700 W (python3 chip_smoke.py --sweep-rows),
+#: [4096, 4096] ch 0 292.67, 288.19 and 317.97 µs at R = 1, 2 and 4;
+#: [2048, 4096] ch 1 153.91, 156.41 and 164.43; C = 5 1368.92, 1285.14
+#: and 1469.07
 BF16_NATURAL_BLOCK_POINTS = 8192
 
 
@@ -239,10 +244,17 @@ def _split3_rows(tier: str, split3: bool) -> bool:
 def _fused_radix16(tier: str, split3: bool, natural: bool) -> bool:
     """The fused pass that runs the f32 fused natural-store kernel
     (csrc/fused_rows_natural_f32.cuh): f32 direct, natural store. Every
-    other fused pass runs fused_rows_kernel (csrc/fused_rows.cu): the
-    Stockham stages for the f32 direct transposed store, else the matrix
-    engine."""
+    fused pass but this one and _fused_bf16's runs fused_rows_kernel
+    (csrc/fused_rows.cu): the Stockham stages for the f32 direct
+    transposed store, else the matrix engine."""
     return natural and _stockham(tier, split3)
+
+
+def _fused_bf16(tier: str, split3: bool, natural: bool) -> bool:
+    """The fused pass that runs the bf16 fused natural-store kernel
+    (csrc/fused_rows_natural_bf16.cuh, the bf16 row kernel's stages behind
+    the assembly): bf16 direct, natural store."""
+    return natural and _bf16_rows(tier, split3)
 
 
 def _split3_bf16x3_rows(tier: str, split3: bool) -> bool:
@@ -577,9 +589,13 @@ def fused_natural_max_rows(n: int) -> int:
 def fused_block_shared_bytes(tier: str, split3: bool, natural: bool):
     """The shared-memory function (rows, n) → bytes of the fused kernel
     at (tier, split3, store): fused_natural_shared_bytes for the f32
-    natural store, else fused_rows_kernel's two buffers (shared_bytes)."""
+    natural store, the bf16 row kernel's (bf16_rows_shared_bytes) for the
+    bf16 natural store, else fused_rows_kernel's two buffers
+    (shared_bytes)."""
     if _fused_radix16(tier, split3, natural):
         return fused_natural_shared_bytes
+    if _fused_bf16(tier, split3, natural):
+        return bf16_rows_shared_bytes
     return shared_bytes
 
 
@@ -587,22 +603,30 @@ def fused_rows(c: int, m: int, n: int, sms: int, natural: bool, tier: str,
                split3: bool) -> int:
     """Rows per block of a fused pass of ``c`` channels of [m, n]
     (rows_per_block): the f32 natural kernel's own cap and shared memory
-    (fused_natural_max_rows, fused_natural_shared_bytes), else max_rows
-    and fused_rows_kernel's two buffers. The f32 natural kernel makes
-    every channel in one block, so its grid is ⌈m / rows⌉ blocks whatever
-    ``c``; fused_rows_kernel's is ``c`` times that."""
+    (fused_natural_max_rows, fused_natural_shared_bytes); the bf16
+    natural kernel's, which are the bf16 row kernel's (max_rows at bf16,
+    bf16_rows_shared_bytes); else max_rows and fused_rows_kernel's two
+    buffers. The f32 natural kernel makes every channel in one block, so
+    its grid is ⌈m / rows⌉ blocks whatever ``c``; the others' is ``c``
+    times that."""
     if _fused_radix16(tier, split3, natural):
         return rows_per_block(1, m, n, sms, fused_natural_max_rows(n),
                               fused_natural_shared_bytes)
+    if _fused_bf16(tier, split3, natural):
+        return rows_per_block(c, m, n, sms, max_rows(n, True, tier, split3),
+                              bf16_rows_shared_bytes)
     return rows_per_block(c, m, n, sms, max_rows(n, natural))
 
 
 def fused_tables(n: int, inverse: bool, tier: str, split3: bool,
                  natural: bool, device: torch.device) -> torch.Tensor:
     """The `tables` argument of a fused entry: the radix-16 twiddles for
-    the f32 natural store, else tables_for's."""
+    the f32 natural store, the bf16 row kernel's tables for the bf16
+    natural store, else tables_for's."""
     if _fused_radix16(tier, split3, natural):
         return radix16_twiddles(n, bool(inverse), device)
+    if _fused_bf16(tier, split3, natural):
+        return bf16_rows_tables(n, bool(inverse), device)
     return tables_for(n, inverse, tier, split3, device)
 
 
@@ -629,7 +653,8 @@ def max_rows(n: int, natural: bool, tier: str = "f32",
              split3: bool = False) -> int:
     """The most rows per block of the transposed store
     (TRANSPOSED_MAX_ROWS) or of the natural store at (tier, split3):
-    BF16_NATURAL_BLOCK_POINTS // n on the bf16 row kernel, else
+    BF16_NATURAL_BLOCK_POINTS // n on the bf16 row kernel (and the bf16
+    fused natural kernel, which runs its stages), else
     NATURAL_BLOCK_POINTS // n. The fused kernels but the f32 natural one
     take it (fused_rows); the f32 direct row passes take their own
     (row_pass_max_rows)."""

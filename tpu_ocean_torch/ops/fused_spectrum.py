@@ -18,7 +18,9 @@ or 5 (spectral normals, 3 channels), and the 5 per-channel spectra
 On a CUDA tensor each launches its hand-written kernel
 (``csrc/fused_rows.cu``; the f32 natural store
 ``csrc/fused_rows_natural_f32.cuh``, every channel of a launch from one
-read of the inputs) and nothing else; on a CPU tensor it runs its
+read of the inputs; the bf16 natural store
+``csrc/fused_rows_natural_bf16.cuh``, the bf16 row kernel's stages behind
+the assembly) and nothing else; on a CPU tensor it runs its
 plain version: ``_assemble_plain`` (the kernel's f32 arithmetic in torch,
 in the order of the JAX ``_assemble_block``; it does not use the float64
 ``pack`` or ``coeffs`` tables, which differ in the last bits) followed by
