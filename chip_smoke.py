@@ -36,7 +36,15 @@ Phases, each printing its own lines:
                channel by channel: within 1e-6·max of the radix-16 row
                kernel applied to the plain assembly on the card, and its
                RMS error against the float64 DFT of the float64 assembly
-               at most 1.1 × that row kernel's; the bf16 fused natural
+               at most 1.1 × that row kernel's; the f32 fused transposed
+               kernel (the same load and passes, stored through a tile)
+               at every shape and channel set the paths give it, channel
+               by channel: within 1e-6·max of the f32 fused natural
+               kernel's output transposed on the same inputs (bit-equality
+               reported), and its RMS error against the float64 DFT of the
+               float64 assembly at most 1.1 × that of the radix-2 stages
+               it replaces (the f32 transposed row kernel's) over the
+               plain assembly; the bf16 fused natural
                kernel (the bf16 row kernel's stages behind the assembly)
                likewise against the bf16 natural row kernel: bit-equal on
                a channel with no 1/|k| term, else within 2e-3·max, RMS
@@ -121,7 +129,10 @@ Phases, each printing its own lines:
                f32 fused natural kernel's launches of C > 1 channels
                beside C launches of one channel on the same inputs (one
                read of the inputs against C) and its one-channel launches
-               beside the radix-16 row kernel at [1, M, N], the bf16
+               beside the radix-16 row kernel at [1, M, N], the f32 fused
+               transposed kernel beside the f32 fused natural kernel on
+               the same inputs and its launches of C > 1 channels beside C
+               launches of one channel, the bf16
                fused natural kernel beside the f32 one at the same shape
                and the bf16 row kernel at [1, M, N] (and at C = 5, on no
                path, beside five of its one-channel launches), the
@@ -134,12 +145,12 @@ Then one JSON line of kernel results, the card's name and power limit, and
 last {"ok": true, "device": ...}.
 
 With --sweep-rows, phases 4 and 5 give way to a sweep of the rows per
-block: each f32 row-DFT and fused case of phase 3 (the f32 fused natural
-kernel in every channel set), and the cases of the bf16 fused natural
-kernel, the bf16 row kernel (both stores) and the f32 and bf16x3 three-factor row
-kernels, at
-every power of two up to 16 that fits shared memory (and, for the f32
-natural kernels, row and fused, 512 threads), checked against its
+block: each f32 row-DFT and fused case of phase 3 (the f32 fused
+kernels, both stores, in every channel set), and the cases of the bf16
+fused natural kernel, the bf16 row kernel (both stores) and the f32 and
+bf16x3 three-factor row kernels, at every power of two up to 16 that fits
+shared memory (and, for the f32 natural row kernel and the f32 fused
+kernels, 512 threads), checked against its
 plain version and timed (device time, torch.profiler); the f32
 transposed kernel at every such rows and every cluster size (1, 2, 4, 8);
 the wrappers' choice is marked "*". No result line follows.
@@ -299,15 +310,18 @@ KERNEL_INFO = {
                        "tpu_ocean/ops/fields_pallas.py:255"),
     "fft_rows_natural": ("tpu_ocean_torch/csrc/rows_natural_f32.cuh",
                          "tpu_ocean/fft/pallas_fft.py:677"),
-    "fused_rows_transposed": ("tpu_ocean_torch/csrc/fused_rows.cu",
-                              "tpu_ocean/ops/fused_spectrum_fft.py:127"),
+    "fused_rows_transposed": (
+        "tpu_ocean_torch/csrc/fused_rows_transposed_f32.cuh",
+        "tpu_ocean/ops/fused_spectrum_fft.py:127"),
     "fused_rows_natural": (
         "tpu_ocean_torch/csrc/fused_rows_natural_f32.cuh",
         "tpu_ocean/ops/fused_spectrum_fft.py:196"),
-    "fused_transposed[per_channel]": ("tpu_ocean_torch/csrc/fused_rows.cu",
-                                      "tpu_ocean/ops/fused_spectrum_fft.py:127"),
-    "fused_transposed[packed5]": ("tpu_ocean_torch/csrc/fused_rows.cu",
-                                  "tpu_ocean/ops/fused_spectrum_fft.py:127"),
+    "fused_transposed[per_channel]": (
+        "tpu_ocean_torch/csrc/fused_rows_transposed_f32.cuh",
+        "tpu_ocean/ops/fused_spectrum_fft.py:127"),
+    "fused_transposed[packed5]": (
+        "tpu_ocean_torch/csrc/fused_rows_transposed_f32.cuh",
+        "tpu_ocean/ops/fused_spectrum_fft.py:127"),
     "fused_natural[per_channel]": (
         "tpu_ocean_torch/csrc/fused_rows_natural_f32.cuh",
         "tpu_ocean/ops/fused_spectrum_fft.py:196"),
@@ -360,7 +374,7 @@ TIER_BAND = {"f32": 1e-5, "bf16": 2e-3, "bf16x3": 1e-5}
 FUSED_NATURAL_BF16 = "matrix_fused_natural[bf16]"
 # each redesigned row or fused kernel before its redesign (the matrix
 # engine; for the f32 kernels the block-per-R-rows store and radix-2
-# stages, and for the f32 fused natural kernel a block per channel),
+# stages, and for the f32 fused kernels a block per channel),
 # device ms a launch at each shape it is timed at: PERF.md §6, NVIDIA
 # H100 80GB HBM3, 700 W, torch.profiler, the chip run before each
 # redesign; printed beside this run's times, not measured here
@@ -388,6 +402,13 @@ BEFORE_REDESIGN_MS = {
         (1, 1024, 1024): 0.0382, (1, 1, 1024): 0.0075},
     "fused_rows_natural": {
         (4096, 4096, "ch 0"): 0.2965, (2048, 4096, "ch 1"): 0.1576},
+    "fused_rows_transposed": {
+        (1024, 1024, "ch 0"): 0.0229, (512, 1024, "ch 1"): 0.0146},
+    "fused_transposed[per_channel]": {
+        (1024, 1024, "ch 0-2", "per_channel"): 0.0617},
+    "fused_transposed[packed5]": {
+        (1024, 1024, "ch 0-1", "packed5"): 0.0428,
+        (512, 1024, "ch 2", "packed5"): 0.0146},
     "fused_natural[per_channel]": {
         (4096, 4096, "ch 0-4", "per_channel"): 1.3820},
     "fused_natural[packed5]": {
@@ -400,6 +421,11 @@ BEFORE_REDESIGN_MS = {
 # each name it counts under, one per channel set
 FUSED_NATURAL_F32 = ("fused_rows_natural", "fused_natural[per_channel]",
                      "fused_natural[packed5]")
+# the f32 fused transposed kernel (csrc/fused_rows_transposed_f32.cuh)
+# likewise
+FUSED_TRANSPOSED_F32 = ("fused_rows_transposed",
+                        "fused_transposed[per_channel]",
+                        "fused_transposed[packed5]")
 # one bf16 row pass against float64 at [1,1024,1024] (max abs error over
 # max |float64|) on the matrix engine (PERF.md §6). The kernels round the
 # same operands as the bf16 plain version, so on the same rows their error
@@ -477,6 +503,10 @@ def kernel_group(key):
         return "fft_rows_natural"
     if "radix16_fused_rows_natural_kernel" in key:
         return "fused_rows_natural"
+    # the f32 fused transposed kernel ahead of the generic fused_rows_kernel
+    # rule below
+    if "radix16_fused_rows_transposed_kernel" in key:
+        return "fused_rows_transposed"
     m = (re.search(r"bf16_rows_kernel<\d+, (true|false)>", key)
          or re.search(r"bf16_rows_kernelILi\d+ELb([01])E", key))
     if m is not None:
@@ -783,10 +813,10 @@ class Case:
 
 
 # the kernels --sweep-rows sweeps (by name): the f32 direct row kernels
-# (both stores) and fused kernels (the natural one in every channel set),
+# (both stores) and fused kernels (both stores, in every channel set),
 # the bf16 fused natural kernel, the bf16 row kernel (both stores) and the
 # f32 and bf16x3 three-factor row kernels
-SWEPT = ("fft_rows_transposed", "fft_rows_natural", "fused_rows_transposed",
+SWEPT = ("fft_rows_transposed", "fft_rows_natural", *FUSED_TRANSPOSED_F32,
          *FUSED_NATURAL_F32, FUSED_NATURAL_BF16,
          "matrix_rows_transposed[bf16]",
          "matrix_rows_natural[bf16]", "matrix_rows_transposed[f32,split3]",
@@ -796,8 +826,8 @@ SWEPT = ("fft_rows_transposed", "fft_rows_natural", "fused_rows_transposed",
 def sweep_rows(cases, planes):
     """Time each row-DFT and fused case at every power-of-two rows per
     block up to 16 that fits shared memory, each checked against its plain
-    version first (the f32 natural kernels, row and fused, up to 512
-    threads a block); the f32 transposed kernel (the cluster store) at
+    version first (the f32 natural row kernel and the f32 fused kernels,
+    16 points a thread, up to 512 threads a block); the f32 transposed kernel (the cluster store) at
     every such rows and every cluster size; the wrappers' own choice
     marked "*"."""
     chosen_fn, cluster_fn = planes.rows_per_block, planes.transposed_cluster
@@ -819,9 +849,11 @@ def sweep_rows(cases, planes):
                 n, natural, tier, split3), shared)
         clustered = name == "fft_rows_transposed"
         k_chosen = cluster_fn(m, n, chosen) if clustered else 1
-        # the f32 natural kernels hold 16 points a thread
+        # the f32 natural row kernel and the f32 fused kernels hold 16
+        # points a thread
         threads = (16 * planes.RADIX16_MAX_THREADS
-                   if natural and tier == "f32" and not split3 else 1 << 30)
+                   if (natural or fused_case) and tier == "f32"
+                   and not split3 else 1 << 30)
         points = [(1 << i, k) for i in range(5)
                   if shared(1 << i, n) <= planes.SMEM_LIMIT
                   and (1 << i) * n <= threads
@@ -1079,9 +1111,9 @@ def main():
     # entry; a set is (packed, nch_live)
     sets = {"packed3": (True, 3), "packed5": (True, 5),
             "per_channel": (False, 3)}
-    # (name, shape) of the f32 and bf16 fused natural cases: (inputs,
-    # keywords)
-    fused_natural_calls = {}
+    # (name, shape) of the f32 and bf16 fused natural cases and of the f32
+    # fused transposed cases: (inputs, keywords)
+    fused_natural_calls, fused_transposed_calls = {}, {}
     for name, fn, plain, precision, switches, shapes in (
             ("fused_rows_transposed", fused.assemble_rowfft,
              fused.assemble_rowfft_plain, "float32", {},
@@ -1149,6 +1181,8 @@ def main():
                                      else [channel_set])
             if name in (*FUSED_NATURAL_F32, FUSED_NATURAL_BF16):
                 fused_natural_calls[name, tuple(shape)] = (args, kw)
+            if name in FUSED_TRANSPOSED_F32:
+                fused_transposed_calls[name, tuple(shape)] = (args, kw)
             cases.append(Case(
                 name, shape,
                 switched(switches, lambda fn=fn, a=args, kw=kw: fn(*a, **kw)),
@@ -1299,6 +1333,52 @@ def main():
                     f"kernel's {e_row:.4e}")
             del plain_re, plain_im, row, ref, gc
         del got
+
+    # the f32 fused transposed kernel at every shape and channel set the
+    # paths give it, channel by channel, against the f32 fused natural
+    # kernel on the same inputs, transposed: both run one load, assembly
+    # and set of radix-16 passes (bit-equal expected), held within
+    # 1e-6·max. Its RMS error against the float64 DFT of the float64
+    # assembly at most F32_F64_SPREAD x the old kernel's: the radix-2
+    # stages of stockham.cuh, which the f32 transposed row kernel still
+    # runs, over the plain assembly
+    for (name, shape), (args, kw) in fused_transposed_calls.items():
+        got = fused.assemble_rowfft(*args, **kw)
+        nat = fused.assemble_rowfft_natural(*args, **kw)
+        for c in range(kw["ch_count"]):
+            ch = kw["ch_start"] + c
+            asm_kw = dict(epsilon=kw["epsilon"], ch=ch, packed=kw["packed"],
+                          nch_live=kw["nch_live"])
+            plain_re, plain_im = fused._assemble_plain(*args, row_offset=0,
+                                                       **asm_kw)
+            old = planes.fft1d_transposed(plain_re[None], plain_im[None],
+                                          True)
+            ref = torch.fft.ifft(torch.complex(*assembly_f64(*args, **asm_kw)),
+                                 dim=-1, norm="forward").transpose(0, 1)
+            ref = (ref.real[None], ref.imag[None])
+            gc = (got[0][c:c + 1], got[1][c:c + 1])
+            nc = tuple(x[c:c + 1].transpose(1, 2) for x in nat)
+            torch.cuda.synchronize()
+            scale = max(r.abs().max().item() for r in nc)
+            err = max((g - r).abs().max().item() for g, r in zip(gc, nc))
+            bits = all(torch.equal(g, r) for g, r in zip(gc, nc))
+            e_new, e_old = rms_rel_err(gc, ref), rms_rel_err(old, ref)
+            log(f"[kernels] {name} {list(shape)} channel {ch} against the "
+                f"f32 fused natural kernel transposed: max abs err "
+                f"{err:.3e} = {err / scale:.3e} x max (limit 1e-6), "
+                f"bit-equal {bits}; RMS error vs float64 of the float64 "
+                f"assembly {e_new:.4e} (fused) and {e_old:.4e} (the radix-2 "
+                f"stages over the plain assembly), ratio {e_new / e_old:.3f} "
+                f"(limit {F32_F64_SPREAD:g})")
+            require(err <= 1e-6 * scale,
+                    f"{name} {list(shape)} channel {ch} and the f32 fused "
+                    f"natural kernel disagree ({err / scale:.3e} x max)")
+            require(e_new <= F32_F64_SPREAD * e_old,
+                    f"{name} {list(shape)} channel {ch}: RMS error against "
+                    f"float64 {e_new:.4e} > {F32_F64_SPREAD:g} x the radix-2 "
+                    f"stages' {e_old:.4e}")
+            del plain_re, plain_im, old, ref, gc, nc
+        del got, nat
 
     # both stencils on the fields of one step at each size the paths run
     for n in sorted({path.size for path in PATHS}):
@@ -1740,6 +1820,31 @@ def main():
                     f"the bf16 row kernel at [1, {shape[0]}, {shape[1]}] "
                     f"{rows:.4f}, bound {b_ms:.4f}; {before / k:.2f}x faster "
                     f"than before, {k / f32:.3f} of the f32 kernel, "
+                    f"{b_ms / k:.3f} of the bound")
+                continue
+            elif name in FUSED_TRANSPOSED_F32:
+                # beside the f32 fused natural kernel on the same inputs
+                # (the same load and passes, another store) and, for C > 1
+                # channels, beside C one-channel launches (one read of the
+                # inputs against C)
+                args, kw = fused_transposed_calls[name, shape]
+                count = kw["ch_count"]
+                nat = device_ms(lambda: fused.assemble_rowfft_natural(
+                    *args, **kw))[0]
+                ones = ""
+                if count > 1:
+                    one = sum(device_ms(
+                        lambda ch=ch: fused.assemble_rowfft(
+                            *args, **{**kw, "ch_start": ch, "ch_count": 1}))[0]
+                        for ch in range(kw["ch_start"],
+                                        kw["ch_start"] + count))
+                    ones = (f", {count} one-channel launches {one:.4f} "
+                            f"({k / one:.3f} of them)")
+                log(f"[timing] {kind} ({smi}): {name} {list(shape)}: "
+                    f"{k:.4f} ms (before the redesign {before:.4f}, PERF.md, "
+                    f"not this run), the f32 fused natural kernel {nat:.4f} "
+                    f"({k / nat:.3f} of it){ones}, bound {b_ms:.4f}; "
+                    f"{before / k:.2f}x faster than before, "
                     f"{b_ms / k:.3f} of the bound")
                 continue
             elif name in FUSED_NATURAL_F32:

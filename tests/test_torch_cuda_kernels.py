@@ -34,7 +34,10 @@ is held to the same 2e-3; the f32 three-factor row kernel
 (csrc/dft_split3_f32.cuh) rounds each twiddle as its plain version does and
 accumulates in another order: 1e-5. So does the bf16x3 three-factor row
 kernel (csrc/dft_split3_bf16x3.cuh), whose stage-2 operands are split as
-its plain version splits them: 1e-5, the bf16x3 band. The bf16 fused
+its plain version splits them: 1e-5, the bf16x3 band. The two f32 fused
+kernels (natural and transposed store) run one load, assembly and set of
+radix-16 passes: on the same inputs bit-equal, one the other transposed.
+The bf16 fused
 natural kernel (csrc/fused_rows_natural_bf16.cuh) rounds its f32 assembly
 to bf16 where the plain version does and then runs the bf16 row kernel's
 stages: 2e-3, the bf16 band."""
@@ -299,6 +302,66 @@ def test_fused_natural_f32_kernel_matches_plain(cuda, monkeypatch, n, span,
     want = fused.assemble_rowfft_natural_plain(h0, phase, 434.48, -1.0, **kw)
     for c in range(ch_count):
         _assert_close((got[0][c], got[1][c]), (want[0][c], want[1][c]))
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("span", FUSED_SPANS, ids=str)
+@pytest.mark.parametrize("n", [1 << i for i in range(4, 14)])
+def test_fused_transposed_f32_kernel_matches_plain(cuda, monkeypatch, n,
+                                                   span, inverse):
+    """The f32 fused transposed kernel (csrc/fused_rows_transposed_f32.cuh)
+    at every N, R the wrapper's cap (forced) and a ragged M (a block and a
+    half) across the Nyquist row: every channel within 1e-5·max of its own
+    plain channel, counted once under its set; and bit-equal to the f32
+    fused natural kernel transposed on the same inputs, which runs the same
+    load, assembly and passes (so the factoring of those into load_terms
+    and channel_passes left the natural kernel's arithmetic as the
+    transposed kernel's)."""
+    packed, nch_live, ch_start, ch_count = span
+    rows = planes.fused_transposed_max_rows(n)
+    m = rows + rows // 2 + 1
+    monkeypatch.setattr(planes, "rows_per_block", lambda *_, **__: rows)
+    h0, phase = _fused_inputs(m, n, cuda, seed=n + ch_start)
+    kw = dict(epsilon=1e-4, ch_start=ch_start, ch_count=ch_count,
+              row_offset=n // 2 - m // 2, packed=packed, nch_live=nch_live,
+              inverse=inverse)
+    before = fused.assemble_rowfft.launches
+    planes.named_launches.clear()
+    got = fused.assemble_rowfft(h0, phase, 434.48, -1.0, **kw)
+    tag = fused.channel_set(packed, nch_live)
+    if tag:
+        assert planes.named_launches == {f"fused_transposed[{tag}]": 1}
+    else:
+        assert fused.assemble_rowfft.launches == before + 1
+    want = fused.assemble_rowfft_plain(h0, phase, 434.48, -1.0, **kw)
+    for c in range(ch_count):
+        _assert_close((got[0][c], got[1][c]), (want[0][c], want[1][c]))
+    nat = fused.assemble_rowfft_natural(h0, phase, 434.48, -1.0, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, nat):
+        assert torch.equal(g, w.transpose(1, 2))
+
+
+@pytest.mark.parametrize("n,rows", [(16384, 1), (8, 1), (96, 1), (1024, 64),
+                                    (1024, 0), (1024, 3)])
+def test_fused_transposed_f32_kernel_refuses_other_lengths_and_blocks(
+        cuda, n, rows):
+    """The C entry at tier f32, direct form, transposed store: N outside
+    the powers of two in [16, 8192], no rows, rows not a power of two or
+    more than 512 threads a block are refused (cudaErrorInvalidValue),
+    never run on another kernel."""
+    from tpu_ocean_torch import _build
+    h0, phase = _fused_inputs(2, n, cuda)
+    out = torch.empty((1, n, 2), device=cuda)
+    kz = torch.zeros(n, device=cuda)
+    tables = planes.radix16_twiddles(1024, True, cuda)
+    err = _build.load().lib.tpu_fused_rows_transposed(
+        *(p.data_ptr() for p in (*h0, phase, kz, out, out, tables)),
+        1, 0, 2, n, rows, 0, 1, 3, planes.TIERS["f32"], 0, 0.0145, -1.0,
+        1e-4, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.load().check(err, "tpu_fused_rows_transposed")
 
 
 @pytest.mark.parametrize("inverse", [True, False])
@@ -622,14 +685,16 @@ def test_only_the_bf16_direct_transposed_pass_runs_its_own_kernel(
 
 
 # (tier, split3, natural) of a fused pass → the kernel it runs: the f32
-# and bf16 direct natural stores their own (radix16_fused_rows_natural_
-# kernel, bf16_fused_natural_kernel), the f32 transposed store
-# fused_rows_kernel on the Stockham stages, the rest fused_rows_kernel on
-# the matrix engine
+# direct stores and the bf16 direct natural store their own
+# (radix16_fused_rows_natural_kernel, radix16_fused_rows_transposed_kernel,
+# bf16_fused_natural_kernel), the rest fused_rows_kernel on the matrix
+# engine
 OWN_FUSED_KERNELS = {"radix16_fused_rows_natural_kernel": ("f32", False, True),
+                     "radix16_fused_rows_transposed_kernel":
+                         ("f32", False, False),
                      "bf16_fused_natural_kernel": ("bf16", False, True)}
 FUSED_ROUTED = [("f32", False, True, "radix16_fused_rows_natural_kernel"),
-                ("f32", False, False, "StockhamEngine"),
+                ("f32", False, False, "radix16_fused_rows_transposed_kernel"),
                 ("bf16", False, True, "bf16_fused_natural_kernel"),
                 ("bf16", False, False, "MatrixEngine"),
                 ("bf16x3", False, True, "MatrixEngine"),
@@ -643,10 +708,10 @@ FUSED_ROUTED = [("f32", False, True, "radix16_fused_rows_natural_kernel"),
 def test_only_the_f32_natural_fused_pass_runs_its_own_kernel(
         cuda, select_engine, tier, split3, natural, kernel, channel_set):
     """Each fused pass, in every channel set, launches the one kernel its
-    routing names, read from the profiler's kernel names; the f32 and bf16
-    natural fused kernels' symbols each appear in their own pass alone,
-    and every key groups under its launch name as chip_smoke.py reads
-    it."""
+    routing names, read from the profiler's kernel names; the symbols of
+    the fused kernels of their own (the f32 natural and transposed, the
+    bf16 natural) each appear in their own pass alone, and every key
+    groups under its launch name as chip_smoke.py reads it."""
     import chip_smoke
     packed, nch_live = channel_set
     precision = select_engine(tier, split3)

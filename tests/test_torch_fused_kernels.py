@@ -157,7 +157,8 @@ def test_assembly_parts_compose_to_the_formula_bit_for_bit(channel_set, ch):
 # ---- a numpy model of the kernel
 
 def _fused_model(h0, phase, kz, *, rows, table, dtype, two_pi_over_l, eps2,
-                 row_offset, ch_start, ch_count, packed, nch_live, log):
+                 row_offset, ch_start, ch_count, packed, nch_live, log,
+                 store=None):
     """The kernel on [M, N] inputs with R = ``rows``, block by block and
     thread by thread at ``dtype``: each thread (row, t) reads its points
     t + T·m of the five planes once, makes their terms once, then for each
@@ -165,7 +166,10 @@ def _fused_model(h0, phase, kz, *, rows, table, dtype, two_pi_over_l, eps2,
     buffer across the channels) and the store of output s at t + T·s of
     the channel's plane. Returns [C, M, N] complex; appends the device
     loads and stores ("load"/"store", float offsets in a plane, live
-    lanes) and the exchange accesses to ``log``."""
+    lanes) and the exchange accesses to ``log``. With ``store`` (the
+    transposed kernel's, tests/test_torch_fused_transposed.py),
+    store(c, m0, row, t, v, buf) takes each channel's last-pass outputs
+    and the exchange buffer instead, and what it stores is its own."""
     m, n = phase.shape
     t_row = n // 16
     threads = rows * t_row
@@ -195,6 +199,9 @@ def _fused_model(h0, phase, kz, *, rows, table, dtype, two_pi_over_l, eps2,
                                 dtype)
                  for j in range(16)]
             v = _radix16_passes(v, n, row, t, ops, tw, buf, log)
+            if store is not None:
+                store(c, m0, row, t, v, buf)
+                continue
             for s in range(16):
                 a = t + t_row * s
                 log.append(("store", rr * n + a, live))
@@ -202,7 +209,7 @@ def _fused_model(h0, phase, kz, *, rows, table, dtype, two_pi_over_l, eps2,
                 out[c, rr[live], a[live]] = (vr[live].astype(np.float64)
                                              + 1j * vi[live].astype(np.float64))
                 np.add.at(writes, (c, rr[live], a[live]), 1)
-    assert (writes == 1).all()
+    assert store is not None or (writes == 1).all()
     return out
 
 
@@ -355,7 +362,7 @@ def test_every_fused_natural_block_the_wrapper_picks_fits(n):
 
 # (tier, split3, natural) of a fused pass → the kernel it runs
 FUSED_ROUTES = [("f32", False, True, "radix16"),
-                ("f32", False, False, "stockham"),
+                ("f32", False, False, "radix16_transposed"),
                 ("bf16", False, True, "bf16_rows"),
                 ("bf16", False, False, "engine"),
                 ("bf16x3", False, True, "engine"),
@@ -365,31 +372,36 @@ FUSED_ROUTES = [("f32", False, True, "radix16"),
 
 @pytest.mark.parametrize("tier,split3,natural,route", FUSED_ROUTES)
 def test_fused_routing_names_one_kernel_a_pass(tier, split3, natural, route):
-    """The f32 natural fused pass runs its own kernel (its shared bytes,
-    rows cap and radix-16 twiddles) and the bf16 natural fused pass runs
+    """The f32 direct fused passes run kernels of their own, the natural
+    store csrc/fused_rows_natural_f32.cuh and the transposed store
+    csrc/fused_rows_transposed_f32.cuh (each its rows cap, both the
+    natural kernel's shared bytes, whose exchange buffer holds the
+    transposed store's tile, and the radix-16 twiddles), and the bf16 natural fused pass runs
     its own (csrc/fused_rows_natural_bf16.cuh: the bf16 row kernel's
     shared bytes, rows cap and fragment tables); every other fused pass
-    keeps fused_rows_kernel's (the Stockham stages transposed at f32
-    direct, the matrix engine at bf16, bf16x3 and B3)."""
-    radix16, bf16 = route == "radix16", route == "bf16_rows"
-    assert planes._fused_radix16(tier, split3, natural) == radix16
+    keeps fused_rows_kernel's (the matrix engine at bf16, bf16x3 and
+    B3)."""
+    radix16 = route in ("radix16", "radix16_transposed")
+    bf16 = route == "bf16_rows"
+    assert planes._stockham(tier, split3) == radix16
     assert planes._fused_bf16(tier, split3, natural) == bf16
-    assert planes.fused_block_shared_bytes(tier, split3, natural) is (
-        planes.fused_natural_shared_bytes if radix16 else
-        planes.bf16_rows_shared_bytes if bf16 else planes.shared_bytes)
+    assert planes.fused_block_shared_bytes(tier, split3, natural) is {
+        "radix16": planes.fused_natural_shared_bytes,
+        "radix16_transposed": planes.fused_natural_shared_bytes,
+        "bf16_rows": planes.bf16_rows_shared_bytes}.get(route,
+                                                        planes.shared_bytes)
     n = 1024
-    assert planes.fused_rows(3, 4096, n, SMS, natural, tier, split3) == (
-        planes.fused_natural_max_rows(n) if radix16 else
-        planes.max_rows(n, True, "bf16") if bf16
-        else planes.max_rows(n, natural))
+    assert planes.fused_rows(3, 4096, n, SMS, natural, tier, split3) == {
+        "radix16": planes.fused_natural_max_rows(n),
+        "radix16_transposed": planes.fused_transposed_max_rows(n),
+        "bf16_rows": planes.max_rows(n, True, "bf16")}.get(
+            route, planes.max_rows(n, natural))
     cpu = torch.device("cpu")
     tables = planes.fused_tables(n, True, tier, split3, natural, cpu)
     want = (planes.radix16_twiddles(n, True, cpu) if radix16 else
             planes.bf16_rows_tables(n, True, cpu) if bf16 else
             planes.tables_for(n, True, tier, split3, cpu))
     assert torch.equal(tables, want)
-    assert (route == "stockham") == (planes._stockham(tier, split3)
-                                     and not natural)
     # each launch keeps its count name
     name = planes.kernel_name("fused_natural" if natural else
                               "fused_transposed", tier, split3, "packed5")

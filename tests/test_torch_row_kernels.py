@@ -112,6 +112,13 @@ def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
      "tpu_fft::Assembly)", "fused_rows_natural"),
     ("_ZN7tpu_fft13fused_radix1633radix16_fused_rows_natural_kernelILi12EEEvP"
      "KfS3_S3_S3_S3_S3_PfS4_PK6float2iiiiNS_8AssemblyE", "fused_rows_natural"),
+    ("void tpu_fft::fused_transposed::radix16_fused_rows_transposed_kernel"
+     "<10>(float const*, float const*, float const*, float const*, float "
+     "const*, float const*, float*, float*, float2 const*, int, int, int, "
+     "int, tpu_fft::Assembly)", "fused_rows_transposed"),
+    ("_ZN7tpu_fft16fused_transposed36radix16_fused_rows_transposed_kernelILi"
+     "10EEEvPKfS3_S3_S3_S3_S3_PfS4_PK6float2iiiiNS_8AssemblyE",
+     "fused_rows_transposed"),
     ("void (anonymous namespace)::fused_rows_kernel<false, "
      "tpu_fft::StockhamEngine>(float const*, float const*, float const*, "
      "float const*, float const*, float const*, float*, float*, float2 "

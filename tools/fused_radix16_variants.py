@@ -10,9 +10,7 @@ GPU, in turns (kernel, variants, variants reversed, kernel):
 - group4: the five planes read 4 points of a thread at a time (20 loads
   in flight) instead of 8;
 - pipelined: groups of 4 points, the next group's 20 loads issued before
-  the group before is reduced to its terms (two groups in registers);
-- kz_registers: kz of a thread's 16 points held in registers from the
-  load to the last channel instead of read again for each channel.
+  the group before is reduced to its terms (two groups in registers).
 
 Each variant is the header with a few lines replaced, built with the
 package's build into a library of its own under build/ (the package's
@@ -128,13 +126,6 @@ VARIANTS = {
     "group4": ([("constexpr int kGroup = 8;", "constexpr int kGroup = 4;")],
                None),
     "pipelined": ([(_LOADS, _LOADS_PIPELINED)], None),
-    "kz_registers": ([
-        ("  // the five planes, read once\n",
-         "  // the five planes, read once\n  float kzv[16];\n"),
-        ("x[u][4], kx, __ldg(kz + t + T * (g + u)),",
-         "x[u][4], kx, kzv[g + u] = __ldg(kz + t + T * (g + u)),"),
-        ("channel_value(held.get(j), kx, __ldg(kz + t + T * j), grow,",
-         "channel_value(held.get(j), kx, kzv[j], grow,")], None),
 }
 
 

@@ -303,18 +303,10 @@ __device__ __forceinline__ const float2* matrix_dft_stages(
 
 // The stage engines a row kernel is instantiated with: each loads what it
 // needs before the rows arrive (prologue) and transforms them (run).
-struct StockhamEngine {
-  __device__ static void prologue(float2* tw, const float2* table, int n) {
-    load_twiddles(tw, table, n);
-  }
-  __device__ static const float2* run(float2* src, float2* dst,
-                                      const float2* tw,
-                                      const float2* /*tables*/, int R, int N,
-                                      int log2n) {
-    return stockham_stages(src, dst, tw, R, N, log2n);
-  }
-  static int threads(int rows, int n) { return block_threads(rows, n); }
-};
+// StockhamEngine only names f32 in the direct form, whose passes run
+// kernels of their own (stockham_rows_cluster.cuh, rows_natural_f32.cuh,
+// fused_rows_natural_f32.cuh, fused_rows_transposed_f32.cuh).
+struct StockhamEngine {};
 
 template <int kTier, bool kSplit3>
 struct MatrixEngine {
@@ -332,8 +324,8 @@ struct MatrixEngine {
   }
 };
 
-// Calls fn(engine) with the engine of (tier, split3): the Stockham stages
-// for f32 direct, else the matrix engine. The three-factor form exists for
+// Calls fn(engine) with the engine of (tier, split3): StockhamEngine for
+// f32 direct, else the matrix engine. The three-factor form exists for
 // the transposed store only (as in the TPU package); anything else is
 // refused with cudaErrorInvalidValue.
 template <class Fn>

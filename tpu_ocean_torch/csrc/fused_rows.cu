@@ -27,29 +27,29 @@
 //
 // What the design does about that, by store:
 //   natural, f32 direct: fused_rows_natural_f32.cuh — a block reads its
-//     rows of the five planes once, holds the terms no channel changes in
-//     registers and makes every channel of the launch from them, each on
-//     the radix-16 passes of rows_natural_f32.cuh, stored from registers;
+//     rows of the five planes once, holds the terms no channel changes
+//     (h̃ in shared memory, 1/|k| in registers) and makes every channel of
+//     the launch from them, each on the radix-16 passes of
+//     rows_natural_f32.cuh, stored from registers;
+//   transposed, f32 direct: fused_rows_transposed_f32.cuh — the same load
+//     and channel loop, stored through a tile in shared memory read back
+//     R rows at one column, runs of R floats;
 //   natural, bf16 direct: fused_rows_natural_bf16.cuh — the bf16 row
 //     kernel's stages (dft_bf16_rows.cuh) behind a fused load that
 //     assembles 4 points a lane and stages them as bf16 pairs;
-//   transposed, f32 direct: fused_rows_kernel below on stockham.cuh's
-//     stages. The loads are the row kernel's, five planes wide: one block
-//     reads R whole rows of each input plane with row-contiguous
-//     (coalesced) loads, several in flight per thread, and assembles each
-//     point straight into the first shared-memory buffer. The Stockham
-//     stages and the store are fft_rows.cu's, so the block needs the same
-//     shared memory as the row kernel: the inputs never sit in shared
-//     memory. The TPU kernel visited the channels in an inner grid axis so
-//     Mosaic could keep the input block; here each block assembles one
-//     channel (blockIdx.y), and a C-channel call reads the inputs C times,
-//     mostly from L2 at C ≤ 5.
+//   the other tiers and forms, either store: fused_rows_kernel below on
+//     dft_matrix.cuh's stages. The loads are the row kernel's, five planes
+//     wide: one block reads R whole rows of each input plane with
+//     row-contiguous (coalesced) loads, several in flight per thread, and
+//     assembles each point straight into the first shared-memory buffer.
+//     The TPU kernel visited the channels in an inner grid axis so Mosaic
+//     could keep the input block; here each block assembles one channel
+//     (blockIdx.y), and a C-channel call reads the inputs C times, mostly
+//     from L2 at C ≤ 5.
 //
 // Precision tiers and the three-factor form (_fused_kernel_split3): the
 // entries take a tier and a form as fft_rows.cu's do; the assembly is the
-// same at every tier, only the stages after it change (dft_matrix.cuh, in
-// fused_rows_kernel below, either store, but the bf16 direct natural
-// store's own kernel).
+// same at every tier, only the stages after it change.
 
 #include <type_traits>
 
@@ -57,6 +57,7 @@
 #include "fused_assembly.cuh"
 #include "fused_rows_natural_bf16.cuh"
 #include "fused_rows_natural_f32.cuh"
+#include "fused_rows_transposed_f32.cuh"
 
 namespace {
 
@@ -74,11 +75,11 @@ fused_rows_kernel(const float* __restrict__ h0r, const float* __restrict__ h0i,
                   float* __restrict__ out_im,
                   const float2* __restrict__ tables, int M, int N,
                   int log2n, int R, int ch_start, Assembly p) {
-  // the f32 and bf16 direct natural stores run kernels of their own
-  // (launch below)
-  static_assert(!(kNatural &&
-                  (std::is_same_v<Engine, StockhamEngine> ||
-                   std::is_same_v<Engine, MatrixEngine<kTierBf16, false>>)));
+  // the f32 direct passes (both stores) and the bf16 direct natural store
+  // run kernels of their own (launch below)
+  static_assert(!std::is_same_v<Engine, StockhamEngine> &&
+                !(kNatural &&
+                  std::is_same_v<Engine, MatrixEngine<kTierBf16, false>>));
   extern __shared__ float2 smem[];
   const int stride = N + 1;
   float2* src = smem;
@@ -146,6 +147,11 @@ int launch(const void* h0r, const void* h0i, const void* h0cr,
       return launch_fused_rows_natural_f32(h0r, h0i, h0cr, h0ci, phase, kz,
                                            out_re, out_im, tables, channels,
                                            ch_start, m, n, rows, p, stream);
+    } else if constexpr (std::is_same_v<Engine, StockhamEngine>) {
+      return launch_fused_rows_transposed_f32(h0r, h0i, h0cr, h0ci, phase,
+                                              kz, out_re, out_im, tables,
+                                              channels, ch_start, m, n, rows,
+                                              p, stream);
     } else if constexpr (kNatural &&
                          std::is_same_v<Engine,
                                         MatrixEngine<kTierBf16, false>>) {
@@ -181,8 +187,8 @@ extern "C" {
 // that keeps the shared memory within the card's limit, contiguous f32
 // [m, n] input planes, ch_start + channels within the channel set (packed
 // with nch_live 3: 2; with 5: 3; per-channel, packed 0: 5), `tables` the
-// Stockham twiddles (tier 0, split3 0, transposed), the radix-16 twiddles
-// (tier 0, split3 0, natural: planes.radix16_twiddles), the bf16 row
+// radix-16 twiddles (tier 0, split3 0, either store:
+// planes.radix16_twiddles), the bf16 row
 // kernel's tables (tier 1, split3 0, natural: planes.bf16_rows_tables) or
 // the matrix engine's tables.
 int tpu_fused_rows_transposed(const void* h0r, const void* h0i,

@@ -94,6 +94,57 @@ struct HeldTerms {
   }
 };
 
+// The grouped read of a thread's 16 points t + T·m of the five planes
+// (row offset `at` of its first point; zeros where the row is not live),
+// each group reduced at once to its terms in `held`. Shared by both f32
+// fused kernels (this one and fused_rows_transposed_f32.cuh).
+template <int kLog2N>
+__device__ __forceinline__ void load_terms(
+    const float* __restrict__ h0r, const float* __restrict__ h0i,
+    const float* __restrict__ h0cr, const float* __restrict__ h0ci,
+    const float* __restrict__ phase, const float* __restrict__ kz,
+    size_t at, bool live, float kx, int t, const Assembly& p,
+    HeldTerms<Plan<kLog2N>::T>& held) {
+  constexpr int T = Plan<kLog2N>::T;
+#pragma unroll
+  for (int g = 0; g < 16; g += kGroup) {
+    float x[kGroup][5];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const size_t i = at + T * (g + u);
+      x[u][0] = live ? __ldg(h0r + i) : 0.f;
+      x[u][1] = live ? __ldg(h0i + i) : 0.f;
+      x[u][2] = live ? __ldg(h0cr + i) : 0.f;
+      x[u][3] = live ? __ldg(h0ci + i) : 0.f;
+      x[u][4] = live ? __ldg(phase + i) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u)
+      held.put(g + u, point_terms(x[u][0], x[u][1], x[u][2], x[u][3],
+                                  x[u][4], kx, __ldg(kz + t + T * (g + u)),
+                                  p));
+  }
+}
+
+// Channel `ch` of a thread's 16 points from their held terms, through
+// radix16::passes (which holds barriers: every thread of the block calls
+// it together, none still reading `buf`): v ends as the last pass's
+// outputs, output s at t + T·s of the row (global row `grow`).
+template <int kLog2N>
+__device__ __forceinline__ void channel_passes(
+    float2 (&v)[16], const HeldTerms<Plan<kLog2N>::T>& held, float kx,
+    const float* __restrict__ kz, int grow, int t, int ch,
+    const Assembly& p, float2* buf, const float2* __restrict__ tw,
+    float sg) {
+  using P = Plan<kLog2N>;
+  constexpr int T = P::T;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    v[j] = channel_value(held.get(j), kx, __ldg(kz + t + T * j), grow,
+                         t + T * j, P::N, ch, p);
+  radix16::passes<kLog2N>(v, buf, tw, t, sg);
+}
+
 // One block: R rows m0 .. m0 + R − 1, T threads a row, every channel.
 template <int kLog2N>
 __global__ void __launch_bounds__(kThreads)
@@ -118,24 +169,8 @@ radix16_fused_rows_natural_kernel(
   HeldTerms<T> held(radix16::radix16_smem + R * P::S + row * P::N, t);
 
   // the five planes, read once
-#pragma unroll
-  for (int g = 0; g < 16; g += kGroup) {
-    float x[kGroup][5];
-#pragma unroll
-    for (int u = 0; u < kGroup; ++u) {
-      const size_t i = at + T * (g + u);
-      x[u][0] = live ? __ldg(h0r + i) : 0.f;
-      x[u][1] = live ? __ldg(h0i + i) : 0.f;
-      x[u][2] = live ? __ldg(h0cr + i) : 0.f;
-      x[u][3] = live ? __ldg(h0ci + i) : 0.f;
-      x[u][4] = live ? __ldg(phase + i) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kGroup; ++u)
-      held.put(g + u, point_terms(x[u][0], x[u][1], x[u][2], x[u][3],
-                                  x[u][4], kx, __ldg(kz + t + T * (g + u)),
-                                  p));
-  }
+  load_terms<kLog2N>(h0r, h0i, h0cr, h0ci, phase, kz, at, live, kx, t, p,
+                     held);
 
   const size_t plane = static_cast<size_t>(M) * P::N;
 #pragma unroll 1
@@ -145,13 +180,9 @@ radix16_fused_rows_natural_kernel(
     if constexpr (P::kPasses > 1) {
       if (c > 0) __syncthreads();
     }
-    const int ch = ch_start + c;
     float2 v[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      v[j] = channel_value(held.get(j), kx, __ldg(kz + t + T * j), grow,
-                           t + T * j, P::N, ch, p);
-    radix16::passes<kLog2N>(v, buf, tw, t, sg);
+    channel_passes<kLog2N>(v, held, kx, kz, grow, t, ch_start + c, p, buf,
+                           tw, sg);
     // the last pass has span N/16: output s at t + T·s
     if (live) {
       const size_t o = c * plane + at;

@@ -36,6 +36,22 @@ inline int block_threads(int rows, int n) {
   return threads > kMaxThreads ? kMaxThreads : threads;
 }
 
+// Row stride, in complex (8-byte) units, of a tile of `kr` rows of `w`
+// columns that a transposed store reads kr rows at one column, then the
+// next column (the cluster kernel's gathered tile, stockham_rows_cluster.cuh,
+// and the f32 fused transposed kernel's, fused_rows_transposed_f32.cuh):
+// the least S ≥ w with S ≡ 16/kr (mod 16), S odd from kr = 16 on. 64-bit
+// shared accesses are served a half warp (16 lanes) at a time, and two
+// lanes conflict when their addresses differ and agree mod 16. The
+// store's half warp reads kr rows at 16/kr consecutive k (kr ≤ 16) or 16
+// rows at one k, at addresses r·S + k: all distinct mod 16 with this S.
+// The tile's writers write 16 consecutive k of one row where a row has 16
+// writers or more.
+__host__ __device__ __forceinline__ int gather_stride(int kr, int w) {
+  const int want = kr >= 16 ? 1 : (16 / kr) & 15;
+  return w + ((want - w) & 15);
+}
+
 // Above 48 KB dynamic shared memory needs an opt-in, per kernel. A size
 // the card refuses is returned here and cleared from the runtime's last
 // error, so that the next launch's cudaGetLastError does not report it.

@@ -104,18 +104,6 @@ __device__ __forceinline__ void load_rows(float2* src,
   }
 }
 
-// Row stride, in complex (8-byte) units, of the gathered tile of `kr` rows
-// of `w` columns: the least S ≥ w with S ≡ 16/kr (mod 16), S odd from
-// kr = 16 on. 64-bit shared accesses are served a half warp (16 lanes) at a
-// time, and two lanes conflict when their addresses differ and agree mod
-// 16. The store's half warp reads kr rows at 16/kr consecutive k (kr ≤ 16)
-// or 16 rows at one k, at addresses r·S + k: all distinct mod 16 with this
-// S. The gather writes 16 consecutive k of one row (w ≥ 16).
-__host__ __device__ __forceinline__ int gather_stride(int kr, int w) {
-  const int want = kr >= 16 ? 1 : (16 / kr) & 15;
-  return w + ((want - w) & 15);
-}
-
 // Dynamic shared memory of one block: the stages' two buffers and
 // twiddles, or the result buffer and the gathered tile (none at K = 1),
 // whichever is more.

@@ -105,12 +105,20 @@ RADIX16_BLOCK_POINTS = 4096
 RADIX16_MAX_THREADS = 512
 #: the most points (rows × N) a block of the f32 fused natural-store
 #: kernel (csrc/fused_rows_natural_f32.cuh, 16 points a thread, at most
-#: RADIX16_MAX_THREADS threads) takes; the other fused kernels keep
-#: NATURAL_BLOCK_POINTS. Swept on an H100 80GB HBM3 at 700 W (python3
+#: RADIX16_MAX_THREADS threads) takes; the matrix engine's fused kernels
+#: keep NATURAL_BLOCK_POINTS. Swept on an H100 80GB HBM3 at 700 W (python3
 #: chip_smoke.py --sweep-rows), µs at R = 1 and 2: [4096, 4096] ch 0
 #: 213.77, 231.51; C = 5 478.21, 566.84; C = 3 350.74, 406.00;
 #: [2048, 4096] ch 1 113.25, 125.28
 FUSED_NATURAL_BLOCK_POINTS = 4096
+#: the most rows a block of the f32 fused transposed-store kernel
+#: (csrc/fused_rows_transposed_f32.cuh, 16 points a thread, at most
+#: RADIX16_MAX_THREADS threads) takes: R = 8 rows give 32-byte runs in
+#: its transposed store, as TRANSPOSED_MAX_ROWS. Swept on an H100 80GB
+#: HBM3 at 700 W (python3 chip_smoke.py --sweep-rows), µs at R = 1, 2, 4
+#: and 8: [1024, 1024] ch 0 45.55, 27.90, 19.34, 14.88; C = 3 116.49,
+#: 71.13, 48.24, 33.05; [512, 1024] ch 1 25.00, 17.11, 13.00, 12.65
+FUSED_TRANSPOSED_MAX_ROWS = 8
 #: the same for the bf16 row kernel's natural store: swept on the H100,
 #: [1, 4096, 4096] took 200.6, 173.1 and 209.1 µs at R = 1, 2 and 4 (two
 #: blocks of 8192 points fit an SM's shared memory, 100 KB each, though at
@@ -225,6 +233,13 @@ named_launches = collections.Counter()
 
 
 def _stockham(tier: str, split3: bool) -> bool:
+    """f32 direct: the passes that run the port's own f32 kernels, which
+    count under the plain launch names (kernel_name). As fused passes
+    they run the radix-16 passes behind one read of the five planes for
+    every channel: the natural store csrc/fused_rows_natural_f32.cuh, the
+    transposed store csrc/fused_rows_transposed_f32.cuh. Every fused pass
+    but those and _fused_bf16's runs fused_rows_kernel (csrc/fused_rows.cu)
+    on the matrix engine."""
     return tier == "f32" and not split3
 
 
@@ -239,15 +254,6 @@ def _split3_rows(tier: str, split3: bool) -> bool:
     (csrc/dft_split3_f32.cuh) instead of the matrix engine (the
     three-factor form has the transposed store only)."""
     return tier == "f32" and split3
-
-
-def _fused_radix16(tier: str, split3: bool, natural: bool) -> bool:
-    """The fused pass that runs the f32 fused natural-store kernel
-    (csrc/fused_rows_natural_f32.cuh): f32 direct, natural store. Every
-    fused pass but this one and _fused_bf16's runs fused_rows_kernel
-    (csrc/fused_rows.cu): the Stockham stages for the f32 direct
-    transposed store, else the matrix engine."""
-    return natural and _stockham(tier, split3)
 
 
 def _fused_bf16(tier: str, split3: bool, natural: bool) -> bool:
@@ -586,13 +592,28 @@ def fused_natural_max_rows(n: int) -> int:
     return max(1, points // n)
 
 
+def fused_transposed_max_rows(n: int) -> int:
+    """The most rows per block of the f32 fused transposed-store kernel:
+    FUSED_TRANSPOSED_MAX_ROWS, at most RADIX16_MAX_THREADS threads of 16
+    points, and where a row has fewer than 16 threads (n < 256) at most
+    256 // n rows, so that a half warp's tile writes (16/T rows of T
+    threads) meet no bank conflict beside its read-out (R rows at 16/R
+    columns)."""
+    rows = min(FUSED_TRANSPOSED_MAX_ROWS, 16 * RADIX16_MAX_THREADS // n)
+    if n < 256:
+        rows = min(rows, 256 // n)
+    return max(1, rows)
+
+
 def fused_block_shared_bytes(tier: str, split3: bool, natural: bool):
     """The shared-memory function (rows, n) → bytes of the fused kernel
-    at (tier, split3, store): fused_natural_shared_bytes for the f32
-    natural store, the bf16 row kernel's (bf16_rows_shared_bytes) for the
-    bf16 natural store, else fused_rows_kernel's two buffers
-    (shared_bytes)."""
-    if _fused_radix16(tier, split3, natural):
+    at (tier, split3, store): fused_natural_shared_bytes for both f32
+    direct stores (the transposed store's tile, ``rows`` rows of
+    cluster_gather_stride(rows, n) ≤ n + 15 complex, lies in the exchange
+    buffer, whose rows of radix16_stride(n) > n + 15 hold it at every n),
+    the bf16 row kernel's (bf16_rows_shared_bytes) for the bf16 natural
+    store, else fused_rows_kernel's two buffers (shared_bytes)."""
+    if _stockham(tier, split3):
         return fused_natural_shared_bytes
     if _fused_bf16(tier, split3, natural):
         return bf16_rows_shared_bytes
@@ -602,15 +623,19 @@ def fused_block_shared_bytes(tier: str, split3: bool, natural: bool):
 def fused_rows(c: int, m: int, n: int, sms: int, natural: bool, tier: str,
                split3: bool) -> int:
     """Rows per block of a fused pass of ``c`` channels of [m, n]
-    (rows_per_block): the f32 natural kernel's own cap and shared memory
-    (fused_natural_max_rows, fused_natural_shared_bytes); the bf16
+    (rows_per_block): the f32 direct kernels' own caps and shared memory
+    (fused_natural_max_rows or fused_transposed_max_rows, and
+    fused_natural_shared_bytes for both stores); the bf16
     natural kernel's, which are the bf16 row kernel's (max_rows at bf16,
     bf16_rows_shared_bytes); else max_rows and fused_rows_kernel's two
-    buffers. The f32 natural kernel makes every channel in one block, so
-    its grid is ⌈m / rows⌉ blocks whatever ``c``; the others' is ``c``
+    buffers. The f32 direct kernels make every channel in one block, so
+    their grid is ⌈m / rows⌉ blocks whatever ``c``; the others' is ``c``
     times that."""
-    if _fused_radix16(tier, split3, natural):
-        return rows_per_block(1, m, n, sms, fused_natural_max_rows(n),
+    if _stockham(tier, split3):
+        if natural:
+            return rows_per_block(1, m, n, sms, fused_natural_max_rows(n),
+                                  fused_natural_shared_bytes)
+        return rows_per_block(1, m, n, sms, fused_transposed_max_rows(n),
                               fused_natural_shared_bytes)
     if _fused_bf16(tier, split3, natural):
         return rows_per_block(c, m, n, sms, max_rows(n, True, tier, split3),
@@ -621,9 +646,9 @@ def fused_rows(c: int, m: int, n: int, sms: int, natural: bool, tier: str,
 def fused_tables(n: int, inverse: bool, tier: str, split3: bool,
                  natural: bool, device: torch.device) -> torch.Tensor:
     """The `tables` argument of a fused entry: the radix-16 twiddles for
-    the f32 natural store, the bf16 row kernel's tables for the bf16
+    the f32 direct stores, the bf16 row kernel's tables for the bf16
     natural store, else tables_for's."""
-    if _fused_radix16(tier, split3, natural):
+    if _stockham(tier, split3):
         return radix16_twiddles(n, bool(inverse), device)
     if _fused_bf16(tier, split3, natural):
         return bf16_rows_tables(n, bool(inverse), device)
@@ -655,7 +680,7 @@ def max_rows(n: int, natural: bool, tier: str = "f32",
     (TRANSPOSED_MAX_ROWS) or of the natural store at (tier, split3):
     BF16_NATURAL_BLOCK_POINTS // n on the bf16 row kernel (and the bf16
     fused natural kernel, which runs its stages), else
-    NATURAL_BLOCK_POINTS // n. The fused kernels but the f32 natural one
+    NATURAL_BLOCK_POINTS // n. The fused kernels but the f32 direct ones
     take it (fused_rows); the f32 direct row passes take their own
     (row_pass_max_rows)."""
     if not natural:

@@ -16,9 +16,10 @@ or 5 (spectral normals, 3 channels), and the 5 per-channel spectra
 (``packed=False``: height, disp_x, disp_z, slope_x, slope_z).
 
 On a CUDA tensor each launches its hand-written kernel
-(``csrc/fused_rows.cu``; the f32 natural store
-``csrc/fused_rows_natural_f32.cuh``, every channel of a launch from one
-read of the inputs; the bf16 natural store
+(``csrc/fused_rows.cu``; at f32 in the direct form the natural store
+``csrc/fused_rows_natural_f32.cuh`` and the transposed store
+``csrc/fused_rows_transposed_f32.cuh``, every channel of a launch from
+one read of the inputs; the bf16 natural store
 ``csrc/fused_rows_natural_bf16.cuh``, the bf16 row kernel's stages behind
 the assembly) and nothing else; on a CPU tensor it runs its
 plain version: ``_assemble_plain`` (the kernel's f32 arithmetic in torch,
@@ -254,7 +255,7 @@ def assemble_rowfft_natural(h0_planes, phase, length: float, dz_sign: float,
     return _launch(True, h0_planes, phase, length, dz_sign, **kw)
 
 
-#: Stockham-kernel launches in the packed set with 3 live fields since the
+#: f32 direct-form launches in the packed set with 3 live fields since the
 #: last reset (the other sets count in planes.named_launches; CPU calls do
 #: not count)
 assemble_rowfft.launches = 0
