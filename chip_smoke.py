@@ -49,9 +49,13 @@ Phases, each printing its own lines:
                likewise against the bf16 natural row kernel: bit-equal on
                a channel with no 1/|k| term, else within 2e-3·max, RMS
                error at most 1.1 × the row kernel's;
-  4. slice   — seventeen paths on the card, each from a seeded init, with
-               every launch count set to 0 just before and read just after
-               it:
+  4. slice   — twenty-four paths on the card, each from a seeded init,
+               with every launch count set to 0 just before and read just
+               after it; (i)-(xv) run the real state with OCEAN_DEMO's
+               slice switches (packed + half with the fields kernel) unless
+               they say otherwise, (xvi)-(xxi) the complex state with the
+               JAX package's defaults (no packing, no half spectrum, the
+               fields in torch):
                  (i)   OCEAN_DEMO 1024², fft_backend="pallas", 60 steps
                  (ii)  OCEAN_DEMO 1024², fft_backend="pallas_fused", 60 steps
                  (iii) OCEAN_DEMO at 4096², "pallas", 10 steps
@@ -89,6 +93,22 @@ Phases, each printing its own lines:
                  (xv)  OCEAN_DEMO at 4096², "pallas", "bfloat16", 10
                        steps: the bf16 row kernel's natural store at its
                        full shapes
+                 (xvi) OceanSolver(OceanConfig()): 256², "reference"
+                       (torch.fft, cuFFT), the centered layout, absolute
+                       time, spectral normals, 100 steps (BASELINE config
+                       2's shape): no hand kernel
+                 (xvii) the centered config of tests/test_parity.py at
+                       1024² (L = N), "pallas", 20 steps: #1 on all 5
+                       channels, two launches a step; then fields_at and
+                       velocity
+                 (xviii) (xvii) at 4096², 5 steps: #2, then #1, at C = 5
+                 (xix) (xvii) at 1024² on "matmul" and on "stockham", 10
+                       steps each (tags xix-matmul, xix-stockham): no hand
+                       kernel
+                 (xx)  OCEAN_DEMO 1024², "pallas_fused", the complex state,
+                       20 steps: #5 per-channel (C = 3), then #1
+                 (xxi) (xvii) at "bfloat16", 20 steps: the bf16 row kernel
+                       (#1 at DEFAULT) on all 5 channels
                  (p1)  PondSimulation(POND_DEMO, use_pallas=True): 512², the
                        packed 4-wave bank, analytic normals, 600 steps
                  (p2)  BASELINE config 3: PondConfig(resolution=512) with
@@ -101,11 +121,14 @@ Phases, each printing its own lines:
                path from a snapshot of the card's state and the two are
                compared (compare_fields), except (vii) and (xv), whose last
                step is compared with the card's f32 step from the same
-               state; (v)'s
+               state; (xvii)-(xix)'s last step also with the reference
+               backend's on the card from the same state within 1e-5·max,
+               and (xxi)'s with the card's f32 step within 3e-2; (v)'s
                last step is also compared with the v2 kernel's from the
                same state; the spectral-normal paths' last step, run again
                at bf16, must fall outside their normals' band (a control
-               of the band); fields_at and velocity are called on the card
+               of the band, where the backend honors the precision);
+               fields_at and velocity are called on the card
                and on the CPU from the same state, with their own launch
                counts (EXTRA_CALLS). Pond paths: finite fields, unit normals, and
                the CPU plain path at the last step's t within atol 2e-5,
@@ -136,7 +159,10 @@ Phases, each printing its own lines:
                fused natural kernel beside the f32 one at the same shape
                and the bf16 row kernel at [1, M, N] (and at C = 5, on no
                path, beside five of its one-channel launches), the
-               others beside the f32 kernel with their store;
+               others beside the f32 kernel with their store; the complex
+               state's full 2-D transforms at C = 5 ((xvii), (xviii),
+               (xxi)), the hand kernels' two passes beside cuFFT's
+               torch.fft.ifft2;
                warm L2, nothing
                asserted. Device times come
                from torch.profiler; where it records none, from CUDA
@@ -190,14 +216,21 @@ SINCOSF_OPS = 20
 # JAX package's Pallas-vs-jnp band (tests/test_pallas_kernels.py:58)
 POND_ATOL, POND_RTOL = 2e-5, 1e-5
 
-# One ocean path: fft_backend, N, steps, replay steps (0: compare the last
-# step with the card's f32 step from the same state instead of a CPU
-# replay), FIELDS_KERNEL_V2, precision, the fft.planes switches set for the
-# path, kernel launches per step, the band of compare_fields, the
-# OCEAN_DEMO fields the path replaces and the solver's switches (both
-# default to none: OCEAN_DEMO packed + half with the fields kernel). A
-# fused launch outside the packed set with 3 live fields counts under its
-# set (fft.planes.named_launches: "fused_transposed[per_channel]",
+# One ocean path: fft_backend, N, steps, replay steps (the last steps
+# again on the CPU plain path from a snapshot of the card's state; 0: none),
+# FIELDS_KERNEL_V2, precision, the fft.planes switches set for the path,
+# kernel launches per step, the band of compare_fields, the fields of the
+# base config the path replaces, the solver's switches, the base config
+# ("demo": OCEAN_DEMO; "default": OceanConfig(); "parity": the centered
+# config of tests/test_parity.py _make_case at L = N, unit width 1) and
+# the card runs the last step is held to from the same state ({label:
+# band}; "f32": the path's solver at float32, "reference": the
+# JAX-default complex solver on torch.fft, cuFFT). Paths (i)-(xv) run the
+# real state with OCEAN_DEMO's slice switches (SLICE) unless they override
+# them; (xvi)-(xxi) the complex state with the JAX defaults (no switches:
+# fft_backend "reference", no packing, no half spectrum, the fields in
+# torch). A fused launch outside the packed set with 3 live fields counts
+# under its set (fft.planes.named_launches: "fused_transposed[per_channel]",
 # "fused_natural[packed5]"). Unpacked or without half, each 2-D transform
 # is one launch a pass for all its C channels. Row DFT
 # passes: transposed regime (N ≤ 2048) — 2 for the full channel, and the
@@ -208,12 +241,18 @@ POND_ATOL, POND_RTOL = 2e-5, 1e-5
 # assembles each channel inside its first row pass. Each pass runs at the
 # tier and form of its length (fft.planes.engine): at 1024² the half
 # channel's column pass is 512 long, so thresholds of 512 leave it on the
-# f32 Stockham kernel.
+# f32 Stockham kernel. The complex state's ``pallas`` transform is
+# fft.planes.ifft2_pallas: its 5 spectral channels (centered, spectral
+# normals) ride one launch a pass; ``reference``, ``stockham`` and
+# ``matmul`` launch no hand kernel.
+SLICE = {"real_state": True, "pack_channels": True, "half_spectrum": True,
+         "pallas_fields": True}
 OceanPath = collections.namedtuple(
     "OceanPath", "tag backend size steps replay v2 precision switches "
-    "per_step rel config solver", defaults=({}, {}))
+    "per_step rel config solver base against",
+    defaults=({}, SLICE, "demo", {}))
 SPECTRAL = {"normals_mode": "spectral"}
-PER_CHANNEL = {"pack_channels": False, "half_spectrum": False}
+PER_CHANNEL = {**SLICE, "pack_channels": False, "half_spectrum": False}
 SPLIT3 = {"THREE_FACTOR_THRESHOLD": 512}
 B3_SPLIT3 = {"THREE_FACTOR_THRESHOLD": 512, "KERNEL_B3_THRESHOLD": 512}
 B3 = {"KERNEL_B3_THRESHOLD": 512}
@@ -227,6 +266,9 @@ B3 = {"KERNEL_B3_THRESHOLD": 512}
 # output can flip the bf16 rounding of its lo part, which moves a pass by up
 # to the tier's own error (~5e-6·max), and a 2-D field takes two passes
 BF16_REL, BF16_VS_F32_REL, B3_REL = 4e-3, 3e-2, 5e-5
+# the complex state's ``pallas`` transform at 1024²: #1 on all 5 channels,
+# two passes a step
+COMPLEX_1024 = {"fft_rows_transposed": 2}
 PATHS = [
     OceanPath("i", "pallas", 1024, 60, 10, True, "float32", {},
               {"fft_rows_transposed": 5, "fields_stencil": 1}, 1e-5),
@@ -248,7 +290,7 @@ PATHS = [
               {"matrix_fused_natural[bf16]": 2,
                "matrix_rows_natural[bf16]": 1,
                "matrix_rows_transposed[bf16]": 2, "fields_stencil": 1},
-              BF16_VS_F32_REL),
+              BF16_VS_F32_REL, against={"f32": BF16_VS_F32_REL}),
     OceanPath("viii", "pallas", 1024, 20, 2, True, "float32", SPLIT3,
               {"matrix_rows_transposed[f32,split3]": 4,
                "fft_rows_transposed": 1, "fields_stencil": 1}, 1e-5),
@@ -263,7 +305,7 @@ PATHS = [
     OceanPath("xi", "pallas_fused", 1024, 20, 2, True, "float32", {},
               {"fused_transposed[packed5]": 2,
                "fft_rows_transposed": 3}, 1e-5,
-              config=SPECTRAL, solver={"pallas_fields": False}),
+              config=SPECTRAL, solver={**SLICE, "pallas_fields": False}),
     OceanPath("xii", "pallas_fused", 4096, 5, 1, True, "float32", {},
               {"fused_natural[per_channel]": 1,
                "fft_rows_transposed": 1}, 1e-5,
@@ -272,26 +314,50 @@ PATHS = [
               {"fused_natural[packed5]": 1,
                "fft_rows_transposed": 1}, 1e-5,
               config={**SPECTRAL, "evolution_mode": "absolute"},
-              solver={"half_spectrum": False, "pallas_fields": False}),
+              solver={**SLICE, "half_spectrum": False,
+                      "pallas_fields": False}),
     OceanPath("xiv", "pallas", 1024, 20, 2, True, "float32", {},
               {"fft_rows_transposed": 2}, 1e-5,
               solver={**PER_CHANNEL, "pallas_fields": False}),
     OceanPath("xv", "pallas", 4096, 10, 0, True, "bfloat16", {},
               {"matrix_rows_natural[bf16]": 3,
                "matrix_rows_transposed[bf16]": 2, "fields_stencil": 1},
-              BF16_VS_F32_REL),
+              BF16_VS_F32_REL, against={"f32": BF16_VS_F32_REL}),
+    # OceanSolver(OceanConfig()): BASELINE config 2's shape on torch.fft
+    OceanPath("xvi", "reference", 256, 100, 2, True, "float32", {}, {},
+              1e-5, solver={}, base="default"),
+    OceanPath("xvii", "pallas", 1024, 20, 2, True, "float32", {},
+              COMPLEX_1024, 1e-5, solver={}, base="parity",
+              against={"reference": 1e-5}),
+    OceanPath("xviii", "pallas", 4096, 5, 1, True, "float32", {},
+              {"fft_rows_natural": 1, "fft_rows_transposed": 1}, 1e-5,
+              solver={}, base="parity", against={"reference": 1e-5}),
+    OceanPath("xix-matmul", "matmul", 1024, 10, 2, True, "float32", {}, {},
+              1e-5, solver={}, base="parity", against={"reference": 1e-5}),
+    OceanPath("xix-stockham", "stockham", 1024, 10, 2, True, "float32", {},
+              {}, 1e-5, solver={}, base="parity",
+              against={"reference": 1e-5}),
+    OceanPath("xx", "pallas_fused", 1024, 20, 2, True, "float32", {},
+              {"fused_transposed[per_channel]": 1,
+               "fft_rows_transposed": 1}, 1e-5, solver={}),
+    OceanPath("xxi", "pallas", 1024, 20, 2, True, "bfloat16", {},
+              {"matrix_rows_transposed[bf16]": 2}, BF16_REL, solver={},
+              base="parity", against={"f32": BF16_VS_F32_REL}),
 ]
 # (path, solver method, launches of one call): fields_at(state, t) at the
 # path's clock + 1/60 and velocity(state), on the card and on the CPU from
 # the card's last state. (xiii) is unpacked without half: fields_at is its
 # step's transform; velocity is one full 2-D transform in the natural
 # regime. (i) is packed + half: velocity takes the half route (its rows,
-# the Nyquist row and the length-512 columns).
+# the Nyquist row and the length-512 columns). (xvii), the complex state:
+# fields_at is its step's transform, velocity one channel's (C = 1).
 EXTRA_CALLS = [
     ("xiii", "fields_at", {"fused_natural[packed5]": 1,
                            "fft_rows_transposed": 1}),
     ("xiii", "velocity", {"fft_rows_natural": 1, "fft_rows_transposed": 1}),
     ("i", "velocity", {"fft_rows_transposed": 3}),
+    ("xvii", "fields_at", COMPLEX_1024),
+    ("xvii", "velocity", COMPLEX_1024),
 ]
 # (label, what, WaveBank.random arguments or None for the config's packed
 # 4-wave bank, steps): POND_DEMO (512²) through PondSimulation with
@@ -916,6 +982,24 @@ def check_pond_fields(card, n, tag):
         f"offset_x max |.| {np.abs(card.offset_x).max():.4f}")
 
 
+BASE_NAMES = {"demo": "OCEAN_DEMO", "default": "OceanConfig()",
+              "parity": "tests/test_parity.py's centered config"}
+
+
+def path_switches(path):
+    """The path's config fields and the solver switches off SLICE."""
+    return {**path.config, **{k: v for k, v in path.solver.items()
+                              if SLICE.get(k) != v}}
+
+
+def path_label(path):
+    """The path's base config, backend, precision, state and switches."""
+    state = "real" if path.solver.get("real_state") else "complex"
+    return (f"{BASE_NAMES[path.base]} fft_backend={path.backend!r}, "
+            f"precision={path.precision!r}, {state} state"
+            + "".join(f", {k}={v!r}" for k, v in path_switches(path).items()))
+
+
 @contextlib.contextmanager
 def fields_switch(fs, v2):
     """fields_stencil's kernel for the duration: v2, or v1 when False."""
@@ -939,8 +1023,9 @@ def main():
         raise SystemExit("chip_smoke: run it from a checkout of the repo "
                          "(tpu_ocean_torch/csrc is missing)")
     import tpu_ocean_torch
-    from tpu_ocean_torch import (OCEAN_DEMO, POND_DEMO, OceanSolver,
-                                 PondSimulation, PondSolver, WaveBank,
+    from tpu_ocean_torch import (OCEAN_DEMO, POND_DEMO, OceanConfig,
+                                 OceanSolver, PondSimulation, PondSolver,
+                                 WaveBank,
                                  fields_to_numpy, pond_fields_to_numpy,
                                  state_from_numpy, _build, grids)
     from tpu_ocean_torch.fft import planes
@@ -1048,15 +1133,16 @@ def main():
              planes.fft1d_transposed_plain, "float32", {},
              [(1, 1024, 1024), (1, 512, 1024), (1, 1024, 512), (1, 1, 1024),
               (1, 4096, 4096), (1, 4096, 2048), (3, 1024, 1024),
-              (2, 1024, 1024), (3, 4096, 4096), (5, 4096, 4096)]),
+              (2, 1024, 1024), (3, 4096, 4096), (5, 4096, 4096),
+              (5, 1024, 1024)]),
             ("fft_rows_natural", planes.fft1d_natural_large,
              planes.fft1d_natural_large_plain, "float32", {},
              [(1, 4096, 4096), (1, 2048, 4096), (1, 1, 4096),
-              (1, 1024, 1024)]),
+              (1, 1024, 1024), (5, 4096, 4096)]),
             ("matrix_rows_transposed[bf16]", planes.fft1d_transposed,
              planes.fft1d_transposed_plain, "bfloat16", {},
              [(1, 1024, 1024), (1, 512, 1024), (1, 1024, 512), (1, 1, 1024),
-              (1, 4096, 4096), (1, 4096, 2048)]),
+              (1, 4096, 4096), (1, 4096, 2048), (5, 1024, 1024)]),
             ("matrix_rows_natural[bf16]", planes.fft1d_natural_large,
              planes.fft1d_natural_large_plain, "bfloat16", {},
              [(1, 4096, 4096), (1, 2048, 4096), (1, 1, 4096),
@@ -1381,9 +1467,11 @@ def main():
         del got, nat
 
     # both stencils on the fields of one step at each size the paths run
-    for n in sorted({path.size for path in PATHS}):
+    # them
+    for n in sorted({path.size for path in PATHS
+                     if path.solver.get("pallas_fields")}):
         cfg = OCEAN_DEMO.replace(resolution=n)
-        solver = OceanSolver(cfg)
+        solver = OceanSolver(cfg, fft_backend="pallas", **SLICE)
         _, f = solver.step(solver.init(torch.Generator().manual_seed(1)), DT)
         chop = cfg.choppiness
         fields_in = (chop * f.disp_x, f.height, chop * f.disp_z, cfg.length / n)
@@ -1518,13 +1606,35 @@ def main():
     # ---- 4. the ocean paths through the solver, then the pond paths
     launches = {k: {} for k in KERNEL_INFO}
 
+    parity_base = OceanConfig(
+        unit_width=1.0, wind=(8.0, 5.0), amplitude=0.05, choppiness=1.2,
+        dispersion_mode="quantized", evolution_mode="absolute",
+        spectrum_layout="centered", normals_mode="spectral")
+
+    def path_config(path):
+        """The path's config: its base at the path's N and precision (the
+        parity base at L = N), with the path's fields."""
+        if path.base == "parity":
+            base = parity_base.replace(length=float(path.size))
+        else:
+            base = OCEAN_DEMO if path.base == "demo" else OceanConfig()
+        return base.replace(resolution=path.size, precision=path.precision,
+                            **path.config)
+
+    def card_solver(pcfg, against, path):
+        """The card solver a path's last step is held to: the path's own
+        solver at f32, or the JAX-default complex solver on torch.fft."""
+        if against == "f32":
+            return OceanSolver(pcfg.replace(precision="float32"),
+                               fft_backend=path.backend, **path.solver)
+        return OceanSolver(pcfg, fft_backend="reference")
+
     solvers = {}
     for path in PATHS:
         tag, size, steps, replay = path.tag, path.size, path.steps, path.replay
-        packed = path.solver.get("pack_channels", True)
+        packed = bool(path.solver.get("pack_channels"))
         with fields_switch(fs, path.v2), dft_switches(planes, path.switches):
-            pcfg = OCEAN_DEMO.replace(resolution=size, precision=path.precision,
-                                      **path.config)
+            pcfg = path_config(path)
             psolver = OceanSolver(pcfg, fft_backend=path.backend, **path.solver)
             state = psolver.init(torch.Generator().manual_seed(0))
             torch.cuda.synchronize()
@@ -1535,12 +1645,9 @@ def main():
                 if replay and step == steps - replay:
                     snapshot = state_from_numpy(state, "cpu")
             counts = read_counts()
-            log(f"[slice {tag}] OCEAN_DEMO {size}x{size} "
-                f"fft_backend={path.backend!r}, precision={path.precision!r}"
+            log(f"[slice {tag}] {path_label(path)} {size}x{size}"
                 f"{'' if path.v2 else ', FIELDS_KERNEL_V2 = False'}"
                 + "".join(f", {k} = {v}" for k, v in path.switches.items())
-                + "".join(f", {k}={v!r}" for k, v in
-                          {**path.config, **path.solver}.items())
                 + f", {steps} steps of dt 1/60: launches {counts} (expected "
                 f"{steps} x {path.per_step})")
             require_counts(counts, {k: steps * v for k, v in path.per_step.items()},
@@ -1571,19 +1678,21 @@ def main():
                 compare_fields(card, fields_to_numpy(cpu_fields), pcfg, tag,
                                rel=path.rel, packed=packed)
                 del cpu_solver, cpu_state, cpu_fields, snapshot
-            else:
-                # the last step again from the same state at f32 on the card
-                f32_solver = OceanSolver(pcfg.replace(precision="float32"),
-                                         fft_backend=path.backend,
-                                         **path.solver)
-                _, f32_fields = f32_solver.step(prev, DT)
-                compare_fields(card, fields_to_numpy(f32_fields), pcfg, tag,
-                               against="f32", rel=path.rel, packed=packed)
-                del f32_solver, f32_fields
-            if pcfg.normals_mode == "spectral":
+            for against, rel in path.against.items():
+                # the last step again from the same state on the card, at
+                # f32 or on the reference backend
+                other = card_solver(pcfg, against, path)
+                _, other_fields = other.step(prev, DT)
+                compare_fields(card, fields_to_numpy(other_fields), pcfg, tag,
+                               against=against, rel=rel, packed=packed)
+                del other, other_fields
+            if (pcfg.normals_mode == "spectral"
+                    and pcfg.precision == "float32"
+                    and path.backend not in ("reference", "stockham")):
                 # a lower-precision control: the last step at bf16 from the
                 # same state must fall outside the spectral normals' band
-                # around the card's f32 step
+                # around the card's f32 step (reference and stockham are
+                # full precision at any precision)
                 bf16_solver = OceanSolver(pcfg.replace(precision="bfloat16"),
                                           fft_backend=path.backend,
                                           **path.solver)
@@ -1633,7 +1742,7 @@ def main():
             check_fields(card, pcfg.resolution, f"{tag} {method}")
             compare_fields(card, fields_to_numpy(want), pcfg, f"{tag} {method}",
                            rel=path.rel,
-                           packed=path.solver.get("pack_channels", True))
+                           packed=bool(path.solver.get("pack_channels")))
         else:
             got, want = got.cpu().numpy(), want.numpy()
             err, scale = np.abs(got - want).max(), np.abs(want).max()
@@ -1726,9 +1835,10 @@ def main():
                       + ("" if path.precision == "float32"
                          else f" {path.precision}")
                       + ("" if path.v2 else " fields v1")
+                      + ("" if path.solver.get("real_state") else " complex")
                       + "".join(f" {k}={v}" for k, v in
-                                {**path.switches, **path.config,
-                                 **path.solver}.items()),
+                                {**path.switches,
+                                 **path_switches(path)}.items()),
                       path.size, ocean_step(psolver, state),
                       200 if path.size <= 2048 else 40, OCEAN_NOTE)
     for tag, *_ in POND_PATHS:
@@ -1892,6 +2002,32 @@ def main():
         f"{k:.4f} ms, the f32 fused natural kernel (one read of the inputs) "
         f"{f32:.4f}, 5 x the bf16 ch 0 launch {5 * one:.4f}, bound "
         f"{b_ms:.4f}; {k / f32:.3f} of the f32 kernel")
+
+    # the complex state's full 2-D transforms on the paths, [C, N, N] at
+    # C = 5: the hand kernels' two passes (ifft2_planes_auto, with the
+    # natural regime's transposing copies) beside cuFFT's torch.fft.ifft2
+    # on the same values; bound: each pass reads and writes 16 B a point
+    for tag, shape, precision in (("xvii", (5, 1024, 1024), "float32"),
+                                  ("xxi", (5, 1024, 1024), "bfloat16"),
+                                  ("xviii", (5, 4096, 4096), "float32")):
+        re, im = plane(shape), plane(shape)
+        z = torch.complex(re, im)
+        hand, per_kernel, how = device_ms(
+            lambda: planes.ifft2_planes_auto(re, im, True, precision))
+        # the kernels alone (the whole call where the profiler recorded
+        # none and CUDA events stood in)
+        kernels_ms = sum(ms for key, ms in per_kernel.items()
+                         if kernel_group(key) != "torch ops") or hand
+        lib, _, lib_how = device_ms(lambda: torch.fft.ifft2(z, norm="forward"))
+        b_ms, b_by = bound(32 * re.numel(), 2 * 5 * int(np.log2(shape[2]))
+                           * re.numel())
+        log(f"[timing] {kind} ({smi}): the 2-D transform of path ({tag}) "
+            f"{list(shape)} at {precision}: the hand kernels' two passes "
+            f"{kernels_ms:.4f} ms ({hand:.4f} with torch ops, {how}), cuFFT "
+            f"torch.fft.ifft2 {lib:.4f} ms ({lib_how}), bound {b_ms:.4f} "
+            f"({b_by}); {kernels_ms / lib:.2f}x cuFFT, {b_ms / kernels_ms:.3f} "
+            f"of the bound")
+        del re, im, z
 
     phase_done("5 timing, kernels")
     log(json.dumps({"kernels": [

@@ -55,6 +55,11 @@ from tpu_ocean_torch.ops import fields_stencil as fs
 from tpu_ocean_torch.ops import fused_spectrum as fused
 from tpu_ocean_torch.ops import gerstner_bank as gb
 
+#: the real-state switches of the OCEAN_DEMO slice (packed + half with the
+#: fields kernel); the solver's defaults are the JAX package's complex state
+SLICE = dict(real_state=True, pack_channels=True, half_spectrum=True,
+             pallas_fields=True)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -449,7 +454,8 @@ def test_launch_counters_count_kernel_launches(cuda):
 
 def test_solver_step_matches_cpu_and_launches_six_kernels(cuda):
     cfg = OCEAN_DEMO.replace(resolution=128)
-    gpu, cpu = OceanSolver(cfg, device=cuda), OceanSolver(cfg, device="cpu")
+    gpu = OceanSolver(cfg, device=cuda, fft_backend="pallas", **SLICE)
+    cpu = OceanSolver(cfg, device="cpu", fft_backend="pallas", **SLICE)
     sg = gpu.init(torch.Generator().manual_seed(5))
     sc = cpu.init(torch.Generator().manual_seed(5))
     f0, s0 = planes.fft1d_transposed.launches, fs.fields_stencil.launches
@@ -475,8 +481,8 @@ def test_solver_step_matches_cpu_and_launches_six_kernels(cuda):
 def test_solver_paths_match_cpu_and_launch_their_kernels(cuda, backend, n,
                                                          per_step):
     cfg = OCEAN_DEMO.replace(resolution=n)
-    gpu = OceanSolver(cfg, device=cuda, fft_backend=backend)
-    cpu = OceanSolver(cfg, device="cpu", fft_backend=backend)
+    gpu = OceanSolver(cfg, device=cuda, fft_backend=backend, **SLICE)
+    cpu = OceanSolver(cfg, device="cpu", fft_backend=backend, **SLICE)
     sg = gpu.init(torch.Generator().manual_seed(5))
     sc = cpu.init(torch.Generator().manual_seed(5))
     counters = {"fused_t": fused.assemble_rowfft,
@@ -540,7 +546,8 @@ def test_fields_v1_kernel_matches_plain(cuda, shape):
 
 def test_fields_switch_launches_v1_in_the_solver(cuda, monkeypatch):
     monkeypatch.setattr(fs, "FIELDS_KERNEL_V2", False)
-    solver = OceanSolver(OCEAN_DEMO.replace(resolution=128), device=cuda)
+    solver = OceanSolver(OCEAN_DEMO.replace(resolution=128), device=cuda,
+                         fft_backend="pallas", **SLICE)
     state = solver.init(torch.Generator().manual_seed(5))
     before = (fs.fields_stencil.launches, fs.fields_stencil_v1.launches)
     for _ in range(2):
@@ -925,8 +932,8 @@ def test_solver_configurations_match_cpu_and_launch_their_kernels(cuda,
     backend, n, normals, pack, half, fields_kernel, mode, per_step = config
     cfg = OCEAN_DEMO.replace(resolution=n, normals_mode=normals,
                              evolution_mode=mode)
-    kw = dict(fft_backend=backend, pack_channels=pack, half_spectrum=half,
-              pallas_fields=fields_kernel)
+    kw = dict(fft_backend=backend, real_state=True, pack_channels=pack,
+              half_spectrum=half, pallas_fields=fields_kernel)
     gpu = OceanSolver(cfg, device=cuda, **kw)
     cpu = OceanSolver(cfg, device="cpu", **kw)
     sg = gpu.init(torch.Generator().manual_seed(5))
@@ -961,8 +968,8 @@ def test_bf16_solver_runs_the_matrix_engine_and_matches_cpu(cuda, backend):
     the Stockham kernels; card vs CPU within 2e-3·max (one bf16 ulp flips
     where the two accumulate in other orders)."""
     cfg = OCEAN_DEMO.replace(resolution=128, precision="bfloat16")
-    gpu = OceanSolver(cfg, device=cuda, fft_backend=backend)
-    cpu = OceanSolver(cfg, device="cpu", fft_backend=backend)
+    gpu = OceanSolver(cfg, device=cuda, fft_backend=backend, **SLICE)
+    cpu = OceanSolver(cfg, device="cpu", fft_backend=backend, **SLICE)
     sg = gpu.init(torch.Generator().manual_seed(5))
     sc = cpu.init(torch.Generator().manual_seed(5))
     before = (planes.fft1d_transposed.launches, fused.assemble_rowfft.launches)

@@ -117,7 +117,8 @@ def test_fused_transposed_model_matches_float64_and_plain(span, inverse):
     float64) within 1e-12·max of the float64 DFT of the float64 assembly
     (chip_smoke.assembly_f64), transposed, and in float32 (the f32
     twiddles, kz table and 2π/L) within 1e-5·max of assemble_rowfft_plain,
-    each channel on its own scale; every output written once; the device
+    which is itself held within 1e-5·max of that float64 DFT first, each
+    channel on its own scale; every output written once; the device
     loads coalesced, the stores runs of R floats; the tile's writes and
     read-out free of bank conflicts."""
     channel_set, ch_start, ch_count = span
@@ -160,6 +161,10 @@ def test_fused_transposed_model_matches_float64_and_plain(span, inverse):
         assert np.abs(got64[c] - want).max() <= 1e-12 * np.abs(want).max()
         plain = pr[c].numpy().astype(np.float64) + 1j * pi[c].numpy()
         scale = max(np.abs(pr[c].numpy()).max(), np.abs(pi[c].numpy()).max())
+        # the plain version against float64 first, so that a mismatch below
+        # names the side that moved
+        assert np.abs(plain - want).max() <= 1e-5 * scale, \
+            f"channel {ch_start + c}: the plain version moved from float64"
         assert np.abs(got32[c] - plain).max() <= 1e-5 * scale
 
 

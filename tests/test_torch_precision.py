@@ -400,7 +400,7 @@ def _steps_against_jax(n, backend, precision, steps=3):
                     **{**SLICE, "fft_backend": backend})
     h0, h0c = _h0_pair(cfg, seed=n)
     js = ref.init(h0=h0, h0_conj=h0c)
-    port = OceanSolver(cfg, device="cpu", fft_backend=backend)
+    port = OceanSolver(cfg, device="cpu", **{**SLICE, "fft_backend": backend})
     assert port.precision == precision
     ts = state_from_numpy(js, "cpu")
     for _ in range(steps):
@@ -460,7 +460,7 @@ def test_bfloat16_really_engages(backend):
     out = {}
     for precision in ("float32", "bfloat16"):
         s = OceanSolver(cfg.replace(precision=precision), device="cpu",
-                        fft_backend=backend)
+                        **{**SLICE, "fft_backend": backend})
         _, f = s.step(s.init(h0=h0, h0_conj=h0c), 1 / 60)
         out[precision] = f.height.numpy()
     rel = _rel(out["bfloat16"], out["float32"])

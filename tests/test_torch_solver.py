@@ -61,7 +61,7 @@ def _steps_against_jax(cfg, switches, steps, seed):
     from one injected h0, ``steps`` steps of 1/60; returns both solvers and
     their last states and fields."""
     ref = JaxSolver(_jax_config(cfg), real_state=True, **switches)
-    port = OceanSolver(cfg, device="cpu", **switches)
+    port = OceanSolver(cfg, device="cpu", real_state=True, **switches)
     h0, h0c = _h0_pair(cfg, seed=seed)
     js = ref.init(h0=h0, h0_conj=h0c)
     ts = port.init(h0=h0, h0_conj=h0c)
@@ -91,7 +91,7 @@ def _ten_steps_against_jax(n, length=None, backend="pallas"):
     cfg, ref = _pair(n, length, backend)
     h0, h0c = _h0_pair(cfg, seed=n)
     js = ref.init(h0=h0, h0_conj=h0c)
-    port = OceanSolver(cfg, device="cpu", fft_backend=backend)
+    port = OceanSolver(cfg, device="cpu", **{**SLICE, "fft_backend": backend})
     ts = state_from_numpy(js, "cpu")
     dt = 1 / 60
     for _ in range(10):
@@ -120,14 +120,15 @@ def test_init_planes_equal_jax_init(n):
     cfg, ref = _pair(n, None)
     h0, h0c = _h0_pair(cfg, seed=1)
     js = ref.init(h0=h0, h0_conj=h0c)
-    ts = OceanSolver(cfg, device="cpu").init(h0=h0, h0_conj=h0c)
+    ts = OceanSolver(cfg, device="cpu", **SLICE).init(h0=h0, h0_conj=h0c)
     for name in ts._fields:
         np.testing.assert_array_equal(getattr(ts, name).numpy(),
                                       np.asarray(getattr(js, name)))
 
 
 def test_symmetrize_is_idempotent_and_init_is_seeded():
-    solver = OceanSolver(OCEAN_DEMO.replace(resolution=64), device="cpu")
+    solver = OceanSolver(OCEAN_DEMO.replace(resolution=64), device="cpu",
+                         **SLICE)
     a = solver.init()
     b = solver.init(torch.Generator().manual_seed(OCEAN_DEMO.seed))
     again = solver.symmetrize(a)
@@ -137,7 +138,8 @@ def test_symmetrize_is_idempotent_and_init_is_seeded():
 
 
 def test_state_from_numpy_round_trip():
-    solver = OceanSolver(OCEAN_DEMO.replace(resolution=64), device="cpu")
+    solver = OceanSolver(OCEAN_DEMO.replace(resolution=64), device="cpu",
+                         **SLICE)
     s, _ = solver.step(solver.init(), 1 / 60)
     back = state_from_numpy(s, "cpu")
     for name in s._fields:
@@ -147,7 +149,7 @@ def test_state_from_numpy_round_trip():
 
 def test_foam_decay_keeps_the_larger_foam():
     solver = OceanSolver(OCEAN_DEMO.replace(resolution=64, foam_decay=0.35),
-                         device="cpu")
+                         device="cpu", **SLICE)
     s = solver.init()
     s, f1 = solver.step(s, 1 / 60)
     s, f2 = solver.step(s, 1 / 60)
@@ -256,14 +258,37 @@ def test_normals_spectral_matches_jax():
     dict(kw=dict(real_state=False)),
 ])
 def test_off_slice_configurations_raise(change):
-    cfg = OCEAN_DEMO.replace(resolution=64, **change.get("cfg", {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OceanSolver(cfg, device="cpu", **change.get("kw", {}))
+    """The configurations off the real-state slice. Five of them build a
+    complex-state solver now, each with the JAX package's defaults for
+    the switches it does not set, and take one step against the JAX
+    solver within tests/test_packing.py's bands; eval_mode="direct" (the
+    centered layout's direct sum, ROADMAP item 7b) still raises
+    NotImplementedError naming its item."""
+    layout = change.get("cfg", {}).get("spectrum_layout", "fft")
+    cfg = OCEAN_DEMO.replace(resolution=64, length=64.0, unit_width=1.0,
+                             **change.get("cfg", {}))
+    kw = change.get("kw", {})
+    if kw.get("eval_mode") == "direct":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            OceanSolver(cfg.replace(spectrum_layout="centered"),
+                        device="cpu", **kw)
+        return
+    ref = JaxSolver(_jax_config(cfg), **kw)
+    port = OceanSolver(cfg, device="cpu", **kw)
+    assert not port.real_state and port.fft_backend == ref.fft_backend
+    assert port.cfg.spectrum_layout == layout
+    h0, h0c = _h0_pair(cfg, seed=4)
+    js, ts = ref.init(h0=h0, h0_conj=h0c), port.init(h0=h0, h0_conj=h0c)
+    js, jf = ref.step(js, 1 / 60)
+    ts, tf = port.step(ts, 1 / 60)
+    _assert_fields_close(fields_to_numpy(tf), jf, 1e-5)
+    assert int(ts.step) == int(js.step) == 1
 
 
 @pytest.mark.parametrize("call", ["gpu_hash_seeds", "reconfigure"])
 def test_unported_methods_raise(call):
-    solver = OceanSolver(OCEAN_DEMO.replace(resolution=64), device="cpu")
+    solver = OceanSolver(OCEAN_DEMO.replace(resolution=64), device="cpu",
+                         **SLICE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if call == "gpu_hash_seeds":
             solver.init(gpu_hash_seeds=(1, 2))
@@ -283,7 +308,6 @@ def test_what_jax_refuses_raises_value_error(change):
     kw = dict(SLICE, **change.get("kw", {}))
     with pytest.raises(ValueError):
         JaxSolver(_jax_config(cfg), **kw)
-    kw.pop("real_state")
     with pytest.raises(ValueError):
         OceanSolver(cfg, device="cpu", **kw)
 
@@ -294,12 +318,12 @@ def test_sizes_the_kernels_do_not_take_raise(n):
     but is refused for a CUDA device before anything is allocated there."""
     cfg = OCEAN_DEMO.replace(resolution=n)
     with pytest.raises(ValueError):
-        OceanSolver(cfg, device="cuda")
+        OceanSolver(cfg, device="cuda", **SLICE)
     if n % 16:
         with pytest.raises(ValueError):
-            OceanSolver(cfg, device="cpu")
+            OceanSolver(cfg, device="cpu", **SLICE)
     else:
-        OceanSolver(cfg, device="cpu")
+        OceanSolver(cfg, device="cpu", **SLICE)
 
 
 @pytest.mark.parametrize("n", [64, 128])
@@ -328,8 +352,9 @@ def test_fused_step_matches_unfused_step(natural, monkeypatch):
         monkeypatch.setattr(planes, "MAX_TRANSPOSED_N", 32)
     cfg = OCEAN_DEMO.replace(resolution=64)
     h0, h0c = _h0_pair(cfg, seed=3)
-    a = OceanSolver(cfg, device="cpu")
-    b = OceanSolver(cfg, device="cpu", fft_backend="pallas_fused")
+    a = OceanSolver(cfg, device="cpu", **SLICE)
+    b = OceanSolver(cfg, device="cpu", **{**SLICE,
+                                          "fft_backend": "pallas_fused"})
     sa, sb = a.init(h0=h0, h0_conj=h0c), b.init(h0=h0, h0_conj=h0c)
     for _ in range(3):
         sa, fa = a.step(sa, 1 / 60)
@@ -338,14 +363,16 @@ def test_fused_step_matches_unfused_step(natural, monkeypatch):
 
 
 def test_default_device_is_the_card():
-    """No device argument means CUDA: with no card the constructor raises
-    (as torch does) instead of running on the CPU."""
+    """No device argument means CUDA, for the JAX defaults (the complex
+    reference solver) and for the slice: with no card the constructor
+    raises (as torch does) instead of running on the CPU."""
     cfg = OCEAN_DEMO.replace(resolution=64)
-    if torch.cuda.is_available():
-        assert OceanSolver(cfg).device.type == "cuda"
-    else:
-        with pytest.raises((AssertionError, RuntimeError)):
-            OceanSolver(cfg)
+    for kw in ({}, SLICE):
+        if torch.cuda.is_available():
+            assert OceanSolver(cfg, **kw).device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError)):
+                OceanSolver(cfg, **kw)
 
 
 def test_import_does_not_load_jax():

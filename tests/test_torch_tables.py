@@ -55,7 +55,7 @@ def test_grids_bit_equal(layout, n):
 def test_solver_tables_bit_equal(n):
     """ω, pack, x0 and z0 as the two solvers hold them (float64 → f32)."""
     for cfg in _cfgs(n):
-        port = OceanSolver(cfg, device="cpu")
+        port = OceanSolver(cfg, device="cpu", **SLICE)
         ref = JaxSolver(_jax_cfg(cfg), **SLICE)._consts
         np.testing.assert_array_equal(port.omega.numpy(), np.asarray(ref["omega"]))
         np.testing.assert_array_equal(port.pack.numpy(), np.asarray(ref["pack"]))

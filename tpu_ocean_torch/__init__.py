@@ -1,7 +1,13 @@
 """tpu_ocean_torch: the PyTorch/CUDA port of tpu_ocean.
 
-The port runs the real-state ocean step of the JAX package (JAX:
-``OceanSolver(cfg, real_state=True)`` in the fft layout) on an NVIDIA
+``OceanSolver`` takes the JAX ``OceanSolver``'s defaults: the complex state
+on the ``reference`` backend (torch.fft), so ``OceanSolver(OceanConfig())``
+steps the oracle's configuration (the centered layout, absolute time,
+spectral normals). The complex state runs every backend of the JAX
+package: ``reference``, ``stockham``, ``matmul``, ``pallas`` (the row-DFT
+kernels on planes) and ``pallas_fused`` (the fused kernels). The real
+state (``real_state=True``, the fft layout) runs the JAX package's
+``OceanSolver(cfg, real_state=True)`` on an NVIDIA
 H100, with ``fft_backend="pallas"`` or ``"pallas_fused"``, per-channel,
 packed or packed + half-spectrum channels, stencil or spectral normals,
 the fields kernel on or off, and phase or absolute time (``fields_at``,
@@ -25,38 +31,42 @@ This package imports torch and numpy, never jax; the JAX package
 
 from tpu_ocean_torch.config import (
     OceanConfig, PondConfig, OCEAN_DEMO, FFT_MESH_DEMO, POND_DEMO)
-from tpu_ocean_torch.solver import OceanSolver, OceanStateReal, OceanFields
+from tpu_ocean_torch.solver import (
+    OceanSolver, OceanState, OceanStateReal, OceanFields)
 from tpu_ocean_torch.gerstner import (
     WaveBank, PondFields, PondSolver, gerstner_eval, sinusoid_eval,
     gerstner_velocity, sinusoid_velocity)
 from tpu_ocean_torch.runtime import PondSimulation
 from tpu_ocean_torch.convert import (
-    state_from_numpy, fields_to_numpy, wavebank_from_numpy,
+    state_from_numpy, state_to_numpy, fields_to_numpy, wavebank_from_numpy,
     pond_fields_to_numpy)
 from tpu_ocean_torch.fft.planes import (
     fft1d_transposed, fft1d_transposed_plain, fft1d_natural_large,
-    fft1d_natural_large_plain, ifft1d_planes_axis2, ifft2_planes_auto,
-    ifft2_planes_half)
+    fft1d_natural_large_plain, ifft1d_planes_axis2, ifft2_pallas,
+    ifft2_planes_auto, ifft2_planes_half)
 from tpu_ocean_torch.ops.fields_stencil import (
     fields_stencil, fields_stencil_plain, fields_stencil_v1,
     fields_stencil_v1_plain)
 from tpu_ocean_torch.ops.fused_spectrum import (
     assemble_rowfft, assemble_rowfft_plain, assemble_rowfft_natural,
-    assemble_rowfft_natural_plain, ifft2_fused_planes, ifft2_fused_planes_half)
+    assemble_rowfft_natural_plain, ifft2_fused, ifft2_fused_planes,
+    ifft2_fused_planes_half)
 from tpu_ocean_torch.ops.gerstner_bank import gerstner_bank, gerstner_bank_plain
 
 __all__ = [
     "OceanConfig", "PondConfig", "OCEAN_DEMO", "FFT_MESH_DEMO", "POND_DEMO",
-    "OceanSolver", "OceanStateReal", "OceanFields",
+    "OceanSolver", "OceanState", "OceanStateReal", "OceanFields",
     "WaveBank", "PondFields", "PondSolver", "PondSimulation",
     "gerstner_eval", "sinusoid_eval", "gerstner_velocity", "sinusoid_velocity",
-    "state_from_numpy", "fields_to_numpy", "wavebank_from_numpy",
+    "state_from_numpy", "state_to_numpy", "fields_to_numpy",
+    "wavebank_from_numpy",
     "pond_fields_to_numpy",
     "fft1d_transposed", "fft1d_transposed_plain", "fft1d_natural_large",
-    "fft1d_natural_large_plain", "ifft1d_planes_axis2", "ifft2_planes_auto",
+    "fft1d_natural_large_plain", "ifft1d_planes_axis2", "ifft2_pallas",
+    "ifft2_planes_auto",
     "ifft2_planes_half", "fields_stencil", "fields_stencil_plain",
     "fields_stencil_v1", "fields_stencil_v1_plain",
     "assemble_rowfft", "assemble_rowfft_plain", "assemble_rowfft_natural",
-    "assemble_rowfft_natural_plain", "ifft2_fused_planes",
+    "assemble_rowfft_natural_plain", "ifft2_fused", "ifft2_fused_planes",
     "ifft2_fused_planes_half", "gerstner_bank", "gerstner_bank_plain",
 ]

@@ -1,10 +1,12 @@
 """Carry state, wave banks and fields between the JAX package and the port
 as numpy.
 
-The ocean solver's state is its "weights": h0 planes and the accumulated
+The ocean solver's state is its "weights": the h0 pair and the accumulated
 phase. ``state_from_numpy`` takes anything with the field names of the JAX
-package's ``OceanStateReal`` (a JAX state, a NamedTuple of numpy arrays, a
-port state) and returns the port's state on ``device``. The pond's weights
+package's ``OceanState`` (complex h0 pair) or ``OceanStateReal`` (h0
+planes) — a JAX state, a NamedTuple of numpy arrays, a port state — and
+returns the port's state of the same kind on ``device``, field for field;
+``state_to_numpy`` copies a port state back to numpy. The pond's weights
 are its wave bank: ``wavebank_from_numpy`` takes the dict of a JAX
 ``WaveBank.as_arrays()``. Nothing here imports jax.
 """
@@ -15,13 +17,16 @@ import numpy as np
 import torch
 
 from tpu_ocean_torch.gerstner import PondFields, WaveBank
-from tpu_ocean_torch.solver import OceanFields, OceanStateReal
+from tpu_ocean_torch.solver import OceanFields, OceanState, OceanStateReal
 
-_DTYPES = {"step": np.int32}
+_DTYPES = {"step": np.int32, "h0": np.complex64, "h0_conj": np.complex64}
 
 
-def state_from_numpy(obj, device) -> OceanStateReal:
-    """Port state from any object with OceanStateReal's field names."""
+def state_from_numpy(obj, device):
+    """Port state from any object with OceanState's field names (the
+    complex state) or OceanStateReal's (the real state)."""
+    kind = OceanState if hasattr(obj, "h0") else OceanStateReal
+
     def tensor(name):
         value = getattr(obj, name)
         if isinstance(value, torch.Tensor):
@@ -29,8 +34,12 @@ def state_from_numpy(obj, device) -> OceanStateReal:
         arr = np.asarray(value, dtype=_DTYPES.get(name, np.float32))
         return torch.from_numpy(arr.copy()).to(device)
 
-    return OceanStateReal(**{name: tensor(name)
-                             for name in OceanStateReal._fields})
+    return kind(**{name: tensor(name) for name in kind._fields})
+
+
+def state_to_numpy(state):
+    """A port state with every tensor copied to a host numpy array."""
+    return type(state)(*(f.detach().cpu().numpy() for f in state))
 
 
 def wavebank_from_numpy(arrays) -> WaveBank:

@@ -132,3 +132,31 @@ def hermitize_planes(r1, i1, r2, i2):
     ar = 0.5 * (r1 + negflip(r2))
     ai = 0.5 * (i1 - negflip(i2))
     return ar, ai, negflip(ar), -negflip(ai)
+
+
+def assemble_spectra(h0: torch.Tensor, h0_conj: torch.Tensor,
+                     phase: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """The complex state's spectra, complex64 [C, N, N]: h̃ = h0·e^{iφ} +
+    h0*·e^{−iφ} (FFTMesh.cs:188, Spectrum.shader:44-45), times each
+    channel's real coefficient (``coeffs``, f32 [C, N, N])."""
+    pv = torch.complex(torch.cos(phase), torch.sin(phase))
+    h = h0 * pv + h0_conj * pv.conj()
+    return coeffs * h[None]
+
+
+def assemble_spectra_packed(h0: torch.Tensor, h0_conj: torch.Tensor,
+                            phase: torch.Tensor,
+                            pack: torch.Tensor) -> torch.Tensor:
+    """Complex twin of assemble_spectra_packed_real: P = (A − iB)·h̃,
+    complex64 [P, N, N]; ``pack`` is the f32 [2P, N, N] table."""
+    p = pack.shape[0] // 2
+    pv = torch.complex(torch.cos(phase), torch.sin(phase))
+    h = h0 * pv + h0_conj * pv.conj()
+    return torch.complex(pack[:p], -pack[p:]) * h[None]
+
+
+def hermitize_pair(h0: torch.Tensor, h0_conj: torch.Tensor):
+    """Complex twin of hermitize_planes: a = ½(h0 + conj(h0c∘neg)),
+    h0c ← conj(a∘neg). Bitwise idempotent."""
+    a = 0.5 * (h0 + negflip(h0_conj).conj_physical())
+    return a, negflip(a).conj_physical()

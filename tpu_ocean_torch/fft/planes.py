@@ -3,7 +3,8 @@ half-spectrum (C2R) route, in two storage regimes.
 
 JAX counterpart: ``tpu_ocean/fft/pallas_fft.py`` (``_fft1d_transposed``,
 ``fft1d_natural_large``, ``ifft2_planes_auto``, ``ifft2_planes_half``,
-``_c2r_combine``, ``half_column_pass``) and ``tpu_ocean/fft/matmul.py``
+``_c2r_combine``, ``half_column_pass``, and ``ifft2_pallas``, the
+``pallas`` backend on a complex tensor) and ``tpu_ocean/fft/matmul.py``
 (``ifft1d_planes_axis2``). Two row-DFT kernels carry every pass:
 
 - ``fft1d_transposed``: a row DFT whose output is stored transposed, so a
@@ -914,6 +915,20 @@ def ifft2_planes_auto(re: torch.Tensor, im: torch.Tensor, inverse: bool = True,
         return fft1d_transposed(re, im, inverse, precision)
     re, im = fft1d_natural_large(re, im, inverse, precision)
     return ifft1d_planes_axis2(re, im, inverse, precision)
+
+
+def ifft2_pallas(x: torch.Tensor, inverse: bool = True,
+                 precision: str = "float32") -> torch.Tensor:
+    """The ``pallas`` backend on a complex tensor: the unnormalized 2-D
+    transform of x [..., N, N], split into (re, im) planes, through
+    ifft2_planes_auto (one launch a pass for the whole batch), then joined
+    (pallas_fft.ifft2_pallas)."""
+    shape = x.shape
+    n0, n = shape[-2], shape[-1]
+    re = x.real.float().reshape(-1, n0, n).contiguous()
+    im = x.imag.float().reshape(-1, n0, n).contiguous()
+    re, im = ifft2_planes_auto(re, im, inverse, precision)
+    return torch.complex(re, im).reshape(shape)
 
 
 @functools.lru_cache(maxsize=32)

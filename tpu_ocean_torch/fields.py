@@ -1,12 +1,14 @@
-"""Spectral and stencil normals and GPU-convention whitecap foam, plain
-torch.
+"""Spectral and stencil normals and whitecap foam in both conventions,
+plain torch.
 
 JAX counterpart: ``tpu_ocean/fields.py`` (``normals_spectral``,
-``normals_stencil``, ``whitecap_gpu``). Spectral normals normalize the
-exact slopes the slope channels carry (FFTMesh.cs:218). The stencil and
-the foam are the literal shader forms: four cross products
-of edge vectors to the ±x/±z neighbours (OceanNormal.shader:39-56) and the
-÷8 central differences of WhiteCap.shader:33-45, periodic via torch.roll.
+``normals_stencil``, ``whitecap_gpu``, ``whitecap_oracle``). Spectral
+normals normalize the exact slopes the slope channels carry
+(FFTMesh.cs:218). The stencil and the GPU foam are the literal shader
+forms: four cross products of edge vectors to the ±x/±z neighbours
+(OceanNormal.shader:39-56) and the ÷8 central differences of
+WhiteCap.shader:33-45, periodic via torch.roll; the oracle's foam takes
+one-sided differences that stop at the last row (FFTMesh.cs:253-276).
 The fields kernel (``ops/fields_stencil.py``) computes the same fields
 from six difference planes; these twins are its independent reference.
 Axis 0 = x, axis 1 = z.
@@ -65,6 +67,28 @@ def whitecap_gpu(disp_x, disp_z, normal):
     ddx_z = central(disp_z, 0)
     ddy_x = central(disp_x, 1)
     ddy_z = central(disp_z, 1)
+    jacobian = (1.0 + ddx_x) * (1.0 + ddy_z) - ddx_z * ddy_x
+    noise = 0.3 * torch.sqrt(normal[..., 0] ** 2 + normal[..., 2] ** 2)
+    turb = torch.clamp(1.0 - jacobian + noise, min=0.0)
+    return _smoothstep01(turb), jacobian
+
+
+def whitecap_oracle(disp_x, disp_z, normal):
+    """Jacobian foam, oracle convention (FFTMesh.cs:253-276), on the raw
+    (unscaled) displacements: one-sided differences dD/dx = 0.5·(D[i] −
+    D[i+1]), zero on the last row and column (the reference's
+    ``if (i != resolution-1)``). Returns (foam, jacobian)."""
+    def one_sided(d, axis):
+        g = 0.5 * (d - torch.roll(d, -1, axis))
+        last = [slice(None)] * d.dim()
+        last[axis] = slice(-1, None)
+        g[tuple(last)] = 0.0
+        return g
+
+    ddx_x = one_sided(disp_x, 0)
+    ddx_z = one_sided(disp_z, 0)
+    ddy_x = one_sided(disp_x, 1)
+    ddy_z = one_sided(disp_z, 1)
     jacobian = (1.0 + ddx_x) * (1.0 + ddy_z) - ddx_z * ddy_x
     noise = 0.3 * torch.sqrt(normal[..., 0] ** 2 + normal[..., 2] ** 2)
     turb = torch.clamp(1.0 - jacobian + noise, min=0.0)

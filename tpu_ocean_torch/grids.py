@@ -51,3 +51,24 @@ def coordinate_grid(n: int, unit_width: float):
     x = c[:, None] * np.ones((1, n))
     z = np.ones((n, 1)) * c[None, :]
     return x, z
+
+
+def centered_ifft_factors(n: int, length: float, unit_width: float):
+    """Pre/post modulation vectors turning a standard unnormalized IFFT into
+    the oracle's centered direct sum h(x_i) = Σ_n H_n · e^{i k_n x_i}, with
+    k_n = 2π(n − N/2)/L and x_i = (i − N/2 + η)·w, w = L/N:
+
+        pre(n)  = e^{−2πi n (N/2 − η)/N}
+        post(i) = (−1)^i · e^{iπ(N/2 − η)}
+
+    so that h = post ⊗ post · IFFT2_unnorm(pre ⊗ pre · H). η = ½ for both
+    parities: even N adds the half cell explicitly (coordinate_1d), odd N
+    gets it from the floor (⌊N/2⌋ = N/2 − ½). Exact only when length ==
+    n · unit_width; callers enforce that. Returns (pre[n], post[n])
+    complex128."""
+    eta = 0.5
+    shift = n / 2.0 - eta
+    idx = np.arange(n, dtype=np.float64)
+    pre = np.exp(-2j * np.pi * idx * shift / n)
+    post = np.exp(-1j * np.pi * idx) * np.exp(1j * np.pi * shift)
+    return pre, post

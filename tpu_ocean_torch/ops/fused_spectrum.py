@@ -283,6 +283,20 @@ def ifft2_fused_planes(h0_planes, phase, length: float, dz_sign: float, *,
     return planes.fft1d_transposed(re, im, True, precision)
 
 
+def ifft2_fused(h0_planes, phase, length: float, dz_sign: float, *,
+                epsilon: float = 1e-4, ch_count: int = NUM_CHANNELS,
+                packed: bool = False, nch_live: int = 3,
+                precision: str = "float32") -> torch.Tensor:
+    """ifft2_fused_planes joined into complex64 [ch_count, N, N]: the
+    complex state's fused transform (fused_spectrum_fft.ifft2_fused, whose
+    defaults it takes: the per-channel set, all five channels)."""
+    re, im = ifft2_fused_planes(h0_planes, phase, length, dz_sign,
+                                epsilon=epsilon, ch_count=ch_count,
+                                packed=packed, nch_live=nch_live,
+                                precision=precision)
+    return torch.complex(re, im)
+
+
 def ifft2_fused_planes_half(h0_planes, phase, length: float, dz_sign: float,
                             pack_nyq, *, epsilon: float,
                             ch_count: int | None = None, nch_live: int = 3,

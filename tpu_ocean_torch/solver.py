@@ -1,15 +1,30 @@
-"""The ocean solver: init(), step(), fields_at() and velocity() over an
-all-f32 plane state.
+"""The ocean solver: init(), step(), fields_at() and velocity() over the
+complex state or the all-f32 plane state.
 
-JAX counterpart: ``tpu_ocean/solver.py`` (``OceanSolver`` with
-``real_state=True`` in the fft layout: ``_step_impl_real`` →
-``_fields_from_phase_real`` → ``_extract_fields_planes``, ``fields_at``,
-``_velocity_real_impl``). Every switch of that step is here:
-``fft_backend`` "pallas" or "pallas_fused"; the channel sets per-channel
-(``pack_channels=False``), packed, or packed + half (``half_spectrum``);
-stencil or spectral normals (``cfg.normals_mode``, 3 or 5 live fields);
-the fields kernel on or off (``pallas_fields``); phase or absolute time
-(``cfg.evolution_mode``). One step:
+JAX counterpart: ``tpu_ocean/solver.py`` ``OceanSolver`` in
+``eval_mode="fft"``, with its defaults (``fft_backend="reference"``, the
+complex state, no packing, no half spectrum, the fields in torch), so
+``OceanSolver(OceanConfig())`` means what it means in JAX.
+
+The complex state (``real_state=False``; ``_step_impl`` →
+``_evolved_transform`` → ``_transform`` → ``_extract_fields``): the h0
+pair as complex64, the spectra assembled in torch (evolve.assemble_spectra
+or, packed, assemble_spectra_packed), then the backend's 2-D transform
+(fft.get_ifft2: ``reference`` torch.fft, ``stockham``, ``matmul``, or
+``pallas``, the row-DFT kernels on planes, fft.planes.ifft2_pallas), with
+the centered layout's pre/post modulation around it (fft/reference.py
+centered_modulation); ``pallas_fused`` runs the fused kernels on the h0
+pair's planes (ops.fused_spectrum.ifft2_fused). In the centered layout the
+foam takes the oracle's convention (fields.whitecap_oracle) and the rest
+positions the reference mesh's (grids.coordinate_1d).
+
+The real state (``real_state=True``, the fft layout, ``pallas`` or
+``pallas_fused``; ``_step_impl_real`` → ``_fields_from_phase_real`` →
+``_extract_fields_planes``, ``_velocity_real_impl``): the channel sets
+per-channel (``pack_channels=False``), packed, or packed + half
+(``half_spectrum``); stencil or spectral normals (``cfg.normals_mode``, 3
+or 5 live fields); the fields kernel on or off (``pallas_fields``). One
+step, either state:
 
   1. phase mode: φ ← (φ + ω·dt·mult) mod 2π; absolute mode: t ← t +
      dt/t_division and φ = ω·t (the state keeps its phase);
@@ -22,8 +37,9 @@ the fields kernel on or off (``pallas_fields``); phase or absolute time
      half_spectrum, only the Nyquist row of the half channel assembled in
      torch;
   3. the fields: the fields kernel on chop·disp, or in plain torch
-     (fields.normals_stencil or normals_spectral, then whitecap_gpu), as
-     the JAX package computes them outside Pallas; pos = x0 − chop·disp.
+     (fields.normals_stencil or normals_spectral, then whitecap_gpu, or in
+     the centered layout whitecap_oracle), as the JAX package computes
+     them outside Pallas; pos = x0 − chop·disp.
 
 Kernel launches per step on a CUDA device (C = channels transformed: with
 stencil normals 3 per-channel, 2 packed; with spectral normals 5 and 3),
@@ -58,15 +74,20 @@ with both at 512, the 1024-long passes (``pallas``: row DFT 4;
 ``pallas_fused``: fused 2, row DFT 2) run bf16x3 three-factor and the
 half channel's 512-long column pass stays on the f32 Stockham kernel.
 
-The C2R fold, the interleave, the positions, the phase and (``pallas``)
-the assembly are plain torch elementwise work. The complex state
-(``real_state=False``), the other backends, the centered layout,
+The complex state's ``pallas`` transform has the same counts with C =
+every live channel (5 with spectral normals); ``pallas_fused`` those of
+"otherwise" above. ``reference``, ``stockham`` and ``matmul`` launch no
+hand kernel: the JAX package computes them outside Pallas.
+
+The C2R fold, the interleave, the positions, the phase, the modulation
+and (``pallas``) the assembly are plain torch elementwise work.
 ``eval_mode="direct"``, ``reconfigure`` and ``gpu_hash_seeds`` raise
 NotImplementedError naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -80,25 +101,44 @@ from tpu_ocean_torch.evolve import (
     packed_coefficients,
     evolve_phase_absolute,
     evolve_phase_accumulate,
+    assemble_spectra,
+    assemble_spectra_packed,
     assemble_spectra_real,
     assemble_spectra_packed_real,
+    hermitize_pair,
     hermitize_planes,
 )
+from tpu_ocean_torch.fft import BACKENDS, get_ifft2
 from tpu_ocean_torch.fft.planes import (
     check_size,
     ifft2_planes_auto,
     ifft2_planes_half,
 )
+from tpu_ocean_torch.fft.reference import centered_modulation, ifft2_unnorm
+from tpu_ocean_torch.grids import coordinate_1d
 from tpu_ocean_torch.ops.fields_stencil import fields_stencil
 from tpu_ocean_torch.ops.fused_spectrum import (
-    ifft2_fused_planes, ifft2_fused_planes_half)
-from tpu_ocean_torch.spectra import h0_pair_fft_planes
+    ifft2_fused, ifft2_fused_planes, ifft2_fused_planes_half)
+from tpu_ocean_torch.spectra import (
+    h0_pair_centered, h0_pair_fft, h0_pair_fft_planes)
+
+
+class OceanState(NamedTuple):
+    """The complex state (``real_state=False``): the h0 pair as complex64
+    [N, N], the accumulated phase [N, N], the clock and step count (0-d)
+    and the persistent foam [N, N] (zeros when cfg.foam_decay == 0)."""
+    h0: torch.Tensor
+    h0_conj: torch.Tensor
+    phase: torch.Tensor
+    t: torch.Tensor
+    step: torch.Tensor
+    foam_accum: torch.Tensor
 
 
 class OceanStateReal(NamedTuple):
-    """All-f32 solver state: h0 carried as (re, im) planes [N, N], the
-    accumulated phase [N, N], the clock and step count (0-d) and the
-    persistent foam [N, N] (zeros when cfg.foam_decay == 0)."""
+    """All-f32 solver state (``real_state=True``): h0 carried as (re, im)
+    planes [N, N], the accumulated phase [N, N], the clock and step count
+    (0-d) and the persistent foam [N, N] (zeros when cfg.foam_decay == 0)."""
     h0_re: torch.Tensor
     h0_im: torch.Tensor
     h0c_re: torch.Tensor
@@ -126,54 +166,99 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
                                f"yet (ROADMAP.md Queue 1 item {item})")
 
 
-#: the JAX package's complex-state backends (tpu_ocean/fft/__init__.py)
-_COMPLEX_BACKENDS = ("reference", "stockham", "matmul")
+#: the plane-based backends, the only ones of the real state
+_PLANE_BACKENDS = ("pallas", "pallas_fused")
+#: the JAX package's fused transposed-store cap (pallas_fft.MAX_FUSED_N)
+_JAX_MAX_FUSED_N = 2048
+
+
+def _jax_pallas_supported(n: int, fused: bool) -> bool:
+    """The JAX package's size rule for a pallas-flavored pipeline
+    (pallas_fft.pallas_supported: even N ≥ 16, 8-divisible beyond the
+    fused cap); the N it refuses go to ``matmul`` on the complex state."""
+    if n < 16 or n % 2:
+        return False
+    return not (fused and n > _JAX_MAX_FUSED_N and n % 8)
 
 
 class OceanSolver:
     """Owns the f32 tables for one OceanConfig on one device and runs the
-    real-state step through the row-DFT (or fused assembly + row-DFT) and
-    fields kernels. ``device`` defaults to the CUDA card; pass
-    ``device="cpu"`` for the plain versions (there is no fallback: without
-    a card the default raises, as torch does). The switches default to
-    OCEAN_DEMO's packed + half step with the fields kernel; they take
-    every value the JAX ``OceanSolver(real_state=True)`` takes in the fft
-    layout and raise ValueError where it raises ValueError."""
+    step. ``device`` defaults to the CUDA card; pass ``device="cpu"`` for
+    the plain versions (there is no fallback: without a card the default
+    raises, as torch does). The switches take the JAX ``OceanSolver``'s
+    defaults: ``fft_backend="reference"``, the complex state, no packing,
+    no half spectrum, the fields in torch. They take every value the JAX
+    solver takes in ``eval_mode="fft"`` and raise ValueError where it
+    raises ValueError. On the card ``pallas``/``pallas_fused`` take
+    power-of-two N in [16, 8192]; the N below 16 or odd, which the JAX
+    package sends to ``matmul`` on the complex state, go there with its
+    warning."""
 
     def __init__(self, cfg: OceanConfig, *, device="cuda",
-                 fft_backend: str = "pallas",
-                 eval_mode: str = "fft", real_state: bool = True,
-                 pack_channels: bool = True, half_spectrum: bool = True,
-                 pallas_fields: bool = True):
+                 fft_backend: str = "reference", eval_mode: str = "fft",
+                 pallas_fields: bool = False, real_state: bool = False,
+                 pack_channels: Optional[bool] = None,
+                 half_spectrum: bool = False):
+        # the JAX package's rules (tpu_ocean/solver.py:119-160, 214-250,
+        # 296-301) in its order
         if eval_mode not in ("fft", "direct"):
             raise ValueError(f"bad eval_mode {eval_mode!r}")
-        if eval_mode == "direct":
-            raise _not_ported("eval_mode='direct'", "7b")
-        if not real_state:
-            raise _not_ported("real_state=False (the complex state)", "7a")
-        if fft_backend in _COMPLEX_BACKENDS:
-            raise _not_ported(f"fft_backend={fft_backend!r}", "7a")
-        if fft_backend not in ("pallas", "pallas_fused"):
-            raise ValueError(f"unknown fft backend {fft_backend!r}")
-        if cfg.spectrum_layout != "fft":
-            raise _not_ported(f"spectrum_layout={cfg.spectrum_layout!r}",
-                              "7a")
+        if real_state:
+            if fft_backend not in _PLANE_BACKENDS:
+                raise ValueError("real_state supports the plane-based "
+                                 "backends 'pallas'/'pallas_fused' only")
+            if cfg.spectrum_layout != "fft" or eval_mode != "fft":
+                raise ValueError("real_state requires spectrum_layout='fft' "
+                                 "and eval_mode='fft'")
         n = cfg.resolution
-        # the JAX package's rules (tpu_ocean/solver.py:128-137, 219-253)
-        if pallas_fields and (cfg.normals_mode != "stencil" or n % 8 != 0):
+        if pallas_fields and (cfg.normals_mode != "stencil"
+                              or cfg.spectrum_layout != "fft"
+                              or n % 8 != 0):
             raise ValueError("pallas_fields requires normals_mode='stencil', "
                              "spectrum_layout='fft', and a resolution "
                              "divisible by 8")
+        if eval_mode == "direct":
+            if cfg.spectrum_layout != "centered":
+                raise ValueError("direct evaluation implements the centered "
+                                 "(oracle) layout only")
+            raise _not_ported("eval_mode='direct'", "7b")
+        if (fft_backend in _PLANE_BACKENDS
+                and not _jax_pallas_supported(n, fft_backend == "pallas_fused")):
+            if real_state:
+                raise ValueError(
+                    f"N={n} is outside the pallas planes pipeline (needs "
+                    f"even N ≥ 16, 8-divisible beyond "
+                    f"{'the fused cap' if fft_backend == 'pallas_fused' else 'the cap'}) "
+                    f"and real_state cannot fall back to 'matmul'")
+            warnings.warn(f"{fft_backend} unsupported at N={n}; "
+                          f"falling back to 'matmul'")
+            fft_backend = "matmul"
+        if fft_backend not in BACKENDS + ("pallas_fused",):
+            raise ValueError(f"unknown fft backend {fft_backend!r}; choose "
+                             f"from {BACKENDS + ('pallas_fused',)}")
+        if pack_channels and cfg.spectrum_layout != "fft":
+            raise ValueError("pack_channels requires spectrum_layout='fft' "
+                             "and eval_mode='fft' (the centered/direct "
+                             "channels do not Re/Im-separate — see "
+                             "evolve.packed_coefficients)")
         if half_spectrum:
             if not pack_channels:
                 raise ValueError("half_spectrum rides the last PACKED "
                                  "channel's Hermitian structure — it "
                                  "requires pack_channels=True")
+            if not real_state or fft_backend not in _PLANE_BACKENDS:
+                raise ValueError("half_spectrum supports the plane-based "
+                                 "real_state 'pallas'/'pallas_fused' "
+                                 "pipelines only")
             if n % 16 != 0 or n < 64:
                 raise ValueError("half_spectrum needs resolution % 16 == 0 "
                                  "and >= 64")
+        if fft_backend == "pallas_fused" and cfg.spectrum_layout != "fft":
+            raise ValueError("pallas_fused requires spectrum_layout='fft'")
+        modulation = (centered_modulation(n, cfg.length, cfg.unit_width)
+                      if cfg.spectrum_layout == "centered" else None)
         self.device = torch.device(device)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and fft_backend in _PLANE_BACKENDS:
             # rows and full columns; with half_spectrum the half channel's
             # columns. The fused kernels take the row kernel's shared
             # memory, so the same N fit both (N = 8192: 192 KB a block at
@@ -183,10 +268,12 @@ class OceanSolver:
                 check_size(n // 2)
         self.cfg = cfg
         self.fft_backend = fft_backend
+        self.real_state = bool(real_state)
         self.pack_channels = bool(pack_channels)
         self.half_spectrum = bool(half_spectrum)
         self.pallas_fields = bool(pallas_fields)
-        # every transform's precision (tpu_ocean/solver.py _mxu_precision)
+        # every transform's precision (tpu_ocean/solver.py _mxu_precision);
+        # reference and stockham are always full precision
         self.precision = cfg.precision
         self.dz_sign = -1.0 if cfg.oracle_sign_quirk else 1.0
         # live fields (stencil normals never read the slope channels) and
@@ -202,38 +289,55 @@ class OceanSolver:
         # the fused route assembles in its kernels and keeps only the
         # packed table's Nyquist row (pack_nyq, tpu_ocean/solver.py:263)
         self.omega = table(omega_grid(cfg))
+        fused = fft_backend == "pallas_fused"
         if not self.pack_channels:
-            if fft_backend == "pallas":
+            if not fused:
                 self.coeffs = table(spectrum_coefficients(cfg).real[:self._nch])
         else:
             pack = packed_coefficients(cfg, self._nch)
-            if fft_backend == "pallas_fused":
+            if fused:
                 self.pack_nyq = table(pack[:, n // 2:n // 2 + 1, :])
             else:
                 self.pack = table(pack)
-        x1d = np.arange(n, dtype=np.float64) * (cfg.length / n)
+        if cfg.spectrum_layout == "centered":
+            x1d = coordinate_1d(n, cfg.unit_width)
+        else:
+            x1d = np.arange(n, dtype=np.float64) * (cfg.length / n)
         x0, z0 = np.meshgrid(x1d, x1d, indexing="ij")
         self.x0 = table(x0)
         self.z0 = table(z0)
+        # the complex state's transform, with the centered layout's pre/post
+        # modulation as complex64 from f32 parts (tpu_ocean/solver.py:327)
+        self._ifft2 = (None if fused or self.real_state else
+                       get_ifft2(fft_backend, n, self.precision))
+        self.pre = self.post = None
+        if modulation is not None:
+            pre, post = modulation
+            self.pre = torch.complex(table(pre.real), table(pre.imag))
+            self.post = torch.complex(table(post.real), table(post.imag))
 
     # ------------------------------------------------------------------ init
 
-    def symmetrize(self, state: OceanStateReal) -> OceanStateReal:
+    def symmetrize(self, state):
         """Packed solvers: project the h0 pair onto its Hermitian part
         (bitwise idempotent), which the packed extraction and the C2R
         route rely on. Per-channel solvers return the state unchanged."""
         if not self.pack_channels:
             return state
-        ar, ai, acr, aci = hermitize_planes(
-            state.h0_re, state.h0_im, state.h0c_re, state.h0c_im)
-        return state._replace(h0_re=ar, h0_im=ai, h0c_re=acr, h0c_im=aci)
+        if self.real_state:
+            ar, ai, acr, aci = hermitize_planes(
+                state.h0_re, state.h0_im, state.h0c_re, state.h0c_im)
+            return state._replace(h0_re=ar, h0_im=ai, h0c_re=acr, h0c_im=aci)
+        a, ac = hermitize_pair(state.h0, state.h0_conj)
+        return state._replace(h0=a, h0_conj=ac)
 
     def init(self, generator: Optional[torch.Generator] = None,
-             h0=None, h0_conj=None, gpu_hash_seeds=None) -> OceanStateReal:
-        """Initial state: sample h0 from ``generator`` (a CPU generator;
-        default seeded with cfg.seed), or inject a complex (h0, h0_conj)
+             h0=None, h0_conj=None, gpu_hash_seeds=None):
+        """Initial state (OceanState, or OceanStateReal with real_state):
+        sample h0 from ``generator`` (a CPU generator; default seeded with
+        cfg.seed) in the config's layout, or inject a complex (h0, h0_conj)
         pair (numpy or anything np.asarray takes). Phase and clock start
-        at 0."""
+        at 0. One generator state gives both states the same h0."""
         if gpu_hash_seeds is not None:
             raise _not_ported("gpu_hash_seeds (the shader-hash h0)", "7c")
         cfg = self.cfg
@@ -241,23 +345,29 @@ class OceanSolver:
         if h0 is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(cfg.seed)
-            planes = h0_pair_fft_planes(
-                generator, n, cfg.length, cfg.phillips_amplitude, cfg.wind,
-                cfg.damping, model=cfg.spectrum_model,
-                jonswap_kw=cfg.jonswap_kw)
-        else:
+            draw = (h0_pair_fft_planes if self.real_state else
+                    h0_pair_centered if cfg.spectrum_layout == "centered"
+                    else h0_pair_fft)
+            pair = draw(generator, n, cfg.length, cfg.phillips_amplitude,
+                        cfg.wind, cfg.damping, model=cfg.spectrum_model,
+                        jonswap_kw=cfg.jonswap_kw)
+        elif self.real_state:
             h0_np, h0c_np = np.asarray(h0), np.asarray(h0_conj)
-            planes = [torch.from_numpy(np.asarray(a, dtype=np.float32))
-                      for a in (np.real(h0_np), np.imag(h0_np),
-                                np.real(h0c_np), np.imag(h0c_np))]
-        r1, i1, r2, i2 = (p.to(self.device) for p in planes)
+            pair = [torch.from_numpy(np.asarray(a, dtype=np.float32))
+                    for a in (np.real(h0_np), np.imag(h0_np),
+                              np.real(h0c_np), np.imag(h0c_np))]
+        else:
+            pair = [torch.from_numpy(np.asarray(a, dtype=np.complex64))
+                    for a in (h0, h0_conj)]
+        pair = [p.to(self.device) for p in pair]
         zeros = torch.zeros((n, n), dtype=torch.float32, device=self.device)
-        return self.symmetrize(OceanStateReal(
-            h0_re=r1, h0_im=i1, h0c_re=r2, h0c_im=i2,
-            phase=zeros,
-            t=torch.zeros((), dtype=torch.float32, device=self.device),
-            step=torch.zeros((), dtype=torch.int32, device=self.device),
-            foam_accum=zeros.clone()))
+        rest = dict(phase=zeros,
+                    t=torch.zeros((), dtype=torch.float32, device=self.device),
+                    step=torch.zeros((), dtype=torch.int32, device=self.device),
+                    foam_accum=zeros.clone())
+        if self.real_state:
+            return self.symmetrize(OceanStateReal(*pair, **rest))
+        return self.symmetrize(OceanState(*pair, **rest))
 
     def reconfigure(self, state, new_cfg, key=None):
         """Live parameter change (JAX: OceanSolver.reconfigure)."""
@@ -265,7 +375,7 @@ class OceanSolver:
 
     # ------------------------------------------------------------------ step
 
-    def step(self, state: OceanStateReal, dt: float = 1.0 / 60.0):
+    def step(self, state, dt: float = 1.0 / 60.0):
         """Advance one step; returns (new_state, OceanFields)."""
         cfg = self.cfg
         dt32 = np.float32(dt)
@@ -295,7 +405,7 @@ class OceanSolver:
                                    step=state.step + 1, foam_accum=foam_accum)
         return new_state, out
 
-    def fields_at(self, state: OceanStateReal, t: float) -> OceanFields:
+    def fields_at(self, state, t: float) -> OceanFields:
         """The fields at absolute time ``t`` without advancing the state
         (absolute mode only; JAX: OceanSolver.fields_at)."""
         if self.cfg.evolution_mode != "absolute":
@@ -306,19 +416,23 @@ class OceanSolver:
         return self._fields_from_phase(
             state, evolve_phase_absolute(self.omega, float(np.float32(t))))
 
-    def velocity(self, state: OceanStateReal,
-                 t: Optional[float] = None) -> torch.Tensor:
+    def velocity(self, state, t: Optional[float] = None) -> torch.Tensor:
         """Vertical surface velocity ∂h/∂t [N, N], exact from the
-        dispersion relation (JAX: _velocity_real_impl):
+        dispersion relation:
 
             ∂ₜ h̃ = iρω·(h0·e^{iφ} − h0*·e^{−iφ}),   v = Re F(∂ₜ h̃)
 
         with ρ = dt_multiplier in phase mode (φ advances by ω·dt·ρ) and 1
         in absolute mode. Absolute mode evaluates at ``t`` (default: the
-        state's clock); phase mode at the state's phase (pass no t). With
-        half_spectrum the spectrum is Hermitian under the packed state's
-        projection, so it takes the half-spectrum route, else the full
-        transform (both on the row-DFT kernel)."""
+        state's clock); phase mode at the state's phase (pass no t).
+
+        The real state (JAX: _velocity_real_impl) expands the algebra into
+        f32 planes; with half_spectrum the spectrum is Hermitian under the
+        packed state's projection, so it takes the half-spectrum route,
+        else the full transform (both on the row-DFT kernel). The complex
+        state takes the solver's transform with its modulation, or on
+        ``pallas_fused``, which has no standalone transform, torch.fft, as
+        the JAX package takes jnp.fft there."""
         cfg = self.cfg
         if cfg.evolution_mode == "absolute":
             tt = state.t if t is None else float(np.float32(t))
@@ -331,6 +445,13 @@ class OceanSolver:
             phase = state.phase
         rate = np.float32(cfg.dt_multiplier
                           if cfg.evolution_mode == "phase" else 1.0)
+        if not self.real_state:
+            pv = torch.complex(torch.cos(phase), torch.sin(phase))
+            vspec = ((1j * float(rate)) * self.omega
+                     * (state.h0 * pv - state.h0_conj * pv.conj()))
+            if self._ifft2 is None:
+                return ifft2_unnorm(vspec).real.contiguous()
+            return self._transform(vspec[None])[0].real.contiguous()
         cph, sph = torch.cos(phase), torch.sin(phase)
         a, b = state.h0_re, state.h0_im
         cc, d = state.h0c_re, state.h0c_im
@@ -347,9 +468,21 @@ class OceanSolver:
 
     # ------------------------------------------------------------- internals
 
-    def _fields_from_phase(self, state: OceanStateReal, phase) -> OceanFields:
-        """Assembly, transforms and field extraction at ``phase``
-        (_fields_from_phase_real)."""
+    def _fields_from_phase(self, state, phase) -> OceanFields:
+        """Assembly, transforms and field extraction at ``phase``: the
+        complex state's _evolved_transform and _extract_fields, or the real
+        state's _fields_from_phase_real."""
+        if not self.real_state:
+            f = self._evolved_transform(state, phase)
+            # packed: the fields alternate Re/Im down the packed channel
+            # list (evolve.packed_coefficients); else Re of the height
+            # channel and Im of the others
+            if self.pack_channels:
+                parts = [f[c // 2].imag if c % 2 else f[c // 2].real
+                         for c in range(self._nch)]
+            else:
+                parts = [f[0].real] + [f[c].imag for c in range(1, self._nch)]
+            return self._extract_fields(*(p.contiguous() for p in parts))
         pair = (state.h0_re, state.h0_im, state.h0c_re, state.h0c_im)
         spectral = self._nch == 5
         if self.half_spectrum:
@@ -381,8 +514,6 @@ class OceanSolver:
                 re, im = assemble_spectra_real(pair, phase, self.coeffs)
             re, im = ifft2_planes_auto(re, im, True, self.precision)
         if self.pack_channels:
-            # the fields alternate Re/Im down the packed channel list
-            # (evolve.packed_coefficients)
             if spectral:
                 return self._extract_fields(re[0], im[0], re[1], im[1], re[2])
             return self._extract_fields(re[0], im[0], re[1])
@@ -390,11 +521,43 @@ class OceanSolver:
             return self._extract_fields(re[0], im[1], im[2], im[3], im[4])
         return self._extract_fields(re[0], im[1], im[2])
 
+    def _evolved_transform(self, state: OceanState, phase) -> torch.Tensor:
+        """phase [N, N] → complex64 [C, N, N] spatial fields: the assembly
+        and the transform, or on ``pallas_fused`` the fused pipeline on the
+        h0 pair's planes."""
+        if self.fft_backend == "pallas_fused":
+            pair = tuple(p.contiguous() for p in (
+                state.h0.real, state.h0.imag,
+                state.h0_conj.real, state.h0_conj.imag))
+            return ifft2_fused(pair, phase, self.cfg.length, self.dz_sign,
+                               epsilon=EPSILON, ch_count=self._pch,
+                               packed=self.pack_channels, nch_live=self._nch,
+                               precision=self.precision)
+        if self.pack_channels:
+            spectra = assemble_spectra_packed(state.h0, state.h0_conj, phase,
+                                              self.pack)
+        else:
+            spectra = assemble_spectra(state.h0, state.h0_conj, phase,
+                                       self.coeffs)
+        return self._transform(spectra)
+
+    def _transform(self, spectra: torch.Tensor) -> torch.Tensor:
+        """Complex [C, N, N] spectra → [C, N, N] spatial fields, with the
+        centered layout's pre/post modulation around the transform."""
+        if self.pre is not None:
+            spectra = spectra * self.pre[None]
+        f = self._ifft2(spectra)
+        if self.post is not None:
+            f = f * self.post[None]
+        return f
+
     def _extract_fields(self, height, disp_x, disp_z, slope_x=None,
                         slope_z=None) -> OceanFields:
         """The output fields from the transformed planes
         (_extract_fields_planes): the fields kernel, or the normals
-        (stencil or spectral) and the foam in plain torch."""
+        (stencil or spectral) and the foam in plain torch, in the oracle's
+        convention on the centered layout (raw displacements) and the GPU
+        shaders' on the fft layout."""
         cfg = self.cfg
         chop_dx = cfg.choppiness * disp_x
         chop_dz = cfg.choppiness * disp_z
@@ -407,7 +570,10 @@ class OceanSolver:
             else:
                 normal = field_ops.normals_stencil(
                     chop_dx, height, chop_dz, cfg.length / cfg.resolution)
-            foam, jac = field_ops.whitecap_gpu(chop_dx, chop_dz, normal)
+            if cfg.spectrum_layout == "centered":
+                foam, jac = field_ops.whitecap_oracle(disp_x, disp_z, normal)
+            else:
+                foam, jac = field_ops.whitecap_gpu(chop_dx, chop_dz, normal)
         return OceanFields(height=height, disp_x=disp_x, disp_z=disp_z,
                            pos_x=self.x0 - chop_dx, pos_z=self.z0 - chop_dz,
                            normal=normal, foam=foam, jacobian=jac)

@@ -127,18 +127,54 @@ def _sample_planes(generator: torch.Generator, spec: np.ndarray):
     return noise[..., 0] * scale, noise[..., 1] * scale
 
 
-def h0_pair_fft_planes(generator: torch.Generator, n: int, length: float,
-                       amplitude: float, wind, damping: float,
-                       model: str = "phillips", jonswap_kw: dict = None):
-    """(h0_re, h0_im, h0c_re, h0c_im) f32 CPU planes in the fft layout:
-    h0 drawn at P(k), its partner drawn independently at P(−k) and
-    conjugated (FFTMesh.cs:114-116)."""
-    kx, kz, _ = wavevector_grid(n, length, "fft")
+def sample_h0(generator: torch.Generator, spec: np.ndarray) -> torch.Tensor:
+    """h̃₀(k) = (ξ₁ + iξ₂)·sqrt(P(k)/2), complex64 on the CPU: the draw of
+    _sample_planes joined."""
+    return torch.complex(*_sample_planes(generator, spec))
+
+
+def _pair_planes(generator, layout, n, length, amplitude, wind, damping,
+                 model, jonswap_kw):
+    """(h0_re, h0_im, h0c_re, h0c_im) in ``layout``: h0 drawn at P(k), its
+    partner drawn independently at P(−k) and conjugated
+    (FFTMesh.cs:114-116; in the centered layout k at index (N−n, N−m) is
+    −k_n exactly)."""
+    kx, kz, _ = wavevector_grid(n, length, layout)
     p_pos, p_neg = _spectrum_pair(kx, kz, amplitude, wind, damping, length,
                                   model, jonswap_kw)
     r1, i1 = _sample_planes(generator, p_pos)
     r2, i2 = _sample_planes(generator, p_neg)
     return r1, i1, r2, -i2
+
+
+def h0_pair_fft_planes(generator: torch.Generator, n: int, length: float,
+                       amplitude: float, wind, damping: float,
+                       model: str = "phillips", jonswap_kw: dict = None):
+    """(h0_re, h0_im, h0c_re, h0c_im) f32 CPU planes in the fft layout."""
+    return _pair_planes(generator, "fft", n, length, amplitude, wind,
+                        damping, model, jonswap_kw)
+
+
+def h0_pair_fft(generator: torch.Generator, n: int, length: float,
+                amplitude: float, wind, damping: float,
+                model: str = "phillips", jonswap_kw: dict = None):
+    """(h0, h0_conj) complex64 CPU tensors in the fft layout: the draw of
+    h0_pair_fft_planes joined, so one generator state gives both states
+    the same h0."""
+    r1, i1, r2, i2 = h0_pair_fft_planes(generator, n, length, amplitude,
+                                        wind, damping, model, jonswap_kw)
+    return torch.complex(r1, i1), torch.complex(r2, i2)
+
+
+def h0_pair_centered(generator: torch.Generator, n: int, length: float,
+                     amplitude: float, wind, damping: float,
+                     model: str = "phillips", jonswap_kw: dict = None):
+    """(h0, h0_conj) complex64 CPU tensors in the oracle's centered layout
+    (FFTMesh.cs:114-116): h0 at P(k_{n,m}), the partner drawn
+    independently at P(k_{N−n,N−m}) = P(−k) and conjugated."""
+    r1, i1, r2, i2 = _pair_planes(generator, "centered", n, length,
+                                  amplitude, wind, damping, model, jonswap_kw)
+    return torch.complex(r1, i1), torch.complex(r2, i2)
 
 
 def dispersion_capillary(k_mag, g: float = G, k_m: float = 370.0):
