@@ -49,7 +49,7 @@ Phases, each printing its own lines:
                likewise against the bf16 natural row kernel: bit-equal on
                a channel with no 1/|k| term, else within 2e-3·max, RMS
                error at most 1.1 × the row kernel's;
-  4. slice   — twenty-four paths on the card, each from a seeded init,
+  4. slice   — twenty-eight paths on the card, each from a seeded init,
                with every launch count set to 0 just before and read just
                after it; (i)-(xv) run the real state with OCEAN_DEMO's
                slice switches (packed + half with the fields kernel) unless
@@ -109,6 +109,34 @@ Phases, each printing its own lines:
                        20 steps: #5 per-channel (C = 3), then #1
                  (xxi) (xvii) at "bfloat16", 20 steps: the bf16 row kernel
                        (#1 at DEFAULT) on all 5 channels
+                 (xxii) Simulation(OCEAN_DEMO, path (i)'s switches) at
+                       1024², checkpoints and export every 20 steps, 60
+                       steps: path (i)'s launches, 60 JSONL lines, the
+                       exported height and foam of steps 20, 40, 60
+                       bit-equal to those steps' fields; a second
+                       Simulation resumes the directory at step 60 and runs
+                       20 more, bit-equal (state and fields) to 80
+                       uninterrupted steps from the same generator; then a
+                       live reconfigure of the wind: phase, clock, step and
+                       foam bit-equal, the tables the same tensors, 20 more
+                       steps at the same launches; one save_checkpoint
+                       timed
+                 (xxiii) Simulation(OceanConfig()): matmul, the complex
+                       state, 256², 100 steps, against the same run on the
+                       CPU; then reconfigure to 1024² (L = 1024: the
+                       centered FFT needs L = N·unit_width): the step count
+                       restarts, the switches are kept, 20 steps
+                 (xxiv) eval_mode="direct": FFT_MESH_DEMO (N = 12, L =
+                       12.39), 100 steps, against the CPU and against a
+                       float64 direct sum in numpy (direct_fields_f64);
+                       then (xvii)'s config at 1024², 10 steps, against the
+                       reference backend on the card, its ms/step beside
+                       (xvii)'s
+                 (xxv) OceanSolver(OCEAN_DEMO, path (i)'s switches)
+                       .init(gpu_hash_seeds=(0.37, 0.81)) at 1024²: the h0
+                       planes on the card bit-equal to numpy's
+                       h0_pair_gpu_hash (and its Hermitian projection,
+                       packed), 20 steps against the CPU
                  (p1)  PondSimulation(POND_DEMO, use_pallas=True): 512², the
                        packed 4-wave bank, analytic normals, 600 steps
                  (p2)  BASELINE config 3: PondConfig(resolution=512) with
@@ -134,7 +162,10 @@ Phases, each printing its own lines:
                the CPU plain path at the last step's t within atol 2e-5,
                rtol 1e-5; then the plain-torch "wave" mode and both
                velocities at 512², card against CPU, with the same band;
-  5. timing  — per path: ms/step (CUDA events), the host's enqueue time
+  5. timing  — per path ((xxii)-(xxv) at the end of their phase-4 part,
+               (xxii) through Simulation.step, which synchronizes and
+               checkpoints and exports every 20 steps): ms/step (CUDA
+               events), the host's enqueue time
                per step, device busy time per step and per layer
                (torch.profiler) and the idle share, and up to 2048² the
                host's time by function (cProfile); for the pond
@@ -190,11 +221,13 @@ import collections
 import contextlib
 import cProfile
 import dataclasses
+import io
 import json
 import pstats
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -982,6 +1015,48 @@ def check_pond_fields(card, n, tag):
         f"offset_x max |.| {np.abs(card.offset_x).max():.4f}")
 
 
+def direct_fields_f64(cfg, h0, h0_conj, t):
+    """The fields at absolute time ``t`` from the oracle's direct sum
+    (FFTMesh.cs:178-276), in float64 numpy: the port's float64 host tables
+    (ω, the channel coefficients, the centered wavenumbers and the mesh
+    coordinates), h̃ = h0·e^{iωt} + h0*·e^{−iωt}, each channel C_c = c_c·h̃
+    summed as F_c = Eᵀ·C_c·E with E[n, i] = e^{i·k_n·x_i}; the spectral
+    normals and the oracle's foam (one-sided differences, zero on the last
+    row and column) on top. Centered layout, spectral normals."""
+    from tpu_ocean_torch import OceanFields, evolve, grids
+    require(cfg.spectrum_layout == "centered"
+            and cfg.normals_mode == "spectral",
+            "direct_fields_f64 takes the centered layout, spectral normals")
+    n = cfg.resolution
+    phase = evolve.omega_grid(cfg) * t
+    pv = np.exp(1j * phase)
+    h = (np.asarray(h0, np.complex128) * pv
+         + np.asarray(h0_conj, np.complex128) * np.conj(pv))
+    x1d = grids.coordinate_1d(n, cfg.unit_width)
+    e = np.exp(1j * np.outer(grids.wavenumbers_1d(n, cfg.length, "centered"),
+                             x1d))
+    f = [e.T @ (c * h) @ e for c in evolve.spectrum_coefficients(cfg)]
+    height, disp_x, disp_z = f[0].real, f[1].imag, f[2].imag
+    normal = np.stack([-f[3].imag, np.ones((n, n)), -f[4].imag], -1)
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+
+    def one_sided(d, axis):
+        g = 0.5 * (d - np.roll(d, -1, axis))
+        g[(slice(None),) * axis + (-1,)] = 0.0
+        return g
+
+    jac = ((1 + one_sided(disp_x, 0)) * (1 + one_sided(disp_z, 1))
+           - one_sided(disp_z, 0) * one_sided(disp_x, 1))
+    turb = np.clip(1 - jac + 0.3 * np.hypot(normal[..., 0], normal[..., 2]),
+                   0.0, 1.0)
+    x0, z0 = np.meshgrid(x1d, x1d, indexing="ij")
+    chop = cfg.choppiness
+    return OceanFields(height=height, disp_x=disp_x, disp_z=disp_z,
+                       pos_x=x0 - chop * disp_x, pos_z=z0 - chop * disp_z,
+                       normal=normal, foam=turb * turb * (3 - 2 * turb),
+                       jacobian=jac)
+
+
 BASE_NAMES = {"demo": "OCEAN_DEMO", "default": "OceanConfig()",
               "parity": "tests/test_parity.py's centered config"}
 
@@ -1603,6 +1678,35 @@ def main():
         del re, im, refs
     phase_done("3 kernels")
 
+    # timing of a path (phase 5; the runtime paths of phase 4 inline): each
+    # step by CUDA events (its device timeline, gaps included); device time
+    # by torch.profiler; warm L2 throughout
+    def time_path(label, size, one_step, iters, note):
+        step_ms, host_ms = cuda_ms(one_step, iters=iters)
+        busy_ms, per_kernel, how = device_ms(one_step, iters=max(iters // 4, 10))
+        groups = {}
+        for key, ms in per_kernel.items():
+            g = kernel_group(key)
+            groups[g] = groups.get(g, 0.0) + ms
+        log(f"[timing] {kind} ({smi}): {label} {size}x{size} {step_ms:.4f} "
+            f"ms/step, {size * size / step_ms * 1e3:.4e} grid points/s; device "
+            f"busy {busy_ms:.4f} ms/step ({how}), idle share "
+            f"{1 - busy_ms / step_ms:.3f}; host enqueue {host_ms:.4f} ms/step")
+        log(f"[timing] {label} device ms/step by layer: " + ", ".join(
+            f"{g} {ms:.4f}" for g, ms in sorted(groups.items()))
+            + f" ({note})")
+        if size <= 2048:     # host-bound: where the host's time goes
+            log(f"[timing] {label} host µs/step by function (cProfile "
+                f"tottime, top 10): " + "; ".join(
+                    f"{name} {us:.1f}" for name, us in host_profile(one_step)))
+
+    def ocean_step(psolver, state):
+        step_state = [state]
+
+        def one_step():
+            step_state[0], _ = psolver.step(step_state[0], DT)
+        return one_step
+
     # ---- 4. the ocean paths through the solver, then the pond paths
     launches = {k: {} for k in KERNEL_INFO}
 
@@ -1798,36 +1902,250 @@ def main():
     torch.cuda.synchronize()
     require(gb.gerstner_bank.launches == 0, "plain pond functions launched a kernel")
 
+    # ---- the runtime (xxii, xxiii), eval_mode="direct" (xxiv) and the
+    # shader-hash h0 (xxv), each from a fixed seed with its launches counted
+    from tpu_ocean_torch import FFT_MESH_DEMO, Simulation, save_checkpoint
+    from tpu_ocean_torch.evolve import hermitize_planes
+    from tpu_ocean_torch.spectra import h0_pair_gpu_hash
+    main_kw = {"fft_backend": "pallas", **SLICE}
+    main_per_step = PATHS[0].per_step       # (i): rows transposed 5, fields 1
+
+    def counted(what, want, run):
+        """Run ``run()`` with every count set to 0 just before; require
+        exactly ``want`` launches after it and record them."""
+        torch.cuda.synchronize()
+        reset_counts()
+        out = run()
+        counts = read_counts()
+        log(f"[slice {what}] launches {counts} (expected {want})")
+        require_counts(counts, want, f"path {what}")
+        for name, count in counts.items():
+            if count:
+                launches[name][what] = count
+        return out
+
+    def seeded():
+        return torch.Generator().manual_seed(0)
+
+    (HERE / "build").mkdir(exist_ok=True)
+    scratch = tempfile.TemporaryDirectory(dir=HERE / "build")
+    work = Path(scratch.name)
+
+    # (xxii) Simulation on the main path at full width: metrics, checkpoints
+    # and export every 20 steps, resume, live reconfigure
+    tag = "xxii"
+    stream, kept = io.StringIO(), {}
+    sim_kw = dict(out_dir=str(work / "sim"), checkpoint_every=20,
+                  export_every=20, **main_kw)
+
+    def keep(sim):
+        if sim.step_count % 20 == 0:
+            kept[sim.step_count] = (sim.fields.height.cpu().numpy(),
+                                    sim.fields.foam.cpu().numpy())
+
+    sim = Simulation(OCEAN_DEMO, metrics_stream=stream, generator=seeded(),
+                     **sim_kw)
+    counted(tag, {k: 60 * v for k, v in main_per_step.items()},
+            lambda: sim.run(60, callback=keep))
+    records = [json.loads(line) for line in stream.getvalue().splitlines()]
+    require([r["step"] for r in records] == list(range(1, 61)),
+            f"path {tag}: {len(records)} metrics lines, not 60")
+    require(sim._exporter.errors() == 0, f"path {tag}: exporter errors")
+    for k, fields in kept.items():
+        for name, want in zip(("height", "foam"), fields):
+            got = np.load(work / "sim" / "fields" / f"{name}_{k:08d}.npy")
+            require(got.dtype == np.float64
+                    and np.array_equal(got, want.astype(np.float64)),
+                    f"path {tag}: exported {name} at step {k} differs")
+    require(sorted(kept) == [20, 40, 60], f"path {tag}: exported steps")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(work / "one"), sim.state, OCEAN_DEMO)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    summary = sim.metrics.summary()
+    log(f"[slice {tag}] Simulation(OCEAN_DEMO, {main_kw}), 60 steps: 60 "
+        f"JSONL lines, metrics mean {summary['mean_ms']:.4f} ms p50 "
+        f"{summary['p50_ms']:.4f} p95 {summary['p95_ms']:.4f}; height and "
+        f"foam exported at steps 20, 40, 60 bit-equal to the fields of those "
+        f"steps, exporter errors 0; one save_checkpoint at 1024² "
+        f"{save_ms:.1f} ms ({kind}, {smi})")
+    sim.close()
+    resumed = Simulation(OCEAN_DEMO, **sim_kw)
+    require(resumed.step_count == 60, f"path {tag}: resumed at step "
+            f"{resumed.step_count}, not 60")
+    got = counted(f"{tag} resumed", {k: 20 * v for k, v in main_per_step.items()},
+                  lambda: resumed.run(20))
+    whole = Simulation(OCEAN_DEMO, generator=seeded(), **main_kw)
+    want = whole.run(80)
+    differ = [name for name in resumed.state._fields
+              if not torch.equal(getattr(resumed.state, name),
+                                 getattr(whole.state, name))]
+    differ += [name for name in got._fields
+               if not torch.equal(getattr(got, name), getattr(want, name))]
+    log(f"[slice {tag}] resumed at step 60, 20 steps, against 80 "
+        f"uninterrupted steps from the same generator: state and fields "
+        f"bit-equal: {not differ} {differ or ''}")
+    require(not differ, f"path {tag}: the resumed run differs in {differ}")
+    check_fields(fields_to_numpy(got), OCEAN_DEMO.resolution, tag)
+    before, old = resumed.state, resumed.solver
+    resumed.reconfigure(OCEAN_DEMO.replace(wind=(10.0, 6.0)))
+    after, new = resumed.state, resumed.solver
+    require(all(torch.equal(getattr(after, k), getattr(before, k))
+                for k in ("phase", "t", "step", "foam_accum"))
+            and not torch.equal(after.h0_re, before.h0_re)
+            and resumed.step_count == 80,
+            f"path {tag}: reconfigure changed the phase, clock, step or "
+            f"foam, or kept h0")
+    require(new is not old and all(getattr(new, k) is getattr(old, k)
+                                   for k in ("omega", "pack", "x0", "z0")),
+            f"path {tag}: reconfigure rebuilt a table")
+    log(f"[slice {tag}] reconfigure(wind=(10, 6)): phase, t, step, foam "
+        f"bit-equal, h0 drawn afresh, omega, pack, x0, z0 the same tensors")
+    counted(f"{tag} reconfigured", {k: 20 * v for k, v in main_per_step.items()},
+            lambda: resumed.run(20))
+    check_fields(fields_to_numpy(resumed.fields), OCEAN_DEMO.resolution, tag)
+    time_path(f"path ({tag}) Simulation.step, checkpoint and export every 20",
+              OCEAN_DEMO.resolution, resumed.step, 200, OCEAN_NOTE)
+    resumed.close()
+    del sim, resumed, whole, got, want, kept
+    phase_done(f"4 path ({tag})")
+
+    # (xxiii) Simulation's own defaults: OceanConfig() on matmul, the
+    # complex state, against the CPU; then a resolution change
+    tag = "xxiii"
+    sim = Simulation(OceanConfig(), generator=seeded())
+    require((sim.solver.fft_backend, sim.solver.real_state) == ("matmul", False),
+            f"path {tag}: Simulation's defaults")
+    counted(tag, {}, lambda: sim.run(100))
+    cpu_sim = Simulation(OceanConfig(), generator=seeded(), device="cpu")
+    cpu_sim.run(100)
+    card = fields_to_numpy(sim.fields)
+    check_fields(card, 256, tag)
+    compare_fields(card, fields_to_numpy(cpu_sim.fields), OceanConfig(), tag,
+                   packed=False)
+    time_path(f"path ({tag}) Simulation(OceanConfig()).step matmul complex",
+              256, sim.step, 200, OCEAN_NOTE)
+    # the centered FFT needs L = N·unit_width, so the length follows N
+    sim.reconfigure(OceanConfig(resolution=1024, length=1024.0))
+    switches = {k: getattr(sim.solver, k) for k in (
+        "fft_backend", "eval_mode", "real_state", "pack_channels",
+        "half_spectrum", "pallas_fields")}
+    require(sim.step_count == 0 and switches == {
+        "fft_backend": "matmul", "eval_mode": "fft", "real_state": False,
+        "pack_channels": False, "half_spectrum": False,
+        "pallas_fields": False}, f"path {tag}: reconfigure to 1024²")
+    counted(f"{tag} 1024", {}, lambda: sim.run(20))
+    require(sim.step_count == 20, f"path {tag}: step count")
+    check_fields(fields_to_numpy(sim.fields), 1024, f"{tag} 1024")
+    log(f"[slice {tag}] reconfigure to 1024² (L 1024): step count restarted "
+        f"at 0, 20 steps; switches {switches}")
+    del sim, cpu_sim, card
+    phase_done(f"4 path ({tag})")
+
+    # (xxiv) eval_mode="direct": FFT_MESH_DEMO (L = 12.39, which only the
+    # direct sum takes) against the CPU and float64, then (xvii)'s config
+    # at 1024² against its reference route on the card
+    tag = "xxiv"
+    dsolver = OceanSolver(FFT_MESH_DEMO, eval_mode="direct")
+    state = dsolver.init(seeded())
+    cpu_solver = OceanSolver(FFT_MESH_DEMO, device="cpu", eval_mode="direct")
+    cpu_state = state_from_numpy(state, "cpu")
+
+    def direct_steps():
+        nonlocal state
+        for _ in range(100):
+            state, fields = dsolver.step(state, DT)
+        return fields
+
+    card = fields_to_numpy(counted(tag, {}, direct_steps))
+    for _ in range(100):
+        cpu_state, cpu_fields = cpu_solver.step(cpu_state, DT)
+    check_fields(card, FFT_MESH_DEMO.resolution, tag)
+    compare_fields(card, fields_to_numpy(cpu_fields), FFT_MESH_DEMO, tag,
+                   packed=False)
+    f64 = direct_fields_f64(FFT_MESH_DEMO, state.h0.cpu().numpy(),
+                            state.h0_conj.cpu().numpy(), float(state.t))
+    compare_fields(card, f64, FFT_MESH_DEMO, tag, against="float64",
+                   packed=False)
+    xvii = next(p for p in PATHS if p.tag == "xvii")
+    pcfg = path_config(xvii)
+    dsolver = OceanSolver(pcfg, eval_mode="direct")
+    ref_solver = OceanSolver(pcfg, fft_backend="reference")
+    state = dsolver.init(seeded())
+    ref_state = state
+    for _ in range(10):
+        state, fields = dsolver.step(state, DT)
+        ref_state, ref_fields = ref_solver.step(ref_state, DT)
+    card = fields_to_numpy(fields)
+    check_fields(card, pcfg.resolution, f"{tag} 1024")
+    compare_fields(card, fields_to_numpy(ref_fields), pcfg, f"{tag} 1024",
+                   against="reference", packed=False)
+    # each route's error against the float64 direct sum, for the record
+    f64 = direct_fields_f64(pcfg, state.h0.cpu().numpy(),
+                            state.h0_conj.cpu().numpy(), float(state.t))
+    for route, got in (("direct", card),
+                       ("reference", fields_to_numpy(ref_fields))):
+        log(f"[slice {tag} 1024] {route} vs float64, max abs err over "
+            f"max|float64|: " + ", ".join(
+                f"{name} {np.abs(getattr(got, name) - getattr(f64, name)).max() / np.abs(getattr(f64, name)).max():.3e}"
+                for name in ("height", "disp_x", "disp_z", "jacobian")))
+    direct_ms = cuda_ms(ocean_step(dsolver, state), iters=50)[0]
+    _, xsolver, xstate = solvers["xvii"]
+    xvii_ms = cuda_ms(ocean_step(xsolver, xstate), iters=50)[0]
+    log(f"[timing] {kind} ({smi}): path ({tag}) eval_mode='direct' 1024² "
+        f"{direct_ms:.4f} ms/step beside path (xvii)'s pallas step "
+        f"{xvii_ms:.4f} ms/step in the same call ({direct_ms / xvii_ms:.1f}x: "
+        f"the direct sum is O(N^3) on cuBLAS)")
+    time_path(f"path ({tag}) eval_mode=direct complex centered", 1024,
+              ocean_step(dsolver, state), 50, OCEAN_NOTE)
+    del dsolver, ref_solver, cpu_solver, card, f64
+    phase_done(f"4 path ({tag})")
+
+    # (xxv) the shader-hash h0 on the main path at 1024²
+    tag = "xxv"
+    seeds = (0.37, 0.81)
+    hsolver = OceanSolver(OCEAN_DEMO, **main_kw)
+    state = hsolver.init(gpu_hash_seeds=seeds)
+    h0, h0c = h0_pair_gpu_hash(OCEAN_DEMO.resolution, OCEAN_DEMO.length,
+                               OCEAN_DEMO.phillips_amplitude, OCEAN_DEMO.wind,
+                               *seeds, OCEAN_DEMO.damping)
+    raw = [torch.from_numpy(np.ascontiguousarray(a, np.float32))
+           for a in (h0.real, h0.imag, h0c.real, h0c.imag)]
+    names = ("h0_re", "h0_im", "h0c_re", "h0c_im")
+    unpacked = OceanSolver(OCEAN_DEMO, fft_backend="pallas", real_state=True)
+    raw_state = unpacked.init(gpu_hash_seeds=seeds)
+    require(all(torch.equal(getattr(raw_state, k).cpu(), r)
+                for k, r in zip(names, raw))
+            and all(torch.equal(getattr(state, k).cpu(), r)
+                    for k, r in zip(names, hermitize_planes(*raw))),
+            f"path {tag}: the h0 planes on the card differ from numpy's")
+    log(f"[slice {tag}] init(gpu_hash_seeds={seeds}) at 1024²: h0 planes on "
+        f"the card bit-equal to numpy's h0_pair_gpu_hash (unpacked) and to "
+        f"its Hermitian projection (packed)")
+    cpu_solver = OceanSolver(OCEAN_DEMO, device="cpu", **main_kw)
+    cpu_state = cpu_solver.init(gpu_hash_seeds=seeds)
+
+    def hash_steps():
+        nonlocal state
+        for _ in range(20):
+            state, fields = hsolver.step(state, DT)
+        return fields
+
+    card = fields_to_numpy(counted(tag, {k: 20 * v for k, v in
+                                         main_per_step.items()}, hash_steps))
+    for _ in range(20):
+        cpu_state, cpu_fields = cpu_solver.step(cpu_state, DT)
+    check_fields(card, OCEAN_DEMO.resolution, tag)
+    compare_fields(card, fields_to_numpy(cpu_fields), OCEAN_DEMO, tag)
+    time_path(f"path ({tag}) pallas shader-hash h0", OCEAN_DEMO.resolution,
+              ocean_step(hsolver, state), 200, OCEAN_NOTE)
+    del hsolver, unpacked, cpu_solver, card, raw_state
+    scratch.cleanup()
+    phase_done(f"4 path ({tag})")
+
     phase_done("4 slice")
 
-    # ---- 5. timing: each step by CUDA events (its device timeline, gaps
-    # included); device time by torch.profiler; warm L2 throughout
-    def time_path(label, size, one_step, iters, note):
-        step_ms, host_ms = cuda_ms(one_step, iters=iters)
-        busy_ms, per_kernel, how = device_ms(one_step, iters=max(iters // 4, 10))
-        groups = {}
-        for key, ms in per_kernel.items():
-            g = kernel_group(key)
-            groups[g] = groups.get(g, 0.0) + ms
-        log(f"[timing] {kind} ({smi}): {label} {size}x{size} {step_ms:.4f} "
-            f"ms/step, {size * size / step_ms * 1e3:.4e} grid points/s; device "
-            f"busy {busy_ms:.4f} ms/step ({how}), idle share "
-            f"{1 - busy_ms / step_ms:.3f}; host enqueue {host_ms:.4f} ms/step")
-        log(f"[timing] {label} device ms/step by layer: " + ", ".join(
-            f"{g} {ms:.4f}" for g, ms in sorted(groups.items()))
-            + f" ({note})")
-        if size <= 2048:     # host-bound: where the host's time goes
-            log(f"[timing] {label} host µs/step by function (cProfile "
-                f"tottime, top 10): " + "; ".join(
-                    f"{name} {us:.1f}" for name, us in host_profile(one_step)))
-
-    def ocean_step(psolver, state):
-        step_state = [state]
-
-        def one_step():
-            step_state[0], _ = psolver.step(step_state[0], DT)
-        return one_step
-
+    # ---- 5. timing: each path's step, then each kernel
     for path in PATHS:
         pcfg, psolver, state = solvers[path.tag]
         with fields_switch(fs, path.v2), dft_switches(planes, path.switches):

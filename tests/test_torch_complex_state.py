@@ -7,7 +7,7 @@ and the centered layout, against the float64 oracle and the JAX package.
   1e-4, atol 2e-5·max, foam 25× with the 0.1% texel rule) and after 20
   steps (rtol 1e-3, atol 2e-4·max); N = 12 at L = 12, unit width 1 (the
   FFT Mesh demo's grid; its own L = 12.39 is not N·unit_width and needs
-  eval_mode="direct", ROADMAP item 7b); odd N = 9 and 15. The other
+  eval_mode="direct", tests/test_torch_eval_direct.py); odd N = 9 and 15. The other
   centered backends at 64² and ``matmul`` at odd N, where the JAX package
   sends ``pallas`` there, the same way.
 - The modules: each backend's transform, the centered modulation, the
@@ -36,7 +36,7 @@ from tpu_ocean.fft import get_ifft2 as jax_get_ifft2
 from tpu_ocean.fft.reference import centered_modulation as jax_modulation
 from tpu_ocean.oracle import Oracle
 from tpu_ocean.solver import OceanSolver as JaxSolver
-from tpu_ocean_torch import (OCEAN_DEMO, OceanConfig, OceanSolver,
+from tpu_ocean_torch import (OCEAN_DEMO, OceanConfig, OceanSolver, Simulation,
                              OceanState, OceanStateReal, fields_to_numpy,
                              state_from_numpy, state_to_numpy)
 from tpu_ocean_torch import evolve as tev, fields as tfields, grids as tgrids
@@ -438,16 +438,36 @@ def test_card_size_rule_for_the_kernel_backends():
             OceanSolver(cfg, device="cuda")
 
 
-@pytest.mark.parametrize("what", ["direct", "gpu_hash_seeds", "reconfigure"])
+@pytest.mark.parametrize("what", ["direct", "gpu_hash_seeds", "reconfigure",
+                                  "mesh"])
 def test_unported_parts_raise_not_implemented(what):
+    """The parts of the JAX defaults' solver that once raised
+    NotImplementedError now run as in JAX: the direct sum steps within
+    1e-5·max of JAX's, the shader-hash h0 raises JAX's ValueError outside
+    the fft layout, and an unchanged config reconfigures into a solver
+    that shares the tables. What stays unported still raises, naming its
+    ROADMAP item: the distributed runtime, Simulation(mesh=...)."""
     cfg = OceanConfig(resolution=32, length=32.0)
+    if what == "mesh":
+        with pytest.raises(NotImplementedError, match="item 14"):
+            Simulation(cfg, device="cpu", mesh=object())
+        return
     if what == "direct":
-        with pytest.raises(NotImplementedError, match="7b"):
-            OceanSolver(cfg, device="cpu", eval_mode="direct")
+        _, h0, h0c = _make_case(32)
+        ref = JaxSolver(_jax_cfg(cfg), eval_mode="direct")
+        js, jf = ref.step(ref.init(h0=h0, h0_conj=h0c), DT)
+        ts, tf = _run(OceanSolver(cfg, device="cpu", eval_mode="direct"),
+                      h0, h0c, 1)
+        assert_fields_match(tf, jf, cfg)
         return
     solver = OceanSolver(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="7[bc]"):
-        if what == "gpu_hash_seeds":
+    if what == "gpu_hash_seeds":
+        with pytest.raises(ValueError, match="spectrum_layout='fft'"):
+            JaxSolver(_jax_cfg(cfg)).init(gpu_hash_seeds=(1, 2))
+        with pytest.raises(ValueError, match="spectrum_layout='fft'"):
             solver.init(gpu_hash_seeds=(1, 2))
-        else:
-            solver.reconfigure(solver.init(), cfg)
+        return
+    state = solver.init()
+    new, fresh = solver.reconfigure(state, cfg)
+    assert new is not solver and new.omega is solver.omega
+    assert torch.equal(fresh.h0, state.h0)      # the same seed, the same draw

@@ -258,21 +258,17 @@ def test_normals_spectral_matches_jax():
     dict(kw=dict(real_state=False)),
 ])
 def test_off_slice_configurations_raise(change):
-    """The configurations off the real-state slice. Five of them build a
-    complex-state solver now, each with the JAX package's defaults for
-    the switches it does not set, and take one step against the JAX
-    solver within tests/test_packing.py's bands; eval_mode="direct" (the
-    centered layout's direct sum, ROADMAP item 7b) still raises
-    NotImplementedError naming its item."""
-    layout = change.get("cfg", {}).get("spectrum_layout", "fft")
-    cfg = OCEAN_DEMO.replace(resolution=64, length=64.0, unit_width=1.0,
-                             **change.get("cfg", {}))
+    """The configurations off the real-state slice. Each builds a
+    complex-state solver, with the JAX package's defaults for the switches
+    it does not set, and takes one step against the JAX solver within
+    tests/test_packing.py's bands; eval_mode="direct" (the direct sum)
+    takes the centered layout it requires."""
     kw = change.get("kw", {})
-    if kw.get("eval_mode") == "direct":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            OceanSolver(cfg.replace(spectrum_layout="centered"),
-                        device="cpu", **kw)
-        return
+    layout = ("centered" if kw.get("eval_mode") == "direct" else
+              change.get("cfg", {}).get("spectrum_layout", "fft"))
+    cfg = OCEAN_DEMO.replace(resolution=64, length=64.0, unit_width=1.0,
+                             **{**change.get("cfg", {}),
+                                "spectrum_layout": layout})
     ref = JaxSolver(_jax_config(cfg), **kw)
     port = OceanSolver(cfg, device="cpu", **kw)
     assert not port.real_state and port.fft_backend == ref.fft_backend
@@ -287,13 +283,24 @@ def test_off_slice_configurations_raise(change):
 
 @pytest.mark.parametrize("call", ["gpu_hash_seeds", "reconfigure"])
 def test_unported_methods_raise(call):
-    solver = OceanSolver(OCEAN_DEMO.replace(resolution=64), device="cpu",
-                         **SLICE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "gpu_hash_seeds":
-            solver.init(gpu_hash_seeds=(1, 2))
-        else:
-            solver.reconfigure(solver.init(), OCEAN_DEMO.replace(resolution=64))
+    """The two methods the slice's solver once refused, now ported:
+    init(gpu_hash_seeds=...) gives the JAX solver's state bit for bit
+    (symmetrized, as packed), and reconfigure with an init-only change
+    keeps the tables, the phase, the clock and the step."""
+    cfg = OCEAN_DEMO.replace(resolution=64)
+    solver = OceanSolver(cfg, device="cpu", **SLICE)
+    if call == "gpu_hash_seeds":
+        got = solver.init(gpu_hash_seeds=(1, 2))
+        want = JaxSolver(_jax_config(cfg), **SLICE).init(gpu_hash_seeds=(1, 2))
+        for name in got._fields:
+            np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                          np.asarray(getattr(want, name)))
+        return
+    state, _ = solver.step(solver.init(), 1 / 60)
+    new, fresh = solver.reconfigure(state, cfg.replace(amplitude=0.9))
+    assert new.pack is solver.pack and new.omega is solver.omega
+    assert fresh.phase is state.phase and int(fresh.step) == 1
+    assert not torch.equal(fresh.h0_re, state.h0_re)
 
 
 @pytest.mark.parametrize("change", [

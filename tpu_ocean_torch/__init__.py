@@ -20,9 +20,17 @@ store in every channel set (``csrc/fused_rows.cu``) and the fields stencil
 is False). It also runs the Gerstner pond family: ``PondSolver`` and its
 serving runtime ``PondSimulation``, whose ``"gerstner"`` mode with
 ``use_pallas=True`` goes through the wave-bank kernel
-(``csrc/gerstner_bank.cu``). The solvers run on the card unless given
-``device="cpu"``; on CPU tensors each kernel wrapper runs its plain torch
-version. ``OceanConfig.precision="bfloat16"`` and the bf16x3 and
+(``csrc/gerstner_bank.cu``). The ocean's runtime ``Simulation`` runs a
+solver with JSONL metrics (``observe.Metrics``), periodic npz checkpoints
+that resume by themselves (``checkpoint``, the JAX package's file format,
+so either package resumes the other's files) and the asynchronous .npy
+export (``native.AsyncExporter``, built from ``native/exporter.cpp`` with
+g++ on first use); ``OceanSolver.reconfigure`` changes the config live,
+``eval_mode="direct"`` takes the oracle's direct sum (the centered layout
+at any length) and ``init(gpu_hash_seeds=...)`` the shader's hash
+spectrum; ``diagnostics`` holds the sea-state statistics. The solvers and
+runtimes run on the card unless given ``device="cpu"``; on CPU tensors
+each kernel wrapper runs its plain torch version. ``OceanConfig.precision="bfloat16"`` and the bf16x3 and
 three-factor switches of ``fft.planes`` run the row and fused kernels on
 a matrix-form DFT engine (``csrc/dft_matrix.cuh``, bf16 tensor cores).
 This package imports torch and numpy, never jax; the JAX package
@@ -36,7 +44,10 @@ from tpu_ocean_torch.solver import (
 from tpu_ocean_torch.gerstner import (
     WaveBank, PondFields, PondSolver, gerstner_eval, sinusoid_eval,
     gerstner_velocity, sinusoid_velocity)
-from tpu_ocean_torch.runtime import PondSimulation
+from tpu_ocean_torch.runtime import PondSimulation, Simulation
+from tpu_ocean_torch.observe import Metrics, StepRecord
+from tpu_ocean_torch.checkpoint import (
+    CheckpointManager, load_checkpoint, save_checkpoint)
 from tpu_ocean_torch.convert import (
     state_from_numpy, state_to_numpy, fields_to_numpy, wavebank_from_numpy,
     pond_fields_to_numpy)
@@ -57,6 +68,8 @@ __all__ = [
     "OceanConfig", "PondConfig", "OCEAN_DEMO", "FFT_MESH_DEMO", "POND_DEMO",
     "OceanSolver", "OceanState", "OceanStateReal", "OceanFields",
     "WaveBank", "PondFields", "PondSolver", "PondSimulation",
+    "Simulation", "Metrics", "StepRecord", "CheckpointManager",
+    "load_checkpoint", "save_checkpoint",
     "gerstner_eval", "sinusoid_eval", "gerstner_velocity", "sinusoid_velocity",
     "state_from_numpy", "state_to_numpy", "fields_to_numpy",
     "wavebank_from_numpy",

@@ -85,12 +85,35 @@ def _sources(csrc: Path = CSRC):
     return compiled, sorted(compiled + list(csrc.glob("*.cuh")))
 
 
-def _digest(files) -> str:
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+def _digest(files, flags=COMPILE_FLAGS + LINK_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
+
+
+def cached_library(root: Path, files, flags, lib_name: str, build):
+    """The shared library ``root/<hash>/lib_name``, keyed by a hash of
+    ``flags`` and of ``files`` (names and bytes). When it is not there,
+    ``build(tmp)`` makes ``tmp/lib_name`` in a temporary directory and
+    returns the compiler's output, kept beside the library as
+    ``build.log``; the library is then renamed into place, so a
+    concurrent loader sees either no library or a whole one. Returns
+    (library path, seconds the build took: 0.0 when an earlier build
+    was reused)."""
+    out_dir = root / _digest(files, flags)
+    lib_path = out_dir / lib_name
+    seconds = 0.0
+    if not lib_path.is_file():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            t0 = time.perf_counter()
+            log = build(Path(tmp))
+            seconds = time.perf_counter() - t0
+            (out_dir / "build.log").write_text(log)
+            os.replace(Path(tmp) / lib_name, lib_path)
+    return lib_path, seconds
 
 
 def _start(cmd):
@@ -123,20 +146,9 @@ def _compile_and_link(compiled, tmp: Path) -> str:
 def load() -> Kernels:
     """Build (once per source hash) and load the kernel library."""
     compiled, hashed = _sources()
-    out_dir = BUILD_ROOT / _digest(hashed)
-    lib_path = out_dir / LIB_NAME
-    log_path = out_dir / "nvcc.log"
-    seconds = 0.0
-    if not lib_path.is_file():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        # build in a temporary directory, then rename: a concurrent loader
-        # sees either no library or a whole one
-        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-            t0 = time.perf_counter()
-            log = _compile_and_link(compiled, Path(tmp))
-            seconds = time.perf_counter() - t0
-            log_path.write_text(log)
-            os.replace(Path(tmp) / LIB_NAME, lib_path)
+    lib_path, seconds = cached_library(
+        BUILD_ROOT, hashed, COMPILE_FLAGS + LINK_FLAGS, LIB_NAME,
+        lambda tmp: _compile_and_link(compiled, tmp))
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -144,5 +156,6 @@ def load() -> Kernels:
         fn.restype = ctypes.c_int
     lib.tpu_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpu_cuda_error_string.restype = ctypes.c_char_p
+    log_path = lib_path.parent / "build.log"
     log = log_path.read_text() if log_path.is_file() else ""
     return Kernels(lib=lib, path=lib_path, build_seconds=seconds, build_log=log)

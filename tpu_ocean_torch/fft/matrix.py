@@ -44,15 +44,19 @@ def split_bf16(x: torch.Tensor):
     return hi, round_bf16(x - hi)
 
 
+def require_f32_matmul(t: torch.Tensor, what: str) -> None:
+    """Raise if a matmul on ``t``'s device could take TF32 products."""
+    if t.is_cuda and (torch.get_float32_matmul_precision() != "highest"
+                      or torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(f"{what} need f32 matmuls: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False "
+                           "and the float32 matmul precision to 'highest'")
+
+
 def _matmul(a: torch.Tensor, b: torch.Tensor, tier: str) -> torch.Tensor:
     """Real a [m, k] · b [..., k, n] at ``tier``, accumulated in f32."""
-    if a.is_cuda and (torch.get_float32_matmul_precision() != "highest"
-                      or torch.backends.cuda.matmul.allow_tf32):
-        # TF32 would round away the bf16x3 lo parts and the f32 products
-        raise RuntimeError("the matrix engine's plain versions need f32 "
-                           "matmuls: set torch.backends.cuda.matmul."
-                           "allow_tf32 = False and the float32 matmul "
-                           "precision to 'highest'")
+    # TF32 would round away the bf16x3 lo parts and the f32 products
+    require_f32_matmul(a, "the matrix engine's plain versions")
     if tier == "f32":
         return a @ b
     if tier == "bf16":

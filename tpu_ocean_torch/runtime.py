@@ -1,15 +1,171 @@
-"""Serving runtimes around the solvers.
+"""Runtimes around the solvers: the ocean's ``Simulation`` and the pond's
+``PondSimulation``.
 
-JAX counterpart: ``tpu_ocean/runtime.py``. Only ``PondSimulation`` is here;
-the ocean's ``Simulation`` (checkpoint, metrics, export) is ROADMAP Queue 1
-item 9.
+JAX counterpart: ``tpu_ocean/runtime.py``. ``Simulation`` owns a solver,
+its state, the metrics, the periodic checkpoints and the asynchronous
+export::
+
+    sim = Simulation(cfg, fft_backend="matmul", out_dir="run0",
+                     checkpoint_every=500, export_every=100)
+    sim.run(10_000)        # resumes by itself if run0/ckpt holds a
+    fields = sim.fields    # checkpoint; one JSONL metrics line a step
+
+Unlike the JAX package's, the export has no fallback: the native exporter
+(``native.AsyncExporter``) is the only writer, and a failed build raises.
 """
 
 from __future__ import annotations
 
+import os
+import sys
+from typing import Callable, Optional
+
 import torch
 
+from tpu_ocean_torch.checkpoint import CheckpointManager, load_checkpoint
+from tpu_ocean_torch.config import OceanConfig
 from tpu_ocean_torch.gerstner import PondSolver
+from tpu_ocean_torch.observe import Metrics
+from tpu_ocean_torch.solver import OceanSolver
+
+
+def _synchronize(device: torch.device) -> None:
+    """Return when the work queued on ``device`` is done (JAX:
+    block_until_ready)."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+class Simulation:
+    """The ocean's lifecycle: init or resume → step loop → metrics,
+    checkpoints and export (JAX: runtime.Simulation).
+
+    With ``out_dir`` and ``checkpoint_every``, a checkpoint in
+    ``out_dir/ckpt`` is resumed (a config other than ``cfg`` raises
+    ValueError) and the state saved every ``checkpoint_every`` steps; with
+    ``out_dir`` and ``export_every``, height and foam are written to
+    ``out_dir/fields`` every ``export_every`` steps by the native exporter.
+    ``generator`` draws h0 (default seeded with cfg.seed) where JAX takes
+    ``seed_key``; ``device`` is the card unless ``"cpu"`` is given; the
+    other keywords go to OceanSolver. ``step()`` returns when the fields
+    are on the device, and the step count is kept on the host."""
+
+    def __init__(self, cfg: OceanConfig, fft_backend: str = "matmul",
+                 out_dir: Optional[str] = None, dt: float = 1.0 / 60.0,
+                 checkpoint_every: int = 0, export_every: int = 0,
+                 metrics_stream=None,
+                 generator: Optional[torch.Generator] = None, mesh=None, *,
+                 device="cuda", **solver_kw):
+        if mesh is not None:
+            raise NotImplementedError(
+                "Simulation(mesh=...), the domain-decomposed runtime, is not "
+                "ported to tpu_ocean_torch yet (ROADMAP.md Queue 1 item 14)")
+        self.cfg = cfg
+        self.dt = dt
+        self.solver = OceanSolver(cfg, device=device, fft_backend=fft_backend,
+                                  **solver_kw)
+        self.out_dir = out_dir
+        self.metrics = Metrics(grid_points=cfg.resolution ** 2,
+                               emit=metrics_stream)
+        self.fields = None
+        self._exporter = None
+        self._export_every = export_every
+        self._dropped_exports = 0
+
+        self._ckpt = None
+        if out_dir and checkpoint_every:
+            real, dev = self.solver.real_state, self.solver.device
+            self._ckpt = CheckpointManager(
+                os.path.join(out_dir, "ckpt"), interval=checkpoint_every,
+                load_fn=lambda p: load_checkpoint(p, real_state=real,
+                                                  device=dev))
+        restored, saved_cfg = (self._ckpt.restore_latest() if self._ckpt
+                               else (None, None))
+        if restored is not None:
+            if saved_cfg is not None and saved_cfg != cfg:
+                raise ValueError(
+                    f"checkpoint in {out_dir!r} was written with a different "
+                    f"config; refusing to silently continue it. Use a fresh "
+                    f"out_dir, or Simulation(saved_cfg, ...) to resume "
+                    f"(saved: {saved_cfg})")
+            # the Hermitian projection is bitwise idempotent: a no-op on a
+            # state a packed solver wrote, the projection on any other
+            self.state = self.solver.symmetrize(restored)
+            self._steps_done = int(self.state.step)
+        else:
+            self.state = self.solver.init(generator)
+            self._steps_done = 0
+
+        # made after the config check above: raising there with a live
+        # worker thread would leak it
+        if out_dir and export_every:
+            from tpu_ocean_torch.native import AsyncExporter
+            self._exporter = AsyncExporter(os.path.join(out_dir, "fields"))
+
+    @property
+    def step_count(self) -> int:
+        return self._steps_done
+
+    @property
+    def world_length(self) -> float:
+        """Physical extent (m) of the field planes."""
+        return self.cfg.length
+
+    def step(self):
+        """One solver step with its metrics record; returns the fields."""
+        with self.metrics.measure(sim_dt=self.dt):
+            self.state, self.fields = self.solver.step(self.state, self.dt)
+            _synchronize(self.solver.device)
+        self._steps_done += 1
+        k = self._steps_done
+        if self._ckpt is not None:
+            self._ckpt.maybe_save(self.state, self.cfg, step=k)
+        if self._exporter is not None and k % self._export_every == 0:
+            self._export(k)
+        return self.fields
+
+    def _export(self, k: int):
+        for name in ("height", "foam"):
+            if not self._exporter.submit(name, k, getattr(self.fields, name)):
+                self._dropped_exports += 1
+                if self._dropped_exports in (1, 10, 100, 1000):
+                    print(f"# exporter ring full: {self._dropped_exports} "
+                          f"snapshot(s) dropped so far", file=sys.stderr)
+
+    def run(self, steps: int,
+            callback: Optional[Callable[["Simulation"], None]] = None):
+        """Step ``steps`` times (on top of any resumed progress), then wait
+        for the exporter."""
+        for _ in range(steps):
+            self.step()
+            if callback is not None:
+                callback(self)
+        if self._exporter is not None:
+            self._exporter.flush()
+        return self.fields
+
+    def reconfigure(self, new_cfg: OceanConfig):
+        """Live parameter change (OceanSolver.reconfigure); a change of N
+        or layout restarts the step count."""
+        rebuilt = (new_cfg.resolution != self.cfg.resolution
+                   or new_cfg.spectrum_layout != self.cfg.spectrum_layout)
+        self.solver, self.state = self.solver.reconfigure(self.state, new_cfg)
+        self.cfg = new_cfg
+        # throughput divides by the grid points
+        self.metrics.grid_points = new_cfg.resolution ** 2
+        if rebuilt:
+            self._steps_done = 0
+
+    def close(self):
+        if self._exporter is not None:
+            self._exporter.close()
+            self._exporter = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 class PondSimulation:
@@ -48,8 +204,7 @@ class PondSimulation:
     def step(self):
         self._steps_done += 1
         self.fields = self.solver.fields(self.state)
-        if self.solver.device.type == "cuda":
-            torch.cuda.current_stream(self.solver.device).synchronize()
+        _synchronize(self.solver.device)
         return self.fields
 
     def run(self, steps: int):

@@ -1,9 +1,9 @@
-"""The ocean solver: init(), step(), fields_at() and velocity() over the
-complex state or the all-f32 plane state.
+"""The ocean solver: init(), step(), fields_at(), velocity() and
+reconfigure() over the complex state or the all-f32 plane state.
 
-JAX counterpart: ``tpu_ocean/solver.py`` ``OceanSolver`` in
-``eval_mode="fft"``, with its defaults (``fft_backend="reference"``, the
-complex state, no packing, no half spectrum, the fields in torch), so
+JAX counterpart: ``tpu_ocean/solver.py`` ``OceanSolver``, with its
+defaults (``fft_backend="reference"``, ``eval_mode="fft"``, the complex
+state, no packing, no half spectrum, the fields in torch), so
 ``OceanSolver(OceanConfig())`` means what it means in JAX.
 
 The complex state (``real_state=False``; ``_step_impl`` →
@@ -81,12 +81,25 @@ hand kernel: the JAX package computes them outside Pallas.
 
 The C2R fold, the interleave, the positions, the phase, the modulation
 and (``pallas``) the assembly are plain torch elementwise work.
-``eval_mode="direct"``, ``reconfigure`` and ``gpu_hash_seeds`` raise
-NotImplementedError naming the ROADMAP.md item that ports them.
+
+``eval_mode="direct"`` (the centered layout only, the complex state) takes
+the oracle's direct sum as complex matrix products, F_c = Eᵀ·C_c·E with
+E[n, i] = e^{i·k_n·x_i} built in float64 and cast once to complex64, in
+f32 whatever ``cfg.precision`` (JAX: an einsum at Precision.HIGHEST
+outside any Pallas kernel), each contraction in blocks of DIRECT_BLOCK
+terms whose partial products are added: exact at any length, so it
+evaluates FFT_MESH_DEMO's L = 12.39 over a 12² unit grid, which the
+centered FFT refuses; it launches no hand kernel, on any backend.
+``init(gpu_hash_seeds=(s1, s2))`` replays the
+shader's hash spectrum (spectra.h0_pair_gpu_hash, numpy float32 on the
+host) as an injected pair. ``reconfigure`` changes the config live: a
+change of init-only fields shares every table and draws a fresh h0 only.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import warnings
 from typing import NamedTuple, Optional
 
@@ -109,18 +122,19 @@ from tpu_ocean_torch.evolve import (
     hermitize_planes,
 )
 from tpu_ocean_torch.fft import BACKENDS, get_ifft2
+from tpu_ocean_torch.fft.matrix import require_f32_matmul
 from tpu_ocean_torch.fft.planes import (
     check_size,
     ifft2_planes_auto,
     ifft2_planes_half,
 )
 from tpu_ocean_torch.fft.reference import centered_modulation, ifft2_unnorm
-from tpu_ocean_torch.grids import coordinate_1d
+from tpu_ocean_torch.grids import coordinate_1d, wavenumbers_1d
 from tpu_ocean_torch.ops.fields_stencil import fields_stencil
 from tpu_ocean_torch.ops.fused_spectrum import (
     ifft2_fused, ifft2_fused_planes, ifft2_fused_planes_half)
 from tpu_ocean_torch.spectra import (
-    h0_pair_centered, h0_pair_fft, h0_pair_fft_planes)
+    h0_pair_centered, h0_pair_fft, h0_pair_fft_planes, h0_pair_gpu_hash)
 
 
 class OceanState(NamedTuple):
@@ -161,15 +175,17 @@ class OceanFields(NamedTuple):
     jacobian: torch.Tensor
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to tpu_ocean_torch "
-                               f"yet (ROADMAP.md Queue 1 item {item})")
-
-
 #: the plane-based backends, the only ones of the real state
 _PLANE_BACKENDS = ("pallas", "pallas_fused")
 #: the JAX package's fused transposed-store cap (pallas_fft.MAX_FUSED_N)
 _JAX_MAX_FUSED_N = 2048
+#: terms of the direct sum's contraction taken in one matrix product; the
+#: partial products are then added. One product over all N terms
+#: accumulates an f32 error that grows with N: at N = 1024 on an NVIDIA
+#: H100 it put the Jacobian 1.09e-5·max from the FFT route's (chip_smoke.py
+#: path (xxiv)); blocks of 64 cut the error against float64 2.5-fold on
+#: the CPU
+DIRECT_BLOCK = 64
 
 
 def _jax_pallas_supported(n: int, fused: bool) -> bool:
@@ -186,13 +202,20 @@ class OceanSolver:
     step. ``device`` defaults to the CUDA card; pass ``device="cpu"`` for
     the plain versions (there is no fallback: without a card the default
     raises, as torch does). The switches take the JAX ``OceanSolver``'s
-    defaults: ``fft_backend="reference"``, the complex state, no packing,
-    no half spectrum, the fields in torch. They take every value the JAX
-    solver takes in ``eval_mode="fft"`` and raise ValueError where it
+    defaults: ``fft_backend="reference"``, ``eval_mode="fft"``, the
+    complex state, no packing, no half spectrum, the fields in torch. They
+    take every value the JAX solver takes and raise ValueError where it
     raises ValueError. On the card ``pallas``/``pallas_fused`` take
     power-of-two N in [16, 8192]; the N below 16 or odd, which the JAX
     package sends to ``matmul`` on the complex state, go there with its
     warning."""
+
+    #: config fields only init() reads (the InitialSpectrum pass): a change
+    #: restricted to them keeps every table (JAX: _INIT_ONLY_FIELDS)
+    INIT_ONLY_FIELDS = frozenset({
+        "wind", "amplitude", "amplitude_scale", "damping", "seed",
+        "spectrum_model", "jonswap_fetch", "jonswap_gamma",
+        "jonswap_spreading", "jonswap_depth"})
 
     def __init__(self, cfg: OceanConfig, *, device="cuda",
                  fft_backend: str = "reference", eval_mode: str = "fft",
@@ -217,11 +240,9 @@ class OceanSolver:
             raise ValueError("pallas_fields requires normals_mode='stencil', "
                              "spectrum_layout='fft', and a resolution "
                              "divisible by 8")
-        if eval_mode == "direct":
-            if cfg.spectrum_layout != "centered":
-                raise ValueError("direct evaluation implements the centered "
-                                 "(oracle) layout only")
-            raise _not_ported("eval_mode='direct'", "7b")
+        if eval_mode == "direct" and cfg.spectrum_layout != "centered":
+            raise ValueError("direct evaluation implements the centered "
+                             "(oracle) layout only")
         if (fft_backend in _PLANE_BACKENDS
                 and not _jax_pallas_supported(n, fft_backend == "pallas_fused")):
             if real_state:
@@ -253,12 +274,16 @@ class OceanSolver:
             if n % 16 != 0 or n < 64:
                 raise ValueError("half_spectrum needs resolution % 16 == 0 "
                                  "and >= 64")
-        if fft_backend == "pallas_fused" and cfg.spectrum_layout != "fft":
+        direct = eval_mode == "direct"
+        if (fft_backend == "pallas_fused" and not direct
+                and cfg.spectrum_layout != "fft"):
             raise ValueError("pallas_fused requires spectrum_layout='fft'")
         modulation = (centered_modulation(n, cfg.length, cfg.unit_width)
-                      if cfg.spectrum_layout == "centered" else None)
+                      if cfg.spectrum_layout == "centered" and not direct
+                      else None)
         self.device = torch.device(device)
-        if self.device.type == "cuda" and fft_backend in _PLANE_BACKENDS:
+        if (self.device.type == "cuda" and fft_backend in _PLANE_BACKENDS
+                and not direct):
             # rows and full columns; with half_spectrum the half channel's
             # columns. The fused kernels take the row kernel's shared
             # memory, so the same N fit both (N = 8192: 192 KB a block at
@@ -268,6 +293,7 @@ class OceanSolver:
                 check_size(n // 2)
         self.cfg = cfg
         self.fft_backend = fft_backend
+        self.eval_mode = eval_mode
         self.real_state = bool(real_state)
         self.pack_channels = bool(pack_channels)
         self.half_spectrum = bool(half_spectrum)
@@ -289,7 +315,9 @@ class OceanSolver:
         # the fused route assembles in its kernels and keeps only the
         # packed table's Nyquist row (pack_nyq, tpu_ocean/solver.py:263)
         self.omega = table(omega_grid(cfg))
-        fused = fft_backend == "pallas_fused"
+        # direct evaluation assembles in torch on every backend, as JAX's
+        # _evolved_transform does outside eval_mode="fft"
+        fused = fft_backend == "pallas_fused" and not direct
         if not self.pack_channels:
             if not fused:
                 self.coeffs = table(spectrum_coefficients(cfg).real[:self._nch])
@@ -307,9 +335,16 @@ class OceanSolver:
         self.x0 = table(x0)
         self.z0 = table(z0)
         # the complex state's transform, with the centered layout's pre/post
-        # modulation as complex64 from f32 parts (tpu_ocean/solver.py:327)
-        self._ifft2 = (None if fused or self.real_state else
+        # modulation as complex64 from f32 parts (tpu_ocean/solver.py:327);
+        # direct evaluation: the basis E[n, i] = e^{i·k_n·x_i} in float64,
+        # cast once (tpu_ocean/solver.py:312-318)
+        self._ifft2 = (None if fused or direct or self.real_state else
                        get_ifft2(fft_backend, n, self.precision))
+        self.basis = None
+        if direct:
+            ex = np.exp(1j * np.outer(wavenumbers_1d(n, cfg.length, "centered"),
+                                      x1d))
+            self.basis = torch.complex(table(ex.real), table(ex.imag))
         self.pre = self.post = None
         if modulation is not None:
             pre, post = modulation
@@ -335,13 +370,22 @@ class OceanSolver:
              h0=None, h0_conj=None, gpu_hash_seeds=None):
         """Initial state (OceanState, or OceanStateReal with real_state):
         sample h0 from ``generator`` (a CPU generator; default seeded with
-        cfg.seed) in the config's layout, or inject a complex (h0, h0_conj)
-        pair (numpy or anything np.asarray takes). Phase and clock start
-        at 0. One generator state gives both states the same h0."""
-        if gpu_hash_seeds is not None:
-            raise _not_ported("gpu_hash_seeds (the shader-hash h0)", "7c")
+        cfg.seed) in the config's layout, inject a complex (h0, h0_conj)
+        pair (numpy or anything np.asarray takes), or pass
+        ``gpu_hash_seeds=(s1, s2)`` to replay the shader's hash spectrum
+        (spectra.h0_pair_gpu_hash, fft layout only), which then goes to the
+        device like an injected pair. Phase and clock start at 0. One
+        generator state gives both states the same h0."""
         cfg = self.cfg
         n = cfg.resolution
+        if h0 is None and gpu_hash_seeds is not None:
+            if cfg.spectrum_layout != "fft":
+                raise ValueError("gpu_hash_seeds replays the shader's "
+                                 "fft-layout spectrum; it requires "
+                                 "spectrum_layout='fft'")
+            h0, h0_conj = h0_pair_gpu_hash(
+                n, cfg.length, cfg.phillips_amplitude, cfg.wind,
+                gpu_hash_seeds[0], gpu_hash_seeds[1], cfg.damping)
         if h0 is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(cfg.seed)
@@ -369,9 +413,38 @@ class OceanSolver:
             return self.symmetrize(OceanStateReal(*pair, **rest))
         return self.symmetrize(OceanState(*pair, **rest))
 
-    def reconfigure(self, state, new_cfg, key=None):
-        """Live parameter change (JAX: OceanSolver.reconfigure)."""
-        raise _not_ported("reconfigure", "7b")
+    def reconfigure(self, state, new_cfg: OceanConfig,
+                    generator: Optional[torch.Generator] = None):
+        """Live parameter change (the reference's re-init,
+        OceanRenderer.cs:98-109): returns (new solver, new state), with h0
+        drawn afresh from ``generator`` (default seeded with
+        new_cfg.seed). A change of INIT_ONLY_FIELDS only shares every
+        table of this solver (a shallow copy) and keeps the phase, clock,
+        step and foam; any other change builds a new solver with the same
+        switches (packing and half spectrum kept only in the same layout),
+        which keeps them only at the same N and layout (JAX:
+        OceanSolver.reconfigure)."""
+        changed = {f.name for f in dataclasses.fields(new_cfg)
+                   if getattr(new_cfg, f.name) != getattr(self.cfg, f.name)}
+        if generator is None:
+            generator = torch.Generator().manual_seed(new_cfg.seed)
+        keep = dict(phase=state.phase, t=state.t, step=state.step,
+                    foam_accum=state.foam_accum)
+        if changed <= self.INIT_ONLY_FIELDS:
+            solver = copy.copy(self)
+            solver.cfg = new_cfg
+            return solver, solver.init(generator)._replace(**keep)
+        same_layout = new_cfg.spectrum_layout == self.cfg.spectrum_layout
+        solver = OceanSolver(
+            new_cfg, device=self.device, fft_backend=self.fft_backend,
+            eval_mode=self.eval_mode, pallas_fields=self.pallas_fields,
+            real_state=self.real_state,
+            pack_channels=self.pack_channels if same_layout else None,
+            half_spectrum=self.half_spectrum if same_layout else False)
+        fresh = solver.init(generator)
+        if new_cfg.resolution == self.cfg.resolution and same_layout:
+            fresh = fresh._replace(**keep)
+        return solver, fresh
 
     # ------------------------------------------------------------------ step
 
@@ -449,7 +522,7 @@ class OceanSolver:
             pv = torch.complex(torch.cos(phase), torch.sin(phase))
             vspec = ((1j * float(rate)) * self.omega
                      * (state.h0 * pv - state.h0_conj * pv.conj()))
-            if self._ifft2 is None:
+            if self._ifft2 is None and self.basis is None:
                 return ifft2_unnorm(vspec).real.contiguous()
             return self._transform(vspec[None])[0].real.contiguous()
         cph, sph = torch.cos(phase), torch.sin(phase)
@@ -472,6 +545,12 @@ class OceanSolver:
         """Assembly, transforms and field extraction at ``phase``: the
         complex state's _evolved_transform and _extract_fields, or the real
         state's _fields_from_phase_real."""
+        return self._extract_fields(*self._planes_from_phase(state, phase))
+
+    def _planes_from_phase(self, state, phase):
+        """Assembly and transforms at ``phase``: the spatial planes
+        (height, disp_x, disp_z[, slope_x, slope_z]) the fields are made
+        from."""
         if not self.real_state:
             f = self._evolved_transform(state, phase)
             # packed: the fields alternate Re/Im down the packed channel
@@ -482,7 +561,7 @@ class OceanSolver:
                          for c in range(self._nch)]
             else:
                 parts = [f[0].real] + [f[c].imag for c in range(1, self._nch)]
-            return self._extract_fields(*(p.contiguous() for p in parts))
+            return tuple(p.contiguous() for p in parts)
         pair = (state.h0_re, state.h0_im, state.h0c_re, state.h0c_im)
         spectral = self._nch == 5
         if self.half_spectrum:
@@ -499,9 +578,8 @@ class OceanSolver:
                 last = ifft2_planes_half(re[-1:, :mh + 1], im[-1:, :mh + 1],
                                          True, self.precision)[0]
             if spectral:
-                return self._extract_fields(re_f[0], im_f[0], re_f[1],
-                                            im_f[1], last)
-            return self._extract_fields(re_f[0], im_f[0], last)
+                return re_f[0], im_f[0], re_f[1], im_f[1], last
+            return re_f[0], im_f[0], last
         if self.fft_backend == "pallas_fused":
             re, im = ifft2_fused_planes(
                 pair, phase, self.cfg.length, self.dz_sign, epsilon=EPSILON,
@@ -515,17 +593,17 @@ class OceanSolver:
             re, im = ifft2_planes_auto(re, im, True, self.precision)
         if self.pack_channels:
             if spectral:
-                return self._extract_fields(re[0], im[0], re[1], im[1], re[2])
-            return self._extract_fields(re[0], im[0], re[1])
+                return re[0], im[0], re[1], im[1], re[2]
+            return re[0], im[0], re[1]
         if spectral:
-            return self._extract_fields(re[0], im[1], im[2], im[3], im[4])
-        return self._extract_fields(re[0], im[1], im[2])
+            return re[0], im[1], im[2], im[3], im[4]
+        return re[0], im[1], im[2]
 
     def _evolved_transform(self, state: OceanState, phase) -> torch.Tensor:
         """phase [N, N] → complex64 [C, N, N] spatial fields: the assembly
         and the transform, or on ``pallas_fused`` the fused pipeline on the
         h0 pair's planes."""
-        if self.fft_backend == "pallas_fused":
+        if self.fft_backend == "pallas_fused" and self.basis is None:
             pair = tuple(p.contiguous() for p in (
                 state.h0.real, state.h0.imag,
                 state.h0_conj.real, state.h0_conj.imag))
@@ -543,7 +621,20 @@ class OceanSolver:
 
     def _transform(self, spectra: torch.Tensor) -> torch.Tensor:
         """Complex [C, N, N] spectra → [C, N, N] spatial fields, with the
-        centered layout's pre/post modulation around the transform."""
+        centered layout's pre/post modulation around the transform, or
+        the direct sum F_c = Eᵀ·C_c·E in f32, each contraction in blocks
+        of DIRECT_BLOCK terms."""
+        if self.basis is not None:
+            # JAX runs the direct sum at Precision.HIGHEST
+            require_f32_matmul(spectra, "eval_mode='direct' and its basis")
+            e = self.basis
+            p = torch.zeros_like(spectra)
+            for s in range(0, e.shape[0], DIRECT_BLOCK):
+                p += spectra[..., s:s + DIRECT_BLOCK] @ e[s:s + DIRECT_BLOCK]
+            f = torch.zeros_like(p)
+            for s in range(0, e.shape[0], DIRECT_BLOCK):
+                f += e[s:s + DIRECT_BLOCK].transpose(0, 1) @ p[:, s:s + DIRECT_BLOCK]
+            return f
         if self.pre is not None:
             spectra = spectra * self.pre[None]
         f = self._ifft2(spectra)

@@ -14,6 +14,9 @@ Reference formulas:
   * dispersion — capillary ω = sqrt(g|k|(1 + |k|²/370²)) (FFTCommon.cginc:
                  106-114); quantized ω = floor(sqrt(g|k|)/ω₀)·ω₀, ω₀ = 2π/L
                  (FFTMesh.cs:141-147).
+  * shader h0  — h0_pair_gpu_hash: the GPU path's frac(sin(dot)) hash and
+                 Box–Muller (FFTCommon.cginc:87-99), float32 numpy, texel
+                 for texel.
 """
 
 from __future__ import annotations
@@ -194,3 +197,69 @@ def dispersion(k_mag, mode: str, length: float, g: float = G):
     if mode == "quantized":
         return dispersion_quantized(k_mag, length, g)
     raise ValueError(f"bad dispersion mode {mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# The shader-hash h0 (the InitialSpectrum pass, texel for texel)
+# ---------------------------------------------------------------------------
+
+def uv_random_f32(uv_x, uv_y, salt: float, random: float):
+    """frac(sin(dot(uv + (salt, random), (12.9898, 78.233))) · 43758.5453)
+    with every intermediate held in float32, as the shader's ALU holds it.
+    numpy on the host: one ulp of sin becomes ~4e-3 of the result, so the
+    card's sin would not replay the texels."""
+    f32 = np.float32
+    x = (np.asarray(uv_x, f32) + f32(salt))
+    y = (np.asarray(uv_y, f32) + f32(random))
+    d = (x * f32(12.9898) + y * f32(78.233)).astype(f32)
+    v = (np.sin(d, dtype=f32) * f32(43758.5453)).astype(f32)
+    return (v - np.floor(v)).astype(f32)
+
+
+def h0_pair_gpu_hash(n: int, length: float, amplitude: float, wind,
+                     seed1: float, seed2: float, damping: float = 0.01):
+    """(h0, h0_conj) complex64 numpy, as the InitialSpectrum pass computes
+    them (InitialSpectrum.shader:42-54, hTilde0 FFTCommon.cginc:87-99), in
+    float32 on the host; the fft layout. Texel-center uv = (i + ½)/N, so
+    the shader's n = uv·N = i + ½ feeds GetWave's −½ offset; h0 =
+    hTilde0(uv, seed1/2, seed2·2, P(n, m)) and h0_conj = conj(hTilde0(uv,
+    seed1, seed2, P(N − n, N − m))); hTilde0 draws two uv_random_f32
+    values (salts 10.612 and 11.899), clamps them to [0.01, 1] and takes
+    Box–Muller × sqrt(P/2). The reference binds seed1, seed2 from Unity's
+    Random.value (OceanRenderer.cs:147-148)."""
+    f32 = np.float32
+    idx = np.arange(n, dtype=f32)
+    uv1 = (idx + f32(0.5)) / f32(n)
+    ux, uy = np.meshgrid(uv1, uv1, indexing="ij")
+    nn = ux * f32(n)
+    mm = uy * f32(n)
+
+    def phillips_shader(pn, pm):
+        # Phillips at GetWave's wrapped k (FFTCommon.cginc:58-85)
+        a = pn - f32(0.5)
+        b = pm - f32(0.5)
+        a = np.where(a < n * 0.5, a, a - f32(n)).astype(f32)
+        b = np.where(b < n * 0.5, b, b - f32(n)).astype(f32)
+        kx = f32(2 * PI) * a / f32(length)
+        kz = f32(2 * PI) * b / f32(length)
+        return np.asarray(phillips(kx.astype(np.float64),
+                                   kz.astype(np.float64),
+                                   amplitude, wind, damping), f32)
+
+    def htilde0(r1, r2, phi):
+        rand1 = np.clip(uv_random_f32(ux, uy, 10.612, r1),
+                        0.01, 1.0).astype(f32)
+        rand2 = np.clip(uv_random_f32(ux, uy, 11.899, r2),
+                        0.01, 1.0).astype(f32)
+        x = np.sqrt(f32(-2.0) * np.log(rand1, dtype=f32)).astype(f32)
+        y = (f32(2 * PI) * rand2).astype(f32)
+        scale = np.sqrt(phi / f32(2.0)).astype(f32)
+        return ((x * np.cos(y, dtype=f32)) * scale
+                + 1j * (x * np.sin(y, dtype=f32)) * scale
+                ).astype(np.complex64)
+
+    phi1 = phillips_shader(nn, mm)
+    phi2 = phillips_shader(f32(n) - nn, f32(n) - mm)
+    h0 = htilde0(f32(seed1) / 2, f32(seed2) * 2, phi1)
+    h0_conj = np.conj(htilde0(f32(seed1), f32(seed2), phi2))
+    return h0, h0_conj
