@@ -49,7 +49,7 @@ Phases, each printing its own lines:
                likewise against the bf16 natural row kernel: bit-equal on
                a channel with no 1/|k| term, else within 2e-3·max, RMS
                error at most 1.1 × the row kernel's;
-  4. slice   — twenty-eight paths on the card, each from a seeded init,
+  4. slice   — thirty-one paths on the card, each from a seeded init,
                with every launch count set to 0 just before and read just
                after it; (i)-(xv) run the real state with OCEAN_DEMO's
                slice switches (packed + half with the fields kernel) unless
@@ -141,6 +141,31 @@ Phases, each printing its own lines:
                        packed 4-wave bank, analytic normals, 600 steps
                  (p2)  BASELINE config 3: PondConfig(resolution=512) with
                        WaveBank.random(0, 16), use_pallas=True, 600 steps
+                 (xxvi) the demo CLI, tpu_ocean_torch.demo.main(["ocean",
+                       "--production", "--steps", "60", "--dump-every",
+                       "20", "--checkpoint-every", "20", "--save-mesh",
+                       "--save-clipmap", ...]) at OCEAN_DEMO 1024²: path
+                       (i)'s launches, 60 JSONL metrics lines on its
+                       stderr, checkpoints at steps 20, 40, 60, the final
+                       .npy files bit-equal to an OceanSolver with path
+                       (i)'s switches stepped 60 times from the same
+                       generator seed, each field PNG read back (zlib,
+                       filter 0) equal to the viridis mapping of its .npy,
+                       ocean_render.png equal to viz.shade_ocean of the
+                       fields, an OBJ of 256² vertices (decimate 4) and a
+                       clipmap; sample.buoy_heights and surface_at on the
+                       card's final fields within 1e-6·max of the CPU copy,
+                       and a finite gradient through sample_bilinear
+                 (xxvii) demo.main(["pond", "--pallas", "--waves", "16",
+                       "--steps", "600", ...]): (p2)'s bank at 512², one
+                       wave-bank launch a step, the final fields within
+                       (p2)'s band of the CPU plain path at the same t,
+                       three render PNGs
+                 (xxviii) demo.main(["fftmesh", ...]): rc 0, the printed
+                       oracle-vs-solver error under 1e-3, no hand kernel
+                 then python -m tpu_ocean_torch ocean --production --res
+                       256 --steps 5 in a process of its own: exit 0, its
+                       files written, the kernel build loaded as it is
                every kernel must have launched exactly its per-step count
                (PATHS, POND_PATHS below; the launches at other tiers and
                forms by kernel × tier × form, fft.planes.named_launches).
@@ -164,7 +189,9 @@ Phases, each printing its own lines:
                velocities at 512², card against CPU, with the same band;
   5. timing  — per path ((xxii)-(xxv) at the end of their phase-4 part,
                (xxii) through Simulation.step, which synchronizes and
-               checkpoints and exports every 20 steps): ms/step (CUDA
+               checkpoints and exports every 20 steps; (xxvi) and (xxvii)
+               by the CLI's own Metrics.summary(), beside (i)'s and
+               (xxii)'s and beside (p2)'s): ms/step (CUDA
                events), the host's enqueue time
                per step, device busy time per step and per layer
                (torch.profiler) and the idle share, and up to 2048² the
@@ -217,6 +244,7 @@ printed. Without a CUDA device it stops at once. Imports no jax.
 """
 
 import argparse
+import ast
 import collections
 import contextlib
 import cProfile
@@ -1002,6 +1030,23 @@ def compare_pond(card, cpu, tag, what):
         require((err <= band).all(), f"path {tag}: card and cpu disagree on {name}")
 
 
+def cli_metrics(text, steps, what):
+    """The demo CLI's stderr: require one JSONL metrics line for each of
+    ``steps`` steps; return its closing Metrics.summary() dict."""
+    records = [json.loads(line) for line in text.splitlines()
+               if line.startswith("{")]
+    require([r["step"] for r in records] == list(range(1, steps + 1)),
+            f"path {what}: {len(records)} metrics lines, not {steps}")
+    return ast.literal_eval(
+        re.search(r"^# \d+ .*: (\{.*\})$", text, re.M).group(1))
+
+
+def cli_fftmesh_error(text):
+    """The oracle-vs-solver error the fftmesh scene prints on stderr."""
+    return float(re.search(r"max rel height error at t=[\d.]+: (\S+)",
+                           text).group(1))
+
+
 def check_pond_fields(card, n, tag):
     for name in card._fields:
         a = getattr(card, name)
@@ -1699,6 +1744,7 @@ def main():
             log(f"[timing] {label} host µs/step by function (cProfile "
                 f"tottime, top 10): " + "; ".join(
                     f"{name} {us:.1f}" for name, us in host_profile(one_step)))
+        return step_ms
 
     def ocean_step(psolver, state):
         step_state = [state]
@@ -1962,7 +2008,7 @@ def main():
     t0 = time.perf_counter()
     save_checkpoint(str(work / "one"), sim.state, OCEAN_DEMO)
     save_ms = (time.perf_counter() - t0) * 1e3
-    summary = sim.metrics.summary()
+    summary = sim_summary = sim.metrics.summary()
     log(f"[slice {tag}] Simulation(OCEAN_DEMO, {main_kw}), 60 steps: 60 "
         f"JSONL lines, metrics mean {summary['mean_ms']:.4f} ms p50 "
         f"{summary['p50_ms']:.4f} p95 {summary['p95_ms']:.4f}; height and "
@@ -2140,16 +2186,168 @@ def main():
     time_path(f"path ({tag}) pallas shader-hash h0", OCEAN_DEMO.resolution,
               ocean_step(hsolver, state), 200, OCEAN_NOTE)
     del hsolver, unpacked, cpu_solver, card, raw_state
-    scratch.cleanup()
     phase_done(f"4 path ({tag})")
+
+    # ---- the demo CLI (xxvi)-(xxviii) through demo.main, as a user runs
+    # it, then its module entry point in a process of its own
+    from tpu_ocean_torch import _png, demo, sample, viz
+    from tpu_ocean_torch.gerstner import PondFields
+
+    def run_cli(what, argv, want):
+        """demo.main(argv) with its stderr captured and every count set to
+        0 just before; requires rc 0 and exactly ``want`` launches."""
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = counted(what, want, lambda: demo.main(argv))
+        text = err.getvalue()
+        require(rc == 0,
+                f"path {what}: demo.main returned {rc}: {text[-2000:]}")
+        return text
+
+    # (xxvi) ocean --production at OCEAN_DEMO 1024²: path (i)'s launches,
+    # every output file, bit-equal to the solver it wraps
+    tag = "xxvi"
+    out = work / "ocean"
+    text = run_cli(tag, ["ocean", "--production", "--steps", "60",
+                         "--dump-every", "20", "--checkpoint-every", "20",
+                         "--save-mesh", "--save-clipmap", "--out", str(out)],
+                   {k: 60 * v for k, v in main_per_step.items()})
+    cli_summary = {tag: cli_metrics(text, 60, tag)}
+    ckpts = sorted(p.name for p in (out / "ckpt").iterdir())
+    require(ckpts == [f"state_{k:010d}.npz" for k in (20, 40, 60)],
+            f"path {tag}: checkpoints {ckpts}")
+    require(all((out / f"ocean_render_{k:06d}.png").is_file()
+                for k in (20, 40, 60)), f"path {tag}: dumped renders")
+    wsolver = OceanSolver(OCEAN_DEMO, **main_kw)
+    wstate = wsolver.init(seeded())
+    for _ in range(60):
+        wstate, wfields = wsolver.step(wstate, DT)
+    host = fields_to_numpy(wfields)
+    saved = type(host)(*(np.load(out / f"ocean_{name}_000060.npy")
+                         for name in host._fields))
+    differ = [name for name in host._fields
+              if not np.array_equal(getattr(saved, name), getattr(host, name))]
+    log(f"[slice {tag}] ocean --production, 60 steps: the saved fields "
+        f"against OceanSolver(OCEAN_DEMO, {main_kw}) stepped 60 times from "
+        f"manual_seed(0): bit-equal {not differ} {differ or ''}")
+    require(not differ, f"path {tag}: the CLI's fields differ in {differ}")
+    check_fields(saved, OCEAN_DEMO.resolution, tag)
+    pngs = 0
+    for name in host._fields:
+        a = getattr(saved, name)
+        if a.ndim == 2:
+            got = _png.read_png(str(out / f"ocean_{name}_000060.png"))
+            require(np.array_equal(got, _png.colormap(
+                viz._normalize01(a.astype(np.float64)))),
+                f"path {tag}: ocean_{name}_000060.png is not the viridis "
+                f"mapping of its .npy")
+            pngs += 1
+    require(np.array_equal(_png.read_png(str(out / "ocean_render.png")),
+                           (viz.shade_ocean(saved) * 255).astype(np.uint8)),
+            f"path {tag}: ocean_render.png is not shade_ocean of the fields")
+    with open(out / "ocean_mesh.obj") as f:
+        counts = collections.Counter(line[:2] for line in f)
+    require(counts["v "] == 256 * 256 and counts["f "] == 2 * 255 * 255,
+            f"path {tag}: the mesh has {counts['v ']} vertices and "
+            f"{counts['f ']} faces")
+    with open(out / "ocean_clipmap.obj") as f:
+        clip_v = sum(line.startswith("v ") for line in f)
+    require(clip_v > 0, f"path {tag}: empty clipmap")
+    log(f"[slice {tag}] 60 JSONL lines, checkpoints {ckpts}, {pngs} field "
+        f"PNGs read back equal to the viridis mapping of their .npy, "
+        f"ocean_render.png equal to shade_ocean, mesh {counts['v ']} "
+        f"vertices (decimate 4), clipmap {clip_v} vertices")
+    # the consumers on the card's fields against their CPU copy: heights
+    # within 1e-6 x the fields' max, world x and z within 1e-6 x their own
+    # reach (the probes span [-L, 2L])
+    cpu_fields = type(wfields)(*(f.cpu() for f in wfields))
+    length, chop = OCEAN_DEMO.length, OCEAN_DEMO.choppiness
+    pos = np.random.default_rng(0).uniform(-length, 2 * length, (256, 2))
+    scale = max(float(getattr(cpu_fields, k).abs().max())
+                for k in ("height", "disp_x", "disp_z"))
+    got = sample.buoy_heights(wfields, pos, length)
+    require(got.device == wfields.height.device and got.shape == (256,),
+            f"path {tag}: buoy heights")
+    pairs = [(got, sample.buoy_heights(cpu_fields, pos, length))]
+    pairs += zip(*(sample.surface_at(f, pos[:, 0], pos[:, 1], length, chop)
+                   for f in (wfields, cpu_fields)))
+    sample_errs = [float((g.cpu() - w).abs().max()) for g, w in pairs]
+    bands = [1e-6 * scale, 1e-6 * (scale + 2 * length), 1e-6 * scale,
+             1e-6 * (scale + 2 * length)]
+    x = torch.tensor(pos[:8, 0], dtype=torch.float32, device=dev,
+                     requires_grad=True)
+    sample.sample_bilinear(wfields.height, x, pos[:8, 1],
+                           length).sum().backward()
+    log(f"[slice {tag}] sample on the card's final fields against the CPU "
+        f"copy, max abs err (band): buoy_heights, surface_at x, height, z "
+        + ", ".join(f"{e:.3e} ({b:.1e})" for e, b in zip(sample_errs, bands))
+        + f"; gradient in x through sample_bilinear finite: "
+        f"{bool(torch.isfinite(x.grad).all())}")
+    require(all(e <= b for e, b in zip(sample_errs, bands)),
+            f"path {tag}: sample on the card differs from the CPU")
+    require(bool(torch.isfinite(x.grad).all()), f"path {tag}: gradient")
+    del wsolver, wstate, wfields, host, saved, cpu_fields
+    phase_done(f"4 path ({tag})")
+
+    # (xxvii) pond --pallas at BASELINE config 3 (512², the bank of (p2))
+    tag = "xxvii"
+    out = work / "pond"
+    text = run_cli(tag, ["pond", "--pallas", "--waves", "16", "--steps",
+                         "600", "--out", str(out)], {"gerstner_bank": 600})
+    cli_summary[tag] = cli_metrics(text, 600, tag)
+    card = PondFields(*(np.load(out / f"pond_{name}_000600.npy")
+                        for name in pond_names))
+    check_pond_fields(card, POND_DEMO.resolution, tag)
+    cpu = PondSolver(POND_DEMO, bank=WaveBank.random(0, 16), use_pallas=True,
+                     device="cpu")
+    log(f"[slice {tag}] the CLI's last t = 599/60 on the CPU plain path")
+    compare_pond(card, pond_fields_to_numpy(cpu.fields(599 / 60.0)), tag,
+                 pond_names)
+    for name in ("pond_render", "pond_render_cubemap", "pond_render_realtime"):
+        shape = _png.read_png(str(out / f"{name}.png")).shape
+        require(shape == (512, 512, 3), f"path {tag}: {name}.png {shape}")
+    log(f"[slice {tag}] 600 JSONL lines, three render PNGs 512x512 RGB")
+    phase_done(f"4 path ({tag})")
+
+    # (xxviii) fftmesh: the oracle against the direct sum, no hand kernel
+    tag = "xxviii"
+    text = run_cli(tag, ["fftmesh", "--out", str(work / "fftmesh")], {})
+    mesh_err = cli_fftmesh_error(text)
+    log(f"[slice {tag}] fftmesh: oracle-vs-solver max rel height error "
+        f"{mesh_err:.3e} (rc 1 at 1e-3 or more)")
+    require(mesh_err < 1e-3, f"path {tag}: error {mesh_err}")
+    phase_done(f"4 path ({tag})")
+
+    # the module entry point in a process of its own, on the cached build
+    builds = sorted(p.name for p in _build.BUILD_ROOT.iterdir())
+    out = work / "entry"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_ocean_torch", "ocean", "--production",
+         "--res", "256", "--steps", "5", "--out", str(out)],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    entry_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"python -m tpu_ocean_torch exited "
+            f"{proc.returncode}: {proc.stderr[-2000:]}")
+    written = sorted(p.name for p in out.iterdir())
+    require(len([n for n in written if n.endswith(".npy")]) == 8
+            and len([n for n in written if n.endswith(".png")]) == 8
+            and sorted(p.name for p in _build.BUILD_ROOT.iterdir()) == builds,
+            f"python -m tpu_ocean_torch: wrote {written}, or built again")
+    log(f"[slice entry] python -m tpu_ocean_torch ocean --production --res "
+        f"256 --steps 5: exit 0 in {entry_s:.1f} s, {len(written)} files, "
+        f"no new build; {proc.stderr.strip().splitlines()[-1]}")
+    scratch.cleanup()
+    phase_done("4 path (entry)")
 
     phase_done("4 slice")
 
     # ---- 5. timing: each path's step, then each kernel
+    path_ms = {}
     for path in PATHS:
         pcfg, psolver, state = solvers[path.tag]
         with fields_switch(fs, path.v2), dft_switches(planes, path.switches):
-            time_path(f"path ({path.tag}) {path.backend}"
+            path_ms[path.tag] = time_path(f"path ({path.tag}) {path.backend}"
                       + ("" if path.precision == "float32"
                          else f" {path.precision}")
                       + ("" if path.v2 else " fields v1")
@@ -2169,8 +2367,23 @@ def main():
 
         time_path(f"path ({tag}) PondSolver.fields", POND_DEMO.resolution,
                   fields_call, 200, POND_NOTE)
-        time_path(f"path ({tag}) PondSimulation.step", POND_DEMO.resolution,
-                  sim.step, 200, POND_NOTE)
+        path_ms[tag] = time_path(f"path ({tag}) PondSimulation.step",
+                                 POND_DEMO.resolution, sim.step, 200,
+                                 POND_NOTE)
+    # the CLI's own metrics (host clock around each step and its
+    # synchronize; the saves lie outside) beside the library paths it wraps
+    for tag, beside in (("xxvi", f"path (i)'s OceanSolver.step "
+                                 f"{path_ms['i']:.4f} ms/step (CUDA events) "
+                                 f"and path (xxii)'s Simulation Metrics mean "
+                                 f"{sim_summary['mean_ms']:.4f}"),
+                        ("xxvii", f"path (p2)'s PondSimulation.step "
+                                  f"{path_ms['p2']:.4f} ms/step (CUDA "
+                                  f"events)")):
+        m = cli_summary[tag]
+        log(f"[timing] {kind} ({smi}): path ({tag}) the CLI's "
+            f"Metrics.summary() over {m['steps']} steps: mean "
+            f"{m['mean_ms']:.4f} ms/step, p50 {m['p50_ms']:.4f}, p95 "
+            f"{m['p95_ms']:.4f}; beside {beside}")
     # 4096² in the transposed regime (the JAX crossover moved past it)
     natural_cap = planes.MAX_TRANSPOSED_N
     for tag in ("iii", "iv"):

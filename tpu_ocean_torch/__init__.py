@@ -28,7 +28,11 @@ export (``native.AsyncExporter``, built from ``native/exporter.cpp`` with
 g++ on first use); ``OceanSolver.reconfigure`` changes the config live,
 ``eval_mode="direct"`` takes the oracle's direct sum (the centered layout
 at any length) and ``init(gpu_hash_seeds=...)`` the shader's hash
-spectrum; ``diagnostics`` holds the sea-state statistics. The solvers and
+spectrum; ``diagnostics`` holds the sea-state statistics. The demo
+scenes run as ``python -m tpu_ocean_torch ocean|fftmesh|pond`` (``demo``),
+with the consumers ``viz`` (PNG heatmaps without PIL or matplotlib,
+renders, OBJ meshes), ``sample`` (bilinear probes) and ``oracle`` (the
+float64 direct-DFT oracle). The solvers and
 runtimes run on the card unless given ``device="cpu"``; on CPU tensors
 each kernel wrapper runs its plain torch version. ``OceanConfig.precision="bfloat16"`` and the bf16x3 and
 three-factor switches of ``fft.planes`` run the row and fused kernels on
