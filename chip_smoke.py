@@ -49,7 +49,7 @@ Phases, each printing its own lines:
                likewise against the bf16 natural row kernel: bit-equal on
                a channel with no 1/|k| term, else within 2e-3·max, RMS
                error at most 1.1 × the row kernel's;
-  4. slice   — thirty-one paths on the card, each from a seeded init,
+  4. slice   — thirty-six paths on the card, each from a seeded init,
                with every launch count set to 0 just before and read just
                after it; (i)-(xv) run the real state with OCEAN_DEMO's
                slice switches (packed + half with the fields kernel) unless
@@ -163,9 +163,38 @@ Phases, each printing its own lines:
                        three render PNGs
                  (xxviii) demo.main(["fftmesh", ...]): rc 0, the printed
                        oracle-vs-solver error under 1e-3, no hand kernel
-                 then python -m tpu_ocean_torch ocean --production --res
-                       256 --steps 5 in a process of its own: exit 0, its
-                       files written, the kernel build loaded as it is
+                 (xxix) CascadeSolver(default_cascade(1024), path (i)'s
+                       switches), 60 steps: every row-DFT pass one launch
+                       for the three bands (5 a step, each at C = 3), the
+                       last step against the CPU plain path and against
+                       the sum of three single-patch OceanSolvers (one
+                       band's h0, length, choppiness and dt_multiplier
+                       each) within 1e-6·max; velocity (3 launches at
+                       C = 3) against the CPU
+                 (xxx) the same at 4096², 10 steps: 3 natural and 2
+                       transposed launches a step, each at C = 3
+                 (xxxi) LODCascadeSolver(periods [8, 4, 1]) on (xxix)'s
+                       switches, 64 frames: 5 launches a frame at C = the
+                       bands it refreshes, held bands' planes bit-equal,
+                       at frames 8-64 the height within 1e-4 and the phases
+                       within 1e-5 of (xxix)'s solver stepped every frame;
+                       velocity against the CPU; the out-of-place scatter
+                       timed
+                 (xxxii) CascadeSimulation on (xxxi)'s schedule,
+                       checkpoints and export every 20 frames, 60 frames;
+                       a checkpoint read on the CPU; a resume of 20 frames
+                       bit-equal to 80 uninterrupted; a resume under
+                       periods [4, 4, 1] refused; a live wind change
+                       keeping the frame, schedule, phases and tables
+                 (xxxiii) demo.main(["cascade", "--production", "--res",
+                       "1024", "--camera", "3000", "--steps", "60", ...]):
+                       the launches of the schedule it prints, the final
+                       .npy files bit-equal to an LODCascadeSolver from
+                       the same seed
+                 then python -m tpu_ocean_torch ocean (and cascade)
+                       --production --res 256 --steps 5, each in a process
+                       of its own: exit 0, its files written, the kernel
+                       build loaded as it is
                every kernel must have launched exactly its per-step count
                (PATHS, POND_PATHS below; the launches at other tiers and
                forms by kernel × tier × form, fft.planes.named_launches).
@@ -427,6 +456,16 @@ POND_PATHS = [
     ("p1", "POND_DEMO 512², packed 4-wave bank", None, 600),
     ("p2", "BASELINE config 3, 512², WaveBank.random(0, 16)", (0, 16), 600),
 ]
+# the cascade paths (xxix)-(xxxiii): default_cascade's three bands at
+# CASCADE_N (and CASCADE_NATURAL_N, the natural regime) with path (i)'s
+# switches; the LOD schedule of (xxxi) and (xxxii), and the camera distance
+# of the CLI's (xxxiii). A packed + half refresh transforms its bands in 5
+# row-DFT launches at C = the bands refreshed (the full channel's 2 passes;
+# the half channel's rows, Nyquist row and columns; at CASCADE_NATURAL_N 3
+# natural and 2 transposed)
+CASCADE_N, CASCADE_NATURAL_N = 1024, 4096
+LOD_PERIODS = [8, 4, 1]
+CLI_CAMERA = 3000.0
 # name: (source, the TPU kernel it replaces); a fused kernel in the
 # per-channel set or the packed set with 5 live fields is its own entry,
 # named as it counts (fft.planes.kernel_name)
@@ -678,6 +717,41 @@ def dft_switches(planes, switches):
     finally:
         for k, v in saved.items():
             setattr(planes, k, v)
+
+
+@contextlib.contextmanager
+def recorded_rows(planes):
+    """Every row-DFT kernel launch while inside, as (entry, C): the list
+    fft.planes' launch function appends to."""
+    rows = []
+    launch = planes._launch_rows
+
+    def recorded(entry, real_part, *args):
+        rows.append((entry, real_part.shape[0]))
+        return launch(entry, real_part, *args)
+
+    planes._launch_rows = recorded
+    try:
+        yield rows
+    finally:
+        planes._launch_rows = launch
+
+
+def lod_row_launches(periods, first, last, per_refresh=5):
+    """C of each row-DFT launch of LOD frames ``first``..``last``: a frame
+    refreshes the bands whose period divides it, in ``per_refresh``
+    launches at C = their number (none when no band refreshes)."""
+    sizes = []
+    for frame in range(first, last + 1):
+        refreshed = sum(frame % p == 0 for p in periods)
+        sizes += [refreshed] * (per_refresh if refreshed else 0)
+    return sizes
+
+
+def cli_lod_periods(text):
+    """The LOD schedule the cascade scene prints on stderr."""
+    return ast.literal_eval(re.search(r"^# LOD periods (\[[\d, ]*\])", text,
+                                      re.M).group(1))
 
 
 def cuda_ms(fn, iters=100, warmup=10):
@@ -1254,11 +1328,16 @@ def main():
              [(1, 1024, 1024), (1, 512, 1024), (1, 1024, 512), (1, 1, 1024),
               (1, 4096, 4096), (1, 4096, 2048), (3, 1024, 1024),
               (2, 1024, 1024), (3, 4096, 4096), (5, 4096, 4096),
-              (5, 1024, 1024)]),
+              (5, 1024, 1024),
+              # the cascade's bands (xxix), LOD's subsets (xxxi) and the
+              # natural regime's columns (xxx)
+              (3, 512, 1024), (3, 1, 1024), (3, 1024, 512), (2, 512, 1024),
+              (2, 1, 1024), (2, 1024, 512), (3, 4096, 2048)]),
             ("fft_rows_natural", planes.fft1d_natural_large,
              planes.fft1d_natural_large_plain, "float32", {},
              [(1, 4096, 4096), (1, 2048, 4096), (1, 1, 4096),
-              (1, 1024, 1024), (5, 4096, 4096)]),
+              (1, 1024, 1024), (5, 4096, 4096), (3, 4096, 4096),
+              (3, 2048, 4096), (3, 1, 4096)]),
             ("matrix_rows_transposed[bf16]", planes.fft1d_transposed,
              planes.fft1d_transposed_plain, "bfloat16", {},
              [(1, 1024, 1024), (1, 512, 1024), (1, 1024, 512), (1, 1, 1024),
@@ -2318,25 +2397,363 @@ def main():
     require(mesh_err < 1e-3, f"path {tag}: error {mesh_err}")
     phase_done(f"4 path ({tag})")
 
-    # the module entry point in a process of its own, on the cached build
-    builds = sorted(p.name for p in _build.BUILD_ROOT.iterdir())
-    out = work / "entry"
+    # ---- the cascade slice (xxix)-(xxxiii): CascadeSolver,
+    # LODCascadeSolver, CascadeSimulation and the CLI's cascade scene, each
+    # from a fixed seed; every row-DFT launch recorded with its C
+    from tpu_ocean_torch import (CascadeSimulation, CascadeSolver,
+                                 LODCascadeSolver, LODState,
+                                 cascade_state_from_numpy,
+                                 cascade_state_to_numpy, default_cascade,
+                                 load_cascade_checkpoint,
+                                 save_cascade_checkpoint)
+    from tpu_ocean_torch.lod import periods_for_distance
+    casc_kw = {"fft_backend": "pallas", **SLICE}
+    rows_tr, rows_nat = "tpu_fft_rows_transposed", "tpu_fft_rows_natural"
+    casc_ms = {}
+
+    def require_rows(rows, want, what):
+        got, want = collections.Counter(rows), collections.Counter(want)
+        log(f"[slice {what}] row-DFT launches by (entry, C): {dict(got)}")
+        require(got == want, f"path {what}: row-DFT launches {dict(got)}, "
+                f"not {dict(want)}")
+
+    def combined(solver):
+        """The config compare_fields reads for a cascade's combined
+        surface: effective displacements (no further chop), the display
+        length's texel."""
+        return solver.cfgs[0].replace(choppiness=1.0,
+                                      length=solver.display_length)
+
+    def cpu_copy(state):
+        return cascade_state_from_numpy(cascade_state_to_numpy(state), "cpu")
+
+    def stepped(solver, state, steps):
+        """run() for counted: ``steps`` steps from ``state``; returns (the
+        state before the last step, the last state, its fields)."""
+        def run():
+            st = prev = state
+            for _ in range(steps):
+                prev = st
+                st, fields = solver.step(st, DT)
+            return prev, st, fields
+        return run
+
+    def replay(solver, prev, card, tag):
+        """The last step again on the CPU plain path from the card's state
+        before it; returns the CPU solver."""
+        cpu_solver = CascadeSolver(solver.cfgs, device="cpu", **casc_kw)
+        _, cpu_fields = cpu_solver.step(cpu_copy(prev), DT)
+        log(f"[slice {tag}] the last step replayed on the CPU plain path "
+            f"from the card's state")
+        compare_fields(card, fields_to_numpy(cpu_fields), combined(solver),
+                       tag)
+        return cpu_solver
+
+    def held_velocity(got, want, tag):
+        got, want = got.cpu().numpy(), want.numpy()
+        err, scale = np.abs(got - want).max(), np.abs(want).max()
+        log(f"[slice {tag}] velocity card vs cpu: max abs err {err:.3e} = "
+            f"{err / scale:.3e} x max|cpu| (limit 1e-5)")
+        require(np.isfinite(got).all() and err <= 1e-5 * scale,
+                f"path {tag}: velocity disagrees")
+
+    # (xxix) the production cascade at CASCADE_N: every pass one launch for
+    # the three bands
+    tag = "xxix"
+    cfgs = default_cascade(n=CASCADE_N)
+    csolver = CascadeSolver(cfgs, **casc_kw)
+    with recorded_rows(planes) as rows:
+        prev, cstate, cfields = counted(
+            tag, {"fft_rows_transposed": 5 * 60, "fields_stencil": 60},
+            stepped(csolver, csolver.init(seeded()), 60))
+    require_rows(rows, [(rows_tr, 3)] * 5 * 60, tag)
+    card = fields_to_numpy(cfields)
+    require(int(cstate.step) == 60, f"path {tag}: step counter")
+    check_fields(card, CASCADE_N, tag)
+    cpu_solver = replay(csolver, prev, card, tag)
+    # the same last step as three single-patch solvers, one band each
+    # (tests/test_cascade.py::test_cascade_equals_sum_of_bands on the card)
+    sums = [torch.zeros_like(cfields.height) for _ in range(3)]
+    for b, cfg in enumerate(cfgs):
+        one = OceanSolver(cfg, **{**casc_kw, "pallas_fields": False})
+        st = one.init(h0=torch.complex(prev.h0_re[b], prev.h0_im[b]).cpu(),
+                      h0_conj=torch.complex(prev.h0c_re[b],
+                                            prev.h0c_im[b]).cpu())
+        _, f = one.step(st._replace(phase=prev.phase[b], t=prev.t,
+                                    step=prev.step), DT)
+        sums[0] += f.height
+        sums[1] += cfg.choppiness * f.disp_x
+        sums[2] += cfg.choppiness * f.disp_z
+    for name, got, want in zip(("height", "chop x disp_x", "chop x disp_z"),
+                               (cfields.height, cfields.disp_x,
+                                cfields.disp_z), sums):
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        log(f"[slice {tag}] combined {name} against the sum of three "
+            f"single-patch OceanSolvers: max abs err {err:.3e} = "
+            f"{err / scale:.3e} x max (limit 1e-6)")
+        require(err <= 1e-6 * scale,
+                f"path {tag}: the cascade is not the sum of its bands")
+    with recorded_rows(planes) as rows:
+        vel = counted(f"{tag} velocity", {"fft_rows_transposed": 3},
+                      lambda: csolver.velocity(cstate))
+    require_rows(rows, [(rows_tr, 3)] * 3, f"{tag} velocity")
+    held_velocity(vel, cpu_solver.velocity(cpu_copy(cstate)), tag)
+    casc_ms[tag] = time_path(
+        f"path ({tag}) CascadeSolver.step pallas, 3 bands", CASCADE_N,
+        ocean_step(csolver, cstate), 200, OCEAN_NOTE)
+    del prev, cfields, card, cpu_solver, sums, vel
+    phase_done(f"4 path ({tag})")
+
+    # (xxx) the same at CASCADE_NATURAL_N: the natural regime
+    tag = "xxx"
+    big = CascadeSolver(default_cascade(n=CASCADE_NATURAL_N), **casc_kw)
+    with recorded_rows(planes) as rows:
+        prev, bstate, bfields = counted(
+            tag, {"fft_rows_natural": 3 * 10, "fft_rows_transposed": 2 * 10,
+                  "fields_stencil": 10},
+            stepped(big, big.init(seeded()), 10))
+    require_rows(rows, [(rows_nat, 3)] * 30 + [(rows_tr, 3)] * 20, tag)
+    card = fields_to_numpy(bfields)
+    check_fields(card, CASCADE_NATURAL_N, tag)
+    replay(big, prev, card, tag)
+    casc_ms[tag] = time_path(
+        f"path ({tag}) CascadeSolver.step pallas, 3 bands",
+        CASCADE_NATURAL_N, ocean_step(big, bstate), 40, OCEAN_NOTE)
+    del big, prev, bstate, bfields, card
+    phase_done(f"4 path ({tag})")
+
+    # (xxxi) LOD on (xxix)'s switches: each frame transforms only the
+    # bands it refreshes; (xxix)'s solver stepped every frame from the
+    # same state is the control
+    tag = "xxxi"
+    lod = LODCascadeSolver(cfgs, periods=LOD_PERIODS, **casc_kw)
+    lstate = lod.init(seeded())
+    control, every = lstate.cascade, {}
+    for frame in range(1, 65):
+        control, f = csolver.step(control, DT)
+        if frame % 8 == 0:
+            every[frame] = (f.height, control.phase)
+    at, held = {}, []
+
+    def lod_frames():
+        st = lstate
+        for frame in range(1, 65):
+            prev, (st, f) = st, lod.step(st)
+            refreshed = lod._slots[frame % lod.schedule_len]
+            held.extend(torch.equal(st.planes[b], prev.planes[b])
+                        for b in range(lod.inner.b) if b not in refreshed)
+            if frame % 8 == 0:
+                at[frame] = (f.height, st.cascade.phase)
+        return st
+
+    sizes = lod_row_launches(LOD_PERIODS, 1, 64)
+    with recorded_rows(planes) as rows:
+        lstate = counted(tag, {"fft_rows_transposed": len(sizes),
+                               "fields_stencil": 64}, lod_frames)
+    require_rows(rows, [(rows_tr, c) for c in sizes], tag)
+    require(held and all(held), f"path {tag}: a held band's planes moved")
+    h_err = max((at[k][0] - every[k][0]).abs().max().item() for k in at)
+    p_err = max(torch.minimum(d, 2 * np.pi - d).max().item()
+                for d in ((at[k][1] - every[k][1]).abs() for k in at))
+    log(f"[slice {tag}] periods {LOD_PERIODS}, 64 frames: {len(held)} held "
+        f"band-frames, planes bit-equal to their last refresh; at frames "
+        f"8-64 against (xxix)'s solver stepped every frame: height max abs "
+        f"err {h_err:.3e} (limit 1e-4), phase {p_err:.3e} (limit 1e-5)")
+    require(h_err <= 1e-4 and p_err <= 1e-5,
+            f"path {tag}: LOD differs from the every-frame cascade")
+    check_fields(fields_to_numpy(lod.step(lstate)[1]), CASCADE_N, tag)
+    with recorded_rows(planes) as rows:
+        vel = counted(f"{tag} velocity", {"fft_rows_transposed": 3},
+                      lambda: lod.velocity(lstate))
+    require_rows(rows, [(rows_tr, 3)] * 3, f"{tag} velocity")
+    cpu_lod = LODCascadeSolver(cfgs, periods=LOD_PERIODS, device="cpu",
+                               **casc_kw)
+    held_velocity(vel, cpu_lod.velocity(cpu_copy(lstate)), tag)
+    # the out-of-place scatters of a one-band and a two-band frame: the
+    # plane cache and the phase written anew
+    for subset in ((2,), (1, 2)):
+        idx = lod._substeps[subset][0]
+        fresh = lstate.planes[list(subset)].clone()
+        phase = lstate.cascade.phase[list(subset)].clone()
+        ms_planes = device_ms(lambda: lstate.planes.index_copy(0, idx,
+                                                               fresh))[0]
+        ms_phase = device_ms(lambda: lstate.cascade.phase.index_copy(
+            0, idx, phase))[0]
+        nbytes = 2 * (lstate.planes.numel() + lstate.cascade.phase.numel()) * 4
+        log(f"[timing] {kind} ({smi}): path ({tag}) LOD scatter of subset "
+            f"{subset}: plane cache {ms_planes:.4f} ms, phase "
+            f"{ms_phase:.4f} ms (index_copy, out of place; bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms for "
+            f"{nbytes / 1e6:.1f} MB read and written)")
+    lod_state = [lstate]
+
+    def lod_step():
+        lod_state[0], _ = lod.step(lod_state[0])
+
+    casc_ms[tag] = time_path(
+        f"path ({tag}) LODCascadeSolver.step periods {LOD_PERIODS}",
+        CASCADE_N, lod_step, 200, OCEAN_NOTE)
+    del lod, lstate, lod_state, control, every, at, vel, cpu_lod
+    phase_done(f"4 path ({tag})")
+
+    # (xxxii) CascadeSimulation on (xxxi)'s schedule: checkpoints and
+    # export every 20 frames, a resume, a refused schedule, a live wind
+    # change
+    tag = "xxxii"
+    casc_dir = work / "cascade"
+    sim_kw = dict(out_dir=str(casc_dir), checkpoint_every=20,
+                  export_every=20, periods=LOD_PERIODS, **casc_kw)
+    kept = {}
+
+    def keep(sim):
+        if sim.step_count % 20 == 0:
+            kept[sim.step_count] = (sim.fields.height.cpu().numpy(),
+                                    sim.fields.foam.cpu().numpy())
+
+    sim = CascadeSimulation(cfgs, generator=seeded(), **sim_kw)
+    sizes = lod_row_launches(LOD_PERIODS, 1, 60)
+    with recorded_rows(planes) as rows:
+        counted(tag, {"fft_rows_transposed": len(sizes), "fields_stencil": 60},
+                lambda: sim.run(60, callback=keep))
+    require_rows(rows, [(rows_tr, c) for c in sizes], tag)
+    require(sim._exporter.errors() == 0 and sorted(kept) == [20, 40, 60],
+            f"path {tag}: export")
+    for k, fields in kept.items():
+        for name, want in zip(("height", "foam"), fields):
+            got = np.load(casc_dir / "fields" / f"{name}_{k:08d}.npy")
+            require(np.array_equal(got, want.astype(np.float64)),
+                    f"path {tag}: exported {name} at frame {k} differs")
+    sim.close()
+    saved, saved_cfgs = load_cascade_checkpoint(
+        str(casc_dir / "ckpt" / "state_0000000060.npz"), real_state=True,
+        device="cpu")
+    require(isinstance(saved, LODState) and saved.frame == 60
+            and saved_cfgs == cfgs
+            and torch.equal(saved.planes, sim.state.planes.cpu())
+            and torch.equal(saved.cascade.phase,
+                            sim.state.cascade.phase.cpu()),
+            f"path {tag}: the card's checkpoint read on the CPU differs")
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "tpu_ocean_torch", "ocean", "--production",
-         "--res", "256", "--steps", "5", "--out", str(out)],
-        cwd=HERE, capture_output=True, text=True, timeout=300)
-    entry_s = time.perf_counter() - t0
-    require(proc.returncode == 0, f"python -m tpu_ocean_torch exited "
-            f"{proc.returncode}: {proc.stderr[-2000:]}")
-    written = sorted(p.name for p in out.iterdir())
-    require(len([n for n in written if n.endswith(".npy")]) == 8
-            and len([n for n in written if n.endswith(".png")]) == 8
-            and sorted(p.name for p in _build.BUILD_ROOT.iterdir()) == builds,
-            f"python -m tpu_ocean_torch: wrote {written}, or built again")
-    log(f"[slice entry] python -m tpu_ocean_torch ocean --production --res "
-        f"256 --steps 5: exit 0 in {entry_s:.1f} s, {len(written)} files, "
-        f"no new build; {proc.stderr.strip().splitlines()[-1]}")
+    save_cascade_checkpoint(str(work / "one_cascade"), sim.state, cfgs,
+                            periods=LOD_PERIODS)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    resumed = CascadeSimulation(cfgs, **sim_kw)
+    require(resumed.step_count == 60, f"path {tag}: resumed at frame "
+            f"{resumed.step_count}, not 60")
+    sizes = lod_row_launches(LOD_PERIODS, 61, 80)
+    with recorded_rows(planes) as rows:
+        got = counted(f"{tag} resumed", {"fft_rows_transposed": len(sizes),
+                                         "fields_stencil": 20},
+                      lambda: resumed.run(20))
+    require_rows(rows, [(rows_tr, c) for c in sizes], f"{tag} resumed")
+    whole = CascadeSimulation(cfgs, generator=seeded(), periods=LOD_PERIODS,
+                              **casc_kw)
+    want = whole.run(80)
+    differ = [name for name in got._fields
+              if not torch.equal(getattr(got, name), getattr(want, name))]
+    differ += [] if torch.equal(resumed.state.planes, whole.state.planes) \
+        else ["planes"]
+    log(f"[slice {tag}] CascadeSimulation(periods {LOD_PERIODS}), 60 frames, "
+        f"checkpoints and export every 20 (exported height and foam "
+        f"bit-equal, the frame-60 checkpoint read on the CPU equal to the "
+        f"card's state, one save_cascade_checkpoint {save_ms:.1f} ms); "
+        f"resumed at frame 60 for 20, against 80 uninterrupted frames: "
+        f"fields and plane cache bit-equal: {not differ} {differ or ''}")
+    require(not differ, f"path {tag}: the resumed run differs in {differ}")
+    try:
+        CascadeSimulation(cfgs, **{**sim_kw, "periods": [4, 4, 1]})
+    except ValueError as e:
+        log(f"[slice {tag}] resume under periods [4, 4, 1] refused: {e}")
+    else:
+        require(False, f"path {tag}: a resume under another schedule ran")
+    before, old = resumed.state, resumed.solver
+    resumed.reconfigure([c.replace(wind=(10.0, 6.0)) for c in cfgs])
+    after, new = resumed.state, resumed.solver
+    require(after.frame == before.frame == 80 and resumed.step_count == 80
+            and new.periods == old.periods and new._substeps is old._substeps
+            and torch.equal(after.cascade.phase, before.cascade.phase)
+            and not torch.equal(after.cascade.h0_re, before.cascade.h0_re)
+            and all(getattr(new.inner, k) is getattr(old.inner, k)
+                    for k in ("_omega", "_coeffs", "_x0", "_z0")),
+            f"path {tag}: reconfigure moved the frame, the schedule or a "
+            f"phase, kept h0, or rebuilt a table")
+    log(f"[slice {tag}] reconfigure(wind=(10, 6)): frame 80, schedule and "
+        f"every band's phase kept, h0 drawn afresh, omega, coeffs, x0, z0 "
+        f"and the sub-steps the same objects")
+    check_fields(fields_to_numpy(resumed.step()), CASCADE_N, tag)
+    casc_ms[tag] = time_path(f"path ({tag}) CascadeSimulation.step LOD, "
+                       f"checkpoint and export every 20", CASCADE_N,
+                       resumed.step, 60, OCEAN_NOTE)
+    resumed.close()
+    del sim, resumed, whole, got, want, kept, saved, before, after
+    phase_done(f"4 path ({tag})")
+
+    # (xxxiii) the CLI's cascade scene at CASCADE_N under the camera's LOD
+    # schedule, bit-equal to the solver it wraps
+    tag = "xxxiii"
+    out = work / "cascade_cli"
+    periods = periods_for_distance(cfgs, DT, camera_distance=CLI_CAMERA)
+    # the init primes every band (one refresh of all three), then the frames
+    sizes = [3] * 5 + lod_row_launches(periods, 1, 60)
+    with recorded_rows(planes) as rows:
+        text = run_cli(tag, ["cascade", "--production", "--res",
+                             str(CASCADE_N), "--camera", f"{CLI_CAMERA:g}",
+                             "--steps", "60", "--dump-every", "20", "--out",
+                             str(out)],
+                       {"fft_rows_transposed": len(sizes),
+                        "fields_stencil": 60})
+    require(cli_lod_periods(text) == periods,
+            f"path {tag}: printed schedule {cli_lod_periods(text)}")
+    require_rows(rows, [(rows_tr, c) for c in sizes], tag)
+    cli_summary[tag] = cli_metrics(text, 60, tag)
+    wsolver = LODCascadeSolver(cfgs, periods=periods, **casc_kw)
+    wstate = wsolver.init(seeded())
+    for _ in range(60):
+        wstate, wfields = wsolver.step(wstate)
+    host = fields_to_numpy(wfields)
+    saved = type(host)(*(np.load(out / f"cascade_{name}_000060.npy")
+                         for name in host._fields))
+    differ = [name for name in host._fields
+              if not np.array_equal(getattr(saved, name), getattr(host, name))]
+    log(f"[slice {tag}] cascade --production --camera {CLI_CAMERA:g}: "
+        f"periods {periods}, 60 frames: the saved fields against "
+        f"LODCascadeSolver(default_cascade({CASCADE_N}), {periods}) stepped "
+        f"60 times from manual_seed(0): bit-equal {not differ} {differ or ''}")
+    require(not differ, f"path {tag}: the CLI's fields differ in {differ}")
+    check_fields(saved, CASCADE_N, tag)
+    require(all((out / f"cascade_render_{k:06d}.png").is_file()
+                for k in (20, 40, 60))
+            and np.array_equal(_png.read_png(str(out / "cascade_render.png")),
+                               (viz.shade_ocean(saved) * 255).astype(np.uint8)),
+            f"path {tag}: the renders")
+    del wsolver, wstate, wfields, host, saved, csolver, cstate
+    phase_done(f"4 path ({tag})")
+
+    # the module entry point in a process of its own, on the cached build:
+    # the ocean and the cascade scenes
+    builds = sorted(p.name for p in _build.BUILD_ROOT.iterdir())
+    for scene in ("ocean", "cascade"):
+        out = work / f"entry_{scene}"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_ocean_torch", scene, "--production",
+             "--res", "256", "--steps", "5", "--out", str(out)],
+            cwd=HERE, capture_output=True, text=True, timeout=300)
+        entry_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"python -m tpu_ocean_torch {scene} "
+                f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+        written = sorted(p.name for p in out.iterdir())
+        require(len([n for n in written if n.endswith(".npy")]) == 8
+                and len([n for n in written if n.endswith(".png")]) == 8
+                and sorted(p.name for p in _build.BUILD_ROOT.iterdir())
+                == builds,
+                f"python -m tpu_ocean_torch {scene}: wrote {written}, or "
+                f"built again")
+        log(f"[slice entry] python -m tpu_ocean_torch {scene} --production "
+            f"--res 256 --steps 5: exit 0 in {entry_s:.1f} s, "
+            f"{len(written)} files, no new build; "
+            f"{proc.stderr.strip().splitlines()[-1]}")
     scratch.cleanup()
     phase_done("4 path (entry)")
 
@@ -2378,7 +2795,14 @@ def main():
                                  f"{sim_summary['mean_ms']:.4f}"),
                         ("xxvii", f"path (p2)'s PondSimulation.step "
                                   f"{path_ms['p2']:.4f} ms/step (CUDA "
-                                  f"events)")):
+                                  f"events)"),
+                        ("xxxiii", f"path (xxxi)'s LODCascadeSolver.step "
+                                   f"{casc_ms['xxxi']:.4f}, (xxix)'s "
+                                   f"CascadeSolver.step "
+                                   f"{casc_ms['xxix']:.4f} and (xxxii)'s "
+                                   f"CascadeSimulation.step "
+                                   f"{casc_ms['xxxii']:.4f} ms/step (CUDA "
+                                   f"events)")):
         m = cli_summary[tag]
         log(f"[timing] {kind} ({smi}): path ({tag}) the CLI's "
             f"Metrics.summary() over {m['steps']} steps: mean "

@@ -13,8 +13,16 @@ the JAX package's (``tpu_ocean.demo``):
 - ``pond --waves 8``, with and without ``--pallas`` (the wave-bank
   kernel's plain version here, Pallas in interpret mode in JAX): the same
   bank from the same seed, the .npy files within atol 2e-5, rtol 1e-5;
-- ``cascade`` and ``serve`` raise NotImplementedError naming ROADMAP items
-  12 and 13; the default device is the card, with no fallback;
+- ``cascade`` at --res 32 (the complex state on ``reference``, with and
+  without ``--camera``) and ``cascade --production --camera 3000 --res
+  64`` (the LOD schedule on the production switches): one numpy [B, N, N]
+  h0 pair injected into both packages' ``CascadeSolver.init`` (hermitized
+  by each solver's own symmetrize where it packs); the same files and the
+  same printed LOD schedule, the final fields within the cascade parity
+  bands (tests/test_torch_cascade.py), the render the shading of the
+  saved fields;
+- ``serve`` raises NotImplementedError naming ROADMAP item 13; the default
+  device is the card, with no fallback;
 - ``python -m tpu_ocean_torch --help`` lists the five subcommands."""
 
 import os
@@ -22,14 +30,19 @@ import re
 import subprocess
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from tpu_ocean import demo as jdemo, solver as jsolver
-from tpu_ocean_torch import OCEAN_DEMO, _png, demo, solver as tsolver, viz
+from tpu_ocean import cascade as jcascade, demo as jdemo, solver as jsolver
+from tpu_ocean_torch import (OCEAN_DEMO, _png, cascade as tcascade, demo,
+                             solver as tsolver, viz)
 from tpu_ocean_torch.solver import OceanFields
 from tests.test_packing import _assert_fields_close
+from tests.test_torch_cascade import jax_cfgs
+from tests.test_torch_complex_backends import assert_fields_match
 from tests.test_torch_solver import _h0_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -139,7 +152,67 @@ def test_pond_cli_matches_jax(tmp_path, pallas):
         assert _png.read_png(str(port / name)).shape == (32, 32, 3)
 
 
-@pytest.mark.parametrize("cmd,item", [("cascade", 12), ("serve", 13)])
+def _inject_cascade(monkeypatch, h0, h0c):
+    """Every CascadeSolver.init of both packages starts from the [B, N, N]
+    pair (h0, h0c), projected by the solver's own symmetrize."""
+    original = jcascade.CascadeSolver.init
+
+    def jax_init(self, key=None):
+        st = original(self, key)
+        if self.real_state:
+            st = st._replace(
+                h0_re=jnp.asarray(h0.real, jnp.float32),
+                h0_im=jnp.asarray(h0.imag, jnp.float32),
+                h0c_re=jnp.asarray(h0c.real, jnp.float32),
+                h0c_im=jnp.asarray(h0c.imag, jnp.float32))
+        else:
+            st = st._replace(h0=jnp.asarray(h0, jnp.complex64),
+                             h0_conj=jnp.asarray(h0c, jnp.complex64))
+        return self.symmetrize(st)
+
+    port_init = tcascade.CascadeSolver.init
+
+    def torch_init(self, *args, **kw):
+        return port_init(self, h0=h0, h0_conj=h0c)
+
+    monkeypatch.setattr(jcascade.CascadeSolver, "init", jax_init)
+    monkeypatch.setattr(tcascade.CascadeSolver, "init", torch_init)
+
+
+@pytest.mark.parametrize("argv,n", [
+    (["cascade", "--res", "32", "--steps", "3", "--dump-every", "3"], 32),
+    (["cascade", "--res", "32", "--steps", "3", "--pack", "--camera",
+      "300"], 32),
+    (["cascade", "--production", "--res", "64", "--steps", "4", "--camera",
+      "3000", "--dump-every", "2"], 64),
+], ids=["reference_32", "lod_packed_32", "production_lod_64"])
+def test_cascade_cli_matches_jax(tmp_path, monkeypatch, capsys, argv, n):
+    cfgs = tcascade.default_cascade(n=n)
+    st = jcascade.CascadeSolver(jax_cfgs(cfgs)).init(jax.random.PRNGKey(n))
+    _inject_cascade(monkeypatch, np.asarray(st.h0), np.asarray(st.h0_conj))
+    port, ref = tmp_path / "port", tmp_path / "jax"
+    assert demo.main(argv + ["--out", str(port), "--device", "cpu"]) == 0
+    port_err = capsys.readouterr().err
+    assert jdemo.main(argv + ["--out", str(ref)]) == 0
+    jax_err = capsys.readouterr().err
+    if "--camera" in argv:
+        schedule = [line for line in jax_err.splitlines()
+                    if line.startswith("# LOD periods")]
+        assert len(schedule) == 1 and schedule[0] in port_err.splitlines()
+    assert _files(port) == _files(ref)
+    steps = int(argv[argv.index("--steps") + 1])
+    got, want = _fields(port, "cascade", steps), _fields(ref, "cascade", steps)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
+    # the combined surface: effective displacements, the display texel
+    assert_fields_match(OceanFields(*map(torch.from_numpy, got)), want,
+                        cfgs[0].replace(choppiness=1.0, length=1000.0))
+    np.testing.assert_array_equal(
+        _png.read_png(str(port / "cascade_render.png")),
+        (viz.shade_ocean(got) * 255).astype(np.uint8))
+
+
+@pytest.mark.parametrize("cmd,item", [("serve", 13)])
 def test_unported_scenes_raise(tmp_path, cmd, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         demo.main([cmd, "--res", "32", "--steps", "1", "--device", "cpu",

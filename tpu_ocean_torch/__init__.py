@@ -28,8 +28,14 @@ export (``native.AsyncExporter``, built from ``native/exporter.cpp`` with
 g++ on first use); ``OceanSolver.reconfigure`` changes the config live,
 ``eval_mode="direct"`` takes the oracle's direct sum (the centered layout
 at any length) and ``init(gpu_hash_seeds=...)`` the shader's hash
-spectrum; ``diagnostics`` holds the sea-state statistics. The demo
-scenes run as ``python -m tpu_ocean_torch ocean|fftmesh|pond`` (``demo``),
+spectrum; ``diagnostics`` holds the sea-state statistics. The multi-band
+cascade ``CascadeSolver`` (``default_cascade``: three bands of one N)
+steps B patches together, every band on the channel axis of the same
+kernel launches, and sums them; ``LODCascadeSolver`` refreshes each band
+at its own period, and ``CascadeSimulation`` runs either with metrics,
+cascade checkpoints (``checkpoint.save_cascade_checkpoint``, the JAX
+format) and export. The demo scenes run as ``python -m tpu_ocean_torch
+ocean|fftmesh|pond|cascade`` (``demo``),
 with the consumers ``viz`` (PNG heatmaps without PIL or matplotlib,
 renders, OBJ meshes), ``sample`` (bilinear probes) and ``oracle`` (the
 float64 direct-DFT oracle). The solvers and
@@ -48,12 +54,17 @@ from tpu_ocean_torch.solver import (
 from tpu_ocean_torch.gerstner import (
     WaveBank, PondFields, PondSolver, gerstner_eval, sinusoid_eval,
     gerstner_velocity, sinusoid_velocity)
-from tpu_ocean_torch.runtime import PondSimulation, Simulation
+from tpu_ocean_torch.cascade import (
+    CascadeSolver, CascadeState, CascadeStateReal, default_cascade)
+from tpu_ocean_torch.lod import LODCascadeSolver, LODState
+from tpu_ocean_torch.runtime import CascadeSimulation, PondSimulation, Simulation
 from tpu_ocean_torch.observe import Metrics, StepRecord
 from tpu_ocean_torch.checkpoint import (
-    CheckpointManager, load_checkpoint, save_checkpoint)
+    CheckpointManager, cascade_checkpoint_periods, load_cascade_checkpoint,
+    load_checkpoint, save_cascade_checkpoint, save_checkpoint)
 from tpu_ocean_torch.convert import (
-    state_from_numpy, state_to_numpy, fields_to_numpy, wavebank_from_numpy,
+    cascade_state_from_numpy, cascade_state_to_numpy, state_from_numpy,
+    state_to_numpy, fields_to_numpy, wavebank_from_numpy,
     pond_fields_to_numpy)
 from tpu_ocean_torch.fft.planes import (
     fft1d_transposed, fft1d_transposed_plain, fft1d_natural_large,
@@ -74,6 +85,11 @@ __all__ = [
     "WaveBank", "PondFields", "PondSolver", "PondSimulation",
     "Simulation", "Metrics", "StepRecord", "CheckpointManager",
     "load_checkpoint", "save_checkpoint",
+    "CascadeSolver", "CascadeState", "CascadeStateReal", "default_cascade",
+    "LODCascadeSolver", "LODState", "CascadeSimulation",
+    "save_cascade_checkpoint", "load_cascade_checkpoint",
+    "cascade_checkpoint_periods", "cascade_state_from_numpy",
+    "cascade_state_to_numpy",
     "gerstner_eval", "sinusoid_eval", "gerstner_velocity", "sinusoid_velocity",
     "state_from_numpy", "state_to_numpy", "fields_to_numpy",
     "wavebank_from_numpy",

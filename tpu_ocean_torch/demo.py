@@ -6,6 +6,8 @@ output files::
     python -m tpu_ocean_torch ocean   [--steps K] [--res N] [--production]
     python -m tpu_ocean_torch fftmesh [--steps K] [--out DIR]
     python -m tpu_ocean_torch pond    [--steps K] [--waves W] [--pallas]
+    python -m tpu_ocean_torch cascade [--steps K] [--res N] [--production]
+                                      [--camera M]
 
 Each command steps the corresponding preset (Ocean Demo.unity / FFT
 Mesh.unity / Pond.unity parameter sets, encoded in config.py) and exports
@@ -13,9 +15,9 @@ field snapshots — PNG heatmaps and .npy planes, plus shaded renders — the
 stand-in for watching the Unity scene. Metrics stream to stderr as JSONL
 (observe.Metrics); each step's record ends when the device has finished
 it. Every scene runs on the CUDA card unless ``--device cpu`` is given;
-without a card the default raises, as torch does. ``cascade`` and
-``serve`` keep the JAX package's flags and raise NotImplementedError until
-their modules are ported.
+without a card the default raises, as torch does. ``serve`` keeps the JAX
+package's flags and raises NotImplementedError until its module is
+ported.
 """
 
 from __future__ import annotations
@@ -168,11 +170,53 @@ def run_pond(args) -> int:
 
 
 def run_cascade(args) -> int:
-    """Beyond-reference scene: the 3-band production cascade (JAX:
-    cascade.py, lod.py), not ported yet."""
-    raise NotImplementedError(
-        "the cascade scene needs CascadeSolver and LODCascadeSolver, which "
-        "are not ported to tpu_ocean_torch yet (ROADMAP.md Queue 1 item 12)")
+    """Beyond-reference scene: the 3-band production cascade (lengths 1000 /
+    130 / 17 m), LOD-scheduled by camera distance with ``--camera``
+    (lod.periods_for_distance)."""
+    from tpu_ocean_torch import viz
+    from tpu_ocean_torch.cascade import CascadeSolver, default_cascade
+    from tpu_ocean_torch.convert import fields_to_numpy
+    from tpu_ocean_torch.lod import LODCascadeSolver, periods_for_distance
+    from tpu_ocean_torch.observe import Metrics
+    from tpu_ocean_torch.runtime import _synchronize
+
+    n = args.res or 256
+    cfgs = default_cascade(n=n)
+    dt = 1.0 / 60.0
+    kw = dict(pack_channels=args.pack, device=args.device)
+    if args.production:
+        # the banded twin of the ocean scene's headline switch set: the
+        # all-real banded step, the fields kernel, packing and one
+        # half-spectrum call for every band's last packed channel
+        args.backend = "pallas"
+        kw.update(pack_channels=True, real_state=True, pallas_fields=True,
+                  half_spectrum=n % 16 == 0 and n >= 64)
+    if args.camera > 0:
+        periods = periods_for_distance(cfgs, dt, camera_distance=args.camera)
+        solver = LODCascadeSolver(cfgs, periods=periods,
+                                  fft_backend=args.backend, dt=dt, **kw)
+        print(f"# LOD periods {periods} (camera {args.camera:.0f} m)",
+              file=sys.stderr)
+    else:
+        solver = CascadeSolver(cfgs, fft_backend=args.backend, **kw)
+    state = solver.init(torch.Generator().manual_seed(args.seed))
+    metrics = Metrics(grid_points=n ** 2, emit=sys.stderr)
+    fields = None
+    for k in range(args.steps):
+        with metrics.measure():
+            state, fields = solver.step(state, dt)
+            _synchronize(solver.device)
+        if args.dump_every and (k + 1) % args.dump_every == 0:
+            viz.save_render_png(
+                os.path.join(args.out, f"cascade_render_{k + 1:06d}.png"),
+                fields)
+    if fields is not None:
+        host = fields_to_numpy(fields)     # one copy of each field
+        viz.save_fields(args.out, host, prefix="cascade", step=args.steps)
+        viz.save_render_png(os.path.join(args.out, "cascade_render.png"), host)
+    print(f"# {args.steps} cascade steps ({len(cfgs)} bands at {n}^2): "
+          f"{metrics.summary()}", file=sys.stderr)
+    return 0
 
 
 def run_serve(args) -> int:
@@ -217,8 +261,7 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("cascade",
                        help="multi-band cascade (beyond-reference), "
-                            "optionally LOD-scheduled via --camera; not "
-                            "ported yet (ROADMAP item 12)")
+                            "optionally LOD-scheduled via --camera")
     _add_common(p, default_steps=60)
     p.add_argument("--res", type=int, default=0)
     p.add_argument("--camera", type=float, default=0.0,

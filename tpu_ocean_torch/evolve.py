@@ -104,26 +104,28 @@ def _evolved(h0_planes, phase: torch.Tensor):
 def assemble_spectra_real(h0_planes, phase: torch.Tensor,
                           coeffs: torch.Tensor):
     """h̃, then each channel times its real coefficient: returns (re, im)
-    f32 [C, N, N]; ``coeffs`` is the f32 [C, N, N] table
-    (spectrum_coefficients, first C channels)."""
+    f32 [..., C, N, N]; ``coeffs`` is the f32 [..., C, N, N] table
+    (spectrum_coefficients, first C channels). Any leading batch (a
+    cascade's bands) rides in front of the planes' [N, N]."""
     htr, hti = _evolved(h0_planes, phase)
-    return coeffs * htr[None], coeffs * hti[None]
+    return coeffs * htr.unsqueeze(-3), coeffs * hti.unsqueeze(-3)
 
 
 def assemble_spectra_packed_real(h0_planes, phase: torch.Tensor,
                                  pack: torch.Tensor):
-    """h̃, then P = (A − iB)·h̃: returns (re, im) f32 [P, N, N]; ``pack``
-    is the f32 [2P, N, N] table."""
-    p = pack.shape[0] // 2
-    a, b = pack[:p], pack[p:]
+    """h̃, then P = (A − iB)·h̃: returns (re, im) f32 [..., P, N, N];
+    ``pack`` is the f32 [..., 2P, N, N] table."""
+    p = pack.shape[-3] // 2
+    a, b = pack[..., :p, :, :], pack[..., p:, :, :]
     htr, hti = _evolved(h0_planes, phase)
-    return (a * htr[None] + b * hti[None],
-            a * hti[None] - b * htr[None])
+    htr, hti = htr.unsqueeze(-3), hti.unsqueeze(-3)
+    return a * htr + b * hti, a * hti - b * htr
 
 
 def negflip(x: torch.Tensor) -> torch.Tensor:
-    """x indexed at (−m) mod N along both axes (the fft layout's k → −k)."""
-    return torch.roll(torch.flip(x, (0, 1)), shifts=(1, 1), dims=(0, 1))
+    """x indexed at (−m) mod N along its last two axes (the fft layout's
+    k → −k), whatever batch leads them."""
+    return torch.roll(torch.flip(x, (-2, -1)), shifts=(1, 1), dims=(-2, -1))
 
 
 def hermitize_planes(r1, i1, r2, i2):
@@ -136,23 +138,24 @@ def hermitize_planes(r1, i1, r2, i2):
 
 def assemble_spectra(h0: torch.Tensor, h0_conj: torch.Tensor,
                      phase: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
-    """The complex state's spectra, complex64 [C, N, N]: h̃ = h0·e^{iφ} +
-    h0*·e^{−iφ} (FFTMesh.cs:188, Spectrum.shader:44-45), times each
-    channel's real coefficient (``coeffs``, f32 [C, N, N])."""
+    """The complex state's spectra, complex64 [..., C, N, N]: h̃ = h0·e^{iφ}
+    + h0*·e^{−iφ} (FFTMesh.cs:188, Spectrum.shader:44-45), times each
+    channel's real coefficient (``coeffs``, f32 [..., C, N, N])."""
     pv = torch.complex(torch.cos(phase), torch.sin(phase))
     h = h0 * pv + h0_conj * pv.conj()
-    return coeffs * h[None]
+    return coeffs * h.unsqueeze(-3)
 
 
 def assemble_spectra_packed(h0: torch.Tensor, h0_conj: torch.Tensor,
                             phase: torch.Tensor,
                             pack: torch.Tensor) -> torch.Tensor:
     """Complex twin of assemble_spectra_packed_real: P = (A − iB)·h̃,
-    complex64 [P, N, N]; ``pack`` is the f32 [2P, N, N] table."""
-    p = pack.shape[0] // 2
+    complex64 [..., P, N, N]; ``pack`` is the f32 [..., 2P, N, N] table."""
+    p = pack.shape[-3] // 2
     pv = torch.complex(torch.cos(phase), torch.sin(phase))
     h = h0 * pv + h0_conj * pv.conj()
-    return torch.complex(pack[:p], -pack[p:]) * h[None]
+    return (torch.complex(pack[..., :p, :, :], -pack[..., p:, :, :])
+            * h.unsqueeze(-3))
 
 
 def hermitize_pair(h0: torch.Tensor, h0_conj: torch.Tensor):

@@ -1,5 +1,5 @@
-"""Runtimes around the solvers: the ocean's ``Simulation`` and the pond's
-``PondSimulation``.
+"""Runtimes around the solvers: the ocean's ``Simulation``, the cascade's
+``CascadeSimulation`` and the pond's ``PondSimulation``.
 
 JAX counterpart: ``tpu_ocean/runtime.py``. ``Simulation`` owns a solver,
 its state, the metrics, the periodic checkpoints and the asynchronous
@@ -22,9 +22,13 @@ from typing import Callable, Optional
 
 import torch
 
-from tpu_ocean_torch.checkpoint import CheckpointManager, load_checkpoint
+from tpu_ocean_torch.cascade import CascadeSolver
+from tpu_ocean_torch.checkpoint import (
+    CheckpointManager, cascade_checkpoint_periods, load_cascade_checkpoint,
+    load_checkpoint, save_cascade_checkpoint)
 from tpu_ocean_torch.config import OceanConfig
 from tpu_ocean_torch.gerstner import PondSolver
+from tpu_ocean_torch.lod import LODCascadeSolver, LODState, periods_for_distance
 from tpu_ocean_torch.observe import Metrics
 from tpu_ocean_torch.solver import OceanSolver
 
@@ -64,8 +68,18 @@ class Simulation:
         self.dt = dt
         self.solver = OceanSolver(cfg, device=device, fft_backend=fft_backend,
                                   **solver_kw)
+        real, dev = self.solver.real_state, self.solver.device
+        self._start(out_dir, checkpoint_every, export_every, metrics_stream,
+                    generator, None,
+                    lambda p: load_checkpoint(p, real_state=real, device=dev))
+
+    def _start(self, out_dir, checkpoint_every, export_every, metrics_stream,
+               generator, save_fn, load_fn):
+        """Metrics, checkpoints and export around ``self.solver``: resume
+        the newest checkpoint in ``out_dir/ckpt`` (through
+        ``_check_restored``) or init from ``generator``."""
         self.out_dir = out_dir
-        self.metrics = Metrics(grid_points=cfg.resolution ** 2,
+        self.metrics = Metrics(grid_points=self.cfg.resolution ** 2,
                                emit=metrics_stream)
         self.fields = None
         self._exporter = None
@@ -74,33 +88,44 @@ class Simulation:
 
         self._ckpt = None
         if out_dir and checkpoint_every:
-            real, dev = self.solver.real_state, self.solver.device
             self._ckpt = CheckpointManager(
                 os.path.join(out_dir, "ckpt"), interval=checkpoint_every,
-                load_fn=lambda p: load_checkpoint(p, real_state=real,
-                                                  device=dev))
+                save_fn=save_fn, load_fn=load_fn)
         restored, saved_cfg = (self._ckpt.restore_latest() if self._ckpt
                                else (None, None))
         if restored is not None:
-            if saved_cfg is not None and saved_cfg != cfg:
-                raise ValueError(
-                    f"checkpoint in {out_dir!r} was written with a different "
-                    f"config; refusing to silently continue it. Use a fresh "
-                    f"out_dir, or Simulation(saved_cfg, ...) to resume "
-                    f"(saved: {saved_cfg})")
+            restored = self._check_restored(restored, saved_cfg)
             # the Hermitian projection is bitwise idempotent: a no-op on a
             # state a packed solver wrote, the projection on any other
             self.state = self.solver.symmetrize(restored)
-            self._steps_done = int(self.state.step)
+            self._steps_done = self._restored_steps(restored)
         else:
             self.state = self.solver.init(generator)
             self._steps_done = 0
 
-        # made after the config check above: raising there with a live
-        # worker thread would leak it
+        # made after the checks above: raising there with a live worker
+        # thread would leak it
         if out_dir and export_every:
             from tpu_ocean_torch.native import AsyncExporter
             self._exporter = AsyncExporter(os.path.join(out_dir, "fields"))
+
+    def _check_restored(self, state, saved_cfg):
+        """Refuse a checkpoint written with another config."""
+        if saved_cfg is not None and saved_cfg != self.cfg:
+            raise ValueError(
+                f"checkpoint in {self.out_dir!r} was written with a different "
+                f"config; refusing to silently continue it. Use a fresh "
+                f"out_dir, or Simulation(saved_cfg, ...) to resume "
+                f"(saved: {saved_cfg})")
+        return state
+
+    def _restored_steps(self, state) -> int:
+        """The step count of a restored state (one read of the device)."""
+        return int(state.step)
+
+    def _saved_config(self):
+        """What a checkpoint stores as its config."""
+        return self.cfg
 
     @property
     def step_count(self) -> int:
@@ -119,7 +144,7 @@ class Simulation:
         self._steps_done += 1
         k = self._steps_done
         if self._ckpt is not None:
-            self._ckpt.maybe_save(self.state, self.cfg, step=k)
+            self._ckpt.maybe_save(self.state, self._saved_config(), step=k)
         if self._exporter is not None and k % self._export_every == 0:
             self._export(k)
         return self.fields
@@ -166,6 +191,109 @@ class Simulation:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class CascadeSimulation(Simulation):
+    """The Simulation lifecycle over a multi-band cascade (cascade.py),
+    LOD-scheduled (lod.py) when ``periods`` or ``camera_distance`` is given
+    (JAX: runtime.CascadeSimulation). The same contract: resume from
+    ``out_dir`` (refusing other band configs, the other checkpoint kind,
+    another LOD schedule, or fewer cached planes than the solver needs),
+    JSONL metrics, periodic checkpoints and export; ``generator`` draws
+    the bands' h0 where JAX takes ``seed_key``."""
+
+    def __init__(self, cfgs, fft_backend: str = "reference",
+                 out_dir: Optional[str] = None, dt: float = 1.0 / 60.0,
+                 periods=None, camera_distance: float = 0.0,
+                 checkpoint_every: int = 0, export_every: int = 0,
+                 metrics_stream=None,
+                 generator: Optional[torch.Generator] = None,
+                 pack_channels: bool = False, real_state: bool = False,
+                 pallas_fields: bool = False, half_spectrum: bool = False, *,
+                 device="cuda"):
+        self.cfgs = list(cfgs)
+        self.cfg = self.cfgs[0]
+        self.dt = dt
+        self._lod = periods is not None or camera_distance > 0
+        kw = dict(fft_backend=fft_backend, pack_channels=pack_channels,
+                  real_state=real_state, pallas_fields=pallas_fields,
+                  half_spectrum=half_spectrum, device=device)
+        if self._lod:
+            if periods is None:
+                periods = periods_for_distance(self.cfgs, dt,
+                                               camera_distance=camera_distance)
+            self.solver = LODCascadeSolver(self.cfgs, periods=periods, dt=dt,
+                                           **kw)
+        else:
+            self.solver = CascadeSolver(self.cfgs, **kw)
+        # an LOD checkpoint carries its schedule: restored phases and caches
+        # mean something only under the schedule that wrote them
+        periods_meta = list(self.solver.periods) if self._lod else None
+        self._start(out_dir, checkpoint_every, export_every, metrics_stream,
+                    generator,
+                    lambda p, s, c: save_cascade_checkpoint(
+                        p, s, c, periods=periods_meta),
+                    lambda p: load_cascade_checkpoint(
+                        p, real_state=real_state, device=device))
+
+    def _check_restored(self, state, saved_cfgs):
+        if saved_cfgs is not None and list(saved_cfgs) != self.cfgs:
+            raise ValueError(
+                f"checkpoint in {self.out_dir!r} was written with different "
+                f"band configs; refusing to silently continue it")
+        if self._lod != isinstance(state, LODState):
+            raise ValueError("checkpoint kind (lod vs plain cascade) "
+                             "does not match this simulation's mode")
+        if not self._lod:
+            return state
+        saved_p = cascade_checkpoint_periods(self._ckpt.latest())
+        if saved_p is not None and saved_p != list(self.solver.periods):
+            raise ValueError(
+                f"checkpoint in {self.out_dir!r} was written under LOD "
+                f"schedule {saved_p}, this simulation uses "
+                f"{list(self.solver.periods)}; restored band caches "
+                f"would be misaligned — use a fresh out_dir or the "
+                f"saved schedule")
+        nch = self.solver.plane_count
+        if state.planes.shape[1] > nch:
+            # a cache of 5 planes from stencil configs: the leading planes
+            # are the live ones
+            return state._replace(planes=state.planes[:, :nch])
+        if state.planes.shape[1] < nch:
+            raise ValueError(
+                f"checkpoint caches {state.planes.shape[1]} planes per band, "
+                f"this solver needs {nch} — it was written under a "
+                f"different normals_mode")
+        return state
+
+    def _restored_steps(self, state) -> int:
+        """An LOD state's frame (a host int), else one read of its step."""
+        return state.frame if self._lod else int(state.step)
+
+    def _saved_config(self):
+        return self.cfgs
+
+    @property
+    def world_length(self) -> float:
+        """Physical extent (m) of the combined planes: the display length
+        (the longest band's by default)."""
+        return getattr(self.solver, "inner", self.solver).display_length
+
+    def reconfigure(self, new_cfgs):
+        """Live per-band parameter change (CascadeSolver.reconfigure, or
+        LODCascadeSolver.reconfigure under LOD). Init-only changes keep the
+        phase and, under LOD, the schedule and frame; a change of N or
+        layout restarts the step count."""
+        new_cfgs = list(new_cfgs)
+        rebuilt = (new_cfgs[0].resolution != self.cfg.resolution
+                   or new_cfgs[0].spectrum_layout != self.cfg.spectrum_layout)
+        self.solver, self.state = self.solver.reconfigure(self.state,
+                                                          new_cfgs)
+        self.cfgs = new_cfgs
+        self.cfg = new_cfgs[0]
+        self.metrics.grid_points = new_cfgs[0].resolution ** 2
+        if rebuilt:
+            self._steps_done = 0
 
 
 class PondSimulation:
