@@ -48,8 +48,18 @@ Phases, each printing its own lines:
                kernel (the bf16 row kernel's stages behind the assembly)
                likewise against the bf16 natural row kernel: bit-equal on
                a channel with no 1/|k| term, else within 2e-3·max, RMS
-               error at most 1.1 × the row kernel's;
-  4. slice   — thirty-six paths on the card, each from a seeded init,
+               error at most 1.1 × the row kernel's; the autograd
+               Functions: each row-DFT Function's backward (#1 at f32 at
+               [1,1024,1024], [1,512,1024], [1,1024,512], [1,1,1024],
+               [1,4096,4096], at bf16 at [1,1024,1024]; #2 at f32 and bf16
+               at [1,4096,4096]) against the plain version in the opposite
+               direction on the same seeded cotangents (the transposed
+               store's swapped) at the forward's band, and the adjoint
+               identity ⟨F x, y⟩ = ⟨x, Fᵀ y⟩ in float64 (f32: within 2e-5,
+               tests/test_autodiff.py:226; bf16: 2e-3 × (‖Fx‖‖y‖ +
+               ‖x‖‖Fᵀy‖)); the fields Function's gradient at 1024² and
+               4096² bit-equal to torch.autograd.grad of its twins;
+  4. slice   — forty paths on the card, each from a seeded init,
                with every launch count set to 0 just before and read just
                after it; (i)-(xv) run the real state with OCEAN_DEMO's
                slice switches (packed + half with the fields kernel) unless
@@ -191,6 +201,33 @@ Phases, each printing its own lines:
                        the launches of the schedule it prints, the final
                        .npy files bit-equal to an LODCascadeSolver from
                        the same seed
+                 (xxxiv) gradients: one step of path (i)'s switches from
+                       a seeded init at 1024², loss Σ height² + Σ foam
+                       (float64 sums), loss.backward() to h0_re: 10 row-DFT
+                       launches (5 forward, 5 backward) and the fields
+                       kernel once; the gradient within 1e-5·max of the
+                       CPU's from the same state (the worst texel printed),
+                       a central difference (eps 1e-3) at the dominant
+                       element within rtol 1e-2, the adjoint identity of
+                       the linear map h0 planes → height within 2e-5;
+                       forward + backward timed; then pallas_fused with a
+                       gradient must raise NotImplementedError, no launch
+                 (xxxv) (xxxiv) at 4096²: 6 natural and 4 transposed
+                       launches, the finite difference and the adjoint
+                       identity (no CPU run); peak memory
+                 (xxxvi) (xxxiv) at precision="bfloat16": 10 bf16 row
+                       launches, the gradient within 2e-3·max of the
+                       CPU's, the adjoint identity within BF16_REL ×
+                       (‖Jv‖‖w‖ + ‖v‖‖Jᵀw‖)
+                 (xxxvii) the inversion (invert_sea_state): the
+                       packed problem at N = 64 and the complex state at
+                       N = 48 (cuFFT, no hand kernel), 150 iterations of
+                       Adam each, the loss below 1e-2 of its start (the
+                       example's criterion) with exact launch counts; the
+                       packed problem at 1024² for 30 iterations, its loss
+                       curve, ms/iteration and device busy, the loss
+                       falling; python -m tpu_ocean_torch.invert_sea_state
+                       --packed --n 64 in a process of its own, exit 0
                  then python -m tpu_ocean_torch ocean (and cascade)
                        --production --res 256 --steps 5, each in a process
                        of its own: exit 0, its files written, the kernel
@@ -536,6 +573,42 @@ KERNEL_INFO = {
 }
 # kernel-vs-plain band of each tier (tests/test_torch_cuda_kernels.py)
 TIER_BAND = {"f32": 1e-5, "bf16": 2e-3, "bf16x3": 1e-5}
+# the row-DFT Functions' backward in phase 3 (store, [C, M, N], precision):
+# #1 at every shape path (xxxiv) gives it (the half route's too) and at
+# 4096², at bf16 at 1024²; #2 at 4096², f32 and bf16
+AUTOGRAD_ROWS = [("transposed", (1, 1024, 1024), "float32"),
+                 ("transposed", (1, 512, 1024), "float32"),
+                 ("transposed", (1, 1024, 512), "float32"),
+                 ("transposed", (1, 1, 1024), "float32"),
+                 ("transposed", (1, 4096, 4096), "float32"),
+                 ("transposed", (1, 1024, 1024), "bfloat16"),
+                 ("natural", (1, 4096, 4096), "float32"),
+                 ("natural", (1, 4096, 4096), "bfloat16")]
+# the gradient paths (xxxiv)-(xxxvi): one step of path (i)'s switches from a
+# seeded init, d(Σ height² + Σ foam)/d(h0_re) (tests/test_autodiff.py's
+# shipping loss, summed in float64): tag, N, precision, the launches of the
+# forward and the backward (each row pass again in the opposite direction;
+# the fields kernel in the forward only, its backward being the twins in
+# torch), and the band of the card's gradient against the CPU's (None: no
+# CPU comparison, at 4096²)
+GradPath = collections.namedtuple("GradPath", "tag size precision per_step cpu_rel")
+GRAD_PATHS = [
+    GradPath("xxxiv", 1024, "float32",
+             {"fft_rows_transposed": 10, "fields_stencil": 1}, 1e-5),
+    GradPath("xxxv", 4096, "float32",
+             {"fft_rows_natural": 6, "fft_rows_transposed": 4,
+              "fields_stencil": 1}, None),
+    GradPath("xxxvi", 1024, "bfloat16",
+             {"matrix_rows_transposed[bf16]": 10, "fields_stencil": 1}, 2e-3),
+]
+# the adjoint identity ⟨F x, y⟩ = ⟨x, Fᵀ y⟩ in float64: at f32 within
+# tests/test_autodiff.py:226's 2e-5; at bf16 within the tier's band times
+# ‖F x‖‖y‖ + ‖x‖‖Fᵀ y‖ (Cauchy–Schwarz on a relative error of either side):
+# 2e-3 for one row pass, BF16_REL for a step's two passes in sequence
+ADJOINT_F32 = 2e-5
+# the inversion (xxxvii): the example's criterion, 100x in 150
+# iterations at its defaults; at OCEAN_DEMO's width 30 iterations
+INVERT_STEPS, INVERT_WIDE_N, INVERT_WIDE_STEPS, INVERT_LR = 150, 1024, 30, 5e-2
 # the bf16 fused natural kernel (csrc/fused_rows_natural_bf16.cuh)
 FUSED_NATURAL_BF16 = "matrix_fused_natural[bf16]"
 # each redesigned row or fused kernel before its redesign (the matrix
@@ -1205,6 +1278,84 @@ def fields_switch(fs, v2):
         fs.FIELDS_KERNEL_V2 = saved
 
 
+def dot64(a, b):
+    """⟨a, b⟩ accumulated in float64."""
+    return torch.sum(a.double() * b.double()).item()
+
+
+def adjoint_check(what, lhs, rhs, yy, xg, band, cauchy):
+    """Require |lhs − rhs| within the adjoint identity's bound: at f32
+    (``band`` None) atol ADJOINT_F32·√max(⟨Fx, Fx⟩, |⟨x, Fᵀy⟩|, 1) + rtol
+    ADJOINT_F32·|⟨x, Fᵀy⟩| (tests/test_autodiff.py:226, with ``xg`` =
+    ⟨x, Fᵀy⟩), else ``band`` × ``cauchy`` (‖F x‖‖y‖ + ‖x‖‖Fᵀ y‖)."""
+    if band is None:
+        bound = ADJOINT_F32 * (max(abs(yy), abs(xg), 1.0) ** 0.5 + abs(rhs))
+    else:
+        bound = band * cauchy
+    log(f"[autograd] {what}: adjoint identity <F x, y> {lhs:.10e}, "
+        f"<x, F^T y> {rhs:.10e}, gap {abs(lhs - rhs):.3e} <= {bound:.3e} "
+        f"({abs(lhs - rhs) / abs(lhs):.3e} relative)")
+    require(abs(lhs - rhs) <= bound, f"{what}: the adjoint identity fails")
+
+
+def grad_loss(fields):
+    """Σ height² + Σ foam, summed in float64 (at 1024² an f32 sum over 1 M
+    texels loses a central difference to cancellation)."""
+    return (fields.height.double() ** 2).sum() + fields.foam.double().sum()
+
+
+def slice_gradient(solver, state):
+    """(loss, d loss/d h0_re) of one step from ``state``."""
+    leaf = state.h0_re.detach().clone().requires_grad_()
+    _, fields = solver.step(state._replace(h0_re=leaf), DT)
+    loss = grad_loss(fields)
+    return loss.detach(), torch.autograd.grad(loss, leaf)[0]
+
+
+def finite_difference(solver, state, grad, eps=1e-3):
+    """(index, central difference, gradient) at the dominant element of
+    ``grad``, the loss in float64."""
+    idx = tuple(int(i) for i in np.unravel_index(int(grad.abs().argmax()),
+                                                 tuple(grad.shape)))
+    bump = torch.zeros_like(state.h0_re)
+    bump[idx] = eps
+    with torch.no_grad():
+        up, down = (grad_loss(solver.step(state._replace(h0_re=state.h0_re + d),
+                                          DT)[1]).item()
+                    for d in (bump, -bump))
+    return idx, (up - down) / (2 * eps), grad[idx].item()
+
+
+def height_adjoint(solver, state, seed):
+    """The step's map from the four h0 planes to the height at the step's
+    phase is linear: (⟨J v, w⟩, ⟨v, Jᵀ w⟩, ⟨J v, J v⟩, ‖J v‖‖w‖ + ‖v‖‖Jᵀ w‖)
+    with v the state's planes and w a seeded cotangent, all in float64."""
+    keys = ("h0_re", "h0_im", "h0c_re", "h0c_im")
+    leaves = [getattr(state, k).detach().clone().requires_grad_() for k in keys]
+    _, fields = solver.step(state._replace(**dict(zip(keys, leaves))), DT)
+    w = torch.randn(tuple(fields.height.shape),
+                    generator=torch.Generator().manual_seed(seed)).to(
+                        fields.height.device)
+    grads = torch.autograd.grad(fields.height, leaves, w)
+    lhs = dot64(fields.height, w)
+    rhs = sum(dot64(v, g) for v, g in zip(leaves, grads))
+    norm = lambda *ts: sum(dot64(t, t) for t in ts) ** 0.5  # noqa: E731
+    return (lhs, rhs, dot64(fields.height, fields.height),
+            norm(fields.height) * norm(w) + norm(*leaves) * norm(*grads))
+
+
+def inversion_launches(iters, evals, snapshots=4):
+    """Launches of a packed inversion at N ≤ MAX_TRANSPOSED_N: the
+    observations, ``iters`` value-and-gradient passes and ``evals`` more
+    losses, every forward step 5 row passes and the fields kernel; the
+    backward reaches only each snapshot's height, so 2 row passes (the full
+    channel's) a snapshot."""
+    from tpu_ocean_torch.invert_sea_state import PACKED_INNER
+    forward = snapshots * PACKED_INNER * (1 + iters + evals)
+    return {"fft_rows_transposed": 5 * forward + 2 * snapshots * iters,
+            "fields_stencil": forward}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--sweep-rows", action="store_true",
@@ -1800,6 +1951,57 @@ def main():
                         f"{err:.3e} against float64, the plain version "
                         f"{ref_err:.3e}")
         del re, im, refs
+
+    # the autograd Functions: each row-DFT Function's backward (the kernel
+    # in the opposite direction, the transposed store on the swapped
+    # cotangents) against the plain version in the opposite direction on
+    # the same seeded cotangents, at the forward's band, and the adjoint
+    # identity in float64; the fields Function's gradient bit-equal to
+    # torch.autograd.grad of the twins on the same inputs and cotangents
+    for store, shape, precision in AUTOGRAD_ROWS:
+        transposed = store == "transposed"
+        fn, plain = ((planes.fft1d_transposed, planes.fft1d_transposed_plain)
+                     if transposed else
+                     (planes.fft1d_natural_large,
+                      planes.fft1d_natural_large_plain))
+        tier = planes.engine(shape[-1], precision, transposed)[0]
+        what = f"row DFT {store} {list(shape)} {tier} backward"
+        x = [plane(shape).requires_grad_() for _ in range(2)]
+        yr, yi = fn(*x, True, precision)
+        cts = [plane(tuple(yr.shape)) for _ in range(2)]
+        gr, gi = torch.autograd.grad((yr, yi), x, cts)
+
+        def swap(t, transposed=transposed):
+            return t.transpose(-1, -2).contiguous() if transposed else t
+        want = [swap(w) for w in plain(*(swap(c) for c in cts), False,
+                                       precision)]
+        err, scale = check_kernel(what, list(shape), (gr, gi), want,
+                                  TIER_BAND[tier])
+        log(f"[autograd] {what}: vs the plain version in the opposite "
+            f"direction, max abs err {err:.3e} = {err / scale:.3e} x max "
+            f"(band {TIER_BAND[tier]:g})")
+        with torch.no_grad():
+            lhs = dot64(yr, cts[0]) + dot64(yi, cts[1])
+            rhs = dot64(x[0], gr) + dot64(x[1], gi)
+            norm = lambda *ts: sum(dot64(t, t) for t in ts) ** 0.5  # noqa: E731
+            adjoint_check(what, lhs, rhs, dot64(yr, yr) + dot64(yi, yi), rhs,
+                          None if tier == "f32" else TIER_BAND[tier],
+                          norm(yr, yi) * norm(*cts) + norm(*x) * norm(gr, gi))
+        del x, yr, yi, cts, gr, gi, want
+    for n in (1024, 4096):
+        texel = OCEAN_DEMO.length / n
+        inputs = [(0.1 * plane((n, n))).requires_grad_() for _ in range(3)]
+        out = fs.fields_stencil(*inputs, texel)
+        cts = [plane(tuple(o.shape)) for o in out]
+        got = torch.autograd.grad(out, inputs, cts)
+        want = torch.autograd.grad(fs.fields_twin(*inputs, texel), inputs, cts)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"[autograd] fields_stencil [{n},{n}] backward: bit-equal to "
+            f"torch.autograd.grad of the twins (normals_stencil + "
+            f"whitecap_gpu) on the same inputs and cotangents: {same}")
+        require(same, f"the fields Function's gradient at {n}² differs from "
+                f"the twins'")
+        del inputs, out, cts, got, want
     phase_done("3 kernels")
 
     # timing of a path (phase 5; the runtime paths of phase 4 inline): each
@@ -2728,6 +2930,174 @@ def main():
                                (viz.shade_ocean(saved) * 255).astype(np.uint8)),
             f"path {tag}: the renders")
     del wsolver, wstate, wfields, host, saved, csolver, cstate
+    phase_done(f"4 path ({tag})")
+
+    # the autograd slice (xxxiv)-(xxxvii): gradients through path (i)'s
+    # step, d(Σ height² + Σ foam)/d(h0_re), at 1024², 4096² and bf16; then
+    # the inversion
+    from tpu_ocean_torch import invert_sea_state as inv
+    for gp in GRAD_PATHS:
+        tag = gp.tag
+        gcfg = OCEAN_DEMO.replace(resolution=gp.size, precision=gp.precision)
+        gsolver = OceanSolver(gcfg, **main_kw)
+        gstate = gsolver.init(seeded())
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grad = counted(tag, gp.per_step,
+                             lambda: slice_gradient(gsolver, gstate))
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        require(bool(torch.isfinite(grad).all()) and grad.abs().max() > 0,
+                f"path {tag}: the gradient is not finite or is zero")
+        log(f"[slice {tag}] OCEAN_DEMO {gp.size}x{gp.size} {gp.precision}, "
+            f"{main_kw}: one step from manual_seed(0), loss (float64) "
+            f"{loss.item():.10e}, d loss/d h0_re max |.| "
+            f"{grad.abs().max().item():.4e}; peak memory of the step and its "
+            f"backward {peak:.3f} GiB above the {held / 2 ** 30:.3f} GiB "
+            f"held before it")
+        if gp.cpu_rel is not None:
+            # the same step and gradient on the CPU from the card's state
+            cpu_solver = OceanSolver(gcfg, device="cpu", **main_kw)
+            cpu_state = state_from_numpy(gstate, "cpu")
+            _, cpu_grad = slice_gradient(cpu_solver, cpu_state)
+            err = (grad.cpu() - cpu_grad).abs()
+            scale = cpu_grad.abs().max().item()
+            worst = np.unravel_index(int(err.argmax()), tuple(err.shape))
+            log(f"[slice {tag}] card vs cpu d loss/d h0_re: max abs err "
+                f"{err.max().item():.3e} = {err.max().item() / scale:.3e} x "
+                f"max|cpu| (limit {gp.cpu_rel:g}); worst texel {worst}: card "
+                f"{grad[worst].item():.6e}, cpu {cpu_grad[worst].item():.6e}")
+            require(err.max().item() <= gp.cpu_rel * scale,
+                    f"path {tag}: the card's gradient disagrees with the CPU's")
+            del cpu_solver, cpu_state, cpu_grad, err
+        if gp.precision == "float32":
+            # (at bf16 the transforms round h0 to 8 bits: no difference of
+            # eps 1e-3 survives)
+            idx, fd, an = finite_difference(gsolver, gstate, grad)
+            log(f"[slice {tag}] central difference (eps 1e-3, float64 loss) "
+                f"at the dominant element {idx}: {fd:.6e} against the "
+                f"gradient {an:.6e}, rel err {abs(fd - an) / abs(an):.3e} "
+                f"(limit 1e-2)")
+            require(abs(fd - an) <= 1e-2 * abs(an),
+                    f"path {tag}: the finite difference disagrees")
+        lhs, rhs, yy, cauchy = height_adjoint(gsolver, gstate, seed=1)
+        adjoint_check(f"path ({tag}) h0 planes -> height", lhs, rhs, yy, rhs,
+                      None if gp.precision == "float32" else BF16_REL, cauchy)
+
+        def grad_step(gsolver=gsolver, gstate=gstate):
+            slice_gradient(gsolver, gstate)
+        time_path(
+            f"path ({tag}) forward + backward {gp.precision}", gp.size,
+            grad_step, 50 if gp.size <= 2048 else 10,
+            OCEAN_NOTE + "; backward: the row kernels in the opposite "
+            "direction, the fields twins and the rest in torch")
+        # the fields Function alone at the path's size: the kernel forward,
+        # then the twins' recompute and backward in torch (data-blind work)
+        texel = OCEAN_DEMO.length / gp.size
+        fin = [plane((gp.size, gp.size)).requires_grad_() for _ in range(3)]
+        fcts = [torch.ones_like(o) for o in fs.fields_stencil(*fin, texel)]
+        fields_ms, per_kernel, how = device_ms(lambda: torch.autograd.grad(
+            fs.fields_stencil(*fin, texel), fin, fcts))
+        kernel_ms = sum(ms for key, ms in per_kernel.items()
+                        if kernel_group(key) == "fields_stencil")
+        log(f"[timing] {kind} ({smi}): path ({tag}) the fields Function "
+            f"alone at {gp.size}x{gp.size}: {fields_ms:.4f} ms device ({how}), "
+            f"the kernel's forward {kernel_ms:.4f} of it, the twins' "
+            f"recompute and backward in torch {fields_ms - kernel_ms:.4f}")
+        del gsolver, gstate, grad, fin, fcts
+        phase_done(f"4 path ({tag})")
+
+    # the fused backend refuses a gradient on the card, as JAX's jax.grad
+    # fails there; nothing launches
+    fsolver = OceanSolver(OCEAN_DEMO, **{**main_kw, "fft_backend": "pallas_fused"})
+    fstate = fsolver.init(seeded())
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        fsolver.step(fstate._replace(h0_re=fstate.h0_re.clone().requires_grad_()),
+                     DT)
+        refused = ""
+    except NotImplementedError as exc:
+        refused = str(exc)
+    require_counts(read_counts(), {}, "pallas_fused with a gradient")
+    log(f"[slice xxxiv] pallas_fused with h0_re.requires_grad_(): "
+        f"NotImplementedError: {refused}")
+    require('fft_backend="pallas"' in refused,
+            "pallas_fused did not refuse a gradient")
+    del fsolver, fstate
+
+    # (xxxvii) the inversion: the example's criterion at its
+    # defaults, packed at N = 64 (the production step) and the complex
+    # state (cuFFT, no hand kernel); OCEAN_DEMO's width for 30 iterations
+    tag = "xxxvii"
+
+    def invert_run(make, steps, evals):
+        problem = make()
+        params, losses = inv.invert(problem, steps, INVERT_LR)
+        with torch.no_grad():
+            ends = ([float(problem.loss(params)),
+                     float(problem.loss(problem.start))] if evals else [])
+        return problem, params, losses, ends
+
+    for what, make, want in (
+            ("packed N = 64", lambda: inv.packed_problem(64),
+             inversion_launches(INVERT_STEPS, 2)),
+            ("complex N = 48", lambda: inv.complex_problem(48), {})):
+        t0 = time.perf_counter()
+        problem, params, losses, (final, init) = counted(
+            f"{tag} {what}", want, lambda: invert_run(make, INVERT_STEPS, True))
+        secs = time.perf_counter() - t0
+        log(f"[slice {tag}] {what}, {INVERT_STEPS} iterations of Adam (lr "
+            f"{INVERT_LR:g}): loss {init:.4e} -> {final:.4e} "
+            f"({init / final:.1f}x; the criterion 100x), rel |h0 - h0*| "
+            f"{problem.error(params):.3f}; every 25th loss "
+            f"{[round(x, 4) for x in losses[::25]]}; {secs:.1f} s "
+            f"({secs * 1e3 / INVERT_STEPS:.2f} ms/iteration, host clock)")
+        require(np.isfinite(losses).all() and final < 1e-2 * init,
+                f"path {tag}: {what} reduced the loss {init / final:.1f}x, "
+                f"not 100x")
+        del problem, params
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    problem, params, losses, _ = counted(
+        f"{tag} packed N = {INVERT_WIDE_N}",
+        inversion_launches(INVERT_WIDE_STEPS, 0),
+        lambda: invert_run(lambda: inv.packed_problem(INVERT_WIDE_N),
+                           INVERT_WIDE_STEPS, False))
+    end.record()
+    end.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / INVERT_WIDE_STEPS
+    iter_ms = start.elapsed_time(end) / INVERT_WIDE_STEPS
+    busy, per_kernel, how = device_ms(
+        lambda: inv.value_and_grad(problem, params), iters=5)
+    groups = {}
+    for key, ms in per_kernel.items():
+        groups[kernel_group(key)] = groups.get(kernel_group(key), 0.0) + ms
+    log(f"[timing] {kind} ({smi}): path ({tag}) packed inversion at "
+        f"{INVERT_WIDE_N}x{INVERT_WIDE_N}, {INVERT_WIDE_STEPS} iterations (12 "
+        f"steps forward, 4 snapshots' backward, Adam, and the 12 "
+        f"observation steps): {iter_ms:.4f} ms/iteration (CUDA events; host "
+        f"clock {wall_ms:.4f}); one value-and-gradient device busy "
+        f"{busy:.4f} ms ({how}): " + ", ".join(
+            f"{g} {ms:.4f}" for g, ms in sorted(groups.items())))
+    log(f"[slice {tag}] packed N = {INVERT_WIDE_N} loss curve: "
+        + ", ".join(f"{x:.4e}" for x in losses))
+    require(np.isfinite(losses).all() and losses[-1] < losses[0],
+            f"path {tag}: the loss at N = {INVERT_WIDE_N} did not fall")
+    del problem, params
+    # the module in a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_ocean_torch.invert_sea_state", "--packed",
+         "--n", "64"], cwd=HERE, capture_output=True, text=True, timeout=300)
+    require(proc.returncode == 0, f"python -m tpu_ocean_torch.invert_sea_state "
+            f"--packed --n 64 exited {proc.returncode}: "
+            f"{(proc.stdout + proc.stderr)[-2000:]}")
+    log(f"[slice {tag}] python -m tpu_ocean_torch.invert_sea_state --packed "
+        f"--n 64: exit 0 in {time.perf_counter() - t0:.1f} s; "
+        f"{proc.stdout.strip().splitlines()[-1]}")
     phase_done(f"4 path ({tag})")
 
     # the module entry point in a process of its own, on the cached build:

@@ -43,6 +43,12 @@ runtimes run on the card unless given ``device="cpu"``; on CPU tensors
 each kernel wrapper runs its plain torch version. ``OceanConfig.precision="bfloat16"`` and the bf16x3 and
 three-factor switches of ``fft.planes`` run the row and fused kernels on
 a matrix-form DFT engine (``csrc/dft_matrix.cuh``, bf16 tensor cores).
+Gradients follow the JAX package's VJPs: with ``fft_backend="pallas"`` a
+step is differentiable in the state's planes (the row-DFT kernels'
+backward is the same kernels in the opposite direction, the fields
+kernel's the torch twins), and ``invert_sea_state`` fits h0 to observed
+heights through it; the fused and wave-bank kernels, which JAX gives no
+VJP, raise NotImplementedError on a gradient.
 This package imports torch and numpy, never jax; the JAX package
 ``tpu_ocean`` is its reference.
 """

@@ -45,6 +45,14 @@ Stockham take their plain version from ``fft/matrix.py``.
 Each launch counts once: a Stockham kernel's on its wrapper's
 ``launches``; any other row launch, and a fused launch outside the packed
 set with 3 live fields, in ``named_launches`` under ``kernel_name``.
+
+Both row DFTs are differentiable by the JAX package's linear-adjoint rule
+(``pallas_fft._fft1d_transposed_diff``, ``_fft1d_natural_large_diff``):
+the DFT matrix is symmetric, so the VJP is the same dispatch in the
+opposite direction at the same precision, on the cotangents (swapped
+around the transposed store). A wrapper enters its autograd.Function only
+where ``needs_grad``; the backward's launches count like the forward's.
+Everything else here is torch ops, which autograd differentiates itself.
 """
 
 from __future__ import annotations
@@ -839,12 +847,26 @@ def on_cpu(fn_name: str, re: torch.Tensor) -> bool:
     return False
 
 
-def fft1d_transposed(re: torch.Tensor, im: torch.Tensor, inverse: bool = True,
-                     precision: str = "float32"):
-    """Batched 1-D unnormalized DFT along the last axis of (re, im) f32
-    [C, M, N], sign + for the inverse; returns (re, im) [C, N, M]:
-    out[c, k, m] = Σ_n x[c, m, n]·e^{±2πi·nk/N}, at the tier and form of
-    engine(N, precision, transposed=True)."""
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """True where autograd records: grad mode on and an input that requires
+    grad. Only then does a wrapper enter its autograd.Function; otherwise
+    it runs the dispatch alone, with no Function on the host's path."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, tensors, backend: str) -> None:
+    """Raise NotImplementedError where autograd would record a kernel that
+    the JAX package gives no VJP (the fused and wave-bank kernels), rather
+    than return outputs cut from the graph."""
+    if needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{what} has no gradient: the JAX package has no VJP for the "
+            f"{backend} kernels either. Take gradients through "
+            f"fft_backend=\"pallas\" (the row-DFT and fields kernels), or "
+            f"run this under torch.no_grad()")
+
+
+def _fft1d_transposed_impl(re, im, inverse, precision):
     _check_planes(re, im)
     c, m, n = re.shape
     check_size(n)
@@ -857,12 +879,7 @@ def fft1d_transposed(re: torch.Tensor, im: torch.Tensor, inverse: bool = True,
     return out
 
 
-def fft1d_natural_large(re: torch.Tensor, im: torch.Tensor,
-                        inverse: bool = True, precision: str = "float32"):
-    """The same row DFT as fft1d_transposed, stored in natural order:
-    (re, im) f32 [C, M, N] → [C, M, N], out[c, m, k] = Σ_n x[c, m, n]·
-    e^{±2πi·nk/N}. The row pass of the natural regime (no three-factor
-    form)."""
+def _fft1d_natural_large_impl(re, im, inverse, precision):
     _check_planes(re, im)
     n = re.shape[-1]
     check_size(n)
@@ -873,6 +890,70 @@ def fft1d_natural_large(re: torch.Tensor, im: torch.Tensor,
                        tier, split3)
     count_launch(fft1d_natural_large, "rows_natural", tier, split3)
     return out
+
+
+class _Fft1dTransposedDiff(torch.autograd.Function):
+    """fft1d_transposed with the linear-adjoint rule of
+    pallas_fft._fft1d_transposed_diff: Y = T(W·X) with a symmetric DFT
+    matrix W, so X̄ = T(G(T(Ȳ))), G the same dispatch in the opposite
+    direction at the same precision (conj W is the other direction's
+    table). The backward launches the same kernel on a CUDA tensor and runs
+    the plain version on a CPU one, so at bf16 it is the adjoint rule, not
+    the derivative of the plain version's rounding."""
+
+    @staticmethod
+    def forward(ctx, re, im, inverse, precision):
+        ctx.inverse, ctx.precision = inverse, precision
+        return _fft1d_transposed_impl(re, im, inverse, precision)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        # a cotangent may be a stride-0 expansion (from sum()) or a view
+        gr, gi = _fft1d_transposed_impl(
+            gr.transpose(-1, -2).contiguous(), gi.transpose(-1, -2).contiguous(),
+            not ctx.inverse, ctx.precision)
+        return gr.transpose(-1, -2), gi.transpose(-1, -2), None, None
+
+
+class _Fft1dNaturalLargeDiff(torch.autograd.Function):
+    """fft1d_natural_large with the rule of
+    pallas_fft._fft1d_natural_large_diff: the VJP is the same dispatch in
+    the opposite direction on the cotangents (no swap)."""
+
+    @staticmethod
+    def forward(ctx, re, im, inverse, precision):
+        ctx.inverse, ctx.precision = inverse, precision
+        return _fft1d_natural_large_impl(re, im, inverse, precision)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        gr, gi = _fft1d_natural_large_impl(gr.contiguous(), gi.contiguous(),
+                                           not ctx.inverse, ctx.precision)
+        return gr, gi, None, None
+
+
+def fft1d_transposed(re: torch.Tensor, im: torch.Tensor, inverse: bool = True,
+                     precision: str = "float32"):
+    """Batched 1-D unnormalized DFT along the last axis of (re, im) f32
+    [C, M, N], sign + for the inverse; returns (re, im) [C, N, M]:
+    out[c, k, m] = Σ_n x[c, m, n]·e^{±2πi·nk/N}, at the tier and form of
+    engine(N, precision, transposed=True). Differentiable
+    (_Fft1dTransposedDiff) where needs_grad; the backward's launches count
+    like the forward's."""
+    if needs_grad(re, im):
+        return _Fft1dTransposedDiff.apply(re, im, bool(inverse), precision)
+    return _fft1d_transposed_impl(re, im, inverse, precision)
+
+
+def fft1d_natural_large(re: torch.Tensor, im: torch.Tensor,
+                        inverse: bool = True, precision: str = "float32"):
+    """The same row DFT as fft1d_transposed, stored in natural order:
+    (re, im) f32 [C, M, N] → [C, M, N], out[c, m, k] = Σ_n x[c, m, n]·
+    e^{±2πi·nk/N}. The row pass of the natural regime (no three-factor
+    form). Differentiable (_Fft1dNaturalLargeDiff) where needs_grad."""
+    if needs_grad(re, im):
+        return _Fft1dNaturalLargeDiff.apply(re, im, bool(inverse), precision)
+    return _fft1d_natural_large_impl(re, im, inverse, precision)
 
 
 #: Stockham-kernel launches since the last reset (CPU calls do not count)

@@ -12,6 +12,12 @@ one-sided differences that stop at the last row (FFTMesh.cs:253-276).
 The fields kernel (``ops/fields_stencil.py``) computes the same fields
 from six difference planes; these twins are its independent reference.
 Axis 0 = x, axis 1 = z.
+
+The clips take JAX's tie rule for gradients: ``jnp.clip`` and
+``jnp.maximum(x, 0.0)`` pass half the gradient at a bound, where
+``torch.clamp`` passes all of it, so they are torch.maximum and
+torch.minimum against 0-d tensors (``_at_least_zero``), with the same
+forward values.
 """
 
 from __future__ import annotations
@@ -19,8 +25,14 @@ from __future__ import annotations
 import torch
 
 
+def _at_least_zero(t):
+    """jnp.maximum(t, 0.0): a tie splits its gradient 0.5/0.5."""
+    return torch.maximum(t, t.new_zeros(()))
+
+
 def _smoothstep01(t):
-    t = torch.clamp(t, 0.0, 1.0)
+    # jnp.clip(t, 0, 1), tie rule included
+    t = torch.minimum(_at_least_zero(t), t.new_ones(()))
     return t * t * (3.0 - 2.0 * t)
 
 
@@ -69,7 +81,7 @@ def whitecap_gpu(disp_x, disp_z, normal):
     ddy_z = central(disp_z, 1)
     jacobian = (1.0 + ddx_x) * (1.0 + ddy_z) - ddx_z * ddy_x
     noise = 0.3 * torch.sqrt(normal[..., 0] ** 2 + normal[..., 2] ** 2)
-    turb = torch.clamp(1.0 - jacobian + noise, min=0.0)
+    turb = _at_least_zero(1.0 - jacobian + noise)
     return _smoothstep01(turb), jacobian
 
 
@@ -91,5 +103,5 @@ def whitecap_oracle(disp_x, disp_z, normal):
     ddy_z = one_sided(disp_z, 1)
     jacobian = (1.0 + ddx_x) * (1.0 + ddy_z) - ddx_z * ddy_x
     noise = 0.3 * torch.sqrt(normal[..., 0] ** 2 + normal[..., 2] ** 2)
-    turb = torch.clamp(1.0 - jacobian + noise, min=0.0)
+    turb = _at_least_zero(1.0 - jacobian + noise)
     return _smoothstep01(turb), jacobian

@@ -15,6 +15,11 @@ On a CUDA tensor each wrapper launches its hand-written kernel and nothing
 else; on a CPU tensor it runs its plain version below. The TPU kernels'
 boundary-row gather, halo bands and ``M % 8`` rule came from VMEM
 blocking and DMA alignment and are not carried over: any [M, N] grid works.
+
+Gradients follow the JAX package (fields_pallas.py:172-190): the forward
+is the kernel (or its plain version), the backward differentiates the jnp
+twins (``fields_twin``: ``fields.normals_stencil`` + ``whitecap_gpu``) in
+plain torch, for v1 and v2 alike.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from tpu_ocean_torch import _build
-from tpu_ocean_torch.fft.planes import on_cpu
+from tpu_ocean_torch import fields as field_ops
+from tpu_ocean_torch.fft.planes import needs_grad, on_cpu
 
 #: False routes fields_stencil to the v1 kernel (fields_stencil_v1), as the
 #: JAX package's switch of the same name does
@@ -136,13 +142,7 @@ def _launch(entry: str, disp_x, height, disp_z, texel: float):
     return normal, foam, jac
 
 
-def fields_stencil(disp_x: torch.Tensor, height: torch.Tensor,
-                   disp_z: torch.Tensor, texel: float):
-    """(normal [M, N, 3], foam [M, N], jacobian [M, N]) from the chop-scaled
-    displacements and the height, periodic on both axes; ``texel`` = L/N.
-    The v2 kernel, or v1 when FIELDS_KERNEL_V2 is False."""
-    if not FIELDS_KERNEL_V2:
-        return fields_stencil_v1(disp_x, height, disp_z, texel)
+def _fields_v2_impl(disp_x, height, disp_z, texel):
     _check_planes(disp_x, height, disp_z)
     if on_cpu("fields_stencil", disp_x):
         return fields_stencil_plain(disp_x, height, disp_z, texel)
@@ -151,16 +151,70 @@ def fields_stencil(disp_x: torch.Tensor, height: torch.Tensor,
     return out
 
 
-def fields_stencil_v1(disp_x: torch.Tensor, height: torch.Tensor,
-                      disp_z: torch.Tensor, texel: float):
-    """fields_stencil by the v1 kernel: the same outputs from four edge
-    cross products (agreeing with v2 up to f32 reassociation)."""
+def _fields_v1_impl(disp_x, height, disp_z, texel):
     _check_planes(disp_x, height, disp_z)
     if on_cpu("fields_stencil_v1", disp_x):
         return fields_stencil_v1_plain(disp_x, height, disp_z, texel)
     out = _launch("tpu_fields_stencil_v1", disp_x, height, disp_z, texel)
     fields_stencil_v1.launches += 1
     return out
+
+
+def fields_twin(disp_x, height, disp_z, texel: float):
+    """The JAX package's jnp twins of the kernels
+    (fields_pallas._fields_twin): fields.normals_stencil, then
+    fields.whitecap_gpu on its normals. The fields' backward reverses
+    through these, not through the kernels' plain versions."""
+    normal = field_ops.normals_stencil(disp_x, height, disp_z, texel)
+    foam, jac = field_ops.whitecap_gpu(disp_x, disp_z, normal)
+    return normal, foam, jac
+
+
+class _FieldsStencilDiff(torch.autograd.Function):
+    """A fields kernel (``impl``: the v2 or v1 dispatch) with the rule of
+    fields_pallas._fields_pallas_diff: the forward is the dispatch, the
+    backward torch.autograd.grad of fields_twin at the saved inputs, in
+    plain torch on either device. The texel size is not differentiated."""
+
+    @staticmethod
+    def forward(ctx, disp_x, height, disp_z, texel, impl):
+        ctx.save_for_backward(disp_x, height, disp_z)
+        ctx.texel = texel
+        return impl(disp_x, height, disp_z, texel)
+
+    @staticmethod
+    def backward(ctx, g_normal, g_foam, g_jac):
+        inputs = [p.detach().requires_grad_() for p in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = fields_twin(*inputs, ctx.texel)
+        grads = torch.autograd.grad(outs, inputs, (g_normal, g_foam, g_jac))
+        return (*grads, None, None)
+
+
+def _dispatch(impl, disp_x, height, disp_z, texel):
+    if needs_grad(disp_x, height, disp_z):
+        return _FieldsStencilDiff.apply(disp_x, height, disp_z, float(texel),
+                                        impl)
+    return impl(disp_x, height, disp_z, texel)
+
+
+def fields_stencil(disp_x: torch.Tensor, height: torch.Tensor,
+                   disp_z: torch.Tensor, texel: float):
+    """(normal [M, N, 3], foam [M, N], jacobian [M, N]) from the chop-scaled
+    displacements and the height, periodic on both axes; ``texel`` = L/N.
+    The v2 kernel, or v1 when FIELDS_KERNEL_V2 is False. Differentiable
+    (_FieldsStencilDiff) where needs_grad."""
+    if not FIELDS_KERNEL_V2:
+        return fields_stencil_v1(disp_x, height, disp_z, texel)
+    return _dispatch(_fields_v2_impl, disp_x, height, disp_z, texel)
+
+
+def fields_stencil_v1(disp_x: torch.Tensor, height: torch.Tensor,
+                      disp_z: torch.Tensor, texel: float):
+    """fields_stencil by the v1 kernel: the same outputs from four edge
+    cross products (agreeing with v2 up to f32 reassociation), and the same
+    backward."""
+    return _dispatch(_fields_v1_impl, disp_x, height, disp_z, texel)
 
 
 #: kernel launches since the last reset (CPU calls do not count)

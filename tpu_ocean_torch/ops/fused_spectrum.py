@@ -32,6 +32,12 @@ transposed store takes the three-factor form of ``_fused_kernel_split3``
 every tier. The JAX package's TPU-only reroutes (the ``n % 256`` and
 ``HALF_MIN_PALLAS_N`` guards) are Mosaic rules and have no counterpart
 here.
+
+The fused kernels take no gradient: the JAX package gives them no VJP
+(``jax.grad`` through ``fft_backend="pallas_fused"`` fails), so both
+entries raise NotImplementedError on either device when autograd would
+record them (``planes.refuse_grad``), rather than hand back a graph cut at
+the kernel. ``fft_backend="pallas"`` is the differentiable backend.
 """
 
 from __future__ import annotations
@@ -78,6 +84,9 @@ def _kz_table(n: int, length: float, device: torch.device) -> torch.Tensor:
 
 
 def _check_inputs(h0_planes, phase, ch_start, ch_count, packed, nch_live):
+    planes.refuse_grad(
+        "the fused assembly + row DFT (fft_backend=\"pallas_fused\")",
+        (*h0_planes, phase), "fused")
     channels = channel_count(packed, nch_live)
     if not (0 <= ch_start and ch_count >= 1
             and ch_start + ch_count <= channels):

@@ -16,7 +16,10 @@ f32 once, in that left-to-right order, by both versions.
 On a CUDA tensor ``gerstner_bank`` launches the hand-written kernel
 (``csrc/gerstner_bank.cu``) and nothing else; on a CPU tensor it runs the
 plain version below. The TPU kernel's row blocking (``_pick_rows``) came
-from VMEM and is not carried over: any [M, N] grid works.
+from VMEM and is not carried over: any [M, N] grid works. The kernel
+takes no gradient (the JAX package gives it no VJP): with autograd
+recording, ``gerstner_bank`` raises NotImplementedError on either device;
+``gerstner.gerstner_eval`` is the differentiable plain-torch bank.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from tpu_ocean_torch import _build
-from tpu_ocean_torch.fft.planes import on_cpu
+from tpu_ocean_torch.fft.planes import on_cpu, refuse_grad
 
 #: the bank's rows, as gerstner_pallas.py:95-97 packs them
 BANK_ROWS = ("amps", "steeps", "dirs_x", "dirs_z", "freqs", "omegas")
@@ -95,6 +98,7 @@ def gerstner_bank(bank, x: torch.Tensor, z: torch.Tensor, t: float,
     ``bank`` is a WaveBank or its packed [6, W] f32 tensor (pack_bank) on
     x's device."""
     packed = _as_packed(bank, x.device)
+    refuse_grad("the Gerstner wave-bank kernel", (packed, x, z), "wave-bank")
     _check(packed, x, z, normal_mode)
     if on_cpu("gerstner_bank", x):
         return gerstner_bank_plain(packed, x, z, t, normal_mode)
