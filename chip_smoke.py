@@ -58,8 +58,16 @@ Phases, each printing its own lines:
                identity ⟨F x, y⟩ = ⟨x, Fᵀ y⟩ in float64 (f32: within 2e-5,
                tests/test_autodiff.py:226; bf16: 2e-3 × (‖Fx‖‖y‖ +
                ‖x‖‖Fᵀy‖)); the fields Function's gradient at 1024² and
-               4096² bit-equal to torch.autograd.grad of its twins;
-  4. slice   — forty paths on the card, each from a seeded init,
+               4096² bit-equal to torch.autograd.grad of its twins; the f32
+               mixed-radix row kernel (#1 and #2 at lengths that are not
+               powers of two) at every shape of MIXED_SHAPES (the paths'
+               and each N of 48 … 2042 transposed, 3072 … 8190 natural, at
+               M = N, N/2 and 1, and 8186 = 2·4093 natural at M = N and
+               1), both directions: one launch under its
+               name, within 2e-6·max of the plain version and 1e-6·max of
+               float64; its autograd backward at [1,1536,1536] transposed
+               and [1,3072,3072] natural as the other Functions';
+  4. slice   — forty-three paths on the card, each from a seeded init,
                with every launch count set to 0 just before and read just
                after it; (i)-(xv) run the real state with OCEAN_DEMO's
                slice switches (packed + half with the fields kernel) unless
@@ -119,6 +127,16 @@ Phases, each printing its own lines:
                        20 steps: #5 per-channel (C = 3), then #1
                  (xxi) (xvii) at "bfloat16", 20 steps: the bf16 row kernel
                        (#1 at DEFAULT) on all 5 channels
+                 (xxxviii) OCEAN_DEMO at 1536², "pallas", 20 steps: every
+                       row pass on the f32 mixed-radix kernel's transposed
+                       store (5 a step), nothing of the power-of-two kernels
+                 (xxxix) OCEAN_DEMO at 3072², "pallas", 10 steps (the
+                       natural regime): 3 natural and 2 transposed launches
+                       of the mixed-radix kernel a step
+                 (xl)  OCEAN_DEMO at 106² (2·53), "pallas", the complex
+                       state, 20 steps: the mixed-radix kernel on C = 3
+                       channels, two launches a step, its generic stage of
+                       radix 53
                  (xxii) Simulation(OCEAN_DEMO, path (i)'s switches) at
                        1024², checkpoints and export every 20 steps, 60
                        steps: path (i)'s launches, 60 JSONL lines, the
@@ -470,6 +488,18 @@ PATHS = [
     OceanPath("xxi", "pallas", 1024, 20, 2, True, "bfloat16", {},
               {"matrix_rows_transposed[bf16]": 2}, BF16_REL, solver={},
               base="parity", against={"f32": BF16_VS_F32_REL}),
+    # the sizes slice: lengths that are not powers of two, every row pass
+    # on the f32 mixed-radix kernel (csrc/rows_mixed_f32.cuh): path (i)'s
+    # switches at 1536² (transposed regime) and 3072² (natural regime), and
+    # the complex state at 106² = (2·53)², the generic stage of a prime
+    # radix inside the solver (C = 3 channels, the fields in torch)
+    OceanPath("xxxviii", "pallas", 1536, 20, 2, True, "float32", {},
+              {"fft_rows_mixed_transposed": 5, "fields_stencil": 1}, 1e-5),
+    OceanPath("xxxix", "pallas", 3072, 10, 2, True, "float32", {},
+              {"fft_rows_mixed_natural": 3, "fft_rows_mixed_transposed": 2,
+               "fields_stencil": 1}, 1e-5),
+    OceanPath("xl", "pallas", 106, 20, 2, True, "float32", {},
+              {"fft_rows_mixed_transposed": 2}, 1e-5, solver={}),
 ]
 # (path, solver method, launches of one call): fields_at(state, t) at the
 # path's clock + 1/60 and velocity(state), on the card and on the CPU from
@@ -533,6 +563,13 @@ KERNEL_INFO = {
         "tpu_ocean/ops/fused_spectrum_fft.py:196"),
     "fields_stencil_v1": ("tpu_ocean_torch/csrc/fields_stencil_v1.cu",
                           "tpu_ocean/ops/fields_pallas.py:45"),
+    # #1 and #2 at f32, direct form, at lengths that are not powers of two
+    "fft_rows_mixed_transposed": (
+        "tpu_ocean_torch/csrc/rows_mixed_f32.cuh",
+        "tpu_ocean/fft/pallas_fft.py:235 at non-power-of-two N"),
+    "fft_rows_mixed_natural": (
+        "tpu_ocean_torch/csrc/rows_mixed_f32.cuh",
+        "tpu_ocean/fft/pallas_fft.py:677 at non-power-of-two N"),
     "gerstner_bank": ("tpu_ocean_torch/csrc/gerstner_bank.cu",
                       "tpu_ocean/ops/gerstner_pallas.py:30"),
     # the row and fused entries at the other tiers and forms, by tier and
@@ -573,6 +610,36 @@ KERNEL_INFO = {
 }
 # kernel-vs-plain band of each tier (tests/test_torch_cuda_kernels.py)
 TIER_BAND = {"f32": 1e-5, "bf16": 2e-3, "bf16x3": 1e-5}
+# the f32 mixed-radix row kernel (csrc/rows_mixed_f32.cuh) by store: its
+# phase-3 shapes, the paths' first ((xxxviii): 1536² rows and the half
+# channel's 768-long columns; (xxxix): its 3072- and 1536-long columns on
+# the transposed store, its rows on the natural one; (xl): 106 at C = 3),
+# then each N at M = N, N/2 and 1 (106 = 2·53 and 2042 = 2·1021 run the
+# generic stage of a prime radix); the natural store also at C = 3, and at
+# 8186 = 2·4093 (the largest prime radix the kernel meets, N·p operations
+# a row) at M = N and 1. Each
+# shape in both directions within MIXED_BAND·max of the plain version
+# (torch.fft in complex64) and MIXED_F64_MAX·max of float64
+MIXED_SHAPES = {
+    "fft_rows_mixed_transposed": (
+        [(1, 1536, 1536), (1, 768, 1536), (1, 1, 1536), (1, 1536, 768),
+         (1, 3072, 3072), (1, 3072, 1536), (3, 106, 106)]
+        + [(1, m, n) for n in (48, 96, 106, 160, 224, 384, 768, 2042)
+           for m in (n, n // 2, 1)]),
+    "fft_rows_mixed_natural": (
+        [(1, 3072, 3072), (1, 1536, 3072), (1, 1, 3072), (3, 3072, 3072)]
+        + [(1, m, n) for n in (6144, 8190) for m in (n, n // 2, 1)]
+        + [(1, 8186, 8186), (1, 1, 8186)])}
+MIXED_BAND, MIXED_F64_MAX = 2e-6, 1e-6
+# those timed in phase 5: the paths' shapes and each N at M = N
+MIXED_TIMED = {(1, 768, 1536), (1, 1, 1536), (1, 1536, 768), (1, 3072, 1536),
+               (3, 106, 106), (1, 1536, 3072), (1, 1, 3072),
+               (3, 3072, 3072)} | {
+    (1, n, n) for n in (48, 96, 106, 160, 224, 384, 768, 1536, 2042, 3072,
+                        6144, 8186, 8190)}
+# of those, the ones of more than ~100 ms a launch, timed over 10 calls,
+# not 50 (at 8186 the generic stage sums 4093 terms an output)
+MIXED_SLOW = {(1, 8186, 8186)}
 # the row-DFT Functions' backward in phase 3 (store, [C, M, N], precision):
 # #1 at every shape path (xxxiv) gives it (the half route's too) and at
 # 4096², at bf16 at 1024²; #2 at 4096², f32 and bf16
@@ -583,7 +650,10 @@ AUTOGRAD_ROWS = [("transposed", (1, 1024, 1024), "float32"),
                  ("transposed", (1, 4096, 4096), "float32"),
                  ("transposed", (1, 1024, 1024), "bfloat16"),
                  ("natural", (1, 4096, 4096), "float32"),
-                 ("natural", (1, 4096, 4096), "bfloat16")]
+                 ("natural", (1, 4096, 4096), "bfloat16"),
+                 # the mixed-radix kernel, paths (xxxviii) and (xxxix)
+                 ("transposed", (1, 1536, 1536), "float32"),
+                 ("natural", (1, 3072, 3072), "float32")]
 # the gradient paths (xxxiv)-(xxxvi): one step of path (i)'s switches from a
 # seeded init, d(Σ height² + Σ foam)/d(h0_re) (tests/test_autodiff.py's
 # shipping loss, summed in float64): tag, N, precision, the launches of the
@@ -736,6 +806,9 @@ def kernel_group(key):
     # rules for the row kernels or the matrix engine below
     if "bf16_fused_natural_kernel" in key:
         return "matrix_fused_natural[bf16]"
+    if "mixed_rows_kernel" in key:
+        natural = "<true>" in key or "ILb1E" in key
+        return f"fft_rows_mixed_{'natural' if natural else 'transposed'}"
     if "stockham_rows_cluster_kernel" in key:
         return "fft_rows_transposed"
     if "radix16_rows_natural_kernel" in key:
@@ -1463,7 +1536,9 @@ def main():
         return call
 
     # (kernel, wrapper, plain, precision, switches, shapes); the row DFTs'
-    # operations: 5·log2(N) a point for the Stockham stages; for the matrix
+    # operations: 5·log2(N) a point for the Stockham stages, and for the
+    # mixed-radix kernel at any N (what a length-N DFT needs, not the N·p
+    # of its generic stage's direct sums at a large prime p); for the matrix
     # engine 8·(n1 + n2) a point of bf16 tensor-core products and the
     # twiddle's 6 f32; at bf16x3 stage 1 (8·n2) in f32 and stage 2 (8·n1)
     # three times on the tensor cores; in the three-factor form 8 + 16 in
@@ -1473,6 +1548,8 @@ def main():
     # natural layout), all on the same inputs, at each shape either pass
     # is timed at
     f32_pairs = {}
+    # (name, shape) of the mixed-radix kernel: its inputs
+    mixed_inputs = {}
     for name, fn, plain, precision, switches, shapes in (
             ("fft_rows_transposed", planes.fft1d_transposed,
              planes.fft1d_transposed_plain, "float32", {},
@@ -1511,7 +1588,13 @@ def main():
              [(1, 1024, 1024), (1, 4096, 4096)]),
             ("matrix_rows_natural[bf16x3]", planes.fft1d_natural_large,
              planes.fft1d_natural_large_plain, "float32", B3,
-             [(1, 1024, 1024), (1, 4096, 4096)])):
+             [(1, 1024, 1024), (1, 4096, 4096)]),
+            ("fft_rows_mixed_transposed", planes.fft1d_transposed,
+             planes.fft1d_transposed_plain, "float32", {},
+             MIXED_SHAPES["fft_rows_mixed_transposed"]),
+            ("fft_rows_mixed_natural", planes.fft1d_natural_large,
+             planes.fft1d_natural_large_plain, "float32", {},
+             MIXED_SHAPES["fft_rows_mixed_natural"])):
         for shape in shapes:
             re, im = plane(shape), plane(shape)
             z = torch.complex(re, im)
@@ -1520,8 +1603,10 @@ def main():
             with dft_switches(planes, switches):
                 tier, split3 = planes.engine(
                     shape[2], precision, fn is planes.fft1d_transposed)
+            if name in MIXED_SHAPES:
+                mixed_inputs[name, shape] = (re, im)
             if not name.startswith("matrix"):
-                f32_ops, tensor_ops = 5 * int(np.log2(shape[2])), 0
+                f32_ops, tensor_ops = 5 * float(np.log2(shape[2])), 0
             elif split3 and tier == "f32":
                 f32_ops, tensor_ops = 8 * (n2 + 24) + 12, 0
             else:
@@ -1534,7 +1619,7 @@ def main():
                          fn(re, im, True, p)),
                 lambda z=z: torch.fft.ifft(z, dim=-1, norm="forward"),
                 16 * points, f32_ops * points, tensor_ops * points,
-                TIER_BAND[tier],
+                MIXED_BAND if name in MIXED_SHAPES else TIER_BAND[tier],
                 f64_rows(re, im, fn is planes.fft1d_transposed), switches,
                 shape[0], engine=(tier, split3)))
             if name in ("fft_rows_transposed", "fft_rows_natural"):
@@ -1652,6 +1737,8 @@ def main():
     f64_errs = {}
     for case in cases:
         name, shape, run, plain = case.name, case.shape, case.run, case.plain
+        if name in MIXED_SHAPES:
+            continue          # both directions below
         if name == "gerstner_bank":
             # each output against its own scale: offsets ~0.1, normal ~1
             got, want = run(), plain()
@@ -1685,6 +1772,47 @@ def main():
             line += f"; vs float64 {rel64:.3e} x max"
         log(line)
         del got
+
+    # the mixed-radix kernel at every shape of MIXED_SHAPES in both
+    # directions: one launch under its name, within MIXED_BAND·max of the
+    # plain version and MIXED_F64_MAX·max of float64
+    for (name, shape), (re, im) in mixed_inputs.items():
+        transposed = name == "fft_rows_mixed_transposed"
+        fn, plain = ((planes.fft1d_transposed, planes.fft1d_transposed_plain)
+                     if transposed else
+                     (planes.fft1d_natural_large,
+                      planes.fft1d_natural_large_plain))
+        rows = planes.rows_per_block(
+            shape[0], shape[1], shape[2], planes.sm_count(dev),
+            planes.mixed_max_rows(shape[2], not transposed),
+            planes.mixed_shared_bytes)
+        for inverse in (True, False):
+            reset_counts()
+            got = fn(re, im, inverse)
+            counted = {k: v for k, v in read_counts().items() if v}
+            require(counted == {name: 1}, f"{name} {shape} launched {counted}")
+            err, scale = check_kernel(name, list(shape), got,
+                                      plain(re, im, inverse), MIXED_BAND)
+            z = torch.complex(re.double(), im.double())
+            ref = (torch.fft.ifft(z, dim=-1, norm="forward") if inverse
+                   else torch.fft.fft(z, dim=-1))
+            if transposed:
+                ref = ref.transpose(-1, -2)
+            ref = (ref.real, ref.imag)
+            rel64 = (max((g.double() - r).abs().max().item()
+                         for g, r in zip(got, ref))
+                     / max(r.abs().max().item() for r in ref))
+            errs[name] = max(errs[name], err)
+            f64_errs[name] = max(f64_errs.get(name, 0.0), rel64)
+            log(f"[kernels] {name} {list(shape)} "
+                f"{'inverse' if inverse else 'forward'}, plan "
+                f"{[p for p, _ in planes.mixed_plan(shape[2])]}, R {rows}: "
+                f"max abs err {err:.3e} = {err / scale:.3e} x max|plain| "
+                f"(limit {MIXED_BAND:g}); vs float64 {rel64:.3e} x max "
+                f"(limit {MIXED_F64_MAX:g})")
+            require(rel64 <= MIXED_F64_MAX, f"{name} {shape}: {rel64:.3e} "
+                    f"x max against float64 > {MIXED_F64_MAX:g}")
+            del got, z, ref
 
     # the two f32 direct kernels on the same inputs at every shape the
     # paths give the transposed one: the cluster store (radix-2 stages) and
@@ -3205,7 +3333,10 @@ def main():
     by_shape = {}
     for case in cases:
         name, shape, library = case.name, case.shape, case.library
-        k, _, k_how = device_ms(case.run)
+        if name in MIXED_SHAPES and tuple(shape) not in MIXED_TIMED:
+            continue
+        k, _, k_how = device_ms(
+            case.run, iters=10 if tuple(shape) in MIXED_SLOW else 50)
         # a plain version runs up to ~300 torch ops a call (the wave bank's
         # per-wave loop), and the profiler's cost grows with the ops it
         # records: 10 calls, not 50

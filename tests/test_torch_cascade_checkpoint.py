@@ -318,3 +318,25 @@ def test_reconfigure_live(lod):
     # a new N restarts the count (JAX's rule, kept for parity)
     sim.reconfigure([c.replace(resolution=64) for c in new_cfgs])
     assert sim.step_count == 0
+
+
+@pytest.mark.parametrize("lod", [False, True], ids=["plain", "lod"])
+def test_restart_after_a_resolution_change_resumes_the_new_config(tmp_path,
+                                                                  lod):
+    """CascadeSimulation.reconfigure to a new N clears the checkpoints with
+    the step count, so a restart resumes the new bands' own file (ROADMAP
+    Queue 3; the JAX package keeps the old files, which outrank the new
+    ones by step)."""
+    out = str(tmp_path / "run")
+    kw = dict(out_dir=str(out), checkpoint_every=2, device="cpu",
+              **(dict(periods=[4, 2, 1]) if lod else {}))
+    new_cfgs = [c.replace(resolution=16) for c in bands()]
+    with CascadeSimulation(bands(), **kw) as sim:
+        sim.run(6)
+        sim.reconfigure(new_cfgs)
+        sim.run(2)
+        want = sim.state
+    with CascadeSimulation(new_cfgs, **kw) as again:
+        assert again.step_count == 2 and again.cfgs == new_cfgs
+        _assert_same(again.state, want)
+        again.step()

@@ -426,16 +426,23 @@ def test_sizes_jax_sends_to_matmul_go_there_with_its_warning(n, backend):
 
 
 def test_card_size_rule_for_the_kernel_backends():
-    """On the card ``pallas``/``pallas_fused`` take power-of-two N in
-    [16, 8192]: N = 96 (JAX keeps its pallas pipeline there) is refused
-    before anything is allocated on the device; ``reference`` is not."""
+    """On the card ``pallas_fused`` takes power-of-two N in [16, 8192], and
+    ``pallas`` at f32 every other even N there too
+    (fft.planes.require_card_kernel):
+    at N = 96 (JAX keeps its pallas pipeline there) the fused kernels and
+    ``pallas`` at bf16 are refused before anything is allocated on the
+    device, naming the ROADMAP row; ``pallas`` at f32 and ``reference``
+    are not."""
     cfg = OCEAN_DEMO.replace(resolution=96)
-    for backend in ("pallas", "pallas_fused"):
-        with pytest.raises(ValueError, match="power-of-two"):
-            OceanSolver(cfg, device="cuda", fft_backend=backend)
+    with pytest.raises(ValueError, match="sizes"):
+        OceanSolver(cfg, device="cuda", fft_backend="pallas_fused")
+    with pytest.raises(ValueError, match="sizes"):
+        OceanSolver(cfg.replace(precision="bfloat16"), device="cuda",
+                    fft_backend="pallas")
     if not torch.cuda.is_available():
-        with pytest.raises((AssertionError, RuntimeError)):
-            OceanSolver(cfg, device="cuda")
+        for backend in ("pallas", "reference"):
+            with pytest.raises((AssertionError, RuntimeError)):
+                OceanSolver(cfg, device="cuda", fft_backend=backend)
 
 
 @pytest.mark.parametrize("what", ["direct", "gpu_hash_seeds", "reconfigure",

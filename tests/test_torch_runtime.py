@@ -120,6 +120,31 @@ def test_resume_refuses_config_mismatch(tmp_path):
                    out_dir=out, checkpoint_every=1, device="cpu")
 
 
+def test_restart_after_a_resolution_change_resumes_the_new_config(tmp_path):
+    """A reconfigure to a new N restarts the step count and clears the
+    checkpoints, so a restart resumes the new config's own file. The JAX
+    package keeps the old config's files, named and kept by step: they
+    outrank the new run's, and its restart refuses its own config
+    (ROADMAP Queue 3; a deliberate difference)."""
+    out = str(tmp_path / "run")
+    new = _cfg(16)
+    kw = dict(fft_backend="reference", out_dir=out, checkpoint_every=2,
+              device="cpu")
+    with Simulation(_cfg(), **kw) as sim:
+        sim.run(6)
+        sim.reconfigure(new)
+        sim.run(4)
+        want = sim.state
+    assert sorted(os.listdir(os.path.join(out, "ckpt"))) == [
+        f"state_{k:010d}.npz" for k in (2, 4)]
+    with Simulation(new, **kw) as again:
+        assert again.step_count == 4
+        for name in want._fields:
+            assert torch.equal(getattr(again.state, name),
+                               getattr(want, name)), name
+        again.step()
+
+
 def test_reconfigure_updates_metrics_grid_points():
     cfg = OceanConfig(resolution=16, length=16.0, wind=(5.0, 3.0),
                       amplitude=0.1, evolution_mode="phase",

@@ -321,16 +321,22 @@ def test_what_jax_refuses_raises_value_error(change):
 
 @pytest.mark.parametrize("n", [40, 96])
 def test_sizes_the_kernels_do_not_take_raise(n):
-    """N % 16 != 0 is refused everywhere (as in JAX); N = 96 runs on the CPU
-    but is refused for a CUDA device before anything is allocated there."""
+    """N % 16 != 0 is refused everywhere (as in JAX). N = 96 steps on the
+    CPU; on the card the size rule (fft.planes.check_card_sizes) takes it
+    at f32 in the direct form and refuses it at bf16, naming the ROADMAP
+    row, before anything is allocated there."""
     cfg = OCEAN_DEMO.replace(resolution=n)
-    with pytest.raises(ValueError):
-        OceanSolver(cfg, device="cuda", **SLICE)
     if n % 16:
-        with pytest.raises(ValueError):
-            OceanSolver(cfg, device="cpu", **SLICE)
-    else:
-        OceanSolver(cfg, device="cpu", **SLICE)
+        for device in ("cuda", "cpu"):
+            with pytest.raises(ValueError):
+                OceanSolver(cfg, device=device, **SLICE)
+        return
+    planes.check_card_sizes(n, "float32", half=True)
+    with pytest.raises(ValueError, match="sizes"):
+        OceanSolver(cfg.replace(precision="bfloat16"), device="cuda", **SLICE)
+    solver = OceanSolver(cfg, device="cpu", **SLICE)
+    state, fields = solver.step(solver.init(), 1 / 60)
+    assert int(state.step) == 1 and bool(torch.isfinite(fields.height).all())
 
 
 @pytest.mark.parametrize("n", [64, 128])

@@ -44,6 +44,7 @@ _FUSED = [_P] * 9 + [_I] * 10 + [_F] * 3 + [_P]
 _SIGNATURES = {
     "tpu_fft_rows_transposed": [_P] * 5 + [_I] * 7 + [_P],
     "tpu_fft_rows_natural": _ROWS,
+    "tpu_fft_rows_mixed": [_P] * 5 + [_I] * 7 + [_P] * 2,
     "tpu_fused_rows_transposed": _FUSED,
     "tpu_fused_rows_natural": _FUSED,
     "tpu_fields_stencil": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],

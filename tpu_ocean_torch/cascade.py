@@ -47,7 +47,7 @@ from tpu_ocean_torch.evolve import (
     spectrum_coefficients)
 from tpu_ocean_torch.fft import get_ifft2
 from tpu_ocean_torch.fft.planes import (
-    check_size, ifft2_planes_auto, ifft2_planes_half)
+    check_card_sizes, ifft2_planes_auto, ifft2_planes_half)
 from tpu_ocean_torch.ops.fields_stencil import fields_stencil
 from tpu_ocean_torch.solver import OceanFields, OceanSolver
 from tpu_ocean_torch.spectra import h0_pair_fft, h0_pair_fft_planes
@@ -164,9 +164,7 @@ class CascadeSolver:
                 "(ROADMAP.md Queue 1 item 14)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and fft_backend == "pallas":
-            check_size(n)
-            if half_spectrum:
-                check_size(n // 2)
+            check_card_sizes(n, cfgs[0].precision, half=half_spectrum)
         self.pallas_fields = bool(pallas_fields)
         self.real_state = bool(real_state)
         self.cfgs = list(cfgs)

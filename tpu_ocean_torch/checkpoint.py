@@ -256,6 +256,14 @@ class CheckpointManager:
             os.unlink(os.path.join(self.directory, f))
         return p
 
+    def clear(self) -> None:
+        """Delete every checkpoint file of this manager: a run whose step
+        count restarts (a reconfigure to a new N or layout) must not leave
+        the old run's higher-numbered files to be kept and resumed in
+        place of its own."""
+        for f in self._files():
+            os.unlink(os.path.join(self.directory, f))
+
     def latest(self) -> Optional[str]:
         files = self._files()
         return os.path.join(self.directory, files[-1]) if files else None

@@ -41,6 +41,10 @@
 //     matrix-form engine of dft_matrix.cuh between a coalesced load of R
 //     rows into shared memory and stockham.cuh's stores (`tables`
 //     planes.matrix_tables).
+// Those take powers of two. At every other even N, f32 in the direct form
+// only, either store runs rows_mixed_f32.cuh (mixed-radix Stockham stages,
+// a generic stage for each odd prime factor) through its own entry,
+// tpu_fft_rows_mixed (`tables` planes.mixed_twiddles).
 // Twiddles and tables are built on the host in float64 and rounded to f32;
 // nothing is computed with fast sin/cos.
 
@@ -50,6 +54,7 @@
 #include "dft_matrix.cuh"
 #include "dft_split3_bf16x3.cuh"
 #include "dft_split3_f32.cuh"
+#include "rows_mixed_f32.cuh"
 #include "rows_natural_f32.cuh"
 #include "stockham_rows_cluster.cuh"
 
@@ -144,9 +149,12 @@ int launch(const void* re, const void* im, void* out_re, void* out_im,
 extern "C" {
 
 // Each entry launches its kernel on `stream` and returns cudaGetLastError()
-// as an int. The caller checks: n a power of two >= 16, rows a power of two
-// that keeps the shared memory within the card's limit, contiguous f32
-// planes, `tables` the Stockham twiddles (tier 0, split3 0, transposed),
+// as an int. The caller checks (planes.require_card_kernel): n a power of
+// two in [16, 8192] for these two entries (an even n in that range that is not
+// a power of two goes to tpu_fft_rows_mixed, f32 direct only), rows a
+// power of two that keeps the shared memory within the card's limit,
+// contiguous f32 planes, `tables` the Stockham twiddles (tier 0, split3 0,
+// transposed),
 // the radix-16 twiddles (tier 0, split3 0, natural), the bf16 row kernel's
 // tables (tier 1, split3 0), the bf16x3 three-factor kernel's (tier 2,
 // split3 1) or the matrix engine's tables for (n, tier, split3), which the
@@ -168,6 +176,22 @@ int tpu_fft_rows_natural(const void* re, const void* im, void* out_re,
                          void* stream) {
   return launch<true>(re, im, out_re, out_im, tables, channels, m, n, rows,
                       tier, split3, 1, stream);
+}
+
+// The f32 direct pass at an even n in [16, 8192] that is not a power of
+// two, transposed (natural = 0) or natural (1) store: rows a power of two
+// that keeps planes.mixed_shared_bytes within the card's limit, `tables`
+// planes.mixed_twiddles(n, inverse) of `table` entries, `plan` the host
+// array planes.mixed_plan_rows(n), (radix, span, roots offset) × `stages`.
+// Any other n, rows, or a plan that is not a length-n transform inside the
+// table is refused.
+int tpu_fft_rows_mixed(const void* re, const void* im, void* out_re,
+                       void* out_im, const void* tables, int channels, int m,
+                       int n, int rows, int natural, int stages, int table,
+                       const void* plan, void* stream) {
+  return launch_rows_mixed(natural != 0, re, im, out_re, out_im, tables,
+                           channels, m, n, rows, static_cast<const int*>(plan),
+                           stages, table, stream);
 }
 
 const char* tpu_cuda_error_string(int err) {

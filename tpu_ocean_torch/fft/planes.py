@@ -15,11 +15,15 @@ JAX counterpart: ``tpu_ocean/fft/pallas_fft.py`` (``_fft1d_transposed``,
 
 On a CUDA tensor each launches its hand-written kernel
 (``csrc/fft_rows.cu``) and nothing else; on a CPU tensor it runs its plain
-version. The TPU package's size gates (Mosaic lane rules, VMEM caps) have
-no counterpart here: the kernels cover every power-of-two N in [MIN_N,
-MAX_N], and the wrappers refuse any other N. Only the regime switch is
-kept, as ``MAX_TRANSPOSED_N``, so that the port pairs like with like
-against the JAX package.
+version, at every length. The TPU package's size gates (Mosaic lane
+rules, VMEM caps) have no counterpart here: on the card the kernels cover
+every power-of-two N in [MIN_N, MAX_N] at every tier and form, and every
+other even N there at f32 in the direct form, unfused
+(``require_card_kernel``; the
+mixed-radix kernel ``csrc/rows_mixed_f32.cuh``, plan ``mixed_plan``, table
+``mixed_table``); a wrapper refuses the rest with ValueError. Only the
+regime switch is kept, as ``MAX_TRANSPOSED_N``, so that the port pairs
+like with like against the JAX package.
 
 Every transform takes a ``precision``, ``"float32"`` or ``"bfloat16"``
 (``OceanConfig.precision``), which ``kernel_tier`` maps to the kernel's
@@ -44,7 +48,8 @@ bf16x3 tier keeps stage 1 at f32, as the TPU kernels do. All but
 Stockham take their plain version from ``fft/matrix.py``.
 Each launch counts once: a Stockham kernel's on its wrapper's
 ``launches``; any other row launch, and a fused launch outside the packed
-set with 3 live fields, in ``named_launches`` under ``kernel_name``.
+set with 3 live fields, in ``named_launches`` under ``kernel_name`` (the
+mixed-radix kernel's under ``MIXED_NAMES``).
 
 Both row DFTs are differentiable by the JAX package's linear-adjoint rule
 (``pallas_fft._fft1d_transposed_diff``, ``_fft1d_natural_large_diff``):
@@ -66,11 +71,16 @@ import torch
 from tpu_ocean_torch import _build
 from tpu_ocean_torch.fft import matrix
 
-#: transform lengths the row kernels take: powers of two in this range. The
-#: upper end is where two shared-memory buffers of one row plus the twiddle
-#: table still fit one block (the card's 227 KB).
+#: transform lengths the row kernels take: even lengths in this range
+#: (require_card_kernel). The upper end is where two shared-memory buffers
+#: of one row plus the twiddle table still fit one block (the card's 227 KB).
 MIN_N = 16
 MAX_N = 8192
+#: the ROADMAP row that queues what the card has no kernel for
+SIZES_ROW = 'ROADMAP.md Queue 2, "sizes (rest)"'
+#: named_launches' names of the f32 mixed-radix row kernel, by store
+MIXED_NAMES = {"rows_transposed": "fft_rows_mixed_transposed",
+               "rows_natural": "fft_rows_mixed_natural"}
 #: shared memory one block may use on the H100 (bytes)
 SMEM_LIMIT = 232448
 #: above this N both 2-D routes take the natural regime (natural-store row
@@ -394,11 +404,42 @@ def rows_plain(re, im, inverse: bool, tier: str, split3: bool):
                            split3_tables, tier)
 
 
-def check_size(n: int) -> None:
-    """Raise ValueError unless ``n`` is a transform length the kernels take."""
-    if not (MIN_N <= n <= MAX_N and n & (n - 1) == 0):
-        raise ValueError(f"the row-DFT kernels need a power-of-two length in "
-                         f"[{MIN_N}, {MAX_N}], got {n}")
+def is_power_of_two(n: int) -> bool:
+    return n >= 1 and n & (n - 1) == 0
+
+
+def require_card_kernel(n: int, tier: str = "f32", split3: bool = False,
+                        fused: bool = False) -> None:
+    """Raise ValueError, naming SIZES_ROW, unless the card has a kernel for
+    a length-``n`` row pass at (tier, split3), fused (#5, #5b, #6) or not:
+    every power of two in [MIN_N, MAX_N] at every tier and form; every
+    other even length there at f32 in the direct form, unfused (the
+    mixed-radix kernel). The other tiers, forms and the fused kernels at
+    those lengths are queued (SIZES_ROW)."""
+    if not (MIN_N <= n <= MAX_N and n % 2 == 0):
+        raise ValueError(f"the row-DFT kernels take even lengths in "
+                         f"[{MIN_N}, {MAX_N}], got {n} ({SIZES_ROW})")
+    if is_power_of_two(n) or (_stockham(tier, split3) and not fused):
+        return
+    form = ", three-factor form" if split3 else ""
+    raise ValueError(
+        f"no kernel on the card for a {'fused ' if fused else ''}row DFT of "
+        f"length {n} at tier {tier}{form}: lengths that are not powers of "
+        f"two run at f32 in the direct form, unfused, only; the rest is "
+        f"queued ({SIZES_ROW})")
+
+
+def check_card_sizes(n: int, precision: str = "float32", fused: bool = False,
+                     half: bool = False) -> None:
+    """Raise ValueError (require_card_kernel) unless the card has a kernel
+    for every row pass of an N² transform at ``precision``: the length-n
+    passes (fused or not; each 2-D transform has a transposed-store pass,
+    the only store with a three-factor form) and, with ``half``, the half
+    channel's length-n/2 column pass."""
+    lengths = [(n, fused)] + ([(n // 2, False)] if half else [])
+    for length, f in lengths:
+        tier, split3 = engine(length, precision, transposed=True)
+        require_card_kernel(length, tier, split3, f)
 
 
 def shared_bytes(rows: int, n: int) -> int:
@@ -525,7 +566,9 @@ def radix16_plan(n: int):
     (csrc/rows_natural_f32.cuh Plan) for a length ``n`` = 16^a · r, r in
     1, 2, 4, 8: [(radix, span)], one radix-r pass (radix 16 where r = 1)
     at span 1, then radix-16 passes at spans r, 16·r, …, n/16."""
-    check_size(n)
+    if not (MIN_N <= n <= MAX_N and is_power_of_two(n)):
+        raise ValueError(f"radix16_plan: a power of two in [{MIN_N}, "
+                         f"{MAX_N}], got {n}")
     log2n = n.bit_length() - 1
     first = 1 << (log2n % 4 or 4)
     passes, span = [(first, 1)], first
@@ -583,6 +626,100 @@ def radix16_twiddles_np(n: int, inverse: bool) -> np.ndarray:
 def radix16_twiddles(n: int, inverse: bool,
                      device: torch.device) -> torch.Tensor:
     return torch.from_numpy(radix16_twiddles_np(n, inverse)).to(device)
+
+
+@functools.lru_cache(maxsize=64)
+def mixed_plan(n: int):
+    """The stages of the f32 mixed-radix row kernel
+    (csrc/rows_mixed_f32.cuh, which takes them from mixed_plan_rows) for an
+    even length ``n``:
+    ((radix, span), ...), span the product of the radices before. A radix-2
+    stage where n's power-of-two part is 2^a with a odd, then a // 2
+    radix-4 stages, then one stage for each odd prime factor (with its
+    multiplicity), smallest first."""
+    if not (MIN_N <= n <= MAX_N and n % 2 == 0):
+        raise ValueError(f"mixed_plan: an even length in [{MIN_N}, {MAX_N}], "
+                         f"got {n}")
+    pow2 = n & -n
+    a = pow2.bit_length() - 1
+    radices = [2] * (a % 2) + [4] * (a // 2)
+    odd, f = n // pow2, 3
+    while odd > 1:
+        while odd % f == 0:
+            radices.append(f)
+            odd //= f
+        f += 2
+    spans = np.cumprod([1] + radices[:-1]).tolist()
+    return tuple(zip(radices, spans))
+
+
+def mixed_roots(n: int):
+    """The table offset of each stage's p-th roots (odd stages), else
+    None: the odd stages' roots follow the twiddles (n entries) in stage
+    order, p each."""
+    offsets, at = [], n
+    for radix, _ in mixed_plan(n):
+        offsets.append(at if radix % 2 else None)
+        at += radix if radix % 2 else 0
+    return offsets
+
+
+@functools.lru_cache(maxsize=32)
+def mixed_plan_rows(n: int) -> np.ndarray:
+    """The plan as the kernel's entry reads it, on the host: int32
+    [stages, 3], (radix, span, table offset of an odd stage's roots, else
+    0)."""
+    return np.array([(radix, span, off or 0) for (radix, span), off
+                     in zip(mixed_plan(n), mixed_roots(n))], np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def mixed_table(n: int, inverse: bool) -> np.ndarray:
+    """That kernel's table in float64, complex128 [n + Σ odd p]: entry 0 is
+    ±i, the direction (radix-4's ±i); the stage (radix R, span ns) has
+    e^{±2πi r·k/(ns·R)} for r = 1..R−1, k < ns at ns + (r − 1)·ns + k
+    (the entries end at n, since Σ (R − 1)·ns = n − 1); then each odd
+    stage's p roots e^{±2πi m/p}, m < p, at mixed_roots. A p-point DFT
+    reads root (j·k) mod p, never a growing angle."""
+    sign = 1.0 if inverse else -1.0
+    parts = [np.array([sign * 1j])]
+    plan = mixed_plan(n)
+    for radix, span in plan:
+        rk = np.outer(np.arange(1, radix), np.arange(span))
+        parts.append(np.exp(sign * 2j * np.pi * rk / (span * radix)).ravel())
+    for radix, _ in plan:
+        if radix % 2:
+            parts.append(np.exp(sign * 2j * np.pi * np.arange(radix) / radix))
+    return np.concatenate(parts)
+
+
+@functools.lru_cache(maxsize=32)
+def mixed_twiddles_np(n: int, inverse: bool) -> np.ndarray:
+    """mixed_table rounded to f32, [L, 2] (re, im): what the kernel reads."""
+    w = mixed_table(n, inverse)
+    return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def mixed_twiddles(n: int, inverse: bool,
+                   device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(mixed_twiddles_np(n, inverse)).to(device)
+
+
+def mixed_max_rows(n: int, natural: bool) -> int:
+    """The most rows per block of the mixed-radix kernel: max_rows at f32,
+    rounded down to a power of two (N/4096 is not one at every N)."""
+    cap = max_rows(n, natural)
+    return 1 << (cap.bit_length() - 1)
+
+
+def mixed_shared_bytes(rows: int, n: int) -> int:
+    """Dynamic shared memory of one block of the mixed-radix row kernel
+    (mixed::smem_bytes): two buffers of ``rows`` rows of n + 1 complex
+    values, then its table (n + Σ odd p complex). At n = 8190, one row:
+    196 KB."""
+    odd = sum(p for p, _ in mixed_plan(n) if p % 2)
+    return (2 * rows * (n + 1) + n + odd) * 8
 
 
 def fused_natural_shared_bytes(rows: int, n: int) -> int:
@@ -812,28 +949,47 @@ def _launch_rows(entry: str, re, im, inverse: bool, out_shape, tier: str,
     natural = entry == "tpu_fft_rows_natural"
     out_re = torch.empty(out_shape, dtype=torch.float32, device=re.device)
     out_im = torch.empty_like(out_re)
-    clustered = not natural and _stockham(tier, split3)
-    if _bf16_rows(tier, split3):
-        tables = bf16_rows_tables(n, bool(inverse), re.device)
-    elif _split3_bf16x3_rows(tier, split3):
-        tables = split3_bf16x3_tables(n, bool(inverse), re.device)
-    elif natural and _stockham(tier, split3):
-        tables = radix16_twiddles(n, bool(inverse), re.device)
+    mixed = not is_power_of_two(n)
+    if mixed:
+        # f32 direct (require_card_kernel): the mixed-radix kernel, either
+        # store, through an entry of its own, the plan read from the host
+        entry = "tpu_fft_rows_mixed"
+        tables = mixed_twiddles(n, bool(inverse), re.device)
+        rows = rows_per_block(c, m, n, sm_count(re.device),
+                              mixed_max_rows(n, natural), mixed_shared_bytes)
+        plan = mixed_plan_rows(n)
+        tail = (int(natural), len(plan), tables.shape[0], plan.ctypes.data)
     else:
-        tables = tables_for(n, inverse, tier, split3, re.device)
-    rows = rows_per_block(c, m, n, sm_count(re.device),
-                          row_pass_max_rows(n, natural, tier, split3),
-                          block_shared_bytes(tier, split3, natural))
-    # the transposed entry also takes the f32 direct pass's cluster size
-    cluster = (() if natural else
-               (transposed_cluster(m, n, rows) if clustered else 1,))
+        clustered = not natural and _stockham(tier, split3)
+        if _bf16_rows(tier, split3):
+            tables = bf16_rows_tables(n, bool(inverse), re.device)
+        elif _split3_bf16x3_rows(tier, split3):
+            tables = split3_bf16x3_tables(n, bool(inverse), re.device)
+        elif natural and _stockham(tier, split3):
+            tables = radix16_twiddles(n, bool(inverse), re.device)
+        else:
+            tables = tables_for(n, inverse, tier, split3, re.device)
+        rows = rows_per_block(c, m, n, sm_count(re.device),
+                              row_pass_max_rows(n, natural, tier, split3),
+                              block_shared_bytes(tier, split3, natural))
+        # the transposed entry also takes the f32 direct pass's cluster size
+        cluster = (() if natural else
+                   (transposed_cluster(m, n, rows) if clustered else 1,))
+        tail = (TIERS[tier], int(split3), *cluster)
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(kernels.lib, entry)(
             re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-            tables.data_ptr(), c, m, n, rows, TIERS[tier], int(split3),
-            *cluster, stream)
+            tables.data_ptr(), c, m, n, rows, *tail, stream)
     kernels.check(err, entry)
+    # one launch: the mixed-radix kernel's under MIXED_NAMES, so the
+    # power-of-two kernels' counts stay exact
+    kind = "rows_natural" if natural else "rows_transposed"
+    if mixed:
+        named_launches[MIXED_NAMES[kind]] += 1
+    else:
+        count_launch(fft1d_natural_large if natural else fft1d_transposed,
+                     kind, tier, split3)
     return out_re, out_im
 
 
@@ -869,27 +1025,24 @@ def refuse_grad(what: str, tensors, backend: str) -> None:
 def _fft1d_transposed_impl(re, im, inverse, precision):
     _check_planes(re, im)
     c, m, n = re.shape
-    check_size(n)
     tier, split3 = engine(n, precision, transposed=True)
+    # the CPU's plain version takes every length, as the JAX package's
     if on_cpu("fft1d_transposed", re):
         return fft1d_transposed_plain(re, im, inverse, precision)
-    out = _launch_rows("tpu_fft_rows_transposed", re, im, inverse, (c, n, m),
-                       tier, split3)
-    count_launch(fft1d_transposed, "rows_transposed", tier, split3)
-    return out
+    require_card_kernel(n, tier, split3)
+    return _launch_rows("tpu_fft_rows_transposed", re, im, inverse, (c, n, m),
+                        tier, split3)
 
 
 def _fft1d_natural_large_impl(re, im, inverse, precision):
     _check_planes(re, im)
     n = re.shape[-1]
-    check_size(n)
     tier, split3 = engine(n, precision, transposed=False)
     if on_cpu("fft1d_natural_large", re):
         return fft1d_natural_large_plain(re, im, inverse, precision)
-    out = _launch_rows("tpu_fft_rows_natural", re, im, inverse, re.shape,
-                       tier, split3)
-    count_launch(fft1d_natural_large, "rows_natural", tier, split3)
-    return out
+    require_card_kernel(n, tier, split3)
+    return _launch_rows("tpu_fft_rows_natural", re, im, inverse, re.shape,
+                        tier, split3)
 
 
 class _Fft1dTransposedDiff(torch.autograd.Function):

@@ -15,8 +15,10 @@ direction, the fields kernel's the torch twins (fft/planes.py,
 ops/fields_stencil.py). It optimizes the (h0_re, h0_im) planes and derives
 the conjugate-partner planes every iteration, the Hermitian-preserving
 parameterization, over 4 snapshots of 3 steps of 1/30 s from zero phase.
-It needs N % 16 == 0 for the example and N ≥ 64 for the half spectrum: at
-the default N = 48 the solver raises ValueError, as the JAX example does.
+It needs N % 16 == 0 for the example and N ≥ 64 for the half spectrum, so
+under ``--packed`` N defaults to 64 and a smaller N is refused by the
+script's own check with the solver's reason. (The JAX example keeps its
+N = 48 there and fails at its default; a deliberate difference.)
 
 Without ``--packed``: the complex state on ``reference`` (torch.fft) in
 absolute time with spectral normals, the heights of ``fields_at`` at
@@ -28,7 +30,8 @@ The truth h0 comes from a ``torch.Generator`` seeded with 0 (torch cannot
 replay ``jax.random``); ``packed_problem`` and ``complex_problem`` take an
 injected pair instead.
 
-Run: python -m tpu_ocean_torch.invert_sea_state [--packed] [--n 48]
+Run: python -m tpu_ocean_torch.invert_sea_state [--packed] [--n 48, 64
+     with --packed]
      [--snapshots 4] [--steps 150] [--lr 5e-2] [--device cuda]
 """
 
@@ -194,22 +197,30 @@ def run(problem: Problem, args) -> int:
 def run_packed(args) -> int:
     if args.n % 16:
         raise SystemExit("--packed needs n % 16 == 0 (half-spectrum route)")
+    if args.n < 64:
+        # the solver's reason, before it is built
+        raise SystemExit("--packed needs n >= 64: half_spectrum needs "
+                         "resolution % 16 == 0 and >= 64")
     return run(packed_problem(args.n, args.snapshots, device=args.device), args)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="Fit h0 to observed heights by Adam through the solver")
-    ap.add_argument("--n", type=int, default=48)
+    ap.add_argument("--n", type=int, default=None,
+                    help="grid side (default 48; 64 with --packed)")
     ap.add_argument("--snapshots", type=int, default=4)
     ap.add_argument("--steps", type=int, default=150)
     ap.add_argument("--lr", type=float, default=5e-2)
     ap.add_argument("--packed", action="store_true",
                     help="invert on the production packed real-state + "
-                         "half-spectrum pipeline (needs n %% 16 == 0)")
+                         "half-spectrum pipeline (needs n %% 16 == 0 and "
+                         "n >= 64)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
+    if args.n is None:
+        args.n = 64 if args.packed else 48
     if args.packed:
         return run_packed(args)
     return run(complex_problem(args.n, args.snapshots, device=args.device), args)

@@ -201,9 +201,9 @@ def _launch(natural: bool, h0_planes, phase, length, dz_sign, *,
     store = "natural" if natural else "transposed"
     entry = f"tpu_fused_rows_{store}"
     m, n = phase.shape
-    planes.check_size(n)
     dev = phase.device
     tier, split3 = planes.engine(n, precision, transposed=not natural)
+    planes.require_card_kernel(n, tier, split3, fused=True)
     kernels = _build.load()
     out_shape = (ch_count, m, n) if natural else (ch_count, n, m)
     out_re = torch.empty(out_shape, dtype=torch.float32, device=dev)

@@ -171,7 +171,7 @@ class Simulation:
 
     def reconfigure(self, new_cfg: OceanConfig):
         """Live parameter change (OceanSolver.reconfigure); a change of N
-        or layout restarts the step count."""
+        or layout restarts the step count and clears the checkpoints."""
         rebuilt = (new_cfg.resolution != self.cfg.resolution
                    or new_cfg.spectrum_layout != self.cfg.spectrum_layout)
         self.solver, self.state = self.solver.reconfigure(self.state, new_cfg)
@@ -179,7 +179,16 @@ class Simulation:
         # throughput divides by the grid points
         self.metrics.grid_points = new_cfg.resolution ** 2
         if rebuilt:
-            self._steps_done = 0
+            self._restart_count()
+
+    def _restart_count(self):
+        """The step count starts over, and so do the checkpoints: files are
+        named and kept by step, so the old config's higher-numbered files
+        would outlive the new run's and be resumed in their place. (The
+        JAX package keeps them, and a restart then refuses the config.)"""
+        self._steps_done = 0
+        if self._ckpt is not None:
+            self._ckpt.clear()
 
     def close(self):
         if self._exporter is not None:
@@ -283,7 +292,7 @@ class CascadeSimulation(Simulation):
         """Live per-band parameter change (CascadeSolver.reconfigure, or
         LODCascadeSolver.reconfigure under LOD). Init-only changes keep the
         phase and, under LOD, the schedule and frame; a change of N or
-        layout restarts the step count."""
+        layout restarts the step count and clears the checkpoints."""
         new_cfgs = list(new_cfgs)
         rebuilt = (new_cfgs[0].resolution != self.cfg.resolution
                    or new_cfgs[0].spectrum_layout != self.cfg.spectrum_layout)
@@ -293,7 +302,7 @@ class CascadeSimulation(Simulation):
         self.cfg = new_cfgs[0]
         self.metrics.grid_points = new_cfgs[0].resolution ** 2
         if rebuilt:
-            self._steps_done = 0
+            self._restart_count()
 
 
 class PondSimulation:

@@ -124,7 +124,7 @@ from tpu_ocean_torch.evolve import (
 from tpu_ocean_torch.fft import BACKENDS, get_ifft2
 from tpu_ocean_torch.fft.matrix import require_f32_matmul
 from tpu_ocean_torch.fft.planes import (
-    check_size,
+    check_card_sizes,
     ifft2_planes_auto,
     ifft2_planes_half,
 )
@@ -205,10 +205,12 @@ class OceanSolver:
     defaults: ``fft_backend="reference"``, ``eval_mode="fft"``, the
     complex state, no packing, no half spectrum, the fields in torch. They
     take every value the JAX solver takes and raise ValueError where it
-    raises ValueError. On the card ``pallas``/``pallas_fused`` take
-    power-of-two N in [16, 8192]; the N below 16 or odd, which the JAX
-    package sends to ``matmul`` on the complex state, go there with its
-    warning."""
+    raises ValueError. On the card ``pallas``/``pallas_fused`` take every
+    power-of-two N in [16, 8192], and ``pallas`` at f32 in the direct form
+    every other even N there (fft.planes.require_card_kernel); any other
+    combination raises ValueError at construction. The N below 16 or odd,
+    which the JAX package sends to ``matmul`` on the complex state, go
+    there with its warning."""
 
     #: config fields only init() reads (the InitialSpectrum pass): a change
     #: restricted to them keeps every table (JAX: _INIT_ONLY_FIELDS)
@@ -285,12 +287,13 @@ class OceanSolver:
         if (self.device.type == "cuda" and fft_backend in _PLANE_BACKENDS
                 and not direct):
             # rows and full columns; with half_spectrum the half channel's
-            # columns. The fused kernels take the row kernel's shared
-            # memory, so the same N fit both (N = 8192: 192 KB a block at
-            # one row).
-            check_size(n)
-            if half_spectrum:
-                check_size(n // 2)
+            # columns, each at the tier and form its length runs at. The
+            # fused kernels take the row kernel's shared memory, so the
+            # same power-of-two N fit both (N = 8192: 192 KB a block at one
+            # row); at other N only the f32 direct row passes have a kernel
+            check_card_sizes(n, cfg.precision,
+                             fused=fft_backend == "pallas_fused",
+                             half=half_spectrum)
         self.cfg = cfg
         self.fft_backend = fft_backend
         self.eval_mode = eval_mode
