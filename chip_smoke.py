@@ -66,8 +66,17 @@ Phases, each printing its own lines:
                1), both directions: one launch under its
                name, within 2e-6·max of the plain version and 1e-6·max of
                float64; its autograd backward at [1,1536,1536] transposed
-               and [1,3072,3072] natural as the other Functions';
-  4. slice   — forty-three paths on the card, each from a seeded init,
+               and [1,3072,3072] natural as the other Functions'; the f32
+               fused mixed-radix kernel (#5 and #6 at those lengths, a
+               name for each store and channel set) at the paths' shapes,
+               the spectral set at 1536, the per-channel set at 1536
+               (C = 3) and 3072 (C = 5), and N = 96, 160 and 2042 at
+               M = N, channel by channel: within 1e-6·max of the
+               mixed-radix row kernel over the plain assembly on the card
+               (bit-equality reported), and its RMS error against the
+               float64 DFT of the float64 assembly at most 1.1 × the row
+               kernel's;
+  4. slice   — forty-seven paths on the card, each from a seeded init,
                with every launch count set to 0 just before and read just
                after it; (i)-(xv) run the real state with OCEAN_DEMO's
                slice switches (packed + half with the fields kernel) unless
@@ -137,6 +146,26 @@ Phases, each printing its own lines:
                        state, 20 steps: the mixed-radix kernel on C = 3
                        channels, two launches a step, its generic stage of
                        radix 53
+                 (xli) OCEAN_DEMO at 1536², "pallas_fused", 20 steps: the
+                       fused passes (the full channel, the half channel's
+                       rows 0..767) on the f32 fused mixed-radix kernel's
+                       transposed store, 2 a step, then 3 of the
+                       mixed-radix row kernel, nothing of the power-of-two
+                       kernels
+                 (xlii) OCEAN_DEMO at 3072², "pallas_fused", 10 steps (the
+                       natural regime): 2 fused natural launches, 1
+                       natural and 2 transposed row launches a step
+                 (xliii) OCEAN_DEMO at 106², "pallas_fused", the complex
+                       state, 20 steps: the fused kernel on the per-channel
+                       set (C = 3) with its generic stage of radix 53, then
+                       the row kernel
+                 (xliv) python -m tpu_ocean_torch ocean --backend
+                       pallas_fused --res 1536 --steps 20 in a process of
+                       its own (the complex state at L = N): its launches
+                       counted in that process, its saved fields bit-equal
+                       to an OceanSolver of its config stepped 20 times
+                       from the same seed, whose last step is replayed on
+                       the CPU
                  (xxii) Simulation(OCEAN_DEMO, path (i)'s switches) at
                        1024², checkpoints and export every 20 steps, 60
                        steps: path (i)'s launches, 60 JSONL lines, the
@@ -500,6 +529,23 @@ PATHS = [
                "fields_stencil": 1}, 1e-5),
     OceanPath("xl", "pallas", 106, 20, 2, True, "float32", {},
               {"fft_rows_mixed_transposed": 2}, 1e-5, solver={}),
+    # the fused sizes slice: pallas_fused at the same lengths, the fused
+    # passes on the f32 fused mixed-radix kernel
+    # (csrc/fused_rows_mixed_f32.cuh), the rest on the mixed-radix row
+    # kernel: path (i)'s switches at 1536² (the full channel's fused pass
+    # and the half channel's over rows 0..767, then the columns, the
+    # length-768 ones included) and 3072² (the natural store), and the
+    # complex state at 106² (the per-channel set, the generic stage of 53
+    # inside the fused kernel)
+    OceanPath("xli", "pallas_fused", 1536, 20, 2, True, "float32", {},
+              {"fused_mixed_transposed[packed3]": 2,
+               "fft_rows_mixed_transposed": 3, "fields_stencil": 1}, 1e-5),
+    OceanPath("xlii", "pallas_fused", 3072, 10, 2, True, "float32", {},
+              {"fused_mixed_natural[packed3]": 2, "fft_rows_mixed_natural": 1,
+               "fft_rows_mixed_transposed": 2, "fields_stencil": 1}, 1e-5),
+    OceanPath("xliii", "pallas_fused", 106, 20, 2, True, "float32", {},
+              {"fused_mixed_transposed[per_channel]": 1,
+               "fft_rows_mixed_transposed": 1}, 1e-5, solver={}),
 ]
 # (path, solver method, launches of one call): fields_at(state, t) at the
 # path's clock + 1/60 and velocity(state), on the card and on the CPU from
@@ -533,6 +579,38 @@ POND_PATHS = [
 CASCADE_N, CASCADE_NATURAL_N = 1024, 4096
 LOD_PERIODS = [8, 4, 1]
 CLI_CAMERA = 3000.0
+# (xliv), the fused sizes slice's CLI in a process of its own: python -m
+# tpu_ocean_torch ocean --backend pallas_fused --res 1536 (L = N, the
+# complex state, the per-channel set; --production would force "pallas"),
+# its launches a step
+CLI_FUSED_N, CLI_FUSED_STEPS = 1536, 20
+CLI_FUSED_PER_STEP = {"fused_mixed_transposed[per_channel]": 1,
+                      "fft_rows_mixed_transposed": 1}
+# run as `python -m tpu_ocean_torch <argv>` runs (runpy), then prints the
+# launch counts of the process as one JSON line and exits with its code
+CLI_COUNTED = """
+import json, runpy, sys
+import torch
+from tpu_ocean_torch.fft import planes
+from tpu_ocean_torch.ops import fields_stencil, fused_spectrum, gerstner_bank
+code = 0
+try:
+    runpy.run_module("tpu_ocean_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code
+torch.cuda.synchronize()
+counts = {
+    "fft_rows_transposed": planes.fft1d_transposed.launches,
+    "fft_rows_natural": planes.fft1d_natural_large.launches,
+    "fused_rows_transposed": fused_spectrum.assemble_rowfft.launches,
+    "fused_rows_natural": fused_spectrum.assemble_rowfft_natural.launches,
+    "fields_stencil": fields_stencil.fields_stencil.launches,
+    "fields_stencil_v1": fields_stencil.fields_stencil_v1.launches,
+    "gerstner_bank": gerstner_bank.gerstner_bank.launches,
+    **planes.named_launches}
+print(json.dumps(counts))
+sys.exit(code)
+"""
 # name: (source, the TPU kernel it replaces); a fused kernel in the
 # per-channel set or the packed set with 5 live fields is its own entry,
 # named as it counts (fft.planes.kernel_name)
@@ -570,6 +648,23 @@ KERNEL_INFO = {
     "fft_rows_mixed_natural": (
         "tpu_ocean_torch/csrc/rows_mixed_f32.cuh",
         "tpu_ocean/fft/pallas_fft.py:677 at non-power-of-two N"),
+    # #5 and #6 at f32, direct form, at lengths that are not powers of two,
+    # by store and channel set (fft.planes.MIXED_FUSED_NAME)
+    "fused_mixed_transposed[packed3]": (
+        "tpu_ocean_torch/csrc/fused_rows_mixed_f32.cuh",
+        "tpu_ocean/ops/fused_spectrum_fft.py:127 at non-power-of-two N"),
+    "fused_mixed_transposed[packed5]": (
+        "tpu_ocean_torch/csrc/fused_rows_mixed_f32.cuh",
+        "tpu_ocean/ops/fused_spectrum_fft.py:127 at non-power-of-two N"),
+    "fused_mixed_transposed[per_channel]": (
+        "tpu_ocean_torch/csrc/fused_rows_mixed_f32.cuh",
+        "tpu_ocean/ops/fused_spectrum_fft.py:127 at non-power-of-two N"),
+    "fused_mixed_natural[packed3]": (
+        "tpu_ocean_torch/csrc/fused_rows_mixed_f32.cuh",
+        "tpu_ocean/ops/fused_spectrum_fft.py:196 at non-power-of-two N"),
+    "fused_mixed_natural[per_channel]": (
+        "tpu_ocean_torch/csrc/fused_rows_mixed_f32.cuh",
+        "tpu_ocean/ops/fused_spectrum_fft.py:196 at non-power-of-two N"),
     "gerstner_bank": ("tpu_ocean_torch/csrc/gerstner_bank.cu",
                       "tpu_ocean/ops/gerstner_pallas.py:30"),
     # the row and fused entries at the other tiers and forms, by tier and
@@ -806,6 +901,11 @@ def kernel_group(key):
     # rules for the row kernels or the matrix engine below
     if "bf16_fused_natural_kernel" in key:
         return "matrix_fused_natural[bf16]"
+    # the fused mixed-radix kernel by store (its channel set is not in its
+    # name), ahead of the fused_rows_kernel rule below
+    if "mixed_fused_rows_kernel" in key:
+        natural = "<true>" in key or "ILb1E" in key
+        return f"fused_mixed_{'natural' if natural else 'transposed'}"
     if "mixed_rows_kernel" in key:
         natural = "<true>" in key or "ILb1E" in key
         return f"fft_rows_mixed_{'natural' if natural else 'transposed'}"
@@ -1632,9 +1732,10 @@ def main():
     # entry; a set is (packed, nch_live)
     sets = {"packed3": (True, 3), "packed5": (True, 5),
             "per_channel": (False, 3)}
-    # (name, shape) of the f32 and bf16 fused natural cases and of the f32
-    # fused transposed cases: (inputs, keywords)
-    fused_natural_calls, fused_transposed_calls = {}, {}
+    # (name, shape) of the f32 and bf16 fused natural cases, of the f32
+    # fused transposed cases and of the f32 fused mixed-radix cases:
+    # (inputs, keywords)
+    fused_natural_calls, fused_transposed_calls, fused_mixed_calls = {}, {}, {}
     for name, fn, plain, precision, switches, shapes in (
             ("fused_rows_transposed", fused.assemble_rowfft,
              fused.assemble_rowfft_plain, "float32", {},
@@ -1671,7 +1772,32 @@ def main():
              [(1024, 1024, 0, 1, "packed3")]),
             ("matrix_fused_natural[bf16x3]", fused.assemble_rowfft_natural,
              fused.assemble_rowfft_natural_plain, "float32", B3,
-             [(4096, 4096, 0, 1, "packed3")])):
+             [(4096, 4096, 0, 1, "packed3")]),
+            # the f32 fused mixed-radix kernel: the paths' shapes ((xli):
+            # the full channel and the half channel's rows at 1536; (xlii):
+            # both at 3072 on the natural store; (xliii) and (xliv): the
+            # per-channel set at C = 3), the spectral set at 1536, the
+            # per-channel set at 3072 with C = 5, and N = 96, 160 and
+            # 2042 = 2·1021 (the generic stage of a large prime) at M = N
+            ("fused_mixed_transposed[packed3]", fused.assemble_rowfft,
+             fused.assemble_rowfft_plain, "float32", {},
+             [(1536, 1536, 0, 1, "packed3"), (768, 1536, 1, 1, "packed3"),
+              (96, 96, 0, 2, "packed3"), (2042, 2042, 0, 1, "packed3")]),
+            ("fused_mixed_transposed[packed5]", fused.assemble_rowfft,
+             fused.assemble_rowfft_plain, "float32", {},
+             [(1536, 1536, 0, 2, "packed5"), (768, 1536, 2, 1, "packed5")]),
+            ("fused_mixed_transposed[per_channel]", fused.assemble_rowfft,
+             fused.assemble_rowfft_plain, "float32", {},
+             [(106, 106, 0, 3, "per_channel"),
+              (1536, 1536, 0, 3, "per_channel")]),
+            ("fused_mixed_natural[packed3]", fused.assemble_rowfft_natural,
+             fused.assemble_rowfft_natural_plain, "float32", {},
+             [(3072, 3072, 0, 1, "packed3"), (1536, 3072, 1, 1, "packed3")]),
+            ("fused_mixed_natural[per_channel]",
+             fused.assemble_rowfft_natural,
+             fused.assemble_rowfft_natural_plain, "float32", {},
+             [(3072, 3072, 0, 5, "per_channel"),
+              (160, 160, 0, 5, "per_channel")])):
         for m, n, ch, count, channel_set in shapes:
             h0 = tuple(plane((m, n)) for _ in range(4))
             phase = torch.from_numpy(rng.uniform(0, 2 * np.pi, size=(m, n))
@@ -1687,23 +1813,32 @@ def main():
             # 5 f32 planes in (read once), one complex channel out per
             # channel, the kz row; per channel the assembly's ~30
             # operations and the transform's
+            # (what a length-N DFT needs at any N, as for the mixed-radix
+            # row kernel)
             if not name.startswith("matrix"):
-                f32_ops, tensor_ops = 30 + 5 * int(np.log2(n)), 0
+                f32_ops, tensor_ops = 30 + 5 * float(np.log2(n)), 0
             else:
                 f32_ops, tensor_ops = matrix_ops(tier, split3, n1, n2)
                 f32_ops += 30
             label = f"ch {ch}" if count == 1 else f"ch {ch}-{ch + count - 1}"
             store = "natural" if fn is fused.assemble_rowfft_natural else "transposed"
             tag = fused.channel_set(packed, nch_live)
-            counted = (f"fused_rows_{store}" if tier == "f32" and not split3
-                       and not tag else
-                       planes.kernel_name(f"fused_{store}", tier, split3, tag))
+            if not planes.is_power_of_two(n):
+                counted = planes.MIXED_FUSED_NAME.format(
+                    store=store, channel_set=channel_set)
+            elif tier == "f32" and not split3 and not tag:
+                counted = f"fused_rows_{store}"
+            else:
+                counted = planes.kernel_name(f"fused_{store}", tier, split3,
+                                             tag)
             shape = [m, n, label] + ([] if channel_set == "packed3"
                                      else [channel_set])
             if name in (*FUSED_NATURAL_F32, FUSED_NATURAL_BF16):
                 fused_natural_calls[name, tuple(shape)] = (args, kw)
             if name in FUSED_TRANSPOSED_F32:
                 fused_transposed_calls[name, tuple(shape)] = (args, kw)
+            if name.startswith("fused_mixed"):
+                fused_mixed_calls[name, tuple(shape)] = (args, kw)
             cases.append(Case(
                 name, shape,
                 switched(switches, lambda fn=fn, a=args, kw=kw: fn(*a, **kw)),
@@ -1943,6 +2078,57 @@ def main():
                     f"stages' {e_old:.4e}")
             del plain_re, plain_im, old, ref, gc, nc
         del got, nat
+
+    # the f32 fused mixed-radix kernel at every shape and channel set of
+    # its cases, channel by channel, against the mixed-radix row kernel
+    # (the same stages and store) applied to the plain assembly on the
+    # card: within 1e-6·max, bit-equality reported; its RMS error against
+    # the float64 DFT of the float64 assembly at most F32_F64_SPREAD x the
+    # row kernel's
+    for (name, shape), (args, kw) in fused_mixed_calls.items():
+        natural = name.startswith("fused_mixed_natural")
+        fn, row_fn = ((fused.assemble_rowfft_natural,
+                       planes.fft1d_natural_large) if natural else
+                      (fused.assemble_rowfft, planes.fft1d_transposed))
+        got = fn(*args, **kw)
+        rows = planes.fused_rows(kw["ch_count"], shape[0], shape[1],
+                                 planes.sm_count(dev), natural, "f32", False)
+        for c in range(kw["ch_count"]):
+            ch = kw["ch_start"] + c
+            asm_kw = dict(epsilon=kw["epsilon"], ch=ch, packed=kw["packed"],
+                          nch_live=kw["nch_live"])
+            plain_re, plain_im = fused._assemble_plain(*args, row_offset=0,
+                                                       **asm_kw)
+            row = row_fn(plain_re[None], plain_im[None], True)
+            ref = torch.fft.ifft(torch.complex(*assembly_f64(*args, **asm_kw)),
+                                 dim=-1, norm="forward")
+            if not natural:
+                ref = ref.transpose(0, 1)
+            ref = (ref.real[None], ref.imag[None])
+            gc = (got[0][c:c + 1], got[1][c:c + 1])
+            torch.cuda.synchronize()
+            scale = max(r.abs().max().item() for r in row)
+            err = max((g - r).abs().max().item() for g, r in zip(gc, row))
+            bits = all(torch.equal(g, r) for g, r in zip(gc, row))
+            e_fused, e_row = rms_rel_err(gc, ref), rms_rel_err(row, ref)
+            log(f"[kernels] {name} {list(shape)} channel {ch}, plan "
+                f"{[p for p, _ in planes.mixed_plan(shape[1])]}, R {rows}: "
+                f"against the mixed-radix row kernel over the plain "
+                f"assembly, max abs err {err:.3e} = {err / scale:.3e} x max "
+                f"(limit 1e-6), bit-equal {bits}; RMS error vs float64 of "
+                f"the float64 assembly {e_fused:.4e} (fused) and "
+                f"{e_row:.4e} (row kernel), ratio {e_fused / e_row:.3f} "
+                f"(limit {F32_F64_SPREAD:g})")
+            require(err <= 1e-6 * scale,
+                    f"{name} {list(shape)} channel {ch} and the row kernel "
+                    f"over the plain assembly disagree ({err / scale:.3e} x "
+                    f"max)")
+            require(e_fused <= F32_F64_SPREAD * e_row,
+                    f"{name} {list(shape)} channel {ch}: RMS error against "
+                    f"float64 {e_fused:.4e} > {F32_F64_SPREAD:g} x the row "
+                    f"kernel's {e_row:.4e}")
+            del plain_re, plain_im, row, ref, gc
+        del got
 
     # both stencils on the fields of one step at each size the paths run
     # them
@@ -3252,8 +3438,62 @@ def main():
             f"--res 256 --steps 5: exit 0 in {entry_s:.1f} s, "
             f"{len(written)} files, no new build; "
             f"{proc.stderr.strip().splitlines()[-1]}")
-    scratch.cleanup()
     phase_done("4 path (entry)")
+
+    # (xliv) the fused sizes slice's CLI in a process of its own, as
+    # `python -m tpu_ocean_torch` runs it, every count 0 at its start and
+    # read at its end: the saved fields bit-equal to an OceanSolver of the
+    # CLI's config stepped as many times from the same seed, whose last
+    # step is replayed on the CPU plain path
+    tag, n, steps = "xliv", CLI_FUSED_N, CLI_FUSED_STEPS
+    out = work / "entry_fused"
+    argv = ["ocean", "--backend", "pallas_fused", "--res", str(n),
+            "--steps", str(steps), "--out", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_COUNTED, *argv],
+                          cwd=HERE, capture_output=True, text=True,
+                          timeout=300)
+    entry_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"python -m tpu_ocean_torch "
+            f"{' '.join(argv)} exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = {k: steps * v for k, v in CLI_FUSED_PER_STEP.items()}
+    log(f"[slice {tag}] python -m tpu_ocean_torch {' '.join(argv[:-2])} in "
+        f"a process of its own: exit 0 in {entry_s:.1f} s, launches "
+        f"{ {k: v for k, v in counts.items() if v} } (expected {steps} x "
+        f"{CLI_FUSED_PER_STEP})")
+    require_counts(counts, want, f"path {tag}")
+    for name, count in counts.items():
+        if count:
+            launches[name][tag] = count
+    cli_summary[tag] = cli_metrics(proc.stderr, steps, tag)
+    ccfg = OCEAN_DEMO.replace(resolution=n, length=float(n))
+    csolver = OceanSolver(ccfg, fft_backend="pallas_fused")
+    cstate = csolver.init(torch.Generator().manual_seed(0))
+    for step in range(steps):
+        if step == steps - 1:
+            snapshot = state_from_numpy(cstate, "cpu")
+        cstate, cfields = csolver.step(cstate, DT)
+    host = fields_to_numpy(cfields)
+    saved = type(host)(*(np.load(out / f"ocean_{name}_{steps:06d}.npy")
+                         for name in host._fields))
+    differ = [name for name in host._fields
+              if not np.array_equal(getattr(saved, name), getattr(host, name))]
+    log(f"[slice {tag}] the saved fields against OceanSolver(OCEAN_DEMO at "
+        f"{n}², L = {n}, fft_backend='pallas_fused') stepped {steps} times "
+        f"from manual_seed(0): bit-equal {not differ} {differ or ''}")
+    require(not differ, f"path {tag}: the CLI's fields differ in {differ}")
+    check_fields(saved, n, tag)
+    cpu_solver = OceanSolver(ccfg, device="cpu", fft_backend="pallas_fused")
+    _, cpu_fields = cpu_solver.step(snapshot, DT)
+    log(f"[slice {tag}] step {steps} replayed on the CPU plain path from "
+        f"the card's step-{steps - 1} state")
+    compare_fields(host, fields_to_numpy(cpu_fields), ccfg, tag,
+                   packed=False)
+    del csolver, cstate, cfields, host, saved, cpu_solver, cpu_fields
+    scratch.cleanup()
+    phase_done(f"4 path ({tag})")
 
     phase_done("4 slice")
 
@@ -3300,7 +3540,11 @@ def main():
                                    f"{casc_ms['xxix']:.4f} and (xxxii)'s "
                                    f"CascadeSimulation.step "
                                    f"{casc_ms['xxxii']:.4f} ms/step (CUDA "
-                                   f"events)")):
+                                   f"events)"),
+                        ("xliv", f"path (xli)'s OceanSolver.step at 1536² "
+                                 f"(the real state, packed + half) "
+                                 f"{path_ms['xli']:.4f} ms/step (CUDA "
+                                 f"events)")):
         m = cli_summary[tag]
         log(f"[timing] {kind} ({smi}): path ({tag}) the CLI's "
             f"Metrics.summary() over {m['steps']} steps: mean "

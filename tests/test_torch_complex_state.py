@@ -426,21 +426,22 @@ def test_sizes_jax_sends_to_matmul_go_there_with_its_warning(n, backend):
 
 
 def test_card_size_rule_for_the_kernel_backends():
-    """On the card ``pallas_fused`` takes power-of-two N in [16, 8192], and
-    ``pallas`` at f32 every other even N there too
+    """On the card ``pallas`` and ``pallas_fused`` take power-of-two N in
+    [16, 8192] at every precision, and at f32 every other even N there too
     (fft.planes.require_card_kernel):
-    at N = 96 (JAX keeps its pallas pipeline there) the fused kernels and
-    ``pallas`` at bf16 are refused before anything is allocated on the
-    device, naming the ROADMAP row; ``pallas`` at f32 and ``reference``
+    at N = 96 (JAX keeps its pallas pipeline there) both backends at bf16
+    are refused before anything is allocated on the device, naming the
+    ROADMAP row; ``pallas``, ``pallas_fused`` at f32 and ``reference``
     are not."""
     cfg = OCEAN_DEMO.replace(resolution=96)
     with pytest.raises(ValueError, match="sizes"):
-        OceanSolver(cfg, device="cuda", fft_backend="pallas_fused")
+        OceanSolver(cfg.replace(precision="bfloat16"), device="cuda",
+                    fft_backend="pallas_fused")
     with pytest.raises(ValueError, match="sizes"):
         OceanSolver(cfg.replace(precision="bfloat16"), device="cuda",
                     fft_backend="pallas")
     if not torch.cuda.is_available():
-        for backend in ("pallas", "reference"):
+        for backend in ("pallas", "pallas_fused", "reference"):
             with pytest.raises((AssertionError, RuntimeError)):
                 OceanSolver(cfg, device="cuda", fft_backend=backend)
 

@@ -17,7 +17,7 @@
 - The size rule on the card (fft.planes.require_card_kernel,
   check_card_sizes):
   powers of two at every tier and form, other even lengths at f32 direct,
-  unfused; everything else refused with ValueError at construction,
+  fused or not; everything else refused with ValueError at construction,
   naming the ROADMAP row, before anything is allocated on the device.
 """
 
@@ -247,7 +247,7 @@ def test_rows_per_block_of_the_mixed_kernel():
 def test_card_size_rule(tier, split3):
     """require_card_kernel returns for powers of two in [16, 8192] at every
     tier and form, fused or not, and for the other even lengths there at
-    f32 in the direct form, unfused; it raises ValueError naming the
+    f32 in the direct form, fused or not; it raises ValueError naming the
     ROADMAP row for everything else."""
     for fused in (False, True):
         for n in (16, 1024, 8192):
@@ -256,7 +256,7 @@ def test_card_size_rule(tier, split3):
             with pytest.raises(ValueError, match="sizes"):
                 planes.require_card_kernel(n, tier, split3, fused)
         for n in (18, 96, 106, 1536, 2042, 3072, 8186, 8190):
-            if tier == "f32" and not split3 and not fused:
+            if tier == "f32" and not split3:
                 planes.require_card_kernel(n, tier, split3, fused)
             else:
                 with pytest.raises(ValueError, match="Queue 2, \"sizes"):
@@ -264,25 +264,34 @@ def test_card_size_rule(tier, split3):
 
 
 @pytest.mark.parametrize("change", [
-    dict(kw={"fft_backend": "pallas_fused"}),
+    dict(kw={"fft_backend": "pallas_fused"}, f32_taken=True),
     dict(cfg={"precision": "bfloat16"}),
     dict(switch={"KERNEL_B3_THRESHOLD": 512}),
     dict(switch={"THREE_FACTOR_THRESHOLD": 512}),
     dict(kw={"fft_backend": "pallas_fused", "real_state": False,
              "pack_channels": False, "half_spectrum": False,
-             "pallas_fields": False}),
+             "pallas_fields": False}, f32_taken=True),
 ], ids=["fused", "bf16", "bf16x3", "split3", "complex_fused"])
 def test_card_refuses_what_has_no_kernel_at_construction(change,
                                                          monkeypatch):
-    """At N = 1536 (and its half length 768) on ``cuda``: the fused
-    kernels, bf16, bf16x3 and the three-factor form raise ValueError naming
-    the ROADMAP row at construction, for OceanSolver and CascadeSolver,
-    before anything touches the device (there is none here); the same
+    """At N = 1536 (and its half length 768) on ``cuda``: bf16, bf16x3
+    and the three-factor form raise ValueError naming the ROADMAP row at
+    construction, for OceanSolver and CascadeSolver, before anything
+    touches the device (there is none here). The fused kernels at f32 in
+    the direct form are taken (without a card the constructor then fails
+    on the device, not on the size), and their bf16 twin raises. The same
     configurations step on the CPU, as the JAX package runs them."""
     for name, value in change.get("switch", {}).items():
         monkeypatch.setattr(planes, name, value)
     cfg = OCEAN_DEMO.replace(resolution=1536, **change.get("cfg", {}))
     kw = dict(SLICE, **change.get("kw", {}))
+    if change.get("f32_taken"):
+        planes.check_card_sizes(1536, "float32", fused=True,
+                                half=kw["half_spectrum"])
+        if not torch.cuda.is_available():
+            with pytest.raises((AssertionError, RuntimeError)):
+                OceanSolver(cfg, device="cuda", **kw)
+        cfg = cfg.replace(precision="bfloat16")
     with pytest.raises(ValueError, match="sizes"):
         OceanSolver(cfg, device="cuda", **kw)
     if kw["fft_backend"] == "pallas":
@@ -295,18 +304,23 @@ def test_card_refuses_what_has_no_kernel_at_construction(change,
 
 def test_check_card_sizes_takes_f32_direct_at_every_even_length():
     """path (i)'s switches, the complex state and a cascade at N = 96,
-    1536, 3072 pass the size rule on ``cuda``; without a card the
-    constructor then fails on the device, not on the size."""
+    1536, 3072 pass the size rule on ``cuda``, on ``pallas`` and on
+    ``pallas_fused``; without a card the constructor then fails on the
+    device, not on the size. The fused passes at bf16 there are
+    refused."""
+    fused_slice = dict(SLICE, fft_backend="pallas_fused")
     for n in (96, 1536, 3072):
-        planes.check_card_sizes(n, "float32", fused=False, half=True)
+        for fused in (False, True):
+            planes.check_card_sizes(n, "float32", fused=fused, half=True)
         if torch.cuda.is_available():
             continue
-        for kw in (SLICE, {"fft_backend": "pallas"}):
+        for kw in (SLICE, {"fft_backend": "pallas"}, fused_slice,
+                   {"fft_backend": "pallas_fused"}):
             with pytest.raises((AssertionError, RuntimeError)):
                 OceanSolver(OCEAN_DEMO.replace(resolution=n), device="cuda",
                             **kw)
     with pytest.raises(ValueError, match="sizes"):
-        planes.check_card_sizes(96, "float32", fused=True)
+        planes.check_card_sizes(96, "bfloat16", fused=True)
     planes.check_card_sizes(1024, "bfloat16", fused=True, half=True)
     with pytest.raises(ValueError, match="sizes"):
         planes.check_card_sizes(96, "bfloat16")

@@ -15,9 +15,17 @@ imports no jax; run it with
   direction, against the plain version.
 - A step of path (i)'s switches at N = 192 in both regimes against the CPU
   from one state, with exact launch counts.
-- What has no kernel raises ValueError on a CUDA tensor (bf16, the fused
-  kernels, odd N), and the C entry refuses lengths, plans and blocks it
+- What has no kernel raises ValueError on a CUDA tensor (bf16, row or
+  fused, odd N), and the C entry refuses lengths, plans and blocks it
   does not take.
+- The f32 fused mixed-radix kernel (csrc/fused_rows_mixed_f32.cuh, #5 and
+  #6 at those lengths), every channel of the three sets, both stores, at
+  ragged M and at a row offset: one launch counted under
+  fft.planes.MIXED_FUSED_NAME, each channel within 2e-6·max of the plain
+  version (the assembly in torch, then torch.fft) and 1e-6·max of the
+  float64 DFT of the float64 assembly; its C entry's refusals; path (i)'s
+  switches on ``pallas_fused`` at N = 96 and 1536, card against CPU; a
+  gradient and bf16 refused at 1536.
 """
 
 import numpy as np
@@ -168,7 +176,7 @@ def test_what_has_no_kernel_raises_on_a_cuda_tensor(cuda):
             fn(re, im, True, "bfloat16")
     with pytest.raises(ValueError, match="sizes"):
         fused.assemble_rowfft((re[0], im[0], re[0], im[0]), im[0], 1.0, 1.0,
-                              epsilon=1e-4, ch_count=1)
+                              epsilon=1e-4, ch_count=1, precision="bfloat16")
     odd = _planes((1, 8, 95), cuda)
     with pytest.raises(ValueError, match="even lengths"):
         planes.fft1d_transposed(*odd)
@@ -202,3 +210,167 @@ def test_the_c_entry_refuses_other_lengths_and_blocks(cuda, n, rows, plan_n,
     assert _rel(planes.fft1d_transposed(*_planes((1, 4, 96), cuda)),
                 planes.fft1d_transposed_plain(*_planes((1, 4, 96), cuda))) \
         <= 2e-6
+
+
+# ------------------------------------------ the f32 fused mixed-radix kernel
+
+#: (packed, nch_live) of each channel set
+SETS = {"packed3": (True, 3), "packed5": (True, 5),
+        "per_channel": (False, 3)}
+#: (M, N, row offset, first channel, channels): every channel over all
+#: rows, the half channel (rows 0..N/2−1, the last channel), and a ragged
+#: batch at a row offset across the Nyquist row from channel 1 on (None:
+#: the set's last channel / the rest of the set)
+FUSED_SHAPES = [(96, 96, 0, 0, None), (48, 96, 0, -1, 1),
+                (106, 106, 0, 0, None), (53, 106, 0, -1, 1),
+                (37, 106, 40, 1, None), (160, 160, 0, 0, None),
+                (13, 1536, 760, 1, None), (5, 3072, 1534, 0, None)]
+
+
+def _fused_inputs(m, n, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    h0 = tuple(torch.randn(m, n, generator=g).to(dev) for _ in range(4))
+    phase = (2 * np.pi * torch.rand(m, n, generator=g)).to(dev)
+    return h0, phase
+
+
+def _assembly_f64(h0, phase, length, dz_sign, *, epsilon, ch, packed,
+                  nch_live, row_offset):
+    """Channel ``ch`` of the set in float64 from the f32 inputs, kx and kz
+    from 2π/L in float64 (chip_smoke.assembly_f64): complex128 [M, N]."""
+    h0r, h0i, h0cr, h0ci = (q.double() for q in h0)
+    c, s = torch.cos(phase.double()), torch.sin(phase.double())
+    htr = (h0r + h0cr) * c + (h0ci - h0i) * s
+    hti = (h0i + h0ci) * c + (h0r - h0cr) * s
+    m, n = phase.shape
+    kw = dict(device=phase.device, dtype=torch.float64)
+    row = torch.arange(m, **kw)[:, None] + row_offset
+    col = torch.arange(n, **kw)[None, :]
+    kx = 2 * np.pi / length * torch.where(row < n // 2, row, row - n)
+    kz = 2 * np.pi / length * torch.where(col < n // 2, col, col - n)
+    kmag2 = kx * kx + kz * kz
+    invk = torch.where(kmag2 < epsilon ** 2, 0.0, 1.0 / kmag2.sqrt())
+    w = [float(ch == i) for i in range(5)]
+    if not packed:
+        k = (w[0] + w[1] * kx * invk + w[2] * dz_sign * kz * invk
+             - w[3] * kx - w[4] * kz)
+        return torch.complex(k * htr, k * hti)
+    rowmask, colmask = (row != n // 2).double(), (col != n // 2).double()
+    a = w[0] * (1 + kx * invk * rowmask)
+    b = w[1] * dz_sign * kz * invk * colmask
+    if nch_live == 5:
+        a = a - w[1] * kx * rowmask
+        b = b - w[2] * kz * colmask
+    return torch.complex(a * htr + b * hti, a * hti - b * htr)
+
+
+@pytest.mark.parametrize("store", ["transposed", "natural"])
+@pytest.mark.parametrize("channel_set", list(SETS))
+@pytest.mark.parametrize("shape", FUSED_SHAPES,
+                         ids=["x".join(map(str, sh[:3])) + f"-ch{sh[3]}"
+                              for sh in FUSED_SHAPES])
+def test_fused_mixed_kernel_matches_plain_and_float64(cuda, shape,
+                                                      channel_set, store):
+    m, n, offset, ch, count = shape
+    packed, nch_live = SETS[channel_set]
+    total = fused.channel_count(packed, nch_live)
+    ch = ch % total
+    count = count or total - ch
+    natural = store == "natural"
+    h0, phase = _fused_inputs(m, n, cuda, seed=m + n + ch)
+    length = OCEAN_DEMO.length
+    kw = dict(epsilon=1e-4, ch_start=ch, ch_count=count, row_offset=offset,
+              packed=packed, nch_live=nch_live)
+    fn, plain = ((fused.assemble_rowfft_natural,
+                  fused.assemble_rowfft_natural_plain) if natural else
+                 (fused.assemble_rowfft, fused.assemble_rowfft_plain))
+    got = fn(h0, phase, length, -1.0, **kw)
+    assert _counts() == {planes.MIXED_FUSED_NAME.format(
+        store=store, channel_set=channel_set): 1}
+    want = plain(h0, phase, length, -1.0, **kw)
+    for c in range(count):
+        gc = tuple(g[c] for g in got)
+        assert _rel(gc, tuple(w[c] for w in want)) <= 2e-6
+        ref = torch.fft.ifft(_assembly_f64(
+            h0, phase, length, -1.0, epsilon=1e-4, ch=ch + c, packed=packed,
+            nch_live=nch_live, row_offset=offset), dim=-1, norm="forward")
+        if not natural:
+            ref = ref.transpose(0, 1)
+        assert _rel(gc, (ref.real, ref.imag)) <= 1e-6
+
+
+@pytest.mark.parametrize("what", ["channels", "ch_start", "row_offset",
+                                  "rows", "plan", "nch_live"])
+def test_the_fused_c_entry_refuses_what_it_does_not_take(cuda, what):
+    """Channels past the set (3 of the packed set with 3 live fields), a
+    negative first channel or row offset, rows not a power of two, a plan
+    that is not a length-N transform (96's stages at 106), a packed set
+    with 4 live fields: refused (a CUDA error), never run."""
+    from tpu_ocean_torch import _build
+    n = 106
+    h0, phase = _fused_inputs(8, n, cuda, seed=0)
+    kz = torch.zeros(n, device=cuda)
+    out = torch.empty(3, n, 8, device=cuda)
+    args = dict(channels=1, ch_start=0, rows=4, row_offset=0, nch_live=3,
+                plan_n=n)
+    args.update({"channels": dict(channels=3), "ch_start": dict(ch_start=-1),
+                 "row_offset": dict(row_offset=-1), "rows": dict(rows=3),
+                 "plan": dict(plan_n=96), "nch_live": dict(nch_live=4)}[what])
+    tables = planes.mixed_twiddles(args["plan_n"], True, cuda)
+    plan = planes.mixed_plan_rows(args["plan_n"])
+    err = _build.load().lib.tpu_fused_rows_mixed(
+        *(p.data_ptr() for p in (*h0, phase)), kz.data_ptr(), out.data_ptr(),
+        out.data_ptr(), tables.data_ptr(), args["channels"],
+        args["ch_start"], 8, n, args["rows"], args["row_offset"], 1,
+        args["nch_live"], 0, len(plan), tables.shape[0], 1.0, -1.0, 1e-4,
+        plan.ctypes.data, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.load().check(err, "tpu_fused_rows_mixed")
+    assert _counts() == {}
+
+
+@pytest.mark.parametrize("n", [96, 1536])
+def test_fused_slice_step_against_the_cpu(cuda, n):
+    """Path (i)'s switches on ``pallas_fused`` at N = 96 and 1536, 3 steps
+    on the card and on the CPU from one state, held as chip_smoke.py holds
+    its paths (compare_fields: the fields within 1e-5·max, normals within
+    2e-4 plus their first-order sensitivity to the measured input error,
+    which at 1536² reaches ~6e-3 on a few hundred folded texels, foam
+    25× plus its own); each step 2 fused launches (the full channel, the
+    half channel's rows) and 3 of the row kernel, all mixed-radix, and
+    none of the power-of-two kernels."""
+    from chip_smoke import compare_fields
+    cfg = OCEAN_DEMO.replace(resolution=n)
+    kw = dict(SLICE, fft_backend="pallas_fused")
+    card = OceanSolver(cfg, **kw)
+    cpu = OceanSolver(cfg, device="cpu", **kw)
+    state = card.init(torch.Generator().manual_seed(0))
+    cpu_state = state_from_numpy(state, "cpu")
+    planes.named_launches.clear()
+    fused.assemble_rowfft.launches = 0
+    for _ in range(3):
+        state, got = card.step(state, 1 / 60)
+        cpu_state, want = cpu.step(cpu_state, 1 / 60)
+    assert fused.assemble_rowfft.launches == 0
+    assert _counts() == {"fused_mixed_transposed[packed3]": 6,
+                         "fft_rows_mixed_transposed": 9, "fields_stencil": 3}
+    compare_fields(fields_to_numpy(got), fields_to_numpy(want), cfg,
+                   f"fused {n}")
+
+
+def test_fused_at_1536_refuses_a_gradient_and_bf16(cuda):
+    """A gradient through ``pallas_fused`` raises NotImplementedError
+    before any launch (JAX gives the fused kernels no VJP); bf16 on
+    ``pallas_fused`` at 1536 raises ValueError naming the ROADMAP row."""
+    cfg = OCEAN_DEMO.replace(resolution=1536)
+    kw = dict(SLICE, fft_backend="pallas_fused")
+    solver = OceanSolver(cfg, **kw)
+    st = solver.init(torch.Generator().manual_seed(0))
+    planes.named_launches.clear()
+    leaf = st.h0_re.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match='fft_backend="pallas"'):
+        solver.step(st._replace(h0_re=leaf), 1 / 60)
+    assert _counts() == {}
+    with pytest.raises(ValueError, match="sizes"):
+        OceanSolver(cfg.replace(precision="bfloat16"), **kw)

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "tpu_fft_rows_mixed": [_P] * 5 + [_I] * 7 + [_P] * 2,
     "tpu_fused_rows_transposed": _FUSED,
     "tpu_fused_rows_natural": _FUSED,
+    "tpu_fused_rows_mixed": [_P] * 9 + [_I] * 11 + [_F] * 3 + [_P] * 2,
     "tpu_fields_stencil": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "tpu_fields_stencil_v1": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "tpu_gerstner_bank": [_P] * 7 + [_I, _I, _I, _F, _I, _P],

@@ -37,6 +37,10 @@
 //   natural, bf16 direct: fused_rows_natural_bf16.cuh — the bf16 row
 //     kernel's stages (dft_bf16_rows.cuh) behind a fused load that
 //     assembles 4 points a lane and stages them as bf16 pairs;
+//   either store, f32 direct, at an even N that is not a power of two:
+//     fused_rows_mixed_f32.cuh — the mixed-radix row kernel's stages and
+//     stores (rows_mixed_f32.cuh) behind a load that assembles each row
+//     into its first buffer; a block per R rows of one channel;
 //   the other tiers and forms, either store: fused_rows_kernel below on
 //     dft_matrix.cuh's stages. The loads are the row kernel's, five planes
 //     wide: one block reads R whole rows of each input plane with
@@ -55,6 +59,7 @@
 
 #include "dft_matrix.cuh"
 #include "fused_assembly.cuh"
+#include "fused_rows_mixed_f32.cuh"
 #include "fused_rows_natural_bf16.cuh"
 #include "fused_rows_natural_f32.cuh"
 #include "fused_rows_transposed_f32.cuh"
@@ -217,6 +222,31 @@ int tpu_fused_rows_natural(const void* h0r, const void* h0i, const void* h0cr,
                       tables, channels, ch_start, m, n, rows, row_offset,
                       packed, nch_live, tier, split3, two_pi_over_l, dz_sign,
                       epsilon, stream);
+}
+
+// The f32 direct fused pass at an even n in [16, 8192] that is not a
+// power of two, transposed (natural = 0) or natural (1) store: the other
+// arguments as above, rows a power of two that keeps
+// planes.mixed_shared_bytes within the card's limit, `tables`
+// planes.mixed_twiddles(n, inverse) of `table` entries, `plan` the host
+// array planes.mixed_plan_rows(n), (radix, span, roots offset) × `stages`.
+// Any other n, rows, channels outside the set, a negative row offset, or a
+// plan that is not a length-n transform inside the table is refused.
+int tpu_fused_rows_mixed(const void* h0r, const void* h0i, const void* h0cr,
+                         const void* h0ci, const void* phase, const void* kz,
+                         void* out_re, void* out_im, const void* tables,
+                         int channels, int ch_start, int m, int n, int rows,
+                         int row_offset, int packed, int nch_live,
+                         int natural, int stages, int table,
+                         float two_pi_over_l, float dz_sign, float epsilon,
+                         const void* plan, void* stream) {
+  const Assembly p{two_pi_over_l, dz_sign, epsilon * epsilon, row_offset,
+                   packed, nch_live};
+  return launch_fused_rows_mixed(natural != 0, h0r, h0i, h0cr, h0ci, phase,
+                                 kz, out_re, out_im, tables, channels,
+                                 ch_start, m, n, rows,
+                                 static_cast<const int*>(plan), stages, table,
+                                 p, stream);
 }
 
 }  // extern "C"

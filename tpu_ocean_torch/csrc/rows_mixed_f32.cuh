@@ -42,7 +42,10 @@
 // time (tools/mixed_sums_variants.py). The table (planes.mixed_table, f32 from
 // float64): entry 0 is ±i (the direction), the stage at span ns has its
 // twiddles at ns + (r − 1)·ns + k, then the odd stages' roots, p each.
-// The stores are stockham.cuh's two, by division instead of shifts.
+// The stores are stockham.cuh's two, by division instead of shifts. The
+// stages (run_stages) and the stores (store) are shared with the fused
+// kernel of fused_rows_mixed_f32.cuh, whose load assembles the rows
+// instead of reading them.
 //
 // Rows per block R (planes.rows_per_block with planes.mixed_shared_bytes):
 // a power of two, at most 8 for the transposed store (8-float runs), at
@@ -104,6 +107,13 @@ inline Plan read_plan(int n, const int* rows, int stages, int table) {
 inline int smem_bytes(int rows, const Plan& plan) {
   return static_cast<int>((2 * rows * (plan.n + 1) + plan.table) *
                           sizeof(float2));
+}
+
+// Threads of a block of `rows` rows of length n: one a radix-2 butterfly,
+// at most kMaxThreads, whole warps
+inline int block_threads(int rows, int n) {
+  const int work = rows * n / 2;
+  return work >= kMaxThreads ? kMaxThreads : (work + 31) / 32 * 32;
 }
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
@@ -256,6 +266,64 @@ __device__ __forceinline__ void stage_odd(float2* src, float2* dst,
   }
 }
 
+// The plan's stages on the R rows in `src`, ping-ponging with `dst`, the
+// table (twiddles and roots) at `tab`; returns the buffer that holds the
+// transformed rows, the block synchronised. Both kernels of this header and
+// of fused_rows_mixed_f32.cuh run them.
+__device__ __forceinline__ const float2* run_stages(float2* src, float2* dst,
+                                                    const float2* tab, int R,
+                                                    const Plan& plan) {
+  const int N = plan.n;
+  const float sign = tab[0].y;
+  for (int s = 0; s < plan.stages; ++s) {
+    const int radix = plan.radix[s];
+    const int ns = plan.span[s];
+    const float2* tw = tab + ns;
+    if (radix == 2) {
+      stage2(src, dst, tw, R, N, ns);
+    } else if (radix == 4) {
+      stage4(src, dst, tw, R, N, ns, sign);
+    } else {
+      stage_odd(src, dst, tw, tab + plan.roots[s], R, N, ns, radix);
+    }
+    __syncthreads();
+    float2* t = src;
+    src = dst;
+    dst = t;
+  }
+  return src;
+}
+
+// The block's `live` transformed rows (of R, rows m0 .. of the batch) into
+// one channel's output planes: natural [M, N], or transposed [N, M].
+template <bool kNatural>
+__device__ __forceinline__ void store(const float2* res, float* o_re,
+                                      float* o_im, int M, int N, int R,
+                                      int log2r, int m0, int live) {
+  const int stride = N + 1;
+  if (kNatural) {
+    const size_t first = static_cast<size_t>(m0) * N;
+    for (int idx = threadIdx.x; idx < live * N; idx += blockDim.x) {
+      const int r = idx / N;
+      const float2 v = res[r * stride + idx - r * N];
+      o_re[first + idx] = v.x;
+      o_im[first + idx] = v.y;
+    }
+  } else {
+    // out[k, m0 + r], r the fastest thread index: runs of R floats
+    for (int idx = threadIdx.x; idx < R * N; idx += blockDim.x) {
+      const int r = idx & (R - 1);
+      const int k = idx >> log2r;
+      if (r < live) {
+        const float2 v = res[r * stride + k];
+        const size_t g = static_cast<size_t>(k) * M + m0 + r;
+        o_re[g] = v.x;
+        o_im[g] = v.y;
+      }
+    }
+  }
+}
+
 template <bool kNatural>
 __global__ void __launch_bounds__(kMaxThreads)
 mixed_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
@@ -288,47 +356,9 @@ mixed_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
   __syncthreads();
 
-  const float sign = tab[0].y;
-  for (int s = 0; s < plan.stages; ++s) {
-    const int radix = plan.radix[s];
-    const int ns = plan.span[s];
-    const float2* tw = tab + ns;
-    if (radix == 2) {
-      stage2(src, dst, tw, R, N, ns);
-    } else if (radix == 4) {
-      stage4(src, dst, tw, R, N, ns, sign);
-    } else {
-      stage_odd(src, dst, tw, tab + plan.roots[s], R, N, ns, radix);
-    }
-    __syncthreads();
-    float2* t = src;
-    src = dst;
-    dst = t;
-  }
-
-  float* o_re = out_re + c * plane;
-  float* o_im = out_im + c * plane;
-  if (kNatural) {
-    const size_t first = static_cast<size_t>(m0) * N;
-    for (int idx = threadIdx.x; idx < live * N; idx += blockDim.x) {
-      const int r = idx / N;
-      const float2 v = src[r * stride + idx - r * N];
-      o_re[first + idx] = v.x;
-      o_im[first + idx] = v.y;
-    }
-  } else {
-    // out[k, m0 + r], r the fastest thread index: runs of R floats
-    for (int idx = threadIdx.x; idx < R * N; idx += blockDim.x) {
-      const int r = idx & (R - 1);
-      const int k = idx >> log2r;
-      if (r < live) {
-        const float2 v = src[r * stride + k];
-        const size_t g = static_cast<size_t>(k) * M + m0 + r;
-        o_re[g] = v.x;
-        o_im[g] = v.y;
-      }
-    }
-  }
+  const float2* res = run_stages(src, dst, tab, R, plan);
+  store<kNatural>(res, out_re + c * plane, out_im + c * plane, M, N, R,
+                  log2r, m0, live);
 }
 
 }  // namespace mixed
@@ -351,10 +381,9 @@ inline int launch_rows_mixed(bool natural, const void* re, const void* im,
                         : &mixed::mixed_rows_kernel<false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int work = rows * n / 2;
-  const int threads = work >= kMaxThreads ? kMaxThreads : (work + 31) / 32 * 32;
   const dim3 grid((m + rows - 1) / rows, channels);
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, mixed::block_threads(rows, n), smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(re), static_cast<const float*>(im),
       static_cast<float*>(out_re), static_cast<float*>(out_im),
       static_cast<const float2*>(tables), m, rows, log2_of(rows), plan);

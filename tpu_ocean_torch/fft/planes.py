@@ -18,10 +18,11 @@ On a CUDA tensor each launches its hand-written kernel
 version, at every length. The TPU package's size gates (Mosaic lane
 rules, VMEM caps) have no counterpart here: on the card the kernels cover
 every power-of-two N in [MIN_N, MAX_N] at every tier and form, and every
-other even N there at f32 in the direct form, unfused
+other even N there at f32 in the direct form, fused or not
 (``require_card_kernel``; the
 mixed-radix kernel ``csrc/rows_mixed_f32.cuh``, plan ``mixed_plan``, table
-``mixed_table``); a wrapper refuses the rest with ValueError. Only the
+``mixed_table``, and its fused twin ``csrc/fused_rows_mixed_f32.cuh``); a
+wrapper refuses the rest with ValueError. Only the
 regime switch is kept, as ``MAX_TRANSPOSED_N``, so that the port pairs
 like with like against the JAX package.
 
@@ -49,7 +50,8 @@ Stockham take their plain version from ``fft/matrix.py``.
 Each launch counts once: a Stockham kernel's on its wrapper's
 ``launches``; any other row launch, and a fused launch outside the packed
 set with 3 live fields, in ``named_launches`` under ``kernel_name`` (the
-mixed-radix kernel's under ``MIXED_NAMES``).
+mixed-radix kernel's under ``MIXED_NAMES``, its fused twin's under
+``MIXED_FUSED_NAME``).
 
 Both row DFTs are differentiable by the JAX package's linear-adjoint rule
 (``pallas_fft._fft1d_transposed_diff``, ``_fft1d_natural_large_diff``):
@@ -81,6 +83,11 @@ SIZES_ROW = 'ROADMAP.md Queue 2, "sizes (rest)"'
 #: named_launches' names of the f32 mixed-radix row kernel, by store
 MIXED_NAMES = {"rows_transposed": "fft_rows_mixed_transposed",
                "rows_natural": "fft_rows_mixed_natural"}
+#: named_launches' name of the f32 fused mixed-radix kernel
+#: (csrc/fused_rows_mixed_f32.cuh) by store ("transposed" or "natural")
+#: and channel set ("packed3", "packed5" or "per_channel"), e.g.
+#: "fused_mixed_transposed[packed3]"
+MIXED_FUSED_NAME = "fused_mixed_{store}[{channel_set}]"
 #: shared memory one block may use on the H100 (bytes)
 SMEM_LIMIT = 232448
 #: above this N both 2-D routes take the natural regime (natural-store row
@@ -413,20 +420,20 @@ def require_card_kernel(n: int, tier: str = "f32", split3: bool = False,
     """Raise ValueError, naming SIZES_ROW, unless the card has a kernel for
     a length-``n`` row pass at (tier, split3), fused (#5, #5b, #6) or not:
     every power of two in [MIN_N, MAX_N] at every tier and form; every
-    other even length there at f32 in the direct form, unfused (the
-    mixed-radix kernel). The other tiers, forms and the fused kernels at
-    those lengths are queued (SIZES_ROW)."""
+    other even length there at f32 in the direct form (the mixed-radix
+    kernel, and its fused twin). The other tiers and forms at those
+    lengths, fused or not, are queued (SIZES_ROW)."""
     if not (MIN_N <= n <= MAX_N and n % 2 == 0):
         raise ValueError(f"the row-DFT kernels take even lengths in "
                          f"[{MIN_N}, {MAX_N}], got {n} ({SIZES_ROW})")
-    if is_power_of_two(n) or (_stockham(tier, split3) and not fused):
+    if is_power_of_two(n) or _stockham(tier, split3):
         return
     form = ", three-factor form" if split3 else ""
     raise ValueError(
         f"no kernel on the card for a {'fused ' if fused else ''}row DFT of "
         f"length {n} at tier {tier}{form}: lengths that are not powers of "
-        f"two run at f32 in the direct form, unfused, only; the rest is "
-        f"queued ({SIZES_ROW})")
+        f"two run at f32 in the direct form only; the rest is queued "
+        f"({SIZES_ROW})")
 
 
 def check_card_sizes(n: int, precision: str = "float32", fused: bool = False,
@@ -776,7 +783,13 @@ def fused_rows(c: int, m: int, n: int, sms: int, natural: bool, tier: str,
     bf16_rows_shared_bytes); else max_rows and fused_rows_kernel's two
     buffers. The f32 direct kernels make every channel in one block, so
     their grid is ⌈m / rows⌉ blocks whatever ``c``; the others' is ``c``
-    times that."""
+    times that. At an n that is not a power of two (f32 direct only,
+    require_card_kernel) the fused mixed-radix kernel takes the row
+    kernel's geometry: mixed_max_rows and mixed_shared_bytes, a grid of
+    ``c`` times ⌈m / rows⌉."""
+    if not is_power_of_two(n):
+        return rows_per_block(c, m, n, sms, mixed_max_rows(n, natural),
+                              mixed_shared_bytes)
     if _stockham(tier, split3):
         if natural:
             return rows_per_block(1, m, n, sms, fused_natural_max_rows(n),
@@ -792,8 +805,11 @@ def fused_rows(c: int, m: int, n: int, sms: int, natural: bool, tier: str,
 def fused_tables(n: int, inverse: bool, tier: str, split3: bool,
                  natural: bool, device: torch.device) -> torch.Tensor:
     """The `tables` argument of a fused entry: the radix-16 twiddles for
-    the f32 direct stores, the bf16 row kernel's tables for the bf16
-    natural store, else tables_for's."""
+    the f32 direct stores (mixed_twiddles at an n that is not a power of
+    two), the bf16 row kernel's tables for the bf16 natural store, else
+    tables_for's."""
+    if not is_power_of_two(n):
+        return mixed_twiddles(n, bool(inverse), device)
     if _stockham(tier, split3):
         return radix16_twiddles(n, bool(inverse), device)
     if _fused_bf16(tier, split3, natural):

@@ -21,7 +21,12 @@ On a CUDA tensor each launches its hand-written kernel
 ``csrc/fused_rows_transposed_f32.cuh``, every channel of a launch from
 one read of the inputs; the bf16 natural store
 ``csrc/fused_rows_natural_bf16.cuh``, the bf16 row kernel's stages behind
-the assembly) and nothing else; on a CPU tensor it runs its
+the assembly; at f32 in the direct form at an even N that is not a power
+of two, either store, ``csrc/fused_rows_mixed_f32.cuh``, the mixed-radix
+row kernel's stages behind the assembly, counted in
+``planes.named_launches`` under ``planes.MIXED_FUSED_NAME``; the other
+tiers and forms at such N raise ValueError, ``planes.require_card_kernel``)
+and nothing else; on a CPU tensor it runs its
 plain version: ``_assemble_plain`` (the kernel's f32 arithmetic in torch,
 in the order of the JAX ``_assemble_block``; it does not use the float64
 ``pack`` or ``coeffs`` tables, which differ in the last bits) followed by
@@ -197,13 +202,14 @@ def _launch(natural: bool, h0_planes, phase, length, dz_sign, *,
             inverse, epsilon, row_offset, ch_start, ch_count, packed,
             nch_live, precision):
     """Launches the natural or the transposed fused entry at the tier and
-    form of its pass, and counts the launch."""
+    form of its pass (at an n that is not a power of two, the mixed-radix
+    entry), and counts the launch."""
     store = "natural" if natural else "transposed"
-    entry = f"tpu_fused_rows_{store}"
     m, n = phase.shape
     dev = phase.device
     tier, split3 = planes.engine(n, precision, transposed=not natural)
     planes.require_card_kernel(n, tier, split3, fused=True)
+    mixed = not planes.is_power_of_two(n)
     kernels = _build.load()
     out_shape = (ch_count, m, n) if natural else (ch_count, n, m)
     out_re = torch.empty(out_shape, dtype=torch.float32, device=dev)
@@ -212,19 +218,35 @@ def _launch(natural: bool, h0_planes, phase, length, dz_sign, *,
     tables = planes.fused_tables(n, inverse, tier, split3, natural, dev)
     rows = planes.fused_rows(ch_count, m, n, planes.sm_count(dev), natural,
                              tier, split3)
+    scalars = (float(np.float32(2.0 * np.pi / length)),
+               float(np.float32(dz_sign)), float(np.float32(epsilon)))
+    if mixed:
+        # f32 direct (require_card_kernel): the store, the plan from the
+        # host and the table's length, as the mixed-radix row entry
+        entry = "tpu_fused_rows_mixed"
+        plan = planes.mixed_plan_rows(n)
+        tail = (int(natural), len(plan), tables.shape[0], *scalars,
+                plan.ctypes.data)
+    else:
+        entry = f"tpu_fused_rows_{store}"
+        tail = (planes.TIERS[tier], int(split3), *scalars)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(kernels.lib, entry)(
             *(p.data_ptr() for p in (*h0_planes, phase)), kz.data_ptr(),
             out_re.data_ptr(), out_im.data_ptr(), tables.data_ptr(),
             ch_count, ch_start, m, n, rows, int(row_offset), int(packed),
-            int(nch_live), planes.TIERS[tier], int(split3),
-            float(np.float32(2.0 * np.pi / length)),
-            float(np.float32(dz_sign)), float(np.float32(epsilon)), stream)
+            int(nch_live), *tail, stream)
     kernels.check(err, entry)
-    planes.count_launch(assemble_rowfft_natural if natural else assemble_rowfft,
-                        f"fused_{store}", tier, split3,
-                        channel_set(packed, nch_live))
+    tag = channel_set(packed, nch_live)
+    if mixed:
+        # a name of its own, so the power-of-two kernels' counts stay exact
+        planes.named_launches[planes.MIXED_FUSED_NAME.format(
+            store=store, channel_set=tag or "packed3")] += 1
+    else:
+        planes.count_launch(
+            assemble_rowfft_natural if natural else assemble_rowfft,
+            f"fused_{store}", tier, split3, tag)
     return out_re, out_im
 
 

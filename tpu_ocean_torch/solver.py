@@ -206,9 +206,9 @@ class OceanSolver:
     complex state, no packing, no half spectrum, the fields in torch. They
     take every value the JAX solver takes and raise ValueError where it
     raises ValueError. On the card ``pallas``/``pallas_fused`` take every
-    power-of-two N in [16, 8192], and ``pallas`` at f32 in the direct form
-    every other even N there (fft.planes.require_card_kernel); any other
-    combination raises ValueError at construction. The N below 16 or odd,
+    power-of-two N in [16, 8192], and at f32 in the direct form every
+    other even N there, fused or not (fft.planes.require_card_kernel); any
+    other combination raises ValueError at construction. The N below 16 or odd,
     which the JAX package sends to ``matmul`` on the complex state, go
     there with its warning."""
 
@@ -290,7 +290,8 @@ class OceanSolver:
             # columns, each at the tier and form its length runs at. The
             # fused kernels take the row kernel's shared memory, so the
             # same power-of-two N fit both (N = 8192: 192 KB a block at one
-            # row); at other N only the f32 direct row passes have a kernel
+            # row); at other even N the f32 direct passes, fused or not,
+            # have a kernel (the mixed-radix kernel and its fused twin)
             check_card_sizes(n, cfg.precision,
                              fused=fft_backend == "pallas_fused",
                              half=half_spectrum)
