@@ -40,7 +40,7 @@ from tpu_ocean_torch import (OCEAN_DEMO, OceanConfig, OceanSolver, Simulation,
                              OceanState, OceanStateReal, fields_to_numpy,
                              state_from_numpy, state_to_numpy)
 from tpu_ocean_torch import evolve as tev, fields as tfields, grids as tgrids
-from tpu_ocean_torch.fft import BACKENDS, get_ifft2
+from tpu_ocean_torch.fft import BACKENDS, get_ifft2, planes
 from tpu_ocean_torch.fft.matmul import ifft2_matmul
 from tpu_ocean_torch.fft.reference import centered_modulation
 from tpu_ocean_torch.fft.stockham import ifft2_stockham
@@ -426,24 +426,26 @@ def test_sizes_jax_sends_to_matmul_go_there_with_its_warning(n, backend):
 
 
 def test_card_size_rule_for_the_kernel_backends():
-    """On the card ``pallas`` and ``pallas_fused`` take power-of-two N in
-    [16, 8192] at every precision, and at f32 every other even N there too
-    (fft.planes.require_card_kernel):
-    at N = 96 (JAX keeps its pallas pipeline there) both backends at bf16
-    are refused before anything is allocated on the device, naming the
-    ROADMAP row; ``pallas``, ``pallas_fused`` at f32 and ``reference``
-    are not."""
+    """On the card ``pallas`` and ``pallas_fused`` take every even N in
+    [16, 8192] at every precision (fft.planes.require_card_kernel): at
+    N = 96 (JAX keeps its pallas pipeline there) both backends at bf16,
+    once refused, pass the size rule like f32 and ``reference`` (without a
+    card the constructor then fails on the device, not on the size); at
+    N = 8320 both backends are refused before anything is allocated on the
+    device."""
     cfg = OCEAN_DEMO.replace(resolution=96)
-    with pytest.raises(ValueError, match="sizes"):
-        OceanSolver(cfg.replace(precision="bfloat16"), device="cuda",
-                    fft_backend="pallas_fused")
-    with pytest.raises(ValueError, match="sizes"):
-        OceanSolver(cfg.replace(precision="bfloat16"), device="cuda",
-                    fft_backend="pallas")
+    for backend in ("pallas", "pallas_fused"):
+        planes.check_card_sizes(96, "bfloat16",
+                                fused=backend == "pallas_fused")
+        with pytest.raises(ValueError, match="even lengths"):
+            OceanSolver(cfg.replace(resolution=8320, precision="bfloat16"),
+                        device="cuda", fft_backend=backend)
     if not torch.cuda.is_available():
-        for backend in ("pallas", "pallas_fused", "reference"):
-            with pytest.raises((AssertionError, RuntimeError)):
-                OceanSolver(cfg, device="cuda", fft_backend=backend)
+        for precision in ("float32", "bfloat16"):
+            for backend in ("pallas", "pallas_fused", "reference"):
+                with pytest.raises((AssertionError, RuntimeError)):
+                    OceanSolver(cfg.replace(precision=precision),
+                                device="cuda", fft_backend=backend)
 
 
 @pytest.mark.parametrize("what", ["direct", "gpu_hash_seeds", "reconfigure",

@@ -15,10 +15,12 @@
   and folds, the model of the kernel's f32 sums that chose them.
   The kernel itself runs only on the card (tests/test_torch_sizes_cuda.py).
 - The size rule on the card (fft.planes.require_card_kernel,
-  check_card_sizes):
-  powers of two at every tier and form, other even lengths at f32 direct,
-  fused or not; everything else refused with ValueError at construction,
-  naming the ROADMAP row, before anything is allocated on the device.
+  check_card_sizes): every even length in [16, 8192] at every tier and
+  form, fused or not (other lengths than powers of two at f32 direct on
+  the mixed-radix kernels, at the rest on the matrix engine behind their
+  loads and stores, tests/test_torch_sizes_matrix.py); odd lengths and
+  those outside the range refused with ValueError at construction, before
+  anything is allocated on the device.
 """
 
 import numpy as np
@@ -245,60 +247,60 @@ def test_rows_per_block_of_the_mixed_kernel():
 
 @pytest.mark.parametrize("tier,split3", TIERS)
 def test_card_size_rule(tier, split3):
-    """require_card_kernel returns for powers of two in [16, 8192] at every
-    tier and form, fused or not, and for the other even lengths there at
-    f32 in the direct form, fused or not; it raises ValueError naming the
-    ROADMAP row for everything else."""
+    """require_card_kernel returns for every even length in [16, 8192] at
+    every tier and form, fused or not (the three-factor form where n1 is
+    128, the only n1 use_split3 gives it, powers of two or not), and
+    raises ValueError for odd lengths and lengths outside that range."""
     for fused in (False, True):
-        for n in (16, 1024, 8192):
-            planes.require_card_kernel(n, tier, split3, fused)
         for n in (8, 15, 47, 1021, 16384, 8194):
-            with pytest.raises(ValueError, match="sizes"):
+            with pytest.raises(ValueError, match="even lengths"):
                 planes.require_card_kernel(n, tier, split3, fused)
-        for n in (18, 96, 106, 1536, 2042, 3072, 8186, 8190):
-            if tier == "f32" and not split3:
-                planes.require_card_kernel(n, tier, split3, fused)
-            else:
-                with pytest.raises(ValueError, match="Queue 2, \"sizes"):
+        for n in (16, 1024, 8192, 18, 96, 106, 1536, 2042, 3072, 8186,
+                  8190):
+            if split3 and planes._split_lanes(n)[0] != 128:
+                with pytest.raises(ValueError, match="three-factor"):
                     planes.require_card_kernel(n, tier, split3, fused)
+            else:
+                planes.require_card_kernel(n, tier, split3, fused)
 
 
 @pytest.mark.parametrize("change", [
-    dict(kw={"fft_backend": "pallas_fused"}, f32_taken=True),
+    dict(kw={"fft_backend": "pallas_fused"}),
     dict(cfg={"precision": "bfloat16"}),
     dict(switch={"KERNEL_B3_THRESHOLD": 512}),
     dict(switch={"THREE_FACTOR_THRESHOLD": 512}),
     dict(kw={"fft_backend": "pallas_fused", "real_state": False,
              "pack_channels": False, "half_spectrum": False,
-             "pallas_fields": False}, f32_taken=True),
+             "pallas_fields": False}),
 ], ids=["fused", "bf16", "bf16x3", "split3", "complex_fused"])
 def test_card_refuses_what_has_no_kernel_at_construction(change,
                                                          monkeypatch):
-    """At N = 1536 (and its half length 768) on ``cuda``: bf16, bf16x3
-    and the three-factor form raise ValueError naming the ROADMAP row at
-    construction, for OceanSolver and CascadeSolver, before anything
-    touches the device (there is none here). The fused kernels at f32 in
-    the direct form are taken (without a card the constructor then fails
-    on the device, not on the size), and their bf16 twin raises. The same
-    configurations step on the CPU, as the JAX package runs them."""
+    """At N = 1536 (and its half length 768) on ``cuda``: f32, bf16,
+    bf16x3 and the three-factor form, fused or not, pass the size rule for
+    OceanSolver and CascadeSolver, where they were once refused (without a
+    card the constructor then fails on the device, not on the size); at
+    N = 8320 (above 8192) the same configurations raise ValueError at
+    construction, before anything touches the device. They step on the
+    CPU, as the JAX package runs them."""
     for name, value in change.get("switch", {}).items():
         monkeypatch.setattr(planes, name, value)
-    cfg = OCEAN_DEMO.replace(resolution=1536, **change.get("cfg", {}))
     kw = dict(SLICE, **change.get("kw", {}))
-    if change.get("f32_taken"):
-        planes.check_card_sizes(1536, "float32", fused=True,
+    fused = kw["fft_backend"] == "pallas_fused"
+    for precision in ("float32", "bfloat16"):
+        cfg = OCEAN_DEMO.replace(
+            resolution=1536, **{"precision": precision, **change.get("cfg", {})})
+        planes.check_card_sizes(1536, cfg.precision, fused=fused,
                                 half=kw["half_spectrum"])
         if not torch.cuda.is_available():
             with pytest.raises((AssertionError, RuntimeError)):
                 OceanSolver(cfg, device="cuda", **kw)
-        cfg = cfg.replace(precision="bfloat16")
-    with pytest.raises(ValueError, match="sizes"):
-        OceanSolver(cfg, device="cuda", **kw)
-    if kw["fft_backend"] == "pallas":
-        with pytest.raises(ValueError, match="sizes"):
-            CascadeSolver([c.replace(precision=cfg.precision)
-                           for c in default_cascade(n=1536)],
-                          device="cuda", **kw)
+            if not fused:
+                with pytest.raises((AssertionError, RuntimeError)):
+                    CascadeSolver([c.replace(precision=cfg.precision)
+                                   for c in default_cascade(n=1536)],
+                                  device="cuda", **kw)
+        with pytest.raises(ValueError, match="even lengths"):
+            OceanSolver(cfg.replace(resolution=8320), device="cuda", **kw)
     OceanSolver(cfg.replace(resolution=96), device="cpu", **kw)
 
 
@@ -306,8 +308,8 @@ def test_check_card_sizes_takes_f32_direct_at_every_even_length():
     """path (i)'s switches, the complex state and a cascade at N = 96,
     1536, 3072 pass the size rule on ``cuda``, on ``pallas`` and on
     ``pallas_fused``; without a card the constructor then fails on the
-    device, not on the size. The fused passes at bf16 there are
-    refused."""
+    device, not on the size. The passes at bf16 there, once refused, pass
+    it too, fused or not; N = 8194 is refused at either precision."""
     fused_slice = dict(SLICE, fft_backend="pallas_fused")
     for n in (96, 1536, 3072):
         for fused in (False, True):
@@ -319,11 +321,12 @@ def test_check_card_sizes_takes_f32_direct_at_every_even_length():
             with pytest.raises((AssertionError, RuntimeError)):
                 OceanSolver(OCEAN_DEMO.replace(resolution=n), device="cuda",
                             **kw)
-    with pytest.raises(ValueError, match="sizes"):
-        planes.check_card_sizes(96, "bfloat16", fused=True)
+    planes.check_card_sizes(96, "bfloat16", fused=True)
     planes.check_card_sizes(1024, "bfloat16", fused=True, half=True)
-    with pytest.raises(ValueError, match="sizes"):
-        planes.check_card_sizes(96, "bfloat16")
+    planes.check_card_sizes(96, "bfloat16")
+    for precision in ("float32", "bfloat16"):
+        with pytest.raises(ValueError, match="even lengths"):
+            planes.check_card_sizes(8194, precision)
 
 
 @pytest.mark.parametrize("n", [47, 96, 106, 16384])

@@ -15,9 +15,9 @@ imports no jax; run it with
   direction, against the plain version.
 - A step of path (i)'s switches at N = 192 in both regimes against the CPU
   from one state, with exact launch counts.
-- What has no kernel raises ValueError on a CUDA tensor (bf16, row or
-  fused, odd N), and the C entry refuses lengths, plans and blocks it
-  does not take.
+- What has no kernel raises ValueError on a CUDA tensor (odd N and N
+  above 8192, row or fused, at every precision), and the C entry refuses
+  lengths, plans and blocks it does not take.
 - The f32 fused mixed-radix kernel (csrc/fused_rows_mixed_f32.cuh, #5 and
   #6 at those lengths), every channel of the three sets, both stores, at
   ragged M and at a row offset: one launch counted under
@@ -25,7 +25,17 @@ imports no jax; run it with
   version (the assembly in torch, then torch.fft) and 1e-6·max of the
   float64 DFT of the float64 assembly; its C entry's refusals; path (i)'s
   switches on ``pallas_fused`` at N = 96 and 1536, card against CPU; a
-  gradient and bf16 refused at 1536.
+  gradient refused at 1536, where bf16 steps.
+- The matrix engine behind those kernels' loads and stores (the other
+  tiers and forms at those lengths; entries tpu_matrix_rows_any and
+  tpu_matrix_fused_rows_any): bf16 and bf16x3 direct, either store, and
+  the three-factor form at f32, bf16 and bf16x3 (where 128 | N), row and
+  fused, both directions, at n1 = N/2 (96, 106, 160, 2042, 8186) and
+  n1 = 128 (384, 768, 1536), ragged M and C = 3: one launch under its
+  name (fft.planes.mixed_kernel_name), within the tier's band of the plain
+  version and of float64; the backward at bf16; the entries' refusals;
+  path (i)'s switches at bf16 at N = 96 on ``pallas`` and
+  ``pallas_fused``, card against CPU.
 """
 
 import numpy as np
@@ -170,16 +180,19 @@ def test_slice_step_against_the_cpu(cuda, natural, monkeypatch):
 
 
 def test_what_has_no_kernel_raises_on_a_cuda_tensor(cuda):
-    re, im = _planes((1, 8, 96), cuda)
-    for fn in (planes.fft1d_transposed, planes.fft1d_natural_large):
-        with pytest.raises(ValueError, match="sizes"):
-            fn(re, im, True, "bfloat16")
-    with pytest.raises(ValueError, match="sizes"):
-        fused.assemble_rowfft((re[0], im[0], re[0], im[0]), im[0], 1.0, 1.0,
-                              epsilon=1e-4, ch_count=1, precision="bfloat16")
-    odd = _planes((1, 8, 95), cuda)
-    with pytest.raises(ValueError, match="even lengths"):
-        planes.fft1d_transposed(*odd)
+    """Odd N and N above 8192 have no kernel at any tier, row or fused:
+    ValueError before any launch. (bf16 at N = 96, once refused here, runs
+    the matrix engine behind the mixed-radix kernel's loads and stores.)"""
+    for n in (95, 8194):
+        re, im = _planes((1, 2, n), cuda)
+        for precision in ("float32", "bfloat16"):
+            for fn in (planes.fft1d_transposed, planes.fft1d_natural_large):
+                with pytest.raises(ValueError, match="even lengths"):
+                    fn(re, im, True, precision)
+            with pytest.raises(ValueError, match="even"):
+                fused.assemble_rowfft((re[0], im[0], re[0], im[0]), im[0],
+                                      1.0, 1.0, epsilon=1e-4, ch_count=1,
+                                      precision=precision)
     assert _counts() == {}
 
 
@@ -361,16 +374,240 @@ def test_fused_slice_step_against_the_cpu(cuda, n):
 
 def test_fused_at_1536_refuses_a_gradient_and_bf16(cuda):
     """A gradient through ``pallas_fused`` raises NotImplementedError
-    before any launch (JAX gives the fused kernels no VJP); bf16 on
-    ``pallas_fused`` at 1536 raises ValueError naming the ROADMAP row."""
+    before any launch (JAX gives the fused kernels no VJP), at f32 and at
+    bf16; bf16 on ``pallas_fused`` at 1536, once refused, constructs and
+    steps on the matrix engine (2 fused and 3 row launches a step)."""
     cfg = OCEAN_DEMO.replace(resolution=1536)
     kw = dict(SLICE, fft_backend="pallas_fused")
-    solver = OceanSolver(cfg, **kw)
-    st = solver.init(torch.Generator().manual_seed(0))
+    for precision in ("float32", "bfloat16"):
+        solver = OceanSolver(cfg.replace(precision=precision), **kw)
+        st = solver.init(torch.Generator().manual_seed(0))
+        planes.named_launches.clear()
+        leaf = st.h0_re.clone().requires_grad_()
+        with pytest.raises(NotImplementedError, match='fft_backend="pallas"'):
+            solver.step(st._replace(h0_re=leaf), 1 / 60)
+        assert _counts() == {}
+    _, f = solver.step(st, 1 / 60)
+    assert bool(torch.isfinite(f.height).all())
+    assert _counts() == {"matrix_fused_mixed_transposed[bf16,packed3]": 2,
+                         "matrix_rows_mixed_transposed[bf16]": 3,
+                         "fields_stencil": 1}
+
+
+# ------------------------------- the matrix engine at those lengths
+
+#: (store, precision, B3 threshold, three-factor threshold) of each mode
+#: the matrix engine runs behind the mixed-radix kernels' loads and stores,
+#: by its named_launches tags: bf16 and bf16x3 direct, either store; the
+#: three-factor form (transposed only, where 128 | N) at f32, bf16, bf16x3
+OFF = 1 << 30
+MODES = {"bf16": ("bfloat16", OFF, OFF), "bf16x3": ("float32", 0, OFF),
+         "f32,split3": ("float32", OFF, 0),
+         "bf16,split3": ("bfloat16", OFF, 0),
+         "bf16x3,split3": ("float32", 0, 0)}
+#: each mode's band against the plain version (chip_smoke.TIER_BAND) and
+#: against float64 (tests/test_torch_precision.py TO_F64)
+TO_PLAIN = {"bf16": 2e-3, "bf16x3": 1e-5, "f32": 1e-5}
+TO_F64 = {"bf16": 1e-2, "bf16x3": 5e-5, "f32": 1e-5}
+
+#: [C, M, N] of the direct modes: n1 = N/2 at 96, 106 (odd, 53, padded to
+#: 56), 160 and 2042 (1021), n1 = 128 at 768 and 1536 (n2 = 6, 12), at
+#: M = N, ragged M and C = 3; 8186 (n1 = 4093) at M = 1 and 8
+MATRIX_SHAPES = [(1, 96, 96), (2, 13, 96), (3, 106, 106), (1, 37, 106),
+                 (1, 160, 160), (1, 768, 768), (1, 1536, 1536),
+                 (1, 1, 1536), (1, 64, 2042), (1, 1, 8186), (1, 8, 8186)]
+#: the three-factor form: 128 | N
+SPLIT3_SHAPES = [(1, 384, 384), (2, 13, 768), (1, 1536, 1536),
+                 (1, 1, 1536)]
+MATRIX_CASES = ([(store, mode, shape) for mode in ("bf16", "bf16x3")
+                 for store in ("transposed", "natural")
+                 for shape in MATRIX_SHAPES]
+                + [("transposed", mode, shape)
+                   for mode in ("f32,split3", "bf16,split3", "bf16x3,split3")
+                   for shape in SPLIT3_SHAPES])
+
+
+def _mode(monkeypatch, mode):
+    precision, b3, split3 = MODES[mode]
+    monkeypatch.setattr(planes, "KERNEL_B3_THRESHOLD", b3)
+    monkeypatch.setattr(planes, "THREE_FACTOR_THRESHOLD", split3)
+    return precision
+
+
+@pytest.mark.parametrize("inverse", [True, False])
+@pytest.mark.parametrize("store,mode,shape", MATRIX_CASES,
+                         ids=[f"{s}-{m}-{'x'.join(map(str, sh))}"
+                              for s, m, sh in MATRIX_CASES])
+def test_matrix_kernel_matches_plain_and_float64(cuda, monkeypatch, store,
+                                                 mode, shape, inverse):
+    """One launch of tpu_matrix_rows_any under its name, within the tier's
+    band of the plain version (fft/matrix.py, the same rounded operands)
+    and of float64."""
+    precision = _mode(monkeypatch, mode)
+    fn, plain = _wrappers(store)
+    tier, split3 = planes.engine(shape[-1], precision, store == "transposed")
+    assert f"{tier}{',split3' if split3 else ''}" == mode
+    re, im = _planes(shape, cuda, seed=shape[-1] + shape[-2])
+    got = fn(re, im, inverse, precision)
+    assert _counts() == {f"matrix_rows_mixed_{store}[{mode}]": 1}
+    z = torch.complex(re.double(), im.double())
+    ref = (torch.fft.ifft(z, dim=-1, norm="forward") if inverse
+           else torch.fft.fft(z, dim=-1))
+    if store == "transposed":
+        ref = ref.transpose(-1, -2)
+    assert (_rel(got, plain(re, im, inverse, precision))
+            <= TO_PLAIN[tier])
+    assert _rel(got, (ref.real, ref.imag)) <= TO_F64[tier]
+
+
+@pytest.mark.parametrize("store", ["transposed", "natural"])
+def test_matrix_backward_runs_the_kernel_in_the_opposite_direction(cuda,
+                                                                   store):
+    """bf16 at [1, 96, 96]: the backward's launch is the matrix kernel's in
+    the forward direction, against the plain version there."""
+    fn, plain = _wrappers(store)
+    x = [p.requires_grad_() for p in _planes((1, 96, 96), cuda, seed=2)]
+    yr, yi = fn(*x, True, "bfloat16")
+    cts = _planes(tuple(yr.shape), cuda, seed=3)
+    grads = torch.autograd.grad((yr, yi), x, cts)
+    assert _counts() == {f"matrix_rows_mixed_{store}[bf16]": 2}
+    if store == "transposed":
+        want = [w.transpose(-1, -2) for w in plain(
+            *(c.transpose(-1, -2).contiguous() for c in cts), False,
+            "bfloat16")]
+    else:
+        want = plain(*cts, False, "bfloat16")
+    assert _rel(grads, want) <= TO_PLAIN["bf16"]
+
+
+#: (store, mode) of the fused modes: bf16 and bf16x3 direct, either
+#: store; the three-factor form at f32 and bf16x3, transposed
+FUSED_MODES = [("transposed", "bf16"), ("natural", "bf16"),
+               ("transposed", "bf16x3"), ("natural", "bf16x3"),
+               ("transposed", "f32,split3"), ("transposed", "bf16x3,split3")]
+#: (M, N, row offset, first channel, channels), as FUSED_SHAPES: N = 96,
+#: 106 and 1536 (three-factor: 768, 1536), the half channel, a ragged
+#: batch at a row offset across the Nyquist row from channel 1 on
+MATRIX_FUSED_SHAPES = [(96, 96, 0, 0, None), (53, 106, 0, -1, 1),
+                       (37, 106, 40, 1, None), (13, 1536, 760, 1, None)]
+SPLIT3_FUSED_SHAPES = [(768, 768, 0, 0, None), (384, 768, 0, -1, 1),
+                       (13, 1536, 760, 1, None)]
+MATRIX_FUSED_CASES = [(store, mode, shape) for store, mode in FUSED_MODES
+                      for shape in (SPLIT3_FUSED_SHAPES if "split3" in mode
+                                    else MATRIX_FUSED_SHAPES)]
+
+
+@pytest.mark.parametrize("channel_set", list(SETS))
+@pytest.mark.parametrize("store,mode,shape", MATRIX_FUSED_CASES,
+                         ids=[f"{s}-{m}-" + "x".join(map(str, sh[:3]))
+                              + f"-ch{sh[3]}"
+                              for s, m, sh in MATRIX_FUSED_CASES])
+def test_matrix_fused_kernel_matches_plain_and_float64(cuda, monkeypatch,
+                                                       store, mode, shape,
+                                                       channel_set):
+    """One launch of tpu_matrix_fused_rows_any under its name, each channel
+    within the tier's band of the plain version (the assembly in torch,
+    then the matrix engine's plain row DFT) and of the float64 DFT of the
+    float64 assembly."""
+    precision = _mode(monkeypatch, mode)
+    m, n, offset, ch, count = shape
+    packed, nch_live = SETS[channel_set]
+    total = fused.channel_count(packed, nch_live)
+    ch = ch % total
+    count = count or total - ch
+    natural = store == "natural"
+    tier, _ = planes.engine(n, precision, not natural)
+    h0, phase = _fused_inputs(m, n, cuda, seed=m + n + ch)
+    length = OCEAN_DEMO.length
+    kw = dict(epsilon=1e-4, ch_start=ch, ch_count=count, row_offset=offset,
+              packed=packed, nch_live=nch_live, precision=precision)
+    fn, plain = ((fused.assemble_rowfft_natural,
+                  fused.assemble_rowfft_natural_plain) if natural else
+                 (fused.assemble_rowfft, fused.assemble_rowfft_plain))
+    got = fn(h0, phase, length, -1.0, **kw)
+    assert _counts() == {
+        f"matrix_fused_mixed_{store}[{mode},{channel_set}]": 1}
+    want = plain(h0, phase, length, -1.0, **kw)
+    for c in range(count):
+        gc = tuple(g[c] for g in got)
+        assert _rel(gc, tuple(w[c] for w in want)) <= TO_PLAIN[tier]
+        ref = torch.fft.ifft(_assembly_f64(
+            h0, phase, length, -1.0, epsilon=1e-4, ch=ch + c, packed=packed,
+            nch_live=nch_live, row_offset=offset), dim=-1, norm="forward")
+        if not natural:
+            ref = ref.transpose(0, 1)
+        assert _rel(gc, (ref.real, ref.imag)) <= TO_F64[tier]
+
+
+#: what the matrix entries refuse: (tier, split3, natural, n, rows)
+MATRIX_REFUSED = {"f32_direct": (0, 0, 0, 96, 1),
+                  "power_of_two": (1, 0, 0, 128, 1),
+                  "odd": (1, 0, 0, 95, 1), "long": (1, 0, 0, 8194, 1),
+                  "short": (1, 0, 0, 14, 1),
+                  "split3_n1": (1, 1, 0, 96, 1),
+                  "split3_natural": (1, 1, 1, 384, 1),
+                  "rows": (1, 0, 0, 96, 3), "no_rows": (1, 0, 0, 96, 0),
+                  "smem": (1, 0, 0, 8190, 2), "tier": (3, 0, 0, 96, 1)}
+
+
+@pytest.mark.parametrize("fused_entry", [False, True], ids=["rows", "fused"])
+@pytest.mark.parametrize("what", list(MATRIX_REFUSED))
+def test_the_matrix_c_entries_refuse_what_they_do_not_take(cuda, what,
+                                                           fused_entry):
+    """f32 direct (the mixed-radix entries'), a power of two, an odd N or
+    one outside [16, 8192], the three-factor form at n1 ≠ 128 or with the
+    natural store, rows not a power of two or none, a block beyond the
+    card's shared memory (two rows of 8190), an unknown tier: refused (a
+    CUDA error), never run; the next launch is not disturbed."""
+    from tpu_ocean_torch import _build
+    tier, split3, natural, n, rows = MATRIX_REFUSED[what]
+    lib = _build.load().lib
+    re, im = _planes((1, 2, n), cuda)
+    out = torch.empty(2, n, 2, device=cuda)
+    tables = planes.matrix_tables(96, True, False, cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    if fused_entry:
+        kz = torch.zeros(n, device=cuda)
+        err = lib.tpu_matrix_fused_rows_any(
+            re.data_ptr(), im.data_ptr(), re.data_ptr(), im.data_ptr(),
+            im.data_ptr(), kz.data_ptr(), out.data_ptr(), out.data_ptr(),
+            tables.data_ptr(), 1, 0, 2, n, rows, 0, 1, 3, natural, tier,
+            split3, 1.0, -1.0, 1e-4, stream)
+    else:
+        err = lib.tpu_matrix_rows_any(
+            re.data_ptr(), im.data_ptr(), out.data_ptr(), out.data_ptr(),
+            tables.data_ptr(), 1, 2, n, rows, natural, tier, split3, stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.load().check(err, "tpu_matrix_rows_any")
+    good = _planes((1, 4, 96), cuda)
+    assert _rel(planes.fft1d_transposed(*good, True, "bfloat16"),
+                planes.fft1d_transposed_plain(*good, True, "bfloat16")) \
+        <= TO_PLAIN["bf16"]
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas_fused"])
+def test_bfloat16_slice_step_against_the_cpu(cuda, backend):
+    """Path (i)'s switches at N = 96 and precision="bfloat16", 3 steps on
+    the card and on the CPU from one state, held as chip_smoke.py holds
+    its bf16 paths (compare_fields at BF16_REL); every pass on the matrix
+    engine behind the mixed-radix kernels' loads and stores."""
+    from chip_smoke import BF16_REL, compare_fields
+    cfg = OCEAN_DEMO.replace(resolution=96, precision="bfloat16")
+    kw = dict(SLICE, fft_backend=backend)
+    card = OceanSolver(cfg, **kw)
+    cpu = OceanSolver(cfg, device="cpu", **kw)
+    state = card.init(torch.Generator().manual_seed(0))
+    cpu_state = state_from_numpy(state, "cpu")
     planes.named_launches.clear()
-    leaf = st.h0_re.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match='fft_backend="pallas"'):
-        solver.step(st._replace(h0_re=leaf), 1 / 60)
-    assert _counts() == {}
-    with pytest.raises(ValueError, match="sizes"):
-        OceanSolver(cfg.replace(precision="bfloat16"), **kw)
+    for _ in range(3):
+        state, got = card.step(state, 1 / 60)
+        cpu_state, want = cpu.step(cpu_state, 1 / 60)
+    per_step = ({"matrix_rows_mixed_transposed[bf16]": 5}
+                if backend == "pallas" else
+                {"matrix_fused_mixed_transposed[bf16,packed3]": 2,
+                 "matrix_rows_mixed_transposed[bf16]": 3})
+    assert _counts() == {**{k: 3 * v for k, v in per_step.items()},
+                         "fields_stencil": 3}
+    compare_fields(fields_to_numpy(got), fields_to_numpy(want), cfg,
+                   f"bf16 {backend} 96", rel=BF16_REL)

@@ -323,8 +323,9 @@ def test_what_jax_refuses_raises_value_error(change):
 def test_sizes_the_kernels_do_not_take_raise(n):
     """N % 16 != 0 is refused everywhere (as in JAX). N = 96 steps on the
     CPU; on the card the size rule (fft.planes.check_card_sizes) takes it
-    at f32 in the direct form and refuses it at bf16, naming the ROADMAP
-    row, before anything is allocated there."""
+    at f32 and at bf16 (once refused: the matrix engine behind the
+    mixed-radix kernel's loads and stores), and refuses N = 8320, above
+    8192, before anything is allocated there."""
     cfg = OCEAN_DEMO.replace(resolution=n)
     if n % 16:
         for device in ("cuda", "cpu"):
@@ -332,8 +333,10 @@ def test_sizes_the_kernels_do_not_take_raise(n):
                 OceanSolver(cfg, device=device, **SLICE)
         return
     planes.check_card_sizes(n, "float32", half=True)
-    with pytest.raises(ValueError, match="sizes"):
-        OceanSolver(cfg.replace(precision="bfloat16"), device="cuda", **SLICE)
+    planes.check_card_sizes(n, "bfloat16", half=True)
+    with pytest.raises(ValueError, match="even lengths"):
+        OceanSolver(cfg.replace(resolution=8320, precision="bfloat16"),
+                    device="cuda", **SLICE)
     solver = OceanSolver(cfg, device="cpu", **SLICE)
     state, fields = solver.step(solver.init(), 1 / 60)
     assert int(state.step) == 1 and bool(torch.isfinite(fields.height).all())

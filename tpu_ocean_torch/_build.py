@@ -48,6 +48,10 @@ _SIGNATURES = {
     "tpu_fused_rows_transposed": _FUSED,
     "tpu_fused_rows_natural": _FUSED,
     "tpu_fused_rows_mixed": [_P] * 9 + [_I] * 11 + [_F] * 3 + [_P] * 2,
+    # the other tiers and forms at lengths that are not powers of two:
+    # (natural, tier, split3) after the row or fused entry's other ints
+    "tpu_matrix_rows_any": [_P] * 5 + [_I] * 7 + [_P],
+    "tpu_matrix_fused_rows_any": [_P] * 9 + [_I] * 11 + [_F] * 3 + [_P],
     "tpu_fields_stencil": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "tpu_fields_stencil_v1": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "tpu_gerstner_bank": [_P] * 7 + [_I, _I, _I, _F, _I, _P],

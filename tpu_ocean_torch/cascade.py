@@ -164,6 +164,8 @@ class CascadeSolver:
                 "(ROADMAP.md Queue 1 item 14)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and fft_backend == "pallas":
+            # every tier and form has a kernel at every even N in
+            # [16, 8192]: this refuses N above 8192 only
             check_card_sizes(n, cfgs[0].precision, half=half_spectrum)
         self.pallas_fields = bool(pallas_fields)
         self.real_state = bool(real_state)

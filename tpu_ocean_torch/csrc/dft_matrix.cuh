@@ -1,5 +1,7 @@
-// The matrix-form DFT engine of the row kernels (fft_rows.cu, fused_rows.cu):
-// the precision tiers and the three-factor form of the TPU kernels.
+// The matrix-form DFT engine of the row kernels (fft_rows.cu, fused_rows.cu,
+// and at even lengths that are not powers of two rows_mixed_f32.cuh and
+// fused_rows_mixed_f32.cuh): the precision tiers and the three-factor form
+// of the TPU kernels.
 //
 // Replaces, in tpu_ocean/fft/pallas_fft.py: the products of
 // _fft_block_kernel and _rowfft_core at precision DEFAULT (one bf16 pass)
@@ -9,19 +11,23 @@
 // _fused_kernel_split3 and _fused_rowfft_kernel_natural. Two row passes
 // have kernels of their own: bf16 in the direct form, both stores
 // (dft_bf16_rows.cuh), and the three-factor form at f32
-// (dft_split3_f32.cuh) and at bf16x3 (dft_split3_bf16x3.cuh); the engine
-// runs the rest and every fused tier.
+// (dft_split3_f32.cuh) and at bf16x3 (dft_split3_bf16x3.cuh), at powers
+// of two; the engine runs the rest, every tier and form but f32 direct at
+// the other even lengths, and every fused tier but bf16 natural.
 //
 // matrix_dft_stages<Tier, kSplit3> is a drop-in for stockham_stages: the R
 // rows of length N sit in the first shared buffer (stride N + 1 float2),
 // and it leaves natural-order rows in the buffer it returns. It runs the
-// four-step N = n2 · n1 (n1 = 128, or N / 2 below 128, as _split_lanes):
+// four-step N = n2 · n1 (n1 = lanes_n1(N): 128 where 128 | N, else N / 2,
+// as _split_lanes):
 //   C[k2, t]        = Σ_s F2[k2, s] · x[s·n1 + t]
 //   X[k1·n2 + k2]   = Σ_t F1[k1, t] · (C ⊙ T)[k2, t]
 // or, with kSplit3, stage 2 as two contractions of depth 8 and 16 with the
 // in-block twiddle TW between them. The tables are complex f32, built in
-// float64 on the host and read from device memory (L2-resident; F1 alone is
-// 128 KB, which does not fit beside the rows at N = 8192).
+// float64 on the host and read from device memory (L2-resident where n1 =
+// 128: F1 alone is 128 KB, which does not fit beside the rows at N = 8192;
+// at n1 = N / 2 it is n1² complex, 8.3 MB at N = 2042 and 134 MB at 8190,
+// more than the 50 MB L2).
 //
 // Every contraction is a complex matrix product out[i, col] =
 // Σ_k F[i, k] · in[k, col] over the columns col = (row, other digits). A
@@ -37,15 +43,20 @@
 //     at B3 (p1 = HIGHEST).
 //   f32 (the three-factor form, and stage 1 at bf16x3): FFMA, each lane
 //     2 complex outputs.
-// Depths below 8 complex (n2 = 2, 4, and 1 at N = 128) are zero-padded;
-// rows past the table's size are dropped.
+// Depths that are not a multiple of 8 complex (n2 = 2, 4, and 1 at N = 128;
+// n2 = 3, 6, 12 at N = 384, 768, 1536; n1 = 53 at N = 106) are zero-padded
+// to the next multiple; rows past the table's size are dropped.
 //
 // What bounds it on the H100: device memory, as the Stockham kernels (16 B
 // a point for a row pass). At N = 1024 the direct form does 8·(n1 + n2) =
 // 1088 real flops a point (at bf16x3 8·n2 on FFMA and 3·8·n1 on the
 // tensor cores), ~1.1 µs of the tensor cores'
 // 989 TFLOP/s for a [1024, 1024] pass against a 5 µs byte bound; the
-// three-factor form does 8·(n2 + 8 + 16) on FFMA at f32. This first engine
+// three-factor form does 8·(n2 + 8 + 16) on FFMA at f32. Where 128 does not
+// divide N, n1 = N / 2 makes stage 2 a dense DFT of half the row: 8·(N/2 +
+// 2) flops a point, and each block reads all of F1 once for its R rows
+// (R = 1 from N = 4096 on natural, so at N = 8186 the 134 MB F1 once a row,
+// through L2). This first engine
 // converts operands at every fragment load and reads the tables through
 // L1 without staging them: simple and right before it is fast.
 
@@ -63,10 +74,21 @@ enum Tier : int { kTierF32 = 0, kTierBf16 = 1, kTierBf16x3 = 2 };
 constexpr int kSplitW = 8;     // stage 2 of the three-factor form: 128 = W·U
 constexpr int kSplitU = 16;
 
-// n1 of the four-step N = n2 · n1 (pallas_fft._split_lanes for powers of 2)
-__host__ __device__ __forceinline__ int lanes_n1(int n) {
-  return n >= 128 ? 128 : n / 2;
+// n1 of the four-step N = n2 · n1 at an even N (pallas_fft._split_lanes):
+// 128 where 128 divides N, else N / 2 (the largest divisor of N up to N / 2),
+// so n2 = 2 at every even N that 128 does not divide
+__host__ __device__ constexpr int lanes_n1(int n) {
+  return n % 128 == 0 ? 128 : n / 2;
 }
+// at powers of two the rule the power-of-two kernels were written for:
+// N / 2 below 128, then 128
+static_assert(lanes_n1(16) == 8 && lanes_n1(64) == 32 &&
+                  lanes_n1(128) == 128 && lanes_n1(1024) == 128 &&
+                  lanes_n1(8192) == 128,
+              "lanes_n1 at powers of two");
+static_assert(lanes_n1(96) == 48 && lanes_n1(106) == 53 &&
+                  lanes_n1(1536) == 128 && lanes_n1(8186) == 4093,
+              "lanes_n1 at other even lengths");
 
 // One contraction: out[pos_out(i, col)] = Σ_k table[i, k] · in[pos_in(k, col)]
 // (· tw[pos_in & tw_mask] when tw is set), for each column col = r·o + oh·o_lo
@@ -152,6 +174,24 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The tensor cores' f32 accumulation is not a sum rounded to nearest at
+// every step: over a deep contraction it drifts from one (on the H100, the
+// bf16x3 tier at n1 = 4093 summed on the tensor cores alone read 2.7e-5 x
+// max against float64, the plain version 3.4e-6; tools/
+// bf16x3_sums_variants.py). So a tile's mma accumulator covers
+// kPromoteBlocks depth blocks (128 complex values, all of n1 = 128) and is
+// then added into an f32 sum rounded to nearest and zeroed (3.5e-6 there).
+// Up to that depth the result is the single accumulator's, bit for bit.
+constexpr int kPromoteBlocks = 16;
+
+__device__ __forceinline__ void promote(float (&acc)[4], float (&d)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    acc[j] = __fadd_rn(acc[j], d[j]);
+    d[j] = 0.f;
+  }
+}
+
 // One contraction on the tensor cores. Lane (g = lane / 4, q = lane % 4) of
 // a warp's 8 × 8 complex tile holds, in m16n8k16's fragment layout:
 //   A rows g (re) and g + 8 (im) of output i = 8·tm + g, depth columns
@@ -177,40 +217,46 @@ __device__ __forceinline__ void contract_mma(const float2* src, float2* dst,
     const int i = tm * 8 + g;
     const Column bc = column(s, tn * 8 + g, cols, stride);
     float d[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int kb = 0; kb < kt; ++kb) {
-      const int k0 = kb * 8 + q;
-      const float2 f0 = load_table(s, i, k0);
-      const float2 f1 = load_table(s, i, k0 + 4);
-      const float2 x0 = load_input(src, s, bc, k0);
-      const float2 x1 = load_input(src, s, bc, k0 + 4);
-      if constexpr (kTier == kTierBf16) {
-        const uint32_t a[4] = {
-            pack_bf16(__float2bfloat16_rn(f0.x), __float2bfloat16_rn(-f0.y)),
-            pack_bf16(__float2bfloat16_rn(f0.y), __float2bfloat16_rn(f0.x)),
-            pack_bf16(__float2bfloat16_rn(f1.x), __float2bfloat16_rn(-f1.y)),
-            pack_bf16(__float2bfloat16_rn(f1.y), __float2bfloat16_rn(f1.x))};
-        const uint32_t b[2] = {
-            pack_bf16(__float2bfloat16_rn(x0.x), __float2bfloat16_rn(x0.y)),
-            pack_bf16(__float2bfloat16_rn(x1.x), __float2bfloat16_rn(x1.y))};
-        mma_bf16(d, a, b);
-      } else {
-        uint32_t ah[4], al[4], bh[2], bl[2];
-        split_pair(f0.x, -f0.y, ah[0], al[0]);
-        split_pair(f0.y, f0.x, ah[1], al[1]);
-        split_pair(f1.x, -f1.y, ah[2], al[2]);
-        split_pair(f1.y, f1.x, ah[3], al[3]);
-        split_pair(x0.x, x0.y, bh[0], bl[0]);
-        split_pair(x1.x, x1.y, bh[1], bl[1]);
-        mma_bf16(d, ah, bh);
-        mma_bf16(d, ah, bl);
-        mma_bf16(d, al, bh);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int kc = 0; kc < kt; kc += kPromoteBlocks) {
+      const int kend = min(kt, kc + kPromoteBlocks);
+      for (int kb = kc; kb < kend; ++kb) {
+        const int k0 = kb * 8 + q;
+        const float2 f0 = load_table(s, i, k0);
+        const float2 f1 = load_table(s, i, k0 + 4);
+        const float2 x0 = load_input(src, s, bc, k0);
+        const float2 x1 = load_input(src, s, bc, k0 + 4);
+        if constexpr (kTier == kTierBf16) {
+          const uint32_t a[4] = {
+              pack_bf16(__float2bfloat16_rn(f0.x), __float2bfloat16_rn(-f0.y)),
+              pack_bf16(__float2bfloat16_rn(f0.y), __float2bfloat16_rn(f0.x)),
+              pack_bf16(__float2bfloat16_rn(f1.x), __float2bfloat16_rn(-f1.y)),
+              pack_bf16(__float2bfloat16_rn(f1.y), __float2bfloat16_rn(f1.x))};
+          const uint32_t b[2] = {
+              pack_bf16(__float2bfloat16_rn(x0.x), __float2bfloat16_rn(x0.y)),
+              pack_bf16(__float2bfloat16_rn(x1.x), __float2bfloat16_rn(x1.y))};
+          mma_bf16(d, a, b);
+        } else {
+          uint32_t ah[4], al[4], bh[2], bl[2];
+          split_pair(f0.x, -f0.y, ah[0], al[0]);
+          split_pair(f0.y, f0.x, ah[1], al[1]);
+          split_pair(f1.x, -f1.y, ah[2], al[2]);
+          split_pair(f1.y, f1.x, ah[3], al[3]);
+          split_pair(x0.x, x0.y, bh[0], bl[0]);
+          split_pair(x1.x, x1.y, bh[1], bl[1]);
+          mma_bf16(d, ah, bh);
+          mma_bf16(d, ah, bl);
+          mma_bf16(d, al, bh);
+        }
       }
+      promote(acc, d);
     }
     if (i < s.m) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const Column oc = column(s, tn * 8 + 2 * q + j, cols, stride);
-        if (oc.ok) dst[oc.row + oc.out + i * s.out_i] = make_float2(d[j], d[j + 2]);
+        if (oc.ok)
+          dst[oc.row + oc.out + i * s.out_i] = make_float2(acc[j], acc[j + 2]);
       }
     }
   }
@@ -305,8 +351,12 @@ __device__ __forceinline__ const float2* matrix_dft_stages(
 // needs before the rows arrive (prologue) and transforms them (run).
 // StockhamEngine only names f32 in the direct form, whose passes run
 // kernels of their own (stockham_rows_cluster.cuh, rows_natural_f32.cuh,
-// fused_rows_natural_f32.cuh, fused_rows_transposed_f32.cuh).
-struct StockhamEngine {};
+// fused_rows_natural_f32.cuh, fused_rows_transposed_f32.cuh, and
+// rows_mixed_f32.cuh's mixed-radix stages). kThreeFactor: the
+// three-factor form, which has the transposed store only.
+struct StockhamEngine {
+  static constexpr bool kThreeFactor = false;
+};
 
 template <int kTier, bool kSplit3>
 struct MatrixEngine {
@@ -317,12 +367,23 @@ struct MatrixEngine {
                                       int /*log2n*/) {
     return matrix_dft_stages<kTier, kSplit3>(src, dst, tables, R, N);
   }
-  // whole warps: mma.sync needs all 32 lanes
+  static constexpr bool kThreeFactor = kSplit3;
+  // whole warps, at least one: mma.sync needs all 32 lanes (rows · n / 2
+  // is a whole number of warps at powers of two from n = 64 on, not at
+  // n = 106)
   static int threads(int rows, int n) {
     const int t = block_threads(rows, n);
-    return t < 32 ? 32 : t;
+    return t < 32 ? 32 : (t + 31) / 32 * 32;
   }
 };
+
+// Dynamic shared memory of one block of the engine behind the mixed-radix
+// kernels' loads and stores (rows_mixed_f32.cuh, fused_rows_mixed_f32.cuh):
+// two buffers of `rows` rows of n + 1 complex values, no table (the engine
+// reads its tables from device memory)
+inline int matrix_smem_bytes(int rows, int n) {
+  return static_cast<int>(2 * rows * (n + 1) * sizeof(float2));
+}
 
 // Calls fn(engine) with the engine of (tier, split3): StockhamEngine for
 // f32 direct, else the matrix engine. The three-factor form exists for

@@ -41,10 +41,13 @@
 //     matrix-form engine of dft_matrix.cuh between a coalesced load of R
 //     rows into shared memory and stockham.cuh's stores (`tables`
 //     planes.matrix_tables).
-// Those take powers of two. At every other even N, f32 in the direct form
-// only, either store runs rows_mixed_f32.cuh (mixed-radix Stockham stages,
-// a generic stage for each odd prime factor) through its own entry,
-// tpu_fft_rows_mixed (`tables` planes.mixed_twiddles).
+// Those take powers of two. Every other even N runs rows_mixed_f32.cuh's
+// kernel, either store, through entries of its own: f32 in the direct form
+// on its mixed-radix Stockham stages (a generic stage for each odd prime
+// factor), tpu_fft_rows_mixed (`tables` planes.mixed_twiddles); every
+// other tier and form on the matrix-form engine of dft_matrix.cuh behind
+// the same loads and stores, tpu_matrix_rows_any (`tables`
+// planes.matrix_tables).
 // Twiddles and tables are built on the host in float64 and rounded to f32;
 // nothing is computed with fast sin/cos.
 
@@ -61,11 +64,6 @@
 namespace {
 
 using namespace tpu_fft;
-
-template <class Engine>
-constexpr bool kThreeFactor = false;
-template <int kTier>
-constexpr bool kThreeFactor<MatrixEngine<kTier, true>> = true;
 
 template <bool kNatural, class Engine>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -118,7 +116,7 @@ int launch(const void* re, const void* im, void* out_re, void* out_im,
                                         MatrixEngine<kTierBf16, false>>) {
       return launch_bf16_rows<kNatural>(re, im, out_re, out_im, tables,
                                         channels, m, n, rows, stream);
-    } else if constexpr (kNatural && kThreeFactor<Engine>) {
+    } else if constexpr (kNatural && Engine::kThreeFactor) {
       // no natural three-factor store: with_engine refuses it first
       return static_cast<int>(cudaErrorInvalidValue);
     } else if constexpr (std::is_same_v<Engine, MatrixEngine<kTierF32, true>>) {
@@ -150,8 +148,9 @@ extern "C" {
 
 // Each entry launches its kernel on `stream` and returns cudaGetLastError()
 // as an int. The caller checks (planes.require_card_kernel): n a power of
-// two in [16, 8192] for these two entries (an even n in that range that is not
-// a power of two goes to tpu_fft_rows_mixed, f32 direct only), rows a
+// two in [16, 8192] for these two entries (an even n in that range that is
+// not a power of two goes to tpu_fft_rows_mixed at f32 direct and to
+// tpu_matrix_rows_any at every other tier and form), rows a
 // power of two that keeps the shared memory within the card's limit,
 // contiguous f32 planes, `tables` the Stockham twiddles (tier 0, split3 0,
 // transposed),
@@ -192,6 +191,27 @@ int tpu_fft_rows_mixed(const void* re, const void* im, void* out_re,
   return launch_rows_mixed(natural != 0, re, im, out_re, out_im, tables,
                            channels, m, n, rows, static_cast<const int*>(plan),
                            stages, table, stream);
+}
+
+// Every other tier and form at an even n in [16, 8192] that is not a power
+// of two, transposed (natural = 0) or natural (1) store: tier 1 (bf16) or
+// 2 (bf16x3) in the direct form, or the three-factor form (split3 1) at
+// any tier with the transposed store where 128 divides n; rows a power of
+// two whose two buffers (planes.matrix_mixed_shared_bytes) fit the card's
+// shared memory, `tables` planes.matrix_tables(n, inverse, split3). f32
+// direct (tpu_fft_rows_mixed's), a power of two, an odd n or one outside
+// that range, a three-factor form with n1 ≠ 128 or the natural store, and
+// any other rows are refused, never run on another kernel.
+int tpu_matrix_rows_any(const void* re, const void* im, void* out_re,
+                        void* out_im, const void* tables, int channels, int m,
+                        int n, int rows, int natural, int tier, int split3,
+                        void* stream) {
+  return natural ? launch_rows_matrix<true>(re, im, out_re, out_im, tables,
+                                            channels, m, n, rows, tier,
+                                            split3, stream)
+                 : launch_rows_matrix<false>(re, im, out_re, out_im, tables,
+                                             channels, m, n, rows, tier,
+                                             split3, stream);
 }
 
 const char* tpu_cuda_error_string(int err) {

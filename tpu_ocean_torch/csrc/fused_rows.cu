@@ -37,11 +37,14 @@
 //   natural, bf16 direct: fused_rows_natural_bf16.cuh — the bf16 row
 //     kernel's stages (dft_bf16_rows.cuh) behind a fused load that
 //     assembles 4 points a lane and stages them as bf16 pairs;
-//   either store, f32 direct, at an even N that is not a power of two:
-//     fused_rows_mixed_f32.cuh — the mixed-radix row kernel's stages and
-//     stores (rows_mixed_f32.cuh) behind a load that assembles each row
-//     into its first buffer; a block per R rows of one channel;
-//   the other tiers and forms, either store: fused_rows_kernel below on
+//   either store, every tier and form, at an even N that is not a power of
+//     two: fused_rows_mixed_f32.cuh — the mixed-radix row kernel's stages
+//     (f32 direct) or the matrix engine's (the rest) and its stores
+//     (rows_mixed_f32.cuh) behind a load that assembles each row into its
+//     first buffer; a block per R rows of one channel; entries
+//     tpu_fused_rows_mixed and tpu_matrix_fused_rows_any;
+//   the other tiers and forms, either store, at powers of two:
+//     fused_rows_kernel below on
 //     dft_matrix.cuh's stages. The loads are the row kernel's, five planes
 //     wide: one block reads R whole rows of each input plane with
 //     row-contiguous (coalesced) loads, several in flight per thread, and
@@ -188,7 +191,10 @@ int launch(const void* h0r, const void* h0i, const void* h0cr,
 extern "C" {
 
 // Each entry launches its kernel on `stream` and returns cudaGetLastError()
-// as an int. The caller checks: n a power of two >= 16, rows a power of two
+// as an int. The caller checks (planes.require_card_kernel): n a power of
+// two in [16, 8192] for these two entries (an even n there that is not one
+// goes to tpu_fused_rows_mixed at f32 direct, to tpu_matrix_fused_rows_any
+// at the other tiers and forms), rows a power of two
 // that keeps the shared memory within the card's limit, contiguous f32
 // [m, n] input planes, ch_start + channels within the channel set (packed
 // with nch_live 3: 2; with 5: 3; per-channel, packed 0: 5), `tables` the
@@ -247,6 +253,39 @@ int tpu_fused_rows_mixed(const void* h0r, const void* h0i, const void* h0cr,
                                  ch_start, m, n, rows,
                                  static_cast<const int*>(plan), stages, table,
                                  p, stream);
+}
+
+// Every other tier and form of the fused pass at an even n in [16, 8192]
+// that is not a power of two, transposed (natural = 0) or natural (1)
+// store: the other arguments as above, tier 1 (bf16) or 2 (bf16x3) in the
+// direct form, or the three-factor form (split3 1) at any tier with the
+// transposed store where 128 divides n; rows a power of two whose two
+// buffers (planes.matrix_mixed_shared_bytes) fit the card's shared memory,
+// `tables` planes.matrix_tables(n, inverse, split3). f32 direct
+// (tpu_fused_rows_mixed's), a power of two, an odd n or one outside that
+// range, a three-factor form with n1 ≠ 128 or the natural store, other
+// rows, channels outside the set or a negative row offset are refused,
+// never run on another kernel.
+int tpu_matrix_fused_rows_any(const void* h0r, const void* h0i,
+                              const void* h0cr, const void* h0ci,
+                              const void* phase, const void* kz, void* out_re,
+                              void* out_im, const void* tables, int channels,
+                              int ch_start, int m, int n, int rows,
+                              int row_offset, int packed, int nch_live,
+                              int natural, int tier, int split3,
+                              float two_pi_over_l, float dz_sign,
+                              float epsilon, void* stream) {
+  const Assembly p{two_pi_over_l, dz_sign, epsilon * epsilon, row_offset,
+                   packed, nch_live};
+  return natural
+             ? launch_fused_rows_matrix<true>(h0r, h0i, h0cr, h0ci, phase, kz,
+                                              out_re, out_im, tables, channels,
+                                              ch_start, m, n, rows, tier,
+                                              split3, p, stream)
+             : launch_fused_rows_matrix<false>(h0r, h0i, h0cr, h0ci, phase,
+                                               kz, out_re, out_im, tables,
+                                               channels, ch_start, m, n, rows,
+                                               tier, split3, p, stream);
 }
 
 }  // extern "C"

@@ -1,10 +1,15 @@
-// The f32 row DFT at even lengths that are not powers of two, either
-// store: fft_rows.cu's entry tpu_fft_rows_mixed.
+// The row DFT at even lengths that are not powers of two, either store, at
+// every tier and form: fft_rows.cu's entries tpu_fft_rows_mixed (f32 in the
+// direct form, the mixed-radix stages below) and tpu_matrix_rows_any (the
+// other tiers and forms, dft_matrix.cuh's engine behind the same loads and
+// stores).
 //
 // Replaces: tpu_ocean/fft/pallas_fft.py _fft_block_kernel (launched by
 // _fft1d_transposed_impl) and _rowfft_block_kernel_natural (launched by
-// _fft1d_natural_large_impl) at HIGHEST, at the lengths the power-of-two
-// kernels do not take (N = 96, 1536, 3072, 2·53, …). The JAX kernels run
+// _fft1d_natural_large_impl) at HIGHEST, DEFAULT (bf16) and B3, and
+// _fft_block_kernel_split3 (#1b, where 128 | N), at the lengths the
+// power-of-two kernels do not take (N = 96, 1536, 3072, 2·53, …). The JAX
+// kernels run
 // there as a four-step matrix DFT on any split N = n2·n1 (_split_lanes),
 // a form chosen for the TPU's matrix unit; this kernel computes the same
 // sums, fft_rows.cu's contract:
@@ -47,6 +52,19 @@
 // kernel of fused_rows_mixed_f32.cuh, whose load assembles the rows
 // instead of reading them.
 //
+// The other tiers and forms (bf16, bf16x3, the three-factor form) run the
+// same kernel, instantiated on dft_matrix.cuh's MatrixEngine in place of
+// the mixed-radix stages (run_engine): the four-step N = n2 · n1 with n1 =
+// 128 where 128 | N (n2 = N / 128: 3 at 384, 12 at 1536, 48 at 6144) and
+// n1 = N / 2, n2 = 2 elsewhere, the arithmetic of the power-of-two matrix
+// passes operand for operand. Its shared memory is the two buffers alone
+// (matrix_smem_bytes: 131 KB at N = 8190, one row), its tables
+// (planes.matrix_tables) are read from device memory, and its threads are
+// MatrixEngine::threads, whole warps. What bounds it there: where n1 =
+// N / 2, stage 2's 8·n1 tensor-core flops a point and the reads of F1
+// (n1² complex) once a block, (M / R)·n1²·8 B a pass, through L2 (134 MB
+// a block at N = 8186, more than L2 holds).
+//
 // Rows per block R (planes.rows_per_block with planes.mixed_shared_bytes):
 // a power of two, at most 8 for the transposed store (8-float runs), at
 // most 4096 / N for the natural one; at N = 8190 one row takes 196 KB.
@@ -54,6 +72,9 @@
 
 #pragma once
 
+#include <type_traits>
+
+#include "dft_matrix.cuh"
 #include "stockham.cuh"
 
 namespace tpu_fft {
@@ -324,7 +345,36 @@ __device__ __forceinline__ void store(const float2* res, float* o_re,
   }
 }
 
-template <bool kNatural>
+// The stage engine's table: the f32 direct form (StockhamEngine) copies the
+// plan's twiddles and roots into shared memory after the two buffers; the
+// matrix engine reads its tables from device memory and stages none.
+template <class Engine>
+__device__ __forceinline__ void stage_table(float2* tab,
+                                            const float2* __restrict__ table,
+                                            const Plan& plan) {
+  if constexpr (std::is_same_v<Engine, StockhamEngine>) {
+    for (int t = threadIdx.x; t < plan.table; t += blockDim.x)
+      tab[t] = table[t];
+  }
+}
+
+// The block's R rows transformed by the engine: the plan's mixed-radix
+// stages on the staged table (f32 direct), or the matrix engine's
+// four-step (the other tiers and forms) on the tables in device memory.
+// Returns the buffer that holds the natural-order rows, the block
+// synchronised.
+template <class Engine>
+__device__ __forceinline__ const float2* run_engine(
+    float2* src, float2* dst, const float2* tab,
+    const float2* __restrict__ table, int R, const Plan& plan) {
+  if constexpr (std::is_same_v<Engine, StockhamEngine>) {
+    return run_stages(src, dst, tab, R, plan);
+  } else {
+    return Engine::run(src, dst, nullptr, table, R, plan.n, 0);
+  }
+}
+
+template <bool kNatural, class Engine>
 __global__ void __launch_bounds__(kMaxThreads)
 mixed_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
                   float* __restrict__ out_re, float* __restrict__ out_im,
@@ -342,7 +392,7 @@ mixed_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
   const size_t plane = static_cast<size_t>(M) * N;
   const int live = M - m0 < R ? M - m0 : R;
 
-  for (int t = threadIdx.x; t < plan.table; t += blockDim.x) tab[t] = table[t];
+  stage_table<Engine>(tab, table, plan);
   {
     const float* in_re = re + c * plane + static_cast<size_t>(m0) * N;
     const float* in_im = im + c * plane + static_cast<size_t>(m0) * N;
@@ -356,9 +406,17 @@ mixed_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
   __syncthreads();
 
-  const float2* res = run_stages(src, dst, tab, R, plan);
+  const float2* res = run_engine<Engine>(src, dst, tab, table, R, plan);
   store<kNatural>(res, out_re + c * plane, out_im + c * plane, M, N, R,
                   log2r, m0, live);
+}
+
+// An even length in [kMinN, kMaxN] that is not a power of two, with the
+// three-factor form only where its n1 is 128 = 8 · 16: what the matrix
+// engine takes behind these kernels' loads and stores
+inline bool matrix_length(int n, bool split3) {
+  if (n < kMinN || n > kMaxN || (n & 1) || !(n & (n - 1))) return false;
+  return !split3 || lanes_n1(n) == kSplitW * kSplitU;
 }
 
 }  // namespace mixed
@@ -377,8 +435,8 @@ inline int launch_rows_mixed(bool natural, const void* re, const void* im,
       channels < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = mixed::smem_bytes(rows, plan);
-  auto kernel = natural ? &mixed::mixed_rows_kernel<true>
-                        : &mixed::mixed_rows_kernel<false>;
+  auto kernel = natural ? &mixed::mixed_rows_kernel<true, StockhamEngine>
+                        : &mixed::mixed_rows_kernel<false, StockhamEngine>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((m + rows - 1) / rows, channels);
@@ -388,6 +446,46 @@ inline int launch_rows_mixed(bool natural, const void* re, const void* im,
       static_cast<float*>(out_re), static_cast<float*>(out_im),
       static_cast<const float2*>(tables), m, rows, log2_of(rows), plan);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the same kernel on the matrix engine of (tier, split3): n an
+// even length in [16, 8192] that is not a power of two (matrix_length),
+// rows a power of two whose two buffers (matrix_smem_bytes) fit the card's
+// shared memory, `tables` planes.matrix_tables(n, inverse, split3). f32 in
+// the direct form (launch_rows_mixed's), the three-factor form with the
+// natural store or with n1 ≠ 128, and anything else are refused with
+// cudaErrorInvalidValue, never run on another kernel.
+template <bool kNatural>
+int launch_rows_matrix(const void* re, const void* im, void* out_re,
+                       void* out_im, const void* tables, int channels, int m,
+                       int n, int rows, int tier, int split3, void* stream) {
+  if (!mixed::matrix_length(n, split3 != 0) || rows < 1 ||
+      (rows & (rows - 1)) || m < 1 || channels < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_engine(tier, split3, kNatural, [&](auto engine) {
+    using Engine = decltype(engine);
+    if constexpr (std::is_same_v<Engine, StockhamEngine>) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else if constexpr (kNatural && Engine::kThreeFactor) {
+      // no natural three-factor store: with_engine refuses it first, and
+      // this branch keeps that kernel from being instantiated
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      mixed::Plan plan{};
+      plan.n = n;
+      const int smem = matrix_smem_bytes(rows, n);
+      auto kernel = &mixed::mixed_rows_kernel<kNatural, Engine>;
+      cudaError_t err = allow_smem(kernel, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const dim3 grid((m + rows - 1) / rows, channels);
+      kernel<<<grid, Engine::threads(rows, n), smem,
+               static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(re), static_cast<const float*>(im),
+          static_cast<float*>(out_re), static_cast<float*>(out_im),
+          static_cast<const float2*>(tables), m, rows, log2_of(rows), plan);
+      return static_cast<int>(cudaGetLastError());
+    }
+  });
 }
 
 }  // namespace tpu_fft

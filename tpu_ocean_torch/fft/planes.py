@@ -17,12 +17,14 @@ On a CUDA tensor each launches its hand-written kernel
 (``csrc/fft_rows.cu``) and nothing else; on a CPU tensor it runs its plain
 version, at every length. The TPU package's size gates (Mosaic lane
 rules, VMEM caps) have no counterpart here: on the card the kernels cover
-every power-of-two N in [MIN_N, MAX_N] at every tier and form, and every
-other even N there at f32 in the direct form, fused or not
-(``require_card_kernel``; the
-mixed-radix kernel ``csrc/rows_mixed_f32.cuh``, plan ``mixed_plan``, table
-``mixed_table``, and its fused twin ``csrc/fused_rows_mixed_f32.cuh``); a
-wrapper refuses the rest with ValueError. Only the
+every even N in [MIN_N, MAX_N] at every tier and form, fused or not
+(``require_card_kernel``): powers of two on the kernels below, every other
+even N on ``csrc/rows_mixed_f32.cuh`` and its fused twin
+``csrc/fused_rows_mixed_f32.cuh``, whose loads and stores run the
+mixed-radix stages at f32 in the direct form (plan ``mixed_plan``, table
+``mixed_table``) and the matrix-form engine at every other tier and form
+(``matrix_tables``); a wrapper refuses odd N and N outside that range with
+ValueError. Only the
 regime switch is kept, as ``MAX_TRANSPOSED_N``, so that the port pairs
 like with like against the JAX package.
 
@@ -44,14 +46,20 @@ either store (``csrc/dft_bf16_rows.cuh``, tables from
 (``csrc/dft_split3_f32.cuh``, tables from ``matrix_tables``) and at
 bf16x3 (``csrc/dft_split3_bf16x3.cuh``, tables from
 ``split3_bf16x3_tables``); the other tiers and forms (bf16 three-factor,
-bf16x3 direct) run the matrix-form engine (``csrc/dft_matrix.cuh``). The
+bf16x3 direct) run the matrix-form engine (``csrc/dft_matrix.cuh``). Those
+are the kernels at powers of two; at every other even N, f32 in the
+direct form runs the mixed-radix stages and every other tier and form the
+matrix-form engine, behind one kernel's loads and stores (``mixed_rows``,
+``mixed_tables``). The
 bf16x3 tier keeps stage 1 at f32, as the TPU kernels do. All but
 Stockham take their plain version from ``fft/matrix.py``.
 Each launch counts once: a Stockham kernel's on its wrapper's
 ``launches``; any other row launch, and a fused launch outside the packed
-set with 3 live fields, in ``named_launches`` under ``kernel_name`` (the
-mixed-radix kernel's under ``MIXED_NAMES``, its fused twin's under
-``MIXED_FUSED_NAME``).
+set with 3 live fields, in ``named_launches`` under ``kernel_name`` (a
+launch at a length that is not a power of two under ``mixed_kernel_name``:
+the mixed-radix kernel's under ``MIXED_NAMES``, its fused twin's under
+``MIXED_FUSED_NAME``, the matrix engine's there as e.g.
+``matrix_rows_mixed_transposed[bf16]``).
 
 Both row DFTs are differentiable by the JAX package's linear-adjoint rule
 (``pallas_fft._fft1d_transposed_diff``, ``_fft1d_natural_large_diff``):
@@ -78,8 +86,6 @@ from tpu_ocean_torch.fft import matrix
 #: of one row plus the twiddle table still fit one block (the card's 227 KB).
 MIN_N = 16
 MAX_N = 8192
-#: the ROADMAP row that queues what the card has no kernel for
-SIZES_ROW = 'ROADMAP.md Queue 2, "sizes (rest)"'
 #: named_launches' names of the f32 mixed-radix row kernel, by store
 MIXED_NAMES = {"rows_transposed": "fft_rows_mixed_transposed",
                "rows_natural": "fft_rows_mixed_natural"}
@@ -200,7 +206,30 @@ def _split_lanes(n: int):
     return n1, n // n1
 
 
-@functools.lru_cache(maxsize=32)
+#: above this n1 (n = 2·n1 where 128 does not divide n) F1 is large: n1²
+#: complex f32, 134 MB at n1 = 4095, built from twice that in float64
+LARGE_N1 = 1024
+
+
+def _cached_by_n1(fn):
+    """``fn(n, ...)`` cached by its arguments: 32 entries, and apart from
+    them 2 whose n has n1 above LARGE_N1, so that the cache never holds
+    more than two of the large tables (a direction's pair at one n)."""
+    small = functools.lru_cache(maxsize=32)(fn)
+    large = functools.lru_cache(maxsize=2)(fn)
+
+    @functools.wraps(fn)
+    def cached(n, *args):
+        return (large if _split_lanes(n)[0] > LARGE_N1 else small)(n, *args)
+
+    def cache_clear():
+        small.cache_clear()
+        large.cache_clear()
+    cached.cache_clear = cache_clear
+    return cached
+
+
+@_cached_by_n1
 def _tables_np(n: int, inverse: bool):
     """(n1, n2, F2 re/im [n2, n2], T re/im [n2, n1], F1 re/im [n1, n1]),
     f32 from float64 (pallas_fft._tables_np)."""
@@ -296,7 +325,7 @@ def _split3_bf16x3_rows(tier: str, split3: bool) -> bool:
     return tier == "bf16x3" and split3
 
 
-@functools.lru_cache(maxsize=32)
+@_cached_by_n1
 def matrix_tables(n: int, inverse: bool, split3: bool,
                   device: torch.device) -> torch.Tensor:
     """The matrix engine's tables as one [L, 2] f32 (re, im) tensor, in the
@@ -417,23 +446,23 @@ def is_power_of_two(n: int) -> bool:
 
 def require_card_kernel(n: int, tier: str = "f32", split3: bool = False,
                         fused: bool = False) -> None:
-    """Raise ValueError, naming SIZES_ROW, unless the card has a kernel for
-    a length-``n`` row pass at (tier, split3), fused (#5, #5b, #6) or not:
-    every power of two in [MIN_N, MAX_N] at every tier and form; every
-    other even length there at f32 in the direct form (the mixed-radix
-    kernel, and its fused twin). The other tiers and forms at those
-    lengths, fused or not, are queued (SIZES_ROW)."""
+    """Raise ValueError unless the card has a kernel for a length-``n``
+    row pass at (tier, split3), fused (#5, #5b, #6) or not: every even
+    length in [MIN_N, MAX_N] at every tier and form. Powers of two run the
+    kernels of csrc/fft_rows.cu and csrc/fused_rows.cu; every other even
+    length the mixed-radix kernels (csrc/rows_mixed_f32.cuh,
+    csrc/fused_rows_mixed_f32.cuh) at f32 in the direct form and the
+    matrix engine behind their loads and stores at the other tiers and
+    forms. The three-factor form needs n1 = 128 (use_split3 gives it no
+    other)."""
+    what = (f"{'fused ' if fused else ''}row DFT of length {n} at tier "
+            f"{tier}{', three-factor form' if split3 else ''}")
     if not (MIN_N <= n <= MAX_N and n % 2 == 0):
-        raise ValueError(f"the row-DFT kernels take even lengths in "
-                         f"[{MIN_N}, {MAX_N}], got {n} ({SIZES_ROW})")
-    if is_power_of_two(n) or _stockham(tier, split3):
-        return
-    form = ", three-factor form" if split3 else ""
-    raise ValueError(
-        f"no kernel on the card for a {'fused ' if fused else ''}row DFT of "
-        f"length {n} at tier {tier}{form}: lengths that are not powers of "
-        f"two run at f32 in the direct form only; the rest is queued "
-        f"({SIZES_ROW})")
+        raise ValueError(f"no kernel on the card for a {what}: the row-DFT "
+                         f"kernels take even lengths in [{MIN_N}, {MAX_N}]")
+    if split3 and _split_lanes(n)[0] != _SPLIT_W * _SPLIT_U:
+        raise ValueError(f"no kernel on the card for a {what}: the "
+                         f"three-factor form needs 128 | n (n1 = 128)")
 
 
 def check_card_sizes(n: int, precision: str = "float32", fused: bool = False,
@@ -447,6 +476,15 @@ def check_card_sizes(n: int, precision: str = "float32", fused: bool = False,
     for length, f in lengths:
         tier, split3 = engine(length, precision, transposed=True)
         require_card_kernel(length, tier, split3, f)
+
+
+def matrix_mixed_shared_bytes(rows: int, n: int) -> int:
+    """Dynamic shared memory of one block of the matrix engine behind the
+    mixed-radix kernels' loads and stores (csrc/dft_matrix.cuh
+    matrix_smem_bytes), row or fused: two buffers of ``rows`` rows of
+    n + 1 complex values and no table, which the engine reads from device
+    memory. At n = 8190, one row: 131 KB."""
+    return 2 * rows * (n + 1) * 8
 
 
 def shared_bytes(rows: int, n: int) -> int:
@@ -714,10 +752,51 @@ def mixed_twiddles(n: int, inverse: bool,
 
 
 def mixed_max_rows(n: int, natural: bool) -> int:
-    """The most rows per block of the mixed-radix kernel: max_rows at f32,
-    rounded down to a power of two (N/4096 is not one at every N)."""
+    """The most rows per block of the mixed-radix kernel, on either stage
+    engine: max_rows at f32, rounded down to a power of two (N/4096 is
+    not one at every N)."""
     cap = max_rows(n, natural)
     return 1 << (cap.bit_length() - 1)
+
+
+def mixed_rows(c: int, m: int, n: int, sms: int, natural: bool, tier: str,
+               split3: bool) -> int:
+    """Rows per block of a pass of ``c`` channels of [m, n] at an n that is
+    not a power of two, row or fused (rows_per_block, a grid of ``c``
+    times ⌈m / rows⌉): mixed_max_rows with the mixed-radix stages' shared
+    memory (mixed_shared_bytes) at f32 in the direct form, else the matrix
+    engine's two buffers (matrix_mixed_shared_bytes)."""
+    shared = (mixed_shared_bytes if _stockham(tier, split3)
+              else matrix_mixed_shared_bytes)
+    return rows_per_block(c, m, n, sms, mixed_max_rows(n, natural), shared)
+
+
+def mixed_tables(n: int, inverse: bool, tier: str, split3: bool,
+                 device: torch.device) -> torch.Tensor:
+    """The `tables` argument of a pass at an n that is not a power of two,
+    row or fused: the mixed-radix stages' table (mixed_twiddles) at f32 in
+    the direct form, else the matrix engine's (matrix_tables)."""
+    if _stockham(tier, split3):
+        return mixed_twiddles(n, bool(inverse), device)
+    return matrix_tables(n, bool(inverse), bool(split3), device)
+
+
+def mixed_kernel_name(kind: str, tier: str, split3: bool,
+                      channel_set: str = "") -> str:
+    """named_launches' name of a launch at a length that is not a power of
+    two; ``kind`` is "rows_transposed", "rows_natural", "fused_transposed"
+    or "fused_natural", a fused launch names its channel set. At f32 in
+    the direct form the mixed-radix kernels' names (MIXED_NAMES,
+    MIXED_FUSED_NAME); at the other tiers and forms kernel_name's, "mixed"
+    after the kind's first word: "matrix_rows_mixed_transposed[bf16]",
+    "matrix_fused_mixed_natural[bf16x3,packed3]"."""
+    first, store = kind.split("_")
+    if not _stockham(tier, split3):
+        return kernel_name(f"{first}_mixed_{store}", tier, split3,
+                           channel_set)
+    if first == "rows":
+        return MIXED_NAMES[kind]
+    return MIXED_FUSED_NAME.format(store=store, channel_set=channel_set)
 
 
 def mixed_shared_bytes(rows: int, n: int) -> int:
@@ -783,13 +862,10 @@ def fused_rows(c: int, m: int, n: int, sms: int, natural: bool, tier: str,
     bf16_rows_shared_bytes); else max_rows and fused_rows_kernel's two
     buffers. The f32 direct kernels make every channel in one block, so
     their grid is ⌈m / rows⌉ blocks whatever ``c``; the others' is ``c``
-    times that. At an n that is not a power of two (f32 direct only,
-    require_card_kernel) the fused mixed-radix kernel takes the row
-    kernel's geometry: mixed_max_rows and mixed_shared_bytes, a grid of
-    ``c`` times ⌈m / rows⌉."""
+    times that. At an n that is not a power of two the fused mixed-radix
+    kernel takes the row kernel's geometry (mixed_rows)."""
     if not is_power_of_two(n):
-        return rows_per_block(c, m, n, sms, mixed_max_rows(n, natural),
-                              mixed_shared_bytes)
+        return mixed_rows(c, m, n, sms, natural, tier, split3)
     if _stockham(tier, split3):
         if natural:
             return rows_per_block(1, m, n, sms, fused_natural_max_rows(n),
@@ -804,12 +880,12 @@ def fused_rows(c: int, m: int, n: int, sms: int, natural: bool, tier: str,
 
 def fused_tables(n: int, inverse: bool, tier: str, split3: bool,
                  natural: bool, device: torch.device) -> torch.Tensor:
-    """The `tables` argument of a fused entry: the radix-16 twiddles for
-    the f32 direct stores (mixed_twiddles at an n that is not a power of
-    two), the bf16 row kernel's tables for the bf16 natural store, else
-    tables_for's."""
+    """The `tables` argument of a fused entry: at an n that is not a power
+    of two the row kernel's (mixed_tables); else the radix-16 twiddles for
+    the f32 direct stores, the bf16 row kernel's tables for the bf16
+    natural store, else tables_for's."""
     if not is_power_of_two(n):
-        return mixed_twiddles(n, bool(inverse), device)
+        return mixed_tables(n, inverse, tier, split3, device)
     if _stockham(tier, split3):
         return radix16_twiddles(n, bool(inverse), device)
     if _fused_bf16(tier, split3, natural):
@@ -967,14 +1043,19 @@ def _launch_rows(entry: str, re, im, inverse: bool, out_shape, tier: str,
     out_im = torch.empty_like(out_re)
     mixed = not is_power_of_two(n)
     if mixed:
-        # f32 direct (require_card_kernel): the mixed-radix kernel, either
-        # store, through an entry of its own, the plan read from the host
-        entry = "tpu_fft_rows_mixed"
-        tables = mixed_twiddles(n, bool(inverse), re.device)
-        rows = rows_per_block(c, m, n, sm_count(re.device),
-                              mixed_max_rows(n, natural), mixed_shared_bytes)
-        plan = mixed_plan_rows(n)
-        tail = (int(natural), len(plan), tables.shape[0], plan.ctypes.data)
+        # the mixed-radix kernel, either store, through entries of its own:
+        # at f32 direct its stages, the plan read from the host; at the
+        # other tiers and forms the matrix engine
+        tables = mixed_tables(n, inverse, tier, split3, re.device)
+        rows = mixed_rows(c, m, n, sm_count(re.device), natural, tier, split3)
+        if _stockham(tier, split3):
+            entry = "tpu_fft_rows_mixed"
+            plan = mixed_plan_rows(n)
+            tail = (int(natural), len(plan), tables.shape[0],
+                    plan.ctypes.data)
+        else:
+            entry = "tpu_matrix_rows_any"
+            tail = (int(natural), TIERS[tier], int(split3))
     else:
         clustered = not natural and _stockham(tier, split3)
         if _bf16_rows(tier, split3):
@@ -998,11 +1079,11 @@ def _launch_rows(entry: str, re, im, inverse: bool, out_shape, tier: str,
             re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
             tables.data_ptr(), c, m, n, rows, *tail, stream)
     kernels.check(err, entry)
-    # one launch: the mixed-radix kernel's under MIXED_NAMES, so the
-    # power-of-two kernels' counts stay exact
+    # one launch: at a length that is not a power of two under a name of
+    # its own, so the power-of-two kernels' counts stay exact
     kind = "rows_natural" if natural else "rows_transposed"
     if mixed:
-        named_launches[MIXED_NAMES[kind]] += 1
+        named_launches[mixed_kernel_name(kind, tier, split3)] += 1
     else:
         count_launch(fft1d_natural_large if natural else fft1d_transposed,
                      kind, tier, split3)

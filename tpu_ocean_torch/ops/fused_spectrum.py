@@ -21,11 +21,13 @@ On a CUDA tensor each launches its hand-written kernel
 ``csrc/fused_rows_transposed_f32.cuh``, every channel of a launch from
 one read of the inputs; the bf16 natural store
 ``csrc/fused_rows_natural_bf16.cuh``, the bf16 row kernel's stages behind
-the assembly; at f32 in the direct form at an even N that is not a power
-of two, either store, ``csrc/fused_rows_mixed_f32.cuh``, the mixed-radix
-row kernel's stages behind the assembly, counted in
-``planes.named_launches`` under ``planes.MIXED_FUSED_NAME``; the other
-tiers and forms at such N raise ValueError, ``planes.require_card_kernel``)
+the assembly; at an even N that is not a power of two, either store,
+every tier and form, ``csrc/fused_rows_mixed_f32.cuh``: the mixed-radix
+row kernel's stages (f32 direct) or the matrix engine's (the other tiers
+and forms) behind the assembly, counted in ``planes.named_launches`` under
+``planes.mixed_kernel_name``, e.g. ``fused_mixed_transposed[packed3]``,
+``matrix_fused_mixed_transposed[bf16,per_channel]``; odd N and N outside
+[16, 8192] raise ValueError, ``planes.require_card_kernel``)
 and nothing else; on a CPU tensor it runs its
 plain version: ``_assemble_plain`` (the kernel's f32 arithmetic in torch,
 in the order of the JAX ``_assemble_block``; it does not use the float64
@@ -203,7 +205,8 @@ def _launch(natural: bool, h0_planes, phase, length, dz_sign, *,
             nch_live, precision):
     """Launches the natural or the transposed fused entry at the tier and
     form of its pass (at an n that is not a power of two, the mixed-radix
-    entry), and counts the launch."""
+    entry at f32 direct and the matrix engine's at the other tiers and
+    forms), and counts the launch."""
     store = "natural" if natural else "transposed"
     m, n = phase.shape
     dev = phase.device
@@ -220,13 +223,18 @@ def _launch(natural: bool, h0_planes, phase, length, dz_sign, *,
                              tier, split3)
     scalars = (float(np.float32(2.0 * np.pi / length)),
                float(np.float32(dz_sign)), float(np.float32(epsilon)))
-    if mixed:
-        # f32 direct (require_card_kernel): the store, the plan from the
-        # host and the table's length, as the mixed-radix row entry
+    if mixed and planes._stockham(tier, split3):
+        # f32 direct: the store, the plan from the host and the table's
+        # length, as the mixed-radix row entry
         entry = "tpu_fused_rows_mixed"
         plan = planes.mixed_plan_rows(n)
         tail = (int(natural), len(plan), tables.shape[0], *scalars,
                 plan.ctypes.data)
+    elif mixed:
+        # the other tiers and forms: the matrix engine behind the same
+        # assembly and stores
+        entry = "tpu_matrix_fused_rows_any"
+        tail = (int(natural), planes.TIERS[tier], int(split3), *scalars)
     else:
         entry = f"tpu_fused_rows_{store}"
         tail = (planes.TIERS[tier], int(split3), *scalars)
@@ -241,8 +249,8 @@ def _launch(natural: bool, h0_planes, phase, length, dz_sign, *,
     tag = channel_set(packed, nch_live)
     if mixed:
         # a name of its own, so the power-of-two kernels' counts stay exact
-        planes.named_launches[planes.MIXED_FUSED_NAME.format(
-            store=store, channel_set=tag or "packed3")] += 1
+        planes.named_launches[planes.mixed_kernel_name(
+            f"fused_{store}", tier, split3, tag or "packed3")] += 1
     else:
         planes.count_launch(
             assemble_rowfft_natural if natural else assemble_rowfft,

@@ -206,9 +206,9 @@ class OceanSolver:
     complex state, no packing, no half spectrum, the fields in torch. They
     take every value the JAX solver takes and raise ValueError where it
     raises ValueError. On the card ``pallas``/``pallas_fused`` take every
-    power-of-two N in [16, 8192], and at f32 in the direct form every
-    other even N there, fused or not (fft.planes.require_card_kernel); any
-    other combination raises ValueError at construction. The N below 16 or odd,
+    even N in [16, 8192] at every precision, tier and form, fused or not
+    (fft.planes.require_card_kernel); an N above 8192 raises ValueError at
+    construction. The N below 16 or odd,
     which the JAX package sends to ``matmul`` on the complex state, go
     there with its warning."""
 
@@ -287,11 +287,11 @@ class OceanSolver:
         if (self.device.type == "cuda" and fft_backend in _PLANE_BACKENDS
                 and not direct):
             # rows and full columns; with half_spectrum the half channel's
-            # columns, each at the tier and form its length runs at. The
-            # fused kernels take the row kernel's shared memory, so the
-            # same power-of-two N fit both (N = 8192: 192 KB a block at one
-            # row); at other even N the f32 direct passes, fused or not,
-            # have a kernel (the mixed-radix kernel and its fused twin)
+            # columns, each at the tier and form its length runs at. Every
+            # tier and form has a kernel at every even N in [16, 8192],
+            # fused or not: powers of two their own kernels, the other N
+            # the mixed-radix kernel and its fused twin, on their own
+            # stages at f32 direct and on the matrix engine otherwise
             check_card_sizes(n, cfg.precision,
                              fused=fft_backend == "pallas_fused",
                              half=half_spectrum)
