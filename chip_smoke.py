@@ -338,7 +338,11 @@ Phases, each printing its own lines:
                host's time by function (cProfile); for the pond
                PondSolver.fields in a loop and PondSimulation.step (which
                synchronizes) apart; 4096² also
-               with MAX_TRANSPOSED_N = 8192 (the transposed regime); each
+               with MAX_TRANSPOSED_N = 8192 (the transposed regime); and,
+               right after phase 3, before any other process has run on
+               the card (the entry points and the sharded ranks, after
+               which torch.profiler here records a part of a window's
+               launches), each
                kernel's device time beside its plain version's, its library
                call's where one PyTorch call computes the same function, and
                its bound; each redesigned row kernel beside its time
@@ -363,12 +367,40 @@ Phases, each printing its own lines:
                torch.fft.ifft2;
                warm L2, nothing
                asserted. Device times come
-               from torch.profiler; where it records none, from CUDA
-               events, and the line says so ("timed_by" in the JSON).
+               from torch.profiler; where it records none (or, for a
+               kernel's call, a part of the launches, in three windows),
+               from CUDA events, and the line says so ("timed_by" in the
+               JSON).
+  6. sharded — last, since once other processes have run on the card
+               torch.profiler in this one records a part of a window's
+               launches: DistributedOceanSolver on OCEAN_DEMO over D ranks
+               of a torch.distributed group, each rank's launches counted
+               in its own process, the fields gathered and held on rank 0
+               to OceanSolver on the card from the same seed
+               (compare_fields; 2e-5·max, the foam 1e-4):
+               (l)   path (i)'s switches at 1024², D = 1 in this process
+                     under NCCL at world size 1, 20 steps, after each
+                     helper of parallel/collectives.py once on CUDA
+                     tensors; within 1e-6·max, bit-equality reported
+               (li)  the same at D = 2, two processes sharing the card
+                     under gloo (NCCL refuses two ranks on one GPU), 10
+                     steps, then velocity(state) once (3 row launches)
+               (lii) the same at D = 4, 5 steps: the mirror-balanced
+                     half route's non-identity row permutation
+               (liii) pallas_fused packed with the fields kernel,
+                     overlap_chunks = 2, D = 2, 1024², 10 steps: #5 at
+                     row_offset rank·512, one launch a channel
+               (liv) (li) at 4096², 3 steps: the natural regime, #2 on
+                     [1, 2048, 4096], the axis −2 column pass and the
+                     natural half route
+               (lv)  (liii) at 4096² without overlap_chunks, 3 steps: #6
+                     on both channels at row_offset rank·2048
+               each path's ms/step by rank (CUDA events, D ranks sharing
+               one card: not a scaling figure) and staged_collectives
 Then one JSON line of kernel results, the card's name and power limit, and
 last {"ok": true, "device": ...}.
 
-With --sweep-rows, phases 4 and 5 give way to a sweep of the rows per
+With --sweep-rows, phases 4 to 6 give way to a sweep of the rows per
 block: each f32 row-DFT and fused case of phase 3 (the f32 fused
 kernels, both stores, in every channel set), and the cases of the bf16
 fused natural kernel, the bf16 row kernel (both stores) and the f32 and
@@ -387,6 +419,7 @@ import argparse
 import ast
 import collections
 import contextlib
+import copy
 import cProfile
 import dataclasses
 import io
@@ -471,20 +504,20 @@ BF16_REL, BF16_VS_F32_REL, B3_REL = 4e-3, 3e-2, 5e-5
 # two passes a step
 COMPLEX_1024 = {"fft_rows_transposed": 2}
 PATHS = [
-    OceanPath("i", "pallas", 1024, 60, 10, True, "float32", {},
+    OceanPath("i", "pallas", 1024, 60, 2, True, "float32", {},
               {"fft_rows_transposed": 5, "fields_stencil": 1}, 1e-5),
-    OceanPath("ii", "pallas_fused", 1024, 60, 10, True, "float32", {},
+    OceanPath("ii", "pallas_fused", 1024, 60, 2, True, "float32", {},
               {"fused_rows_transposed": 2, "fft_rows_transposed": 3,
                "fields_stencil": 1}, 1e-5),
-    OceanPath("iii", "pallas", 4096, 10, 2, True, "float32", {},
+    OceanPath("iii", "pallas", 4096, 10, 1, True, "float32", {},
               {"fft_rows_natural": 3, "fft_rows_transposed": 2,
                "fields_stencil": 1}, 1e-5),
-    OceanPath("iv", "pallas_fused", 4096, 10, 2, True, "float32", {},
+    OceanPath("iv", "pallas_fused", 4096, 10, 1, True, "float32", {},
               {"fused_rows_natural": 2, "fft_rows_natural": 1,
                "fft_rows_transposed": 2, "fields_stencil": 1}, 1e-5),
-    OceanPath("v", "pallas", 1024, 20, 2, False, "float32", {},
+    OceanPath("v", "pallas", 1024, 20, 1, False, "float32", {},
               {"fft_rows_transposed": 5, "fields_stencil_v1": 1}, 1e-5),
-    OceanPath("vi", "pallas", 1024, 60, 2, True, "bfloat16", {},
+    OceanPath("vi", "pallas", 1024, 60, 1, True, "bfloat16", {},
               {"matrix_rows_transposed[bf16]": 5, "fields_stencil": 1},
               BF16_REL),
     OceanPath("vii", "pallas_fused", 4096, 10, 0, True, "bfloat16", {},
@@ -492,18 +525,18 @@ PATHS = [
                "matrix_rows_natural[bf16]": 1,
                "matrix_rows_transposed[bf16]": 2, "fields_stencil": 1},
               BF16_VS_F32_REL, against={"f32": BF16_VS_F32_REL}),
-    OceanPath("viii", "pallas", 1024, 20, 2, True, "float32", SPLIT3,
+    OceanPath("viii", "pallas", 1024, 20, 1, True, "float32", SPLIT3,
               {"matrix_rows_transposed[f32,split3]": 4,
                "fft_rows_transposed": 1, "fields_stencil": 1}, 1e-5),
-    OceanPath("ix", "pallas_fused", 1024, 20, 2, True, "float32", B3_SPLIT3,
+    OceanPath("ix", "pallas_fused", 1024, 20, 1, True, "float32", B3_SPLIT3,
               {"matrix_fused_transposed[bf16x3,split3]": 2,
                "matrix_rows_transposed[bf16x3,split3]": 2,
                "fft_rows_transposed": 1, "fields_stencil": 1}, B3_REL),
-    OceanPath("x", "pallas_fused", 1024, 20, 2, True, "float32", {},
+    OceanPath("x", "pallas_fused", 1024, 20, 1, True, "float32", {},
               {"fused_transposed[per_channel]": 1,
                "fft_rows_transposed": 1, "fields_stencil": 1}, 1e-5,
               solver=PER_CHANNEL),
-    OceanPath("xi", "pallas_fused", 1024, 20, 2, True, "float32", {},
+    OceanPath("xi", "pallas_fused", 1024, 20, 1, True, "float32", {},
               {"fused_transposed[packed5]": 2,
                "fft_rows_transposed": 3}, 1e-5,
               config=SPECTRAL, solver={**SLICE, "pallas_fields": False}),
@@ -517,7 +550,7 @@ PATHS = [
               config={**SPECTRAL, "evolution_mode": "absolute"},
               solver={**SLICE, "half_spectrum": False,
                       "pallas_fields": False}),
-    OceanPath("xiv", "pallas", 1024, 20, 2, True, "float32", {},
+    OceanPath("xiv", "pallas", 1024, 20, 1, True, "float32", {},
               {"fft_rows_transposed": 2}, 1e-5,
               solver={**PER_CHANNEL, "pallas_fields": False}),
     OceanPath("xv", "pallas", 4096, 10, 0, True, "bfloat16", {},
@@ -525,23 +558,23 @@ PATHS = [
                "matrix_rows_transposed[bf16]": 2, "fields_stencil": 1},
               BF16_VS_F32_REL, against={"f32": BF16_VS_F32_REL}),
     # OceanSolver(OceanConfig()): BASELINE config 2's shape on torch.fft
-    OceanPath("xvi", "reference", 256, 100, 2, True, "float32", {}, {},
+    OceanPath("xvi", "reference", 256, 100, 1, True, "float32", {}, {},
               1e-5, solver={}, base="default"),
-    OceanPath("xvii", "pallas", 1024, 20, 2, True, "float32", {},
+    OceanPath("xvii", "pallas", 1024, 20, 1, True, "float32", {},
               COMPLEX_1024, 1e-5, solver={}, base="parity",
               against={"reference": 1e-5}),
     OceanPath("xviii", "pallas", 4096, 5, 1, True, "float32", {},
               {"fft_rows_natural": 1, "fft_rows_transposed": 1}, 1e-5,
               solver={}, base="parity", against={"reference": 1e-5}),
-    OceanPath("xix-matmul", "matmul", 1024, 10, 2, True, "float32", {}, {},
+    OceanPath("xix-matmul", "matmul", 1024, 10, 1, True, "float32", {}, {},
               1e-5, solver={}, base="parity", against={"reference": 1e-5}),
-    OceanPath("xix-stockham", "stockham", 1024, 10, 2, True, "float32", {},
+    OceanPath("xix-stockham", "stockham", 1024, 10, 1, True, "float32", {},
               {}, 1e-5, solver={}, base="parity",
               against={"reference": 1e-5}),
-    OceanPath("xx", "pallas_fused", 1024, 20, 2, True, "float32", {},
+    OceanPath("xx", "pallas_fused", 1024, 20, 1, True, "float32", {},
               {"fused_transposed[per_channel]": 1,
                "fft_rows_transposed": 1}, 1e-5, solver={}),
-    OceanPath("xxi", "pallas", 1024, 20, 2, True, "bfloat16", {},
+    OceanPath("xxi", "pallas", 1024, 20, 1, True, "bfloat16", {},
               {"matrix_rows_transposed[bf16]": 2}, BF16_REL, solver={},
               base="parity", against={"f32": BF16_VS_F32_REL}),
     # the sizes slice: lengths that are not powers of two, every row pass
@@ -549,12 +582,12 @@ PATHS = [
     # switches at 1536² (transposed regime) and 3072² (natural regime), and
     # the complex state at 106² = (2·53)², the generic stage of a prime
     # radix inside the solver (C = 3 channels, the fields in torch)
-    OceanPath("xxxviii", "pallas", 1536, 20, 2, True, "float32", {},
+    OceanPath("xxxviii", "pallas", 1536, 20, 1, True, "float32", {},
               {"fft_rows_mixed_transposed": 5, "fields_stencil": 1}, 1e-5),
-    OceanPath("xxxix", "pallas", 3072, 10, 2, True, "float32", {},
+    OceanPath("xxxix", "pallas", 3072, 10, 1, True, "float32", {},
               {"fft_rows_mixed_natural": 3, "fft_rows_mixed_transposed": 2,
                "fields_stencil": 1}, 1e-5),
-    OceanPath("xl", "pallas", 106, 20, 2, True, "float32", {},
+    OceanPath("xl", "pallas", 106, 20, 1, True, "float32", {},
               {"fft_rows_mixed_transposed": 2}, 1e-5, solver={}),
     # the fused sizes slice: pallas_fused at the same lengths, the fused
     # passes on the f32 fused mixed-radix kernel
@@ -564,13 +597,13 @@ PATHS = [
     # length-768 ones included) and 3072² (the natural store), and the
     # complex state at 106² (the per-channel set, the generic stage of 53
     # inside the fused kernel)
-    OceanPath("xli", "pallas_fused", 1536, 20, 2, True, "float32", {},
+    OceanPath("xli", "pallas_fused", 1536, 20, 1, True, "float32", {},
               {"fused_mixed_transposed[packed3]": 2,
                "fft_rows_mixed_transposed": 3, "fields_stencil": 1}, 1e-5),
-    OceanPath("xlii", "pallas_fused", 3072, 10, 2, True, "float32", {},
+    OceanPath("xlii", "pallas_fused", 3072, 10, 1, True, "float32", {},
               {"fused_mixed_natural[packed3]": 2, "fft_rows_mixed_natural": 1,
                "fft_rows_mixed_transposed": 2, "fields_stencil": 1}, 1e-5),
-    OceanPath("xliii", "pallas_fused", 106, 20, 2, True, "float32", {},
+    OceanPath("xliii", "pallas_fused", 106, 20, 1, True, "float32", {},
               {"fused_mixed_transposed[per_channel]": 1,
                "fft_rows_mixed_transposed": 1}, 1e-5, solver={}),
     # the last sizes slice: the other tiers and forms at the same lengths,
@@ -582,7 +615,7 @@ PATHS = [
     # switches at 1536², as (viii) and (ix) at 1024²: the f32 three-factor
     # form on pallas, bf16x3 in the three-factor form on pallas_fused (a
     # pair the JAX package cannot run)
-    OceanPath("xlv", "pallas", 1536, 20, 2, True, "bfloat16", {},
+    OceanPath("xlv", "pallas", 1536, 20, 1, True, "bfloat16", {},
               {"matrix_rows_mixed_transposed[bf16]": 5, "fields_stencil": 1},
               BF16_REL, against={"f32": BF16_VS_F32_REL}),
     OceanPath("xlvi", "pallas_fused", 3072, 10, 1, True, "bfloat16", {},
@@ -590,14 +623,14 @@ PATHS = [
                "matrix_rows_mixed_natural[bf16]": 1,
                "matrix_rows_mixed_transposed[bf16]": 2, "fields_stencil": 1},
               BF16_REL, against={"f32": BF16_VS_F32_REL}),
-    OceanPath("xlvii", "pallas_fused", 106, 20, 2, True, "bfloat16", {},
+    OceanPath("xlvii", "pallas_fused", 106, 20, 1, True, "bfloat16", {},
               {"matrix_fused_mixed_transposed[bf16,per_channel]": 1,
                "matrix_rows_mixed_transposed[bf16]": 1}, BF16_REL, solver={},
               against={"f32": BF16_VS_F32_REL}),
-    OceanPath("xlviii", "pallas", 1536, 20, 2, True, "float32", SPLIT3,
+    OceanPath("xlviii", "pallas", 1536, 20, 1, True, "float32", SPLIT3,
               {"matrix_rows_mixed_transposed[f32,split3]": 5,
                "fields_stencil": 1}, 1e-5),
-    OceanPath("xlix", "pallas_fused", 1536, 20, 2, True, "float32", B3_SPLIT3,
+    OceanPath("xlix", "pallas_fused", 1536, 20, 1, True, "float32", B3_SPLIT3,
               {"matrix_fused_mixed_transposed[bf16x3,split3,packed3]": 2,
                "matrix_rows_mixed_transposed[bf16x3,split3]": 3,
                "fields_stencil": 1}, B3_REL),
@@ -877,9 +910,9 @@ MIXED_TIMED = {(1, 768, 1536), (1, 1, 1536), (1, 1536, 768), (1, 3072, 1536),
                         6144, 8186, 8190)}
 # of those, the ones of more than ~100 ms a launch (at 8186 the generic
 # stage sums 4093 terms an output, the matrix engine reads F1 once a row):
-# the f32 mixed-radix kernel timed over 10 calls, the matrix engine's
-# (~0.5 s a call) over 3, and the plain version once (its bf16x3 matmuls
-# take ~2.7 s a call), not 50 and 10
+# the f32 mixed-radix kernel timed over 3 calls, the matrix engine's
+# (~0.8-1.0 s a call) over 1, and the plain version once (its bf16x3
+# matmuls take ~2.7 s a call), not 50 and 10
 MIXED_SLOW = {(1, 8186, 8186)}
 # the row-DFT Functions' backward in phase 3 (store, [C, M, N], precision):
 # #1 at every shape path (xxxiv) gives it (the half route's too) and at
@@ -914,6 +947,51 @@ GRAD_PATHS = [
     GradPath("xxxvi", 1024, "bfloat16",
              {"matrix_rows_transposed[bf16]": 10, "fields_stencil": 1}, 2e-3),
 ]
+# the sharded slice (l)-(lv): DistributedOceanSolver on OCEAN_DEMO with
+# path (i)'s switches (SLICE: packed + half, the fields kernel) or
+# pallas_fused packed with the fields kernel (the sharded half route is
+# 'pallas' only, as in the JAX package), over D ranks of a torch.distributed
+# group on the one card: (l) in this process under NCCL at world size 1
+# (NCCL refuses two ranks on one GPU), the others D processes under gloo
+# (sharded_rank), every rank launching the kernels at its shard's shapes:
+# tag, D, backend, N, steps, switches, launches a step on each rank, steps
+# timed. At 1024² and D = 2 a rank runs #1 on its rows [1, 512, 1024], on
+# its columns after the all_to_all [1, 512, 1024], the Nyquist row
+# [1, 1, 1024], the half rows [1, 256, 1024] and the half columns
+# [1, 512, 512]; at 4096² (natural regime) #2 on [1, 2048, 4096],
+# [1, 1, 4096], [1, 1024, 4096] and #1 on [1, 2048, 4096], [1, 2048, 2048];
+# the fused paths #5 at row_offset rank·N/D, one launch a channel with
+# overlap_chunks = 2 (liii), #6 on both channels (lv); #3 on [N, N/D]
+FUSED_SHARDED = {"real_state": True, "pack_channels": True,
+                 "pallas_fields": True}
+ShardedPath = collections.namedtuple(
+    "ShardedPath", "tag d backend size steps solver per_step iters")
+SHARDED_SLICE_STEP = {"fft_rows_transposed": 5, "fields_stencil": 1}
+SHARDED_PATHS = [
+    ShardedPath("l", 1, "pallas", 1024, 20, SLICE, SHARDED_SLICE_STEP, 50),
+    ShardedPath("li", 2, "pallas", 1024, 10, SLICE, SHARDED_SLICE_STEP, 20),
+    ShardedPath("lii", 4, "pallas", 1024, 5, SLICE, SHARDED_SLICE_STEP, 10),
+    ShardedPath("liii", 2, "pallas_fused", 1024, 10,
+                {**FUSED_SHARDED, "overlap_chunks": 2},
+                {"fused_rows_transposed": 2, "fft_rows_transposed": 1,
+                 "fields_stencil": 1}, 20),
+    ShardedPath("liv", 2, "pallas", 4096, 3, SLICE,
+                {"fft_rows_natural": 3, "fft_rows_transposed": 2,
+                 "fields_stencil": 1}, 5),
+    ShardedPath("lv", 2, "pallas_fused", 4096, 3, FUSED_SHARDED,
+                {"fused_rows_natural": 1, "fft_rows_transposed": 1,
+                 "fields_stencil": 1}, 5),
+]
+# velocity(state) once after (li)'s steps: the sharded half route, 3 row
+# launches a rank (the Nyquist row, the half rows, the half columns)
+SHARDED_VELOCITY = ("li", {"fft_rows_transposed": 3})
+# the band of a sharded path against OceanSolver on the card from the same
+# seed: tests/test_distributed.py's 2e-5·max (foam 1e-4 absolute), and
+# 1e-6·max at D = 1, where the two run the same kernels on the same shapes
+SHARDED_REL, SHARDED_FOAM, SHARDED_D1_REL = 2e-5, 1e-4, 1e-6
+# seconds a group of ranks may take, and a collective may wait
+SHARDED_TIMEOUT = 300
+SHARDED_RANK = "import sys, chip_smoke; chip_smoke.sharded_rank(*sys.argv[1:])"
 # the adjoint identity ⟨F x, y⟩ = ⟨x, Fᵀ y⟩ in float64: at f32 within
 # tests/test_autodiff.py:226's 2e-5; at bf16 within the tier's band times
 # ‖F x‖‖y‖ + ‖x‖‖Fᵀ y‖ (Cauchy–Schwarz on a relative error of either side):
@@ -1180,33 +1258,50 @@ def cuda_ms(fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters, host_ms
 
 
-def device_ms(fn, iters=50, attempts=3):
+def device_ms(fn, iters=50, attempts=3, whole=False):
     """(device ms per call, {kernel name: device ms per call}, how it was
     timed) of ``fn``: the CUDA kernel time torch.profiler records over
     ``iters`` calls after one warm-up. Unlike CUDA events around the calls,
     it leaves out the gaps in which the device waits for the host. The
     profiler now and then records no device time for a window (seen once
-    on the H100, for one cuFFT call); such a window is profiled again, and
-    after ``attempts`` empty windows the CUDA-event time stands in, under
-    the key "(CUDA events)", and the third item says "cuda_events" instead
-    of "profiler": around calls of under ~50 µs of device work that time is
+    on the H100, for one cuFFT call), or fewer kernels than ran (on the
+    H100 whole runs of phase 5 read 0.55× for some kernels, cuFFT below
+    its bytes bound): with ``whole`` (``fn`` launches the same kernels at
+    every call) a window whose recorded launches of any kernel are not a
+    whole multiple of ``iters`` is profiled again, and after
+    ``attempts`` such windows the CUDA-event time stands in, under the key
+    "(CUDA events)", and the third item says "cuda_events" instead of
+    "profiler": around calls of under ~50 µs of device work that time is
     the host's launch rate, not the device's."""
     fn()
     torch.cuda.synchronize()
+    short = []
     for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the kernels alone: recording the host's ops too cost ~0.1 s a
+        # window more on the H100 (10–70× the window's own work)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        per_kernel = {e.key: e.self_device_time_total / 1e3 / iters
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0}
-        if per_kernel:
-            return sum(per_kernel.values()), per_kernel, "profiler"
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        counts = [e.count for e in kernels]
+        if kernels and (not whole or all(c % iters == 0 for c in counts)):
+            if short:
+                log(f"[timing] torch.profiler recorded a part of the "
+                    f"launches in {len(short)} window(s) (launches by "
+                    f"kernel {short}, {iters} calls); the next window "
+                    f"recorded them all")
+            return (sum(e.self_device_time_total for e in kernels) / 1e3
+                    / iters,
+                    {e.key: e.self_device_time_total / 1e3 / iters
+                     for e in kernels}, "profiler")
+        short.append(counts)
     ms = cuda_ms(fn, iters)[0]
-    log(f"[timing] torch.profiler recorded no device time in {attempts} "
-        f"windows; CUDA events instead: {ms:.4f} ms a call")
+    log(f"[timing] torch.profiler recorded no device time or a part of the "
+        f"launches in {attempts} windows (launches by kernel {short}, "
+        f"{iters} calls); CUDA events instead: {ms:.4f} ms a call")
     return ms, {"(CUDA events)": ms}, "cuda_events"
 
 
@@ -1250,31 +1345,57 @@ def bound(nbytes, f32_ops, tensor_ops=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def normal_sensitivity(fields, cfg, delta):
+def normal_sensitivity(fields, cfg, delta, at=None):
     """Per texel, how far the normal can move when the stencil's inputs
     (height, chop·disp) move by at most ``delta``. Each component of
     u, v is a difference of two inputs, so |δu|, |δv| ≤ 2√3·δ; to first
     order c = u×v moves by |δu||v| + |u||δv| and c/|c| by twice that over
     |c|: |δn| ≤ 4√3·δ·(|u| + |v|)/|u×v|. Large where u and v are nearly
-    parallel or short (folds)."""
+    parallel or short (folds). With ``at``, a boolean mask of the texels,
+    the same values at those texels only (1-D, in np.nonzero's order),
+    the float64 work done there alone."""
     chop, texel = cfg.choppiness, cfg.length / cfg.resolution
-    dx, h, dz = (chop * fields.disp_x.astype(np.float64),
-                 fields.height.astype(np.float64),
-                 chop * fields.disp_z.astype(np.float64))
+    if at is None:
+        def nb(a, di, dj):
+            return np.roll(a, (-di, -dj), (0, 1))
+    else:
+        i, j = np.nonzero(at)
+        n0, n1 = at.shape
 
-    def xd(a):
-        return np.roll(a, -1, 0) - np.roll(a, 1, 0)
+        def nb(a, di, dj):
+            return a[(i + di) % n0, (j + dj) % n1]
 
-    def zd(a):
-        return np.roll(a, 1, 1) - np.roll(a, -1, 1)
+    def xd(k, a):
+        return (k * nb(a, 1, 0).astype(np.float64)
+                - k * nb(a, -1, 0).astype(np.float64))
 
-    u = np.stack([xd(dx) + 2 * texel, xd(h), xd(dz)], -1)
-    v = np.stack([zd(dx), zd(h), zd(dz) - 2 * texel], -1)
+    def zd(k, a):
+        return (k * nb(a, 0, -1).astype(np.float64)
+                - k * nb(a, 0, 1).astype(np.float64))
+
+    dx, h, dz = ((chop, fields.disp_x), (1.0, fields.height),
+                 (chop, fields.disp_z))
+    u = np.stack([xd(*dx) + 2 * texel, xd(*h), xd(*dz)], -1)
+    v = np.stack([zd(*dx), zd(*h), zd(*dz) - 2 * texel], -1)
     lu, lv = np.linalg.norm(u, axis=-1), np.linalg.norm(v, axis=-1)
     return 4 * np.sqrt(3) * delta * (lu + lv) / np.linalg.norm(np.cross(u, v), axis=-1)
 
 
-def compare_fields(card, cpu, cfg, tag, against="cpu", rel=1e-5, packed=True):
+def cpu_twin(solver):
+    """``solver`` with every table moved to the CPU: the CPU plain path on
+    the card solver's own f32 tables, bit for bit what OceanSolver(...,
+    device="cpu") would build, without building the float64 tables again
+    (~6 s at 4096² on the host)."""
+    twin = copy.copy(solver)
+    for name, value in vars(solver).items():
+        if torch.is_tensor(value):
+            setattr(twin, name, value.cpu())
+    twin.device = torch.device("cpu")
+    return twin
+
+
+def compare_fields(card, cpu, cfg, tag, against="cpu", rel=1e-5, packed=True,
+                   foam_raw=None):
     """Hold the card's fields to the CPU plain path's (or to ``against``,
     another card run from the same state), with the bands of
     tests/test_packing.py at ``rel``: rel·max|cpu| for height,
@@ -1287,7 +1408,9 @@ def compare_fields(card, cpu, cfg, tag, against="cpu", rel=1e-5, packed=True):
     apart (the CPU plain path alone is that far from float64 there). Foam
     follows J and n: |δfoam| ≤ 1.5·(|δJ| + 0.3·|δn|), smoothstep's slope
     being ≤ 1.5. ``rel`` is 1e-5 for f32 (the bands of
-    tests/test_packing.py) and wider for bf16 and bf16x3 (PATHS)."""
+    tests/test_packing.py) and wider for bf16 and bf16x3 (PATHS).
+    ``foam_raw`` replaces 25·rel·max|foam| as the foam's band where given
+    (the sharded paths: 1e-4)."""
     chop = cfg.choppiness
     err = {name: np.abs(getattr(card, name) - getattr(cpu, name))
            for name in cpu._fields}
@@ -1308,19 +1431,25 @@ def compare_fields(card, cpu, cfg, tag, against="cpu", rel=1e-5, packed=True):
             f"the max of the slopes' channels{', packed' if packed else ''}): "
             f"{bool((n_err <= n_band).all())} (err/band {n_err.max() / band:.3f})")
     else:
-        n_band = 2e-4 + normal_sensitivity(cpu, cfg, delta)
+        # the sensitivity where the error passes 2e-4 alone: within 2e-4 a
+        # texel passes whatever its sensitivity, so the band is 2e-4 there
+        # (the worst err/band below reads at most the true one's bound)
+        beyond = n_err > 2e-4
+        n_band = np.full(n_err.shape, 2e-4)
+        n_band[beyond] += normal_sensitivity(cpu, cfg, delta, at=beyond)
         log(f"[slice {tag}] card vs {against} normal: max abs err "
-            f"{n_err.max():.3e}; {int((n_err > 2e-4).sum())} texels beyond "
+            f"{n_err.max():.3e}; {int(beyond.sum())} texels beyond "
             f"2e-4, all within 2e-4 + sensitivity to the input error "
             f"{delta:.3e}: {bool((n_err <= n_band).all())} (worst err/band "
             f"{(n_err / n_band).max():.3f})")
     require((n_err <= n_band).all(),
             f"path {tag}: card and {against} disagree on normal")
-    f_raw = 25 * rel * np.abs(cpu.foam).max()
+    f_raw = 25 * rel * np.abs(cpu.foam).max() if foam_raw is None else foam_raw
     f_band = f_raw + 1.5 * (err["jacobian"] + 0.3 * n_err)
     log(f"[slice {tag}] card vs {against} foam: max abs err {err['foam'].max():.3e}; "
         f"{int((err['foam'] > f_raw).sum())} texels beyond {f_raw:.3e} "
-        f"(25 x {rel:g} x max), all within that + 1.5(|dJ| + 0.3|dn|): "
+        f"({'25 x ' + format(rel, 'g') + ' x max' if foam_raw is None else 'absolute'}), "
+        f"all within that + 1.5(|dJ| + 0.3|dn|): "
         f"{bool((err['foam'] <= f_band).all())} (worst err/band "
         f"{(err['foam'] / f_band).max():.3f})")
     require((err["foam"] <= f_band).all(),
@@ -1690,6 +1819,169 @@ def inversion_launches(iters, evals, snapshots=4):
             "fields_stencil": forward}
 
 
+def launch_wrappers():
+    """Each wrapper whose ``launches`` counts its kernel, by that kernel's
+    name; the other launches count in fft.planes.named_launches."""
+    from tpu_ocean_torch.fft import planes
+    from tpu_ocean_torch.ops import fields_stencil as fs
+    from tpu_ocean_torch.ops import fused_spectrum as fused
+    from tpu_ocean_torch.ops import gerstner_bank as gb
+    return {"fft_rows_transposed": planes.fft1d_transposed,
+            "fft_rows_natural": planes.fft1d_natural_large,
+            "fused_rows_transposed": fused.assemble_rowfft,
+            "fused_rows_natural": fused.assemble_rowfft_natural,
+            "fields_stencil": fs.fields_stencil,
+            "fields_stencil_v1": fs.fields_stencil_v1,
+            "gerstner_bank": gb.gerstner_bank}
+
+
+def reset_launches(wrappers):
+    from tpu_ocean_torch.fft import planes
+    for w in wrappers.values():
+        w.launches = 0
+    planes.named_launches.clear()
+
+
+def read_launches(wrappers):
+    from tpu_ocean_torch.fft import planes
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    counts.update(planes.named_launches)
+    return counts
+
+
+def sharded_path(path, mesh, rank, wrappers):
+    """One sharded path on this rank (every rank of ``mesh`` calls it
+    together): DistributedOceanSolver(OCEAN_DEMO at the path's N) from
+    manual_seed(0), every count 0 just before its steps and read just
+    after; the fields gathered, and on rank 0 held to OceanSolver on the
+    card from the same seed (check_fields, compare_fields); (li)'s velocity
+    once, counted alone; then the step timed by CUDA events on every rank.
+    Returns this rank's {counts, staged, ms_step, host_ms[,
+    velocity_counts]}."""
+    import torch.distributed as dist
+    from tpu_ocean_torch import OCEAN_DEMO, OceanSolver, fields_to_numpy
+    from tpu_ocean_torch.parallel import collectives
+    from tpu_ocean_torch.solver_dist import DistributedOceanSolver
+    t0 = time.perf_counter()
+    group = mesh.get_group("shard")
+    cfg = OCEAN_DEMO.replace(resolution=path.size)
+    solver = DistributedOceanSolver(cfg, mesh, fft_backend=path.backend,
+                                    **path.solver)
+    state = solver.init(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    dist.barrier(group)
+    reset_launches(wrappers)
+    staged = collectives.staged_collectives["ppermute"]
+    for _ in range(path.steps):
+        state, fields = solver.step(state, DT)
+    out = {"counts": read_launches(wrappers),
+           "staged": collectives.staged_collectives["ppermute"] - staged}
+    card = fields_to_numpy(solver.gather(fields))
+    if rank == 0:
+        check_fields(card, path.size, path.tag)
+        single = OceanSolver(cfg, fft_backend=path.backend,
+                             **{k: v for k, v in path.solver.items()
+                                if k != "overlap_chunks"})
+        single_state = single.init(torch.Generator().manual_seed(0))
+        for _ in range(path.steps):
+            single_state, single_fields = single.step(single_state, DT)
+        ref = fields_to_numpy(single_fields)
+        same = [name for name in ref._fields
+                if np.array_equal(getattr(card, name), getattr(ref, name))]
+        log(f"[slice {path.tag}] DistributedOceanSolver D={path.d} against "
+            f"OceanSolver on the card, {path.steps} steps from manual_seed(0): "
+            f"bit-equal {same or 'none'}")
+        d1 = path.d == 1
+        compare_fields(card, ref, cfg, path.tag, against="OceanSolver",
+                       rel=SHARDED_D1_REL if d1 else SHARDED_REL,
+                       foam_raw=None if d1 else SHARDED_FOAM)
+    if path.tag == SHARDED_VELOCITY[0]:
+        torch.cuda.synchronize()
+        dist.barrier(group)
+        reset_launches(wrappers)
+        v = solver.velocity(state)
+        out["velocity_counts"] = read_launches(wrappers)
+        v = solver.gather(v).cpu().numpy()
+        if rank == 0:
+            want = single.velocity(single_state).cpu().numpy()
+            err, scale = np.abs(v - want).max(), np.abs(want).max()
+            log(f"[slice {path.tag}] velocity against OceanSolver's: max abs "
+                f"err {err:.3e} = {err / scale:.3e} x max (limit "
+                f"{SHARDED_REL:g})")
+            require(v.shape == want.shape and np.isfinite(v).all()
+                    and err <= SHARDED_REL * scale,
+                    f"path {path.tag}: velocity disagrees")
+    dist.barrier(group)
+    held = [state]
+
+    def one_step():
+        held[0], _ = solver.step(held[0], DT)
+    out["ms_step"], out["host_ms"] = cuda_ms(one_step, iters=path.iters,
+                                             warmup=2)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def sharded_rank(spec, rank, world, init, out):
+    """A rank of a group of sharded paths, in a process of its own (D of
+    them share the card under gloo): the paths of ``spec`` (JSON) in
+    order through sharded_path, its results written to ``out`` as JSON.
+    Imports no jax."""
+    import torch.distributed as dist
+    from datetime import timedelta
+    from tpu_ocean_torch import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = int(rank), int(world)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=SHARDED_TIMEOUT))
+    try:
+        mesh = make_mesh(shard=world)
+        wrappers = launch_wrappers()
+        results = {path[0]: sharded_path(ShardedPath(*path), mesh, rank,
+                                         wrappers)
+                   for path in json.loads(Path(spec).read_text())}
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(results))
+
+
+def run_sharded_ranks(paths, d, work):
+    """D processes of sharded_rank on ``paths``, joined by a file://
+    rendezvous in ``work``; rank 0's lines relayed; each rank's results.
+    Fails if a rank fails or the group outlives SHARDED_TIMEOUT (every
+    rank is then killed)."""
+    spec = work / f"sharded_d{d}.json"
+    spec.write_text(json.dumps([list(p) for p in paths]))
+    init = f"file://{work / f'rendezvous_d{d}'}"
+    logs = [(work / f"rank{d}_{r}.out", work / f"rank{d}_{r}.err")
+            for r in range(d)]
+    procs = []
+    for r, (o, e) in enumerate(logs):
+        with open(o, "w") as fo, open(e, "w") as fe:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", SHARDED_RANK, str(spec), str(r),
+                 str(d), init, str(work / f"result_d{d}_{r}.json")],
+                cwd=HERE, stdout=fo, stderr=fe))
+    deadline = time.monotonic() + SHARDED_TIMEOUT
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    for r, (o, e) in enumerate(logs):
+        for line in o.read_text().splitlines():
+            log(line if r == 0 else f"[rank {r}] {line}")
+        require(procs[r].returncode == 0,
+                f"sharded rank {r} of {d} exited {procs[r].returncode}: "
+                f"{e.read_text()[-3000:]}")
+    return [json.loads((work / f"result_d{d}_{r}.json").read_text())
+            for r in range(d)]
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--sweep-rows", action="store_true",
@@ -1719,24 +2011,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    wrappers = {"fft_rows_transposed": planes.fft1d_transposed,
-                "fft_rows_natural": planes.fft1d_natural_large,
-                "fused_rows_transposed": fused.assemble_rowfft,
-                "fused_rows_natural": fused.assemble_rowfft_natural,
-                "fields_stencil": fs.fields_stencil,
-                "fields_stencil_v1": fs.fields_stencil_v1,
-                "gerstner_bank": gb.gerstner_bank}
+    wrappers = launch_wrappers()
 
     def reset_counts():
-        for w in wrappers.values():
-            w.launches = 0
-        planes.named_launches.clear()
+        reset_launches(wrappers)
 
     def read_counts():
-        torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in wrappers.items()}
-        counts.update(planes.named_launches)
-        return counts
+        return read_launches(wrappers)
 
     def require_counts(counts, want, what):
         require(set(counts) <= set(KERNEL_INFO),
@@ -1840,12 +2121,19 @@ def main():
               # the cascade's bands (xxix), LOD's subsets (xxxi) and the
               # natural regime's columns (xxx)
               (3, 512, 1024), (3, 1, 1024), (3, 1024, 512), (2, 512, 1024),
-              (2, 1, 1024), (2, 1024, 512), (3, 4096, 2048)]),
+              (2, 1, 1024), (2, 1024, 512), (3, 4096, 2048),
+              # the sharded paths' shards: (li)'s half columns; (lii)'s
+              # rows and columns, half rows and half columns; (liv)'s
+              # columns and half columns, (lv)'s columns
+              (1, 512, 512), (1, 256, 1024), (1, 128, 1024), (1, 256, 512),
+              (1, 2048, 4096), (1, 2048, 2048), (2, 2048, 4096)]),
             ("fft_rows_natural", planes.fft1d_natural_large,
              planes.fft1d_natural_large_plain, "float32", {},
              [(1, 4096, 4096), (1, 2048, 4096), (1, 1, 4096),
               (1, 1024, 1024), (5, 4096, 4096), (3, 4096, 4096),
-              (3, 2048, 4096), (3, 1, 4096)]),
+              (3, 2048, 4096), (3, 1, 4096),
+              # (liv)'s half rows on a rank
+              (1, 1024, 4096)]),
             ("matrix_rows_transposed[bf16]", planes.fft1d_transposed,
              planes.fft1d_transposed_plain, "bfloat16", {},
              [(1, 1024, 1024), (1, 512, 1024), (1, 1024, 512), (1, 1, 1024),
@@ -1923,12 +2211,17 @@ def main():
     # (inputs, keywords)
     fused_natural_calls, fused_transposed_calls, fused_mixed_calls = {}, {}, {}
     for name, fn, plain, precision, switches, shapes in (
+            # the sharded paths' shards at rank 1's row offset: (liii)'s
+            # one launch a channel, (lv)'s both channels
             ("fused_rows_transposed", fused.assemble_rowfft,
              fused.assemble_rowfft_plain, "float32", {},
-             [(1024, 1024, 0, 1, "packed3"), (512, 1024, 1, 1, "packed3")]),
+             [(1024, 1024, 0, 1, "packed3"), (512, 1024, 1, 1, "packed3"),
+              (512, 1024, 0, 1, "packed3", 512),
+              (512, 1024, 1, 1, "packed3", 512)]),
             ("fused_rows_natural", fused.assemble_rowfft_natural,
              fused.assemble_rowfft_natural_plain, "float32", {},
-             [(4096, 4096, 0, 1, "packed3"), (2048, 4096, 1, 1, "packed3")]),
+             [(4096, 4096, 0, 1, "packed3"), (2048, 4096, 1, 1, "packed3"),
+              (2048, 4096, 0, 2, "packed3", 2048)]),
             ("fused_transposed[per_channel]", fused.assemble_rowfft,
              fused.assemble_rowfft_plain, "float32", {},
              [(1024, 1024, 0, 3, "per_channel")]),
@@ -2016,14 +2309,15 @@ def main():
              fused.assemble_rowfft, fused.assemble_rowfft_plain, "float32",
              B3_SPLIT3, [(1536, 1536, 0, 1, "packed3"),
                          (768, 1536, 1, 1, "packed3")])):
-        for m, n, ch, count, channel_set in shapes:
+        for m, n, ch, count, channel_set, *offset in shapes:
             gen = matrix_rng if name.startswith("matrix_fused_mixed") else rng
             h0 = tuple(plane((m, n), gen) for _ in range(4))
             phase = torch.from_numpy(gen.uniform(0, 2 * np.pi, size=(m, n))
                                      .astype(np.float32)).to(dev)
             packed, nch_live = sets[channel_set]
             kw = dict(epsilon=1e-4, ch_start=ch, ch_count=count,
-                      packed=packed, nch_live=nch_live, precision=precision)
+                      packed=packed, nch_live=nch_live, precision=precision,
+                      row_offset=offset[0] if offset else 0)
             args = (h0, phase, OCEAN_DEMO.length, -1.0)
             n1, n2 = planes._split_lanes(n)
             with dft_switches(planes, switches):
@@ -2041,7 +2335,8 @@ def main():
             else:
                 f32_ops, tensor_ops = matrix_ops(tier, split3, n1, n2)
                 f32_ops += 30
-            label = f"ch {ch}" if count == 1 else f"ch {ch}-{ch + count - 1}"
+            label = (f"ch {ch}" if count == 1 else f"ch {ch}-{ch + count - 1}"
+                     ) + (f" at row {offset[0]}" if offset else "")
             store = "natural" if fn is fused.assemble_rowfft_natural else "transposed"
             tag = fused.channel_set(packed, nch_live)
             if not planes.is_power_of_two(n):
@@ -2300,9 +2595,8 @@ def main():
         for c in range(kw["ch_count"]):
             ch = kw["ch_start"] + c
             asm_kw = dict(epsilon=kw["epsilon"], ch=ch, packed=kw["packed"],
-                          nch_live=kw["nch_live"])
-            plain_re, plain_im = fused._assemble_plain(*args, row_offset=0,
-                                                       **asm_kw)
+                          nch_live=kw["nch_live"], row_offset=kw["row_offset"])
+            plain_re, plain_im = fused._assemble_plain(*args, **asm_kw)
             row = planes.fft1d_natural_large(plain_re[None], plain_im[None],
                                              True, precision)
             ref = torch.fft.ifft(torch.complex(*assembly_f64(*args, **asm_kw)),
@@ -2351,9 +2645,8 @@ def main():
         for c in range(kw["ch_count"]):
             ch = kw["ch_start"] + c
             asm_kw = dict(epsilon=kw["epsilon"], ch=ch, packed=kw["packed"],
-                          nch_live=kw["nch_live"])
-            plain_re, plain_im = fused._assemble_plain(*args, row_offset=0,
-                                                       **asm_kw)
+                          nch_live=kw["nch_live"], row_offset=kw["row_offset"])
+            plain_re, plain_im = fused._assemble_plain(*args, **asm_kw)
             old = planes.fft1d_transposed(plain_re[None], plain_im[None],
                                           True)
             ref = torch.fft.ifft(torch.complex(*assembly_f64(*args, **asm_kw)),
@@ -2400,9 +2693,8 @@ def main():
         for c in range(kw["ch_count"]):
             ch = kw["ch_start"] + c
             asm_kw = dict(epsilon=kw["epsilon"], ch=ch, packed=kw["packed"],
-                          nch_live=kw["nch_live"])
-            plain_re, plain_im = fused._assemble_plain(*args, row_offset=0,
-                                                       **asm_kw)
+                          nch_live=kw["nch_live"], row_offset=kw["row_offset"])
+            plain_re, plain_im = fused._assemble_plain(*args, **asm_kw)
             row = row_fn(plain_re[None], plain_im[None], True)
             ref = torch.fft.ifft(torch.complex(*assembly_f64(*args, **asm_kw)),
                                  dim=-1, norm="forward")
@@ -2457,6 +2749,26 @@ def main():
                           lambda a=fields_in: fs.fields_stencil(*a),
                           lambda a=fields_in: fs.fields_stencil_plain(*a),
                           None, 32 * n * n, 60 * n * n))
+        # on the sharded paths' shards [N, N/D] (a rank's first columns)
+        for cols in sorted({n // p.d for p in SHARDED_PATHS
+                            if p.size == n and p.d > 1}):
+            shard_in = (*(a[:, :cols].contiguous() for a in fields_in[:3]),
+                        fields_in[3])
+            got = fs.fields_stencil(*shard_in)
+            want = fs.fields_stencil_plain(*shard_in)
+            torch.cuda.synchronize()
+            for name, g, w, tol in zip(("normal", "foam", "jacobian"), got,
+                                       want, (1e-5, 1e-4, 1e-5)):
+                err = (g - w).abs().max().item()
+                errs["fields_stencil"] = max(errs["fields_stencil"], err)
+                log(f"[kernels] fields_stencil [{n}, {cols}] {name}: max abs "
+                    f"err {err:.3e} (limit {tol:g})")
+                require(err <= tol,
+                        f"fields_stencil [{n}, {cols}] {name} disagrees")
+            cases.append(Case("fields_stencil", [n, cols],
+                              lambda a=shard_in: fs.fields_stencil(*a),
+                              lambda a=shard_in: fs.fields_stencil_plain(*a),
+                              None, 32 * n * cols, 60 * n * cols))
         # v1 rounds every operation as its plain version does
         got = fs.fields_stencil_v1(*fields_in)
         want = fs.fields_stencil_v1_plain(*fields_in)
@@ -2632,6 +2944,178 @@ def main():
         del inputs, out, cts, got, want
     phase_done("3 kernels")
 
+    # ---- 5a. timing of each kernel, here, before any other process has
+    # run on the card: once one has, torch.profiler in this process
+    # records a part of the launches of a window (seen on the H100 with
+    # torch 2.11: 27 of 50)
+    results = {}
+    by_shape = {}
+    for case in cases:
+        name, shape, library = case.name, case.shape, case.library
+        if name in MIXED_SHAPES and tuple(shape) not in MIXED_TIMED:
+            continue
+        if name in MATRIX_TIMED and tuple(shape) not in MATRIX_TIMED[name]:
+            continue
+        slow = tuple(shape) in MIXED_SLOW
+        k, _, k_how = device_ms(case.run, iters=(
+            50 if not slow else 1 if name.startswith("matrix") else 3),
+            whole=True)
+        # a plain version runs up to ~300 torch ops a call (the wave bank's
+        # per-wave loop), and the profiler's cost grows with the ops it
+        # records: 10 calls, not 50
+        p, _, p_how = device_ms(case.plain, iters=1 if slow else 10,
+                                whole=True)
+        lib, _, lib_how = (device_ms(library, whole=True) if library
+                           else (None, None, None))
+        b_ms, b_by = bound(case.nbytes, case.f32_ops, case.tensor_ops)
+        timed_by = {"ms": k_how, "plain_ms": p_how, "library_ms": lib_how}
+        log(f"[timing] {name} {shape}: kernel {k:.4f} ms, plain {p:.4f} ms, "
+            f"library " + (f"{lib:.4f} ms" if lib is not None else "none")
+            + f", bound {b_ms:.4f} ms ({b_by}: {case.nbytes / 1e6:.1f} MB, "
+            f"{case.f32_ops / 1e6:.1f} Mflop f32, "
+            f"{case.tensor_ops / 1e6:.1f} Mflop bf16), {b_ms / k:.3f} of it; "
+            f"timed by {timed_by}")
+        results.setdefault(name, (shape, k, p, lib, b_ms, b_by, timed_by))
+        by_shape[name, tuple(shape)] = (k, lib, b_ms)
+
+    # each redesigned row kernel beside its time before the redesign and
+    # cuFFT at each shape: the two f32 direct kernels beside each other on
+    # the same inputs, the others beside the f32 kernel with their store
+    for name, before_ms in BEFORE_REDESIGN_MS.items():
+        store = "natural" if "natural" in name else "transposed"
+        for shape, before in before_ms.items():
+            k, lib, b_ms = by_shape[name, shape]
+            if name in ("fft_rows_transposed", "fft_rows_natural"):
+                # the other f32 direct kernel on the same inputs: the
+                # cluster store's radix-2 stages against the natural
+                # store's radix-16 passes
+                what = ("the radix-16 natural store" if store == "transposed"
+                        else "the radix-2 cluster store")
+                ref = device_ms(f32_pairs[shape][store == "transposed"],
+                                whole=True)[0]
+            elif name == "matrix_rows_transposed[bf16x3,split3]":
+                # the f32 three-factor kernel on the same pass: bf16x3 is
+                # worth having only where it is the cheaper of the two
+                what = "the f32 three-factor kernel"
+                ref = by_shape["matrix_rows_transposed[f32,split3]", shape][0]
+            elif name == FUSED_NATURAL_BF16:
+                # the ceiling of a bf16 kernel, the f32 fused natural kernel
+                # at the same shape, and the bf16 natural row kernel at
+                # [1, M, N], whose stages it runs
+                f32 = next(by_shape[f, shape][0] for f in FUSED_NATURAL_F32
+                           if (f, shape) in by_shape)
+                rows = by_shape["matrix_rows_natural[bf16]",
+                                (1, shape[0], shape[1])][0]
+                log(f"[timing] {kind} ({smi}): {name} {list(shape)}: "
+                    f"{k:.4f} ms (before the redesign {before:.4f}, PERF.md, "
+                    f"not this run), the f32 fused natural kernel {f32:.4f}, "
+                    f"the bf16 row kernel at [1, {shape[0]}, {shape[1]}] "
+                    f"{rows:.4f}, bound {b_ms:.4f}; {before / k:.2f}x faster "
+                    f"than before, {k / f32:.3f} of the f32 kernel, "
+                    f"{b_ms / k:.3f} of the bound")
+                continue
+            elif name in FUSED_TRANSPOSED_F32:
+                # beside the f32 fused natural kernel on the same inputs
+                # (the same load and passes, another store) and, for C > 1
+                # channels, beside C one-channel launches (one read of the
+                # inputs against C)
+                args, kw = fused_transposed_calls[name, shape]
+                count = kw["ch_count"]
+                nat = device_ms(lambda: fused.assemble_rowfft_natural(
+                    *args, **kw), whole=True)[0]
+                ones = ""
+                if count > 1:
+                    one = sum(device_ms(
+                        lambda ch=ch: fused.assemble_rowfft(
+                            *args, **{**kw, "ch_start": ch, "ch_count": 1}))[0]
+                        for ch in range(kw["ch_start"],
+                                        kw["ch_start"] + count))
+                    ones = (f", {count} one-channel launches {one:.4f} "
+                            f"({k / one:.3f} of them)")
+                log(f"[timing] {kind} ({smi}): {name} {list(shape)}: "
+                    f"{k:.4f} ms (before the redesign {before:.4f}, PERF.md, "
+                    f"not this run), the f32 fused natural kernel {nat:.4f} "
+                    f"({k / nat:.3f} of it){ones}, bound {b_ms:.4f}; "
+                    f"{before / k:.2f}x faster than before, "
+                    f"{b_ms / k:.3f} of the bound")
+                continue
+            elif name in FUSED_NATURAL_F32:
+                args, kw = fused_natural_calls[name, shape]
+                count = kw["ch_count"]
+                if count > 1:
+                    # one launch of C channels reads the inputs once: C
+                    # launches of one channel on the same inputs, each
+                    # reading them
+                    what = f"{count} one-channel launches"
+                    ref = sum(device_ms(
+                        lambda ch=ch: fused.assemble_rowfft_natural(
+                            *args, **{**kw, "ch_start": ch, "ch_count": 1}))[0]
+                        for ch in range(kw["ch_start"],
+                                        kw["ch_start"] + count))
+                else:
+                    what = f"the radix-16 row kernel at [1, {shape[0]}, " \
+                           f"{shape[1]}]"
+                    ref = by_shape["fft_rows_natural",
+                                   (1, shape[0], shape[1])][0]
+                log(f"[timing] {kind} ({smi}): {name} {list(shape)}: "
+                    f"{k:.4f} ms (before the redesign {before:.4f}, PERF.md, "
+                    f"not this run), {what} {ref:.4f}, bound {b_ms:.4f}; "
+                    f"{before / k:.2f}x faster than before, {k / ref:.3f} "
+                    f"of {what}, {b_ms / k:.3f} of the bound")
+                continue
+            else:
+                what = (f"Stockham f32 {store}"
+                        + (" (cluster store)" if store == "transposed" else ""))
+                ref = by_shape[f"fft_rows_{store}", shape][0]
+            log(f"[timing] {kind} ({smi}): {name} {list(shape)}: {k:.4f} ms "
+                f"(before the redesign {before:.4f}, PERF.md, not this run), "
+                f"{what} {ref:.4f}, cuFFT {lib:.4f}, bound {b_ms:.4f}; "
+                f"{before / k:.2f}x faster than before, {k / ref:.3f} of "
+                f"{what}, {k / lib:.2f}x cuFFT")
+
+    # the bf16 fused natural kernel at C = 5 (on no path): a block per
+    # channel, so the inputs are read five times; beside the f32 kernel's
+    # one read and five of its own one-channel launches
+    shape = (4096, 4096, "ch 0-4", "per_channel")
+    k, _, b_ms = by_shape[FUSED_NATURAL_BF16, shape]
+    f32 = by_shape["fused_natural[per_channel]", shape][0]
+    one = by_shape[FUSED_NATURAL_BF16, (4096, 4096, "ch 0")][0]
+    log(f"[timing] {kind} ({smi}): {FUSED_NATURAL_BF16} {list(shape)}: "
+        f"{k:.4f} ms, the f32 fused natural kernel (one read of the inputs) "
+        f"{f32:.4f}, 5 x the bf16 ch 0 launch {5 * one:.4f}, bound "
+        f"{b_ms:.4f}; {k / f32:.3f} of the f32 kernel")
+
+    # the complex state's full 2-D transforms on the paths, [C, N, N] at
+    # C = 5: the hand kernels' two passes (ifft2_planes_auto, with the
+    # natural regime's transposing copies) beside cuFFT's torch.fft.ifft2
+    # on the same values; bound: each pass reads and writes 16 B a point
+    timing_rng = np.random.default_rng(5)
+    for tag, shape, precision in (("xvii", (5, 1024, 1024), "float32"),
+                                  ("xxi", (5, 1024, 1024), "bfloat16"),
+                                  ("xviii", (5, 4096, 4096), "float32")):
+        re, im = plane(shape, timing_rng), plane(shape, timing_rng)
+        z = torch.complex(re, im)
+        hand, per_kernel, how = device_ms(
+            lambda: planes.ifft2_planes_auto(re, im, True, precision),
+            whole=True)
+        # the kernels alone (the whole call where the profiler recorded
+        # none and CUDA events stood in)
+        kernels_ms = sum(ms for key, ms in per_kernel.items()
+                         if kernel_group(key) != "torch ops") or hand
+        lib, _, lib_how = device_ms(lambda: torch.fft.ifft2(z, norm="forward"),
+                                    whole=True)
+        b_ms, b_by = bound(32 * re.numel(), 2 * 5 * int(np.log2(shape[2]))
+                           * re.numel())
+        log(f"[timing] {kind} ({smi}): the 2-D transform of path ({tag}) "
+            f"{list(shape)} at {precision}: the hand kernels' two passes "
+            f"{kernels_ms:.4f} ms ({hand:.4f} with torch ops, {how}), cuFFT "
+            f"torch.fft.ifft2 {lib:.4f} ms ({lib_how}), bound {b_ms:.4f} "
+            f"({b_by}); {kernels_ms / lib:.2f}x cuFFT, {b_ms / kernels_ms:.3f} "
+            f"of the bound")
+        del re, im, z
+
+    phase_done("5 timing, kernels")
+
     # timing of a path (phase 5; the runtime paths of phase 4 inline): each
     # step by CUDA events (its device timeline, gaps included); device time
     # by torch.profiler; warm L2 throughout
@@ -2720,9 +3204,7 @@ def main():
             if replay:
                 # the last steps again on the CPU plain path from the
                 # card's state
-                cpu_solver = OceanSolver(pcfg, device="cpu",
-                                         fft_backend=path.backend,
-                                         **path.solver)
+                cpu_solver = cpu_twin(psolver)
                 cpu_state = snapshot
                 for _ in range(replay):
                     cpu_state, cpu_fields = cpu_solver.step(cpu_state, DT)
@@ -2781,8 +3263,7 @@ def main():
     for tag, method, per_call in EXTRA_CALLS:
         path = next(p for p in PATHS if p.tag == tag)
         pcfg, psolver, state = solvers[tag]
-        cpu_solver = OceanSolver(pcfg, device="cpu", fft_backend=path.backend,
-                                 **path.solver)
+        cpu_solver = cpu_twin(psolver)
         cpu_state = state_from_numpy(state, "cpu")
         args = (float(state.t) + DT,) if method == "fields_at" else ()
         torch.cuda.synchronize()
@@ -3799,7 +4280,7 @@ def main():
         f"from manual_seed(0): bit-equal {not differ} {differ or ''}")
     require(not differ, f"path {tag}: the CLI's fields differ in {differ}")
     check_fields(saved, n, tag)
-    cpu_solver = OceanSolver(ccfg, device="cpu", fft_backend="pallas_fused")
+    cpu_solver = cpu_twin(csolver)
     _, cpu_fields = cpu_solver.step(snapshot, DT)
     log(f"[slice {tag}] step {steps} replayed on the CPU plain path from "
         f"the card's step-{steps - 1} state")
@@ -3811,7 +4292,7 @@ def main():
 
     phase_done("4 slice")
 
-    # ---- 5. timing: each path's step, then each kernel
+    # ---- 5. timing: each path's step (each kernel's came after phase 3)
     path_ms = {}
     for path in PATHS:
         pcfg, psolver, state = solvers[path.tag]
@@ -3825,7 +4306,7 @@ def main():
                                 {**path.switches,
                                  **path_switches(path)}.items()),
                       path.size, ocean_step(psolver, state),
-                      200 if path.size <= 2048 else 40, OCEAN_NOTE)
+                      100 if path.size <= 2048 else 20, OCEAN_NOTE)
     for tag, *_ in POND_PATHS:
         sim = ponds[tag][0]
         clock = [sim.state]
@@ -3887,166 +4368,90 @@ def main():
         del f_nat, f_tr
 
     phase_done("5 timing, paths")
-    results = {}
-    by_shape = {}
-    for case in cases:
-        name, shape, library = case.name, case.shape, case.library
-        if name in MIXED_SHAPES and tuple(shape) not in MIXED_TIMED:
-            continue
-        if name in MATRIX_TIMED and tuple(shape) not in MATRIX_TIMED[name]:
-            continue
-        slow = tuple(shape) in MIXED_SLOW
-        k, _, k_how = device_ms(case.run, iters=(
-            50 if not slow else 3 if name.startswith("matrix") else 10))
-        # a plain version runs up to ~300 torch ops a call (the wave bank's
-        # per-wave loop), and the profiler's cost grows with the ops it
-        # records: 10 calls, not 50
-        p, _, p_how = device_ms(case.plain, iters=1 if slow else 10)
-        lib, _, lib_how = device_ms(library) if library else (None, None, None)
-        b_ms, b_by = bound(case.nbytes, case.f32_ops, case.tensor_ops)
-        timed_by = {"ms": k_how, "plain_ms": p_how, "library_ms": lib_how}
-        log(f"[timing] {name} {shape}: kernel {k:.4f} ms, plain {p:.4f} ms, "
-            f"library " + (f"{lib:.4f} ms" if lib is not None else "none")
-            + f", bound {b_ms:.4f} ms ({b_by}: {case.nbytes / 1e6:.1f} MB, "
-            f"{case.f32_ops / 1e6:.1f} Mflop f32, "
-            f"{case.tensor_ops / 1e6:.1f} Mflop bf16), {b_ms / k:.3f} of it; "
-            f"timed by {timed_by}")
-        results.setdefault(name, (shape, k, p, lib, b_ms, b_by, timed_by))
-        by_shape[name, tuple(shape)] = (k, lib, b_ms)
 
-    # each redesigned row kernel beside its time before the redesign and
-    # cuFFT at each shape: the two f32 direct kernels beside each other on
-    # the same inputs, the others beside the f32 kernel with their store
-    for name, before_ms in BEFORE_REDESIGN_MS.items():
-        store = "natural" if "natural" in name else "transposed"
-        for shape, before in before_ms.items():
-            k, lib, b_ms = by_shape[name, shape]
-            if name in ("fft_rows_transposed", "fft_rows_natural"):
-                # the other f32 direct kernel on the same inputs: the
-                # cluster store's radix-2 stages against the natural
-                # store's radix-16 passes
-                what = ("the radix-16 natural store" if store == "transposed"
-                        else "the radix-2 cluster store")
-                ref = device_ms(f32_pairs[shape][store == "transposed"])[0]
-            elif name == "matrix_rows_transposed[bf16x3,split3]":
-                # the f32 three-factor kernel on the same pass: bf16x3 is
-                # worth having only where it is the cheaper of the two
-                what = "the f32 three-factor kernel"
-                ref = by_shape["matrix_rows_transposed[f32,split3]", shape][0]
-            elif name == FUSED_NATURAL_BF16:
-                # the ceiling of a bf16 kernel, the f32 fused natural kernel
-                # at the same shape, and the bf16 natural row kernel at
-                # [1, M, N], whose stages it runs
-                f32 = next(by_shape[f, shape][0] for f in FUSED_NATURAL_F32
-                           if (f, shape) in by_shape)
-                rows = by_shape["matrix_rows_natural[bf16]",
-                                (1, shape[0], shape[1])][0]
-                log(f"[timing] {kind} ({smi}): {name} {list(shape)}: "
-                    f"{k:.4f} ms (before the redesign {before:.4f}, PERF.md, "
-                    f"not this run), the f32 fused natural kernel {f32:.4f}, "
-                    f"the bf16 row kernel at [1, {shape[0]}, {shape[1]}] "
-                    f"{rows:.4f}, bound {b_ms:.4f}; {before / k:.2f}x faster "
-                    f"than before, {k / f32:.3f} of the f32 kernel, "
-                    f"{b_ms / k:.3f} of the bound")
-                continue
-            elif name in FUSED_TRANSPOSED_F32:
-                # beside the f32 fused natural kernel on the same inputs
-                # (the same load and passes, another store) and, for C > 1
-                # channels, beside C one-channel launches (one read of the
-                # inputs against C)
-                args, kw = fused_transposed_calls[name, shape]
-                count = kw["ch_count"]
-                nat = device_ms(lambda: fused.assemble_rowfft_natural(
-                    *args, **kw))[0]
-                ones = ""
-                if count > 1:
-                    one = sum(device_ms(
-                        lambda ch=ch: fused.assemble_rowfft(
-                            *args, **{**kw, "ch_start": ch, "ch_count": 1}))[0]
-                        for ch in range(kw["ch_start"],
-                                        kw["ch_start"] + count))
-                    ones = (f", {count} one-channel launches {one:.4f} "
-                            f"({k / one:.3f} of them)")
-                log(f"[timing] {kind} ({smi}): {name} {list(shape)}: "
-                    f"{k:.4f} ms (before the redesign {before:.4f}, PERF.md, "
-                    f"not this run), the f32 fused natural kernel {nat:.4f} "
-                    f"({k / nat:.3f} of it){ones}, bound {b_ms:.4f}; "
-                    f"{before / k:.2f}x faster than before, "
-                    f"{b_ms / k:.3f} of the bound")
-                continue
-            elif name in FUSED_NATURAL_F32:
-                args, kw = fused_natural_calls[name, shape]
-                count = kw["ch_count"]
-                if count > 1:
-                    # one launch of C channels reads the inputs once: C
-                    # launches of one channel on the same inputs, each
-                    # reading them
-                    what = f"{count} one-channel launches"
-                    ref = sum(device_ms(
-                        lambda ch=ch: fused.assemble_rowfft_natural(
-                            *args, **{**kw, "ch_start": ch, "ch_count": 1}))[0]
-                        for ch in range(kw["ch_start"],
-                                        kw["ch_start"] + count))
-                else:
-                    what = f"the radix-16 row kernel at [1, {shape[0]}, " \
-                           f"{shape[1]}]"
-                    ref = by_shape["fft_rows_natural",
-                                   (1, shape[0], shape[1])][0]
-                log(f"[timing] {kind} ({smi}): {name} {list(shape)}: "
-                    f"{k:.4f} ms (before the redesign {before:.4f}, PERF.md, "
-                    f"not this run), {what} {ref:.4f}, bound {b_ms:.4f}; "
-                    f"{before / k:.2f}x faster than before, {k / ref:.3f} "
-                    f"of {what}, {b_ms / k:.3f} of the bound")
-                continue
-            else:
-                what = (f"Stockham f32 {store}"
-                        + (" (cluster store)" if store == "transposed" else ""))
-                ref = by_shape[f"fft_rows_{store}", shape][0]
-            log(f"[timing] {kind} ({smi}): {name} {list(shape)}: {k:.4f} ms "
-                f"(before the redesign {before:.4f}, PERF.md, not this run), "
-                f"{what} {ref:.4f}, cuFFT {lib:.4f}, bound {b_ms:.4f}; "
-                f"{before / k:.2f}x faster than before, {k / ref:.3f} of "
-                f"{what}, {k / lib:.2f}x cuFFT")
-
-    # the bf16 fused natural kernel at C = 5 (on no path): a block per
-    # channel, so the inputs are read five times; beside the f32 kernel's
-    # one read and five of its own one-channel launches
-    shape = (4096, 4096, "ch 0-4", "per_channel")
-    k, _, b_ms = by_shape[FUSED_NATURAL_BF16, shape]
-    f32 = by_shape["fused_natural[per_channel]", shape][0]
-    one = by_shape[FUSED_NATURAL_BF16, (4096, 4096, "ch 0")][0]
-    log(f"[timing] {kind} ({smi}): {FUSED_NATURAL_BF16} {list(shape)}: "
-        f"{k:.4f} ms, the f32 fused natural kernel (one read of the inputs) "
-        f"{f32:.4f}, 5 x the bf16 ch 0 launch {5 * one:.4f}, bound "
-        f"{b_ms:.4f}; {k / f32:.3f} of the f32 kernel")
-
-    # the complex state's full 2-D transforms on the paths, [C, N, N] at
-    # C = 5: the hand kernels' two passes (ifft2_planes_auto, with the
-    # natural regime's transposing copies) beside cuFFT's torch.fft.ifft2
-    # on the same values; bound: each pass reads and writes 16 B a point
-    for tag, shape, precision in (("xvii", (5, 1024, 1024), "float32"),
-                                  ("xxi", (5, 1024, 1024), "bfloat16"),
-                                  ("xviii", (5, 4096, 4096), "float32")):
-        re, im = plane(shape), plane(shape)
-        z = torch.complex(re, im)
-        hand, per_kernel, how = device_ms(
-            lambda: planes.ifft2_planes_auto(re, im, True, precision))
-        # the kernels alone (the whole call where the profiler recorded
-        # none and CUDA events stood in)
-        kernels_ms = sum(ms for key, ms in per_kernel.items()
-                         if kernel_group(key) != "torch ops") or hand
-        lib, _, lib_how = device_ms(lambda: torch.fft.ifft2(z, norm="forward"))
-        b_ms, b_by = bound(32 * re.numel(), 2 * 5 * int(np.log2(shape[2]))
-                           * re.numel())
-        log(f"[timing] {kind} ({smi}): the 2-D transform of path ({tag}) "
-            f"{list(shape)} at {precision}: the hand kernels' two passes "
-            f"{kernels_ms:.4f} ms ({hand:.4f} with torch ops, {how}), cuFFT "
-            f"torch.fft.ifft2 {lib:.4f} ms ({lib_how}), bound {b_ms:.4f} "
-            f"({b_by}); {kernels_ms / lib:.2f}x cuFFT, {b_ms / kernels_ms:.3f} "
-            f"of the bound")
-        del re, im, z
-
-    phase_done("5 timing, kernels")
+    # ---- 6. the sharded slice (l)-(lv): DistributedOceanSolver over a
+    # torch.distributed group, each rank's launches counted in its own
+    # process from 0 just before its steps to just after them; (l) here,
+    # under NCCL at world size 1, after each helper of
+    # parallel/collectives.py once on CUDA tensors. Last, after the
+    # timings: once other processes have run on the card, torch.profiler
+    # in this one records a part of the launches of a window (seen on the
+    # H100 with torch 2.11: 27 of 50 a window through phase 5)
+    import torch.distributed as dist
+    from tpu_ocean_torch import make_mesh
+    from tpu_ocean_torch.parallel import collectives
+    sharded = tempfile.TemporaryDirectory(dir=HERE / "build")
+    work = Path(sharded.name)
+    path = SHARDED_PATHS[0]
+    dist.init_process_group("nccl", init_method=f"file://{work / 'nccl'}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(shard=1)
+        group = mesh.get_group("shard")
+        x = torch.arange(64.0, device=dev).reshape(2, 4, 8)
+        staged = collectives.staged_collectives["ppermute"]
+        require(dist.get_backend(group) == "nccl"
+                and torch.equal(collectives.all_to_all(x, group, 2, 1), x)
+                and torch.equal(collectives.all_gather(x, group)[0], x)
+                and torch.equal(collectives.ppermute(x, group, [(0, 0)]), x)
+                and collectives.staged_collectives["ppermute"] == staged,
+                "the collectives under NCCL at world size 1")
+        log("[slice l] all_to_all, all_gather and ppermute under NCCL at "
+            "world size 1 on a CUDA [2, 4, 8]: each returns its input, "
+            "nothing staged")
+        d1_result = {path.tag: sharded_path(path, mesh, 0, wrappers)}
+    finally:
+        dist.destroy_process_group()
+    sharded_ms = {}
+    for d in sorted({p.d for p in SHARDED_PATHS}):
+        paths = [p for p in SHARDED_PATHS if p.d == d]
+        per_rank = ([d1_result] if d == 1 else
+                    [{p.tag: r[p.tag] for p in paths}
+                     for r in run_sharded_ranks(paths, d, work)])
+        for path in paths:
+            for r, res in enumerate(per_rank):
+                out = res[path.tag]
+                counts = {k: v for k, v in out["counts"].items() if v}
+                log(f"[slice {path.tag}] DistributedOceanSolver(OCEAN_DEMO "
+                    f"{path.size}², {path.backend!r}"
+                    + "".join(f", {k}={v!r}" for k, v in path.solver.items())
+                    + f") rank {r} of {d}, {path.steps} steps of dt 1/60: "
+                    f"launches {counts} (expected {path.steps} x "
+                    f"{path.per_step}); staged_collectives "
+                    f"{{'ppermute': {out['staged']}}}")
+                require_counts(out["counts"],
+                               {k: path.steps * v
+                                for k, v in path.per_step.items()},
+                               f"path {path.tag} rank {r}")
+                for name, count in counts.items():
+                    launches[name][f"{path.tag} rank {r}"] = count
+                if "velocity_counts" in out:
+                    vc = {k: v for k, v in out["velocity_counts"].items() if v}
+                    log(f"[slice {path.tag}] velocity(state) rank {r}: "
+                        f"launches {vc} (expected {SHARDED_VELOCITY[1]})")
+                    require_counts(out["velocity_counts"], SHARDED_VELOCITY[1],
+                                   f"path {path.tag} rank {r} velocity")
+                    for name, count in vc.items():
+                        launches[name][f"{path.tag} velocity rank {r}"] = count
+            sharded_ms[path.tag] = [res[path.tag]["ms_step"] for res in per_rank]
+            log(f"[timing] {kind} ({smi}): path ({path.tag}) "
+                f"DistributedOceanSolver {path.backend} D={d} "
+                f"{path.size}x{path.size}, {d} ranks sharing one card (not a "
+                f"scaling figure): ms/step by rank (CUDA events, "
+                f"{path.iters} steps) "
+                + ", ".join(f"{res[path.tag]['ms_step']:.4f}"
+                            for res in per_rank)
+                + "; host enqueue ms/step "
+                + ", ".join(f"{res[path.tag]['host_ms']:.4f}"
+                            for res in per_rank)
+                + f"; staged_collectives a step "
+                f"{per_rank[0][path.tag]['staged'] / path.steps:g} a rank; "
+                f"{per_rank[0][path.tag]['seconds']:.1f} s of rank 0's time "
+                f"in all")
+            phase_done(f"6 sharded path ({path.tag})")
+    sharded.cleanup()
+    phase_done("6 sharded")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(launches[name].values()),

@@ -48,7 +48,12 @@ step is differentiable in the state's planes (the row-DFT kernels'
 backward is the same kernels in the opposite direction, the fields
 kernel's the torch twins), and ``invert_sea_state`` fits h0 to observed
 heights through it; the fused and wave-bank kernels, which JAX gives no
-VJP, raise NotImplementedError on a gradient.
+VJP, raise NotImplementedError on a gradient. ``DistributedOceanSolver``
+steps one patch with its rows split over the ranks of a
+``torch.distributed`` group (``parallel.make_mesh``, one process a rank):
+the row and fused kernels at the shard's shapes around an all_to_all
+transpose, the mirror-balanced half route, and the fields kernel with a
+ring-halo splice (``fft/distributed.py``, ``parallel/``).
 This package imports torch and numpy, never jax; the JAX package
 ``tpu_ocean`` is its reference.
 """
@@ -71,7 +76,10 @@ from tpu_ocean_torch.checkpoint import (
 from tpu_ocean_torch.convert import (
     cascade_state_from_numpy, cascade_state_to_numpy, state_from_numpy,
     state_to_numpy, fields_to_numpy, wavebank_from_numpy,
-    pond_fields_to_numpy)
+    pond_fields_to_numpy, shard_cols, shard_rows)
+from tpu_ocean_torch.parallel import (
+    initialize_distributed, make_mesh, roll_sharded)
+from tpu_ocean_torch.solver_dist import DistributedOceanSolver
 from tpu_ocean_torch.fft.planes import (
     fft1d_transposed, fft1d_transposed_plain, fft1d_natural_large,
     fft1d_natural_large_plain, ifft1d_planes_axis2, ifft2_pallas,
@@ -99,7 +107,9 @@ __all__ = [
     "gerstner_eval", "sinusoid_eval", "gerstner_velocity", "sinusoid_velocity",
     "state_from_numpy", "state_to_numpy", "fields_to_numpy",
     "wavebank_from_numpy",
-    "pond_fields_to_numpy",
+    "pond_fields_to_numpy", "shard_rows", "shard_cols",
+    "DistributedOceanSolver", "make_mesh", "initialize_distributed",
+    "roll_sharded",
     "fft1d_transposed", "fft1d_transposed_plain", "fft1d_natural_large",
     "fft1d_natural_large_plain", "ifft1d_planes_axis2", "ifft2_pallas",
     "ifft2_planes_auto",

@@ -161,7 +161,7 @@ class CascadeSolver:
             raise NotImplementedError(
                 "CascadeSolver(mesh=...), the band axis sharded over an "
                 "'expert' mesh axis, is not ported to tpu_ocean_torch yet "
-                "(ROADMAP.md Queue 1 item 14)")
+                "(ROADMAP.md Queue 1 item 14b)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and fft_backend == "pallas":
             # every tier and form has a kernel at every even N in

@@ -11,7 +11,9 @@ returns the port's state of the same kind on ``device``, field for field;
 for a cascade's ``CascadeState``, ``CascadeStateReal`` and ``LODState``
 (whose ``frame`` stays a host int). The pond's weights
 are its wave bank: ``wavebank_from_numpy`` takes the dict of a JAX
-``WaveBank.as_arrays()``. Nothing here imports jax.
+``WaveBank.as_arrays()``. ``shard_rows`` and ``shard_cols`` cut a global
+array (a JAX state's h0 planes and phase, its fields) to one rank's shard
+of the domain-decomposed solver. Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -74,6 +76,28 @@ def wavebank_from_numpy(arrays) -> WaveBank:
     names (a JAX ``WaveBank.as_arrays()``)."""
     return WaveBank(**{name: tuple(np.asarray(arrays[name], np.float64).tolist())
                        for name in WaveBank.__dataclass_fields__})
+
+
+def _shard(global_np, rank: int, d: int, axis: int) -> np.ndarray:
+    a = np.asarray(global_np)
+    n = a.shape[axis]
+    if n % d or not 0 <= rank < d:
+        raise ValueError(f"axis {axis} of {a.shape} does not split into "
+                         f"{d} shards, or rank {rank} is not one of them")
+    return np.ascontiguousarray(np.take(a, range(rank * n // d,
+                                                 (rank + 1) * n // d), axis))
+
+
+def shard_rows(global_np, rank: int, d: int) -> np.ndarray:
+    """Rank ``rank``'s N/D rows of a global [N, ...] array: the row split of
+    DistributedOceanSolver's h0 planes and phase."""
+    return _shard(global_np, rank, d, 0)
+
+
+def shard_cols(global_np, rank: int, d: int) -> np.ndarray:
+    """Rank ``rank``'s N/D columns of a global [N, N, ...] array: the column
+    split of DistributedOceanSolver's fields and foam_accum."""
+    return _shard(global_np, rank, d, 1)
 
 
 def fields_to_numpy(fields: OceanFields) -> OceanFields:

@@ -1,7 +1,8 @@
 """The DFT as matrix products, the ``matmul`` backend.
 
 JAX counterpart: ``tpu_ocean/fft/matmul.py`` (``fft_matmul_1d``,
-``ifft2_matmul``), which the JAX package computes as ``jnp.matmul`` and
+``ifft2_matmul``, and ``ifft1d_planes_lastaxis``, which here runs the row
+kernels), which the JAX package computes as ``jnp.matmul`` and
 ``jnp.einsum`` outside any Pallas kernel. Two forms of the unnormalized
 inverse DFT along an axis:
 
@@ -109,3 +110,23 @@ def ifft2_matmul(x: torch.Tensor, mode: str = "four_step",
     x = fft_matmul_1d(x, True, mode, precision)
     x = fft_matmul_1d(x.transpose(-1, -2), True, mode, precision)
     return x.transpose(-1, -2)
+
+
+def ifft1d_planes_lastaxis(re: torch.Tensor, im: torch.Tensor,
+                           inverse: bool = True, precision: str = "float32"):
+    """Unnormalized DFT along the last axis of (re, im) f32 [C, M, N] →
+    [C, M, N], the sharded half route's Nyquist row pass. The JAX package
+    runs it as an einsum four-step outside Pallas; here it is the row
+    kernel of the regime, as the single-card half route's Nyquist row
+    (planes.c2r_fold_columns): the natural store beyond
+    MAX_TRANSPOSED_N, else the transposed store (whose [C, N, 1] output is
+    the [C, 1, N] row with no copy). On a CPU tensor each runs its plain
+    version."""
+    from tpu_ocean_torch.fft import planes
+    if re.shape[-1] > planes.MAX_TRANSPOSED_N:
+        return planes.fft1d_natural_large(re, im, inverse, precision)
+    yr, yi = planes.fft1d_transposed(re, im, inverse, precision)
+    if re.shape[-2] == 1:
+        return yr.reshape(re.shape), yi.reshape(im.shape)
+    return (yr.transpose(-1, -2).contiguous(),
+            yi.transpose(-1, -2).contiguous())

@@ -9,6 +9,10 @@ forms: four cross products of edge vectors to the ±x/±z neighbours
 (OceanNormal.shader:39-56) and the ÷8 central differences of
 WhiteCap.shader:33-45, periodic via torch.roll; the oracle's foam takes
 one-sided differences that stop at the last row (FFTMesh.cs:253-276).
+On a grid split over ranks the periodic wrap comes from the halo ring:
+pass ``roll_fn=parallel.halo.make_roll_fn(...)``, and to the oracle's foam
+each axis's global offset and size, so that its zeroing lands on the
+global last row and column.
 The fields kernel (``ops/fields_stencil.py``) computes the same fields
 from six difference planes; these twins are its independent reference.
 Axis 0 = x, axis 1 = z.
@@ -42,13 +46,15 @@ def normals_spectral(slope_x, slope_z):
     return n / torch.linalg.norm(n, dim=-1, keepdim=True)
 
 
-def normals_stencil(disp_x, height, disp_z, texel_size: float):
+def normals_stencil(disp_x, height, disp_z, texel_size: float,
+                    roll_fn=torch.roll):
     """Finite-difference normals of the displaced positions p = (dx, h, dz)
-    with the rest-position offset ±texel_size on the stepped axis: [M, N, 3]."""
+    with the rest-position offset ±texel_size on the stepped axis: [M, N, 3].
+    ``roll_fn(x, shift, axis)`` is the periodic shift (torch.roll)."""
     p = torch.stack([disp_x, height, disp_z], dim=-1)
 
     def nb(axis, shift):
-        return torch.roll(p, -shift, axis)
+        return roll_fn(p, -shift, axis)
 
     zero = torch.zeros_like(height)
     ts = torch.full_like(height, texel_size)
@@ -67,12 +73,13 @@ def normals_stencil(disp_x, height, disp_z, texel_size: float):
     return n / torch.linalg.norm(n, dim=-1, keepdim=True)
 
 
-def whitecap_gpu(disp_x, disp_z, normal):
+def whitecap_gpu(disp_x, disp_z, normal, roll_fn=torch.roll):
     """Jacobian foam, GPU convention: central differences with periodic
-    wrap and the reference's ÷8 display scaling. Returns (foam, jacobian)."""
+    wrap (``roll_fn``) and the reference's ÷8 display scaling. Returns
+    (foam, jacobian)."""
     def central(d, axis):
-        fwd = torch.roll(d, -1, axis)
-        bwd = torch.roll(d, 1, axis)
+        fwd = roll_fn(d, -1, axis)
+        bwd = roll_fn(d, 1, axis)
         return -0.5 * (bwd - fwd) / 8.0
 
     ddx_x = central(disp_x, 0)
@@ -85,17 +92,24 @@ def whitecap_gpu(disp_x, disp_z, normal):
     return _smoothstep01(turb), jacobian
 
 
-def whitecap_oracle(disp_x, disp_z, normal):
+def whitecap_oracle(disp_x, disp_z, normal, roll_fn=torch.roll,
+                    axis_offsets=(0, 0), global_sizes=None):
     """Jacobian foam, oracle convention (FFTMesh.cs:253-276), on the raw
     (unscaled) displacements: one-sided differences dD/dx = 0.5·(D[i] −
     D[i+1]), zero on the last row and column (the reference's
-    ``if (i != resolution-1)``). Returns (foam, jacobian)."""
+    ``if (i != resolution-1)``). On a shard, ``axis_offsets`` are the
+    global indices of its first row and column and ``global_sizes`` the
+    grid's (default: the shard's own), so the zeroing lands on the global
+    last row and column. Returns (foam, jacobian)."""
+    if global_sizes is None:
+        global_sizes = (disp_x.shape[0], disp_x.shape[1])
+
     def one_sided(d, axis):
-        g = 0.5 * (d - torch.roll(d, -1, axis))
-        last = [slice(None)] * d.dim()
-        last[axis] = slice(-1, None)
-        g[tuple(last)] = 0.0
-        return g
+        g = 0.5 * (d - roll_fn(d, -1, axis))
+        idx = torch.arange(d.shape[axis], device=d.device) + axis_offsets[axis]
+        shape = [-1 if a == axis else 1 for a in range(d.dim())]
+        inside = (idx < global_sizes[axis] - 1).reshape(shape)
+        return torch.where(inside, g, g.new_zeros(()))
 
     ddx_x = one_sided(disp_x, 0)
     ddx_z = one_sided(disp_z, 0)

@@ -63,7 +63,7 @@ class Simulation:
         if mesh is not None:
             raise NotImplementedError(
                 "Simulation(mesh=...), the domain-decomposed runtime, is not "
-                "ported to tpu_ocean_torch yet (ROADMAP.md Queue 1 item 14)")
+                "ported to tpu_ocean_torch yet (ROADMAP.md Queue 1 item 14b)")
         self.cfg = cfg
         self.dt = dt
         self.solver = OceanSolver(cfg, device=device, fft_backend=fft_backend,

@@ -197,6 +197,103 @@ def _jax_pallas_supported(n: int, fused: bool) -> bool:
     return not (fused and n > _JAX_MAX_FUSED_N and n % 8)
 
 
+def advance(cfg: OceanConfig, omega, state, dt: float):
+    """The step's clock and phase: (the phase to transform at, the phase
+    the new state keeps, the new clock). Phase mode: φ ← (φ + ω·dt·mult)
+    mod 2π with dt·mult rounded to f32 first, as the JAX step forms it;
+    absolute mode: t ← t + dt/t_division, each rounded to f32 (an f32 dt,
+    weak-typed Python floats), φ = ω·t, and the state keeps its phase."""
+    dt32 = np.float32(dt)
+    if cfg.evolution_mode == "absolute":
+        t_new = state.t + float(dt32 / np.float32(cfg.t_division))
+        return evolve_phase_absolute(omega, t_new), state.phase, t_new
+    phase = evolve_phase_accumulate(
+        state.phase, omega, float(dt32 * np.float32(cfg.dt_multiplier)))
+    return phase, phase, state.t + float(dt32)
+
+
+def finish_step(cfg: OceanConfig, state, out, phase_state, t_new,
+                dt: float):
+    """(new state, fields) of a step: with cfg.foam_decay > 0 the persistent
+    foam (new crests refresh it, old foam e-folds away) replaces the
+    fields' foam; the step count advances."""
+    foam_accum = state.foam_accum
+    if cfg.foam_decay > 0.0:
+        decay = np.exp(np.float32(-cfg.foam_decay) * np.float32(dt),
+                       dtype=np.float32)
+        foam_accum = torch.maximum(out.foam, state.foam_accum * float(decay))
+        out = out._replace(foam=foam_accum)
+    return state._replace(phase=phase_state, t=t_new, step=state.step + 1,
+                          foam_accum=foam_accum), out
+
+
+def velocity_phase(cfg: OceanConfig, omega, state, t):
+    """The phase ``velocity`` evaluates at: ω·t in absolute mode (``t``
+    default the state's clock), the state's phase in phase mode (which
+    takes no t)."""
+    if cfg.evolution_mode == "absolute":
+        return evolve_phase_absolute(
+            omega, state.t if t is None else float(np.float32(t)))
+    if t is not None:
+        raise ValueError("phase mode accumulates incrementally: "
+                         "velocity is defined at the state's "
+                         "current phase (pass no t)")
+    return state.phase
+
+
+def velocity_planes(cfg: OceanConfig, omega, phase, a, b, cc, d):
+    """∂ₜh̃ = iρω·(h0·e^{iφ} − h0*·e^{−iφ}) expanded into f32 (re, im)
+    planes from the h0 pair's planes (a + ib, cc + id), ρ = dt_multiplier
+    in phase mode (φ advances by ω·dt·ρ) and 1 in absolute mode."""
+    rate = np.float32(cfg.dt_multiplier
+                      if cfg.evolution_mode == "phase" else 1.0)
+    cph, sph = torch.cos(phase), torch.sin(phase)
+    # h0·e^{iφ} − h0*·e^{−iφ} = [(a−c)C − (b+d)S] + i[(b−d)C + (a+c)S]
+    diff_re = (a - cc) * cph - (b + d) * sph
+    diff_im = (b - d) * cph + (a + cc) * sph
+    w = float(rate) * omega
+    return -(w * diff_im), w * diff_re
+
+
+def h0_pair(cfg: OceanConfig, real_state: bool,
+            generator: Optional[torch.Generator] = None, h0=None,
+            h0_conj=None):
+    """The h0 pair on the CPU, in the state's form: drawn from
+    ``generator`` (a CPU generator; default seeded with cfg.seed) in the
+    config's layout, or an injected complex (h0, h0_conj) pair (numpy or
+    anything np.asarray takes); the four f32 planes for the real state,
+    two complex64 tensors for the complex one."""
+    if h0 is None:
+        if generator is None:
+            generator = torch.Generator().manual_seed(cfg.seed)
+        draw = (h0_pair_fft_planes if real_state else
+                h0_pair_centered if cfg.spectrum_layout == "centered"
+                else h0_pair_fft)
+        return list(draw(generator, cfg.resolution, cfg.length,
+                         cfg.phillips_amplitude, cfg.wind, cfg.damping,
+                         model=cfg.spectrum_model, jonswap_kw=cfg.jonswap_kw))
+    if real_state:
+        h0_np, h0c_np = np.asarray(h0), np.asarray(h0_conj)
+        return [torch.from_numpy(np.asarray(a, dtype=np.float32))
+                for a in (np.real(h0_np), np.imag(h0_np),
+                          np.real(h0c_np), np.imag(h0c_np))]
+    return [torch.from_numpy(np.asarray(a, dtype=np.complex64))
+            for a in (h0, h0_conj)]
+
+
+def channel_fields(re, im, nch: int, packed: bool, half=None):
+    """The spatial planes (height, disp_x, disp_z[, slope_x, slope_z]) from
+    the transformed channels' (re, im): packed, the fields alternate Re/Im
+    down the packed channel list (evolve.packed_coefficients), the last
+    one ``half`` where the last packed channel took the half-spectrum
+    route; per-channel, Re of the height channel and Im of the others."""
+    if not packed:
+        return (re[0], *(im[c] for c in range(1, nch)))
+    parts = [im[c // 2] if c % 2 else re[c // 2]
+             for c in range(nch - (half is not None))]
+    return (*parts, half) if half is not None else tuple(parts)
+
+
 class OceanSolver:
     """Owns the f32 tables for one OceanConfig on one device and runs the
     step. ``device`` defaults to the CUDA card; pass ``device="cpu"`` for
@@ -390,24 +487,8 @@ class OceanSolver:
             h0, h0_conj = h0_pair_gpu_hash(
                 n, cfg.length, cfg.phillips_amplitude, cfg.wind,
                 gpu_hash_seeds[0], gpu_hash_seeds[1], cfg.damping)
-        if h0 is None:
-            if generator is None:
-                generator = torch.Generator().manual_seed(cfg.seed)
-            draw = (h0_pair_fft_planes if self.real_state else
-                    h0_pair_centered if cfg.spectrum_layout == "centered"
-                    else h0_pair_fft)
-            pair = draw(generator, n, cfg.length, cfg.phillips_amplitude,
-                        cfg.wind, cfg.damping, model=cfg.spectrum_model,
-                        jonswap_kw=cfg.jonswap_kw)
-        elif self.real_state:
-            h0_np, h0c_np = np.asarray(h0), np.asarray(h0_conj)
-            pair = [torch.from_numpy(np.asarray(a, dtype=np.float32))
-                    for a in (np.real(h0_np), np.imag(h0_np),
-                              np.real(h0c_np), np.imag(h0c_np))]
-        else:
-            pair = [torch.from_numpy(np.asarray(a, dtype=np.complex64))
-                    for a in (h0, h0_conj)]
-        pair = [p.to(self.device) for p in pair]
+        pair = [p.to(self.device) for p in h0_pair(
+            cfg, self.real_state, generator, h0, h0_conj)]
         zeros = torch.zeros((n, n), dtype=torch.float32, device=self.device)
         rest = dict(phase=zeros,
                     t=torch.zeros((), dtype=torch.float32, device=self.device),
@@ -428,59 +509,21 @@ class OceanSolver:
         switches (packing and half spectrum kept only in the same layout),
         which keeps them only at the same N and layout (JAX:
         OceanSolver.reconfigure)."""
-        changed = {f.name for f in dataclasses.fields(new_cfg)
-                   if getattr(new_cfg, f.name) != getattr(self.cfg, f.name)}
-        if generator is None:
-            generator = torch.Generator().manual_seed(new_cfg.seed)
-        keep = dict(phase=state.phase, t=state.t, step=state.step,
-                    foam_accum=state.foam_accum)
-        if changed <= self.INIT_ONLY_FIELDS:
-            solver = copy.copy(self)
-            solver.cfg = new_cfg
-            return solver, solver.init(generator)._replace(**keep)
-        same_layout = new_cfg.spectrum_layout == self.cfg.spectrum_layout
-        solver = OceanSolver(
-            new_cfg, device=self.device, fft_backend=self.fft_backend,
-            eval_mode=self.eval_mode, pallas_fields=self.pallas_fields,
-            real_state=self.real_state,
-            pack_channels=self.pack_channels if same_layout else None,
-            half_spectrum=self.half_spectrum if same_layout else False)
-        fresh = solver.init(generator)
-        if new_cfg.resolution == self.cfg.resolution and same_layout:
-            fresh = fresh._replace(**keep)
-        return solver, fresh
+        return reconfigured(
+            self, state, new_cfg, generator,
+            lambda pack, half: OceanSolver(
+                new_cfg, device=self.device, fft_backend=self.fft_backend,
+                eval_mode=self.eval_mode, pallas_fields=self.pallas_fields,
+                real_state=self.real_state, pack_channels=pack,
+                half_spectrum=half))
 
     # ------------------------------------------------------------------ step
 
     def step(self, state, dt: float = 1.0 / 60.0):
         """Advance one step; returns (new_state, OceanFields)."""
-        cfg = self.cfg
-        dt32 = np.float32(dt)
-        if cfg.evolution_mode == "absolute":
-            # dt / t_division and the sum each rounded to f32, as the JAX
-            # step forms them (an f32 dt, weak-typed Python floats)
-            t_new = state.t + float(dt32 / np.float32(cfg.t_division))
-            phase = evolve_phase_absolute(self.omega, t_new)
-            phase_state = state.phase
-        else:
-            # dt·mult rounded to f32 first, as the JAX step forms it
-            phase = evolve_phase_accumulate(
-                state.phase, self.omega,
-                float(dt32 * np.float32(cfg.dt_multiplier)))
-            phase_state = phase
-            t_new = state.t + float(dt32)
+        phase, phase_state, t_new = advance(self.cfg, self.omega, state, dt)
         out = self._fields_from_phase(state, phase)
-
-        foam_accum = state.foam_accum
-        if cfg.foam_decay > 0.0:
-            # persistent foam: new crests refresh it, old foam e-folds away
-            decay = np.exp(np.float32(-cfg.foam_decay) * dt32, dtype=np.float32)
-            foam_accum = torch.maximum(out.foam, state.foam_accum * float(decay))
-            out = out._replace(foam=foam_accum)
-
-        new_state = state._replace(phase=phase_state, t=t_new,
-                                   step=state.step + 1, foam_accum=foam_accum)
-        return new_state, out
+        return finish_step(self.cfg, state, out, phase_state, t_new, dt)
 
     def fields_at(self, state, t: float) -> OceanFields:
         """The fields at absolute time ``t`` without advancing the state
@@ -511,32 +554,18 @@ class OceanSolver:
         ``pallas_fused``, which has no standalone transform, torch.fft, as
         the JAX package takes jnp.fft there."""
         cfg = self.cfg
-        if cfg.evolution_mode == "absolute":
-            tt = state.t if t is None else float(np.float32(t))
-            phase = evolve_phase_absolute(self.omega, tt)
-        else:
-            if t is not None:
-                raise ValueError("phase mode accumulates incrementally: "
-                                 "velocity is defined at the state's "
-                                 "current phase (pass no t)")
-            phase = state.phase
-        rate = np.float32(cfg.dt_multiplier
-                          if cfg.evolution_mode == "phase" else 1.0)
+        phase = velocity_phase(cfg, self.omega, state, t)
         if not self.real_state:
+            rate = np.float32(cfg.dt_multiplier
+                              if cfg.evolution_mode == "phase" else 1.0)
             pv = torch.complex(torch.cos(phase), torch.sin(phase))
             vspec = ((1j * float(rate)) * self.omega
                      * (state.h0 * pv - state.h0_conj * pv.conj()))
             if self._ifft2 is None and self.basis is None:
                 return ifft2_unnorm(vspec).real.contiguous()
             return self._transform(vspec[None])[0].real.contiguous()
-        cph, sph = torch.cos(phase), torch.sin(phase)
-        a, b = state.h0_re, state.h0_im
-        cc, d = state.h0c_re, state.h0c_im
-        # h0·e^{iφ} − h0*·e^{−iφ} = [(a−c)C − (b+d)S] + i[(b−d)C + (a+c)S]
-        diff_re = (a - cc) * cph - (b + d) * sph
-        diff_im = (b - d) * cph + (a + cc) * sph
-        w = float(rate) * self.omega
-        re, im = -(w * diff_im), w * diff_re
+        re, im = velocity_planes(cfg, self.omega, phase, state.h0_re,
+                                 state.h0_im, state.h0c_re, state.h0c_im)
         if self.half_spectrum:
             mh = cfg.resolution // 2
             return ifft2_planes_half(re[None, :mh + 1], im[None, :mh + 1],
@@ -557,17 +586,9 @@ class OceanSolver:
         from."""
         if not self.real_state:
             f = self._evolved_transform(state, phase)
-            # packed: the fields alternate Re/Im down the packed channel
-            # list (evolve.packed_coefficients); else Re of the height
-            # channel and Im of the others
-            if self.pack_channels:
-                parts = [f[c // 2].imag if c % 2 else f[c // 2].real
-                         for c in range(self._nch)]
-            else:
-                parts = [f[0].real] + [f[c].imag for c in range(1, self._nch)]
-            return tuple(p.contiguous() for p in parts)
+            return tuple(p.contiguous() for p in channel_fields(
+                f.real, f.imag, self._nch, self.pack_channels))
         pair = (state.h0_re, state.h0_im, state.h0c_re, state.h0c_im)
-        spectral = self._nch == 5
         if self.half_spectrum:
             if self.fft_backend == "pallas_fused":
                 re_f, im_f, last = ifft2_fused_planes_half(
@@ -581,9 +602,7 @@ class OceanSolver:
                                                self.precision)
                 last = ifft2_planes_half(re[-1:, :mh + 1], im[-1:, :mh + 1],
                                          True, self.precision)[0]
-            if spectral:
-                return re_f[0], im_f[0], re_f[1], im_f[1], last
-            return re_f[0], im_f[0], last
+            return channel_fields(re_f, im_f, self._nch, True, last)
         if self.fft_backend == "pallas_fused":
             re, im = ifft2_fused_planes(
                 pair, phase, self.cfg.length, self.dz_sign, epsilon=EPSILON,
@@ -595,13 +614,7 @@ class OceanSolver:
             else:
                 re, im = assemble_spectra_real(pair, phase, self.coeffs)
             re, im = ifft2_planes_auto(re, im, True, self.precision)
-        if self.pack_channels:
-            if spectral:
-                return re[0], im[0], re[1], im[1], re[2]
-            return re[0], im[0], re[1]
-        if spectral:
-            return re[0], im[1], im[2], im[3], im[4]
-        return re[0], im[1], im[2]
+        return channel_fields(re, im, self._nch, self.pack_channels)
 
     def _evolved_transform(self, state: OceanState, phase) -> torch.Tensor:
         """phase [N, N] → complex64 [C, N, N] spatial fields: the assembly
@@ -672,3 +685,32 @@ class OceanSolver:
         return OceanFields(height=height, disp_x=disp_x, disp_z=disp_z,
                            pos_x=self.x0 - chop_dx, pos_z=self.z0 - chop_dz,
                            normal=normal, foam=foam, jacobian=jac)
+
+
+def reconfigured(solver, state, new_cfg: OceanConfig, generator, build):
+    """``solver.reconfigure``'s rule (JAX: OceanSolver.reconfigure), for
+    OceanSolver and DistributedOceanSolver: h0 drawn afresh from
+    ``generator`` (default seeded with new_cfg.seed); a change of
+    OceanSolver.INIT_ONLY_FIELDS only keeps every table (a shallow copy)
+    and the phase, clock, step and foam; any other change takes
+    ``build(pack_channels, half_spectrum)``, the new solver with the same
+    switches (packing and half spectrum kept only in the same layout),
+    which keeps them only at the same N and layout. Returns (solver,
+    state)."""
+    changed = {f.name for f in dataclasses.fields(new_cfg)
+               if getattr(new_cfg, f.name) != getattr(solver.cfg, f.name)}
+    if generator is None:
+        generator = torch.Generator().manual_seed(new_cfg.seed)
+    keep = dict(phase=state.phase, t=state.t, step=state.step,
+                foam_accum=state.foam_accum)
+    if changed <= OceanSolver.INIT_ONLY_FIELDS:
+        new = copy.copy(solver)
+        new.cfg = new_cfg
+        return new, new.init(generator)._replace(**keep)
+    same_layout = new_cfg.spectrum_layout == solver.cfg.spectrum_layout
+    new = build(solver.pack_channels if same_layout else None,
+                solver.half_spectrum if same_layout else False)
+    fresh = new.init(generator)
+    if new_cfg.resolution == solver.cfg.resolution and same_layout:
+        fresh = fresh._replace(**keep)
+    return new, fresh
