@@ -371,6 +371,27 @@ Phases, each printing its own lines:
                kernel's call, a part of the launches, in three windows),
                from CUDA events, and the line says so ("timed_by" in the
                JSON).
+  5b. serving — serve.FrameServer on Simulation(OCEAN_DEMO, 'pallas',
+               path (i)'s switches), its clients in threads of this
+               process reading height, normal, foam and velocity through
+               serve.stream_frames, every frame held to an offline replay
+               from the same seed on the card (steps and t; every plane
+               bit-equal to the replay's, pooled on the card for its tier;
+               f32 pooled planes within 1e-6·max of decimate_plane, a
+               normal's band over its block mean's length), launches exact
+               (a step's and one velocity's a frame):
+               (lvi)  1024², 30 steps: full f32; lod 4, float16, zlib;
+                      frame_stride 2 with camera_distance 250 (lod 2)
+               (lvii) 4096², 10 steps: full f32; lod 4, float16
+               run's ms/step by CUDA events and by the wall clock with no
+               client, with those clients and, at 1024², with native
+               clients (processes of their own), and the bytes pulled a
+               frame;
+               (lviii) python -m tpu_ocean_torch serve --res 256 --steps 40
+                      --backend pallas --real-state --pack-channels
+                      --half-spectrum in a process of its own, read by the
+                      native client (native/stream_client.cpp, built by
+                      native.stream_client()): 3 frames
   6. sharded — last, since once other processes have run on the card
                torch.profiler in this one records a part of a window's
                launches: DistributedOceanSolver on OCEAN_DEMO over D ranks
@@ -429,6 +450,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -992,6 +1014,37 @@ SHARDED_REL, SHARDED_FOAM, SHARDED_D1_REL = 2e-5, 1e-4, 1e-6
 # seconds a group of ranks may take, and a collective may wait
 SHARDED_TIMEOUT = 300
 SHARDED_RANK = "import sys, chip_smoke; chip_smoke.sharded_rank(*sys.argv[1:])"
+# the serving slice (lvi)-(lviii): serve.FrameServer on a Simulation with
+# path (i)'s switches (OCEAN_DEMO's production set, SLICE), in this
+# process after phase 5's timings; its clients read height, normal, foam
+# and velocity through serve.stream_frames in threads of this process:
+# tag, N, steps, {client: request}, launches a step, launches of one
+# velocity (the half route), whether run is also timed with native
+# clients (4096² frames of 400 MB take ~7 s a run through the host: left
+# to tools/serve_payload_variants.py). Velocity is computed once a frame
+# for every tier, and a full-rate client makes every frame due.
+SERVE_FIELDS = ("height", "normal", "foam", "velocity")
+ServePath = collections.namedtuple(
+    "ServePath", "tag size steps clients per_step velocity native")
+SERVE_PATHS = [
+    ServePath("lvi", 1024, 30,
+              {"full": {}, "lod4": {"lod": 4, "dtype": "float16",
+                                    "codec": "zlib"},
+               "far": {"frame_stride": 2, "camera_distance": 250.0}},
+              SHARDED_SLICE_STEP, {"fft_rows_transposed": 3}, True),
+    ServePath("lvii", 4096, 10,
+              {"full": {}, "lod4": {"lod": 4, "dtype": "float16"}},
+              {"fft_rows_natural": 3, "fft_rows_transposed": 2,
+               "fields_stencil": 1},
+              {"fft_rows_natural": 2, "fft_rows_transposed": 1}, False),
+]
+# (lviii) the CLI's serve scene in a process of its own, read by the native
+# client (native/stream_client.cpp, built by native.stream_client())
+SERVE_CLI = ["serve", "--res", "256", "--steps", "40", "--backend", "pallas",
+             "--real-state", "--pack-channels", "--half-spectrum"]
+SERVE_CLI_FRAMES = 3
+# seconds a client may take to subscribe, or to read its frames
+SERVE_TIMEOUT = 120
 # the adjoint identity ⟨F x, y⟩ = ⟨x, Fᵀ y⟩ in float64: at f32 within
 # tests/test_autodiff.py:226's 2e-5; at bf16 within the tier's band times
 # ‖F x‖‖y‖ + ‖x‖‖Fᵀ y‖ (Cauchy–Schwarz on a relative error of either side):
@@ -1980,6 +2033,264 @@ def run_sharded_ranks(paths, d, work):
                 f"{e.read_text()[-3000:]}")
     return [json.loads((work / f"result_d{d}_{r}.json").read_text())
             for r in range(d)]
+
+
+def serve_tier(server, request):
+    """The (divisor, dtype) a request is served at (FrameServer's rules)."""
+    from tpu_ocean_torch.serve import _clamp_divisor, lod_divisor_for_distance
+    n = server.sim.cfg.resolution
+    if "lod" in request:
+        divisor = _clamp_divisor(request["lod"], n)
+    elif "camera_distance" in request:
+        divisor = lod_divisor_for_distance(request["camera_distance"],
+                                           server.sim.world_length, n)
+    else:
+        divisor = 1
+    return divisor, request.get("dtype", "float32")
+
+
+def serve_clients(server, clients, max_frames):
+    """One thread a client of ``clients`` ({tag: request}) reading
+    ``max_frames[tag]`` frames through serve.stream_frames; returns
+    (threads, frames by tag, errors) once every client has subscribed."""
+    from tpu_ocean_torch.serve import stream_frames
+    host, port = server.address
+    got, errs = {}, []
+
+    def client(tag, request):
+        try:
+            got[tag] = list(stream_frames(host, port,
+                                          max_frames=max_frames[tag],
+                                          **request))
+        except Exception as e:           # reported by the caller
+            errs.append(f"{tag}: {e!r}")
+
+    before = server.client_count
+    threads = [threading.Thread(target=client, args=item, daemon=True)
+               for item in clients.items()]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + SERVE_TIMEOUT
+    while (server.client_count < before + len(threads)
+           and all(t.is_alive() for t in threads)):
+        require(time.monotonic() < deadline, "the clients did not subscribe")
+        time.sleep(0.002)
+    return threads, got, errs
+
+
+def timed_run(server, steps):
+    """(ms a step of server.run(steps) by CUDA events, by the host's
+    wall clock)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    server.run(steps)
+    end.record()
+    end.synchronize()
+    return (start.elapsed_time(end) / steps,
+            (time.perf_counter() - t0) * 1e3 / steps)
+
+
+def pooled_band(want, full, divisor, name):
+    """The band of a plane pooled on the device against decimate_plane of
+    its full plane: 1e-6·max (the means sum in other orders); for a
+    normal, over the length of its block's mean, which the renormalization
+    divides by."""
+    tol = 1e-6 * np.abs(want).max()
+    if name == "normal" and divisor > 1:
+        m = full.shape[0] // divisor
+        mean = full.astype(np.float64).reshape(
+            m, divisor, m, divisor, 3).mean(axis=(1, 3))
+        tol = tol / np.linalg.norm(mean, axis=-1, keepdims=True)
+    return tol
+
+
+def serve_path(path, wrappers, seed=0):
+    """One serving path: a Simulation (OCEAN_DEMO at the path's N, SLICE's
+    switches, ``manual_seed(seed)``) replayed offline first, each step's
+    served planes (velocity from solver.velocity) pooled as every client's
+    tier is (serve._pool_on_device) and pulled; then a second Simulation
+    from the same seed under FrameServer, the clients subscribed, every
+    count 0 just before run(steps) and read just after. Every frame of every
+    client is held to the replay: its steps, its full planes bit-equal, its
+    pooled planes bit-equal to the replay's pooling and f32 ones within
+    pooled_band of decimate_plane. Returns {counts, expected counts, ms a
+    step by CUDA events and wall clock, bytes pulled a frame by tier,
+    frames by client, checks}; raises on a failed check."""
+    from tpu_ocean_torch import OCEAN_DEMO, Simulation
+    from tpu_ocean_torch.serve import FrameServer, _pool_on_device, decimate_plane
+    cfg = OCEAN_DEMO.replace(resolution=path.size)
+
+    def simulation():
+        return Simulation(cfg, generator=torch.Generator().manual_seed(seed),
+                          fft_backend="pallas", **SLICE)
+
+    replay = simulation()
+    server = FrameServer(simulation(), fields=SERVE_FIELDS,
+                         queue_frames=path.steps + 2)
+    with server:
+        tiers = {tag: serve_tier(server, req)
+                 for tag, req in path.clients.items()}
+        strides = {tag: req.get("frame_stride", 1)
+                   for tag, req in path.clients.items()}
+        want = {}
+        for k in range(1, path.steps + 1):
+            fields = replay.step()
+            dev = {name: replay.solver.velocity(replay.state)
+                   if name == "velocity" else getattr(fields, name)
+                   for name in SERVE_FIELDS}
+            want[k] = {tier: {name: _pool_on_device(
+                tier[0], name == "normal", tier[1])(x).cpu().numpy()
+                for name, x in dev.items()}
+                for tier in {*tiers.values(), (1, "float32")}}
+        max_frames = {tag: len(range(1, path.steps + 1, strides[tag]))
+                      for tag in path.clients}
+        threads, got, errs = serve_clients(server, path.clients, max_frames)
+        reset_launches(wrappers)
+        ms, wall_ms = timed_run(server, path.steps)
+        counts = read_launches(wrappers)
+        deadline = time.monotonic() + SERVE_TIMEOUT
+        for t in threads:
+            t.join(timeout=max(deadline - time.monotonic(), 1))
+        require(not any(t.is_alive() for t in threads) and not errs,
+                f"path {path.tag}: clients {errs or 'still reading'}")
+        pulled = {f"{d}/{dt}": sum(b.numel() * b.element_size()
+                                   for b in planes.values())
+                  for (d, dt), planes in server._host_planes.items()}
+    expected = {k: path.steps * (path.per_step.get(k, 0)
+                                 + path.velocity.get(k, 0))
+                for k in {*path.per_step, *path.velocity}}
+    checks = {}
+    for tag, frames in got.items():
+        steps = [m["step"] for m, _ in frames]
+        require(steps == list(range(1, path.steps + 1, strides[tag])),
+                f"path {path.tag}: client {tag} got steps {steps}")
+        require(all(m["t"] == m["step"] * DT for m, _ in frames),
+                f"path {path.tag}: client {tag}: a frame's t")
+        divisor, dtype = tiers[tag]
+        worst = 0.0
+        for meta, planes in frames:
+            for name in SERVE_FIELDS:
+                pooled = want[meta["step"]][tiers[tag]][name]
+                require(np.array_equal(planes[name],
+                                       pooled.astype(np.float32)),
+                        f"path {path.tag}: client {tag} step "
+                        f"{meta['step']} {name} is not the replay's")
+                if divisor > 1 and dtype == "float32":
+                    full = want[meta["step"]][(1, "float32")][name]
+                    host = decimate_plane(full, divisor, name)
+                    band = pooled_band(host, full, divisor, name)
+                    err = np.abs(planes[name] - host)
+                    worst = max(worst, float((err / band).max()))
+                    require((err <= band).all(),
+                            f"path {path.tag}: client {tag} {name} off "
+                            f"decimate_plane by {(err / band).max():.2f} of "
+                            f"its band")
+        checks[tag] = {"frames": len(frames), "divisor": divisor,
+                       "dtype": dtype, "stride": strides[tag],
+                       "decimate_band_share": worst}
+    return {"counts": {k: v for k, v in counts.items() if v},
+            "expected": expected, "ms": ms, "wall_ms": wall_ms,
+            "pulled": pulled, "checks": checks}
+
+
+def serve_idle_ms(path, seed=0):
+    """(ms a step by CUDA events, by the wall clock) of FrameServer.run
+    with no client: the step and the server's loop, no pull."""
+    from tpu_ocean_torch import OCEAN_DEMO, Simulation
+    from tpu_ocean_torch.serve import FrameServer
+    sim = Simulation(OCEAN_DEMO.replace(resolution=path.size),
+                     generator=torch.Generator().manual_seed(seed),
+                     fft_backend="pallas", **SLICE)
+    with FrameServer(sim, fields=SERVE_FIELDS) as server:
+        server.run(2)                    # warm
+        return timed_run(server, path.steps)
+
+
+def serve_native_ms(path, seed=0):
+    """(ms a step by CUDA events, by the wall clock, frames read) of
+    FrameServer.run with native clients (native/stream_client.cpp,
+    processes of their own, so no reader shares this process's GIL) at
+    the path's tiers that the native client requests (lod, dtype): one a
+    tier, each reading every frame."""
+    from tpu_ocean_torch import OCEAN_DEMO, Simulation, native
+    from tpu_ocean_torch.serve import FrameServer
+    sim = Simulation(OCEAN_DEMO.replace(resolution=path.size),
+                     generator=torch.Generator().manual_seed(seed),
+                     fft_backend="pallas", **SLICE)
+    binary = str(native.stream_client())
+    with FrameServer(sim, fields=SERVE_FIELDS,
+                     queue_frames=path.steps + 2) as server:
+        host, port = server.address
+        tiers = sorted({(req.get("lod", 1), req.get("dtype", "float32"))
+                        for req in path.clients.values()
+                        if "camera_distance" not in req})
+        procs = [subprocess.Popen([binary, host, str(port), str(path.steps),
+                                   str(lod), dtype], stdout=subprocess.PIPE,
+                                  text=True) for lod, dtype in tiers]
+        try:
+            deadline = time.monotonic() + SERVE_TIMEOUT
+            while server.client_count < len(procs):
+                require(time.monotonic() < deadline
+                        and all(p.poll() is None for p in procs),
+                        "the native clients did not subscribe")
+                time.sleep(0.002)
+            ms = timed_run(server, path.steps)
+            outs = [p.communicate(timeout=SERVE_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for (lod, dtype), p, out in zip(tiers, procs, outs):
+        require(p.returncode == 0
+                and f"received {path.steps}/{path.steps} frames" in out,
+                f"path {path.tag}: native client lod {lod} {dtype}: exit "
+                f"{p.returncode}: {out[-500:]}")
+    return (*ms, tiers)
+
+
+def serve_cli(work):
+    """(lviii): ``python -m tpu_ocean_torch serve`` (SERVE_CLI) in a
+    process of its own; once it prints its address the native client reads
+    SERVE_CLI_FRAMES frames of it. Returns (the CLI's serving line, the
+    client's output, seconds)."""
+    from tpu_ocean_torch import native
+    binary = str(native.stream_client())
+    t0 = time.perf_counter()
+    cli = subprocess.Popen([sys.executable, "-m", "tpu_ocean_torch",
+                            *SERVE_CLI, "--out", str(work / "serve")],
+                           cwd=HERE, stderr=subprocess.PIPE, text=True)
+    client = None
+    try:
+        seen = []
+        for line in cli.stderr:          # up to the address line
+            seen.append(line)
+            if line.startswith("# serving"):
+                break
+        found = re.search(r"on ([\d.]+):(\d+) ", seen[-1] if seen else "")
+        require(found is not None, f"python -m tpu_ocean_torch serve printed "
+                f"{''.join(seen)[-2000:]!r}, not its address")
+        client = subprocess.Popen([binary, found[1], found[2],
+                                   str(SERVE_CLI_FRAMES)],
+                                  stdout=subprocess.PIPE, text=True)
+        out = client.communicate(timeout=SERVE_TIMEOUT)[0]
+        err = cli.communicate(timeout=SERVE_TIMEOUT)[1]
+    finally:
+        for proc in (cli, client):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    require(cli.returncode == 0, f"python -m tpu_ocean_torch "
+            f"{' '.join(SERVE_CLI)} exited {cli.returncode}: {err[-2000:]}")
+    require(client.returncode == 0
+            and f"received {SERVE_CLI_FRAMES}/{SERVE_CLI_FRAMES} frames"
+            in out, f"the native client exited {client.returncode}: "
+            f"{out[-1000:]}")
+    return seen[-1].strip(), out, seconds
 
 
 def main():
@@ -4368,6 +4679,54 @@ def main():
         del f_nat, f_tr
 
     phase_done("5 timing, paths")
+
+    # ---- 5b. the serving slice (lvi)-(lviii): FrameServer on a Simulation
+    # with path (i)'s switches, its clients in threads of this process,
+    # every frame held to an offline replay from the same seed, every count
+    # 0 just before run(steps) and read just after; run's ms/step with no
+    # client, with the path's clients and with native clients (processes of
+    # their own); then the CLI's serve scene read by the native client
+    serve_work = tempfile.TemporaryDirectory(dir=HERE / "build")
+    for path in SERVE_PATHS:
+        t0 = time.perf_counter()
+        idle_ms, idle_wall = serve_idle_ms(path)
+        out = serve_path(path, wrappers)
+        log(f"[slice {path.tag}] FrameServer(Simulation(OCEAN_DEMO "
+            f"{path.size}², 'pallas', {SLICE}), {SERVE_FIELDS}), "
+            f"{path.steps} steps, clients {path.clients}: launches "
+            f"{out['counts']} (expected {path.steps} x ({path.per_step} + "
+            f"velocity {path.velocity}))")
+        require_counts(out["counts"], out["expected"], f"path {path.tag}")
+        for name, count in out["counts"].items():
+            launches[name][path.tag] = count
+        for tag, c in out["checks"].items():
+            log(f"[slice {path.tag}] client {tag} (lod {c['divisor']}, "
+                f"{c['dtype']}, stride {c['stride']}): {c['frames']} frames, "
+                f"steps and t as the replay's, every plane bit-equal to the "
+                f"replay's (pooled on the card for its tier)"
+                + (f"; within {c['decimate_band_share']:.3f} of "
+                   f"decimate_plane's band (1e-6·max)"
+                   if c["divisor"] > 1 and c["dtype"] == "float32" else ""))
+        native = ""
+        if path.native:
+            native_ms, native_wall, native_tiers = serve_native_ms(path)
+            native = (f"; with native clients at tiers {native_tiers} "
+                      f"{native_ms:.4f} by CUDA events, {native_wall:.4f} by "
+                      f"the wall clock")
+        log(f"[timing] {kind} ({smi}): path ({path.tag}) FrameServer.run "
+            f"{path.size}x{path.size}, {path.steps} steps: ms/step by CUDA "
+            f"events {idle_ms:.4f} with no client, {out['ms']:.4f} with its "
+            f"clients (threads of this process); by the wall clock "
+            f"{idle_wall:.4f}, {out['wall_ms']:.4f}{native}; bytes pulled a "
+            f"frame by tier (divisor/dtype) {out['pulled']}")
+        phase_done(f"5b serve path ({path.tag}) in "
+                   f"{time.perf_counter() - t0:.1f} s")
+    line, client_out, seconds = serve_cli(Path(serve_work.name))
+    log(f"[slice lviii] python -m tpu_ocean_torch {' '.join(SERVE_CLI)} in a "
+        f"process of its own ({line!r}) and the native client: exit 0, "
+        f"{client_out.strip().splitlines()[-1]!r}, {seconds:.1f} s")
+    serve_work.cleanup()
+    phase_done("5b serving")
 
     # ---- 6. the sharded slice (l)-(lv): DistributedOceanSolver over a
     # torch.distributed group, each rank's launches counted in its own

@@ -21,14 +21,18 @@ the JAX package's (``tpu_ocean.demo``):
   same printed LOD schedule, the final fields within the cascade parity
   bands (tests/test_torch_cascade.py), the render the shading of the
   saved fields;
-- ``serve`` raises NotImplementedError naming ROADMAP item 13; the default
-  device is the card, with no fallback;
+- ``serve --device cpu`` streams two frames to a client, bit-equal to a
+  Simulation of the same config and seed; the default device of
+  ``ocean`` and ``serve`` is the card, with no fallback;
 - ``python -m tpu_ocean_torch --help`` lists the five subcommands."""
 
 import os
 import re
+import socket
 import subprocess
 import sys
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -212,19 +216,77 @@ def test_cascade_cli_matches_jax(tmp_path, monkeypatch, capsys, argv, n):
         (viz.shade_ocean(got) * 255).astype(np.uint8))
 
 
-@pytest.mark.parametrize("cmd,item", [("serve", 13)])
-def test_unported_scenes_raise(tmp_path, cmd, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        demo.main([cmd, "--res", "32", "--steps", "1", "--device", "cpu",
-                   "--out", str(tmp_path)])
+def test_serve_scene_serves_two_frames(tmp_path, monkeypatch, capsys):
+    """``serve --device cpu`` binds the port it is given, prints the
+    address in the JAX CLI's format and streams frames bit-equal to a
+    Simulation of the same config and seed. FrameServer.run waits (bounded)
+    for the test's client before it steps, as the JAX stream_client's pump
+    does, and for the client's end after (stop() at the CLI's exit closes
+    the streams at once, frames still queued or not)."""
+    from tpu_ocean_torch import serve
+    from tpu_ocean_torch.runtime import Simulation
+
+    original = serve.FrameServer.run
+
+    def run_with_the_client(self, steps=None):
+        deadline = time.monotonic() + 60
+        while self.client_count == 0 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        original(self, steps)
+        t.join(timeout=60)
+
+    monkeypatch.setattr(serve.FrameServer, "run", run_with_the_client)
+    with socket.socket() as probe:        # a free port to hand the CLI
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    frames, errs = [], []
+
+    def client():
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                frames.extend(serve.stream_frames("127.0.0.1", port,
+                                                  max_frames=2))
+                return
+            except ConnectionRefusedError:
+                if time.monotonic() > deadline:
+                    errs.append("no server")
+                    return
+                time.sleep(0.01)
+            except Exception as e:
+                errs.append(e)
+                return
+
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    argv = ["serve", "--res", "32", "--steps", "3", "--seed", "5",
+            "--port", str(port), "--fields", "height,normal,foam",
+            "--device", "cpu", "--out", str(tmp_path)]
+    assert demo.main(argv) == 0
+    t.join(timeout=60)
+    assert not t.is_alive() and not errs, errs
+    assert (f"# serving 32^2 [height,normal,foam] on 127.0.0.1:{port} "
+            f"(3 steps)") in capsys.readouterr().err.splitlines()
+    assert [m["step"] for m, _ in frames] == [1, 2]
+    offline = Simulation(OCEAN_DEMO.replace(resolution=32, length=32.0),
+                         fft_backend="reference",
+                         generator=torch.Generator().manual_seed(5),
+                         device="cpu")
+    for meta, planes in frames:
+        out = offline.step()
+        assert meta["t"] == meta["step"] * offline.dt
+        for name in ("height", "normal", "foam"):
+            np.testing.assert_array_equal(planes[name],
+                                          getattr(out, name).numpy())
 
 
 def test_default_device_is_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")
-    with pytest.raises((AssertionError, RuntimeError)):
-        demo.main(["ocean", "--res", "32", "--steps", "1",
-                   "--out", str(tmp_path)])
+    for cmd in ("ocean", "serve"):
+        with pytest.raises((AssertionError, RuntimeError)):
+            demo.main([cmd, "--res", "32", "--steps", "1",
+                       "--out", str(tmp_path)])
     assert not any(f.endswith(".npy") for f in os.listdir(tmp_path))
 
 

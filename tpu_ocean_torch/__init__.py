@@ -34,8 +34,10 @@ steps B patches together, every band on the channel axis of the same
 kernel launches, and sums them; ``LODCascadeSolver`` refreshes each band
 at its own period, and ``CascadeSimulation`` runs either with metrics,
 cascade checkpoints (``checkpoint.save_cascade_checkpoint``, the JAX
-format) and export. The demo scenes run as ``python -m tpu_ocean_torch
-ocean|fftmesh|pond|cascade`` (``demo``),
+format) and export. ``serve.FrameServer`` streams a runtime's fields to
+TCP clients in real time (``serve.stream_frames``, ``stream_client``).
+The demo scenes run as ``python -m tpu_ocean_torch
+ocean|fftmesh|pond|cascade|serve`` (``demo``),
 with the consumers ``viz`` (PNG heatmaps without PIL or matplotlib,
 renders, OBJ meshes), ``sample`` (bilinear probes) and ``oracle`` (the
 float64 direct-DFT oracle). The solvers and

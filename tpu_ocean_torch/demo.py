@@ -8,16 +8,19 @@ output files::
     python -m tpu_ocean_torch pond    [--steps K] [--waves W] [--pallas]
     python -m tpu_ocean_torch cascade [--steps K] [--res N] [--production]
                                       [--camera M]
+    python -m tpu_ocean_torch serve   [--steps K] [--res N] [--port P]
+                                      [--fields height,foam] [--real-state]
 
 Each command steps the corresponding preset (Ocean Demo.unity / FFT
 Mesh.unity / Pond.unity parameter sets, encoded in config.py) and exports
 field snapshots — PNG heatmaps and .npy planes, plus shaded renders — the
 stand-in for watching the Unity scene. Metrics stream to stderr as JSONL
 (observe.Metrics); each step's record ends when the device has finished
-it. Every scene runs on the CUDA card unless ``--device cpu`` is given;
-without a card the default raises, as torch does. ``serve`` keeps the JAX
-package's flags and raises NotImplementedError until its module is
-ported.
+it. ``serve`` streams the ocean's fields to TCP clients
+(``serve.FrameServer``; read them with ``serve.stream_frames``, ``python
+-m tpu_ocean_torch.stream_client`` or ``native/stream_client.cpp``). Every
+scene runs on the CUDA card unless ``--device cpu`` is given; without a
+card the default raises, as torch does.
 """
 
 from __future__ import annotations
@@ -220,10 +223,37 @@ def run_cascade(args) -> int:
 
 
 def run_serve(args) -> int:
-    """The field stream to TCP clients (JAX: serve.py), not ported yet."""
-    raise NotImplementedError(
-        "the serve scene needs FrameServer, which is not ported to "
-        "tpu_ocean_torch yet (ROADMAP.md Queue 1 item 13)")
+    """Serve the ocean demo as a real-time field stream (serve.py): remote
+    clients consume what Unity composited locally (OceanRenderer.cs:
+    98-136). The bound address is printed on stderr."""
+    from tpu_ocean_torch.config import OCEAN_DEMO
+    from tpu_ocean_torch.runtime import Simulation
+    from tpu_ocean_torch.serve import FrameServer
+
+    cfg = OCEAN_DEMO if not args.res else OCEAN_DEMO.replace(
+        resolution=args.res, length=float(args.res))
+    kw = {}
+    if args.real_state:
+        kw["real_state"] = True
+        if args.backend not in ("pallas", "pallas_fused"):
+            args.backend = "pallas"      # real_state needs the plane backends
+    if args.pack_channels:
+        kw["pack_channels"] = True
+    if args.half_spectrum:
+        kw["half_spectrum"] = True
+    sim = Simulation(cfg, fft_backend=args.backend, out_dir=args.out,
+                     checkpoint_every=args.checkpoint_every,
+                     export_every=args.dump_every,
+                     generator=torch.Generator().manual_seed(args.seed),
+                     device=args.device, **kw)
+    with sim, FrameServer(sim, fields=tuple(args.fields.split(",")),
+                          host=args.host, port=args.port) as server:
+        host, port = server.address
+        print(f"# serving {cfg.resolution}^2 [{args.fields}] on "
+              f"{host}:{port} ({args.steps or 'unlimited'} steps)",
+              file=sys.stderr, flush=True)
+        server.run(steps=args.steps or None)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -274,8 +304,7 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("serve",
                        help="stream solver fields to TCP clients "
-                            "(real-time drop policy); not ported yet "
-                            "(ROADMAP item 13)")
+                            "(real-time drop policy)")
     _add_common(p, default_steps=0)
     p.add_argument("--res", type=int, default=0)
     p.add_argument("--host", type=str, default="127.0.0.1")

@@ -1,5 +1,6 @@
-"""The asynchronous field exporter: a ctypes binding of
-``native/exporter.cpp``.
+"""The asynchronous field exporter, a ctypes binding of
+``native/exporter.cpp``, and the build of the native stream client
+``native/stream_client.cpp``.
 
 JAX counterpart: the exporter half of ``tpu_ocean/native.py``. Submissions
 are copied into a bounded ring and written to ``.npy`` files (float64,
@@ -9,7 +10,10 @@ step loop. The port compiles ``exporter.cpp`` alone with the host's
 ``build/tpu_ocean_torch_native/<hash>/`` (a directory ``.gitignore``
 lists), keyed by a hash of the source and the flags, at the first
 exporter it makes; nothing builds at import. A failed build raises with
-the compiler's output.
+the compiler's output. ``stream_client()`` builds the framework-free C++
+consumer of the ``tpu-ocean/1`` frame stream the same way (g++
+``CLIENT_FLAGS``, the same hash and directory) and returns the
+executable's path; ``native/Makefile`` is not used.
 """
 
 from __future__ import annotations
@@ -30,27 +34,41 @@ SOURCE = _ROOT / "native" / "exporter.cpp"
 BUILD_ROOT = _ROOT / "build" / "tpu_ocean_torch_native"
 FLAGS = ("-O3", "-fPIC", "-std=c++17", "-pthread", "-shared")
 LIB_NAME = "libtpu_ocean_exporter.so"
+CLIENT_SOURCE = _ROOT / "native" / "stream_client.cpp"
+CLIENT_FLAGS = ("-O3", "-std=c++17", "-Wall", "-Wextra")
+CLIENT_NAME = "tpu_ocean_stream_client"
 
 
-def _compile(tmp: Path) -> str:
-    """g++ ``SOURCE`` into ``tmp / LIB_NAME``; returns its output."""
+def _gxx(source: Path, flags, out: Path) -> str:
+    """g++ ``source`` into ``out``; returns the compiler's output."""
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the port's exporter is built "
-                           "from native/exporter.cpp on first use")
-    cmd = [gxx, *FLAGS, str(SOURCE), "-o", str(tmp / LIB_NAME)]
+        raise RuntimeError(f"g++ not found: the port builds {source.name} "
+                           f"on first use")
+    cmd = [gxx, *flags, str(source), "-o", str(out)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"the exporter's build failed ({proc.returncode}):"
-                           f"\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"{source.name}: build failed ({proc.returncode})"
+                           f":\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     return proc.stdout + proc.stderr
+
+
+@functools.cache
+def stream_client() -> Path:
+    """Build (once per source hash) the native stream client; its path.
+    Run it as ``<path> <host> <port> <frames> [lod] [dtype]``."""
+    path, _ = cached_library(
+        BUILD_ROOT, [CLIENT_SOURCE], CLIENT_FLAGS, CLIENT_NAME,
+        lambda tmp: _gxx(CLIENT_SOURCE, CLIENT_FLAGS, tmp / CLIENT_NAME))
+    return path
 
 
 @functools.cache
 def load() -> ctypes.CDLL:
     """Build (once per source hash) and load the exporter library."""
-    lib_path, _ = cached_library(BUILD_ROOT, [SOURCE], FLAGS, LIB_NAME,
-                                 _compile)
+    lib_path, _ = cached_library(
+        BUILD_ROOT, [SOURCE], FLAGS, LIB_NAME,
+        lambda tmp: _gxx(SOURCE, FLAGS, tmp / LIB_NAME))
     lib = ctypes.CDLL(str(lib_path))
     d = ctypes.POINTER(ctypes.c_double)
     lib.exporter_create.restype = ctypes.c_void_p
