@@ -600,8 +600,8 @@ PATHS = [
               {"matrix_rows_transposed[bf16]": 2}, BF16_REL, solver={},
               base="parity", against={"f32": BF16_VS_F32_REL}),
     # the sizes slice: lengths that are not powers of two, every row pass
-    # on the f32 mixed-radix kernel (csrc/rows_mixed_f32.cuh): path (i)'s
-    # switches at 1536² (transposed regime) and 3072² (natural regime), and
+    # on the f32 mixed-radix kernel (csrc/rows_mixed_passes_f32.cuh): path
+    # (i)'s switches at 1536² (transposed regime) and 3072² (natural regime), and
     # the complex state at 106² = (2·53)², the generic stage of a prime
     # radix inside the solver (C = 3 channels, the fields in torch)
     OceanPath("xxxviii", "pallas", 1536, 20, 1, True, "float32", {},
@@ -753,10 +753,10 @@ KERNEL_INFO = {
                           "tpu_ocean/ops/fields_pallas.py:45"),
     # #1 and #2 at f32, direct form, at lengths that are not powers of two
     "fft_rows_mixed_transposed": (
-        "tpu_ocean_torch/csrc/rows_mixed_f32.cuh",
+        "tpu_ocean_torch/csrc/rows_mixed_passes_f32.cuh",
         "tpu_ocean/fft/pallas_fft.py:235 at non-power-of-two N"),
     "fft_rows_mixed_natural": (
-        "tpu_ocean_torch/csrc/rows_mixed_f32.cuh",
+        "tpu_ocean_torch/csrc/rows_mixed_passes_f32.cuh",
         "tpu_ocean/fft/pallas_fft.py:677 at non-power-of-two N"),
     # #5 and #6 at f32, direct form, at lengths that are not powers of two,
     # by store and channel set (fft.planes.MIXED_FUSED_NAME)
@@ -839,8 +839,8 @@ KERNEL_INFO = {
 }
 # kernel-vs-plain band of each tier (tests/test_torch_cuda_kernels.py)
 TIER_BAND = {"f32": 1e-5, "bf16": 2e-3, "bf16x3": 1e-5}
-# the f32 mixed-radix row kernel (csrc/rows_mixed_f32.cuh) by store: its
-# phase-3 shapes, the paths' first ((xxxviii): 1536² rows and the half
+# the f32 mixed-radix row kernel (csrc/rows_mixed_passes_f32.cuh) by store:
+# its phase-3 shapes, the paths' first ((xxxviii): 1536² rows and the half
 # channel's 768-long columns; (xxxix): its 3072- and 1536-long columns on
 # the transposed store, its rows on the natural one; (xl): 106 at C = 3),
 # then each N at M = N, N/2 and 1 (106 = 2·53 and 2042 = 2·1021 run the
@@ -1195,6 +1195,10 @@ def kernel_group(key):
     # rules for the row kernels or the matrix engine below
     if "bf16_fused_natural_kernel" in key:
         return "matrix_fused_natural[bf16]"
+    # the f32 row kernel's register passes at such N, by store
+    if "rows_mixed_passes_kernel" in key:
+        natural = "<true," in key or "ILb1E" in key
+        return f"fft_rows_mixed_{'natural' if natural else 'transposed'}"
     # the mixed-radix kernels by store and engine (a fused kernel's channel
     # set is not in its name), ahead of the fused_rows_kernel rule below
     for stem, f32_name, kind in (("mixed_fused_rows_kernel", "fused", "fused"),
@@ -2751,13 +2755,19 @@ def main():
         precision, switches = MATRIX_MODES.get(mode, ("float32", {}))
         with dft_switches(planes, switches):
             tier, split3 = planes.engine(shape[2], precision, transposed)
-            rows = planes.mixed_rows(shape[0], shape[1], shape[2],
-                                     planes.sm_count(dev), not transposed,
-                                     tier, split3)
             if mode is None:
+                rows = planes.passes_rows(shape[0], shape[1], shape[2],
+                                          planes.sm_count(dev),
+                                          not transposed)
+                cluster = (planes.passes_cluster(shape[1], shape[2], rows)
+                           if transposed else 1)
                 band, f64_max = MIXED_BAND, MIXED_F64_MAX
-                how = f"plan {[p for p, _ in planes.mixed_plan(shape[2])]}"
+                how = (f"passes {[p for p, _ in planes.passes_plan(shape[2])]}"
+                       f", T {planes.passes_threads(shape[2])}, K {cluster}")
             else:
+                rows = planes.mixed_rows(shape[0], shape[1], shape[2],
+                                         planes.sm_count(dev),
+                                         not transposed, tier, split3)
                 band = TIER_BAND[tier]
                 f64_max = MATRIX_F64_MAX.get(mode)
                 how = "n1 {}, n2 {}".format(*planes._split_lanes(shape[2]))

@@ -1,16 +1,20 @@
-"""The f32 mixed-radix row kernel (csrc/rows_mixed_f32.cuh) on the card: the
-row DFTs #1 and #2 at even lengths that are not powers of two. Every test
+"""The f32 mixed-radix row kernel (csrc/rows_mixed_passes_f32.cuh) on the
+card: the row DFTs #1 and #2 at even lengths that are not powers of two. Every test
 here needs an NVIDIA GPU with nvcc: each decides inside the ``cuda``
 fixture whether one exists and skips with a reason when not. This file
 imports no jax; run it with
 
     python -m pytest --noconftest tests/test_torch_sizes_cuda.py -m cuda -q
 
-- Both stores in both directions at chip_smoke.py's phase-3 shapes: one
-  launch counted under fft.planes.MIXED_NAMES and nothing else, within
-  1e-6·max of float64 (torch.fft in complex128) and 2e-6·max of the plain
-  version (torch.fft in complex64); a ragged batch (rows not a multiple
-  of a block's) too.
+- Both stores in both directions at chip_smoke.py's phase-3 shapes, and
+  at M = 301 (ragged at R = 2 and 4, in clusters of 2) at lengths whose
+  passes take every register radix but 12 and 16 (40 = 10·4, 120 = 15·8,
+  250 = 10·5·5, 686 = 14·7·7, 980 = 14·14·5, 1458 = 9·9·9·2, 2058 =
+  14·7·7·3) and a generic pass after them (1020 = 15·4·17): one launch
+  counted under fft.planes.MIXED_NAMES and nothing else, within 1e-6·max
+  of float64 (torch.fft in complex128) and 2e-6·max of the plain version
+  (torch.fft in complex64); a ragged batch (rows not a multiple of a
+  block's) too.
 - The autograd backward through the kernel: the kernel in the opposite
   direction, against the plain version.
 - A step of path (i)'s switches at N = 192 in both regimes against the CPU
@@ -62,7 +66,10 @@ SHAPES = ([("transposed", (1, m, n))
           + [("natural", (1, m, n)) for n in (3072, 6144, 8190)
              for m in (n, n // 2, 1)]
           + [("natural", (3, 3072, 3072)), ("natural", (1, 8186, 8186)),
-             ("natural", (1, 1, 8186))])
+             ("natural", (1, 1, 8186))]
+          + [(store, (1, 301, n)) for n in (40, 120, 250, 686, 980, 1458,
+                                            2058, 1020)
+             for store in ("transposed", "natural")])
 
 
 @pytest.fixture
@@ -202,19 +209,23 @@ def test_what_has_no_kernel_raises_on_a_cuda_tensor(cuda):
 def test_the_c_entry_refuses_other_lengths_and_blocks(cuda, n, rows, plan_n,
                                                       table):
     """Odd N, N outside [16, 8192], rows not a power of two, no rows, a
-    block beyond the card's shared memory (two rows of 8190), a plan that
-    is not a length-N transform (96's stages at 106), or a table too short
-    for the plan's roots (106 with 120 entries, not 159): refused (a CUDA
-    error), never run."""
+    block beyond the card's limits (two rows of 8190, 1184 threads), a plan
+    that is not a length-N transform (96's passes at 106), or a table too
+    short for the plan's roots (106 with 120 entries, not 158): refused (a
+    CUDA error), never run."""
+    _refused(cuda, n, rows, plan_n, table, 1, 1)
+
+
+def _refused(cuda, n, rows, plan_n, table, natural, cluster):
     from tpu_ocean_torch import _build
     re, im = _planes((1, 2, n), cuda)
     out = torch.empty_like(re)
-    tables = planes.mixed_twiddles(plan_n, True, cuda)
-    plan = planes.mixed_plan_rows(plan_n)
+    tables = planes.passes_twiddles(plan_n, True, cuda)
+    plan = planes.passes_plan_rows(plan_n)
     err = _build.load().lib.tpu_fft_rows_mixed(
         re.data_ptr(), im.data_ptr(), out.data_ptr(), out.data_ptr(),
-        tables.data_ptr(), 1, 2, n, rows, 1, len(plan),
-        table or tables.shape[0], plan.ctypes.data,
+        tables.data_ptr(), 1, 2, n, rows, natural, len(plan) - 1,
+        table or tables.shape[0], cluster, plan.ctypes.data,
         torch.cuda.current_stream().cuda_stream)
     assert err != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
@@ -223,6 +234,16 @@ def test_the_c_entry_refuses_other_lengths_and_blocks(cuda, n, rows, plan_n,
     assert _rel(planes.fft1d_transposed(*_planes((1, 4, 96), cuda)),
                 planes.fft1d_transposed_plain(*_planes((1, 4, 96), cuda))) \
         <= 2e-6
+
+
+@pytest.mark.parametrize("natural,cluster,n", [
+    (1, 2, 1536), (0, 3, 1536), (0, 16, 1536), (0, 0, 1536), (0, 4, 106)])
+def test_the_c_entry_refuses_clusters_it_does_not_take(cuda, natural,
+                                                       cluster, n):
+    """A cluster with the natural store, of 3, 16 or no blocks, or of more
+    blocks than N has columns to share (4 at 106 = 2·53): refused (a CUDA
+    error), never run."""
+    _refused(cuda, n, 1, n, 0, natural, cluster)
 
 
 # ------------------------------------------ the f32 fused mixed-radix kernel

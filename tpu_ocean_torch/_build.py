@@ -44,7 +44,8 @@ _FUSED = [_P] * 9 + [_I] * 10 + [_F] * 3 + [_P]
 _SIGNATURES = {
     "tpu_fft_rows_transposed": [_P] * 5 + [_I] * 7 + [_P],
     "tpu_fft_rows_natural": _ROWS,
-    "tpu_fft_rows_mixed": [_P] * 5 + [_I] * 7 + [_P] * 2,
+    # (natural, passes, table, cluster), then the host plan
+    "tpu_fft_rows_mixed": [_P] * 5 + [_I] * 8 + [_P] * 2,
     "tpu_fused_rows_transposed": _FUSED,
     "tpu_fused_rows_natural": _FUSED,
     "tpu_fused_rows_mixed": [_P] * 9 + [_I] * 11 + [_F] * 3 + [_P] * 2,

@@ -41,12 +41,12 @@
 //     matrix-form engine of dft_matrix.cuh between a coalesced load of R
 //     rows into shared memory and stockham.cuh's stores (`tables`
 //     planes.matrix_tables).
-// Those take powers of two. Every other even N runs rows_mixed_f32.cuh's
-// kernel, either store, through entries of its own: f32 in the direct form
-// on its mixed-radix Stockham stages (a generic stage for each odd prime
-// factor), tpu_fft_rows_mixed (`tables` planes.mixed_twiddles); every
-// other tier and form on the matrix-form engine of dft_matrix.cuh behind
-// the same loads and stores, tpu_matrix_rows_any (`tables`
+// Those take powers of two. At every other even N, f32 in the direct form
+// runs the register-resident mixed-radix passes of
+// rows_mixed_passes_f32.cuh through rows_mixed.cu's tpu_fft_rows_mixed
+// (`tables` planes.passes_twiddles); every other tier and form runs
+// rows_mixed_f32.cuh's loads and stores around the matrix-form engine of
+// dft_matrix.cuh, tpu_matrix_rows_any below (`tables`
 // planes.matrix_tables).
 // Twiddles and tables are built on the host in float64 and rounded to f32;
 // nothing is computed with fast sin/cos.
@@ -149,8 +149,8 @@ extern "C" {
 // Each entry launches its kernel on `stream` and returns cudaGetLastError()
 // as an int. The caller checks (planes.require_card_kernel): n a power of
 // two in [16, 8192] for these two entries (an even n in that range that is
-// not a power of two goes to tpu_fft_rows_mixed at f32 direct and to
-// tpu_matrix_rows_any at every other tier and form), rows a
+// not a power of two goes to rows_mixed.cu's tpu_fft_rows_mixed at f32
+// direct and to tpu_matrix_rows_any at every other tier and form), rows a
 // power of two that keeps the shared memory within the card's limit,
 // contiguous f32 planes, `tables` the Stockham twiddles (tier 0, split3 0,
 // transposed),
@@ -177,30 +177,14 @@ int tpu_fft_rows_natural(const void* re, const void* im, void* out_re,
                       tier, split3, 1, stream);
 }
 
-// The f32 direct pass at an even n in [16, 8192] that is not a power of
-// two, transposed (natural = 0) or natural (1) store: rows a power of two
-// that keeps planes.mixed_shared_bytes within the card's limit, `tables`
-// planes.mixed_twiddles(n, inverse) of `table` entries, `plan` the host
-// array planes.mixed_plan_rows(n), (radix, span, roots offset) × `stages`.
-// Any other n, rows, or a plan that is not a length-n transform inside the
-// table is refused.
-int tpu_fft_rows_mixed(const void* re, const void* im, void* out_re,
-                       void* out_im, const void* tables, int channels, int m,
-                       int n, int rows, int natural, int stages, int table,
-                       const void* plan, void* stream) {
-  return launch_rows_mixed(natural != 0, re, im, out_re, out_im, tables,
-                           channels, m, n, rows, static_cast<const int*>(plan),
-                           stages, table, stream);
-}
-
 // Every other tier and form at an even n in [16, 8192] that is not a power
 // of two, transposed (natural = 0) or natural (1) store: tier 1 (bf16) or
 // 2 (bf16x3) in the direct form, or the three-factor form (split3 1) at
 // any tier with the transposed store where 128 divides n; rows a power of
 // two whose two buffers (planes.matrix_mixed_shared_bytes) fit the card's
 // shared memory, `tables` planes.matrix_tables(n, inverse, split3). f32
-// direct (tpu_fft_rows_mixed's), a power of two, an odd n or one outside
-// that range, a three-factor form with n1 ≠ 128 or the natural store, and
+// direct (rows_mixed.cu's tpu_fft_rows_mixed), a power of two, an odd n or
+// one outside that range, a three-factor form with n1 ≠ 128 or the natural store, and
 // any other rows are refused, never run on another kernel.
 int tpu_matrix_rows_any(const void* re, const void* im, void* out_re,
                         void* out_im, const void* tables, int channels, int m,

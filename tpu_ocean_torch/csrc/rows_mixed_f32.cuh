@@ -1,12 +1,15 @@
 // The row DFT at even lengths that are not powers of two, either store, at
-// every tier and form: fft_rows.cu's entries tpu_fft_rows_mixed (f32 in the
-// direct form, the mixed-radix stages below) and tpu_matrix_rows_any (the
-// other tiers and forms, dft_matrix.cuh's engine behind the same loads and
-// stores).
+// every tier and form but f32 in the direct form: fft_rows.cu's entry
+// tpu_matrix_rows_any, dft_matrix.cuh's engine behind the loads and stores
+// below. f32 in the direct form runs rows_mixed_passes_f32.cuh's
+// register-resident passes (rows_mixed.cu's tpu_fft_rows_mixed); the
+// mixed-radix stages below, which ran it before, are now the fused twin's
+// (fused_rows_mixed_f32.cuh: run_stages, store and the plan read_plan
+// checks).
 //
 // Replaces: tpu_ocean/fft/pallas_fft.py _fft_block_kernel (launched by
 // _fft1d_transposed_impl) and _rowfft_block_kernel_natural (launched by
-// _fft1d_natural_large_impl) at HIGHEST, DEFAULT (bf16) and B3, and
+// _fft1d_natural_large_impl) at DEFAULT (bf16) and B3, and
 // _fft_block_kernel_split3 (#1b, where 128 | N), at the lengths the
 // power-of-two kernels do not take (N = 96, 1536, 3072, 2·53, …). The JAX
 // kernels run
@@ -44,8 +47,8 @@
 // p = 1021 and 4093 (a numpy model of these sums,
 // tests/test_torch_sizes.py); 8 without the fold read 8.7e-7·max at
 // p = 4093 on an H100 80GB HBM3 at 700 W, with it 4.3e-7, at no cost in
-// time (tools/mixed_sums_variants.py). The table (planes.mixed_table, f32 from
-// float64): entry 0 is ±i (the direction), the stage at span ns has its
+// time (the two timed in turns in one call, as the row pass when it ran
+// these stages). The table (planes.mixed_table, f32 from float64): entry 0 is ±i (the direction), the stage at span ns has its
 // twiddles at ns + (r − 1)·ns + k, then the odd stages' roots, p each.
 // The stores are stockham.cuh's two, by division instead of shifts. The
 // stages (run_stages) and the stores (store) are shared with the fused
@@ -374,12 +377,15 @@ __device__ __forceinline__ const float2* run_engine(
   }
 }
 
+// The row kernel at the tiers and forms of the matrix engine; f32 in the
+// direct form runs rows_mixed_passes_f32.cuh, never these stages.
 template <bool kNatural, class Engine>
 __global__ void __launch_bounds__(kMaxThreads)
 mixed_rows_kernel(const float* __restrict__ re, const float* __restrict__ im,
                   float* __restrict__ out_re, float* __restrict__ out_im,
                   const float2* __restrict__ table, int M, int R, int log2r,
                   const Plan plan) {
+  static_assert(!std::is_same_v<Engine, StockhamEngine>);
   extern __shared__ float2 smem[];
   const int N = plan.n;
   const int stride = N + 1;
@@ -421,40 +427,13 @@ inline bool matrix_length(int n, bool split3) {
 
 }  // namespace mixed
 
-// Launches the mixed-radix kernel: n even in [16, 8192], `plan` its stages
-// (read_plan), rows a power of two whose block fits the card's shared
-// memory (refused otherwise, never run on another kernel), `tables`
-// planes.mixed_twiddles(n, inverse), `table` entries.
-inline int launch_rows_mixed(bool natural, const void* re, const void* im,
-                             void* out_re, void* out_im, const void* tables,
-                             int channels, int m, int n, int rows,
-                             const int* plan_rows, int stages, int table,
-                             void* stream) {
-  const mixed::Plan plan = mixed::read_plan(n, plan_rows, stages, table);
-  if (plan.stages == 0 || rows < 1 || (rows & (rows - 1)) || m < 1 ||
-      channels < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = mixed::smem_bytes(rows, plan);
-  auto kernel = natural ? &mixed::mixed_rows_kernel<true, StockhamEngine>
-                        : &mixed::mixed_rows_kernel<false, StockhamEngine>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((m + rows - 1) / rows, channels);
-  kernel<<<grid, mixed::block_threads(rows, n), smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(re), static_cast<const float*>(im),
-      static_cast<float*>(out_re), static_cast<float*>(out_im),
-      static_cast<const float2*>(tables), m, rows, log2_of(rows), plan);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launches the same kernel on the matrix engine of (tier, split3): n an
+// Launches the kernel on the matrix engine of (tier, split3): n an
 // even length in [16, 8192] that is not a power of two (matrix_length),
 // rows a power of two whose two buffers (matrix_smem_bytes) fit the card's
 // shared memory, `tables` planes.matrix_tables(n, inverse, split3). f32 in
-// the direct form (launch_rows_mixed's), the three-factor form with the
-// natural store or with n1 ≠ 128, and anything else are refused with
-// cudaErrorInvalidValue, never run on another kernel.
+// the direct form (rows_mixed_passes_f32.cuh's), the three-factor form
+// with the natural store or with n1 ≠ 128, and anything else are refused
+// with cudaErrorInvalidValue, never run on another kernel.
 template <bool kNatural>
 int launch_rows_matrix(const void* re, const void* im, void* out_re,
                        void* out_im, const void* tables, int channels, int m,

@@ -18,11 +18,13 @@ On a CUDA tensor each launches its hand-written kernel
 version, at every length. The TPU package's size gates (Mosaic lane
 rules, VMEM caps) have no counterpart here: on the card the kernels cover
 every even N in [MIN_N, MAX_N] at every tier and form, fused or not
-(``require_card_kernel``): powers of two on the kernels below, every other
-even N on ``csrc/rows_mixed_f32.cuh`` and its fused twin
-``csrc/fused_rows_mixed_f32.cuh``, whose loads and stores run the
-mixed-radix stages at f32 in the direct form (plan ``mixed_plan``, table
-``mixed_table``) and the matrix-form engine at every other tier and form
+(``require_card_kernel``): powers of two on the kernels below; every other
+even N at f32 in the direct form on the register-resident mixed-radix
+passes of ``csrc/rows_mixed_passes_f32.cuh`` (plan ``passes_plan``, table
+``passes_table``) and, fused, on ``csrc/fused_rows_mixed_f32.cuh``'s
+mixed-radix stages (plan ``mixed_plan``, table ``mixed_table``), at every
+other tier and form on the matrix-form engine behind
+``csrc/rows_mixed_f32.cuh``'s and that fused kernel's loads and stores
 (``matrix_tables``); a wrapper refuses odd N and N outside that range with
 ValueError. Only the
 regime switch is kept, as ``MAX_TRANSPOSED_N``, so that the port pairs
@@ -48,16 +50,16 @@ bf16x3 (``csrc/dft_split3_bf16x3.cuh``, tables from
 ``split3_bf16x3_tables``); the other tiers and forms (bf16 three-factor,
 bf16x3 direct) run the matrix-form engine (``csrc/dft_matrix.cuh``). Those
 are the kernels at powers of two; at every other even N, f32 in the
-direct form runs the mixed-radix stages and every other tier and form the
-matrix-form engine, behind one kernel's loads and stores (``mixed_rows``,
-``mixed_tables``). The
+direct form runs the mixed-radix passes (``passes_rows``,
+``passes_cluster``, ``passes_twiddles``) and every other tier and form the
+matrix-form engine (``mixed_rows``, ``matrix_tables``). The
 bf16x3 tier keeps stage 1 at f32, as the TPU kernels do. All but
 Stockham take their plain version from ``fft/matrix.py``.
 Each launch counts once: a Stockham kernel's on its wrapper's
 ``launches``; any other row launch, and a fused launch outside the packed
 set with 3 live fields, in ``named_launches`` under ``kernel_name`` (a
 launch at a length that is not a power of two under ``mixed_kernel_name``:
-the mixed-radix kernel's under ``MIXED_NAMES``, its fused twin's under
+the f32 mixed-radix row kernel's under ``MIXED_NAMES``, the fused one's under
 ``MIXED_FUSED_NAME``, the matrix engine's there as e.g.
 ``matrix_rows_mixed_transposed[bf16]``).
 
@@ -450,10 +452,11 @@ def require_card_kernel(n: int, tier: str = "f32", split3: bool = False,
     row pass at (tier, split3), fused (#5, #5b, #6) or not: every even
     length in [MIN_N, MAX_N] at every tier and form. Powers of two run the
     kernels of csrc/fft_rows.cu and csrc/fused_rows.cu; every other even
-    length the mixed-radix kernels (csrc/rows_mixed_f32.cuh,
-    csrc/fused_rows_mixed_f32.cuh) at f32 in the direct form and the
-    matrix engine behind their loads and stores at the other tiers and
-    forms. The three-factor form needs n1 = 128 (use_split3 gives it no
+    length at f32 in the direct form the mixed-radix passes
+    (csrc/rows_mixed_passes_f32.cuh) and the fused mixed-radix kernel
+    (csrc/fused_rows_mixed_f32.cuh), at the other tiers and forms the
+    matrix engine behind csrc/rows_mixed_f32.cuh's and that fused kernel's
+    loads and stores. The three-factor form needs n1 = 128 (use_split3 gives it no
     other)."""
     what = (f"{'fused ' if fused else ''}row DFT of length {n} at tier "
             f"{tier}{', three-factor form' if split3 else ''}")
@@ -675,9 +678,9 @@ def radix16_twiddles(n: int, inverse: bool,
 
 @functools.lru_cache(maxsize=64)
 def mixed_plan(n: int):
-    """The stages of the f32 mixed-radix row kernel
-    (csrc/rows_mixed_f32.cuh, which takes them from mixed_plan_rows) for an
-    even length ``n``:
+    """The stages of the f32 fused mixed-radix kernel
+    (csrc/fused_rows_mixed_f32.cuh on csrc/rows_mixed_f32.cuh's stages,
+    which take them from mixed_plan_rows) for an even length ``n``:
     ((radix, span), ...), span the product of the radices before. A radix-2
     stage where n's power-of-two part is 2^a with a odd, then a // 2
     radix-4 stages, then one stage for each odd prime factor (with its
@@ -752,20 +755,22 @@ def mixed_twiddles(n: int, inverse: bool,
 
 
 def mixed_max_rows(n: int, natural: bool) -> int:
-    """The most rows per block of the mixed-radix kernel, on either stage
-    engine: max_rows at f32, rounded down to a power of two (N/4096 is
-    not one at every N)."""
+    """The most rows per block of the fused mixed-radix kernel on either
+    stage engine and of the matrix engine's row kernel at such N: max_rows
+    at f32, rounded down to a power of two (N/4096 is not one at every
+    N)."""
     cap = max_rows(n, natural)
     return 1 << (cap.bit_length() - 1)
 
 
 def mixed_rows(c: int, m: int, n: int, sms: int, natural: bool, tier: str,
                split3: bool) -> int:
-    """Rows per block of a pass of ``c`` channels of [m, n] at an n that is
-    not a power of two, row or fused (rows_per_block, a grid of ``c``
-    times ⌈m / rows⌉): mixed_max_rows with the mixed-radix stages' shared
-    memory (mixed_shared_bytes) at f32 in the direct form, else the matrix
-    engine's two buffers (matrix_mixed_shared_bytes)."""
+    """Rows per block of a fused pass of ``c`` channels of [m, n] at an n
+    that is not a power of two, and of a row pass there on the matrix
+    engine (rows_per_block, a grid of ``c`` times ⌈m / rows⌉; the f32 row
+    pass takes passes_rows): mixed_max_rows with the mixed-radix stages'
+    shared memory (mixed_shared_bytes) at f32 in the direct form, else the
+    matrix engine's two buffers (matrix_mixed_shared_bytes)."""
     shared = (mixed_shared_bytes if _stockham(tier, split3)
               else matrix_mixed_shared_bytes)
     return rows_per_block(c, m, n, sms, mixed_max_rows(n, natural), shared)
@@ -773,9 +778,9 @@ def mixed_rows(c: int, m: int, n: int, sms: int, natural: bool, tier: str,
 
 def mixed_tables(n: int, inverse: bool, tier: str, split3: bool,
                  device: torch.device) -> torch.Tensor:
-    """The `tables` argument of a pass at an n that is not a power of two,
-    row or fused: the mixed-radix stages' table (mixed_twiddles) at f32 in
-    the direct form, else the matrix engine's (matrix_tables)."""
+    """The `tables` argument of a fused pass at an n that is not a power of
+    two: the mixed-radix stages' table (mixed_twiddles) at f32 in the
+    direct form, else the matrix engine's (matrix_tables)."""
     if _stockham(tier, split3):
         return mixed_twiddles(n, bool(inverse), device)
     return matrix_tables(n, bool(inverse), bool(split3), device)
@@ -800,12 +805,330 @@ def mixed_kernel_name(kind: str, tier: str, split3: bool,
 
 
 def mixed_shared_bytes(rows: int, n: int) -> int:
-    """Dynamic shared memory of one block of the mixed-radix row kernel
-    (mixed::smem_bytes): two buffers of ``rows`` rows of n + 1 complex
+    """Dynamic shared memory of one block of the fused mixed-radix kernel
+    at f32 (mixed::smem_bytes): two buffers of ``rows`` rows of n + 1 complex
     values, then its table (n + Σ odd p complex). At n = 8190, one row:
     196 KB."""
     odd = sum(p for p, _ in mixed_plan(n) if p % 2)
     return (2 * rows * (n + 1) + n + odd) * 8
+
+
+#: the radices the f32 row kernel at lengths that are not powers of two
+#: (csrc/rows_mixed_passes_f32.cuh) runs in registers, largest first: 2, 4,
+#: 8, 16 on radix16's butterflies, 3, 5, 7 as direct sums over conjugate
+#: pairs, the rest as two of those with compile-time twiddles
+PASS_RADICES = (16, 15, 14, 12, 10, 9, 8, 7, 6, 5, 4, 3, 2)
+#: the points a thread holds in registers in a register pass
+#: (mixed_passes::kPoints): 16 // radix butterflies
+PASS_POINTS = 16
+#: the most outputs a thread holds in a generic pass
+#: (mixed_passes::kGenericPoints); it takes one item where that many
+#: threads fit PASS_BLOCK_THREADS, for the parallelism of its N·p sums (at
+#: L = 2 an item is the pair of outputs (q, 0), (q, 1)): on an H100 80GB
+#: HBM3 at 700 W [3, 106, 106] read 0.0072 ms at one item a thread, 0.0097
+#: at two (tools/mixed_passes_variants.py)
+PASS_GENERIC_POINTS = 16
+PASS_GENERIC_SPREAD = 1
+#: the most twiddles of generic passes that kernel stages in shared memory
+#: with their roots (mixed_passes::kStagedTwiddles): one wait on device
+#: memory less before the pass, which brought [3, 106, 106] below the
+#: stages' time on an H100 80GB HBM3 at 700 W (tools/mixed_passes_variants.py)
+PASS_STAGED_TWIDDLES = 2048
+#: below this N the transposed store takes no cluster: on an H100 80GB
+#: HBM3 at 700 W [3, 106, 106] read 0.0082 ms at 4 rows in one block, 0.0101
+#: in clusters of 2 (tools/mixed_passes_variants.py --sweep)
+PASS_CLUSTER_MIN_N = 512
+#: that kernel's largest block (mixed_passes::kMaxThreads); a row takes
+#: passes_threads(n) threads
+PASS_MAX_THREADS = 1024
+#: the most threads a block of it takes where rows share one (rows ×
+#: threads a row; mixed_passes::kBlockThreads): two such blocks fit an SM at
+#: 64 registers a thread, the natural store's kernel for them runs at 128
+PASS_BLOCK_THREADS = 512
+#: the most points (rows × N) a natural-store block of it takes
+PASS_BLOCK_POINTS = 4096
+#: the pad shift that means no pad (a >> 31 is 0 for every index)
+PASS_NO_PAD = 31
+
+
+def _small_and_large(n: int):
+    """n = s · Π large, s the part with primes 2, 3, 5, 7, large the other
+    prime factors (with multiplicity), in increasing order."""
+    small, rest, large = 1, n, []
+    for p in (2, 3, 5, 7):
+        while rest % p == 0:
+            small, rest = small * p, rest // p
+    f = 11
+    while rest > 1:
+        while rest % f == 0:
+            large.append(f)
+            rest //= f
+        f += 2
+    return small, large
+
+
+@functools.lru_cache(maxsize=None)
+def _register_factorings(s: int, largest: int = 16):
+    """Every way to write s as a product of PASS_RADICES, non-increasing."""
+    if s == 1:
+        return [()]
+    return [(r,) + rest for r in PASS_RADICES if r <= largest and s % r == 0
+            for rest in _register_factorings(s // r, r)]
+
+
+def _generic(radix: int) -> bool:
+    """A pass of this radix runs the generic p-point sum (a prime above 7)."""
+    return radix not in PASS_RADICES
+
+
+def _pass_threads(n: int, radices, large) -> int:
+    """The threads a row needs: a register pass of radix r holds
+    PASS_POINTS // r of its n / r butterflies a thread, a generic pass
+    PASS_GENERIC_SPREAD of its items (outputs, or at n = 2p pairs of them)
+    where that takes at most PASS_BLOCK_THREADS threads, else as few as
+    PASS_GENERIC_POINTS outputs a thread allow;
+    rounded up to a power of two below 16, else to a multiple of 16 (a half
+    warp's 16 lanes in one row)."""
+    generic = []
+    for p in large:
+        pairs = n // p == 2
+        items = p if pairs else n
+        generic.append(max(
+            -(-items // (PASS_GENERIC_POINTS // (2 if pairs else 1))),
+            min(-(-items // PASS_GENERIC_SPREAD), PASS_BLOCK_THREADS)))
+    need = max([-(-(n // r) // (PASS_POINTS // r)) for r in radices]
+               + generic)
+    if need <= 16:
+        return 1 << (need - 1).bit_length()
+    return -(-need // 16) * 16
+
+
+def passes_cache_clear() -> None:
+    """Forget every planned length (after a PASS_* constant changes)."""
+    for fn in (passes_plan, passes_plan_rows, passes_table, passes_threads,
+               passes_pad, passes_stride, passes_roots, passes_staged,
+               passes_twiddle_offsets, passes_shared_bytes,
+               passes_block_bytes, passes_max_rows, passes_rows,
+               passes_cluster):
+        fn.cache_clear()
+    passes_twiddles.cache_clear()
+
+
+@functools.lru_cache(maxsize=None)
+def passes_plan(n: int):
+    """The passes of the f32 row kernel at an even ``n`` in [MIN_N, MAX_N]
+    that is not a power of two (csrc/rows_mixed_passes_f32.cuh, which
+    takes them from passes_plan_rows): ((radix, span), ...), span the
+    product of the radices before. n's part in primes 2, 3, 5, 7 runs as
+    register passes of PASS_RADICES, the fewest passes, then the fewest
+    threads a row (passes_threads), then the largest radices first, in
+    non-increasing order (1536 = 16·16·6, 3072 = 16·16·12, 768 = 16·16·3,
+    8190 = 15·14·3 · 13); each larger prime p then runs one generic p-point
+    pass (106 = 2 · 53), in increasing order."""
+    if not (MIN_N <= n <= MAX_N and n % 2 == 0) or is_power_of_two(n):
+        raise ValueError(f"passes_plan: an even length in [{MIN_N}, {MAX_N}] "
+                         f"that is not a power of two, got {n}")
+    small, large = _small_and_large(n)
+    radices = min(_register_factorings(small),
+                  key=lambda f: (len(f), _pass_threads(n, f, large),
+                                 [-r for r in f]))
+    radices = list(radices) + large
+    spans = np.cumprod([1] + radices[:-1]).tolist()
+    return tuple(zip(radices, spans))
+
+
+@functools.lru_cache(maxsize=None)
+def passes_threads(n: int) -> int:
+    """The threads one row of length ``n`` takes in that kernel
+    (_pass_threads of its plan)."""
+    radices = [r for r, _ in passes_plan(n)]
+    return _pass_threads(n, [r for r in radices if not _generic(r)],
+                         [r for r in radices if _generic(r)])
+
+
+@functools.lru_cache(maxsize=None)
+def passes_pad(n: int) -> int:
+    """The exchange buffer's pad shift e: point a of a row lies at
+    a + (a >> e). e = 4 (a pad every 16 points) where the first radix is
+    even, PASS_NO_PAD (none) where it is odd or the plan has a generic pass
+    (whose p reads an output index, each a shift and an add more, would
+    otherwise pay for it). The first pass writes output
+    s of butterfly j at r·j + s: with an even radix r, 16 lanes' writes
+    fall on the bank pairs (r + r/16)·j mod 16 apart only with the pad
+    (radix 16 without it: all 16 on one pair); with an odd r they are
+    distinct mod 16 as they stand, and a pad would break that (15 of 16 on
+    one pair at 8190 = 15·14·3·13). Later passes write runs of span
+    consecutive points, and every pass reads runs of consecutive points,
+    which either rule keeps on distinct pairs but where a run crosses a
+    pad (tests/test_torch_mixed_passes.py counts the conflicts)."""
+    plan = passes_plan(n)
+    if plan[0][0] % 2 or any(_generic(r) for r, _ in plan):
+        return PASS_NO_PAD
+    return 4
+
+
+@functools.lru_cache(maxsize=None)
+def passes_stride(n: int) -> int:
+    """The row stride of that kernel's exchange buffer, in complex units:
+    the padded row, where a row has fewer than 16 threads raised to the
+    least value ≡ the threads (mod 16), so that the rows sharing a half
+    warp read their runs on distinct bank pairs."""
+    e, t = passes_pad(n), passes_threads(n)
+    stride = n + ((n - 1) >> e)
+    return stride + (t - stride) % 16 if t < 16 else stride
+
+
+@functools.lru_cache(maxsize=None)
+def passes_roots(n: int) -> int:
+    """The generic passes' roots, p for each."""
+    return sum(r for r, _ in passes_plan(n) if _generic(r))
+
+
+@functools.lru_cache(maxsize=None)
+def passes_staged(n: int) -> int:
+    """The table entries that kernel stages in shared memory: the generic
+    passes' roots and, where they number at most PASS_STAGED_TWIDDLES, the
+    generic passes' twiddles, which lie just before the roots."""
+    roots = passes_roots(n)
+    if not roots:
+        return 0
+    twiddles = sum((r - 1) * s for r, s in passes_plan(n) if _generic(r))
+    return roots + (twiddles if twiddles <= PASS_STAGED_TWIDDLES else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def passes_twiddle_offsets(n: int):
+    """Each pass's table offsets (twiddles, roots), 0 where it has none:
+    entry 0 is the direction, then each pass of span ns > 1 has its
+    (radix − 1)·ns twiddles in pass order, then each generic pass its
+    radix roots."""
+    plan = passes_plan(n)
+    at, offsets = 1, []
+    for radix, span in plan:
+        offsets.append(at if span > 1 else 0)
+        at += (radix - 1) * span if span > 1 else 0
+    roots = []
+    for radix, _ in plan:
+        roots.append(at if _generic(radix) else 0)
+        at += radix if _generic(radix) else 0
+    return tuple(zip(offsets, roots))
+
+
+@functools.lru_cache(maxsize=32)
+def passes_plan_rows(n: int) -> np.ndarray:
+    """The plan as the kernel's entry reads it, on the host: int32
+    [1 + passes, 4], a head (threads a row, pad shift, row stride, 0),
+    then (radix, span, twiddle offset, roots offset) a pass."""
+    head = (passes_threads(n), passes_pad(n), passes_stride(n), 0)
+    rows = [(radix, span, tw, roots) for (radix, span), (tw, roots)
+            in zip(passes_plan(n), passes_twiddle_offsets(n))]
+    return np.array([head] + rows, np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def passes_table(n: int, inverse: bool) -> np.ndarray:
+    """That kernel's table in float64, complex128 [n − r + 1 + Σ generic
+    p], r the first radix: entry 0 is ±i (the direction), each pass (radix
+    R, span ns > 1) has e^{±2πi s·k/(R·ns)}, s = 1..R−1, k < ns at its
+    offset + (s − 1)·ns + k (passes_twiddle_offsets), each generic pass its
+    p roots e^{±2πi m/p}, m < p."""
+    sign = 1.0 if inverse else -1.0
+    parts = [np.array([sign * 1j])]
+    plan = passes_plan(n)
+    for radix, span in plan:
+        if span > 1:
+            sk = np.outer(np.arange(1, radix), np.arange(span))
+            parts.append(np.exp(sign * 2j * np.pi * sk / (radix * span)).ravel())
+    for radix, _ in plan:
+        if _generic(radix):
+            parts.append(np.exp(sign * 2j * np.pi * np.arange(radix) / radix))
+    return np.concatenate(parts)
+
+
+@functools.lru_cache(maxsize=32)
+def passes_twiddles(n: int, inverse: bool,
+                    device: torch.device) -> torch.Tensor:
+    """passes_table rounded to f32, [L, 2] (re, im): what the kernel reads."""
+    w = passes_table(n, bool(inverse))
+    table = np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+    return torch.from_numpy(table).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def passes_shared_bytes(rows: int, n: int, cluster: int = 1,
+                        natural: bool = False) -> int:
+    """Dynamic shared memory of one block of that kernel
+    (mixed_passes::shared_bytes): the exchange buffer, ``rows`` rows of
+    passes_stride(n) complex, and for the transposed store its tile,
+    ``rows`` rows of cluster_gather_stride(rows, n), in the buffer (the
+    larger of the two) or, where the plan has a generic pass, beside it;
+    with a cluster of K > 1 blocks the gathered tile, K·rows rows of
+    cluster_gather_stride(K·rows, n/K); then the staged table entries
+    (passes_staged) and the plan's passes (mixed_passes::Pass, 32 bytes
+    each)."""
+    stride, tile = passes_stride(n), cluster_gather_stride(rows, n)
+    if natural:
+        area = rows * stride
+    elif passes_roots(n):
+        area = rows * (stride + tile)
+    else:
+        area = rows * max(stride, tile)
+    if cluster > 1:
+        area += cluster * rows * cluster_gather_stride(cluster * rows,
+                                                       n // cluster)
+    return (area + passes_staged(n)) * 8 + 32 * len(passes_plan(n))
+
+
+@functools.lru_cache(maxsize=None)
+def passes_block_bytes(rows: int, n: int) -> int:
+    """The most shared memory a block of ``rows`` rows takes at any cluster
+    passes_cluster may give it (rows_per_block's fit)."""
+    return max(passes_shared_bytes(rows, n, k) for k in CLUSTER_SIZES
+               if k == 1 or (n % k == 0 and k * rows <= TRANSPOSED_CLUSTER_ROWS))
+
+
+@functools.lru_cache(maxsize=None)
+def passes_max_rows(n: int, natural: bool) -> int:
+    """The most rows a block of that kernel takes: PASS_BLOCK_POINTS // n
+    for the natural store, TRANSPOSED_MAX_ROWS for the transposed one, at
+    most PASS_BLOCK_THREADS threads (one row where it alone takes more),
+    rounded down to a power of two; and one transposed row where a row
+    takes PASS_BLOCK_THREADS // 2 threads or more (on an H100 80GB HBM3 at
+    700 W [1, 3072, 3072] read 0.1441 ms at 1 row in clusters of 8, 0.1619
+    at 2 rows in clusters of 4, tools/mixed_passes_variants.py --sweep)."""
+    threads = passes_threads(n)
+    if natural:
+        cap = max(1, PASS_BLOCK_POINTS // n)
+    elif 2 * threads >= PASS_BLOCK_THREADS:
+        cap = 1
+    else:
+        cap = TRANSPOSED_MAX_ROWS
+    cap = max(1, min(cap, PASS_BLOCK_THREADS // threads))
+    return 1 << (cap.bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def passes_rows(c: int, m: int, n: int, sms: int, natural: bool) -> int:
+    """Rows per block of a pass of ``c`` channels of [m, n] on that kernel
+    (rows_per_block with passes_max_rows and passes_block_bytes)."""
+    shared = (functools.partial(passes_shared_bytes, natural=True)
+              if natural else passes_block_bytes)
+    return rows_per_block(c, m, n, sms, passes_max_rows(n, natural), shared)
+
+
+@functools.lru_cache(maxsize=None)
+def passes_cluster(m: int, n: int, rows: int) -> int:
+    """The blocks of one thread-block cluster of that kernel's transposed
+    store (transposed_cluster's rule): from n = PASS_CLUSTER_MIN_N on the
+    least K in CLUSTER_SIZES with K·rows ≥ TRANSPOSED_CLUSTER_ROWS, at most
+    the blocks of the grid and dividing n (each block stores n/K columns
+    of the cluster's rows); 1 below."""
+    k = 1
+    while (n >= PASS_CLUSTER_MIN_N and k * rows < TRANSPOSED_CLUSTER_ROWS
+           and 2 * k <= CLUSTER_SIZES[-1] and 2 * k <= -(-m // rows)
+           and n % (2 * k) == 0):
+        k *= 2
+    return k
 
 
 def fused_natural_shared_bytes(rows: int, n: int) -> int:
@@ -1043,18 +1366,23 @@ def _launch_rows(entry: str, re, im, inverse: bool, out_shape, tier: str,
     out_im = torch.empty_like(out_re)
     mixed = not is_power_of_two(n)
     if mixed:
-        # the mixed-radix kernel, either store, through entries of its own:
-        # at f32 direct its stages, the plan read from the host; at the
-        # other tiers and forms the matrix engine
-        tables = mixed_tables(n, inverse, tier, split3, re.device)
-        rows = mixed_rows(c, m, n, sm_count(re.device), natural, tier, split3)
+        # either store, through entries of its own: at f32 direct the
+        # mixed-radix passes, at the other tiers and forms the matrix engine
         if _stockham(tier, split3):
+            # f32 direct: the register-resident passes, the plan read from
+            # the host, the transposed store in clusters of passes_cluster
             entry = "tpu_fft_rows_mixed"
-            plan = mixed_plan_rows(n)
-            tail = (int(natural), len(plan), tables.shape[0],
+            tables = passes_twiddles(n, bool(inverse), re.device)
+            rows = passes_rows(c, m, n, sm_count(re.device), natural)
+            plan = passes_plan_rows(n)
+            cluster = 1 if natural else passes_cluster(m, n, rows)
+            tail = (int(natural), len(plan) - 1, tables.shape[0], cluster,
                     plan.ctypes.data)
         else:
             entry = "tpu_matrix_rows_any"
+            tables = matrix_tables(n, bool(inverse), bool(split3), re.device)
+            rows = mixed_rows(c, m, n, sm_count(re.device), natural, tier,
+                              split3)
             tail = (int(natural), TIERS[tier], int(split3))
     else:
         clustered = not natural and _stockham(tier, split3)
