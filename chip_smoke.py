@@ -77,14 +77,19 @@ Phases, each printing its own lines:
                float64 DFT of the float64 assembly at most 1.1 × the row
                kernel's; the matrix engine behind those two kernels' loads
                and stores (every other tier and form at such lengths:
-               bf16 and bf16x3 direct, both stores, and the three-factor
-               form at f32, bf16 and bf16x3, transposed, where 128 | N)
-               at every shape of MATRIX_SHAPES (the paths', N = 96 …
-               3072 at M = N, N/2 and 1, 6144 natural, ragged M, C = 3
-               at 106, 8186 and 8190 at M = 1 and 8, [1,8186,8186]
-               natural), both directions: one launch under its name,
-               within TIER_BAND of the plain version and
-               MATRIX_F64_MAX of float64 (bf16's reported); its fused
+               bf16x3 direct, both stores, and the three-factor form at
+               f32, bf16 and bf16x3, transposed, where 128 | N) and the
+               bf16 row kernel there (bf16 direct, both stores,
+               csrc/dft_bf16_rows_mixed.cuh: one launch where n1 ≤ 128,
+               stage 1 and a tiled product where n1 = N/2 > 128) at every
+               shape of MATRIX_SHAPES (the paths', N = 96 … 3072 at
+               M = N, N/2 and 1, 6144 natural, ragged M, C = 3 at 106,
+               8186 and 8190 at M = 1 and 8, [1,8186,8186] natural), both
+               directions: its launches under their names, within
+               TIER_BAND of the plain version and MATRIX_F64_MAX of
+               float64 (bf16's reported, and from 64 rows on within 1.1 ×
+               the bf16 plain version's error on the same rows, at
+               [1,8186,8186] also at most 1.1 × its PERF.md figure); its fused
                twins at the paths' shapes and, in the three channel sets
                from channel 1 at a row offset, both directions, each
                channel within that band and of the float64 DFT of the
@@ -180,13 +185,15 @@ Phases, each printing its own lines:
                        from the same seed, whose last step is replayed on
                        the CPU
                  (xlv) (xxxviii) at precision="bfloat16": every row pass on
-                       the matrix engine behind the mixed-radix kernel (5 a
-                       step), against the CPU and the card's f32 step
-                 (xlvi) (xlii) at bf16: 2 fused natural launches, 1
-                       natural and 2 transposed row launches a step on the
-                       matrix engine, against the CPU and the card's f32
+                       the bf16 row kernel (5 a step), against the CPU and
+                       the card's f32 step
+                 (xlvi) (xlii) at bf16: 2 fused natural launches on the
+                       matrix engine, 1 natural and 2 transposed row
+                       launches a step on the bf16 row kernel, against the
+                       CPU and the card's f32
                  (xlvii) (xliii) at bf16: the per-channel set (C = 3) at
-                       n1 = 53, then the row pass, on the matrix engine
+                       n1 = 53 on the matrix engine, then the row pass on
+                       the bf16 row kernel
                  (xlviii) (xxxviii) with THREE_FACTOR_THRESHOLD = 512: the
                        f32 three-factor form, 5 row launches a step
                  (xlix) (xli) with THREE_FACTOR_THRESHOLD =
@@ -361,7 +368,13 @@ Phases, each printing its own lines:
                fused natural kernel beside the f32 one at the same shape
                and the bf16 row kernel at [1, M, N] (and at C = 5, on no
                path, beside five of its one-channel launches), the
-               others beside the f32 kernel with their store; the complex
+               others beside the f32 kernel with their store; the bf16
+               row kernel at lengths that are not powers of two beside the
+               matrix engine's time before its redesign
+               (BF16_MIXED_BEFORE_MS), the f32 mixed-radix kernel at the
+               same shape, cuFFT, the bound and, where n1 = N/2 > 128, the
+               matrix form's tensor floor (its two launches also apart,
+               each against its own bound); the complex
                state's full 2-D transforms at C = 5 ((xvii), (xviii),
                (xxi)), the hand kernels' two passes beside cuFFT's
                torch.fft.ifft2;
@@ -629,8 +642,10 @@ PATHS = [
               {"fused_mixed_transposed[per_channel]": 1,
                "fft_rows_mixed_transposed": 1}, 1e-5, solver={}),
     # the last sizes slice: the other tiers and forms at the same lengths,
-    # every pass on the matrix engine behind the mixed-radix kernels' loads
-    # and stores: path (i)'s switches at bf16 at 1536² (the transposed
+    # the row passes at bf16 on the bf16 row kernel
+    # (csrc/dft_bf16_rows_mixed.cuh), every other pass on the matrix engine
+    # behind the mixed-radix kernels' loads and stores: path (i)'s
+    # switches at bf16 at 1536² (the transposed
     # regime: rows and columns of 1536, the half channel's 768-long
     # columns), pallas_fused at bf16 at 3072² (the natural regime) and the
     # complex state at 106² (the per-channel set, n1 = 53); the hand-set
@@ -638,16 +653,16 @@ PATHS = [
     # form on pallas, bf16x3 in the three-factor form on pallas_fused (a
     # pair the JAX package cannot run)
     OceanPath("xlv", "pallas", 1536, 20, 1, True, "bfloat16", {},
-              {"matrix_rows_mixed_transposed[bf16]": 5, "fields_stencil": 1},
+              {"bf16_rows_mixed_transposed": 5, "fields_stencil": 1},
               BF16_REL, against={"f32": BF16_VS_F32_REL}),
     OceanPath("xlvi", "pallas_fused", 3072, 10, 1, True, "bfloat16", {},
               {"matrix_fused_mixed_natural[bf16,packed3]": 2,
-               "matrix_rows_mixed_natural[bf16]": 1,
-               "matrix_rows_mixed_transposed[bf16]": 2, "fields_stencil": 1},
+               "bf16_rows_mixed_natural": 1,
+               "bf16_rows_mixed_transposed": 2, "fields_stencil": 1},
               BF16_REL, against={"f32": BF16_VS_F32_REL}),
     OceanPath("xlvii", "pallas_fused", 106, 20, 1, True, "bfloat16", {},
               {"matrix_fused_mixed_transposed[bf16,per_channel]": 1,
-               "matrix_rows_mixed_transposed[bf16]": 1}, BF16_REL, solver={},
+               "bf16_rows_mixed_transposed": 1}, BF16_REL, solver={},
               against={"f32": BF16_VS_F32_REL}),
     OceanPath("xlviii", "pallas", 1536, 20, 1, True, "float32", SPLIT3,
               {"matrix_rows_mixed_transposed[f32,split3]": 5,
@@ -784,7 +799,6 @@ KERNEL_INFO = {
         "tpu_ocean_torch/csrc/rows_mixed_f32.cuh",
         f"tpu_ocean/fft/pallas_fft.py:{line} at non-power-of-two N")
        for store, mode, line in (
-           ("transposed", "bf16", 235), ("natural", "bf16", 677),
            ("transposed", "bf16x3", 235), ("natural", "bf16x3", 677),
            ("transposed", "f32,split3", 273),
            ("transposed", "bf16,split3", 273),
@@ -801,6 +815,16 @@ KERNEL_INFO = {
            ("transposed", "f32,split3,packed3", 161),
            ("transposed", "bf16,split3,packed3", 161),
            ("transposed", "bf16x3,split3,packed3", 161))},
+    # #1 and #2 at bf16, direct form, at lengths that are not powers of
+    # two (fft.planes.bf16_rows_launches): where n1 ≤ 128 one launch,
+    # where n1 = N/2 > 128 stage 1 (both stores) and the tiled stage 2
+    **{name: ("tpu_ocean_torch/csrc/dft_bf16_rows_mixed.cuh",
+              f"tpu_ocean/fft/pallas_fft.py:{line} at non-power-of-two N")
+       for name, line in (("bf16_rows_mixed_transposed", 235),
+                          ("bf16_rows_mixed_natural", 677),
+                          ("bf16_gemm_prep", "235 and :677 (stage 1)"),
+                          ("bf16_gemm_rows_transposed", 235),
+                          ("bf16_gemm_rows_natural", 677))},
     # the row and fused entries at the other tiers and forms, by tier and
     # form: the bf16 direct row passes (both stores), the bf16 direct
     # natural fused pass and the three-factor row passes have kernels of
@@ -902,16 +926,34 @@ MATRIX_F64_MAX = {"bf16x3": 5e-5, "f32,split3": 1e-5, "bf16x3,split3": 5e-5}
 # launch of the 134 MB F1 a row, over MIXED_SLOW's calls
 PATH_1536 = {(1, 1536, 1536), (1, 768, 1536), (1, 1, 1536), (1, 1536, 768)}
 MATRIX_TIMED = {
-    "matrix_rows_mixed_transposed[bf16]": PATH_1536 | {
-        (1, 3072, 3072), (1, 3072, 1536), (3, 106, 106), (1, 2042, 2042)},
-    "matrix_rows_mixed_natural[bf16]": {(1, 1, 3072), (1, 3072, 3072),
-                                        (1, 8186, 8186)},
     "matrix_rows_mixed_transposed[bf16x3]": {(1, 1536, 1536), (1, 2042, 2042)},
     "matrix_rows_mixed_natural[bf16x3]": {(1, 3072, 3072), (1, 8186, 8186)},
     "matrix_rows_mixed_transposed[f32,split3]": PATH_1536,
     "matrix_rows_mixed_transposed[bf16,split3]": {(1, 1536, 1536)},
     "matrix_rows_mixed_transposed[bf16x3,split3]": {
         (1, 1536, 1536), (1, 1, 1536), (1, 1536, 768)}}
+# the bf16 row kernel at lengths that are not powers of two
+# (csrc/dft_bf16_rows_mixed.cuh), by store: its launch names at each N are
+# fft.planes.bf16_rows_launches' (where n1 = N/2 > 128 a case counts under
+# the tiled stage 2's name and also launches BF16_GEMM_PREP); its phase-3
+# shapes are MATRIX_SHAPES' (the matrix engine's bf16 direct ones before
+# it), each in both directions within TIER_BAND["bf16"] of the plain
+# version, its error against float64 from 64 rows on within 1.1 × the
+# plain version's on the same rows and at [1, 8186, 8186] (n1 = 4093) at
+# most 1.1 × BF16_ROWS_F64_ERR; timed in phase 5 at PERF.md §6's shapes of
+# the bf16 rows at such N, beside the matrix engine's times before the
+# redesign (PERF.md §6, PR 23's chip runs: ms a launch)
+BF16_MIXED_BEFORE_MS = {
+    "transposed": {(1, 1536, 1536): 0.2421, (1, 768, 1536): 0.0932,
+                   (1, 1, 1536): 0.0158, (1, 1536, 768): 0.0761,
+                   (1, 3072, 3072): 0.6521, (1, 3072, 1536): 0.2888,
+                   (3, 106, 106): 0.0068, (1, 2042, 2042): 1.7579},
+    "natural": {(1, 1, 3072): 0.0237, (1, 3072, 3072): 0.4655,
+                (1, 8186, 8186): 776.7040}}
+# the names its cases count under (where n1 = N/2 > 128 the tiled stage
+# 2's; BF16_GEMM_PREP launches beside it)
+BF16_MIXED = ("bf16_rows_mixed_transposed", "bf16_rows_mixed_natural",
+              "bf16_gemm_rows_transposed", "bf16_gemm_rows_natural")
 # the fused kernels on the matrix engine in the three channel sets, each
 # mode (store, tags) at a ragged M from channel 1 at a row offset (across
 # the Nyquist row), both directions, within TIER_BAND of the plain version
@@ -950,7 +992,7 @@ AUTOGRAD_ROWS = [("transposed", (1, 1024, 1024), "float32"),
                  # the mixed-radix kernel, paths (xxxviii) and (xxxix)
                  ("transposed", (1, 1536, 1536), "float32"),
                  ("natural", (1, 3072, 3072), "float32"),
-                 # the matrix engine there, path (xlv)
+                 # the bf16 row kernel there, path (xlv)
                  ("transposed", (1, 1536, 1536), "bfloat16")]
 # the gradient paths (xxxiv)-(xxxvi): one step of path (i)'s switches from a
 # seeded init, d(Σ height² + Σ foam)/d(h0_re) (tests/test_autodiff.py's
@@ -1195,6 +1237,19 @@ def kernel_group(key):
     # rules for the row kernels or the matrix engine below
     if "bf16_fused_natural_kernel" in key:
         return "matrix_fused_natural[bf16]"
+    # the bf16 row kernel at such N, by store: one launch where n1 ≤ 128;
+    # where n1 = N/2 > 128 stage 1, then the tiled product
+    m = (re.search(r"bf16_rows_mixed_kernel<\d+, (?:true|false), "
+                   r"(true|false)>", key)
+         or re.search(r"bf16_rows_mixed_kernelILi\d+ELb[01]ELb([01])E", key))
+    if m is not None:
+        natural = m.group(1) in ("true", "1")
+        return f"bf16_rows_mixed_{'natural' if natural else 'transposed'}"
+    if "gemm_prep_kernel" in key:
+        return "bf16_gemm_prep"
+    if "gemm_rows_kernel" in key:
+        natural = "<true>" in key or "ILb1E" in key
+        return f"bf16_gemm_rows_{'natural' if natural else 'transposed'}"
     # the f32 row kernel's register passes at such N, by store
     if "rows_mixed_passes_kernel" in key:
         natural = "<true," in key or "ILb1E" in key
@@ -2422,10 +2477,19 @@ def main():
                          if store == "transposed" else
                          (planes.fft1d_natural_large,
                           planes.fft1d_natural_large_plain))
-            matrix_rows.append((
-                f"matrix_rows_mixed_{store}[{mode}]", fn, plain, precision,
-                switches, MATRIX_SHAPES["split3" if "split3" in mode
-                                        else store]))
+            shapes = MATRIX_SHAPES["split3" if "split3" in mode else store]
+            if mode != "bf16":
+                matrix_rows.append((f"matrix_rows_mixed_{store}[{mode}]", fn,
+                                    plain, precision, switches, shapes))
+                continue
+            # bf16 direct: the bf16 row kernel, a case under the name of
+            # its last launch at each N
+            by_name = collections.defaultdict(list)
+            for shape in shapes:
+                by_name[planes.bf16_rows_launches(
+                    shape[2], store == "natural")[-1]].append(shape)
+            matrix_rows.extend((name, fn, plain, precision, switches,
+                                named) for name, named in by_name.items())
     for name, fn, plain, precision, switches, shapes in (*(
             ("fft_rows_transposed", planes.fft1d_transposed,
              planes.fft1d_transposed_plain, "float32", {},
@@ -2479,7 +2543,8 @@ def main():
              planes.fft1d_natural_large_plain, "float32", {},
              MIXED_SHAPES["fft_rows_mixed_natural"])), *matrix_rows):
         for shape in shapes:
-            gen = matrix_rng if name.startswith("matrix_rows_mixed") else rng
+            gen = matrix_rng if name in BF16_MIXED or name.startswith(
+                "matrix_rows_mixed") else rng
             re, im = plane(shape, gen), plane(shape, gen)
             z = torch.complex(re, im)
             points = shape[0] * shape[1] * shape[2]
@@ -2487,7 +2552,8 @@ def main():
             with dft_switches(planes, switches):
                 tier, split3 = planes.engine(
                     shape[2], precision, fn is planes.fft1d_transposed)
-            if name in MIXED_SHAPES or name.startswith("matrix_rows_mixed"):
+            if (name in MIXED_SHAPES or name in BF16_MIXED
+                    or name.startswith("matrix_rows_mixed")):
                 mixed_inputs[name, shape] = (re, im)
             # at a length that is not a power of two, what a length-N DFT
             # needs, whatever the kernel (the matrix engine's four-step
@@ -2703,7 +2769,8 @@ def main():
     f64_errs = {}
     for case in cases:
         name, shape, run, plain = case.name, case.shape, case.run, case.plain
-        if name in MIXED_SHAPES or name.startswith("matrix_rows_mixed"):
+        if (name in MIXED_SHAPES or name in BF16_MIXED
+                or name.startswith("matrix_rows_mixed")):
             continue          # both directions below
         if name == "gerstner_bank":
             # each output against its own scale: offsets ~0.1, normal ~1
@@ -2751,11 +2818,22 @@ def main():
                      if transposed else
                      (planes.fft1d_natural_large,
                       planes.fft1d_natural_large_plain))
-        mode = name[name.index("[") + 1:-1] if "[" in name else None
+        bf16 = name in BF16_MIXED
+        mode = ("bf16" if bf16 else
+                name[name.index("[") + 1:-1] if "[" in name else None)
         precision, switches = MATRIX_MODES.get(mode, ("float32", {}))
+        want_counts = (dict.fromkeys(planes.bf16_rows_launches(
+            shape[2], not transposed), 1) if bf16 else {name: 1})
         with dft_switches(planes, switches):
             tier, split3 = planes.engine(shape[2], precision, transposed)
-            if mode is None:
+            if bf16:
+                rows = planes.rows_per_block(
+                    shape[0], shape[1], shape[2], planes.sm_count(dev),
+                    planes.max_rows(shape[2], not transposed, tier, split3),
+                    planes.bf16_rows_shared_bytes)
+                band, f64_max = TIER_BAND[tier], None
+                how = "n1 {}, n2 {}".format(*planes._split_lanes(shape[2]))
+            elif mode is None:
                 rows = planes.passes_rows(shape[0], shape[1], shape[2],
                                           planes.sm_count(dev),
                                           not transposed)
@@ -2775,7 +2853,7 @@ def main():
                 reset_counts()
                 got = fn(re, im, inverse, precision)
                 counted = {k: v for k, v in read_counts().items() if v}
-                require(counted == {name: 1},
+                require(counted == want_counts,
                         f"{name} {shape} launched {counted}")
                 want = plain(re, im, inverse, precision)
                 err, scale = check_kernel(name, list(shape), got, want, band)
@@ -2789,7 +2867,6 @@ def main():
                 rel64, plain64 = (max((g.double() - r).abs().max().item()
                                       for g, r in zip(out, ref)) / ref_max
                                   for out in (got, want))
-                errs[name] = max(errs[name], err)
                 f64_errs[name] = max(f64_errs.get(name, 0.0), rel64)
                 log(f"[kernels] {name} {list(shape)} "
                     f"{'inverse' if inverse else 'forward'}, {how}, R "
@@ -2800,6 +2877,23 @@ def main():
                 require(f64_max is None or rel64 <= f64_max,
                         f"{name} {shape}: {rel64:.3e} x max against float64 "
                         f"> {f64_max}")
+                for other in want_counts:
+                    errs[other] = max(errs[other], err)
+                if bf16 and shape[0] * shape[1] >= 64:
+                    # the same rounded operands as the plain version: its
+                    # error on the same rows within BF16_ROWS_F64_SPREAD,
+                    # at n1 = 4093 also at most 1.1 × PERF.md's figure
+                    cap = (1.1 * BF16_ROWS_F64_ERR
+                           if tuple(shape) == (1, 8186, 8186) else None)
+                    log(f"[accuracy] {name} {list(shape)}: vs float64 "
+                        f"{rel64:.3e} x max, {rel64 / plain64:.4f} x the "
+                        f"plain version's (limit "
+                        f"{1 + BF16_ROWS_F64_SPREAD:g}"
+                        + (f"; at most {cap:.3e}" if cap else "") + ")")
+                    require(rel64 <= (1 + BF16_ROWS_F64_SPREAD) * plain64
+                            and (cap is None or rel64 <= cap),
+                            f"{name} {shape}: {rel64:.3e} x max against "
+                            f"float64, the plain version {plain64:.3e}")
                 del got, want, z, ref
 
     # the fused kernels on the matrix engine in the three channel sets, at
@@ -3277,8 +3371,12 @@ def main():
             continue
         if name in MATRIX_TIMED and tuple(shape) not in MATRIX_TIMED[name]:
             continue
+        store = "natural" if "natural" in name else "transposed"
+        if (name in BF16_MIXED
+                and tuple(shape) not in BF16_MIXED_BEFORE_MS[store]):
+            continue
         slow = tuple(shape) in MIXED_SLOW
-        k, _, k_how = device_ms(case.run, iters=(
+        k, by_key, k_how = device_ms(case.run, iters=(
             50 if not slow else 1 if name.startswith("matrix") else 3),
             whole=True)
         # a plain version runs up to ~300 torch ops a call (the wave bank's
@@ -3296,8 +3394,26 @@ def main():
             f"{case.f32_ops / 1e6:.1f} Mflop f32, "
             f"{case.tensor_ops / 1e6:.1f} Mflop bf16), {b_ms / k:.3f} of it; "
             f"timed by {timed_by}")
-        results.setdefault(name, (shape, k, p, lib, b_ms, b_by, timed_by))
         by_shape[name, tuple(shape)] = (k, lib, b_ms)
+        if name in planes.BF16_GEMM_NAMES.values():
+            # two launches: stage 1 (12 B a point) and the tiled product,
+            # bound by its 8·n1 tensor flops a point, each on its own
+            n1 = planes._split_lanes(shape[2])[0]
+            points = int(np.prod(shape))
+            prep = sum(v for key, v in by_key.items()
+                       if kernel_group(key) == planes.BF16_GEMM_PREP)
+            parts = {planes.BF16_GEMM_PREP: (prep, bound(12 * points, 0)),
+                     name: (k - prep, bound(
+                         12 * points + 4 * n1 * planes.bf16_gemm_depth(n1),
+                         0, 8 * n1 * points))}
+            for part, (ms, (part_ms, part_by)) in parts.items():
+                log(f"[timing] {part} {shape}: {ms:.4f} ms of the pass's "
+                    f"{k:.4f}, bound {part_ms:.4f} ms ({part_by}), "
+                    f"{part_ms / ms:.3f} of it")
+                results.setdefault(part, (shape, ms, p, lib, part_ms,
+                                          part_by, timed_by))
+            continue
+        results.setdefault(name, (shape, k, p, lib, b_ms, b_by, timed_by))
 
     # each redesigned row kernel beside its time before the redesign and
     # cuFFT at each shape: the two f32 direct kernels beside each other on
@@ -3393,6 +3509,31 @@ def main():
                 f"{what} {ref:.4f}, cuFFT {lib:.4f}, bound {b_ms:.4f}; "
                 f"{before / k:.2f}x faster than before, {k / ref:.3f} of "
                 f"{what}, {k / lib:.2f}x cuFFT")
+
+    # the bf16 row kernel at lengths that are not powers of two beside the
+    # matrix engine's time before the redesign, the f32 mixed-radix kernel
+    # where phase 5 timed it at the same shape, cuFFT, the bound and, where
+    # n1 = N/2 > 128, the matrix form's tensor floor (8·n1 bf16 flops a
+    # point)
+    for store, before_ms in BF16_MIXED_BEFORE_MS.items():
+        for shape, before in before_ms.items():
+            name = planes.bf16_rows_launches(shape[2],
+                                             store == "natural")[-1]
+            k, lib, b_ms = by_shape[name, shape]
+            f32 = by_shape.get((f"fft_rows_mixed_{store}", shape))
+            n1 = planes._split_lanes(shape[2])[0]
+            floor = (bound(0, 0, 8 * n1 * int(np.prod(shape)))[0]
+                     if planes.bf16_wide(shape[2]) else None)
+            log(f"[timing] {kind} ({smi}): {name} {list(shape)}: {k:.4f} ms "
+                f"a pass (before the redesign {before:.4f}, PERF.md, not "
+                f"this run), "
+                + (f"the f32 mixed-radix kernel {f32[0]:.4f}, " if f32
+                   else "")
+                + f"cuFFT {lib:.4f}, bound {b_ms:.4f} ({b_ms / k:.3f} of it)"
+                + (f", the matrix form's tensor floor {floor:.4f} "
+                   f"({k / floor:.2f}x it)" if floor else "")
+                + f"; {before / k:.1f}x faster than before, "
+                f"{k / lib:.2f}x cuFFT")
 
     # the bf16 fused natural kernel at C = 5 (on no path): a block per
     # channel, so the inputs are read five times; beside the f32 kernel's

@@ -81,6 +81,21 @@ def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
      "matrix_rows_natural[bf16]"),
     ("_ZN7tpu_fft9bf16_rows16bf16_rows_kernelILi10ELb0EEEvPKfS3_PfS4_PKjii",
      "matrix_rows_transposed[bf16]"),
+    # the bf16 row kernel at lengths that are not powers of two
+    ("void tpu_fft::bf16_mixed::bf16_rows_mixed_kernel<3, true, false>("
+     "float const*, float const*, float*, float*, unsigned int const*, int, "
+     "int, int, int)", "bf16_rows_mixed_transposed"),
+    ("_ZN7tpu_fft10bf16_mixed22bf16_rows_mixed_kernelILi1ELb0ELb1EEEvPKfS3_"
+     "PfS4_PKjiiii", "bf16_rows_mixed_natural"),
+    ("_ZN7tpu_fft10bf16_mixed22bf16_rows_mixed_kernelILi8ELb1ELb0EEEvPKfS3_"
+     "PfS4_PKjiiii", "bf16_rows_mixed_transposed"),
+    ("tpu_fft::bf16_gemm::gemm_prep_kernel(float const*, float const*, "
+     "unsigned int*, float2 const*, int, int)", "bf16_gemm_prep"),
+    ("_ZN7tpu_fft9bf16_gemm16gemm_rows_kernelILb0EEEvPKjS3_PfS4_iiiiii",
+     "bf16_gemm_rows_transposed"),
+    ("void tpu_fft::bf16_gemm::gemm_rows_kernel<true>(unsigned int const*, "
+     "unsigned int const*, float*, float*, int, int, int, int, int, int)",
+     "bf16_gemm_rows_natural"),
     ("void tpu_fft::split3_f32::split3_f32_rows_kernel<10>(float const*, "
      "float const*, float*, float*, float2 const*, int, int)",
      "matrix_rows_transposed[f32,split3]"),

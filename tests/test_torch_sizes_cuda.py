@@ -32,7 +32,8 @@ imports no jax; run it with
   gradient refused at 1536, where bf16 steps.
 - The matrix engine behind those kernels' loads and stores (the other
   tiers and forms at those lengths; entries tpu_matrix_rows_any and
-  tpu_matrix_fused_rows_any): bf16 and bf16x3 direct, either store, and
+  tpu_matrix_fused_rows_any) and the bf16 row kernel (bf16 direct rows,
+  entry tpu_bf16_rows_mixed): bf16 and bf16x3 direct, either store, and
   the three-factor form at f32, bf16 and bf16x3 (where 128 | N), row and
   fused, both directions, at n1 = N/2 (96, 106, 160, 2042, 8186) and
   n1 = 128 (384, 768, 1536), ragged M and C = 3: one launch under its
@@ -397,7 +398,8 @@ def test_fused_at_1536_refuses_a_gradient_and_bf16(cuda):
     """A gradient through ``pallas_fused`` raises NotImplementedError
     before any launch (JAX gives the fused kernels no VJP), at f32 and at
     bf16; bf16 on ``pallas_fused`` at 1536, once refused, constructs and
-    steps on the matrix engine (2 fused and 3 row launches a step)."""
+    steps: 2 fused launches a step on the matrix engine, 3 row launches on
+    the bf16 row kernel (csrc/dft_bf16_rows_mixed.cuh)."""
     cfg = OCEAN_DEMO.replace(resolution=1536)
     kw = dict(SLICE, fft_backend="pallas_fused")
     for precision in ("float32", "bfloat16"):
@@ -411,7 +413,7 @@ def test_fused_at_1536_refuses_a_gradient_and_bf16(cuda):
     _, f = solver.step(st, 1 / 60)
     assert bool(torch.isfinite(f.height).all())
     assert _counts() == {"matrix_fused_mixed_transposed[bf16,packed3]": 2,
-                         "matrix_rows_mixed_transposed[bf16]": 3,
+                         "bf16_rows_mixed_transposed": 3,
                          "fields_stencil": 1}
 
 
@@ -461,16 +463,21 @@ def _mode(monkeypatch, mode):
                               for s, m, sh in MATRIX_CASES])
 def test_matrix_kernel_matches_plain_and_float64(cuda, monkeypatch, store,
                                                  mode, shape, inverse):
-    """One launch of tpu_matrix_rows_any under its name, within the tier's
-    band of the plain version (fft/matrix.py, the same rounded operands)
-    and of float64."""
+    """One launch of tpu_matrix_rows_any under its name (bf16 direct: the
+    bf16 row kernel's tpu_bf16_rows_mixed, one launch where n1 ≤ 128, two
+    where n1 = N/2 > 128, fft.planes.bf16_rows_launches), within the
+    tier's band of the plain version (fft/matrix.py, the same rounded
+    operands) and of float64."""
     precision = _mode(monkeypatch, mode)
     fn, plain = _wrappers(store)
     tier, split3 = planes.engine(shape[-1], precision, store == "transposed")
     assert f"{tier}{',split3' if split3 else ''}" == mode
     re, im = _planes(shape, cuda, seed=shape[-1] + shape[-2])
     got = fn(re, im, inverse, precision)
-    assert _counts() == {f"matrix_rows_mixed_{store}[{mode}]": 1}
+    assert _counts() == (
+        dict.fromkeys(planes.bf16_rows_launches(shape[-1],
+                                                store == "natural"), 1)
+        if mode == "bf16" else {f"matrix_rows_mixed_{store}[{mode}]": 1})
     z = torch.complex(re.double(), im.double())
     ref = (torch.fft.ifft(z, dim=-1, norm="forward") if inverse
            else torch.fft.fft(z, dim=-1))
@@ -484,14 +491,14 @@ def test_matrix_kernel_matches_plain_and_float64(cuda, monkeypatch, store,
 @pytest.mark.parametrize("store", ["transposed", "natural"])
 def test_matrix_backward_runs_the_kernel_in_the_opposite_direction(cuda,
                                                                    store):
-    """bf16 at [1, 96, 96]: the backward's launch is the matrix kernel's in
-    the forward direction, against the plain version there."""
+    """bf16 at [1, 96, 96]: the backward's launch is the bf16 row kernel's
+    in the forward direction, against the plain version there."""
     fn, plain = _wrappers(store)
     x = [p.requires_grad_() for p in _planes((1, 96, 96), cuda, seed=2)]
     yr, yi = fn(*x, True, "bfloat16")
     cts = _planes(tuple(yr.shape), cuda, seed=3)
     grads = torch.autograd.grad((yr, yi), x, cts)
-    assert _counts() == {f"matrix_rows_mixed_{store}[bf16]": 2}
+    assert _counts() == {planes.BF16_MIXED_NAMES[f"rows_{store}"]: 2}
     if store == "transposed":
         want = [w.transpose(-1, -2) for w in plain(
             *(c.transpose(-1, -2).contiguous() for c in cts), False,
@@ -561,14 +568,16 @@ def test_matrix_fused_kernel_matches_plain_and_float64(cuda, monkeypatch,
 
 
 #: what the matrix entries refuse: (tier, split3, natural, n, rows)
+#: (bf16x3 direct, which both entries take at such N, where bf16 direct
+#: stood before the row entry refused it: tests/test_torch_bf16_mixed_cuda.py)
 MATRIX_REFUSED = {"f32_direct": (0, 0, 0, 96, 1),
-                  "power_of_two": (1, 0, 0, 128, 1),
-                  "odd": (1, 0, 0, 95, 1), "long": (1, 0, 0, 8194, 1),
-                  "short": (1, 0, 0, 14, 1),
+                  "power_of_two": (2, 0, 0, 128, 1),
+                  "odd": (2, 0, 0, 95, 1), "long": (2, 0, 0, 8194, 1),
+                  "short": (2, 0, 0, 14, 1),
                   "split3_n1": (1, 1, 0, 96, 1),
                   "split3_natural": (1, 1, 1, 384, 1),
-                  "rows": (1, 0, 0, 96, 3), "no_rows": (1, 0, 0, 96, 0),
-                  "smem": (1, 0, 0, 8190, 2), "tier": (3, 0, 0, 96, 1)}
+                  "rows": (2, 0, 0, 96, 3), "no_rows": (2, 0, 0, 96, 0),
+                  "smem": (2, 0, 0, 8190, 2), "tier": (3, 0, 0, 96, 1)}
 
 
 @pytest.mark.parametrize("fused_entry", [False, True], ids=["rows", "fused"])
@@ -611,8 +620,9 @@ def test_the_matrix_c_entries_refuse_what_they_do_not_take(cuda, what,
 def test_bfloat16_slice_step_against_the_cpu(cuda, backend):
     """Path (i)'s switches at N = 96 and precision="bfloat16", 3 steps on
     the card and on the CPU from one state, held as chip_smoke.py holds
-    its bf16 paths (compare_fields at BF16_REL); every pass on the matrix
-    engine behind the mixed-radix kernels' loads and stores."""
+    its bf16 paths (compare_fields at BF16_REL); every row pass on the
+    bf16 row kernel (csrc/dft_bf16_rows_mixed.cuh), every fused pass on the
+    matrix engine behind the mixed-radix kernels' loads and stores."""
     from chip_smoke import BF16_REL, compare_fields
     cfg = OCEAN_DEMO.replace(resolution=96, precision="bfloat16")
     kw = dict(SLICE, fft_backend=backend)
@@ -624,10 +634,10 @@ def test_bfloat16_slice_step_against_the_cpu(cuda, backend):
     for _ in range(3):
         state, got = card.step(state, 1 / 60)
         cpu_state, want = cpu.step(cpu_state, 1 / 60)
-    per_step = ({"matrix_rows_mixed_transposed[bf16]": 5}
+    per_step = ({"bf16_rows_mixed_transposed": 5}
                 if backend == "pallas" else
                 {"matrix_fused_mixed_transposed[bf16,packed3]": 2,
-                 "matrix_rows_mixed_transposed[bf16]": 3})
+                 "bf16_rows_mixed_transposed": 3})
     assert _counts() == {**{k: 3 * v for k, v in per_step.items()},
                          "fields_stencil": 3}
     compare_fields(fields_to_numpy(got), fields_to_numpy(want), cfg,

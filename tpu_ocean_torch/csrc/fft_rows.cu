@@ -44,7 +44,9 @@
 // Those take powers of two. At every other even N, f32 in the direct form
 // runs the register-resident mixed-radix passes of
 // rows_mixed_passes_f32.cuh through rows_mixed.cu's tpu_fft_rows_mixed
-// (`tables` planes.passes_twiddles); every other tier and form runs
+// (`tables` planes.passes_twiddles), bf16 in the direct form
+// dft_bf16_rows_mixed.cuh through bf16_rows_mixed.cu's tpu_bf16_rows_mixed
+// (`tables` planes.bf16_rows_tables); every other tier and form runs
 // rows_mixed_f32.cuh's loads and stores around the matrix-form engine of
 // dft_matrix.cuh, tpu_matrix_rows_any below (`tables`
 // planes.matrix_tables).
@@ -150,7 +152,8 @@ extern "C" {
 // as an int. The caller checks (planes.require_card_kernel): n a power of
 // two in [16, 8192] for these two entries (an even n in that range that is
 // not a power of two goes to rows_mixed.cu's tpu_fft_rows_mixed at f32
-// direct and to tpu_matrix_rows_any at every other tier and form), rows a
+// direct, to bf16_rows_mixed.cu's tpu_bf16_rows_mixed at bf16 direct and
+// to tpu_matrix_rows_any at every other tier and form), rows a
 // power of two that keeps the shared memory within the card's limit,
 // contiguous f32 planes, `tables` the Stockham twiddles (tier 0, split3 0,
 // transposed),
@@ -178,14 +181,16 @@ int tpu_fft_rows_natural(const void* re, const void* im, void* out_re,
 }
 
 // Every other tier and form at an even n in [16, 8192] that is not a power
-// of two, transposed (natural = 0) or natural (1) store: tier 1 (bf16) or
-// 2 (bf16x3) in the direct form, or the three-factor form (split3 1) at
+// of two, transposed (natural = 0) or natural (1) store: tier 2 (bf16x3)
+// in the direct form, or the three-factor form (split3 1) at
 // any tier with the transposed store where 128 divides n; rows a power of
 // two whose two buffers (planes.matrix_mixed_shared_bytes) fit the card's
 // shared memory, `tables` planes.matrix_tables(n, inverse, split3). f32
-// direct (rows_mixed.cu's tpu_fft_rows_mixed), a power of two, an odd n or
-// one outside that range, a three-factor form with n1 ≠ 128 or the natural store, and
-// any other rows are refused, never run on another kernel.
+// direct (rows_mixed.cu's tpu_fft_rows_mixed), bf16 direct
+// (bf16_rows_mixed.cu's tpu_bf16_rows_mixed), a power of two, an odd n or
+// one outside that range, a three-factor form with n1 ≠ 128 or the
+// natural store, and any other rows are refused, never run on another
+// kernel.
 int tpu_matrix_rows_any(const void* re, const void* im, void* out_re,
                         void* out_im, const void* tables, int channels, int m,
                         int n, int rows, int natural, int tier, int split3,

@@ -1,15 +1,17 @@
 // The row DFT at even lengths that are not powers of two, either store, at
-// every tier and form but f32 in the direct form: fft_rows.cu's entry
-// tpu_matrix_rows_any, dft_matrix.cuh's engine behind the loads and stores
-// below. f32 in the direct form runs rows_mixed_passes_f32.cuh's
-// register-resident passes (rows_mixed.cu's tpu_fft_rows_mixed); the
+// every tier and form but f32 and bf16 in the direct form: fft_rows.cu's
+// entry tpu_matrix_rows_any, dft_matrix.cuh's engine behind the loads and
+// stores below. f32 in the direct form runs rows_mixed_passes_f32.cuh's
+// register-resident passes (rows_mixed.cu's tpu_fft_rows_mixed), bf16 in
+// the direct form dft_bf16_rows_mixed.cuh (bf16_rows_mixed.cu's
+// tpu_bf16_rows_mixed); the
 // mixed-radix stages below, which ran it before, are now the fused twin's
 // (fused_rows_mixed_f32.cuh: run_stages, store and the plan read_plan
 // checks).
 //
 // Replaces: tpu_ocean/fft/pallas_fft.py _fft_block_kernel (launched by
 // _fft1d_transposed_impl) and _rowfft_block_kernel_natural (launched by
-// _fft1d_natural_large_impl) at DEFAULT (bf16) and B3, and
+// _fft1d_natural_large_impl) at B3, and
 // _fft_block_kernel_split3 (#1b, where 128 | N), at the lengths the
 // power-of-two kernels do not take (N = 96, 1536, 3072, 2·53, …). The JAX
 // kernels run
@@ -55,7 +57,7 @@
 // kernel of fused_rows_mixed_f32.cuh, whose load assembles the rows
 // instead of reading them.
 //
-// The other tiers and forms (bf16, bf16x3, the three-factor form) run the
+// The other tiers and forms (bf16x3, the three-factor form) run the
 // same kernel, instantiated on dft_matrix.cuh's MatrixEngine in place of
 // the mixed-radix stages (run_engine): the four-step N = n2 · n1 with n1 =
 // 128 where 128 | N (n2 = N / 128: 3 at 384, 12 at 1536, 48 at 6144) and
@@ -430,8 +432,9 @@ inline bool matrix_length(int n, bool split3) {
 // Launches the kernel on the matrix engine of (tier, split3): n an
 // even length in [16, 8192] that is not a power of two (matrix_length),
 // rows a power of two whose two buffers (matrix_smem_bytes) fit the card's
-// shared memory, `tables` planes.matrix_tables(n, inverse, split3). f32 in
-// the direct form (rows_mixed_passes_f32.cuh's), the three-factor form
+// shared memory, `tables` planes.matrix_tables(n, inverse, split3). f32 and
+// bf16 in the direct form (rows_mixed_passes_f32.cuh's and
+// dft_bf16_rows_mixed.cuh's), the three-factor form
 // with the natural store or with n1 ≠ 128, and anything else are refused
 // with cudaErrorInvalidValue, never run on another kernel.
 template <bool kNatural>
@@ -443,7 +446,10 @@ int launch_rows_matrix(const void* re, const void* im, void* out_re,
     return static_cast<int>(cudaErrorInvalidValue);
   return with_engine(tier, split3, kNatural, [&](auto engine) {
     using Engine = decltype(engine);
-    if constexpr (std::is_same_v<Engine, StockhamEngine>) {
+    if constexpr (std::is_same_v<Engine, StockhamEngine> ||
+                  std::is_same_v<Engine, MatrixEngine<kTierBf16, false>>) {
+      // f32 and bf16 in the direct form run kernels of their own
+      // (rows_mixed_passes_f32.cuh, dft_bf16_rows_mixed.cuh)
       return static_cast<int>(cudaErrorInvalidValue);
     } else if constexpr (kNatural && Engine::kThreeFactor) {
       // no natural three-factor store: with_engine refuses it first, and

@@ -22,8 +22,9 @@ every even N in [MIN_N, MAX_N] at every tier and form, fused or not
 even N at f32 in the direct form on the register-resident mixed-radix
 passes of ``csrc/rows_mixed_passes_f32.cuh`` (plan ``passes_plan``, table
 ``passes_table``) and, fused, on ``csrc/fused_rows_mixed_f32.cuh``'s
-mixed-radix stages (plan ``mixed_plan``, table ``mixed_table``), at every
-other tier and form on the matrix-form engine behind
+mixed-radix stages (plan ``mixed_plan``, table ``mixed_table``), at bf16
+in the direct form on ``csrc/dft_bf16_rows_mixed.cuh`` (not fused), at
+every other tier and form on the matrix-form engine behind
 ``csrc/rows_mixed_f32.cuh``'s and that fused kernel's loads and stores
 (``matrix_tables``); a wrapper refuses odd N and N outside that range with
 ValueError. Only the
@@ -51,8 +52,13 @@ bf16x3 (``csrc/dft_split3_bf16x3.cuh``, tables from
 bf16x3 direct) run the matrix-form engine (``csrc/dft_matrix.cuh``). Those
 are the kernels at powers of two; at every other even N, f32 in the
 direct form runs the mixed-radix passes (``passes_rows``,
-``passes_cluster``, ``passes_twiddles``) and every other tier and form the
-matrix-form engine (``mixed_rows``, ``matrix_tables``). The
+``passes_cluster``, ``passes_twiddles``), bf16 in the direct form the bf16
+row kernel's generalization (``csrc/dft_bf16_rows_mixed.cuh``: where n1 ≤
+128 one launch, where n1 = N/2 > 128 a stage-1 launch and a tiled
+tensor-core product, ``bf16_rows_launches``; the same
+``bf16_rows_tables``, ``bf16_rows_shared_bytes`` and ``max_rows`` at every
+even N) and every other tier and form the matrix-form engine
+(``mixed_rows``, ``matrix_tables``). The
 bf16x3 tier keeps stage 1 at f32, as the TPU kernels do. All but
 Stockham take their plain version from ``fft/matrix.py``.
 Each launch counts once: a Stockham kernel's on its wrapper's
@@ -60,8 +66,9 @@ Each launch counts once: a Stockham kernel's on its wrapper's
 set with 3 live fields, in ``named_launches`` under ``kernel_name`` (a
 launch at a length that is not a power of two under ``mixed_kernel_name``:
 the f32 mixed-radix row kernel's under ``MIXED_NAMES``, the fused one's under
-``MIXED_FUSED_NAME``, the matrix engine's there as e.g.
-``matrix_rows_mixed_transposed[bf16]``).
+``MIXED_FUSED_NAME``, the bf16 row kernel's under ``bf16_rows_launches``,
+the matrix engine's there as e.g.
+``matrix_rows_mixed_transposed[bf16x3]``).
 
 Both row DFTs are differentiable by the JAX package's linear-adjoint rule
 (``pallas_fft._fft1d_transposed_diff``, ``_fft1d_natural_large_diff``):
@@ -91,6 +98,15 @@ MAX_N = 8192
 #: named_launches' names of the f32 mixed-radix row kernel, by store
 MIXED_NAMES = {"rows_transposed": "fft_rows_mixed_transposed",
                "rows_natural": "fft_rows_mixed_natural"}
+#: named_launches' names of the bf16 row kernel at lengths that are not
+#: powers of two (csrc/dft_bf16_rows_mixed.cuh), by store: where n1 ≤ 128
+#: one launch (BF16_MIXED_NAMES); where n1 = N/2 > 128 two, stage 1
+#: (BF16_GEMM_PREP) and the tiled stage 2 with the store (BF16_GEMM_NAMES)
+BF16_MIXED_NAMES = {"rows_transposed": "bf16_rows_mixed_transposed",
+                    "rows_natural": "bf16_rows_mixed_natural"}
+BF16_GEMM_PREP = "bf16_gemm_prep"
+BF16_GEMM_NAMES = {"rows_transposed": "bf16_gemm_rows_transposed",
+                   "rows_natural": "bf16_gemm_rows_natural"}
 #: named_launches' name of the f32 fused mixed-radix kernel
 #: (csrc/fused_rows_mixed_f32.cuh) by store ("transposed" or "natural")
 #: and channel set ("packed3", "packed5" or "per_channel"), e.g.
@@ -301,9 +317,30 @@ def _stockham(tier: str, split3: bool) -> bool:
 
 
 def _bf16_rows(tier: str, split3: bool) -> bool:
-    """The passes, either store, that run the bf16 row kernel
-    (csrc/dft_bf16_rows.cuh) instead of the matrix engine."""
+    """The passes, either store, that run the bf16 row kernel instead of
+    the matrix engine: csrc/dft_bf16_rows.cuh at powers of two,
+    csrc/dft_bf16_rows_mixed.cuh at every other even N."""
     return tier == "bf16" and not split3
+
+
+def bf16_wide(n: int) -> bool:
+    """Regime 2 of the bf16 row kernel: n1 = N/2 > 128 (every even N above
+    256 that 128 does not divide), where csrc/dft_bf16_rows_mixed.cuh runs
+    stage 1 in a launch of its own and stage 2 as a tiled product over the
+    whole batch; elsewhere (n1 ≤ 128) one launch of R rows a block."""
+    return _split_lanes(n)[0] > 128
+
+
+def bf16_rows_launches(n: int, natural: bool):
+    """The named_launches names of one bf16 row pass at length n, in launch
+    order: the power-of-two kernel's kernel_name, BF16_MIXED_NAMES' where
+    n1 ≤ 128, BF16_GEMM_PREP then BF16_GEMM_NAMES' where n1 = N/2 > 128."""
+    kind = "rows_natural" if natural else "rows_transposed"
+    if is_power_of_two(n):
+        return [kernel_name(kind, "bf16", False)]
+    if bf16_wide(n):
+        return [BF16_GEMM_PREP, BF16_GEMM_NAMES[kind]]
+    return [BF16_MIXED_NAMES[kind]]
 
 
 def _split3_rows(tier: str, split3: bool) -> bool:
@@ -410,19 +447,60 @@ def split3_bf16x3_tables(n: int, inverse: bool,
     return torch.from_numpy(split3_bf16x3_tables_np(n, inverse)).to(device)
 
 
-@functools.lru_cache(maxsize=32)
+#: the tiled stage 2 of the bf16 row kernel where n1 = N/2 > 128
+#: (csrc/dft_bf16_rows_mixed.cuh bf16_gemm): k1 a block tile, complex depth
+#: a chunk, and a block's shared memory (3 stages of 64 + 64 rows of 40
+#: words; the 64 × 66 float2 result tile fits in them)
+BF16_GEMM_TILE, BF16_GEMM_CHUNK = 64, 32
+BF16_GEMM_SHARED = 3 * (64 + 64) * 40 * 4
+
+
+def bf16_gemm_depth(n1: int) -> int:
+    """Words a row of F1's table and of the stage-1 buffer X′: n1 complex
+    bf16 pairs in whole chunks, zero past n1 (bf16_gemm::depth_words)."""
+    return -(-n1 // BF16_GEMM_CHUNK) * BF16_GEMM_CHUNK
+
+
+def bf16_gemm_rows(n1: int) -> int:
+    """Rows of F1's table: n1 in whole k1 tiles, zero past n1
+    (bf16_gemm::table_rows)."""
+    return -(-n1 // BF16_GEMM_TILE) * BF16_GEMM_TILE
+
+
+def bf16_rows_scratch_words(c: int, m: int, n: int) -> int:
+    """32-bit words of the device buffer a bf16 row pass of [c, m, n]
+    needs: X′, a row of bf16_gemm_depth(n1) pairs for each (row, k2), where
+    n1 = N/2 > 128 (bf16_wide); none elsewhere."""
+    if not bf16_wide(n):
+        return 0
+    return c * m * 2 * bf16_gemm_depth(_split_lanes(n)[0])
+
+
+@_cached_by_n1
 def bf16_rows_tables_np(n: int, inverse: bool) -> np.ndarray:
-    """The bf16 row kernel's tables as one int32 array, in the
-    order csrc/dft_bf16_rows.cuh reads them: F2's A fragments, T as f32
-    (re, im) pairs [n2, n1], F1's A fragments (mma_a_fragments), all from
-    the f32 tables of _tables_np."""
+    """The bf16 row kernel's tables as one int32 array, from the f32 tables
+    of _tables_np, in the order the kernel reads them. Where n1 ≤ 128
+    (csrc/dft_bf16_rows.cuh, csrc/dft_bf16_rows_mixed.cuh's regime 1): F2's
+    A fragments, T as f32 (re, im) pairs [n2, n1], F1's A fragments
+    (mma_a_fragments; depths and outputs padded with zeros to whole tiles
+    of 8). Where n1 = N/2 > 128 (regime 2): F1 as complex bf16 pairs, the
+    bits of bf16(re) in the low half and of bf16(im) in the high half,
+    [bf16_gemm_rows(n1), bf16_gemm_depth(n1)], zero-padded; then T[1, ·]
+    as n1 f32 pairs (T[0, ·] is 1)."""
     _, _, f2r, f2i, tr, ti, f1r, f1i = _tables_np(n, inverse)
+    if bf16_wide(n):
+        n1 = f1r.shape[0]
+        f1 = np.zeros((bf16_gemm_rows(n1), bf16_gemm_depth(n1)), np.uint32)
+        f1[:n1, :n1] = (_bf16_bits(f1r).astype(np.uint32)
+                        | _bf16_bits(f1i).astype(np.uint32) << 16)
+        t1 = np.stack([tr[1], ti[1]], axis=-1).view(np.uint32)
+        return np.concatenate([f1.ravel(), t1.ravel()]).view(np.int32)
     t = np.stack([tr.ravel(), ti.ravel()], axis=-1).view(np.uint32)
     return np.concatenate([mma_a_fragments(f2r, f2i).ravel(), t.ravel(),
                            mma_a_fragments(f1r, f1i).ravel()]).view(np.int32)
 
 
-@functools.lru_cache(maxsize=32)
+@_cached_by_n1
 def bf16_rows_tables(n: int, inverse: bool,
                      device: torch.device) -> torch.Tensor:
     return torch.from_numpy(bf16_rows_tables_np(n, inverse)).to(device)
@@ -498,14 +576,23 @@ def shared_bytes(rows: int, n: int) -> int:
 
 
 def bf16_rows_shared_bytes(rows: int, n: int) -> int:
-    """Dynamic shared memory of one block of the bf16 row kernel
-    (csrc/dft_bf16_rows.cuh, either store): the rows as bf16 pairs at n1 + 4 words an
-    s-row, aliased by the f32 result (n + 1 complex a row), then the bf16
-    intermediate at n1 + 8 words a (row, k2)."""
+    """Dynamic shared memory of one block of the bf16 row kernel at any
+    even n, either store. Where n1 ≤ 128 (csrc/dft_bf16_rows.cuh at powers
+    of two, csrc/dft_bf16_rows_mixed.cuh's regime 1 elsewhere): the rows as
+    bf16 pairs at n1p + 4 words an s-row (n1p: n1 in whole tiles of 8),
+    aliased by the f32 result (n + 1 complex a row), then the bf16
+    intermediate at n1p + 8 words a (row, k2), + 8 more where n1p is an
+    odd multiple of 8 at a length that is not a power of two. Where
+    n1 = N/2 > 128 the tiled stage 2's block, whatever ``rows``
+    (BF16_GEMM_SHARED)."""
+    if bf16_wide(n):
+        return BF16_GEMM_SHARED
     n1, n2 = _split_lanes(n)
-    rows_in = rows * n2 * (n1 + 4) * 4
+    n1p = -(-n1 // 8) * 8
+    ys = n1p + 8 + (0 if is_power_of_two(n) else n1p & 8)
+    rows_in = rows * n2 * (n1p + 4) * 4
     rows_out = -(-rows * (n + 1) * 8 // 16) * 16
-    return max(rows_in, rows_out) + rows * n2 * (n1 + 8) * 4
+    return max(rows_in, rows_out) + rows * n2 * ys * 4
 
 
 def split3_rows_geometry(n: int) -> dict:
@@ -793,8 +880,9 @@ def mixed_kernel_name(kind: str, tier: str, split3: bool,
     or "fused_natural", a fused launch names its channel set. At f32 in
     the direct form the mixed-radix kernels' names (MIXED_NAMES,
     MIXED_FUSED_NAME); at the other tiers and forms kernel_name's, "mixed"
-    after the kind's first word: "matrix_rows_mixed_transposed[bf16]",
-    "matrix_fused_mixed_natural[bf16x3,packed3]"."""
+    after the kind's first word: "matrix_rows_mixed_transposed[bf16x3]",
+    "matrix_fused_mixed_natural[bf16,packed3]". A bf16 row pass in the
+    direct form counts under bf16_rows_launches' names instead."""
     first, store = kind.split("_")
     if not _stockham(tier, split3):
         return kernel_name(f"{first}_mixed_{store}", tier, split3,
@@ -1241,14 +1329,19 @@ def max_rows(n: int, natural: bool, tier: str = "f32",
     (TRANSPOSED_MAX_ROWS) or of the natural store at (tier, split3):
     BF16_NATURAL_BLOCK_POINTS // n on the bf16 row kernel (and the bf16
     fused natural kernel, which runs its stages), else
-    NATURAL_BLOCK_POINTS // n. The fused kernels but the f32 direct ones
-    take it (fused_rows); the f32 direct row passes take their own
+    NATURAL_BLOCK_POINTS // n, rounded down to a power of two. The bf16
+    row kernel where n1 = N/2 > 128 takes 1 at either store: its tiled
+    stage 2 covers the whole batch. The fused kernels but the f32 direct
+    ones take it (fused_rows); the f32 direct row passes take their own
     (row_pass_max_rows)."""
+    if _bf16_rows(tier, split3) and bf16_wide(n):
+        return 1
     if not natural:
         return TRANSPOSED_MAX_ROWS
     points = (BF16_NATURAL_BLOCK_POINTS if _bf16_rows(tier, split3)
               else NATURAL_BLOCK_POINTS)
-    return max(1, points // n)
+    # rounded down to a power of two (points // n is one where n is)
+    return 1 << (max(1, points // n).bit_length() - 1)
 
 
 def row_pass_max_rows(n: int, natural: bool, tier: str,
@@ -1365,7 +1458,25 @@ def _launch_rows(entry: str, re, im, inverse: bool, out_shape, tier: str,
     out_re = torch.empty(out_shape, dtype=torch.float32, device=re.device)
     out_im = torch.empty_like(out_re)
     mixed = not is_power_of_two(n)
-    if mixed:
+    bf16 = _bf16_rows(tier, split3)
+    if bf16:
+        # the bf16 row kernel at every even N: its own tables, rows and
+        # shared memory; at a length that is not a power of two through an
+        # entry of its own, with X′'s buffer where n1 = N/2 > 128
+        tables = bf16_rows_tables(n, bool(inverse), re.device)
+        rows = rows_per_block(c, m, n, sm_count(re.device),
+                              max_rows(n, natural, tier, split3),
+                              bf16_rows_shared_bytes)
+        if mixed:
+            entry = "tpu_bf16_rows_mixed"
+            scratch = torch.empty(bf16_rows_scratch_words(c, m, n),
+                                  dtype=torch.int32, device=re.device)
+            pointers = (tables.data_ptr(), scratch.data_ptr())
+            tail = (int(natural),)
+        else:
+            pointers = (tables.data_ptr(),)
+            tail = (TIERS[tier], 0) + (() if natural else (1,))
+    elif mixed:
         # either store, through entries of its own: at f32 direct the
         # mixed-radix passes, at the other tiers and forms the matrix engine
         if _stockham(tier, split3):
@@ -1384,11 +1495,10 @@ def _launch_rows(entry: str, re, im, inverse: bool, out_shape, tier: str,
             rows = mixed_rows(c, m, n, sm_count(re.device), natural, tier,
                               split3)
             tail = (int(natural), TIERS[tier], int(split3))
+        pointers = (tables.data_ptr(),)
     else:
         clustered = not natural and _stockham(tier, split3)
-        if _bf16_rows(tier, split3):
-            tables = bf16_rows_tables(n, bool(inverse), re.device)
-        elif _split3_bf16x3_rows(tier, split3):
+        if _split3_bf16x3_rows(tier, split3):
             tables = split3_bf16x3_tables(n, bool(inverse), re.device)
         elif natural and _stockham(tier, split3):
             tables = radix16_twiddles(n, bool(inverse), re.device)
@@ -1401,16 +1511,19 @@ def _launch_rows(entry: str, re, im, inverse: bool, out_shape, tier: str,
         cluster = (() if natural else
                    (transposed_cluster(m, n, rows) if clustered else 1,))
         tail = (TIERS[tier], int(split3), *cluster)
+        pointers = (tables.data_ptr(),)
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(kernels.lib, entry)(
             re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-            tables.data_ptr(), c, m, n, rows, *tail, stream)
+            *pointers, c, m, n, rows, *tail, stream)
     kernels.check(err, entry)
-    # one launch: at a length that is not a power of two under a name of
-    # its own, so the power-of-two kernels' counts stay exact
+    # each launch once: at a length that is not a power of two under a name
+    # of its own, so the power-of-two kernels' counts stay exact
     kind = "rows_natural" if natural else "rows_transposed"
-    if mixed:
+    if bf16:
+        named_launches.update(bf16_rows_launches(n, natural))
+    elif mixed:
         named_launches[mixed_kernel_name(kind, tier, split3)] += 1
     else:
         count_launch(fft1d_natural_large if natural else fft1d_transposed,
