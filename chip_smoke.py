@@ -76,25 +76,31 @@ Phases, each printing its own lines:
                (bit-equality reported), and its RMS error against the
                float64 DFT of the float64 assembly at most 1.1 × the row
                kernel's; the matrix engine behind those two kernels' loads
-               and stores (every other tier and form at such lengths:
-               bf16x3 direct, both stores, and the three-factor form at
-               f32, bf16 and bf16x3, transposed, where 128 | N) and the
-               bf16 row kernel there (bf16 direct, both stores,
-               csrc/dft_bf16_rows_mixed.cuh: one launch where n1 ≤ 128,
-               stage 1 and a tiled product where n1 = N/2 > 128) at every
-               shape of MATRIX_SHAPES (the paths', N = 96 … 3072 at
-               M = N, N/2 and 1, 6144 natural, ragged M, C = 3 at 106,
-               8186 and 8190 at M = 1 and 8, [1,8186,8186] natural), both
-               directions: its launches under their names, within
-               TIER_BAND of the plain version and MATRIX_F64_MAX of
-               float64 (bf16's reported, and from 64 rows on within 1.1 ×
-               the bf16 plain version's error on the same rows, at
-               [1,8186,8186] also at most 1.1 × its PERF.md figure); its fused
+               and stores (the three-factor form at f32, bf16 and bf16x3,
+               transposed, where 128 | N), the bf16 row kernel there (bf16
+               direct, both stores, csrc/dft_bf16_rows_mixed.cuh: one
+               launch where n1 ≤ 128, stage 1 and a tiled product where
+               n1 = N/2 > 128) and the bf16x3 row kernel in the direct form
+               (the same file at tier bf16x3, both stores, every even N,
+               powers of two included) at every shape of MATRIX_SHAPES
+               (the paths', N = 96 … 3072 at M = N, N/2 and 1, 6144
+               natural, ragged M, C = 3 at 106, 8186 and 8190 at M = 1 and
+               8, [1,8186,8186] natural; at bf16x3 also BF16X3_POW2_SHAPES,
+               [1,16,16] … [1,4096,4096], [1,128,128] at n2 = 1, C = 3 at
+               1024), both directions: its launches under their names and
+               no other, within TIER_BAND of the plain version and
+               MATRIX_F64_MAX of float64 (bf16's reported, and from 64 rows
+               on within 1.1 × the bf16 plain version's error on the same
+               rows, at [1,8186,8186] also at most 1.1 × its PERF.md
+               figure; bf16x3's RMS error within B3_ROWS_RMS_SPREAD × the
+               plain version's on the same rows at every shape), the
+               engine's entries (tpu_fft_rows_*, tpu_matrix_rows_any)
+               refusing bf16x3 in the direct form; its fused
                twins at the paths' shapes and, in the three channel sets
                from channel 1 at a row offset, both directions, each
                channel within that band and of the float64 DFT of the
                float64 assembly; the bf16 backward at [1,1536,1536];
-  4. slice   — fifty-two paths on the card, each from a seeded init,
+  4. slice   — fifty-four paths on the card, each from a seeded init,
                with every launch count set to 0 just before and read just
                after it; (i)-(xv) run the real state with OCEAN_DEMO's
                slice switches (packed + half with the fields kernel) unless
@@ -200,6 +206,14 @@ Phases, each printing its own lines:
                        KERNEL_B3_THRESHOLD = 512: bf16x3 in the
                        three-factor form, 2 fused and 3 row launches a
                        step
+                 (lix) (i) with KERNEL_B3_THRESHOLD = 512, 20 steps: the
+                       1024-long passes on the bf16x3 row kernel in the
+                       direct form (4 a step, transposed, n2 = 8), the
+                       512-long columns on the f32 kernel
+                 (lx)  (xxxix) with KERNEL_B3_THRESHOLD = 512, 10 steps:
+                       every pass on the bf16x3 row kernel, 3 natural (n2 =
+                       24) and 2 transposed (the 3072- and 1536-long
+                       columns) a step
                  (xxii) Simulation(OCEAN_DEMO, path (i)'s switches) at
                        1024², checkpoints and export every 20 steps, 60
                        steps: path (i)'s launches, 60 JSONL lines, the
@@ -374,7 +388,10 @@ Phases, each printing its own lines:
                (BF16_MIXED_BEFORE_MS), the f32 mixed-radix kernel at the
                same shape, cuFFT, the bound and, where n1 = N/2 > 128, the
                matrix form's tensor floor (its two launches also apart,
-               each against its own bound); the complex
+               each against its own bound); the bf16x3 row kernel in the
+               direct form likewise beside the matrix engine's time before
+               its redesign (BF16X3_BEFORE_MS), with the matrix form's
+               operations (three products) in its bound; the complex
                state's full 2-D transforms at C = 5 ((xvii), (xviii),
                (xxi)), the hand kernels' two passes beside cuFFT's
                torch.fft.ifft2;
@@ -671,6 +688,18 @@ PATHS = [
               {"matrix_fused_mixed_transposed[bf16x3,split3,packed3]": 2,
                "matrix_rows_mixed_transposed[bf16x3,split3]": 3,
                "fields_stencil": 1}, B3_REL),
+    # the bf16x3 row kernel in the direct form (csrc/dft_bf16_rows_mixed.cuh
+    # at tier bf16x3, fft.planes.bf16x3_rows_launches' names): path (i)'s
+    # switches at 1024² with KERNEL_B3_THRESHOLD = 512 (the 1024-long
+    # passes transposed at n2 = 8; the half channel's 512-long columns stay
+    # f32), and path (xxxix)'s at 3072² (the natural regime: the natural
+    # store at n2 = 24, the 3072- and 1536-long transposed columns)
+    OceanPath("lix", "pallas", 1024, 20, 1, True, "float32", B3,
+              {"bf16x3_rows_transposed": 4, "fft_rows_transposed": 1,
+               "fields_stencil": 1}, B3_REL),
+    OceanPath("lx", "pallas", 3072, 10, 1, True, "float32", B3,
+              {"bf16x3_rows_natural": 3, "bf16x3_rows_transposed": 2,
+               "fields_stencil": 1}, B3_REL),
 ]
 # (path, solver method, launches of one call): fields_at(state, t) at the
 # path's clock + 1/60 and velocity(state), on the card and on the CPU from
@@ -799,7 +828,6 @@ KERNEL_INFO = {
         "tpu_ocean_torch/csrc/rows_mixed_f32.cuh",
         f"tpu_ocean/fft/pallas_fft.py:{line} at non-power-of-two N")
        for store, mode, line in (
-           ("transposed", "bf16x3", 235), ("natural", "bf16x3", 677),
            ("transposed", "f32,split3", 273),
            ("transposed", "bf16,split3", 273),
            ("transposed", "bf16x3,split3", 273))},
@@ -825,6 +853,16 @@ KERNEL_INFO = {
                           ("bf16_gemm_prep", "235 and :677 (stage 1)"),
                           ("bf16_gemm_rows_transposed", 235),
                           ("bf16_gemm_rows_natural", 677))},
+    # #1 and #2 at B3 in the direct form at every even N
+    # (fft.planes.bf16x3_rows_launches): where n1 ≤ 128 one launch, where
+    # n1 = N/2 > 128 stage 1 and the tiled stage 2
+    **{name: ("tpu_ocean_torch/csrc/dft_bf16_rows_mixed.cuh",
+              f"tpu_ocean/fft/pallas_fft.py:{line} at B3")
+       for name, line in (("bf16x3_rows_transposed", 235),
+                          ("bf16x3_rows_natural", 677),
+                          ("bf16x3_gemm_prep", "235 and :677 (stage 1)"),
+                          ("bf16x3_gemm_rows_transposed", 235),
+                          ("bf16x3_gemm_rows_natural", 677))},
     # the row and fused entries at the other tiers and forms, by tier and
     # form: the bf16 direct row passes (both stores), the bf16 direct
     # natural fused pass and the three-factor row passes have kernels of
@@ -842,16 +880,12 @@ KERNEL_INFO = {
     "matrix_rows_transposed[bf16x3,split3]": (
         "tpu_ocean_torch/csrc/dft_split3_bf16x3.cuh",
         "tpu_ocean/fft/pallas_fft.py:273"),
-    # on no path: timed for PERF.md §6 (#1b and #5 at DEFAULT; #1, #2, #5
-    # and #6 at B3 in the direct form, on the matrix engine)
+    # on no path: timed for PERF.md §6 (#1b and #5 at DEFAULT; #5 and #6 at
+    # B3 in the direct form, on the matrix engine)
     "matrix_rows_transposed[bf16,split3]": (
         "tpu_ocean_torch/csrc/fft_rows.cu", "tpu_ocean/fft/pallas_fft.py:273"),
     "matrix_fused_transposed[bf16]": ("tpu_ocean_torch/csrc/fused_rows.cu",
                                       "tpu_ocean/ops/fused_spectrum_fft.py:127"),
-    "matrix_rows_transposed[bf16x3]": ("tpu_ocean_torch/csrc/fft_rows.cu",
-                                       "tpu_ocean/fft/pallas_fft.py:235"),
-    "matrix_rows_natural[bf16x3]": ("tpu_ocean_torch/csrc/fft_rows.cu",
-                                    "tpu_ocean/fft/pallas_fft.py:677"),
     "matrix_fused_transposed[bf16x3]": (
         "tpu_ocean_torch/csrc/fused_rows.cu",
         "tpu_ocean/ops/fused_spectrum_fft.py:127"),
@@ -884,10 +918,13 @@ MIXED_SHAPES = {
         + [(1, m, n) for n in (6144, 8190) for m in (n, n // 2, 1)]
         + [(1, 8186, 8186), (1, 1, 8186)])}
 MIXED_BAND, MIXED_F64_MAX = 2e-6, 1e-6
-# the matrix engine behind the mixed-radix kernels at lengths that are not
-# powers of two: each mode (its tags in fft.planes.mixed_kernel_name), the
-# precision and fft.planes switches that select it at every length (the
-# thresholds at 0)
+# the tier and form of each row and fused mode at lengths that are not
+# powers of two (its tags in fft.planes.mixed_kernel_name), the precision
+# and fft.planes switches that select it at every length (the thresholds
+# at 0): the row passes run the matrix engine behind the mixed-radix
+# kernels' loads and stores in the three-factor form, the bf16 and bf16x3
+# row kernels in the direct form; the fused passes the matrix engine at
+# every mode
 MATRIX_MODES = {
     "bf16": ("bfloat16", {}),
     "bf16x3": ("float32", {"KERNEL_B3_THRESHOLD": 0}),
@@ -921,13 +958,9 @@ MATRIX_SHAPES = {
 # three-factor form tests/test_pallas_kernels.py:259's
 MATRIX_F64_MAX = {"bf16x3": 5e-5, "f32,split3": 1e-5, "bf16x3,split3": 5e-5}
 # those timed in phase 5, by name: the shapes of its paths, and where it is
-# on none [1, 1536, 1536] (n1 = 128), [1, 2042, 2042] (n1 = N/2) or
-# [1, 3072, 3072]; the natural store at [1, 8186, 8186] (n1 = 4093), one
-# launch of the 134 MB F1 a row, over MIXED_SLOW's calls
+# on none [1, 1536, 1536]
 PATH_1536 = {(1, 1536, 1536), (1, 768, 1536), (1, 1, 1536), (1, 1536, 768)}
 MATRIX_TIMED = {
-    "matrix_rows_mixed_transposed[bf16x3]": {(1, 1536, 1536), (1, 2042, 2042)},
-    "matrix_rows_mixed_natural[bf16x3]": {(1, 3072, 3072), (1, 8186, 8186)},
     "matrix_rows_mixed_transposed[f32,split3]": PATH_1536,
     "matrix_rows_mixed_transposed[bf16,split3]": {(1, 1536, 1536)},
     "matrix_rows_mixed_transposed[bf16x3,split3]": {
@@ -954,6 +987,28 @@ BF16_MIXED_BEFORE_MS = {
 # 2's; BF16_GEMM_PREP launches beside it)
 BF16_MIXED = ("bf16_rows_mixed_transposed", "bf16_rows_mixed_natural",
               "bf16_gemm_rows_transposed", "bf16_gemm_rows_natural")
+# the bf16x3 row kernel in the direct form (csrc/dft_bf16_rows_mixed.cuh
+# at tier bf16x3), by store, likewise: its launch names are
+# fft.planes.bf16x3_rows_launches'; its phase-3 shapes MATRIX_SHAPES' (the
+# matrix engine's bf16x3 direct ones before it) and BF16X3_POW2_SHAPES,
+# each in both directions within TIER_BAND["bf16x3"] of the plain
+# version, MATRIX_F64_MAX["bf16x3"] of float64 and, by RMS, within
+# B3_ROWS_RMS_SPREAD × the plain version's error on the same rows (the
+# rule B3_SPLIT3_F64_SPREAD adopted: max-error ratios are unsteady across
+# seeds); timed in phase 5 at PERF.md §6's shapes of the B3 rows beside
+# the matrix engine's times before the redesign (PERF.md §6, the chip runs
+# before it: ms a launch)
+BF16X3_ROWS = ("bf16x3_rows_transposed", "bf16x3_rows_natural",
+               "bf16x3_gemm_rows_transposed", "bf16x3_gemm_rows_natural")
+BF16X3_POW2_SHAPES = [(1, 16, 16), (1, 128, 128), (1, 1024, 1024),
+                      (1, 512, 1024), (1, 1, 1024), (3, 37, 1024),
+                      (1, 4096, 4096)]
+BF16X3_BEFORE_MS = {
+    "transposed": {(1, 1024, 1024): 0.0979, (1, 4096, 4096): 2.2691,
+                   (1, 1536, 1536): 0.2237, (1, 2042, 2042): 2.0994},
+    "natural": {(1, 1024, 1024): 0.0883, (1, 4096, 4096): 1.6046,
+                (1, 3072, 3072): 0.4719, (1, 8186, 8186): 1048.6719}}
+B3_ROWS_RMS_SPREAD = 1.1
 # the fused kernels on the matrix engine in the three channel sets, each
 # mode (store, tags) at a ragged M from channel 1 at a row offset (across
 # the Nyquist row), both directions, within TIER_BAND of the plain version
@@ -973,10 +1028,10 @@ MIXED_TIMED = {(1, 768, 1536), (1, 1, 1536), (1, 1536, 768), (1, 3072, 1536),
     (1, n, n) for n in (48, 96, 106, 160, 224, 384, 768, 1536, 2042, 3072,
                         6144, 8186, 8190)}
 # of those, the ones of more than ~100 ms a launch (at 8186 the generic
-# stage sums 4093 terms an output, the matrix engine reads F1 once a row):
-# the f32 mixed-radix kernel timed over 3 calls, the matrix engine's
-# (~0.8-1.0 s a call) over 1, and the plain version once (its bf16x3
-# matmuls take ~2.7 s a call), not 50 and 10
+# stage sums 4093 terms an output): the f32 mixed-radix kernel timed over
+# 3 calls and the plain version once (its bf16x3 matmuls take ~2.7 s a
+# call), not 50 and 10; the bf16 and bf16x3 row kernels there (~7 and
+# ~19 ms a launch) over 10
 MIXED_SLOW = {(1, 8186, 8186)}
 # the row-DFT Functions' backward in phase 3 (store, [C, M, N], precision):
 # #1 at every shape path (xxxiv) gives it (the half route's too) and at
@@ -1237,19 +1292,27 @@ def kernel_group(key):
     # rules for the row kernels or the matrix engine below
     if "bf16_fused_natural_kernel" in key:
         return "matrix_fused_natural[bf16]"
-    # the bf16 row kernel at such N, by store: one launch where n1 ≤ 128;
-    # where n1 = N/2 > 128 stage 1, then the tiled product
-    m = (re.search(r"bf16_rows_mixed_kernel<\d+, (?:true|false), "
+    # the bf16 row kernel at such N and the bf16x3 one at every N, by tier
+    # (the first template argument: 1 bf16, 2 bf16x3) and store: one launch
+    # where n1 ≤ 128; where n1 = N/2 > 128 stage 1, then the tiled product
+    m = (re.search(r"bf16_rows_mixed_kernel<(\d), \d+, (?:true|false), "
                    r"(true|false)>", key)
-         or re.search(r"bf16_rows_mixed_kernelILi\d+ELb[01]ELb([01])E", key))
+         or re.search(r"bf16_rows_mixed_kernelILi(\d)ELi\d+ELb[01]ELb([01])E",
+                      key))
     if m is not None:
-        natural = m.group(1) in ("true", "1")
-        return f"bf16_rows_mixed_{'natural' if natural else 'transposed'}"
-    if "gemm_prep_kernel" in key:
-        return "bf16_gemm_prep"
-    if "gemm_rows_kernel" in key:
-        natural = "<true>" in key or "ILb1E" in key
-        return f"bf16_gemm_rows_{'natural' if natural else 'transposed'}"
+        natural = m.group(2) in ("true", "1")
+        return (f"{'bf16x3_rows' if m.group(1) == '2' else 'bf16_rows_mixed'}"
+                f"_{'natural' if natural else 'transposed'}")
+    m = (re.search(r"gemm_prep_kernel<(\d)>", key)
+         or re.search(r"gemm_prep_kernelILi(\d)E", key))
+    if m is not None:
+        return "bf16x3_gemm_prep" if m.group(1) == "2" else "bf16_gemm_prep"
+    m = (re.search(r"gemm_rows_kernel<(\d), (true|false)>", key)
+         or re.search(r"gemm_rows_kernelILi(\d)ELb([01])E", key))
+    if m is not None:
+        natural = m.group(2) in ("true", "1")
+        return (f"{'bf16x3' if m.group(1) == '2' else 'bf16'}_gemm_rows_"
+                f"{'natural' if natural else 'transposed'}")
     # the f32 row kernel's register passes at such N, by store
     if "rows_mixed_passes_kernel" in key:
         natural = "<true," in key or "ILb1E" in key
@@ -2478,16 +2541,18 @@ def main():
                          (planes.fft1d_natural_large,
                           planes.fft1d_natural_large_plain))
             shapes = MATRIX_SHAPES["split3" if "split3" in mode else store]
-            if mode != "bf16":
+            if mode not in ("bf16", "bf16x3"):
                 matrix_rows.append((f"matrix_rows_mixed_{store}[{mode}]", fn,
                                     plain, precision, switches, shapes))
                 continue
-            # bf16 direct: the bf16 row kernel, a case under the name of
-            # its last launch at each N
+            # the direct form: the bf16 row kernel (and the bf16x3 one, at
+            # the powers of two too), a case under the name of its last
+            # launch at each N
             by_name = collections.defaultdict(list)
-            for shape in shapes:
-                by_name[planes.bf16_rows_launches(
-                    shape[2], store == "natural")[-1]].append(shape)
+            for shape in shapes + (BF16X3_POW2_SHAPES if mode == "bf16x3"
+                                   else []):
+                by_name[planes.direct_rows_launches(
+                    shape[2], store == "natural", mode)[-1]].append(shape)
             matrix_rows.extend((name, fn, plain, precision, switches,
                                 named) for name, named in by_name.items())
     for name, fn, plain, precision, switches, shapes in (*(
@@ -2530,12 +2595,6 @@ def main():
             ("matrix_rows_transposed[bf16,split3]", planes.fft1d_transposed,
              planes.fft1d_transposed_plain, "bfloat16", SPLIT3,
              [(1, 1024, 1024)]),
-            ("matrix_rows_transposed[bf16x3]", planes.fft1d_transposed,
-             planes.fft1d_transposed_plain, "float32", B3,
-             [(1, 1024, 1024), (1, 4096, 4096)]),
-            ("matrix_rows_natural[bf16x3]", planes.fft1d_natural_large,
-             planes.fft1d_natural_large_plain, "float32", B3,
-             [(1, 1024, 1024), (1, 4096, 4096)]),
             ("fft_rows_mixed_transposed", planes.fft1d_transposed,
              planes.fft1d_transposed_plain, "float32", {},
              MIXED_SHAPES["fft_rows_mixed_transposed"]),
@@ -2543,8 +2602,8 @@ def main():
              planes.fft1d_natural_large_plain, "float32", {},
              MIXED_SHAPES["fft_rows_mixed_natural"])), *matrix_rows):
         for shape in shapes:
-            gen = matrix_rng if name in BF16_MIXED or name.startswith(
-                "matrix_rows_mixed") else rng
+            gen = (matrix_rng if name in BF16_MIXED or name in BF16X3_ROWS
+                   or name.startswith("matrix_rows_mixed") else rng)
             re, im = plane(shape, gen), plane(shape, gen)
             z = torch.complex(re, im)
             points = shape[0] * shape[1] * shape[2]
@@ -2553,12 +2612,18 @@ def main():
                 tier, split3 = planes.engine(
                     shape[2], precision, fn is planes.fft1d_transposed)
             if (name in MIXED_SHAPES or name in BF16_MIXED
+                    or name in BF16X3_ROWS
                     or name.startswith("matrix_rows_mixed")):
                 mixed_inputs[name, shape] = (re, im)
             # at a length that is not a power of two, what a length-N DFT
             # needs, whatever the kernel (the matrix engine's four-step
-            # sums at n1 = N/2 are its own cost, not the work's)
-            if (not name.startswith("matrix")
+            # sums at n1 = N/2 are its own cost, not the work's); the
+            # bf16x3 row kernel, at every length, the matrix form's
+            # operations: its f32 stage 1 and its three products are what
+            # the tier asks for
+            if name in BF16X3_ROWS:
+                f32_ops, tensor_ops = matrix_ops(tier, split3, n1, n2)
+            elif (not name.startswith("matrix")
                     or not planes.is_power_of_two(shape[2])):
                 f32_ops, tensor_ops = 5 * float(np.log2(shape[2])), 0
             elif split3 and tier == "f32":
@@ -2770,6 +2835,7 @@ def main():
     for case in cases:
         name, shape, run, plain = case.name, case.shape, case.run, case.plain
         if (name in MIXED_SHAPES or name in BF16_MIXED
+                or name in BF16X3_ROWS
                 or name.startswith("matrix_rows_mixed")):
             continue          # both directions below
         if name == "gerstner_bank":
@@ -2811,7 +2877,8 @@ def main():
     # plain version and MIXED_F64_MAX·max of float64; the matrix engine
     # behind it at every shape of MATRIX_SHAPES, each mode, both
     # directions: one launch under its name, within TIER_BAND of the plain
-    # version and MATRIX_F64_MAX of float64 (bf16: reported)
+    # version and MATRIX_F64_MAX of float64 (bf16: reported); the bf16 and
+    # bf16x3 row kernels in the direct form likewise, under their names
     for (name, shape), (re, im) in mixed_inputs.items():
         transposed = "transposed" in name
         fn, plain = ((planes.fft1d_transposed, planes.fft1d_transposed_plain)
@@ -2819,19 +2886,21 @@ def main():
                      (planes.fft1d_natural_large,
                       planes.fft1d_natural_large_plain))
         bf16 = name in BF16_MIXED
-        mode = ("bf16" if bf16 else
+        b3 = name in BF16X3_ROWS
+        mode = ("bf16" if bf16 else "bf16x3" if b3 else
                 name[name.index("[") + 1:-1] if "[" in name else None)
         precision, switches = MATRIX_MODES.get(mode, ("float32", {}))
-        want_counts = (dict.fromkeys(planes.bf16_rows_launches(
-            shape[2], not transposed), 1) if bf16 else {name: 1})
+        want_counts = (dict.fromkeys(planes.direct_rows_launches(
+            shape[2], not transposed, mode), 1) if bf16 or b3
+            else {name: 1})
         with dft_switches(planes, switches):
             tier, split3 = planes.engine(shape[2], precision, transposed)
-            if bf16:
+            if bf16 or b3:
                 rows = planes.rows_per_block(
                     shape[0], shape[1], shape[2], planes.sm_count(dev),
                     planes.max_rows(shape[2], not transposed, tier, split3),
-                    planes.bf16_rows_shared_bytes)
-                band, f64_max = TIER_BAND[tier], None
+                    planes.block_shared_bytes(tier, split3, not transposed))
+                band, f64_max = TIER_BAND[tier], MATRIX_F64_MAX.get(mode)
                 how = "n1 {}, n2 {}".format(*planes._split_lanes(shape[2]))
             elif mode is None:
                 rows = planes.passes_rows(shape[0], shape[1], shape[2],
@@ -2867,6 +2936,18 @@ def main():
                 rel64, plain64 = (max((g.double() - r).abs().max().item()
                                       for g, r in zip(out, ref)) / ref_max
                                   for out in (got, want))
+                if b3:
+                    # the same split operands as the plain version: its RMS
+                    # error on the same rows within B3_ROWS_RMS_SPREAD
+                    rms, plain_rms = (rms_rel_err(out, ref)
+                                      for out in (got, want))
+                    log(f"[accuracy] {name} {list(shape)}: RMS err vs "
+                        f"float64 {rms:.4e} x RMS, {rms / plain_rms:.4f} x "
+                        f"the plain version's (limit "
+                        f"{B3_ROWS_RMS_SPREAD:g})")
+                    require(rms <= B3_ROWS_RMS_SPREAD * plain_rms,
+                            f"{name} {shape}: RMS error against float64 "
+                            f"{rms:.4e}, the plain version {plain_rms:.4e}")
                 f64_errs[name] = max(f64_errs.get(name, 0.0), rel64)
                 log(f"[kernels] {name} {list(shape)} "
                     f"{'inverse' if inverse else 'forward'}, {how}, R "
@@ -2895,6 +2976,31 @@ def main():
                             f"{name} {shape}: {rel64:.3e} x max against "
                             f"float64, the plain version {plain64:.3e}")
                 del got, want, z, ref
+
+    # bf16x3 in the direct form runs the bf16x3 row kernel alone: the
+    # matrix engine's row entries refuse it (a CUDA error, nothing run)
+    refuse_re, refuse_im = (torch.zeros(1, 2, 1024, device=dev)
+                            for _ in range(2))
+    refuse_out = torch.empty(2, 1024, 2, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n, entry in ((1024, "tpu_fft_rows_transposed"),
+                     (1024, "tpu_fft_rows_natural"),
+                     (1536, "tpu_matrix_rows_any"),
+                     (96, "tpu_matrix_rows_any")):
+        tables = planes.matrix_tables(n, True, False, dev)
+        args = (refuse_re.data_ptr(), refuse_im.data_ptr(),
+                refuse_out.data_ptr(), refuse_out.data_ptr(),
+                tables.data_ptr(), 1, 2 if n == 1024 else 1, n, 1)
+        tier = (planes.TIERS["bf16x3"], 0)
+        tail = {"tpu_fft_rows_transposed": tier + (1,),
+                "tpu_fft_rows_natural": tier,
+                "tpu_matrix_rows_any": (0,) + tier}[entry]
+        err = getattr(kernels.lib, entry)(*args, *tail, stream)
+        log(f"[kernels] {entry} at bf16x3, direct form, n {n}: refused "
+            f"({err})")
+        require(err != 0, f"{entry} ran bf16x3 in the direct form")
+    torch.cuda.synchronize()
+    del refuse_re, refuse_im, refuse_out
 
     # the fused kernels on the matrix engine in the three channel sets, at
     # a ragged M from channel 1 at a row offset, both directions: one
@@ -3375,10 +3481,13 @@ def main():
         if (name in BF16_MIXED
                 and tuple(shape) not in BF16_MIXED_BEFORE_MS[store]):
             continue
+        if (name in BF16X3_ROWS
+                and tuple(shape) not in BF16X3_BEFORE_MS[store]):
+            continue
         slow = tuple(shape) in MIXED_SLOW
         k, by_key, k_how = device_ms(case.run, iters=(
-            50 if not slow else 1 if name.startswith("matrix") else 3),
-            whole=True)
+            50 if not slow else 10 if name in BF16_MIXED + BF16X3_ROWS
+            else 3), whole=True)
         # a plain version runs up to ~300 torch ops a call (the wave bank's
         # per-wave loop), and the profiler's cost grows with the ops it
         # records: 10 calls, not 50
@@ -3395,17 +3504,27 @@ def main():
             f"{case.tensor_ops / 1e6:.1f} Mflop bf16), {b_ms / k:.3f} of it; "
             f"timed by {timed_by}")
         by_shape[name, tuple(shape)] = (k, lib, b_ms)
-        if name in planes.BF16_GEMM_NAMES.values():
-            # two launches: stage 1 (12 B a point) and the tiled product,
-            # bound by its 8·n1 tensor flops a point, each on its own
+        gemm = {**dict.fromkeys(planes.BF16_GEMM_NAMES.values(),
+                                (planes.BF16_GEMM_PREP, 1)),
+                **dict.fromkeys(planes.BF16X3_GEMM_NAMES.values(),
+                                (planes.BF16X3_GEMM_PREP, 3))}
+        if name in gemm:
+            # two launches: stage 1 (12 B a point: the f32 input read, X′
+            # written, one word a point; 16 at bf16x3, X′'s hi and lo) and
+            # the tiled product, bound by its 8·n1 tensor flops a point
+            # (three products at bf16x3), each on its own
+            prep_name, products = gemm[name]
             n1 = planes._split_lanes(shape[2])[0]
             points = int(np.prod(shape))
+            x_bytes = 4 * (1 + (products > 1)) * points   # X′ written
             prep = sum(v for key, v in by_key.items()
-                       if kernel_group(key) == planes.BF16_GEMM_PREP)
-            parts = {planes.BF16_GEMM_PREP: (prep, bound(12 * points, 0)),
+                       if kernel_group(key) == prep_name)
+            parts = {prep_name: (prep, bound(8 * points + x_bytes,
+                                             8 * products * points)),
                      name: (k - prep, bound(
-                         12 * points + 4 * n1 * planes.bf16_gemm_depth(n1),
-                         0, 8 * n1 * points))}
+                         x_bytes + 8 * points + 4 * (1 + (products > 1))
+                         * n1 * planes.bf16_gemm_depth(n1),
+                         0, products * 8 * n1 * points))}
             for part, (ms, (part_ms, part_by)) in parts.items():
                 log(f"[timing] {part} {shape}: {ms:.4f} ms of the pass's "
                     f"{k:.4f}, bound {part_ms:.4f} ms ({part_by}), "
@@ -3532,6 +3651,27 @@ def main():
                 + f"cuFFT {lib:.4f}, bound {b_ms:.4f} ({b_ms / k:.3f} of it)"
                 + (f", the matrix form's tensor floor {floor:.4f} "
                    f"({k / floor:.2f}x it)" if floor else "")
+                + f"; {before / k:.1f}x faster than before, "
+                f"{k / lib:.2f}x cuFFT")
+
+    # the bf16x3 row kernel in the direct form beside the matrix engine's
+    # time before the redesign, cuFFT, the bound (the matrix form's
+    # operations) and, where n1 = N/2 > 128, the tensor floor of its three
+    # products (3·8·n1 bf16 flops a point)
+    for store, before_ms in BF16X3_BEFORE_MS.items():
+        for shape, before in before_ms.items():
+            name = planes.bf16x3_rows_launches(shape[2],
+                                               store == "natural")[-1]
+            k, lib, b_ms = by_shape[name, shape]
+            n1 = planes._split_lanes(shape[2])[0]
+            floor = (bound(0, 0, 3 * 8 * n1 * int(np.prod(shape)))[0]
+                     if planes.bf16_wide(shape[2]) else None)
+            log(f"[timing] {kind} ({smi}): {name} {list(shape)}: {k:.4f} ms "
+                f"a pass (before the redesign {before:.4f}, PERF.md, not "
+                f"this run), cuFFT {lib:.4f}, bound {b_ms:.4f} "
+                f"({b_ms / k:.3f} of it)"
+                + (f", the tensor floor {floor:.4f} ({k / floor:.2f}x it)"
+                   if floor else "")
                 + f"; {before / k:.1f}x faster than before, "
                 f"{k / lib:.2f}x cuFFT")
 

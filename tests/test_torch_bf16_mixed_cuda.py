@@ -135,7 +135,8 @@ def test_the_bf16_entry_refuses_what_it_does_not_take(cuda, what):
     err = lib.tpu_bf16_rows_mixed(
         re.data_ptr(), im.data_ptr(), out.data_ptr(), out.data_ptr(),
         tables.data_ptr(), scratch.data_ptr() if with_scratch else None, 1,
-        2, n, rows, 0, torch.cuda.current_stream().cuda_stream)
+        2, n, rows, 0, planes.TIERS["bf16"],
+        torch.cuda.current_stream().cuda_stream)
     assert err != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.load().check(err, "tpu_bf16_rows_mixed")

@@ -636,8 +636,11 @@ def test_matrix_rows_transposed_match_plain(cuda, select_engine, shape,
     before = planes.fft1d_transposed.launches
     got = planes.fft1d_transposed(re, im, True, precision)
     assert planes.fft1d_transposed.launches == before
-    name = planes.kernel_name("rows_transposed", tier, split3)
-    assert planes.named_launches == {name: 1}
+    # bf16x3 direct runs the bf16x3 row kernel, under its own names
+    names = (planes.bf16x3_rows_launches(shape[2], False)
+             if engine == ("bf16x3", False)
+             else [planes.kernel_name("rows_transposed", tier, split3)])
+    assert planes.named_launches == dict.fromkeys(names, 1)
     _assert_band(got, planes.fft1d_transposed_plain(re, im, True, precision),
                  BANDS[tier])
 
@@ -645,14 +648,15 @@ def test_matrix_rows_transposed_match_plain(cuda, select_engine, shape,
 # (tier, split3, natural) → the kernel the routing names (csrc/fft_rows.cu):
 # bf16 direct, either store → dft_bf16_rows.cuh; f32 three-factor →
 # dft_split3_f32.cuh; bf16x3 three-factor → dft_split3_bf16x3.cuh; bf16
-# three-factor and bf16x3 direct → the matrix engine
+# three-factor → the matrix engine; bf16x3 direct, either store →
+# dft_bf16_rows_mixed.cuh (bf16_rows_mixed.cu's entry)
 ROUTED_KERNELS = [("bf16", False, False, "bf16_rows_kernel"),
                   ("bf16", True, False, "MatrixEngine"),
                   ("bf16", False, True, "bf16_rows_kernel"),
-                  ("bf16x3", False, False, "MatrixEngine"),
+                  ("bf16x3", False, False, "bf16_rows_mixed_kernel"),
                   ("bf16x3", True, False, "split3_bf16x3_rows_kernel"),
                   ("f32", True, False, "split3_f32_rows_kernel"),
-                  ("bf16x3", False, True, "MatrixEngine")]
+                  ("bf16x3", False, True, "bf16_rows_mixed_kernel")]
 
 
 @pytest.mark.parametrize("tier,split3,natural,kernel", ROUTED_KERNELS)
@@ -662,8 +666,10 @@ def test_only_the_bf16_direct_transposed_pass_runs_its_own_kernel(
     read from the profiler's kernel names: the bf16 direct passes (both
     stores) csrc/dft_bf16_rows.cuh's kernel, the f32 and bf16x3
     three-factor passes csrc/dft_split3_f32.cuh's and
-    csrc/dft_split3_bf16x3.cuh's, the rest the matrix engine
-    (fft_rows_kernel with MatrixEngine); each counts under its old name,
+    csrc/dft_split3_bf16x3.cuh's, the bf16x3 direct passes (both stores)
+    csrc/dft_bf16_rows_mixed.cuh's kernel at tier 2, bf16 three-factor the
+    matrix engine (fft_rows_kernel with MatrixEngine); each counts under
+    its name (the bf16x3 direct ones under fft.planes.bf16x3_rows_launches'),
     and the profiler key groups under that name as chip_smoke.py reads
     it."""
     import chip_smoke
@@ -688,7 +694,9 @@ def test_only_the_bf16_direct_transposed_pass_runs_its_own_kernel(
     if kernel == "MatrixEngine":
         assert "fft_rows_kernel" in row_kernels[0], names
     store = "natural" if natural else "transposed"
-    name = planes.kernel_name(f"rows_{store}", tier, split3)
+    name = (planes.bf16x3_rows_launches(256, natural)[0]
+            if (tier, split3) == ("bf16x3", False)
+            else planes.kernel_name(f"rows_{store}", tier, split3))
     assert planes.named_launches == {name: 1}
     assert chip_smoke.kernel_group(row_kernels[0]) == name
 
@@ -847,6 +855,8 @@ def test_matrix_rows_natural_match_plain(cuda, select_engine, shape, tier):
     re, im = _planes(shape, cuda)
     got = planes.fft1d_natural_large(re, im, False, precision)
     assert planes.named_launches == {
+        planes.direct_rows_launches(shape[2], True, tier)[0]
+        if tier == "bf16x3" else
         planes.kernel_name("rows_natural", tier, False): 1}
     _assert_band(got, planes.fft1d_natural_large_plain(re, im, False,
                                                        precision),

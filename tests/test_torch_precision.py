@@ -220,7 +220,8 @@ def test_bf16_rows_blocks_fit_shared_memory(shape, rows):
     """The bf16 row kernel's rows per block: its bf16 buffers take twice
     the rows of the engine's two f32 buffers at N = 4096 and 8192, within
     the card's shared memory, with either store; other passes keep
-    theirs (the f32 direct passes their own kernels')."""
+    theirs (the f32 direct passes their own kernels', bf16x3 direct the
+    bf16x3 row kernel's)."""
     c, m, n = shape
     shared = planes.block_shared_bytes("bf16", False, natural=False)
     assert shared is planes.bf16_rows_shared_bytes
@@ -228,11 +229,11 @@ def test_bf16_rows_blocks_fit_shared_memory(shape, rows):
     got = planes.rows_per_block(c, m, n, sms=132, shared=shared)
     assert got == rows
     assert shared(got, n) <= planes.SMEM_LIMIT
-    for tier, split3, natural in (("bf16", True, False),
-                                  ("bf16x3", False, False),
-                                  ("bf16x3", False, True)):
-        assert (planes.block_shared_bytes(tier, split3, natural)
-                is planes.shared_bytes)
+    assert (planes.block_shared_bytes("bf16", True, False)
+            is planes.shared_bytes)
+    for natural in (False, True):
+        assert (planes.block_shared_bytes("bf16x3", False, natural)
+                is planes.bf16x3_rows_shared_bytes)
     assert (planes.block_shared_bytes("f32", False, True)
             is planes.radix16_shared_bytes)
     assert (planes.block_shared_bytes("f32", False, False)

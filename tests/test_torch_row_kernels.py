@@ -42,7 +42,8 @@ SM_SHARED = 233472  # shared memory of one H100 SM (228 KB)
 ROUTES = [("f32", False, False, "stockham"), ("f32", False, True, "stockham"),
           ("bf16", False, False, "bf16_rows"), ("bf16", False, True, "bf16_rows"),
           ("f32", True, False, "split3_f32"), ("bf16", True, False, "engine"),
-          ("bf16x3", False, False, "engine"), ("bf16x3", False, True, "engine"),
+          ("bf16x3", False, False, "bf16x3_rows"),
+          ("bf16x3", False, True, "bf16x3_rows"),
           ("bf16x3", True, False, "split3_bf16x3")]
 
 
@@ -51,6 +52,7 @@ def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
                                                    route):
     got = {"stockham": planes._stockham(tier, split3),
            "bf16_rows": planes._bf16_rows(tier, split3),
+           "bf16x3_rows": planes._bf16x3_rows(tier, split3),
            "split3_f32": planes._split3_rows(tier, split3) and not natural,
            "split3_bf16x3": (planes._split3_bf16x3_rows(tier, split3)
                              and not natural)}
@@ -58,13 +60,19 @@ def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
                                                else [route])
     shared = planes.block_shared_bytes(tier, split3, natural)
     assert shared is {"bf16_rows": planes.bf16_rows_shared_bytes,
+                      "bf16x3_rows": planes.bf16x3_rows_shared_bytes,
                       "split3_f32": planes.split3_rows_shared_bytes,
                       "split3_bf16x3": planes.split3_bf16x3_shared_bytes,
                       "stockham": (planes.radix16_shared_bytes if natural
                                    else planes.cluster_rows_block_bytes)}.get(
                           route, planes.shared_bytes)
-    # the launch name stays the one chip_smoke and the tests count
+    # the launch name stays the one chip_smoke and the tests count; the
+    # bf16x3 direct passes count under the bf16x3 row kernel's names
     kind = "rows_natural" if natural else "rows_transposed"
+    if route == "bf16x3_rows":
+        assert planes.direct_rows_launches(1024, natural, tier) == [
+            planes.BF16X3_NAMES[kind]]
+        return
     name = planes.kernel_name(kind, tier, split3)
     assert name == (f"{kind}[]" if route == "stockham" else
                     f"matrix_{kind}[{tier}{',split3' * split3}]")
@@ -81,21 +89,36 @@ def test_routing_predicates_name_one_kernel_a_pass(tier, split3, natural,
      "matrix_rows_natural[bf16]"),
     ("_ZN7tpu_fft9bf16_rows16bf16_rows_kernelILi10ELb0EEEvPKfS3_PfS4_PKjii",
      "matrix_rows_transposed[bf16]"),
-    # the bf16 row kernel at lengths that are not powers of two
-    ("void tpu_fft::bf16_mixed::bf16_rows_mixed_kernel<3, true, false>("
+    # the bf16 row kernel at lengths that are not powers of two (tier 1,
+    # the kernels' first template argument)
+    ("void tpu_fft::bf16_mixed::bf16_rows_mixed_kernel<1, 3, true, false>("
      "float const*, float const*, float*, float*, unsigned int const*, int, "
      "int, int, int)", "bf16_rows_mixed_transposed"),
-    ("_ZN7tpu_fft10bf16_mixed22bf16_rows_mixed_kernelILi1ELb0ELb1EEEvPKfS3_"
-     "PfS4_PKjiiii", "bf16_rows_mixed_natural"),
-    ("_ZN7tpu_fft10bf16_mixed22bf16_rows_mixed_kernelILi8ELb1ELb0EEEvPKfS3_"
-     "PfS4_PKjiiii", "bf16_rows_mixed_transposed"),
-    ("tpu_fft::bf16_gemm::gemm_prep_kernel(float const*, float const*, "
-     "unsigned int*, float2 const*, int, int)", "bf16_gemm_prep"),
-    ("_ZN7tpu_fft9bf16_gemm16gemm_rows_kernelILb0EEEvPKjS3_PfS4_iiiiii",
+    ("_ZN7tpu_fft10bf16_mixed22bf16_rows_mixed_kernelILi1ELi1ELb0ELb1EEEvPKf"
+     "S3_PfS4_PKjiiii", "bf16_rows_mixed_natural"),
+    ("_ZN7tpu_fft10bf16_mixed22bf16_rows_mixed_kernelILi1ELi8ELb1ELb0EEEvPKf"
+     "S3_PfS4_PKjiiii", "bf16_rows_mixed_transposed"),
+    ("void tpu_fft::bf16_gemm::gemm_prep_kernel<1>(float const*, float "
+     "const*, unsigned int*, float2 const*, float2 const*, int, int, "
+     "unsigned long)", "bf16_gemm_prep"),
+    ("_ZN7tpu_fft9bf16_gemm16gemm_rows_kernelILi1ELb0EEEvPKjS3_PfS4_iiiiii",
      "bf16_gemm_rows_transposed"),
-    ("void tpu_fft::bf16_gemm::gemm_rows_kernel<true>(unsigned int const*, "
-     "unsigned int const*, float*, float*, int, int, int, int, int, int)",
-     "bf16_gemm_rows_natural"),
+    ("void tpu_fft::bf16_gemm::gemm_rows_kernel<1, true>(unsigned int "
+     "const*, unsigned int const*, float*, float*, int, int, int, int, int, "
+     "int)", "bf16_gemm_rows_natural"),
+    # the bf16x3 row kernel in the direct form at every length (tier 2)
+    ("void tpu_fft::bf16_mixed::bf16_rows_mixed_kernel<2, 8, true, true>("
+     "float const*, float const*, float*, float*, unsigned int const*, int, "
+     "int, int, int)", "bf16x3_rows_natural"),
+    ("_ZN7tpu_fft10bf16_mixed22bf16_rows_mixed_kernelILi2ELi2ELb0ELb0EEEvPKf"
+     "S3_PfS4_PKjiiii", "bf16x3_rows_transposed"),
+    ("_ZN7tpu_fft9bf16_gemm16gemm_prep_kernelILi2EEEvPKfS3_PjPK6float2S7_iim",
+     "bf16x3_gemm_prep"),
+    ("_ZN7tpu_fft9bf16_gemm16gemm_rows_kernelILi2ELb1EEEvPKjS3_PfS4_iiiiii",
+     "bf16x3_gemm_rows_natural"),
+    ("void tpu_fft::bf16_gemm::gemm_rows_kernel<2, false>(unsigned int "
+     "const*, unsigned int const*, float*, float*, int, int, int, int, int, "
+     "int)", "bf16x3_gemm_rows_transposed"),
     ("void tpu_fft::split3_f32::split3_f32_rows_kernel<10>(float const*, "
      "float const*, float*, float*, float2 const*, int, int)",
      "matrix_rows_transposed[f32,split3]"),
@@ -171,10 +194,11 @@ def test_bf16_natural_pass_takes_the_bf16_kernels_rows(shape, rows):
     assert 2 * planes.bf16_rows_shared_bytes(cap, n) <= SM_SHARED
     shared = planes.block_shared_bytes("bf16", False, True)
     assert planes.rows_per_block(c, m, n, SMS, cap, shared) == rows
-    # the f32 and bf16x3 natural passes keep theirs
-    for tier in ("f32", "bf16x3"):
-        assert planes.max_rows(n, True, tier, False) == max(
-            1, planes.NATURAL_BLOCK_POINTS // n)
+    # the f32 natural pass keeps its; the bf16x3 direct one, on the bf16
+    # kernel's block design, takes the same cap
+    assert planes.max_rows(n, True, "f32", False) == max(
+        1, planes.NATURAL_BLOCK_POINTS // n)
+    assert planes.max_rows(n, True, "bf16x3", False) == cap
 
 
 @pytest.mark.parametrize("shape,rows", [

@@ -32,13 +32,15 @@ imports no jax; run it with
   gradient refused at 1536, where bf16 steps.
 - The matrix engine behind those kernels' loads and stores (the other
   tiers and forms at those lengths; entries tpu_matrix_rows_any and
-  tpu_matrix_fused_rows_any) and the bf16 row kernel (bf16 direct rows,
-  entry tpu_bf16_rows_mixed): bf16 and bf16x3 direct, either store, and
-  the three-factor form at f32, bf16 and bf16x3 (where 128 | N), row and
-  fused, both directions, at n1 = N/2 (96, 106, 160, 2042, 8186) and
-  n1 = 128 (384, 768, 1536), ragged M and C = 3: one launch under its
-  name (fft.planes.mixed_kernel_name), within the tier's band of the plain
-  version and of float64; the backward at bf16; the entries' refusals;
+  tpu_matrix_fused_rows_any) and the bf16 and bf16x3 row kernels (bf16 and
+  bf16x3 direct rows, entry tpu_bf16_rows_mixed): bf16 and bf16x3 direct,
+  either store, and the three-factor form at f32, bf16 and bf16x3 (where
+  128 | N), row and fused, both directions, at n1 = N/2 (96, 106, 160,
+  2042, 8186) and n1 = 128 (384, 768, 1536), ragged M and C = 3: its
+  launches under their names (fft.planes.mixed_kernel_name, the direct
+  rows fft.planes.direct_rows_launches), within the tier's band of the
+  plain version and of float64; the backward at bf16; the entries'
+  refusals;
   path (i)'s switches at bf16 at N = 96 on ``pallas`` and
   ``pallas_fused``, card against CPU.
 """
@@ -463,11 +465,11 @@ def _mode(monkeypatch, mode):
                               for s, m, sh in MATRIX_CASES])
 def test_matrix_kernel_matches_plain_and_float64(cuda, monkeypatch, store,
                                                  mode, shape, inverse):
-    """One launch of tpu_matrix_rows_any under its name (bf16 direct: the
-    bf16 row kernel's tpu_bf16_rows_mixed, one launch where n1 ≤ 128, two
-    where n1 = N/2 > 128, fft.planes.bf16_rows_launches), within the
-    tier's band of the plain version (fft/matrix.py, the same rounded
-    operands) and of float64."""
+    """One launch of tpu_matrix_rows_any under its name (bf16 and bf16x3
+    direct: the bf16 and bf16x3 row kernels' tpu_bf16_rows_mixed, one
+    launch where n1 ≤ 128, two where n1 = N/2 > 128,
+    fft.planes.direct_rows_launches), within the tier's band of the plain
+    version (fft/matrix.py, the same rounded operands) and of float64."""
     precision = _mode(monkeypatch, mode)
     fn, plain = _wrappers(store)
     tier, split3 = planes.engine(shape[-1], precision, store == "transposed")
@@ -475,9 +477,10 @@ def test_matrix_kernel_matches_plain_and_float64(cuda, monkeypatch, store,
     re, im = _planes(shape, cuda, seed=shape[-1] + shape[-2])
     got = fn(re, im, inverse, precision)
     assert _counts() == (
-        dict.fromkeys(planes.bf16_rows_launches(shape[-1],
-                                                store == "natural"), 1)
-        if mode == "bf16" else {f"matrix_rows_mixed_{store}[{mode}]": 1})
+        dict.fromkeys(planes.direct_rows_launches(
+            shape[-1], store == "natural", mode), 1)
+        if mode in ("bf16", "bf16x3")
+        else {f"matrix_rows_mixed_{store}[{mode}]": 1})
     z = torch.complex(re.double(), im.double())
     ref = (torch.fft.ifft(z, dim=-1, norm="forward") if inverse
            else torch.fft.fft(z, dim=-1))
@@ -568,8 +571,7 @@ def test_matrix_fused_kernel_matches_plain_and_float64(cuda, monkeypatch,
 
 
 #: what the matrix entries refuse: (tier, split3, natural, n, rows)
-#: (bf16x3 direct, which both entries take at such N, where bf16 direct
-#: stood before the row entry refused it: tests/test_torch_bf16_mixed_cuda.py)
+#: (bf16x3 direct, which the fused entry takes at such N)
 MATRIX_REFUSED = {"f32_direct": (0, 0, 0, 96, 1),
                   "power_of_two": (2, 0, 0, 128, 1),
                   "odd": (2, 0, 0, 95, 1), "long": (2, 0, 0, 8194, 1),
@@ -578,6 +580,18 @@ MATRIX_REFUSED = {"f32_direct": (0, 0, 0, 96, 1),
                   "split3_natural": (1, 1, 1, 384, 1),
                   "rows": (2, 0, 0, 96, 3), "no_rows": (2, 0, 0, 96, 0),
                   "smem": (2, 0, 0, 8190, 2), "tier": (3, 0, 0, 96, 1)}
+#: the row entry refuses the direct form at every N
+#: (tests/test_torch_bf16x3_rows_cuda.py), so its cases probe the one
+#: form it takes, bf16x3 three-factor with the transposed store where
+#: 128 | N: a power of two (256), 128·65, rows 3 or none at 384, two rows
+#: of 8064 = 128·63 (258 KB); an odd N or one below 16 is no multiple of
+#: 128 and is refused on that count too
+ROW_ENTRY_REFUSED = {**MATRIX_REFUSED,
+                     "power_of_two": (2, 1, 0, 256, 1),
+                     "odd": (2, 1, 0, 95, 1), "long": (2, 1, 0, 8320, 1),
+                     "short": (2, 1, 0, 14, 1),
+                     "rows": (2, 1, 0, 384, 3), "no_rows": (2, 1, 0, 384, 0),
+                     "smem": (2, 1, 0, 8064, 2)}
 
 
 @pytest.mark.parametrize("fused_entry", [False, True], ids=["rows", "fused"])
@@ -587,10 +601,12 @@ def test_the_matrix_c_entries_refuse_what_they_do_not_take(cuda, what,
     """f32 direct (the mixed-radix entries'), a power of two, an odd N or
     one outside [16, 8192], the three-factor form at n1 ≠ 128 or with the
     natural store, rows not a power of two or none, a block beyond the
-    card's shared memory (two rows of 8190), an unknown tier: refused (a
-    CUDA error), never run; the next launch is not disturbed."""
+    card's shared memory (two rows of 8190; of 8064 at the row entry),
+    an unknown tier: refused (a CUDA error), never run; the next launch is
+    not disturbed."""
     from tpu_ocean_torch import _build
-    tier, split3, natural, n, rows = MATRIX_REFUSED[what]
+    tier, split3, natural, n, rows = (MATRIX_REFUSED if fused_entry
+                                      else ROW_ENTRY_REFUSED)[what]
     lib = _build.load().lib
     re, im = _planes((1, 2, n), cuda)
     out = torch.empty(2, n, 2, device=cuda)

@@ -14,6 +14,11 @@ GPU:
 - split3_lo_apart: that kernel sums hi·lo and lo·hi in an accumulator of
   their own and adds it to hi·hi's in f32 rounded to nearest.
 
+The bf16x3 direct row pass has since left the matrix engine for
+csrc/dft_bf16_rows_mixed.cuh, which promotes its sums as the engine does:
+the first two variants now change the engine's fused passes only, and the
+direct pass's lines read that kernel in every build.
+
 Each variant is a header with a few lines replaced, built with the
 package's build into a library of its own under build/ (the package's
 sources are not touched). Run from the root of a checkout, on a machine

@@ -52,9 +52,10 @@ _SIGNATURES = {
     # the other tiers and forms at lengths that are not powers of two:
     # (natural, tier, split3) after the row or fused entry's other ints
     "tpu_matrix_rows_any": [_P] * 5 + [_I] * 7 + [_P],
-    # bf16 direct at lengths that are not powers of two: (tables, scratch),
-    # then (channels, m, n, rows, natural)
-    "tpu_bf16_rows_mixed": [_P] * 6 + [_I] * 5 + [_P],
+    # bf16 direct at lengths that are not powers of two and bf16x3 direct
+    # at every length: (tables, scratch), then (channels, m, n, rows,
+    # natural, tier)
+    "tpu_bf16_rows_mixed": [_P] * 6 + [_I] * 6 + [_P],
     "tpu_matrix_fused_rows_any": [_P] * 9 + [_I] * 11 + [_F] * 3 + [_P],
     "tpu_fields_stencil": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
     "tpu_fields_stencil_v1": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],

@@ -1,28 +1,41 @@
-// The bf16 row DFT at even lengths that are not powers of two, either
-// store: bf16_rows_mixed.cu's entry tpu_bf16_rows_mixed (tier bf16, the
-// direct form). The power-of-two lengths run dft_bf16_rows.cuh.
+// The bf16 and bf16x3 row DFTs in the direct form, either store:
+// bf16_rows_mixed.cu's entry tpu_bf16_rows_mixed, which takes the tier.
+// bf16 (tier 1) at even lengths that are not powers of two (the powers of
+// two run dft_bf16_rows.cuh); bf16x3 (tier 2) at every even length in
+// [16, 8192].
 //
 // Replaces tpu_ocean/fft/pallas_fft.py _fft_block_kernel (launched by
 // _fft1d_transposed_impl) and _rowfft_block_kernel_natural (launched by
-// _fft1d_natural_large_impl) at lax.Precision.DEFAULT at those lengths, and
-// in this port the matrix engine's bf16 instantiation behind
-// rows_mixed_f32.cuh's loads and stores (mixed_rows_kernel<*, MatrixEngine<
-// kTierBf16, false>>), which fft_rows.cu's tpu_matrix_rows_any now refuses.
-// Contract: (re, im) f32 [C, M, N] → the transposed (re, im) f32 [C, N, M]
-// or the natural-order [C, M, N], unnormalized, + sign for the inverse.
+// _fft1d_natural_large_impl) at lax.Precision.DEFAULT at those lengths and
+// at the bf16x3 tier B3 (kernel_precision, KERNEL_B3_THRESHOLD) at every
+// length, and in this port the matrix engine's bf16 and bf16x3 direct
+// instantiations (MatrixEngine<kTierBf16, false>, MatrixEngine<
+// kTierBf16x3, false>) behind fft_rows.cu's fft_rows_kernel and
+// rows_mixed_f32.cuh's mixed_rows_kernel, which fft_rows.cu's
+// tpu_fft_rows_* and tpu_matrix_rows_any now refuse. Contract: (re, im)
+// f32 [C, M, N] → the transposed (re, im) f32 [C, N, M] or the
+// natural-order [C, M, N], unnormalized, + sign for the inverse.
 //
-// Numerics are those of the plain version (fft/matrix.py rows_dft at tier
-// bf16) operand for operand, as dft_bf16_rows.cuh states them: x and the
-// f32 tables rounded to bf16, stage 1 accumulated in f32, C ⊙ T in f32
-// with each product and sum rounded alone, rounded to bf16 for stage 2,
-// accumulated in f32. Only the order of the f32 sums differs.
+// Numerics are those of the plain version (fft/matrix.py rows_dft) operand
+// for operand. bf16, as dft_bf16_rows.cuh states them: x and the f32
+// tables rounded to bf16, stage 1 accumulated in f32, C ⊙ T in f32 with
+// each product and sum rounded alone, rounded to bf16 for stage 2,
+// accumulated in f32. bf16x3: stage 1 in f32 on the unrounded rows and
+// tables (the TPU kernel's p1 = HIGHEST at B3), C ⊙ T in f32 with each
+// product and sum rounded alone, then stage 2's operands, F1 and C ⊙ T,
+// split into hi = bf16(x) and lo = bf16(x − hi) (round to nearest even),
+// keeping hi·hi + hi·lo + lo·hi in the real form (four real products a
+// complex product), accumulated in f32 and added into an f32 sum every
+// 128 complex of depth (dft_matrix.cuh kPromoteBlocks). Only the order of
+// the f32 sums differs.
 //
 // The four-step N = n2 · n1 of pallas_fft._split_lanes (lanes_n1), in two
 // regimes:
 //
-// 1. n1 ≤ 128: N = 128 · n2 with n2 in 3 … 63 (384, 640, 768, 1536, 3072,
-//    6144 …), and every N below 256 with n1 = N / 2, n2 = 2 (96, 106 with
-//    n1 = 53, 160, 224). The power-of-two kernel's design, generalized:
+// 1. n1 ≤ 128: N = 128 · n2 with n2 in 1 … 64 (every power of two from
+//    128, and 384, 640, 768, 1536, 3072, 6144 …), and every N below 256
+//    with n1 = N / 2, n2 = 2 (16, 32, 64; 96, 106 with n1 = 53, 160, 224).
+//    The power-of-two kernel's design, generalized:
 //    R rows a block of 512 threads, staged as bf16 pairs at padded
 //    strides; stage 1 on mma.sync.m16n8k16 with F2's pre-rounded A
 //    fragments (in registers where n2 ≤ 32), its epilogue forming C ⊙ T
@@ -51,6 +64,50 @@
 //    at n1 < 128, not one per N. What bounds it on the H100: device
 //    memory, 16 B a point (37.7 MB, 0.0113 ms at 3.35 TB/s for
 //    [1, 1536, 1536]); the products are 8·(n1 + n2) bf16 flops a point.
+//
+//    At bf16x3 the same block, rows, stage-2 tiles, result and stores, with
+//    what the tier changes (design 1 of the three the hi/lo split allows;
+//    F1's hi and lo fragments together are 256 KB at n1 = 128, the SM's
+//    whole register file, so they cannot both sit in registers at 512
+//    threads, and two launches at every N would move 32 B a point instead
+//    of 16):
+//    - the rows staged as complex f32 at r·N + n, the input's own order
+//      (float4 loads where 4 | N, else float2; no division), aliased by the
+//      f32 result after stage 1;
+//    - stage 1 in f32 FFMA, as dft_split3_f32.cuh's stage1 runs it: an
+//      item is 2 columns c and c + R·n1p/2 (c = r·n1p + t) and kK outputs
+//      k2 (kK = 8 from n2 = 5, else the next power of two ≥ n2; F2
+//      zero-padded to whole rows of 16), the share the slowest index so
+//      that a warp reads F2 at one address: F2 sits s-major in shared
+//      memory (f2s[s·n2p + k]) over F1's lo pairs' region until stage 1
+//      is done (beside the rest it would not fit at N = 8192), one 16-byte
+//      broadcast feeding 16 FFMAs; 512 items at [*, 1024] R = 8,
+//      [*, 4096] R = 2 and [*, 8192] R = 1, every thread busy;
+//    - its epilogue forms C ⊙ T once and splits it once (split_pair) into a
+//      hi and a lo plane of bf16 pairs at C ⊙ T's padded stride, zeros at t
+//      in [n1, n1p);
+//    - stage 2 three products a k-step: F1's hi tile in the warp's 64
+//      registers, issued at the block's start beside at most 32 stage-1
+//      accumulators; F1's lo part as complex bf16 pairs in shared memory
+//      in A-fragment order (n1p² × 4 B, 64 KB at n1 = 128: a warp's 64-bit
+//      load is 256 contiguous bytes), copied there by cp.async after stage
+//      1 (planes keeps the table in that form: the pairs of the lo
+//      fragments' registers 1 and 3, 64 KB a block from L2 where the
+//      fragments would be 128 KB), expanded to A registers with a sign
+//      flip and a half swap as regime 2 builds its A registers; hi·hi into one
+//      accumulator, hi·lo and lo·hi into another (two dependency chains),
+//      added once. The depth is at most 128: one accumulator each covers it
+//      (kPromoteBlocks).
+//    Shared memory a block (planes.bf16x3_rows_shared_bytes): R·(N + 1)·8
+//    (the rows, then the result) + 2·R·n2·ys·4 (C ⊙ T hi and lo) + n1p²·4
+//    (F2 during stage 1, at most n2·16·⌈n2/16⌉·8 B, then F1's lo pairs):
+//    196 KB at N = 1024, R = 8 and at N = 8192, R = 1; 163 KB at N = 1536,
+//    R = 4. One instantiation per kK at n1 = 128 (1, 2, 4, 8) and one for
+//    n2 = 2 at n1 < 128. What bounds it on the H100: device memory at
+//    small n2 (16 B a point), the f32 stage 1 (8·n2 + 6 operations a
+//    point at 67 TFLOP/s) and the products (3 · 8·n1 bf16 flops a point)
+//    at large N: operations at [1, 4096, 4096] (4.4 Gflop f32 and 51.5
+//    Gflop bf16, 0.1177 ms).
 //
 // 2. n1 = N / 2 > 128 (every even N above 256 that 128 does not divide:
 //    1000, 2042, 8186, 8190 …). Stage 2 is a dense n1 × n1 complex product
@@ -88,6 +145,19 @@
 //      kPromoteBlocks) and zeroed. The 64 × 64 result goes through shared
 //      memory to the natural or transposed store, 128 consecutive floats
 //      or 32 consecutive m a run.
+//    At bf16x3 the same two launches with a tier parameter:
+//    - gemm_prep_kernel<bf16x3>: stage 1 in f32 on the unrounded inputs
+//      from F2's f32 table (its sin(π) residue included, as the plain
+//      version's product has it), C[1] ⊙ T[1, t], each split once: X′ as a
+//      hi plane and a lo plane of complex bf16 pairs (planes.
+//      bf16x3_rows_scratch_words: twice the bf16 scratch; 16 B a point
+//      moved);
+//    - gemm_rows_kernel<bf16x3>: F1's hi and lo tables (pre-split complex
+//      bf16 pairs, zero-padded as the bf16 table) and X′'s two planes
+//      staged together, 2 × (64 + 64) rows of 40 words a stage (120 KB for
+//      three), 48 mma.sync a warp a k-step (hi·hi, hi·lo, lo·hi into one
+//      accumulator); the group of F1 tiles that stays in L2 doubles
+//      (33.6 MB at N = 8186 at kGroup = 16, of the 50 MB L2).
 //
 // Rows past M (the ragged last block of regime 1, the last column tile of
 // regime 2) are zero and never stored. Anything the entry does not take
@@ -100,6 +170,7 @@
 
 #include "dft_bf16_rows.cuh"
 #include "dft_matrix.cuh"
+#include "dft_split3_f32.cuh"
 
 namespace tpu_fft {
 
@@ -113,6 +184,34 @@ __host__ __device__ constexpr uint32_t div_magic(uint32_t d) {
 __device__ __forceinline__ int fast_div(int p, uint32_t magic) {
   return static_cast<int>(__umulhi(static_cast<uint32_t>(p), magic));
 }
+
+// (Fr, −Fi) and (Fi, Fr) of a complex bf16 pair (Fr low): rows g and
+// g + 8 of the real form's A fragment at one depth
+__device__ __forceinline__ uint32_t neg_im(uint32_t w) {
+  return w ^ 0x80000000u;
+}
+__device__ __forceinline__ uint32_t swap_halves(uint32_t w) {
+  return __byte_perm(w, 0u, 0x1032);
+}
+
+// 16 bytes from device memory into shared memory without registers (the
+// rest zero-filled where src_bytes < 16)
+__device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src,
+                                           int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
 
 namespace bf16_mixed {
 
@@ -170,13 +269,12 @@ inline int shared_bytes(int rows, int n) {
 }
 
 // Stage 2's tile of this warp (k1 = 8·(w mod kt2) + g): its F1 fragments
-// from L2, the first kt2 of 16
+// (f1, the table's) from L2, the first kt2 of 16
 template <class G>
 __device__ __forceinline__ void load_f1(const G& g, uint4 (&a2)[kMaxKt2],
-                                        const uint32_t* __restrict__ tables) {
+                                        const uint4* __restrict__ f1) {
   const int lane = threadIdx.x & 31;
   const int tm2 = (threadIdx.x >> 5) % g.kt2;
-  const uint4* f1 = reinterpret_cast<const uint4*>(tables + g.f1_offset());
 #pragma unroll
   for (int kb = 0; kb < kMaxKt2; ++kb)
     if (kb < g.kt2) a2[kb] = __ldg(&f1[(tm2 * g.kt2 + kb) * 32 + lane]);
@@ -372,47 +470,330 @@ __device__ __forceinline__ void store(const G& g, const float2* res,
   }
 }
 
-// One block: R rows m0 … m0 + R − 1 of channel blockIdx.y.
-template <int kKt1, bool kWide, bool kNatural>
+// ---- bf16x3, regime 1
+
+// F2's rows in the bf16x3 table: whole shares of 16 (a stage-1 share kK
+// divides 16), zero past n2 (planes.bf16x3_rows_tables)
+__host__ __device__ constexpr int b3_f2_rows(int n2) {
+  return (n2 + 15) / 16 * 16;
+}
+
+// Stage 1's outputs a thread at n1 = 128: 8 from n2 = 5, else the next
+// power of two ≥ n2 (1, 2, 4); at n1 < 128 n2 = 2
+inline int b3_share(int n) {
+  const int n2 = n / lanes_n1(n);
+  return n2 > 4 ? 8 : n2 > 2 ? 4 : n2;
+}
+
+// Stage 1's columns a thread
+constexpr int kB3Columns = 2;
+
+// Dynamic shared memory of a bf16x3 block of `rows` rows
+// (planes.bf16x3_rows_shared_bytes): the rows as complex f32, aliased by
+// the f32 result (n + 1 complex a row), then C ⊙ T's hi and lo planes,
+// then F1's lo part as complex bf16 pairs
+inline int b3_shared_bytes(int rows, int n) {
+  const int n1 = lanes_n1(n);
+  const int n2 = n / n1;
+  const int n1p = padded_n1(n1);
+  return (rows * (n + 1) * 8 + 15) / 16 * 16 + 2 * rows * n2 * y_stride(n1p) * 4
+         + n1p * n1p * 4;
+}
+
+// The block's `live` rows of R as complex f32 at r·N + n, the input's own
+// order (rows past M zero): 4 points a lane as two float4 loads where
+// 4 | N, else 2 points as two float2 loads, kLoadsInFlight started before
+// any is waited on, one or two 16-byte shared stores.
+template <class G, bool kWide>
+__device__ __forceinline__ void load_rows_f32(const G& g, float2* xs,
+                                              const float* __restrict__ re,
+                                              const float* __restrict__ im,
+                                              int R, int live) {
+  if (kWide || (g.N & 3) == 0) {
+    const int total = R * g.N / 4;
+    const int valid = live * g.N / 4;
+    const float4* bre = reinterpret_cast<const float4*>(re);
+    const float4* bim = reinterpret_cast<const float4*>(im);
+    float4* dst = reinterpret_cast<float4*>(xs);
+    for (int base = threadIdx.x; base < total;
+         base += kLoadsInFlight * kThreads) {
+      float4 vr[kLoadsInFlight], vi[kLoadsInFlight];
+#pragma unroll
+      for (int u = 0; u < kLoadsInFlight; ++u) {
+        const int idx = base + u * kThreads;
+        const bool ok = idx < valid;
+        vr[u] = ok ? bre[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
+        vi[u] = ok ? bim[idx] : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadsInFlight; ++u) {
+        const int idx = base + u * kThreads;
+        if (idx >= total) continue;
+        dst[2 * idx] = make_float4(vr[u].x, vi[u].x, vr[u].y, vi[u].y);
+        dst[2 * idx + 1] = make_float4(vr[u].z, vi[u].z, vr[u].w, vi[u].w);
+      }
+    }
+  } else {
+    const int total = R * g.N / 2;
+    const int valid = live * g.N / 2;
+    const float2* bre = reinterpret_cast<const float2*>(re);
+    const float2* bim = reinterpret_cast<const float2*>(im);
+    float4* dst = reinterpret_cast<float4*>(xs);
+    for (int base = threadIdx.x; base < total;
+         base += kLoadsInFlight * kThreads) {
+      float2 vr[kLoadsInFlight], vi[kLoadsInFlight];
+#pragma unroll
+      for (int u = 0; u < kLoadsInFlight; ++u) {
+        const int idx = base + u * kThreads;
+        const bool ok = idx < valid;
+        vr[u] = ok ? bre[idx] : make_float2(0.f, 0.f);
+        vi[u] = ok ? bim[idx] : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadsInFlight; ++u) {
+        const int idx = base + u * kThreads;
+        if (idx < total)
+          dst[idx] = make_float4(vr[u].x, vi[u].x, vr[u].y, vi[u].y);
+      }
+    }
+  }
+}
+
+// Stage 1 at bf16x3: C[k2, t] = Σ_s F2[k2, s] · x[s·n1 + t] in f32 FFMA on
+// the unrounded rows (F2 from shared memory s-major, f2s[s·n2p + k], one
+// address a warp), then C ⊙ T with
+// each product and sum rounded alone, split once into the hi and lo planes
+// at (r·n2 + k2)·ys + t; zeros at t in [n1, n1p). An item: the columns
+// c + j·R·n1p/kB3Columns, j < kB3Columns (c = r·n1p + t), and the outputs
+// k2 = kK·share … + kK − 1, the share the slowest index; each F2 value read
+// feeds 4·kB3Columns FFMAs.
+template <int kK, class G>
+__device__ __forceinline__ void stage1_b3(const G& g, const float2* xs,
+                                          uint32_t* yh, uint32_t* yl,
+                                          const float2* f2s, int n2p,
+                                          const float2* __restrict__ tw,
+                                          int R) {
+  constexpr int kC = kB3Columns;
+  const int n1p = 8 * g.kt2;
+  const int part = R * n1p / kC;
+  const int items = (g.n2 + kK - 1) / kK * part;
+  for (int item = threadIdx.x; item < items; item += kThreads) {
+    const int share = item / part;
+    const int i = item - share * part;
+    const int k0 = share * kK;
+    int xo[kC], yo[kC], t[kC];
+    bool live[kC];
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {
+      const int c = i + j * part;
+      const int r = c / n1p;
+      t[j] = c - r * n1p;
+      live[j] = t[j] < g.n1;
+      xo[j] = r * g.N + t[j];
+      yo[j] = r * g.n2 * g.ys + t[j];
+    }
+    float2 acc[kC][kK];
+#pragma unroll
+    for (int j = 0; j < kC; ++j)
+#pragma unroll
+      for (int k = 0; k < kK; ++k) acc[j][k] = make_float2(0.f, 0.f);
+#pragma unroll 2
+    for (int s = 0; s < g.n2; ++s) {
+      float2 x[kC];
+#pragma unroll
+      for (int j = 0; j < kC; ++j)
+        x[j] = live[j] ? xs[xo[j] + s * g.n1] : make_float2(0.f, 0.f);
+      const float2* fk = f2s + s * n2p + k0;
+      if constexpr (kK == 1) {
+#pragma unroll
+        for (int j = 0; j < kC; ++j) split3_f32::cfma(acc[j][0], fk[0], x[j]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kK; k += 2) {
+          const float4 f = *reinterpret_cast<const float4*>(fk + k);
+#pragma unroll
+          for (int j = 0; j < kC; ++j) {
+            split3_f32::cfma(acc[j][k], make_float2(f.x, f.y), x[j]);
+            split3_f32::cfma(acc[j][k + 1], make_float2(f.z, f.w), x[j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const int k2 = k0 + k;
+      if (k2 < g.n2) {
+#pragma unroll
+        for (int j = 0; j < kC; ++j) {
+          uint32_t hi = 0u, lo = 0u;
+          if (live[j]) {
+            const float2 v = split3_f32::twiddle(
+                acc[j][k], __ldg(&tw[k2 * g.n1 + t[j]]));
+            split_pair(v.x, v.y, hi, lo);
+          }
+          yh[yo[j] + k2 * g.ys] = hi;
+          yl[yo[j] + k2 * g.ys] = lo;
+        }
+      }
+    }
+  }
+}
+
+// F1's lo part (the table's complex bf16 pairs in A-fragment order, a
+// lane's two depths a uint2) into shared memory with cp.async
+template <class G>
+__device__ __forceinline__ void load_f1_lo(const G& g, uint2* lo,
+                                           const uint2* __restrict__ f1lo) {
+  uint32_t* dst = reinterpret_cast<uint32_t*>(lo);
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(f1lo);
+  for (int i = threadIdx.x; i < g.kt2 * g.kt2 * 16; i += kThreads)
+    cp_async16(dst + 4 * i, src + 4 * i, 16);
+  cp_async_commit();
+}
+
+// Stage 2 at bf16x3: stage2's tiles, three products a k-step: hi·hi into
+// d, hi·lo and lo·hi into e, written as d + e. F1's hi fragments are the
+// warp's registers, its lo part the pairs in shared memory.
+template <class G>
+__device__ __forceinline__ void stage2_b3(const G& g, const uint32_t* yh,
+                                          const uint32_t* yl, const uint2* lo,
+                                          float2* res,
+                                          const uint4 (&a2)[kMaxKt2], int R) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int groups = kWarps / g.kt2;
+  if (warp >= groups * g.kt2) return;
+  const int gg = lane >> 2;
+  const int q = lane & 3;
+  const int tm = warp % g.kt2;
+  const int k1 = tm * 8 + gg;
+  const uint2* al = lo + tm * g.kt2 * 32 + lane;
+  const int cols = R * g.n2;
+  const int tiles = (cols + 7) >> 3;
+  for (int tn = warp / g.kt2; tn < tiles; tn += groups) {
+    const int col = (tn << 3) + gg;
+    const bool ok = col < cols;
+    const int at = col * g.ys + 2 * q;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    float e[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kb = 0; kb < kMaxKt2; ++kb) {
+      if (kb < g.kt2) {
+        const uint2 bh = ok ? *reinterpret_cast<const uint2*>(yh + at + kb * 8)
+                            : make_uint2(0u, 0u);
+        const uint2 bl = ok ? *reinterpret_cast<const uint2*>(yl + at + kb * 8)
+                            : make_uint2(0u, 0u);
+        const uint2 p = al[kb * 32];
+        const uint4 a_lo = make_uint4(neg_im(p.x), swap_halves(p.x),
+                                      neg_im(p.y), swap_halves(p.y));
+        mma(d, a2[kb], bh.x, bh.y);
+        mma(e, a2[kb], bl.x, bl.y);
+        mma(e, a_lo, bh.x, bh.y);
+      }
+    }
+    if (k1 < g.n1) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int oc = (tn << 3) + 2 * q + j;
+        if (oc < cols) {
+          const int r = fast_div(oc, g.n2_magic);
+          const int k2 = oc - r * g.n2;
+          res[r * (g.N + 1) + k1 * g.n2 + k2] = make_float2(
+              __fadd_rn(d[j], e[j]), __fadd_rn(d[j + 2], e[j + 2]));
+        }
+      }
+    }
+  }
+}
+
+// One block: R rows m0 … m0 + R − 1 of channel blockIdx.y, at tier kTier
+// (kTierBf16: kS = ⌈n2/8⌉, stage 1's tiles; kTierBf16x3: kS = kK, stage
+// 1's outputs a thread).
+template <int kTier, int kS, bool kWide, bool kNatural>
 __global__ void __launch_bounds__(kThreads)
 bf16_rows_mixed_kernel(const float* __restrict__ re,
                        const float* __restrict__ im,
                        float* __restrict__ out_re, float* __restrict__ out_im,
                        const uint32_t* __restrict__ tables, int M, int N,
                        int R, int log2r) {
-  const Geometry<kKt1, kWide> g(N);
   const int c = blockIdx.y;
   const int m0 = blockIdx.x * R;
   const int live = M - m0 < R ? M - m0 : R;
   const size_t plane = static_cast<size_t>(M) * N;
-  uint32_t* xs = reinterpret_cast<uint32_t*>(bf16_rows::bf16_rows_smem);
-  float2* res = reinterpret_cast<float2*>(bf16_rows::bf16_rows_smem);
-  const int rows_in = R * g.n2 * g.xs;
-  const int rows_out = (R * (N + 1) * 2 + 3) / 4 * 4;
-  uint32_t* ys = xs + (rows_in > rows_out ? rows_in : rows_out);
-
-  // F1's fragments are issued first, so that they arrive while the rows
-  // load and stage 1 runs
-  uint4 a2[kMaxKt2];
-  load_f1(g, a2, tables);
   const size_t first = c * plane + static_cast<size_t>(m0) * N;
-  load_rows<Geometry<kKt1, kWide>, kWide>(g, xs, re + first, im + first, R,
+  if constexpr (kTier == kTierBf16) {
+    const Geometry<kS, kWide> g(N);
+    uint32_t* xs = reinterpret_cast<uint32_t*>(bf16_rows::bf16_rows_smem);
+    float2* res = reinterpret_cast<float2*>(bf16_rows::bf16_rows_smem);
+    const int rows_in = R * g.n2 * g.xs;
+    const int rows_out = (R * (N + 1) * 2 + 3) / 4 * 4;
+    uint32_t* ys = xs + (rows_in > rows_out ? rows_in : rows_out);
+
+    // F1's fragments are issued first, so that they arrive while the rows
+    // load and stage 1 runs
+    uint4 a2[kMaxKt2];
+    load_f1(g, a2, reinterpret_cast<const uint4*>(tables + g.f1_offset()));
+    load_rows<Geometry<kS, kWide>, kWide>(g, xs, re + first, im + first, R,
                                           live);
-  __syncthreads();
-  stage1(g, xs, ys, tables, R);
-  __syncthreads();
-  stage2(g, ys, res, a2, R);
-  __syncthreads();
-  store<kNatural>(g, res, out_re + c * plane, out_im + c * plane, M, R, log2r,
-                  m0, live);
+    __syncthreads();
+    stage1(g, xs, ys, tables, R);
+    __syncthreads();
+    stage2(g, ys, res, a2, R);
+    __syncthreads();
+    store<kNatural>(g, res, out_re + c * plane, out_im + c * plane, M, R,
+                    log2r, m0, live);
+  } else {
+    static_assert(kTier == kTierBf16x3, "tier bf16 or bf16x3");
+    const Geometry<1, kWide> g(N);
+    // the tables (planes.bf16x3_rows_tables): F2 [b3_f2_rows(n2), n2] and
+    // T [n2, n1] as complex f32, then F1's hi A fragments and its lo part
+    // as complex bf16 pairs in fragment order
+    const float2* f2 = reinterpret_cast<const float2*>(tables);
+    const float2* tw = f2 + b3_f2_rows(g.n2) * g.n2;
+    const uint4* f1hi = reinterpret_cast<const uint4*>(tw + N);
+    const uint2* f1lo =
+        reinterpret_cast<const uint2*>(f1hi + g.kt2 * g.kt2 * 32);
+    // shared memory: the rows, then the result; C ⊙ T hi, lo; F1's lo pairs
+    float2* xs = reinterpret_cast<float2*>(bf16_rows::bf16_rows_smem);
+    uint32_t* yh = reinterpret_cast<uint32_t*>(bf16_rows::bf16_rows_smem) +
+                   (R * (N + 1) * 2 + 3) / 4 * 4;
+    uint32_t* yl = yh + R * g.n2 * g.ys;
+    uint2* lo = reinterpret_cast<uint2*>(yl + R * g.n2 * g.ys);
+
+    // F2 s-major in shared memory (f2s[s·n2p + k], a broadcast a k pair),
+    // over F1's lo pairs' region until stage 1 is done; F1's hi fragments
+    // are issued first, so that they arrive while the rows load and stage
+    // 1 runs; the lo pairs follow stage 1 by cp.async
+    uint4 a2[kMaxKt2];
+    const int n2p = b3_f2_rows(g.n2);
+    float2* f2s = reinterpret_cast<float2*>(lo);
+    for (int i = threadIdx.x; i < n2p * g.n2; i += kThreads) {
+      const int k = i / g.n2;
+      f2s[(i - k * g.n2) * n2p + k] = __ldg(&f2[i]);
+    }
+    load_f1(g, a2, f1hi);
+    load_rows_f32<Geometry<1, kWide>, kWide>(g, xs, re + first, im + first,
+                                             R, live);
+    __syncthreads();
+    stage1_b3<kS>(g, xs, yh, yl, f2s, n2p, tw, R);
+    __syncthreads();
+    load_f1_lo(g, lo, f1lo);
+    cp_async_wait<0>();
+    __syncthreads();
+    stage2_b3(g, yh, yl, lo, xs, a2, R);
+    __syncthreads();
+    store<kNatural>(g, xs, out_re + c * plane, out_im + c * plane, M, R,
+                    log2r, m0, live);
+  }
 }
 
-template <int kKt1, bool kWide, bool kNatural>
+template <int kTier, int kS, bool kWide, bool kNatural>
 int launch_geometry(const void* re, const void* im, void* out_re,
                     void* out_im, const void* tables, int channels, int m,
                     int n, int rows, cudaStream_t stream) {
-  const auto kernel = bf16_rows_mixed_kernel<kKt1, kWide, kNatural>;
-  const int smem = shared_bytes(rows, n);
+  const auto kernel = bf16_rows_mixed_kernel<kTier, kS, kWide, kNatural>;
+  const int smem = kTier == kTierBf16 ? shared_bytes(rows, n)
+                                      : b3_shared_bytes(rows, n);
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((m + rows - 1) / rows, channels);
@@ -423,39 +804,53 @@ int launch_geometry(const void* re, const void* im, void* out_re,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Regime 1 at length n (n1 = lanes_n1(n) ≤ 128, not a power of two): the
-// instantiation of ⌈n2/8⌉ at n1 = 128, or of n2 = 2. The natural store's
-// builds are in bf16_rows_mixed_natural.cu, so that nvcc builds them
-// beside the transposed store's (bf16_rows_mixed.cu).
-template <bool kNatural>
+// Regime 1 at length n (n1 = lanes_n1(n) ≤ 128): at bf16 (not a power of
+// two) the instantiation of ⌈n2/8⌉ at n1 = 128, or of n2 = 2; at bf16x3
+// (any even n) that of b3_share(n) at n1 = 128, or of n2 = 2. The natural
+// store's builds are in bf16_rows_mixed_natural.cu, so that nvcc builds
+// them beside the transposed store's (bf16_rows_mixed.cu).
+template <int kTier, bool kNatural>
 int launch(const void* re, const void* im, void* out_re, void* out_im,
            const void* tables, int channels, int m, int n, int rows,
            cudaStream_t stream) {
   if (lanes_n1(n) < 128)
-    return launch_geometry<1, false, kNatural>(re, im, out_re, out_im, tables,
-                                               channels, m, n, rows, stream);
+    return launch_geometry<kTier, kTier == kTierBf16 ? 1 : 2, false,
+                           kNatural>(re, im, out_re, out_im, tables,
+                                     channels, m, n, rows, stream);
 #define TPU_BF16_MIXED_CASE(K)                                               \
   case K:                                                                    \
-    return launch_geometry<K, true, kNatural>(re, im, out_re, out_im,        \
-                                              tables, channels, m, n, rows,  \
-                                              stream);
-  switch ((n / 128 + 7) / 8) {
-    TPU_BF16_MIXED_CASE(1)
-    TPU_BF16_MIXED_CASE(2)
-    TPU_BF16_MIXED_CASE(3)
-    TPU_BF16_MIXED_CASE(4)
-    TPU_BF16_MIXED_CASE(5)
-    TPU_BF16_MIXED_CASE(6)
-    TPU_BF16_MIXED_CASE(7)
-    TPU_BF16_MIXED_CASE(8)
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    return launch_geometry<kTier, K, true, kNatural>(                        \
+        re, im, out_re, out_im, tables, channels, m, n, rows, stream);
+  if constexpr (kTier == kTierBf16) {
+    switch ((n / 128 + 7) / 8) {
+      TPU_BF16_MIXED_CASE(1)
+      TPU_BF16_MIXED_CASE(2)
+      TPU_BF16_MIXED_CASE(3)
+      TPU_BF16_MIXED_CASE(4)
+      TPU_BF16_MIXED_CASE(5)
+      TPU_BF16_MIXED_CASE(6)
+      TPU_BF16_MIXED_CASE(7)
+      TPU_BF16_MIXED_CASE(8)
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (b3_share(n)) {
+      TPU_BF16_MIXED_CASE(1)
+      TPU_BF16_MIXED_CASE(2)
+      TPU_BF16_MIXED_CASE(4)
+      TPU_BF16_MIXED_CASE(8)
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 #undef TPU_BF16_MIXED_CASE
 }
 
-extern template int launch<true>(const void*, const void*, void*, void*,
-                                 const void*, int, int, int, int,
-                                 cudaStream_t);
+extern template int launch<kTierBf16, true>(const void*, const void*,
+                                            void*, void*, const void*, int,
+                                            int, int, int, cudaStream_t);
+extern template int launch<kTierBf16x3, true>(const void*, const void*,
+                                              void*, void*, const void*, int,
+                                              int, int, int, cudaStream_t);
 
 }  // namespace bf16_mixed
 
@@ -474,7 +869,7 @@ constexpr int kStageWords = (kBM + kBN) * kStride;
 // chunks between two promotions: 128 complex of depth (kPromoteBlocks)
 constexpr int kPromoteChunks = kPromoteBlocks * 8 / kChunk;
 // k1 tiles of a raster group: F1's tiles of a group stay in L2 while the
-// columns pass (16.8 MB at N = 8186)
+// columns pass (16.8 MB at N = 8186; at bf16x3 F1's hi and lo, 33.6 MB)
 constexpr int kGroup = 16;
 // the epilogue's tile: 64 k1 rows of 64 columns, float2, at 66 (≡ 2 mod
 // 16): the natural store's half warp reads 32 distinct banks
@@ -483,7 +878,17 @@ constexpr int kSmemBytes =
     (kStages * kStageWords * 4 > kBM * kOutStride * 8)
         ? kStages * kStageWords * 4
         : kBM * kOutStride * 8;
+// bf16x3: each operand's hi and lo rows a stage (the result tile fits)
+constexpr int kSmemBytesBf16x3 = 2 * kStages * kStageWords * 4;
+static_assert(kSmemBytesBf16x3 >= kBM * kOutStride * 8, "the result tile");
 constexpr int kPrepThreads = 256;
+
+// a tier's operand parts (hi, and lo at bf16x3) and shared memory
+template <int kTier>
+constexpr int kParts = kTier == kTierBf16x3 ? 2 : 1;
+template <int kTier>
+constexpr int kTierSmemBytes =
+    kTier == kTierBf16x3 ? kSmemBytesBf16x3 : kSmemBytes;
 
 // ldk: words a row of X′ and of F1, the depth in whole chunks
 __host__ __device__ constexpr int depth_words(int n1) {
@@ -494,29 +899,18 @@ __host__ __device__ constexpr int table_rows(int n1) {
   return (n1 + kBM - 1) / kBM * kBM;
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src,
-                                           int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-// Stage 1 of every row (c·M + m = blockIdx.x) and the twiddle: X′[2·row
-// + k2, t] = bf16(C[k2, t] ⊙ T[k2, t]) with C[0] = x0 + x1, C[1] = x0 − x1
-// of the bf16-rounded x0 = x[t], x1 = x[n1 + t]; zero for t in [n1, ldk).
+// Stage 1 of every row (c·M + m = blockIdx.x) and the twiddle. bf16:
+// X′[2·row + k2, t] = bf16(C[k2, t] ⊙ T[k2, t]) with C[0] = x0 + x1,
+// C[1] = x0 − x1 of the bf16-rounded x0 = x[t], x1 = x[n1 + t]. bf16x3:
+// C[k2] = Σ_s F2[k2, s]·x_s in f32 FFMA on the unrounded x (F2 the f32
+// table, f2), C[1] ⊙ T[1, t], each split once: the hi pair at X′'s word,
+// the lo pair `lo_plane` words on. Zero for t in [n1, ldk).
+template <int kTier>
 static __global__ void __launch_bounds__(kPrepThreads)
 gemm_prep_kernel(const float* __restrict__ re, const float* __restrict__ im,
                  uint32_t* __restrict__ xp, const float2* __restrict__ t1,
-                 int n1, int ldk) {
+                 const float2* __restrict__ f2, int n1, int ldk,
+                 size_t lo_plane) {
   const size_t row = blockIdx.x;
   const float* r0 = re + row * 2 * n1;
   const float* i0 = im + row * 2 * n1;
@@ -524,35 +918,46 @@ gemm_prep_kernel(const float* __restrict__ re, const float* __restrict__ im,
   uint32_t* y1 = y0 + ldk;
   for (int t = threadIdx.x; t < ldk; t += kPrepThreads) {
     uint32_t v0 = 0u, v1 = 0u;
-    if (t < n1) {
-      const float ar = __bfloat162float(__float2bfloat16_rn(r0[t]));
-      const float ai = __bfloat162float(__float2bfloat16_rn(i0[t]));
-      const float br = __bfloat162float(__float2bfloat16_rn(r0[n1 + t]));
-      const float bi = __bfloat162float(__float2bfloat16_rn(i0[n1 + t]));
-      const float cr = __fsub_rn(ar, br);
-      const float ci = __fsub_rn(ai, bi);
-      const float2 w = __ldg(&t1[t]);
-      v0 = pack_rn(__fadd_rn(ar, br), __fadd_rn(ai, bi));
-      v1 = pack_rn(__fsub_rn(__fmul_rn(cr, w.x), __fmul_rn(ci, w.y)),
-                   __fadd_rn(__fmul_rn(cr, w.y), __fmul_rn(ci, w.x)));
+    if constexpr (kTier == kTierBf16) {
+      if (t < n1) {
+        const float ar = __bfloat162float(__float2bfloat16_rn(r0[t]));
+        const float ai = __bfloat162float(__float2bfloat16_rn(i0[t]));
+        const float br = __bfloat162float(__float2bfloat16_rn(r0[n1 + t]));
+        const float bi = __bfloat162float(__float2bfloat16_rn(i0[n1 + t]));
+        const float cr = __fsub_rn(ar, br);
+        const float ci = __fsub_rn(ai, bi);
+        const float2 w = __ldg(&t1[t]);
+        v0 = pack_rn(__fadd_rn(ar, br), __fadd_rn(ai, bi));
+        v1 = pack_rn(__fsub_rn(__fmul_rn(cr, w.x), __fmul_rn(ci, w.y)),
+                     __fadd_rn(__fmul_rn(cr, w.y), __fmul_rn(ci, w.x)));
+      }
+    } else {
+      uint32_t w0 = 0u, w1 = 0u;
+      if (t < n1) {
+        const float2 x0 = make_float2(r0[t], i0[t]);
+        const float2 x1 = make_float2(r0[n1 + t], i0[n1 + t]);
+        float2 c0 = make_float2(0.f, 0.f), c1 = make_float2(0.f, 0.f);
+        split3_f32::cfma(c0, __ldg(&f2[0]), x0);
+        split3_f32::cfma(c0, __ldg(&f2[1]), x1);
+        split3_f32::cfma(c1, __ldg(&f2[2]), x0);
+        split3_f32::cfma(c1, __ldg(&f2[3]), x1);
+        const float2 d1 = split3_f32::twiddle(c1, __ldg(&t1[t]));
+        split_pair(c0.x, c0.y, v0, w0);
+        split_pair(d1.x, d1.y, v1, w1);
+      }
+      y0[lo_plane + t] = w0;
+      y1[lo_plane + t] = w1;
     }
     y0[t] = v0;
     y1[t] = v1;
   }
 }
 
-// (Fr, −Fi) and (Fi, Fr) of a complex bf16 pair (Fr low): rows g and
-// g + 8 of the real form's A fragment at one depth
-__device__ __forceinline__ uint32_t neg_im(uint32_t w) {
-  return w ^ 0x80000000u;
-}
-__device__ __forceinline__ uint32_t swap_halves(uint32_t w) {
-  return __byte_perm(w, 0u, 0x1032);
-}
-
 // Stage 2 and the store: block b's tile of 64 k1 × 64 columns (col =
-// (c·M + m)·2 + k2) of Y = F1 · X′ᵀ.
-template <bool kNatural>
+// (c·M + m)·2 + k2) of Y = F1 · X′ᵀ. At bf16x3 F1's lo table follows its
+// hi table (k1_tiles·kBM rows of ldk words) and X′'s lo plane its hi
+// plane (cols rows); a stage holds A hi, B hi, A lo, B lo.
+template <int kTier, bool kNatural>
 __global__ void __launch_bounds__(kThreads)
 gemm_rows_kernel(const uint32_t* __restrict__ f1,
                  const uint32_t* __restrict__ xp, float* __restrict__ out_re,
@@ -560,6 +965,8 @@ gemm_rows_kernel(const uint32_t* __restrict__ f1,
                  int ldk, int k1_tiles, int col_tiles) {
   extern __shared__ uint4 gemm_smem[];
   uint32_t* sm = reinterpret_cast<uint32_t*>(gemm_smem);
+  constexpr bool kB3 = kTier == kTierBf16x3;
+  constexpr int kWords = kParts<kTier> * kStageWords;   // a stage
   // the raster: groups of kGroup k1 tiles, k1 the fastest within a group
   const int per_group = kGroup * col_tiles;
   const int group = blockIdx.x / per_group;
@@ -579,26 +986,31 @@ gemm_rows_kernel(const uint32_t* __restrict__ f1,
   const int wn = (warp >> 1) * 32;    // its columns
   const uint32_t* a_src = f1 + static_cast<size_t>(tk) * kBM * ldk;
   const uint32_t* b_src = xp + static_cast<size_t>(tc) * kBN * ldk;
+  const size_t a_lo = static_cast<size_t>(k1_tiles) * kBM * ldk;
+  const size_t b_lo = static_cast<size_t>(cols) * ldk;
   const int b_rows = cols - tc * kBN;   // live columns of the tile
   const int chunks = ldk / kChunk;
 
-  // chunk k into stage s: 64 rows × 8 pieces of 16 bytes of each operand,
-  // 4 a thread each; columns past `cols` zero-filled
+  // chunk k into stage s: 64 rows × 8 pieces of 16 bytes of each operand
+  // (and part), 4 a thread each; columns past `cols` zero-filled
   auto load = [&](int k, int s) {
-    uint32_t* sa = sm + s * kStageWords;
+    uint32_t* sa = sm + s * kWords;
     uint32_t* sb = sa + kBM * kStride;
 #pragma unroll
     for (int u = 0; u < kBM * 8 / kThreads; ++u) {
       const int i = tid + u * kThreads;
       const int r = i >> 3;
       const int w = (i & 7) * 4;
-      cp_async16(sa + r * kStride + w,
-                 a_src + static_cast<size_t>(r) * ldk + k * kChunk + w, 16);
+      const size_t at = static_cast<size_t>(r) * ldk + k * kChunk + w;
+      cp_async16(sa + r * kStride + w, a_src + at, 16);
       const bool live = r < b_rows;
-      cp_async16(sb + r * kStride + w,
-                 live ? b_src + static_cast<size_t>(r) * ldk + k * kChunk + w
-                      : xp,
+      cp_async16(sb + r * kStride + w, live ? b_src + at : xp,
                  live ? 16 : 0);
+      if constexpr (kB3) {
+        cp_async16(sa + kStageWords + r * kStride + w, a_src + a_lo + at, 16);
+        cp_async16(sb + kStageWords + r * kStride + w,
+                   live ? b_src + b_lo + at : xp, live ? 16 : 0);
+      }
     }
   };
 
@@ -623,23 +1035,39 @@ gemm_rows_kernel(const uint32_t* __restrict__ f1,
     if (k + kStages - 1 < chunks)
       load(k + kStages - 1, (k + kStages - 1) % kStages);
     cp_async_commit();
-    const uint32_t* sa = sm + (k % kStages) * kStageWords;
+    const uint32_t* sa = sm + (k % kStages) * kWords;
     const uint32_t* sb = sa + kBM * kStride;
 #pragma unroll
     for (int ks = 0; ks < kChunk / 8; ++ks) {
-      uint2 bw[4];
+      uint2 bw[4], bl[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        bw[j] = *reinterpret_cast<const uint2*>(
-            sb + (wn + j * 8 + g) * kStride + ks * 8 + 2 * q);
+      for (int j = 0; j < 4; ++j) {
+        const int at = (wn + j * 8 + g) * kStride + ks * 8 + 2 * q;
+        bw[j] = *reinterpret_cast<const uint2*>(sb + at);
+        if constexpr (kB3)
+          bl[j] = *reinterpret_cast<const uint2*>(sb + kStageWords + at);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const uint2 aw = *reinterpret_cast<const uint2*>(
-            sa + (wm + i * 8 + g) * kStride + ks * 8 + 2 * q);
+        const int at = (wm + i * 8 + g) * kStride + ks * 8 + 2 * q;
+        const uint2 aw = *reinterpret_cast<const uint2*>(sa + at);
         const uint4 a = make_uint4(neg_im(aw.x), swap_halves(aw.x),
                                    neg_im(aw.y), swap_halves(aw.y));
+        if constexpr (kB3) {
+          const uint2 lw = *reinterpret_cast<const uint2*>(sa + kStageWords +
+                                                           at);
+          const uint4 al = make_uint4(neg_im(lw.x), swap_halves(lw.x),
+                                      neg_im(lw.y), swap_halves(lw.y));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma(d[0][i][j], a, bw[j].x, bw[j].y);
+          for (int j = 0; j < 4; ++j) {
+            mma(d[0][i][j], a, bw[j].x, bw[j].y);
+            mma(d[0][i][j], a, bl[j].x, bl[j].y);
+            mma(d[0][i][j], al, bw[j].x, bw[j].y);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma(d[0][i][j], a, bw[j].x, bw[j].y);
+        }
       }
     }
     if ((k + 1) % kPromoteChunks == 0 || k + 1 == chunks) {
@@ -696,10 +1124,12 @@ gemm_rows_kernel(const uint32_t* __restrict__ f1,
   }
 }
 
-// Both launches at n1 = n / 2 > 128: `tables` planes.bf16_rows_tables (F1
-// [table_rows(n1), ldk] pairs, then T[1, ·] as n1 f32 pairs), `scratch`
-// X′ of channels·m·2·ldk words.
-template <bool kNatural>
+// Both launches at n1 = n / 2 > 128. bf16: `tables` planes.
+// bf16_rows_tables (F1 [table_rows(n1), ldk] pairs, then T[1, ·] as n1 f32
+// pairs), `scratch` X′ of channels·m·2·ldk words. bf16x3: `tables`
+// planes.bf16x3_rows_tables (F1's hi pairs, its lo pairs, T[1, ·], then F2
+// as 2 × 2 complex f32), `scratch` X′'s hi and lo planes, twice the words.
+template <int kTier, bool kNatural>
 int launch(const void* re, const void* im, void* out_re, void* out_im,
            const void* tables, void* scratch, int channels, int m, int n,
            cudaStream_t stream) {
@@ -714,48 +1144,60 @@ int launch(const void* re, const void* im, void* out_re, void* out_im,
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* f1 = static_cast<const uint32_t*>(tables);
   const auto* t1 = reinterpret_cast<const float2*>(
-      f1 + static_cast<size_t>(table_rows(n1)) * ldk);
+      f1 + static_cast<size_t>(kParts<kTier>) * table_rows(n1) * ldk);
   auto* xp = static_cast<uint32_t*>(scratch);
-  gemm_prep_kernel<<<static_cast<unsigned>(rows), kPrepThreads, 0, stream>>>(
-      static_cast<const float*>(re), static_cast<const float*>(im), xp, t1,
-      n1, ldk);
+  gemm_prep_kernel<kTier>
+      <<<static_cast<unsigned>(rows), kPrepThreads, 0, stream>>>(
+          static_cast<const float*>(re), static_cast<const float*>(im), xp,
+          t1, t1 + n1, n1, ldk, static_cast<size_t>(cols) * ldk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto kernel = gemm_rows_kernel<kNatural>;
-  err = allow_smem(kernel, kSmemBytes);
+  const auto kernel = gemm_rows_kernel<kTier, kNatural>;
+  err = allow_smem(kernel, kTierSmemBytes<kTier>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(k1_tiles * col_tiles), kThreads, kSmemBytes,
-           stream>>>(f1, xp, static_cast<float*>(out_re),
-                     static_cast<float*>(out_im), m,
-                     static_cast<int>(cols), n1, ldk, k1_tiles,
-                     static_cast<int>(col_tiles));
+  kernel<<<static_cast<unsigned>(k1_tiles * col_tiles), kThreads,
+           kTierSmemBytes<kTier>, stream>>>(
+      f1, xp, static_cast<float*>(out_re), static_cast<float*>(out_im), m,
+      static_cast<int>(cols), n1, ldk, k1_tiles,
+      static_cast<int>(col_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace bf16_gemm
 
-// Launches the bf16 row DFT at an even length n in [16, 8192] that is not a
-// power of two, natural or transposed store: regime 1 (lanes_n1(n) ≤ 128)
-// on R = rows rows a block, a power of two whose block
-// (bf16_mixed::shared_bytes) fits the card; regime 2 in two launches, rows
-// 1 and `scratch` the X′ buffer (planes.bf16_rows_scratch_words). Anything
+// Launches the row DFT at tier `tier` in the direct form at an even length
+// n in [16, 8192], natural or transposed store: bf16 (tier 1) where n is
+// not a power of two, bf16x3 (tier 2) at every such n. Regime 1
+// (lanes_n1(n) ≤ 128) on R = rows rows a block, a power of two whose block
+// (bf16_mixed::shared_bytes, b3_shared_bytes) fits the card; regime 2 in
+// two launches, rows 1 and `scratch` the X′ buffer
+// (planes.bf16_rows_scratch_words, bf16x3_rows_scratch_words). Anything
 // else is refused with cudaErrorInvalidValue.
 template <bool kNatural>
 int launch_bf16_rows_mixed(const void* re, const void* im, void* out_re,
                            void* out_im, const void* tables, void* scratch,
-                           int channels, int m, int n, int rows,
+                           int channels, int m, int n, int rows, int tier,
                            void* stream) {
-  if (n < 16 || n > 8192 || (n & 1) || !(n & (n - 1)) || m < 1 ||
-      channels < 1 || rows < 1 || (rows & (rows - 1)))
+  if (n < 16 || n > 8192 || (n & 1) || m < 1 || channels < 1 || rows < 1 ||
+      (rows & (rows - 1)) || (tier != kTierBf16 && tier != kTierBf16x3) ||
+      (tier == kTierBf16 && !(n & (n - 1))))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   if (lanes_n1(n) > 128) {
     if (rows != 1) return static_cast<int>(cudaErrorInvalidValue);
-    return bf16_gemm::launch<kNatural>(re, im, out_re, out_im, tables,
-                                       scratch, channels, m, n, s);
+    return tier == kTierBf16
+               ? bf16_gemm::launch<kTierBf16, kNatural>(
+                     re, im, out_re, out_im, tables, scratch, channels, m, n,
+                     s)
+               : bf16_gemm::launch<kTierBf16x3, kNatural>(
+                     re, im, out_re, out_im, tables, scratch, channels, m, n,
+                     s);
   }
-  return bf16_mixed::launch<kNatural>(re, im, out_re, out_im, tables,
-                                      channels, m, n, rows, s);
+  return tier == kTierBf16
+             ? bf16_mixed::launch<kTierBf16, kNatural>(
+                   re, im, out_re, out_im, tables, channels, m, n, rows, s)
+             : bf16_mixed::launch<kTierBf16x3, kNatural>(
+                   re, im, out_re, out_im, tables, channels, m, n, rows, s);
 }
 
 }  // namespace tpu_fft

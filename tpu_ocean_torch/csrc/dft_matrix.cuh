@@ -8,11 +8,13 @@
 // and at the hand-rolled bf16x3 tier B3 (_split_bf16, _dot_mid), and
 // _fft_block_kernel_split3 / _stage2_split3 (stage 2 as 128 = 8 · 16); in
 // tpu_ocean/ops/fused_spectrum_fft.py the same stages of _fused_kernel,
-// _fused_kernel_split3 and _fused_rowfft_kernel_natural. Two row passes
-// have kernels of their own: bf16 in the direct form, both stores
-// (dft_bf16_rows.cuh), and the three-factor form at f32
-// (dft_split3_f32.cuh) and at bf16x3 (dft_split3_bf16x3.cuh), at powers
-// of two; the engine runs the rest, every tier and form but f32 direct at
+// _fused_kernel_split3 and _fused_rowfft_kernel_natural. The row passes
+// have kernels of their own but two: bf16 in the direct form, both stores
+// (dft_bf16_rows.cuh at powers of two, dft_bf16_rows_mixed.cuh elsewhere),
+// bf16x3 in the direct form at every length (dft_bf16_rows_mixed.cuh), and
+// the three-factor form at f32 (dft_split3_f32.cuh) and at bf16x3
+// (dft_split3_bf16x3.cuh) at powers of two; the engine runs the bf16
+// three-factor row pass at powers of two, the three-factor row passes at
 // the other even lengths, and every fused tier but bf16 natural.
 //
 // matrix_dft_stages<Tier, kSplit3> is a drop-in for stockham_stages: the R

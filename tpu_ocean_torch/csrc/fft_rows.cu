@@ -37,19 +37,20 @@
 //   bf16x3, three-factor: dft_split3_bf16x3.cuh (stage 1 as the f32
 //     kernel's, stage 2 on mma.sync with the split tables in registers;
 //     `tables` planes.split3_bf16x3_tables);
-//   bf16 three-factor and bf16x3 direct: fft_rows_kernel below, the
-//     matrix-form engine of dft_matrix.cuh between a coalesced load of R
-//     rows into shared memory and stockham.cuh's stores (`tables`
-//     planes.matrix_tables).
-// Those take powers of two. At every other even N, f32 in the direct form
-// runs the register-resident mixed-radix passes of
-// rows_mixed_passes_f32.cuh through rows_mixed.cu's tpu_fft_rows_mixed
-// (`tables` planes.passes_twiddles), bf16 in the direct form
+//   bf16 three-factor: fft_rows_kernel below, the matrix-form engine of
+//     dft_matrix.cuh between a coalesced load of R rows into shared
+//     memory and stockham.cuh's stores (`tables` planes.matrix_tables).
+// Those take powers of two. bf16x3 in the direct form, either store, runs
 // dft_bf16_rows_mixed.cuh through bf16_rows_mixed.cu's tpu_bf16_rows_mixed
-// (`tables` planes.bf16_rows_tables); every other tier and form runs
-// rows_mixed_f32.cuh's loads and stores around the matrix-form engine of
-// dft_matrix.cuh, tpu_matrix_rows_any below (`tables`
-// planes.matrix_tables).
+// at every even N (`tables` planes.bf16x3_rows_tables); these entries
+// refuse it. At every other even N, f32 in the direct form runs the
+// register-resident mixed-radix passes of rows_mixed_passes_f32.cuh
+// through rows_mixed.cu's tpu_fft_rows_mixed (`tables`
+// planes.passes_twiddles), bf16 in the direct form dft_bf16_rows_mixed.cuh
+// through tpu_bf16_rows_mixed (`tables` planes.bf16_rows_tables); the
+// three-factor form at every tier runs rows_mixed_f32.cuh's loads and
+// stores around the matrix-form engine of dft_matrix.cuh,
+// tpu_matrix_rows_any below (`tables` planes.matrix_tables).
 // Twiddles and tables are built on the host in float64 and rounded to f32;
 // nothing is computed with fast sin/cos.
 
@@ -118,6 +119,10 @@ int launch(const void* re, const void* im, void* out_re, void* out_im,
                                         MatrixEngine<kTierBf16, false>>) {
       return launch_bf16_rows<kNatural>(re, im, out_re, out_im, tables,
                                         channels, m, n, rows, stream);
+    } else if constexpr (std::is_same_v<Engine,
+                                        MatrixEngine<kTierBf16x3, false>>) {
+      // bf16x3 direct runs bf16_rows_mixed.cu's tpu_bf16_rows_mixed
+      return static_cast<int>(cudaErrorInvalidValue);
     } else if constexpr (kNatural && Engine::kThreeFactor) {
       // no natural three-factor store: with_engine refuses it first
       return static_cast<int>(cudaErrorInvalidValue);
@@ -153,7 +158,8 @@ extern "C" {
 // two in [16, 8192] for these two entries (an even n in that range that is
 // not a power of two goes to rows_mixed.cu's tpu_fft_rows_mixed at f32
 // direct, to bf16_rows_mixed.cu's tpu_bf16_rows_mixed at bf16 direct and
-// to tpu_matrix_rows_any at every other tier and form), rows a
+// to tpu_matrix_rows_any in the three-factor form; bf16x3 direct goes to
+// tpu_bf16_rows_mixed at every n and is refused here), rows a
 // power of two that keeps the shared memory within the card's limit,
 // contiguous f32 planes, `tables` the Stockham twiddles (tier 0, split3 0,
 // transposed),
@@ -180,14 +186,13 @@ int tpu_fft_rows_natural(const void* re, const void* im, void* out_re,
                       tier, split3, 1, stream);
 }
 
-// Every other tier and form at an even n in [16, 8192] that is not a power
-// of two, transposed (natural = 0) or natural (1) store: tier 2 (bf16x3)
-// in the direct form, or the three-factor form (split3 1) at
-// any tier with the transposed store where 128 divides n; rows a power of
-// two whose two buffers (planes.matrix_mixed_shared_bytes) fit the card's
-// shared memory, `tables` planes.matrix_tables(n, inverse, split3). f32
-// direct (rows_mixed.cu's tpu_fft_rows_mixed), bf16 direct
-// (bf16_rows_mixed.cu's tpu_bf16_rows_mixed), a power of two, an odd n or
+// The three-factor form (split3 1) at any tier at an even n in [16, 8192]
+// that is not a power of two, with the transposed store (natural = 0)
+// where 128 divides n; rows a power of two whose two buffers
+// (planes.matrix_mixed_shared_bytes) fit the card's shared memory,
+// `tables` planes.matrix_tables(n, inverse, split3). The direct form at
+// every tier (f32: rows_mixed.cu's tpu_fft_rows_mixed; bf16 and bf16x3:
+// bf16_rows_mixed.cu's tpu_bf16_rows_mixed), a power of two, an odd n or
 // one outside that range, a three-factor form with n1 ≠ 128 or the
 // natural store, and any other rows are refused, never run on another
 // kernel.

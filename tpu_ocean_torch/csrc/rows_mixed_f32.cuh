@@ -57,18 +57,17 @@
 // kernel of fused_rows_mixed_f32.cuh, whose load assembles the rows
 // instead of reading them.
 //
-// The other tiers and forms (bf16x3, the three-factor form) run the
+// The three-factor form (at f32, bf16 and bf16x3, where 128 | N) runs the
 // same kernel, instantiated on dft_matrix.cuh's MatrixEngine in place of
 // the mixed-radix stages (run_engine): the four-step N = n2 · n1 with n1 =
-// 128 where 128 | N (n2 = N / 128: 3 at 384, 12 at 1536, 48 at 6144) and
-// n1 = N / 2, n2 = 2 elsewhere, the arithmetic of the power-of-two matrix
-// passes operand for operand. Its shared memory is the two buffers alone
-// (matrix_smem_bytes: 131 KB at N = 8190, one row), its tables
-// (planes.matrix_tables) are read from device memory, and its threads are
-// MatrixEngine::threads, whole warps. What bounds it there: where n1 =
-// N / 2, stage 2's 8·n1 tensor-core flops a point and the reads of F1
-// (n1² complex) once a block, (M / R)·n1²·8 B a pass, through L2 (134 MB
-// a block at N = 8186, more than L2 holds).
+// 128 (n2 = N / 128: 3 at 384, 12 at 1536, 48 at 6144), stage 2 as
+// 128 = 8 · 16, the arithmetic of the power-of-two matrix passes operand
+// for operand. Its shared memory is the two buffers alone
+// (matrix_smem_bytes), its tables (planes.matrix_tables) are read from
+// device memory, and its threads are MatrixEngine::threads, whole warps.
+// Every tier in the direct form runs a kernel of its own
+// (rows_mixed_passes_f32.cuh at f32, dft_bf16_rows_mixed.cuh at bf16 and
+// bf16x3).
 //
 // Rows per block R (planes.rows_per_block with planes.mixed_shared_bytes):
 // a power of two, at most 8 for the transposed store (8-float runs), at
@@ -432,11 +431,11 @@ inline bool matrix_length(int n, bool split3) {
 // Launches the kernel on the matrix engine of (tier, split3): n an
 // even length in [16, 8192] that is not a power of two (matrix_length),
 // rows a power of two whose two buffers (matrix_smem_bytes) fit the card's
-// shared memory, `tables` planes.matrix_tables(n, inverse, split3). f32 and
-// bf16 in the direct form (rows_mixed_passes_f32.cuh's and
-// dft_bf16_rows_mixed.cuh's), the three-factor form
-// with the natural store or with n1 ≠ 128, and anything else are refused
-// with cudaErrorInvalidValue, never run on another kernel.
+// shared memory, `tables` planes.matrix_tables(n, inverse, split3), the
+// three-factor form. The direct form at every tier (rows_mixed_passes_f32.
+// cuh's, dft_bf16_rows_mixed.cuh's), the three-factor form with the
+// natural store or with n1 ≠ 128, and anything else are refused with
+// cudaErrorInvalidValue, never run on another kernel.
 template <bool kNatural>
 int launch_rows_matrix(const void* re, const void* im, void* out_re,
                        void* out_im, const void* tables, int channels, int m,
@@ -447,8 +446,8 @@ int launch_rows_matrix(const void* re, const void* im, void* out_re,
   return with_engine(tier, split3, kNatural, [&](auto engine) {
     using Engine = decltype(engine);
     if constexpr (std::is_same_v<Engine, StockhamEngine> ||
-                  std::is_same_v<Engine, MatrixEngine<kTierBf16, false>>) {
-      // f32 and bf16 in the direct form run kernels of their own
+                  !Engine::kThreeFactor) {
+      // every tier in the direct form runs a kernel of its own
       // (rows_mixed_passes_f32.cuh, dft_bf16_rows_mixed.cuh)
       return static_cast<int>(cudaErrorInvalidValue);
     } else if constexpr (kNatural && Engine::kThreeFactor) {

@@ -23,8 +23,8 @@ even N at f32 in the direct form on the register-resident mixed-radix
 passes of ``csrc/rows_mixed_passes_f32.cuh`` (plan ``passes_plan``, table
 ``passes_table``) and, fused, on ``csrc/fused_rows_mixed_f32.cuh``'s
 mixed-radix stages (plan ``mixed_plan``, table ``mixed_table``), at bf16
-in the direct form on ``csrc/dft_bf16_rows_mixed.cuh`` (not fused), at
-every other tier and form on the matrix-form engine behind
+and bf16x3 in the direct form on ``csrc/dft_bf16_rows_mixed.cuh`` (not
+fused), at every other tier and form on the matrix-form engine behind
 ``csrc/rows_mixed_f32.cuh``'s and that fused kernel's loads and stores
 (``matrix_tables``); a wrapper refuses odd N and N outside that range with
 ValueError. Only the
@@ -48,19 +48,22 @@ either store (``csrc/dft_bf16_rows.cuh``, tables from
 ``bf16_rows_tables``), and so does the three-factor form at f32
 (``csrc/dft_split3_f32.cuh``, tables from ``matrix_tables``) and at
 bf16x3 (``csrc/dft_split3_bf16x3.cuh``, tables from
-``split3_bf16x3_tables``); the other tiers and forms (bf16 three-factor,
-bf16x3 direct) run the matrix-form engine (``csrc/dft_matrix.cuh``). Those
-are the kernels at powers of two; at every other even N, f32 in the
-direct form runs the mixed-radix passes (``passes_rows``,
-``passes_cluster``, ``passes_twiddles``), bf16 in the direct form the bf16
-row kernel's generalization (``csrc/dft_bf16_rows_mixed.cuh``: where n1 ≤
-128 one launch, where n1 = N/2 > 128 a stage-1 launch and a tiled
-tensor-core product, ``bf16_rows_launches``; the same
-``bf16_rows_tables``, ``bf16_rows_shared_bytes`` and ``max_rows`` at every
-even N) and every other tier and form the matrix-form engine
-(``mixed_rows``, ``matrix_tables``). The
-bf16x3 tier keeps stage 1 at f32, as the TPU kernels do. All but
-Stockham take their plain version from ``fft/matrix.py``.
+``split3_bf16x3_tables``); bf16 three-factor runs the matrix-form engine
+(``csrc/dft_matrix.cuh``). Those are the kernels at powers of two; at
+every other even N, f32 in the direct form runs the mixed-radix passes
+(``passes_rows``, ``passes_cluster``, ``passes_twiddles``), bf16 in the
+direct form the bf16 row kernel's generalization
+(``csrc/dft_bf16_rows_mixed.cuh``: where n1 ≤ 128 one launch, where
+n1 = N/2 > 128 a stage-1 launch and a tiled tensor-core product,
+``bf16_rows_launches``; the same ``bf16_rows_tables``,
+``bf16_rows_shared_bytes`` and ``max_rows`` at every even N) and the
+three-factor form the matrix-form engine (``mixed_rows``,
+``matrix_tables``). bf16x3 in the direct form runs the same file's bf16x3
+kernels at every even N, powers of two included, either store
+(``bf16x3_rows_launches``, ``bf16x3_rows_tables``,
+``bf16x3_rows_shared_bytes``). The bf16x3 tier keeps stage 1 at f32, as
+the TPU kernels do. All but Stockham take their plain version from
+``fft/matrix.py``.
 Each launch counts once: a Stockham kernel's on its wrapper's
 ``launches``; any other row launch, and a fused launch outside the packed
 set with 3 live fields, in ``named_launches`` under ``kernel_name`` (a
@@ -68,7 +71,8 @@ launch at a length that is not a power of two under ``mixed_kernel_name``:
 the f32 mixed-radix row kernel's under ``MIXED_NAMES``, the fused one's under
 ``MIXED_FUSED_NAME``, the bf16 row kernel's under ``bf16_rows_launches``,
 the matrix engine's there as e.g.
-``matrix_rows_mixed_transposed[bf16x3]``).
+``matrix_rows_mixed_transposed[f32,split3]``; a bf16x3 direct launch at
+any length under ``bf16x3_rows_launches``).
 
 Both row DFTs are differentiable by the JAX package's linear-adjoint rule
 (``pallas_fft._fft1d_transposed_diff``, ``_fft1d_natural_large_diff``):
@@ -107,6 +111,15 @@ BF16_MIXED_NAMES = {"rows_transposed": "bf16_rows_mixed_transposed",
 BF16_GEMM_PREP = "bf16_gemm_prep"
 BF16_GEMM_NAMES = {"rows_transposed": "bf16_gemm_rows_transposed",
                    "rows_natural": "bf16_gemm_rows_natural"}
+#: the same for the bf16x3 row kernel in the direct form at every even N
+#: (csrc/dft_bf16_rows_mixed.cuh at tier bf16x3): where n1 ≤ 128 one launch
+#: (BF16X3_NAMES); where n1 = N/2 > 128 stage 1 (BF16X3_GEMM_PREP) and the
+#: tiled stage 2 with the store (BF16X3_GEMM_NAMES)
+BF16X3_NAMES = {"rows_transposed": "bf16x3_rows_transposed",
+                "rows_natural": "bf16x3_rows_natural"}
+BF16X3_GEMM_PREP = "bf16x3_gemm_prep"
+BF16X3_GEMM_NAMES = {"rows_transposed": "bf16x3_gemm_rows_transposed",
+                     "rows_natural": "bf16x3_gemm_rows_natural"}
 #: named_launches' name of the f32 fused mixed-radix kernel
 #: (csrc/fused_rows_mixed_f32.cuh) by store ("transposed" or "natural")
 #: and channel set ("packed3", "packed5" or "per_channel"), e.g.
@@ -323,6 +336,13 @@ def _bf16_rows(tier: str, split3: bool) -> bool:
     return tier == "bf16" and not split3
 
 
+def _bf16x3_rows(tier: str, split3: bool) -> bool:
+    """The passes, either store, that run the bf16x3 row kernel in the
+    direct form (csrc/dft_bf16_rows_mixed.cuh at tier bf16x3) at every
+    even N."""
+    return tier == "bf16x3" and not split3
+
+
 def bf16_wide(n: int) -> bool:
     """Regime 2 of the bf16 row kernel: n1 = N/2 > 128 (every even N above
     256 that 128 does not divide), where csrc/dft_bf16_rows_mixed.cuh runs
@@ -341,6 +361,24 @@ def bf16_rows_launches(n: int, natural: bool):
     if bf16_wide(n):
         return [BF16_GEMM_PREP, BF16_GEMM_NAMES[kind]]
     return [BF16_MIXED_NAMES[kind]]
+
+
+def bf16x3_rows_launches(n: int, natural: bool):
+    """The named_launches names of one bf16x3 row pass in the direct form
+    at length n, in launch order: BF16X3_NAMES' where n1 ≤ 128,
+    BF16X3_GEMM_PREP then BF16X3_GEMM_NAMES' where n1 = N/2 > 128."""
+    kind = "rows_natural" if natural else "rows_transposed"
+    if bf16_wide(n):
+        return [BF16X3_GEMM_PREP, BF16X3_GEMM_NAMES[kind]]
+    return [BF16X3_NAMES[kind]]
+
+
+def direct_rows_launches(n: int, natural: bool, tier: str):
+    """The named_launches names of one row pass at (n, tier) in the direct
+    form on the bf16 or bf16x3 row kernel (bf16_rows_launches,
+    bf16x3_rows_launches)."""
+    return (bf16x3_rows_launches(n, natural) if tier == "bf16x3"
+            else bf16_rows_launches(n, natural))
 
 
 def _split3_rows(tier: str, split3: bool) -> bool:
@@ -506,6 +544,77 @@ def bf16_rows_tables(n: int, inverse: bool,
     return torch.from_numpy(bf16_rows_tables_np(n, inverse)).to(device)
 
 
+#: the tiled stage 2 of the bf16x3 row kernel: each operand's hi and lo
+#: rows a stage, twice the bf16 block (bf16_gemm::kSmemBytesBf16x3)
+BF16X3_GEMM_SHARED = 2 * BF16_GEMM_SHARED
+
+
+def bf16x3_f2_rows(n2: int) -> int:
+    """Rows of F2 in the bf16x3 table where n1 ≤ 128: whole shares of 16,
+    zero past n2 (bf16_mixed::b3_f2_rows)."""
+    return -(-n2 // 16) * 16
+
+
+def bf16x3_rows_scratch_words(c: int, m: int, n: int) -> int:
+    """32-bit words of the device buffer a bf16x3 row pass of [c, m, n]
+    needs: X′'s hi and lo planes, twice bf16_rows_scratch_words, where
+    n1 = N/2 > 128; none elsewhere."""
+    return 2 * bf16_rows_scratch_words(c, m, n)
+
+
+def _bf16_pairs(re_: np.ndarray, im_: np.ndarray, rows: int,
+                cols: int) -> np.ndarray:
+    """Complex bf16 pairs (the bits of bf16(re) low, of bf16(im) high),
+    uint32 [rows, cols], zero past the table."""
+    out = np.zeros((rows, cols), np.uint32)
+    out[:re_.shape[0], :re_.shape[1]] = (
+        _bf16_bits(re_).astype(np.uint32)
+        | _bf16_bits(im_).astype(np.uint32) << 16)
+    return out
+
+
+@_cached_by_n1
+def bf16x3_rows_tables_np(n: int, inverse: bool) -> np.ndarray:
+    """The bf16x3 row kernel's tables (the direct form) as one int32
+    array, from the f32 tables of _tables_np, in the order the kernel
+    reads them. Where n1 ≤ 128: F2 as f32 (re, im) pairs [bf16x3_f2_rows
+    (n2), n2] (zero rows past n2), T as f32 pairs [n2, n1], then F1's hi
+    A fragments and its lo part as the complex bf16 pairs of its lo
+    fragments (mma_a_fragments_split) in the same order, a lane's two
+    depths (registers 1 and 3, (Fi, Fr), their halves swapped to (Fr, Fi))
+    a uint32 pair: [mt, kt, 32, 2]. Where n1 = N/2 > 128: F1's
+    hi and lo parts (matrix.split_bf16) each as complex bf16 pairs
+    [bf16_gemm_rows(n1), bf16_gemm_depth(n1)], zero-padded, then T[1, ·] as
+    n1 f32 pairs, then F2 [2, 2] as f32 pairs."""
+    _, _, f2r, f2i, tr, ti, f1r, f1i = _tables_np(n, inverse)
+    f2 = np.stack([f2r, f2i], axis=-1)
+    if bf16_wide(n):
+        n1 = f1r.shape[0]
+        rows, ldk = bf16_gemm_rows(n1), bf16_gemm_depth(n1)
+        hr, hi_ = _bf16_value(f1r), _bf16_value(f1i)
+        t1 = np.stack([tr[1], ti[1]], axis=-1)
+        return np.concatenate([
+            _bf16_pairs(hr, hi_, rows, ldk).ravel(),
+            _bf16_pairs(f1r - hr, f1i - hi_, rows, ldk).ravel(),
+            t1.view(np.uint32).ravel(), f2.view(np.uint32).ravel()
+        ]).view(np.int32)
+    n2 = f2r.shape[0]
+    f2 = np.pad(f2, ((0, bf16x3_f2_rows(n2) - n2), (0, 0), (0, 0)))
+    t = np.stack([tr, ti], axis=-1)
+    hi, lo = mma_a_fragments_split(f1r, f1i)
+    pairs = lo[..., 1::2]
+    pairs = (pairs >> 16) | (pairs << 16)
+    return np.concatenate([f2.view(np.uint32).ravel(),
+                           t.view(np.uint32).ravel(), hi.ravel(),
+                           pairs.ravel()]).view(np.int32)
+
+
+@_cached_by_n1
+def bf16x3_rows_tables(n: int, inverse: bool,
+                       device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(bf16x3_rows_tables_np(n, inverse)).to(device)
+
+
 def rows_plain(re, im, inverse: bool, tier: str, split3: bool):
     """Row DFT along the last axis of (re, im) [C, M, N], natural order, as
     the kernel at (tier, split3) computes it: torch.fft for the Stockham
@@ -593,6 +702,24 @@ def bf16_rows_shared_bytes(rows: int, n: int) -> int:
     rows_in = rows * n2 * (n1p + 4) * 4
     rows_out = -(-rows * (n + 1) * 8 // 16) * 16
     return max(rows_in, rows_out) + rows * n2 * ys * 4
+
+
+def bf16x3_rows_shared_bytes(rows: int, n: int) -> int:
+    """Dynamic shared memory of one block of the bf16x3 row kernel in the
+    direct form, either store. Where n1 ≤ 128 (bf16_mixed::
+    b3_shared_bytes): the rows as complex f32, aliased by the f32 result
+    (n + 1 complex a row, whole 16 bytes), C ⊙ T's hi and lo planes at
+    n1p + 8 + (n1p & 8) words a (row, k2) (n1p: n1 in whole tiles of 8),
+    F1's lo part as n1p² complex bf16 pairs (F2 there during stage 1).
+    Where n1 = N/2 > 128 the tiled stage 2's block, whatever ``rows``
+    (BF16X3_GEMM_SHARED)."""
+    if bf16_wide(n):
+        return BF16X3_GEMM_SHARED
+    n1, n2 = _split_lanes(n)
+    n1p = -(-n1 // 8) * 8
+    ys = n1p + 8 + (n1p & 8)
+    return (-(-rows * (n + 1) * 8 // 16) * 16 + 2 * rows * n2 * ys * 4
+            + n1p * n1p * 4)
 
 
 def split3_rows_geometry(n: int) -> dict:
@@ -853,9 +980,9 @@ def mixed_max_rows(n: int, natural: bool) -> int:
 def mixed_rows(c: int, m: int, n: int, sms: int, natural: bool, tier: str,
                split3: bool) -> int:
     """Rows per block of a fused pass of ``c`` channels of [m, n] at an n
-    that is not a power of two, and of a row pass there on the matrix
-    engine (rows_per_block, a grid of ``c`` times ⌈m / rows⌉; the f32 row
-    pass takes passes_rows): mixed_max_rows with the mixed-radix stages'
+    that is not a power of two, and of a three-factor row pass there on
+    the matrix engine (rows_per_block, a grid of ``c`` times ⌈m / rows⌉;
+    the direct row passes take passes_rows and max_rows): mixed_max_rows with the mixed-radix stages'
     shared memory (mixed_shared_bytes) at f32 in the direct form, else the
     matrix engine's two buffers (matrix_mixed_shared_bytes)."""
     shared = (mixed_shared_bytes if _stockham(tier, split3)
@@ -880,9 +1007,9 @@ def mixed_kernel_name(kind: str, tier: str, split3: bool,
     or "fused_natural", a fused launch names its channel set. At f32 in
     the direct form the mixed-radix kernels' names (MIXED_NAMES,
     MIXED_FUSED_NAME); at the other tiers and forms kernel_name's, "mixed"
-    after the kind's first word: "matrix_rows_mixed_transposed[bf16x3]",
-    "matrix_fused_mixed_natural[bf16,packed3]". A bf16 row pass in the
-    direct form counts under bf16_rows_launches' names instead."""
+    after the kind's first word: "matrix_rows_mixed_transposed[f32,split3]",
+    "matrix_fused_mixed_natural[bf16,packed3]". A bf16 or bf16x3 row pass
+    in the direct form counts under direct_rows_launches' names instead."""
     first, store = kind.split("_")
     if not _stockham(tier, split3):
         return kernel_name(f"{first}_mixed_{store}", tier, split3,
@@ -1306,14 +1433,16 @@ def fused_tables(n: int, inverse: bool, tier: str, split3: bool,
 
 def block_shared_bytes(tier: str, split3: bool, natural: bool):
     """The shared-memory function (rows, n) → bytes of the row kernel at
-    (tier, split3, store): the bf16 and the f32 and bf16x3 three-factor
-    kernels' own,
+    (tier, split3, store): the bf16 and bf16x3 direct and the f32 and
+    bf16x3 three-factor kernels' own,
     the f32 transposed kernel's at its largest cluster
     (cluster_rows_block_bytes), the f32 natural kernel's
     (radix16_shared_bytes), else the matrix engine's two buffers
     (shared_bytes)."""
     if _bf16_rows(tier, split3):
         return bf16_rows_shared_bytes
+    if _bf16x3_rows(tier, split3):
+        return bf16x3_rows_shared_bytes
     if _split3_rows(tier, split3) and not natural:
         return split3_rows_shared_bytes
     if _split3_bf16x3_rows(tier, split3) and not natural:
@@ -1327,18 +1456,19 @@ def max_rows(n: int, natural: bool, tier: str = "f32",
              split3: bool = False) -> int:
     """The most rows per block of the transposed store
     (TRANSPOSED_MAX_ROWS) or of the natural store at (tier, split3):
-    BF16_NATURAL_BLOCK_POINTS // n on the bf16 row kernel (and the bf16
-    fused natural kernel, which runs its stages), else
-    NATURAL_BLOCK_POINTS // n, rounded down to a power of two. The bf16
-    row kernel where n1 = N/2 > 128 takes 1 at either store: its tiled
-    stage 2 covers the whole batch. The fused kernels but the f32 direct
-    ones take it (fused_rows); the f32 direct row passes take their own
-    (row_pass_max_rows)."""
-    if _bf16_rows(tier, split3) and bf16_wide(n):
+    BF16_NATURAL_BLOCK_POINTS // n on the bf16 and bf16x3 direct row
+    kernels (and the bf16 fused natural kernel, which runs the bf16 one's
+    stages), else NATURAL_BLOCK_POINTS // n, rounded down to a power of
+    two. Those row kernels where n1 = N/2 > 128 take 1 at either store:
+    their tiled stage 2 covers the whole batch. The fused kernels but the
+    f32 direct ones take it (fused_rows); the f32 direct row passes take
+    their own (row_pass_max_rows)."""
+    direct = _bf16_rows(tier, split3) or _bf16x3_rows(tier, split3)
+    if direct and bf16_wide(n):
         return 1
     if not natural:
         return TRANSPOSED_MAX_ROWS
-    points = (BF16_NATURAL_BLOCK_POINTS if _bf16_rows(tier, split3)
+    points = (BF16_NATURAL_BLOCK_POINTS if direct
               else NATURAL_BLOCK_POINTS)
     # rounded down to a power of two (points // n is one where n is)
     return 1 << (max(1, points // n).bit_length() - 1)
@@ -1458,27 +1588,31 @@ def _launch_rows(entry: str, re, im, inverse: bool, out_shape, tier: str,
     out_re = torch.empty(out_shape, dtype=torch.float32, device=re.device)
     out_im = torch.empty_like(out_re)
     mixed = not is_power_of_two(n)
-    bf16 = _bf16_rows(tier, split3)
-    if bf16:
-        # the bf16 row kernel at every even N: its own tables, rows and
-        # shared memory; at a length that is not a power of two through an
-        # entry of its own, with X′'s buffer where n1 = N/2 > 128
-        tables = bf16_rows_tables(n, bool(inverse), re.device)
+    # the bf16 and bf16x3 row kernels in the direct form: their own tables,
+    # rows and shared memory; bf16x3 at every even N and bf16 at a length
+    # that is not a power of two through an entry of their own, with X′'s
+    # buffer where n1 = N/2 > 128
+    bf16x3 = _bf16x3_rows(tier, split3)
+    direct = bf16x3 or _bf16_rows(tier, split3)
+    if direct:
+        tables = (bf16x3_rows_tables if bf16x3 else bf16_rows_tables)(
+            n, bool(inverse), re.device)
         rows = rows_per_block(c, m, n, sm_count(re.device),
                               max_rows(n, natural, tier, split3),
-                              bf16_rows_shared_bytes)
-        if mixed:
+                              block_shared_bytes(tier, split3, natural))
+        if bf16x3 or mixed:
             entry = "tpu_bf16_rows_mixed"
-            scratch = torch.empty(bf16_rows_scratch_words(c, m, n),
-                                  dtype=torch.int32, device=re.device)
+            words = (bf16x3_rows_scratch_words if bf16x3
+                     else bf16_rows_scratch_words)(c, m, n)
+            scratch = torch.empty(words, dtype=torch.int32, device=re.device)
             pointers = (tables.data_ptr(), scratch.data_ptr())
-            tail = (int(natural),)
+            tail = (int(natural), TIERS[tier])
         else:
             pointers = (tables.data_ptr(),)
             tail = (TIERS[tier], 0) + (() if natural else (1,))
     elif mixed:
         # either store, through entries of its own: at f32 direct the
-        # mixed-radix passes, at the other tiers and forms the matrix engine
+        # mixed-radix passes, in the three-factor form the matrix engine
         if _stockham(tier, split3):
             # f32 direct: the register-resident passes, the plan read from
             # the host, the transposed store in clusters of passes_cluster
@@ -1521,8 +1655,8 @@ def _launch_rows(entry: str, re, im, inverse: bool, out_shape, tier: str,
     # each launch once: at a length that is not a power of two under a name
     # of its own, so the power-of-two kernels' counts stay exact
     kind = "rows_natural" if natural else "rows_transposed"
-    if bf16:
-        named_launches.update(bf16_rows_launches(n, natural))
+    if direct:
+        named_launches.update(direct_rows_launches(n, natural, tier))
     elif mixed:
         named_launches[mixed_kernel_name(kind, tier, split3)] += 1
     else:
